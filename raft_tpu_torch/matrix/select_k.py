@@ -1,0 +1,220 @@
+"""select_k: batched top-k selection (counterpart of raft_tpu/matrix/select_k.py).
+
+The tie rule is pinned: equal values go to the smaller index, the order
+`lax.top_k` gives the JAX reference. `torch.topk` promises no tie order,
+so selection here is a stable sort, which keeps equal values in index
+order in both directions.
+
+`scan_select_k` is the operand-level door: "fused" hands scoring and
+selection to the fused kernel (ops/fused_scan.py), "two_phase"
+materializes the distances and selects. `list_scan_select_k` is the
+list-geometry door the IVF engines use.
+"""
+
+from __future__ import annotations
+
+from typing import Optional, Tuple
+
+import torch
+
+from raft_tpu_torch.core.validation import as_tensor, check_matrix, check_same_cols
+from raft_tpu_torch.distance.distance_types import (
+    DistanceType,
+    SIMILARITY_METRICS,
+    resolve_metric,
+)
+
+# Rows longer than this go through the two-phase chunked path.
+_CHUNK_THRESHOLD = 1 << 16
+_CHUNK = 1 << 14
+
+
+def _sorted_top(vals: torch.Tensor, k: int, largest: bool):
+    """The first k of a stable sort: ties keep index order."""
+    v, i = torch.sort(vals, dim=-1, descending=largest, stable=True)
+    return v[..., :k], i[..., :k]
+
+
+def _two_phase(vals: torch.Tensor, k: int, largest: bool, chunk: int = _CHUNK):
+    """Per-chunk top-k, then a merge top-k over the candidates. The
+    candidates stay in chunk order, so the stable merge keeps the
+    smaller-index tie rule."""
+    n = vals.shape[-1]
+    nchunks = -(-n // chunk)
+    pad = nchunks * chunk - n
+    if pad:
+        fill = float("-inf") if largest else float("inf")
+        vals = torch.nn.functional.pad(vals, (0, pad), value=fill)
+    chunked = vals.reshape(*vals.shape[:-1], nchunks, chunk)
+    cv, ci = _sorted_top(chunked, min(k, chunk), largest)
+    ci = ci + (torch.arange(nchunks, device=vals.device) * chunk)[:, None]
+    cv = cv.reshape(*vals.shape[:-1], -1)
+    ci = ci.reshape(*vals.shape[:-1], -1)
+    mv, mi = _sorted_top(cv, k, largest)
+    return mv, torch.gather(ci, -1, mi)
+
+
+def _select_k_impl(vals: torch.Tensor, k: int, select_min: bool,
+                   forced: Optional[str] = None):
+    """(values, int64 indices) of the k best per row, best-first."""
+    n = vals.shape[-1]
+    largest = not select_min
+    if forced == "two_phase":
+        if n > 2 * _CHUNK and k <= _CHUNK // 4:
+            return _two_phase(vals, k, largest)
+        return _sorted_top(vals, k, largest)
+    if forced == "topk" or n <= _CHUNK_THRESHOLD or k > _CHUNK // 4:
+        return _sorted_top(vals, k, largest)
+    return _two_phase(vals, k, largest)
+
+
+def select_k(values, k: int, select_min: bool = True, indices=None,
+             strategy: Optional[str] = None, device=None):
+    """Select the k smallest (default) or largest values per row.
+
+    Returns (values, int64 indices), each (batch, k), best-first, ties to
+    the smaller index. `strategy`: None/"auto" by row length, "topk" or
+    "two_phase"; "counting" waits for its kernel (ROADMAP Queue B row 6)."""
+    vals = as_tensor(values, device)
+    squeeze = vals.ndim == 1
+    if squeeze:
+        vals = vals[None, :]
+    if not (0 < k <= vals.shape[-1]):
+        raise ValueError(f"k={k} out of range for row length {vals.shape[-1]}")
+    if strategy == "counting":
+        raise NotImplementedError(
+            "strategy='counting' needs the counting_select_min kernel "
+            "(ROADMAP Queue B row 6)"
+        )
+    if strategy not in (None, "auto", "topk", "two_phase"):
+        raise ValueError(f"unknown select_k strategy {strategy!r}")
+    forced = strategy if strategy in ("topk", "two_phase") else None
+    v, i = _select_k_impl(vals, int(k), bool(select_min), forced)
+    if indices is not None:
+        idx = as_tensor(indices, vals.device)
+        if idx.ndim == 1:
+            idx = idx[None, :]
+        i = torch.gather(idx.expand(vals.shape[0], -1), -1, i)
+    if squeeze:
+        v, i = v[0], i[0]
+    return v, i
+
+
+# ---------------------------------------------------------------------------
+# operand-level dispatch
+# ---------------------------------------------------------------------------
+
+SCAN_STRATEGIES = ("fused", "two_phase")
+
+
+def _fused_metric_kind(metric):
+    """("l2"|"ip", want_sqrt) when the fused kernel covers `metric`, else None."""
+    D = DistanceType
+    if metric == D.InnerProduct:
+        return "ip", False
+    if metric in (D.L2Expanded, D.L2Unexpanded):
+        return "l2", False
+    if metric in (D.L2SqrtExpanded, D.L2SqrtUnexpanded):
+        return "l2", True
+    return None
+
+
+def _scan_fused_impl(queries, dataset, k: int, metric):
+    from raft_tpu_torch.ops.fused_scan import fused_topk
+
+    kind, want_sqrt = _fused_metric_kind(metric)
+    ip = kind == "ip"
+    vc, ids = fused_topk(queries.float(), dataset.float(), k, inner_product=ip)
+    vc, ids = vc[:, :k], ids[:, :k]
+    ids = torch.where(torch.isfinite(vc), ids, -1)
+    if ip:
+        return -vc, ids
+    # the kernel scores the bf16-rounded geometry; |q|^2 must come from
+    # the SAME rounded rows or near-tie ranks and values drift apart
+    qb = queries.float().to(torch.bfloat16).float()
+    v = torch.clamp(vc + torch.sum(qb * qb, dim=1, keepdim=True), min=0.0)
+    return (torch.sqrt(v) if want_sqrt else v), ids
+
+
+def _scan_two_phase_impl(queries, dataset, k: int, metric):
+    from raft_tpu_torch.distance.pairwise import _pairwise_impl
+
+    select_min = metric not in SIMILARITY_METRICS
+    d = _pairwise_impl(queries, dataset, metric)
+    v, i = _select_k_impl(d, k, select_min, forced="two_phase")
+    i = torch.where(torch.isfinite(v), i, -1)
+    return v, i.to(torch.int32)
+
+
+def scan_select_k(queries, dataset, k: int, metric="sqeuclidean",
+                  strategy: str = "two_phase", device=None):
+    """Top-k nearest dataset rows per query over OPERANDS; returns
+    ((nq, k) values, (nq, k) int32 ids), best-first, ties to the smaller
+    row id. "fused": the fused distance+select-k kernel (L2/IP, exact
+    over bf16-rounded operands, k <= FUSED_MAX_K); "two_phase": f32
+    pairwise distances + select."""
+    q = check_matrix(queries, device, name="queries")
+    ds = check_matrix(dataset, q.device, name="dataset")
+    check_same_cols(ds, q, "dataset", "queries")
+    if not (0 < k <= ds.shape[0]):
+        raise ValueError(f"k={k} out of range for dataset with {ds.shape[0]} rows")
+    m = resolve_metric(metric)
+    if strategy not in SCAN_STRATEGIES:
+        raise ValueError(f"unknown scan_select_k strategy {strategy!r}")
+    if strategy == "fused":
+        from raft_tpu_torch.ops.fused_scan import FUSED_MAX_K, fits_fused
+
+        if _fused_metric_kind(m) is None:
+            raise ValueError(f"strategy='fused' supports L2/inner_product metrics, got {m}")
+        if not fits_fused(q.shape[0], ds.shape[0], ds.shape[1], int(k)):
+            raise ValueError(
+                f"strategy='fused' caps k at {FUSED_MAX_K} and the dimension "
+                "at the kernel's shared-memory budget; use strategy='two_phase'"
+            )
+        return _scan_fused_impl(q, ds, int(k), m)
+    return _scan_two_phase_impl(q, ds, int(k), m)
+
+
+# ---------------------------------------------------------------------------
+# list-scan dispatch
+# ---------------------------------------------------------------------------
+
+LIST_SCAN_STRATEGIES = ("fused",)
+
+
+def check_fused_list_request(label: str, L: int, rot: int, k: int,
+                             kbuf: Optional[int], fallback: str) -> int:
+    """Validate an explicit fused list-scan request against the kernel's
+    caps and shared-memory budget; returns the candidate-buffer width the
+    kernel must run with (>= the caller's recorded `kbuf`)."""
+    from raft_tpu_torch.ops.fused_scan import FUSED_MAX_K, fits_fused_list, fused_kbuf
+
+    if int(k) > FUSED_MAX_K:
+        raise ValueError(f"{label} caps per-list candidates at {FUSED_MAX_K}; k={k}")
+    kb = max(fused_kbuf(int(k)), kbuf or 0)
+    if not fits_fused_list(L, rot, int(k), kbuf=kb):
+        raise ValueError(
+            f"{label}: list length {L} exceeds the kernel's shared-memory "
+            f"budget; use {fallback}"
+        )
+    return kb
+
+
+def list_scan_select_k(lof, qres, store, base, k: int, strategy: str = "fused",
+                       kbuf: Optional[int] = None, inner_product: bool = False,
+                       chunk_valid=None, chunk_rows=None) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Per-list fused scan+select over a slot-table store: the
+    `ops.fused_scan.fused_list_topk` contract. The int8 datapath
+    ("fused_int8") waits for its kernel (ROADMAP Queue B row 3)."""
+    if strategy == "fused_int8":
+        raise NotImplementedError(
+            "strategy='fused_int8' needs the fused_list_topk_int8 kernel "
+            "(ROADMAP Queue B row 3)"
+        )
+    if strategy not in LIST_SCAN_STRATEGIES:
+        raise ValueError(f"unknown list-scan strategy {strategy!r}")
+    from raft_tpu_torch.ops.fused_scan import fused_list_topk
+
+    return fused_list_topk(lof, qres, store, base, int(k), kbuf=kbuf,
+                           inner_product=inner_product, chunk_valid=chunk_valid,
+                           chunk_rows=chunk_rows)

@@ -1,0 +1,78 @@
+"""Brute-force (exact) k-nearest neighbors (counterpart of
+raft_tpu/neighbors/brute_force.py).
+
+  "tiled"  stream the dataset in column tiles; each tile's (q, tile)
+           distance block (one full-float32 matmul) reduces to a running
+           top-k merged with the previous tiles' (knn_merge_parts);
+  "fused"  the `fused_topk` kernel (ops/fused_scan.py, CUDA on the card)
+           through `matrix.scan_select_k(strategy="fused")`: the (nq, n)
+           score matrix never reaches device memory; exact over the
+           bf16-rounded operands, ties to the smaller row id.
+
+Prefilters are still to be ported (ROADMAP Queue A).
+"""
+
+from __future__ import annotations
+
+from typing import Tuple
+
+import torch
+
+from raft_tpu_torch.core.validation import check_matrix, check_same_cols
+from raft_tpu_torch.distance.distance_types import (
+    DistanceType,
+    SIMILARITY_METRICS,
+    resolve_metric,
+)
+from raft_tpu_torch.distance.pairwise import _pairwise_impl
+from raft_tpu_torch.matrix.select_k import _select_k_impl
+
+# database rows per tile in the tiled path
+_TILE = 1 << 15
+
+
+def _bf_knn_impl(dataset: torch.Tensor, queries: torch.Tensor, k: int,
+                 metric: DistanceType, tile: int = _TILE):
+    n = dataset.shape[0]
+    select_min = metric not in SIMILARITY_METRICS
+    if n <= max(2 * tile, 4 * k):
+        d = _pairwise_impl(queries, dataset, metric)
+        vals, idx = _select_k_impl(d, k, select_min)
+        return vals, idx.to(torch.int32)
+    worst = float("inf") if select_min else float("-inf")
+    q = queries.shape[0]
+    best_v = torch.full((q, k), worst, dtype=torch.float32, device=queries.device)
+    best_i = torch.full((q, k), -1, dtype=torch.int64, device=queries.device)
+    for base in range(0, n, tile):
+        d = _pairwise_impl(queries, dataset[base:base + tile], metric)
+        v, i = _select_k_impl(d, min(k, d.shape[1]), select_min)
+        # merge the running queue with the tile's candidates; the queue
+        # comes first, so equal values keep the smaller row id
+        mv, mi = _select_k_impl(torch.cat([best_v, v], 1), k, select_min)
+        best_i = torch.gather(torch.cat([best_i, i + base], 1), 1, mi)
+        best_v = mv
+    return best_v, best_i.to(torch.int32)
+
+
+def knn(dataset, queries, k: int, metric="sqeuclidean", engine: str = "tiled",
+        prefilter=None, device=None) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Exact k-NN: (distances, int32 indices), each (n_queries, k),
+    best-first. `engine`: "tiled" (f32) or "fused" (the fused kernel;
+    L2/sqeuclidean/inner_product, k <= 256)."""
+    if prefilter is not None:
+        raise NotImplementedError(
+            "brute_force.knn(prefilter=...) is not ported yet (ROADMAP Queue A)"
+        )
+    q = check_matrix(queries, device, name="queries")
+    ds = check_matrix(dataset, q.device, name="dataset")
+    check_same_cols(ds, q, "dataset", "queries")
+    if not (0 < k <= ds.shape[0]):
+        raise ValueError(f"k={k} out of range for dataset with {ds.shape[0]} rows")
+    m = resolve_metric(metric)
+    if engine in ("fused", "pallas"):
+        from raft_tpu_torch.matrix.select_k import scan_select_k
+
+        return scan_select_k(q, ds, int(k), metric=m, strategy="fused", device=q.device)
+    if engine != "tiled":
+        raise ValueError(f"unknown engine {engine!r}")
+    return _bf_knn_impl(ds.float(), q.float(), int(k), m)

@@ -1,0 +1,94 @@
+"""PyTorch port hygiene: the port stands alone and never falls back to
+the CPU behind the caller's back.
+
+- No file of `raft_tpu_torch/`, nor `chip_smoke.py`, imports `jax` or
+  anything of the JAX package (checked on the syntax tree, so an import
+  inside a function counts too).
+- Entry points default to the CUDA card; without one, a default or CUDA
+  request raises rather than returning CPU tensors.
+- A kernel wrapper given a tensor that is on neither the CPU nor a CUDA
+  device raises: only a CPU tensor takes the plain version.
+"""
+
+import ast
+from pathlib import Path
+
+import numpy as np
+import pytest
+
+import torch
+
+import raft_tpu_torch
+from raft_tpu_torch.core.config import resolve_device
+from raft_tpu_torch.neighbors import brute_force, ivf_pq, refine
+from raft_tpu_torch.ops import fused_scan
+
+_ROOT = Path(__file__).resolve().parent.parent
+_FORBIDDEN = ("jax", "jaxlib", "raft_tpu")
+
+
+def _port_files():
+    files = sorted((_ROOT / "raft_tpu_torch").rglob("*.py"))
+    files.append(_ROOT / "chip_smoke.py")
+    return files
+
+
+def _imported_roots(path: Path):
+    tree = ast.parse(path.read_text(), filename=str(path))
+    for node in ast.walk(tree):
+        if isinstance(node, ast.Import):
+            for a in node.names:
+                yield a.name.split(".")[0]
+        elif isinstance(node, ast.ImportFrom) and node.level == 0 and node.module:
+            yield node.module.split(".")[0]
+        elif (isinstance(node, ast.Call) and getattr(node.func, "attr", None) == "import_module"
+              and node.args and isinstance(node.args[0], ast.Constant)):
+            yield str(node.args[0].value).split(".")[0]
+
+
+def test_port_imports_neither_jax_nor_the_jax_package():
+    files = _port_files()
+    assert len(files) > 10 and all(f.exists() for f in files)
+    bad = [(str(f.relative_to(_ROOT)), m) for f in files
+           for m in _imported_roots(f) if m in _FORBIDDEN]
+    assert not bad, bad
+
+
+def test_resolve_device_defaults_to_cuda_and_raises_without_a_card(monkeypatch):
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        resolve_device(None)
+    with pytest.raises(RuntimeError):
+        resolve_device("cuda")
+    assert resolve_device("cpu") == torch.device("cpu")
+    assert raft_tpu_torch.resolve_device is resolve_device
+
+
+def test_entry_points_never_answer_a_cuda_request_on_the_cpu(monkeypatch):
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    rng = np.random.default_rng(0)
+    x = rng.standard_normal((300, 8)).astype(np.float32)
+    cand = np.tile(np.arange(20, dtype=np.int32), (4, 1))
+    calls = [
+        lambda: brute_force.knn(x, x[:4], 5),
+        lambda: brute_force.knn(x, x[:4], 5, engine="fused", device="cuda"),
+        lambda: refine.refine(x, x[:4], cand, 5, strategy="fused"),
+        lambda: ivf_pq.build(ivf_pq.IndexParams(n_lists=4, pq_dim=4), x),
+        lambda: ivf_pq.index_from_arrays({}, ivf_pq.IndexParams(n_lists=4)),
+    ]
+    for call in calls:
+        with pytest.raises(RuntimeError, match="CUDA"):
+            call()
+
+
+def test_kernel_wrappers_refuse_devices_without_a_kernel():
+    meta = torch.device("meta")
+    x = torch.empty((4, 8), device=meta)
+    with pytest.raises(ValueError, match="cpu or cuda"):
+        fused_scan.fused_topk(x, x, 2)
+    lof = torch.zeros((2,), dtype=torch.int32, device=meta)
+    q = torch.empty((2, 4, 8), device=meta)
+    store = torch.empty((1, 128, 8), device=meta)
+    base = torch.empty((1, 1, 128), device=meta)
+    with pytest.raises(ValueError, match="cpu or cuda"):
+        fused_scan.fused_list_topk(lof, q, store, base, 2)
