@@ -28,7 +28,6 @@ from __future__ import annotations
 
 import argparse
 import json
-import statistics
 import subprocess
 import sys
 import time
@@ -262,32 +261,45 @@ def main_path(g, dev, fs, sync):
         if n_probes == 8:
             captured["trim"], captured["refine"] = list_spy.calls[0], list_spy.calls[-1]
         r = recall(ids, truth)
-        times = []
-        for _ in range(g.batch_reps):
-            t0 = time.perf_counter()
-            run()
+        # QPS: windows of back-to-back batches, one synchronize at each
+        # window's end, so every stall inside a window counts
+        windows = []
+        for _ in range(g.windows):
             sync()
-            times.append(time.perf_counter() - t0)
-        s = statistics.median(times)
+            t0 = time.perf_counter()
+            for _ in range(g.batch_reps):
+                run()
+            sync()
+            windows.append(time.perf_counter() - t0)
+        s = sum(windows) / (len(windows) * g.batch_reps)
+        w_qps = [g.nq * g.batch_reps / w for w in windows]
         rungs.append({"n_probes": n_probes, "refine": True, "recall": r, "qps": g.nq / s,
-                      "batch_s": s})
+                      "batch_s": s, "window_qps": w_qps})
         log(f"rung n_probes={n_probes} + refine: recall@{g.k} {r:.4f}, "
-            f"{g.nq / s:.1f} qps ({s * 1e3:.3f} ms per {g.nq}-query batch)")
+            f"{g.nq / s:.1f} qps ({s * 1e3:.4f} ms per {g.nq}-query batch over "
+            f"{len(windows)} windows of {g.batch_reps} batches; window qps "
+            f"{min(w_qps):.1f} .. {max(w_qps):.1f})")
     captured["flat"] = flat_spy.calls[0]
     breakdown = None
     if dev.type == "cuda":
         params8 = ivf_pq.SearchParams(n_probes=8)
         breakdown = device_breakdown(
             lambda: refine(dataset, queries, ivf_pq.search(params8, index, queries, 4 * g.k)[1],
-                           g.k, strategy="fused", device=dev), g.batch_reps)
+                           g.k, strategy="fused", device=dev), g.batch_reps,
+            rungs[0]["batch_s"] * 1e3)
     return {"build_s": build_s, "truth_s": truth_s, "rungs": rungs, "breakdown": breakdown,
             "dataset": dataset, "queries": queries, "truth": truth}, captured
 
 
-def device_breakdown(run, reps):
-    """Where a batch's time goes: `reps` batches under torch.profiler;
-    the device's busy share is the summed device time of its operations
-    over the host-clock wall time (one stream, so they never overlap)."""
+def device_breakdown(run, reps, batch_ms):
+    """Where a batch's time goes: `reps` batches under torch.profiler.
+    Only the device's own activities count (kernels, copies, sets: events
+    whose device_type is CUDA); the operator rows that launched them carry
+    the same time again and are left out. Busy time is the union of those
+    intervals. The idle share is read twice: against the profiled wall,
+    and against `batch_ms`, the unprofiled batch time of the same rung
+    (the profiler slows the host, not the device's work)."""
+    from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
     run()
@@ -298,16 +310,28 @@ def device_breakdown(run, reps):
             run()
         torch.cuda.synchronize()
         wall_ms = (time.perf_counter() - t0) * 1e3 / reps
-    ops = [(e.key, e.self_device_time_total / 1e3 / reps) for e in prof.key_averages()
-           if e.self_device_time_total > 0]
-    ops.sort(key=lambda kv: -kv[1])
-    device_ms = sum(ms for _, ms in ops)
-    out = {"wall_ms": wall_ms, "device_ms": device_ms, "idle_share": 1.0 - device_ms / wall_ms,
-           "top": [{"op": name[:80], "ms": ms} for name, ms in ops[:8]]}
-    log(f"breakdown, n_probes 8 + refine, per batch under the profiler: wall {wall_ms:.3f} ms, "
-        f"device busy {device_ms:.3f} ms, idle share {out['idle_share']:.3f}")
+    spans = sorted((e.time_range.start, e.time_range.end, e.name) for e in prof.events()
+                   if e.device_type == DeviceType.CUDA
+                   and not getattr(e, "is_user_annotation", False))
+    busy_us, reach, per_name = 0.0, float("-inf"), {}
+    for start, end, name in spans:
+        busy_us += max(0.0, end - max(start, reach))
+        reach = max(reach, end)
+        per_name[name] = per_name.get(name, 0.0) + (end - start)
+    device_ms = busy_us / 1e3 / reps
+    ops = sorted(((name, us / 1e3 / reps) for name, us in per_name.items()), key=lambda kv: -kv[1])
+    out = {"wall_ms": wall_ms, "device_ms": device_ms, "device_events": len(spans),
+           "idle_share": 1.0 - device_ms / wall_ms,
+           "idle_share_unprofiled": 1.0 - device_ms / batch_ms,
+           "top": [{"kernel": name[:80], "ms": ms} for name, ms in ops[:10]]}
+    log(f"breakdown, n_probes 8 + refine, per batch: device busy {device_ms:.4f} ms "
+        f"({len(spans) // reps} device activities); profiled wall {wall_ms:.4f} ms, idle "
+        f"share {out['idle_share']:.4f}; unprofiled batch {batch_ms:.4f} ms, idle share "
+        f"{out['idle_share_unprofiled']:.4f}")
     for row in out["top"]:
-        log(f"  {row['ms']:9.4f} ms  {row['op']}")
+        log(f"  {row['ms']:9.4f} ms  {row['kernel']}")
+    if not spans or device_ms > wall_ms:
+        raise AssertionError(f"profile read no device activity or too much: {device_ms} ms")
     return out
 
 
@@ -448,17 +472,18 @@ def main(argv=None):
     ap.add_argument("--seed", type=int, default=0)
     g = ap.parse_args(argv)
     if g.rehearse:
-        g.n, g.dim, g.nq, g.k, g.n_lists, g.reps, g.batch_reps = 20_000, 32, 256, 10, 64, 1, 1
+        g.n, g.dim, g.nq, g.k, g.n_lists, g.reps, g.batch_reps, g.windows = (
+            20_000, 32, 256, 10, 64, 1, 1, 1)
         dev = torch.device("cpu")
     else:
         if not torch.cuda.is_available():
             print("chip_smoke: no CUDA device (torch.cuda.is_available() is False)",
                   file=sys.stderr)
             return 1
-        # kernel timings over 3 calls; a ~5 ms search batch, timed on the
-        # host clock, over 10
-        g.n, g.dim, g.nq, g.k, g.n_lists, g.reps, g.batch_reps = (
-            1_000_000, 96, 4096, 10, 1024, 3, 10)
+        # kernel timings over 3 calls; search QPS over 3 windows of 10
+        # back-to-back batches each
+        g.n, g.dim, g.nq, g.k, g.n_lists, g.reps, g.batch_reps, g.windows = (
+            1_000_000, 96, 4096, 10, 1024, 3, 10, 3)
         dev = torch.device("cuda", 0)
     from raft_tpu_torch.ops import _build
     from raft_tpu_torch.ops import fused_scan as fs

@@ -19,7 +19,7 @@ are still to be ported.
 
 from __future__ import annotations
 
-from typing import NamedTuple, Optional
+from typing import NamedTuple
 
 import torch
 
@@ -121,27 +121,18 @@ def regroup_merge(tables: ChunkTables, vals: torch.Tensor, rows: torch.Tensor,
     return v, torch.gather(cand_r, 1, pos2)
 
 
-def macro_batched(search_slice_fn, queries: torch.Tensor, k: int, mb: int = 4096,
-                  pad_to: Optional[int] = None):
+def macro_batched(search_slice_fn, queries: torch.Tensor, k: int, mb: int = 4096):
     """Run a list-major search over macro-batches of at most `mb` queries,
     bounding the chunk tables and score buffers per call.
 
-    PyTorch does not recompile per shape, so slices run at their own size;
-    `pad_to` (optional) pads every slice with zero rows up to that many,
-    which never changes a real row's result (the JAX package pads up a
-    power-of-two ladder to bound its compiled shapes)."""
+    PyTorch does not recompile per shape, so slices run at their own size
+    (the JAX package pads them up a power-of-two ladder to bound its
+    compiled shapes)."""
     nq_total = queries.shape[0]
     if nq_total == 0:
         return (torch.zeros((0, k), dtype=torch.float32, device=queries.device),
                 torch.full((0, k), -1, dtype=torch.int32, device=queries.device))
-    outs = []
-    for s in range(0, nq_total, mb):
-        sl = queries[s:s + mb]
-        n_real = sl.shape[0]
-        if pad_to is not None and pad_to > n_real:
-            sl = torch.cat([sl, sl.new_zeros((pad_to - n_real, sl.shape[1]))])
-        v, r = search_slice_fn(sl)
-        outs.append((v[:n_real], r[:n_real]))
+    outs = [search_slice_fn(queries[s:s + mb]) for s in range(0, nq_total, mb)]
     if len(outs) == 1:
         return outs[0]
     return torch.cat([v for v, _ in outs]), torch.cat([r for _, r in outs])

@@ -205,7 +205,7 @@ def fused_topk(x: torch.Tensor, y: torch.Tensor, k: int, *,
     m, d = x.shape
     n = y.shape[0]
     kbuf = fused_kbuf(k)
-    yb = y.to(torch.bfloat16)
+    yb = y.to(torch.bfloat16)  # a fresh allocation: aligned for the kernel's 4-wide loads
     if inner_product:
         base = torch.zeros((n,), dtype=torch.float32, device=dev)
     else:
@@ -299,6 +299,13 @@ def fused_list_topk(lof, qres, store, base, k: int, *, kbuf: Optional[int] = Non
     _check(tuple(base.shape) == (n_lists, 1, L),
            f"base must be {(n_lists, 1, L)}, got {tuple(base.shape)}")
     _check(L % _LANES == 0, f"list length {L} must be a multiple of {_LANES}")
+    # the kernel stages the store four elements a load when rot % 4 == 0
+    # (csrc/fused_common.cuh: stage_tile), which needs every row, and so
+    # the store itself, aligned to four elements; a view at an odd offset
+    # would fault on the card
+    _check(rot % 4 != 0 or store.data_ptr() % (4 * store.element_size()) == 0,
+           "store must start on a 4-element boundary (a view at an odd offset; "
+           "pass store.clone())")
     if chunk_valid is not None:
         _tensor_arg("chunk_valid", chunk_valid, (torch.int32,), 1, dev)
         _check(chunk_valid.shape[0] == ncb, "chunk_valid must have one entry per chunk")

@@ -142,9 +142,10 @@ def test_port_build_recall_within_three_points_of_jax(data, jax_index):
 
 
 def test_macro_batched_pad_rows_never_change_real_rows(data, jax_index):
-    """Pad rows are zero queries that probe lists and take chunk slots;
-    the real rows' results must not move, whether the batch is padded,
-    split into several macro-batches, or both."""
+    """Pad rows are zero queries appended to the batch; they probe lists
+    and take chunk slots, but the real rows' results must not move,
+    whether the batch is padded, split into several macro-batches, or
+    both."""
     _, q, _ = data
     tindex = tpq.build_reconstruction(_port_index(jax_index))
 
@@ -155,11 +156,16 @@ def test_macro_batched_pad_rows_never_change_real_rows(data, jax_index):
 
     qt = torch.tensor(q)
     v1, r1 = probe_invert.macro_batched(slice_fn, qt, 4 * K)
-    for mb, pad_to in ((4096, 256), (24, None), (24, 24), (40, 64)):
-        v2, r2 = probe_invert.macro_batched(slice_fn, qt, 4 * K, mb=mb, pad_to=pad_to)
-        assert torch.equal(r1, r2) and torch.equal(v1, v2), (mb, pad_to)
-    _, r3 = tpq.search(tpq.SearchParams(n_probes=N_PROBES), tindex, qt, 4 * K)
+    for mb, n_pad in ((4096, 192), (24, 0), (24, 8), (40, 24)):
+        q_pad = torch.cat([qt, qt.new_zeros((n_pad, DIM))])
+        v2, r2 = probe_invert.macro_batched(slice_fn, q_pad, 4 * K, mb=mb)
+        assert r2.shape[0] == NQ + n_pad
+        assert torch.equal(r1, r2[:NQ]) and torch.equal(v1, v2[:NQ]), (mb, n_pad)
+    sp = tpq.SearchParams(n_probes=N_PROBES)
+    _, r3 = tpq.search(sp, tindex, qt, 4 * K)
     assert torch.equal(r3, torch.where(r1 >= 0, tindex.source_ids[r1.clamp_min(0).long()], -1))
+    _, r4 = tpq.search(sp, tindex, torch.cat([qt, qt.new_zeros((40, DIM))]), 4 * K)
+    assert torch.equal(r3, r4[:NQ])
 
 
 def test_quantize_query_rows_matches_jax(rng):
@@ -204,6 +210,7 @@ def test_kernel_wrappers_check_dtype_and_contiguity():
         (lof, q.transpose(1, 2).contiguous().transpose(1, 2), store, base),  # strided
         (lof, q, store, torch.zeros((1, 1, 64))),               # base shape
         (lof, q, torch.zeros((1, 100, 8)), torch.zeros((1, 1, 100))),  # L % 128
+        (lof, q, torch.zeros(1 + 128 * 8)[1:].view(1, 128, 8), base),  # misaligned view
     ]
     for args in bad:
         with pytest.raises(ValueError):
