@@ -7,26 +7,33 @@
 Phases, in order; any failure exits non-zero:
   1. the card's name and power limit (nvidia-smi), torch and CUDA versions;
   2. build every kernel under raft_tpu_torch/csrc/ (one nvcc per source,
-     all started together);
+     all started together), with ptxas's register and spill lines;
   3. each kernel against its plain PyTorch version at small adversarial
-     shapes (ties, ragged edges, +inf slots and tiles, empty chunks, k
-     past the finite slots);
+     shapes (ties, int8 values at +-127, ragged edges, +inf slots and
+     tiles, dead rows, empty chunks, k past the finite slots, odd fold
+     counts), and the int8 exact trim's values among the int8 bin fold's
+     candidates;
   4. the main path at full size: 1M x 96 clustered vectors (1024 blob
      centers U(-5, 5) plus unit gaussian noise, made from --seed), IVF-PQ
      build (n_lists 1024, pq_dim 48, kmeans_n_iters 10), exact truth with
      brute_force.knn(engine="fused") for 4096 queries at k = 10, then the
-     refined ladder (n_probes 8/16/32/64, a 4k shortlist from the fused
-     list-major trim, refine(strategy="fused")); gate recall@10 >= 0.95 on
-     some rung. Every kernel's launch count is set to 0 just before this
-     phase and read just after; each must be > 0;
+     refined ladder of the fused bf16 trim (n_probes 8/16/32/64, a 4k
+     shortlist, refine(strategy="fused")) with ten profiled n_probes-8
+     batches, then the same at n_probes 8/16 for three more engines: trim
+     "fused" on int8 rows, trim "pallas" (the bin fold) on bf16 and on
+     int8 rows. Gate: recall@10 >= 0.95 on some rung of every engine. Each
+     engine is a path of its own: the launch counts are set to 0 just
+     before it and read just after (the first path's window holds the
+     truth too), and each kernel of the path must have launched;
   5. each kernel against its plain version on the inputs the main path gave
      it, with kernel, plain and library times (CUDA events) and the bound;
-  6. a JSON line of kernels, then the device line last.
+  6. a JSON line of kernels, the card's line, then the device line last.
 """
 
 from __future__ import annotations
 
 import argparse
+import contextlib
 import json
 import subprocess
 import sys
@@ -35,8 +42,10 @@ import time
 import numpy as np
 import torch
 
-#: H100 SXM peaks (NVIDIA data sheet, dense): bf16 tensor-core rate, HBM rate
+#: H100 SXM peaks (NVIDIA data sheet, dense): bf16 and int8 tensor-core
+#: rates, HBM rate
 PEAK_BF16_FLOPS = 989e12
+PEAK_INT8_OPS = 1979e12
 PEAK_HBM_BYTES = 3.35e12
 RECALL_GATE = 0.95
 #: values agree to this relative tolerance, scaled by the row's largest
@@ -82,6 +91,56 @@ def compare(name, kernel_out, plain_out, k):
     return float(err.max()), agree
 
 
+def require_equal(name, out, ref):
+    """Bitwise equality of (values, ids): the kernels whose sums are
+    exact (int8 rows, integer-grid data) must give the plain version's
+    very bits."""
+    (kv, ki), (pv, pi) = out, ref
+    dv = int((kv.contiguous().view(torch.int32) != pv.contiguous().view(torch.int32)).sum())
+    di = int((ki != pi).sum())
+    if dv or di:
+        raise AssertionError(f"{name}: {dv} values and {di} ids differ from the plain version")
+
+
+def fold_compare(name, out, ref, rescore):
+    """Hold a bin-fold kernel's (values, slots) against its plain
+    version's, position by position. Values agree to VAL_RTOL times the
+    row's largest finite magnitude; where the slots differ, the float64
+    scores of the two slots (`rescore(chunk, row, slot)`) must lie within
+    that tolerance (a near-tie inside one bin that the two summation
+    orders may break either way). Returns (max abs error, slot
+    agreement)."""
+    (kv, ki), (pv, pi) = out, ref
+    kfin, pfin = torch.isfinite(kv), torch.isfinite(pv)
+    if not torch.equal(kfin, pfin):
+        raise AssertionError(f"{name}: finite candidates differ")
+    tol = VAL_RTOL * torch.where(pfin, pv.abs(), 0.0).amax(-1, keepdim=True).clamp_min(1.0)
+    err = torch.where(pfin, (kv - pv).abs(), 0.0)
+    if bool((err > tol).any()):
+        raise AssertionError(f"{name}: values differ by up to {float(err.max())}")
+    bad = (ki != pi) & pfin
+    if bool(bad.any()):
+        c, r, j = bad.nonzero(as_tuple=True)
+        gap = (rescore(c, r, ki[c, r, j]) - rescore(c, r, pi[c, r, j])).abs()
+        if bool((gap > tol[c, r, 0].double()).any()):
+            raise AssertionError(f"{name}: slots differ away from near-ties")
+    agree = 1.0 - float(bad.sum()) / max(1, int(pfin.sum()))
+    return float(err.max()), agree
+
+
+def bf16_rescore(lof, q, store, base, ip):
+    """float64 score of (chunk, row, slot) triples over bf16-rounded
+    operands, for `fold_compare`."""
+    coef = 1.0 if ip else 2.0
+
+    def rescore(c, r, s):
+        lst, s = lof[c].long(), s.long()
+        dots = (q[c, r].to(torch.bfloat16).double() * store[lst, s].to(torch.bfloat16).double())
+        return base[lst, 0, s].double() - coef * dots.sum(-1)
+
+    return rescore
+
+
 def time_ms(fn, reps, warmup=1):
     """Mean milliseconds per call over `reps` calls, by CUDA events (a
     CPU rehearsal, which reports no times, runs the calls only)."""
@@ -106,10 +165,11 @@ def time_ms(fn, reps, warmup=1):
 # ---------------------------------------------------------------------------
 
 
-def adversarial_checks(fs, dev, rng):
+def adversarial_checks(fs, pls, dev, rng):
     """Kernel vs plain at small shapes built to break a kernel: integer
-    grids (ties everywhere), ragged widths, +inf slots and whole +inf
-    tiles, empty chunks, k past the finite slots."""
+    grids (ties everywhere), int8 values at +-127, ragged widths, +inf
+    slots and whole +inf tiles, dead rows, empty chunks, k past the finite
+    slots, L 256, 384 (an odd fold count) and 3840."""
 
     def list_case(name, ncb, chunk, L, rot, k, n_lists, dtype, grid, ip=False, cv=False,
                   inf_frac=0.1, inf_tiles=(), rows=False):
@@ -156,6 +216,89 @@ def adversarial_checks(fs, dev, rng):
             raise AssertionError(f"{name}: exhausted slots must hold the sentinel")
         log(f"check {name}: ok, max_abs_err {err}, id agreement {agree}")
 
+    def int8_operands(ncb, chunk, L, rot, n_lists, grid, inf_frac=0.1, inf_tiles=()):
+        """int8 rows and store: small values (ties everywhere, one scale)
+        or the full range with rows and slots at +-127."""
+        lo, hi = (-3, 4) if grid else (-127, 128)
+        q8 = torch.tensor(rng.integers(lo, hi, (ncb, chunk, rot)).astype(np.int8))
+        st = torch.tensor(rng.integers(lo, hi, (n_lists, L, rot)).astype(np.int8))
+        q8[0, 0, :], st[0, :2, :] = 127, -127
+        if grid:
+            rs = torch.full((ncb, chunk, 1), 0.25)
+            base = torch.tensor(rng.integers(0, 20, (n_lists, 1, L)).astype(np.float32))
+        else:
+            rs = torch.tensor(rng.uniform(1e-3, 1.0, (ncb, chunk, 1)).astype(np.float32))
+            base = torch.tensor(rng.uniform(0, 1e5, (n_lists, 1, L)).astype(np.float32))
+        base[torch.tensor(rng.random((n_lists, 1, L)) < inf_frac)] = float("inf")
+        for t in inf_tiles:
+            base[:, :, 128 * t:128 * (t + 1)] = float("inf")
+        lof = torch.tensor(rng.integers(0, n_lists, ncb).astype(np.int32))
+        return [t.to(dev) for t in (lof, q8, st, base, rs)]
+
+    def live_rows(ncb, chunk):
+        rows = rng.integers(0, chunk + 1, ncb).astype(np.int32)
+        rows[0], rows[-1] = chunk, 0  # a full chunk and an empty one
+        return torch.tensor(rows).to(dev)
+
+    def int8_list_case(name, ncb, chunk, L, rot, k, n_lists, grid, ip=False, cv=False,
+                       rows=False, inf_frac=0.1, inf_tiles=()):
+        args = int8_operands(ncb, chunk, L, rot, n_lists, grid, inf_frac, inf_tiles)
+        cvt = torch.tensor((rng.random(ncb) < 0.7).astype(np.int32)).to(dev) if cv else None
+        crt = live_rows(ncb, chunk) if rows else None
+        out = fs.fused_list_topk_int8(*args, k, inner_product=ip, chunk_valid=cvt, chunk_rows=crt)
+        ref = fs.fused_list_topk_int8_plain(*args, k, fs.fused_kbuf(k), ip, cvt, crt)
+        require_equal(name, out, ref)
+        log(f"check {name}: ok, bitwise equal")
+
+    def fold_case(name, ncb, chunk, L, rot, n_lists, q_rows, ip=False, fold="exact",
+                  store_dtype=torch.int8, rows=False, inf_frac=0.1, inf_tiles=()):
+        """q_rows: "int8", "grid" (small-integer f32 rows: exact sums) or
+        "gaussian"."""
+        lof, q8, st, base, rs = int8_operands(ncb, chunk, L, rot, n_lists, q_rows != "int8",
+                                              inf_frac, inf_tiles)
+        if q_rows == "gaussian":
+            q = torch.tensor(rng.standard_normal((ncb, chunk, rot)).astype(np.float32)).to(dev)
+        else:
+            q = q8 if q_rows == "int8" else q8.float()
+        if q_rows != "int8":
+            st, rs = st.to(store_dtype), None
+        crt = live_rows(ncb, chunk) if rows else None
+        out = pls.pq_list_scan(lof, q, st, base, inner_product=ip, q_scale=rs, fold=fold,
+                               chunk_rows=crt)
+        ref = pls.pq_list_scan_plain(lof, q, st, base, ip, rs, fold, crt)
+        if q_rows == "gaussian":
+            err, agree = fold_compare(name, out, ref, bf16_rescore(lof, q, st, base, ip))
+            log(f"check {name}: ok, max_abs_err {err}, slot agreement {agree}")
+        else:
+            require_equal(name, out, ref)
+            log(f"check {name}: ok, bitwise equal")
+
+    def subset_case(name, ncb, chunk, L, rot, n_lists, ip):
+        """Every pair of the int8 exact trim's top-k with fewer than two
+        better pairs in its bin is, bitwise, among the int8 bin fold's
+        candidates of that row (all of them at L <= 512)."""
+        lof, q8, st, base, rs = int8_operands(ncb, chunk, L, rot, n_lists, False)
+        k = 100
+        tv, ti = (t[..., :k].cpu().numpy() for t in
+                  fs.fused_list_topk_int8(lof, q8, st, base, rs, k, inner_product=ip))
+        fv, fi = (t.cpu().numpy() for t in
+                  pls.pq_list_scan(lof, q8, st, base, inner_product=ip, q_scale=rs))
+        checked = 0
+        for c in range(ncb):
+            for r in range(chunk):
+                cands = set(zip(fv[c, r].view(np.int32).tolist(), fi[c, r].tolist()))
+                seen = {}
+                for v, slot in zip(tv[c, r], ti[c, r]):
+                    if not np.isfinite(v):
+                        break
+                    b = (slot % 128, (slot // 128) % 2)
+                    if seen.get(b, 0) < 2 and (int(np.float32(v).view(np.int32)),
+                                               int(slot)) not in cands:
+                        raise AssertionError(f"{name}: ({v}, {slot}) missing from the fold")
+                    checked += seen.get(b, 0) < 2
+                    seen[b] = seen.get(b, 0) + 1
+        log(f"check {name}: ok, {checked} top-k pairs found among the fold's candidates")
+
     list_case("list int8 grid, empty chunks", 40, 128, 256, 96, 40, 7, torch.int8, True, cv=True)
     list_case("list bf16 grid, chunk 1", 50, 1, 128, 96, 10, 50, torch.bfloat16, True)
     list_case("list f32 grid ragged, ip", 9, 5, 384, 33, 100, 3, torch.float32, True, ip=True)
@@ -172,6 +315,35 @@ def adversarial_checks(fs, dev, rng):
         flat_case(f"flat grid ip k={k}", 21, 777, 96, k, True, ip=True)
     flat_case("flat n < k", 5, 50, 8, 100, True)
     flat_case("flat gaussian", 100, 5000, 96, 10, False)
+
+    int8_list_case("int8 list grid ties, empty chunks", 40, 128, 256, 96, 40, 7, True, cv=True)
+    int8_list_case("int8 list +-127, ip, live-row prefixes", 40, 128, 384, 96, 40, 5, False,
+                   ip=True, cv=True, rows=True)
+    int8_list_case("int8 list +inf tiles, k > finite slots", 7, 19, 640, 96, 256, 3, True,
+                   inf_frac=0.6, inf_tiles=(0, 2, 4))
+    int8_list_case("int8 list long", 12, 128, 3840, 96, 40, 4, False, rows=True,
+                   inf_tiles=tuple(range(8, 30)))
+    int8_list_case("int8 list ragged rot, chunk 1", 50, 1, 128, 33, 10, 50, False)
+    for ip in (False, True):
+        for fold in ("exact", "packed"):
+            tag = f"{'ip' if ip else 'l2'}, {fold}"
+            fold_case(f"fold int8 rows L 256, {tag}", 30, 128, 256, 96, 5, "int8", ip, fold,
+                      rows=True)
+            fold_case(f"fold int8 rows L 384 +inf tile, {tag}", 20, 37, 384, 96, 4, "int8", ip,
+                      fold, rows=True, inf_tiles=(1,))
+            fold_case(f"fold grid rows L 3840, {tag}", 12, 128, 3840, 96, 4, "grid", ip, fold,
+                      rows=True, inf_tiles=tuple(range(8, 30)))
+            fold_case(f"fold grid rows bf16 store L 384, {tag}", 9, 5, 384, 33, 3, "grid", ip,
+                      fold, store_dtype=torch.bfloat16, inf_frac=0.5)
+            fold_case(f"fold grid rows f32 store L 256, {tag}", 9, 16, 256, 40, 3, "grid", ip,
+                      fold, store_dtype=torch.float32)
+    fold_case("fold int8 rows ragged rot 33, all +inf tiles", 8, 16, 512, 33, 2, "int8",
+              fold="packed", inf_tiles=(0, 1, 2, 3))
+    fold_case("fold gaussian rows L 3840", 12, 128, 3840, 96, 4, "gaussian", rows=True,
+              inf_tiles=tuple(range(8, 30)))
+    for ip in (False, True):
+        subset_case(f"int8 trims subset L 384, {'ip' if ip else 'l2'}", 6, 16, 384, 96, 3, ip)
+        subset_case(f"int8 trims subset L 1280, {'ip' if ip else 'l2'}", 6, 16, 1280, 96, 3, ip)
 
 
 # ---------------------------------------------------------------------------
@@ -220,7 +392,18 @@ class Spy:
         setattr(self.module, self.name, self.orig)
 
 
-def main_path(g, dev, fs, sync):
+#: the engines the main path drives after the fused bf16 ladder: (trim, score_dtype)
+ENGINES = (("fused", "int8"), ("pallas", "bf16"), ("pallas", "int8"))
+#: the kernels each path must launch: the first path (truth, the fused bf16
+#: ladder and its profiled batches) and one path per later engine; every
+#: path refines its shortlist with fused_list_topk
+PATH_KERNELS = {("fused", "bf16"): ("fused_topk", "fused_list_topk"),
+                ("fused", "int8"): ("fused_list_topk_int8", "fused_list_topk"),
+                ("pallas", "bf16"): ("pq_list_scan", "fused_list_topk"),
+                ("pallas", "int8"): ("pq_list_scan", "fused_list_topk")}
+
+
+def main_path(g, dev, fs, pls, sync):
     from raft_tpu_torch.neighbors import brute_force, ivf_pq
     from raft_tpu_torch.neighbors.refine import refine
 
@@ -246,23 +429,23 @@ def main_path(g, dev, fs, sync):
         truth_s = time.perf_counter() - t0
     log(f"truth: brute_force.knn(engine='fused') in {truth_s:.3f} s")
 
-    rungs = []
-    captured = {}
-    for n_probes in (8, 16, 32, 64):
-        params = ivf_pq.SearchParams(n_probes=n_probes)
+    def rung(n_probes, trim, dtype, spies):
+        """One rung: a first run for recall and the kernels' inputs (under
+        `spies`), then QPS over windows of back-to-back batches, one
+        synchronize at each window's end, so every stall inside a window
+        counts."""
+        params = ivf_pq.SearchParams(n_probes=n_probes, trim_engine=trim, score_dtype=dtype)
 
         def run():
             _, cand = ivf_pq.search(params, index, queries, 4 * g.k)
             return refine(dataset, queries, cand, g.k, strategy="fused", device=dev)
 
-        with Spy(fs, "fused_list_topk") as list_spy:
-            _, ids = run()  # first run: recall, and the kernels' inputs
+        with contextlib.ExitStack() as stack:
+            for spy in spies:
+                stack.enter_context(spy)
+            _, ids = run()
             sync()
-        if n_probes == 8:
-            captured["trim"], captured["refine"] = list_spy.calls[0], list_spy.calls[-1]
         r = recall(ids, truth)
-        # QPS: windows of back-to-back batches, one synchronize at each
-        # window's end, so every stall inside a window counts
         windows = []
         for _ in range(g.windows):
             sync()
@@ -273,13 +456,20 @@ def main_path(g, dev, fs, sync):
             windows.append(time.perf_counter() - t0)
         s = sum(windows) / (len(windows) * g.batch_reps)
         w_qps = [g.nq * g.batch_reps / w for w in windows]
-        rungs.append({"n_probes": n_probes, "refine": True, "recall": r, "qps": g.nq / s,
-                      "batch_s": s, "window_qps": w_qps})
-        log(f"rung n_probes={n_probes} + refine: recall@{g.k} {r:.4f}, "
-            f"{g.nq / s:.1f} qps ({s * 1e3:.4f} ms per {g.nq}-query batch over "
-            f"{len(windows)} windows of {g.batch_reps} batches; window qps "
+        log(f"rung trim={trim} score_dtype={dtype} n_probes={n_probes} + refine: "
+            f"recall@{g.k} {r:.4f}, {g.nq / s:.1f} qps ({s * 1e3:.4f} ms per {g.nq}-query "
+            f"batch over {len(windows)} windows of {g.batch_reps} batches; window qps "
             f"{min(w_qps):.1f} .. {max(w_qps):.1f})")
-    captured["flat"] = flat_spy.calls[0]
+        return {"trim": trim, "score_dtype": dtype, "n_probes": n_probes, "refine": True,
+                "recall": r, "qps": g.nq / s, "batch_s": s, "window_qps": w_qps}
+
+    rungs = []
+    captured = {"flat": flat_spy.calls[0]}
+    for n_probes in (8, 16, 32, 64):
+        spy = Spy(fs, "fused_list_topk")
+        rungs.append(rung(n_probes, "fused", "bf16", [spy]))
+        if n_probes == 8:
+            captured["trim"], captured["refine"] = spy.calls[0], spy.calls[-1]
     breakdown = None
     if dev.type == "cuda":
         params8 = ivf_pq.SearchParams(n_probes=8)
@@ -287,8 +477,20 @@ def main_path(g, dev, fs, sync):
             lambda: refine(dataset, queries, ivf_pq.search(params8, index, queries, 4 * g.k)[1],
                            g.k, strategy="fused", device=dev), g.batch_reps,
             rungs[0]["batch_s"] * 1e3)
+    # each later engine is a path of its own: its counts from 0, read after
+    launches = {("fused", "bf16"): fs.launch_counts()}
+    for trim, dtype in ENGINES:
+        fs.reset_launch_counts()
+        for n_probes in (8, 16):
+            spy = (Spy(pls, "pq_list_scan") if trim == "pallas"
+                   else Spy(fs, "fused_list_topk_int8"))
+            rungs.append(rung(n_probes, trim, dtype, [spy]))
+            if n_probes == 8:
+                captured[(trim, dtype)] = spy.calls[0]
+        launches[(trim, dtype)] = fs.launch_counts()
     return {"build_s": build_s, "truth_s": truth_s, "rungs": rungs, "breakdown": breakdown,
-            "dataset": dataset, "queries": queries, "truth": truth}, captured
+            "dataset": dataset, "queries": queries, "truth": truth,
+            "launches": launches}, captured
 
 
 def device_breakdown(run, reps, batch_ms):
@@ -359,9 +561,22 @@ def check_truth(res, k, dev):
 # ---------------------------------------------------------------------------
 
 
-def bound_ms(flops, nbytes):
-    t_ops, t_bytes = flops / PEAK_BF16_FLOPS, nbytes / PEAK_HBM_BYTES
-    return max(t_ops, t_bytes) * 1e3, ("operations" if t_ops >= t_bytes else "bytes")
+def bound_ms(ops, nbytes, peak=PEAK_BF16_FLOPS):
+    """(the least time the card could take in ms, "operations" or
+    "bytes", the two terms in ms)."""
+    t_ops, t_bytes = ops / peak, nbytes / PEAK_HBM_BYTES
+    return (max(t_ops, t_bytes) * 1e3, ("operations" if t_ops >= t_bytes else "bytes"),
+            {"ops_ms": t_ops * 1e3, "bytes_ms": t_bytes * 1e3})
+
+
+def list_work(lof, base, live, rot):
+    """What a list scan's data needs: 2 x each chunk's live rows x its
+    list's real (finite-base) slots x rot operations; the distinct lists
+    touched and their real slots."""
+    slots = torch.isfinite(base[:, 0, :]).sum(1)
+    lists = torch.unique(lof[live > 0].long())
+    ops = 2.0 * float((live.long() * slots[lof.long()]).sum()) * rot
+    return ops, int(slots[lists].sum()), lists.numel()
 
 
 def list_kernel_row(fs, call, launches, reps, label):
@@ -374,17 +589,14 @@ def list_kernel_row(fs, call, launches, reps, label):
     live = fs._live_rows(cv, cr, chunk)
     if live is None:
         live = torch.full((ncb,), chunk, dtype=torch.int32, device=lof.device)
-    slots = torch.isfinite(base[:, 0, :]).sum(1)  # each list's real slots
-    lists = torch.unique(lof[live > 0].long())
     # work this run's data needs: each chunk's live rows against its
     # list's real slots; bytes: operands read once (live rows, the real
     # slots and base rows of the distinct lists touched, the chunk
     # tables), outputs written once
-    flops = 2.0 * float((live.long() * slots[lof.long()]).sum()) * rot
-    nbytes = (ncb * 8 + int(live.sum()) * rot * 4
-              + int(slots[lists].sum()) * rot * store.element_size() + lists.numel() * L * 4
-              + ncb * chunk * kb * 8)
-    b_ms, b_by = bound_ms(flops, nbytes)
+    flops, real_slots, n_used = list_work(lof, base, live, rot)
+    nbytes = (ncb * 8 + int(live.sum()) * rot * 4 + real_slots * rot * store.element_size()
+              + n_used * L * 4 + ncb * chunk * kb * 8)
+    b_ms, b_by, terms = bound_ms(flops, nbytes)
 
     def kernel():
         return fs.fused_list_topk(lof, qres, store, base, k, kbuf=kb, inner_product=ip,
@@ -413,7 +625,7 @@ def list_kernel_row(fs, call, launches, reps, label):
             "source": "raft_tpu_torch/csrc/fused_list_topk.cu",
             "replaces": "raft_tpu/ops/fused_scan.py:443", "launches": launches,
             "max_abs_err": err, "ms": ms, "plain_ms": plain_ms, "bound_ms": b_ms,
-            "bound_by": b_by, "library_ms": lib_ms,
+            "bound_by": b_by, "library_ms": lib_ms, "bound_terms": terms,
             "shape": f"{label}: ncb={ncb} chunk={chunk} L={L} rot={rot} k={k}"}
 
 
@@ -425,7 +637,7 @@ def flat_kernel_row(fs, call, launches, reps):
     kb = fs.fused_kbuf(k)
     flops = 2.0 * m * n * d
     nbytes = (m + n) * d * 4 + m * kb * 8
-    b_ms, b_by = bound_ms(flops, nbytes)
+    b_ms, b_by, terms = bound_ms(flops, nbytes)
     out = fs.fused_topk(x, y, k, inner_product=ip)
     yb = y.to(torch.bfloat16)
     base = torch.zeros(n, device=y.device) if ip else (yb.float() ** 2).sum(1)
@@ -451,8 +663,124 @@ def flat_kernel_row(fs, call, launches, reps):
     return {"name": "fused_topk", "route": "cuda", "source": "raft_tpu_torch/csrc/fused_topk.cu",
             "replaces": "raft_tpu/ops/fused_scan.py:267", "launches": launches,
             "max_abs_err": err, "ms": ms, "plain_ms": plain_ms, "bound_ms": b_ms,
-            "bound_by": b_by, "library_ms": lib_ms,
+            "bound_by": b_by, "library_ms": lib_ms, "bound_terms": terms,
             "shape": f"truth: m={m} n={n} d={d} k={k}"}
+
+
+def bf16_bmm(a, b):
+    """One cuBLAS call: bf16 x bf16 batched product with f32 output (a
+    CPU rehearsal, which has no such kernel, multiplies in f32)."""
+    if a.is_cuda:
+        return torch.bmm(a, b, out_dtype=torch.float32)
+    return torch.bmm(a.float(), b.float())
+
+
+def int8_list_row(fs, call, launches, reps, label):
+    (lof, q8, store, base, q_scale, k), kw = call[0], call[1]
+    ip = bool(kw.get("inner_product", False))
+    cv, cr = kw.get("chunk_valid"), kw.get("chunk_rows")
+    kb = kw.get("kbuf") or fs.fused_kbuf(k)
+    ncb, chunk, rot = q8.shape
+    L = store.shape[1]
+    live = fs._live_rows(cv, cr, chunk)
+    if live is None:
+        live = torch.full((ncb,), chunk, dtype=torch.int32, device=lof.device)
+    # int8 operations; bytes: live int8 rows and their scales, the real
+    # slots and base rows of the lists touched, the chunk tables, outputs
+    ops, real_slots, n_used = list_work(lof, base, live, rot)
+    nbytes = (ncb * 8 + int(live.sum()) * (rot + 4) + real_slots * rot + n_used * L * 4
+              + ncb * chunk * kb * 8)
+    b_ms, b_by, terms = bound_ms(ops, nbytes, PEAK_INT8_OPS)
+
+    def kernel():
+        return fs.fused_list_topk_int8(lof, q8, store, base, q_scale, k, kbuf=kb,
+                                       inner_product=ip, chunk_valid=cv, chunk_rows=cr)
+
+    def plain():
+        return fs.fused_list_topk_int8_plain(lof, q8, store, base, q_scale, k, kb, ip, cv, cr)
+
+    require_equal(f"fused_list_topk_int8 ({label})", kernel(), plain())
+    ms = time_ms(kernel, reps)
+    plain_ms = time_ms(plain, max(1, reps // 4))
+    coef = 1.0 if ip else 2.0
+
+    def library():
+        # the int8 values are exact in bf16 and their 96-term sums in f32
+        st = store[lof.long()].to(torch.bfloat16)
+        dots = bf16_bmm(q8.to(torch.bfloat16), st.transpose(1, 2))
+        return torch.topk(base[lof.long()] - coef * (dots * q_scale), k, dim=-1, largest=False)
+
+    lib_ms = time_ms(library, reps)
+    log(f"kernel fused_list_topk_int8 ({label}): ncb {ncb} ({int((live > 0).sum())} live, "
+        f"{int(live.sum())} live rows), chunk {chunk}, L {L}, rot {rot}, k {k}: {ms:.4f} ms, "
+        f"plain {plain_ms:.4f} ms, library {lib_ms:.4f} ms, bound {b_ms:.4f} ms ({b_by}; "
+        f"ops {terms['ops_ms']:.4f}, bytes {terms['bytes_ms']:.4f}), bitwise equal to plain")
+    return {"name": "fused_list_topk_int8", "route": "cuda",
+            "source": "raft_tpu_torch/csrc/fused_list_topk_int8.cu",
+            "replaces": "raft_tpu/ops/fused_scan.py:575", "launches": launches,
+            "max_abs_err": 0.0, "ms": ms, "plain_ms": plain_ms, "bound_ms": b_ms,
+            "bound_by": b_by, "library_ms": lib_ms, "bound_terms": terms,
+            "shape": f"{label}: ncb={ncb} chunk={chunk} L={L} rot={rot} k={k}"}
+
+
+def fold_kernel_row(pls, call, launches, reps, label, fold):
+    (lof, q, store, base), kw = call[0], call[1]
+    ip = bool(kw["inner_product"])
+    q_scale, cr = kw.get("q_scale"), kw.get("chunk_rows")
+    ncb, chunk, rot = q.shape
+    L = store.shape[1]
+    live = cr if cr is not None else torch.full((ncb,), chunk, dtype=torch.int32,
+                                                  device=lof.device)
+    int8 = q_scale is not None
+    # bytes: live query rows (and int8 scales), the real slots and base
+    # rows of the lists touched, the chunk tables, and the output the
+    # contract writes: 512 candidates for every row of every chunk
+    ops, real_slots, n_used = list_work(lof, base, live, rot)
+    out_bytes = ncb * chunk * pls._CANDS * 8
+    in_bytes = (ncb * 8 + int(live.sum()) * rot * q.element_size()
+                + (int(live.sum()) * 4 if int8 else 0) + real_slots * rot * store.element_size()
+                + n_used * L * 4)
+    b_ms, b_by, terms = bound_ms(ops, in_bytes + out_bytes, PEAK_INT8_OPS if int8 else
+                                 PEAK_BF16_FLOPS)
+    terms.update(input_bytes=in_bytes, output_bytes=out_bytes)
+
+    def kernel():
+        return pls.pq_list_scan(lof, q, store, base, inner_product=ip, q_scale=q_scale,
+                                fold=fold, chunk_rows=cr)
+
+    def plain():
+        return pls.pq_list_scan_plain(lof, q, store, base, ip, q_scale, fold, cr)
+
+    name = f"pq_list_scan ({label})"
+    if int8:
+        require_equal(name, kernel(), plain())
+        err, agree = 0.0, 1.0
+    else:
+        err, agree = fold_compare(name, kernel(), plain(), bf16_rescore(lof, q, store, base, ip))
+    ms = time_ms(kernel, reps)
+    plain_ms = time_ms(plain, max(1, reps // 4))
+    coef = 1.0 if ip else 2.0
+
+    def library():
+        st = store[lof.long()].to(torch.bfloat16)
+        dots = bf16_bmm(q.to(torch.bfloat16), st.transpose(1, 2))
+        if int8:
+            dots = dots * q_scale
+        sc = torch.nn.functional.pad(base[lof.long()] - coef * dots, (0, -L % 256),
+                                     value=float("inf"))
+        return torch.topk(sc.view(ncb, chunk, -1, 2, 128), 2, dim=2, largest=False)
+
+    lib_ms = time_ms(library, reps)
+    log(f"kernel pq_list_scan ({label}): ncb {ncb} ({int((live > 0).sum())} live, "
+        f"{int(live.sum())} live rows), chunk {chunk}, L {L}, rot {rot}: {ms:.4f} ms, plain "
+        f"{plain_ms:.4f} ms, library {lib_ms:.4f} ms, bound {b_ms:.4f} ms ({b_by}; ops "
+        f"{terms['ops_ms']:.4f}, bytes {terms['bytes_ms']:.4f}: {in_bytes} in + {out_bytes} "
+        f"out), max_abs_err {err}, slot agreement {agree}")
+    return {"name": "pq_list_scan", "route": "cuda", "source": "raft_tpu_torch/csrc/pq_list_scan.cu",
+            "replaces": "raft_tpu/ops/pq_list_scan.py:303", "launches": launches,
+            "max_abs_err": err, "ms": ms, "plain_ms": plain_ms, "bound_ms": b_ms,
+            "bound_by": b_by, "library_ms": lib_ms, "bound_terms": terms,
+            "shape": f"{label}: ncb={ncb} chunk={chunk} L={L} rot={rot}"}
 
 
 # ---------------------------------------------------------------------------
@@ -487,6 +815,7 @@ def main(argv=None):
         dev = torch.device("cuda", 0)
     from raft_tpu_torch.ops import _build
     from raft_tpu_torch.ops import fused_scan as fs
+    from raft_tpu_torch.ops import pq_list_scan as pls
 
     def sync():
         if dev.type == "cuda":
@@ -505,25 +834,46 @@ def main(argv=None):
             for line in rep.splitlines():
                 if "registers" in line or "spill" in line:
                     log(f"  {src}: {line.strip()}")
-    adversarial_checks(fs, dev, np.random.default_rng(g.seed + 1))
+    adversarial_checks(fs, pls, dev, np.random.default_rng(g.seed + 1))
 
     fs.reset_launch_counts()
-    res, captured = main_path(g, dev, fs, sync)
-    launches = fs.launch_counts()
-    log(f"main-path launches: {launches}")
+    res, captured = main_path(g, dev, fs, pls, sync)
+    launches = res["launches"]
     check_truth(res, g.k, dev)
-    best = max(r["recall"] for r in res["rungs"])
-    if best < RECALL_GATE:
-        raise AssertionError(f"no rung reached recall@{g.k} >= {RECALL_GATE} (best {best})")
-    missing = [name for name, c in launches.items() if c <= 0]
-    if missing and dev.type == "cuda":
-        raise AssertionError(f"kernels never launched on the main path: {missing}")
+    for path, counts in launches.items():
+        trim, dtype = path
+        best = max(r["recall"] for r in res["rungs"]
+                   if (r["trim"], r["score_dtype"]) == path)
+        log(f"path trim={trim} score_dtype={dtype}: launches {counts}, best recall@{g.k} "
+            f"{best:.4f}")
+        if best < RECALL_GATE:
+            raise AssertionError(f"trim={trim} score_dtype={dtype}: no rung reached "
+                                 f"recall@{g.k} >= {RECALL_GATE} (best {best})")
+        missing = [name for name in PATH_KERNELS[path] if counts[name] <= 0]
+        if missing and dev.type == "cuda":
+            raise AssertionError(f"trim={trim} score_dtype={dtype}: kernels never launched "
+                                 f"on the path: {missing}")
 
-    rows = [list_kernel_row(fs, captured["trim"], launches["fused_list_topk"], g.reps,
+    def n(path, name):
+        return launches[path][name]
+
+    rows = [list_kernel_row(fs, captured["trim"], n(("fused", "bf16"), "fused_list_topk"), g.reps,
                             "IVF-PQ trim, n_probes 8"),
-            flat_kernel_row(fs, captured["flat"], launches["fused_topk"], g.reps)]
-    refine_row = list_kernel_row(fs, captured["refine"], launches["fused_list_topk"], g.reps,
-                                 "refine, chunk 1")
+            flat_kernel_row(fs, captured["flat"], n(("fused", "bf16"), "fused_topk"), g.reps),
+            int8_list_row(fs, captured[("fused", "int8")],
+                          n(("fused", "int8"), "fused_list_topk_int8"), g.reps,
+                          "IVF-PQ int8 trim, n_probes 8"),
+            fold_kernel_row(pls, captured[("pallas", "bf16")],
+                            n(("pallas", "bf16"), "pq_list_scan"), g.reps,
+                            "IVF-PQ bin trim, exact fold, bf16 rows, n_probes 8", "exact"),
+            fold_kernel_row(pls, captured[("pallas", "int8")],
+                            n(("pallas", "int8"), "pq_list_scan"), g.reps,
+                            "IVF-PQ bin trim, exact fold, int8 rows, n_probes 8", "exact"),
+            fold_kernel_row(pls, captured[("pallas", "int8")],
+                            n(("pallas", "int8"), "pq_list_scan"), g.reps,
+                            "IVF-PQ bin trim, packed fold, int8 rows, n_probes 8", "packed")]
+    refine_row = list_kernel_row(fs, captured["refine"], n(("fused", "bf16"), "fused_list_topk"),
+                                 g.reps, "refine, chunk 1")
     summary = {"build_s": res["build_s"], "truth_s": res["truth_s"], "rungs": res["rungs"],
                "breakdown": res["breakdown"], "refine_kernel": refine_row, "wall_s": time.perf_counter() - t_all}
     log("summary " + json.dumps(summary))

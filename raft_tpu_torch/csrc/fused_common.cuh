@@ -1,28 +1,37 @@
 // Shared core of the fused distance + exact select-k kernels
-// (fused_list_topk.cu, fused_topk.cu): `scan_topk` scores a block of
-// query rows against a run of store rows and keeps each row's exact
-// top-k, so no score ever reaches device memory.
+// (fused_list_topk.cu, fused_topk.cu, fused_list_topk_int8.cu) and of the
+// bin-fold list scan (pq_list_scan.cu): a block scores kRows query rows
+// against a run of store rows, 128 slots (one tile) at a time, and no
+// score ever reaches device memory.
 //
-// Scoring: the block stages its query rows, rounded to bf16 (round to
-// nearest even) and held as float, in shared memory once. It then
-// streams store rows in tiles of kTileSlots rows x kDStep depth, each
-// element converted to bf16-exact float (int8 and bf16 convert exactly,
-// float32 is rounded; four elements per load where the row width allows),
-// and accumulates f32 dots. Thread t owns store row (t % kTileSlots) of
-// the tile and kRowsHalf query rows (half t / kTileSlots), so one 16-byte
-// shared load of the store feeds 4 * kRowsHalf fused multiply-adds and
-// the query loads are warp-wide broadcasts. The staged rows use a stride
-// of kDStride floats, which keeps the 16-byte loads of eight neighbouring
-// threads on distinct banks. A tile whose base is +inf on every slot
-// skips the dots: its scores are +inf whatever they are.
+// Scoring is a policy with one interface (`tile` accumulates the dots of
+// one tile, `score` turns a dot into the minimized score):
+//   Bf16Dots<T>  the block stages its query rows, rounded to bf16 (round
+//                to nearest even) and held as float, in shared memory
+//                once, then streams store rows in tiles of kTileSlots rows
+//                x kDStep depth, each element converted to bf16-exact float
+//                (int8 and bf16 convert exactly, float32 is rounded; four
+//                elements per load where the row width allows), and
+//                accumulates f32 dots. Thread t owns store row
+//                (t % kTileSlots) of the tile and kRowsHalf query rows
+//                (half t / kTileSlots), so one 16-byte shared load of the
+//                store feeds 4 * kRowsHalf fused multiply-adds and the query
+//                loads are warp-wide broadcasts. The staged rows use a
+//                stride of kDStride floats, which keeps the 16-byte loads
+//                of eight neighbouring threads on distinct banks.
+//   Int8Dots     int8 query rows and an int8 store, staged as bytes over
+//                the whole depth, dots by __dp4a into int32 (exact in any
+//                order), then the per-row scale (int8_score).
+// A tile whose base is +inf on every slot skips the dots: its scores are
+// +inf whatever they are.
 //
-// Selection: each row's k best (score, id) pairs so far live in the
-// registers of the warp that owns the row, sorted, pair j in register
-// j / 32 of lane j % 32 (WarpTopK). After each tile, warp w merges rows
-// 2w and 2w+1: a ballot finds the tile's pairs below the row's current
-// k-th pair (almost none once the list has filled) and each is inserted
-// by a one-step shuffle of the list. Every comparison is on the
-// lexicographic (score, id) order, so the result is the k
+// Selection (scan_topk_dots): each row's k best (score, id) pairs so far live
+// in the registers of the warp that owns the row, sorted, pair j in
+// register j / 32 of lane j % 32 (WarpTopK). After each tile, warp w
+// merges rows 2w and 2w+1: a ballot finds the tile's pairs below the
+// row's current k-th pair (almost none once the list has filled) and each
+// is inserted by a one-step shuffle of the list. Every comparison is on
+// the lexicographic (score, id) order, so the result is the k
 // lexicographically smallest pairs, ties to the smaller id, exactly what
 // the TPU epilogue's k extraction passes (_extract_topk) and lax.top_k
 // give; +inf pairs (masked slots) take the slots left over in id order,
@@ -55,12 +64,11 @@ __host__ __device__ constexpr int depth_padded(int d) {
   return (d + kDStep - 1) / kDStep * kDStep;
 }
 
-// Dynamic shared memory of one scan_topk block: the tile's scores, the
-// staged store tile and the block's query rows.
-__host__ __device__ inline size_t scan_smem_bytes(int d) {
-  return sizeof(float) *
-         ((size_t)kRows * kTileSlots + kTileSlots * kDStride + kRows * depth_padded(d));
-}
+// int8 rows: bytes per staged query row (16-byte words), and per staged
+// store row, an odd number of words so that the 16-byte loads of eight
+// neighbouring threads fall on distinct banks.
+__host__ __device__ constexpr int i8_depth(int d) { return (d + 15) / 16 * 16; }
+__host__ __device__ constexpr int i8_stride(int d) { return (i8_depth(d) / 16 | 1) * 16; }
 
 __device__ __forceinline__ float bf16_round(float v) {
   return __bfloat162float(__float2bfloat16_rn(v));
@@ -242,31 +250,189 @@ struct WarpTopK {
   }
 };
 
-// Writes (+inf, kSentinel) over `nrows` output rows of width kbuf.
-__device__ __forceinline__ void write_empty(float* vals, int* idx, int nrows, int kbuf) {
-  for (int e = threadIdx.x; e < nrows * kbuf; e += kThreads) {
+// Writes (+inf, fill_id) over `nrows` output rows of `width`.
+__device__ __forceinline__ void write_empty(float* vals, int* idx, int nrows, int width,
+                                            int fill_id = kSentinel) {
+  for (int e = threadIdx.x; e < nrows * width; e += kThreads) {
     vals[e] = CUDART_INF_F;
-    idx[e] = kSentinel;
+    idx[e] = fill_id;
   }
 }
 
-// Score rows [0, nrows) of q (row stride d) against the n rows of y (row
-// stride d): score_j = base[j] - coef * <q, y_j> over bf16-rounded
-// operands, f32 sums. Writes each row's k lexicographically smallest
-// (score, j) pairs best-first into vals/idx rows of width kbuf, slots
-// past k as (+inf, kSentinel); k <= 32 * KR. `smem` holds
-// scan_smem_bytes(d). Every thread of the block must call it.
-template <typename T, int KR>
-__device__ void scan_topk(float* smem, const float* __restrict__ q, int nrows,
-                          const T* __restrict__ y, const float* __restrict__ base, int n, int d,
-                          int k, int kbuf, float coef, float* __restrict__ vals,
-                          int* __restrict__ idx) {
-  const int dpad = depth_padded(d);
-  float* sc = smem;                         // kRows * kTileSlots
-  float* st = sc + kRows * kTileSlots;      // kTileSlots * kDStride
-  float* q_s = st + kTileSlots * kDStride;  // kRows * dpad
+// A list kernel's block holds rows [row0, row0 + nrows) of chunk c, whose
+// live rows are a prefix of live_rows[c] (all rows when live_rows is
+// null). Writes (+inf, fill_id) over the block's rows past that prefix
+// (output rows of `width` at vals/idx) and returns how many of its rows
+// are live; <= 0 means none, and the block has no work.
+__device__ __forceinline__ int live_prefix(const int* live_rows, int c, int row0, int nrows,
+                                           float* vals, int* idx, int width, int fill_id) {
+  const int live = live_rows == nullptr ? nrows : min(nrows, live_rows[c] - row0);
+  const int from = max(live, 0);
+  if (from < nrows)
+    write_empty(vals + (size_t)from * width, idx + (size_t)from * width, nrows - from, width,
+                fill_id);
+  return live;
+}
 
-  stage_rows(q_s, q, nrows, d, dpad);
+// ---------------------------------------------------------------------------
+// scoring policies
+// ---------------------------------------------------------------------------
+
+// bf16-rounded operands, f32 dots; score = base - coef * dot (coef 2 for
+// L2, 1 for inner product; the product is exact, so one rounding).
+template <typename T>
+struct Bf16Dots {
+  using Query = float;
+  using Store = T;
+  using Acc = float;
+  float* st;   // kTileSlots x kDStride
+  float* q_s;  // kRows x dpad
+  int d, dpad;
+  float coef;
+
+  __host__ __device__ static size_t smem_bytes(int d) {
+    return sizeof(float) * ((size_t)kTileSlots * kDStride + (size_t)kRows * depth_padded(d));
+  }
+  // Stages rows [0, nrows) of q (row stride d); the first tile's barrier
+  // publishes them. The row scale is not used.
+  __device__ Bf16Dots(void* smem, const float* q, const float*, int nrows, int d_, bool ip)
+      : st(static_cast<float*>(smem)),
+        q_s(st + kTileSlots * kDStride),
+        d(d_),
+        dpad(depth_padded(d_)),
+        coef(ip ? 1.f : 2.f) {
+    stage_rows(q_s, q, nrows, d, dpad);
+  }
+  // acc[r] += the dots of this thread's rows with slot t0 + (t % kTileSlots)
+  __device__ __forceinline__ void tile(float (&acc)[kRowsHalf], const T* y, int n, int t0) {
+    for (int d0 = 0; d0 < dpad; d0 += kDStep) {
+      __syncthreads();  // staged rows ready / last depth step's readers done
+      stage_tile(st, y, n, t0, d, d0);
+      __syncthreads();
+      accumulate(acc, q_s, st, dpad, d0);
+    }
+  }
+  __device__ __forceinline__ float score(float b, float acc, int) const { return b - coef * acc; }
+};
+
+// The int8 score, rounded as the reference kernels round it on the CPU
+// (raft_tpu/ops/fused_scan.py:484-485, raft_tpu/ops/pq_list_scan.py:184-200):
+// L2 twice (dots = f32(idot) * scale, then base - 2 * dots), inner product
+// once (base - f32(idot) * scale as one fused multiply-add). The explicit
+// intrinsics keep nvcc's own contraction out of both. Both int8 kernels
+// score through this one function, so their scores are the same f32
+// values by construction.
+__device__ __forceinline__ float int8_score(int idot, float rs, float b, bool ip) {
+  const float f = __int2float_rn(idot);  // |idot| < 2^24: exact
+  return ip ? __fmaf_rn(-f, rs, b) : __fsub_rn(b, __fmul_rn(2.f, __fmul_rn(f, rs)));
+}
+
+// st[kTileSlots][stride] <- rows [t0, t0 + kTileSlots) x columns [0, dpad)
+// of a (nrows, d) int8 store; zeros past the edges. With d % 16 == 0 (and
+// the store 16-byte aligned) a tile is one run of 16-byte words.
+__device__ __forceinline__ void stage_tile_i8(int8_t* st, const int8_t* rows, int nrows, int t0,
+                                              int d, int dpad, int stride) {
+  if (d % 16 == 0) {
+    const int w = d / 16;
+    for (int e = threadIdx.x; e < kTileSlots * w; e += kThreads) {
+      const int s = e / w, c = e - s * w;
+      const int slot = t0 + s;
+      *reinterpret_cast<int4*>(st + s * stride + 16 * c) =
+          slot < nrows ? *reinterpret_cast<const int4*>(rows + (size_t)slot * d + 16 * c)
+                       : make_int4(0, 0, 0, 0);
+    }
+    return;
+  }
+  for (int e = threadIdx.x; e < kTileSlots * dpad; e += kThreads) {
+    const int s = e / dpad, c = e - s * dpad;
+    const int slot = t0 + s;
+    st[s * stride + c] = (slot < nrows && c < d) ? rows[(size_t)slot * d + c] : int8_t(0);
+  }
+}
+
+// acc[r] += <q_s[half*kRowsHalf + r][0 : dpad], st[s][0 : dpad]>, four
+// bytes per __dp4a
+__device__ __forceinline__ void accumulate_i8(int (&acc)[kRowsHalf], const int8_t* q_s,
+                                              const int8_t* st, int dpad, int stride) {
+  const int s = threadIdx.x % kTileSlots, half = threadIdx.x / kTileSlots;
+  const int4* srow = reinterpret_cast<const int4*>(st + s * stride);
+  const int4* qrow = reinterpret_cast<const int4*>(q_s + half * kRowsHalf * dpad);
+  const int w = dpad / 16;
+  for (int c = 0; c < w; ++c) {
+    const int4 sv = srow[c];
+#pragma unroll
+    for (int r = 0; r < kRowsHalf; ++r) {
+      const int4 qv = qrow[r * w + c];
+      acc[r] = __dp4a(qv.x, sv.x, acc[r]);
+      acc[r] = __dp4a(qv.y, sv.y, acc[r]);
+      acc[r] = __dp4a(qv.z, sv.z, acc[r]);
+      acc[r] = __dp4a(qv.w, sv.w, acc[r]);
+    }
+  }
+}
+
+// int8 query rows x an int8 store, int32 dots, per-row f32 scale.
+struct Int8Dots {
+  using Query = int8_t;
+  using Store = int8_t;
+  using Acc = int;
+  int8_t* st;   // kTileSlots x stride bytes
+  int8_t* q_s;  // kRows x dpad bytes
+  float* rs_s;  // kRows
+  int d, dpad, stride;
+  bool ip;
+
+  __host__ __device__ static size_t smem_bytes(int d) {
+    return (size_t)kTileSlots * i8_stride(d) + (size_t)kRows * i8_depth(d) +
+           sizeof(float) * kRows;
+  }
+  // Stages rows [0, nrows) of q (row stride d) and their scales rs; the
+  // first tile's barrier publishes them.
+  __device__ Int8Dots(void* smem, const int8_t* q, const float* rs, int nrows, int d_, bool ip_)
+      : st(static_cast<int8_t*>(smem)),
+        q_s(st + kTileSlots * i8_stride(d_)),
+        rs_s(reinterpret_cast<float*>(q_s + kRows * i8_depth(d_))),
+        d(d_),
+        dpad(i8_depth(d_)),
+        stride(i8_stride(d_)),
+        ip(ip_) {
+    for (int e = threadIdx.x; e < kRows * dpad; e += kThreads) {
+      const int r = e / dpad, c = e - r * dpad;
+      q_s[e] = (r < nrows && c < d) ? q[(size_t)r * d + c] : int8_t(0);
+    }
+    const int t = threadIdx.x;
+    if (t < kRows) rs_s[t] = t < nrows ? rs[t] : 0.f;
+  }
+  __device__ __forceinline__ void tile(int (&acc)[kRowsHalf], const int8_t* y, int n, int t0) {
+    __syncthreads();  // staged rows ready / last tile's readers done
+    stage_tile_i8(st, y, n, t0, d, dpad, stride);
+    __syncthreads();
+    accumulate_i8(acc, q_s, st, dpad, stride);
+  }
+  // `row`: the query row within the block
+  __device__ __forceinline__ float score(float b, int acc, int row) const {
+    return int8_score(acc, rs_s[row], b, ip);
+  }
+};
+
+// Dynamic shared memory of one scan_topk block: the tile's scores, then
+// the scoring policy's staging.
+template <class Dots>
+__host__ __device__ inline size_t topk_smem_bytes(int d) {
+  return sizeof(float) * kRows * kTileSlots + Dots::smem_bytes(d);
+}
+
+// Score the block's nrows query rows (staged by `dots`) against the n
+// rows of y: score_j = dots.score(base[j], <q, y_j>). Writes each row's k
+// lexicographically smallest (score, j) pairs best-first into vals/idx
+// rows of width kbuf, slots past k as (+inf, kSentinel); k <= 32 * KR.
+// `sc` holds kRows x kTileSlots floats. Every thread of the block must
+// call it.
+template <int KR, class Dots>
+__device__ void scan_topk_dots(float* sc, Dots& dots, int nrows,
+                          const typename Dots::Store* __restrict__ y,
+                          const float* __restrict__ base, int n, int k, int kbuf,
+                          float* __restrict__ vals, int* __restrict__ idx) {
   const int s = threadIdx.x % kTileSlots, half = threadIdx.x / kTileSlots;
   const int w = threadIdx.x / 32, lane = threadIdx.x % 32;
   WarpTopK<KR> top[kRowsPerWarp];
@@ -276,21 +442,14 @@ __device__ void scan_topk(float* smem, const float* __restrict__ q, int nrows,
   for (int t0 = 0; t0 < n; t0 += kTileSlots) {
     const int col = t0 + s;
     const float b = col < n ? base[col] : CUDART_INF_F;
-    float acc[kRowsHalf];
+    typename Dots::Acc acc[kRowsHalf];
 #pragma unroll
-    for (int r = 0; r < kRowsHalf; ++r) acc[r] = 0.f;
+    for (int r = 0; r < kRowsHalf; ++r) acc[r] = 0;
     // block-uniform, and a barrier: the last tile's merges are done
-    if (__syncthreads_or(b != CUDART_INF_F)) {
-      for (int d0 = 0; d0 < dpad; d0 += kDStep) {
-        __syncthreads();  // staged rows ready / last depth step's readers done
-        stage_tile(st, y, n, t0, d, d0);
-        __syncthreads();
-        accumulate(acc, q_s, st, dpad, d0);
-      }
-    }
+    if (__syncthreads_or(b != CUDART_INF_F)) dots.tile(acc, y, n, t0);
 #pragma unroll
     for (int r = 0; r < kRowsHalf; ++r)
-      sc[(half * kRowsHalf + r) * kTileSlots + s] = b - coef * acc[r];
+      sc[(half * kRowsHalf + r) * kTileSlots + s] = dots.score(b, acc[r], half * kRowsHalf + r);
     __syncthreads();
 #pragma unroll
     for (int rr = 0; rr < kRowsPerWarp; ++rr) {
@@ -304,6 +463,23 @@ __device__ void scan_topk(float* smem, const float* __restrict__ q, int nrows,
     const int r = w * kRowsPerWarp + rr;
     if (r < nrows) top[rr].write(vals + (size_t)r * kbuf, idx + (size_t)r * kbuf, k, kbuf, lane);
   }
+}
+
+// Dynamic shared memory of a bf16 scan_topk block (fused_list_topk,
+// fused_topk).
+__host__ __device__ inline size_t scan_smem_bytes(int d) {
+  return topk_smem_bytes<Bf16Dots<float>>(d);
+}
+
+// scan_topk over bf16-rounded float rows [0, nrows) of q (row stride d),
+// score = base - coef * dot; `smem` holds scan_smem_bytes(d).
+template <typename T, int KR>
+__device__ void scan_topk(float* smem, const float* __restrict__ q, int nrows,
+                          const T* __restrict__ y, const float* __restrict__ base, int n, int d,
+                          int k, int kbuf, float coef, float* __restrict__ vals,
+                          int* __restrict__ idx) {
+  Bf16Dots<T> dots(smem + kRows * kTileSlots, q, nullptr, nrows, d, coef == 1.f);
+  scan_topk_dots<KR>(smem, dots, nrows, y, base, n, k, kbuf, vals, idx);
 }
 
 // Runs f(std::integral_constant<int, KR>) with the smallest list width

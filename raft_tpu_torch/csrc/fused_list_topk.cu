@@ -46,14 +46,8 @@ __global__ void __launch_bounds__(kThreads, 3)
   const int row0 = blockIdx.y * kRows;
   const int nrows = min(kRows, chunk - row0);
   const size_t out0 = ((size_t)c * chunk + row0) * kbuf;
-  const int live = live_rows == nullptr ? nrows : min(nrows, live_rows[c] - row0);
-  if (live <= 0) {  // an empty chunk, or past its live rows: no work
-    write_empty(vals + out0, idx + out0, nrows, kbuf);
-    return;
-  }
-  if (live < nrows)
-    write_empty(vals + out0 + (size_t)live * kbuf, idx + out0 + (size_t)live * kbuf,
-                nrows - live, kbuf);
+  const int live = live_prefix(live_rows, c, row0, nrows, vals + out0, idx + out0, kbuf, kSentinel);
+  if (live <= 0) return;  // an empty chunk, or past its live rows: no work
   const int list = lof[c];
   scan_topk<T, KR>(reinterpret_cast<float*>(smem4), qres + ((size_t)c * chunk + row0) * rot,
                    live, store + (size_t)list * L * rot, base + (size_t)list * L, L, rot, k,

@@ -179,20 +179,21 @@ def scan_select_k(queries, dataset, k: int, metric="sqeuclidean",
 # list-scan dispatch
 # ---------------------------------------------------------------------------
 
-LIST_SCAN_STRATEGIES = ("fused",)
+LIST_SCAN_STRATEGIES = ("fused", "fused_int8")
 
 
 def check_fused_list_request(label: str, L: int, rot: int, k: int,
-                             kbuf: Optional[int], fallback: str) -> int:
+                             kbuf: Optional[int], fallback: str, q_int8: bool = False) -> int:
     """Validate an explicit fused list-scan request against the kernel's
-    caps and shared-memory budget; returns the candidate-buffer width the
-    kernel must run with (>= the caller's recorded `kbuf`)."""
+    caps and shared-memory budget (the int8 kernel's own with `q_int8`);
+    returns the candidate-buffer width the kernel must run with (>= the
+    caller's recorded `kbuf`)."""
     from raft_tpu_torch.ops.fused_scan import FUSED_MAX_K, fits_fused_list, fused_kbuf
 
     if int(k) > FUSED_MAX_K:
         raise ValueError(f"{label} caps per-list candidates at {FUSED_MAX_K}; k={k}")
     kb = max(fused_kbuf(int(k)), kbuf or 0)
-    if not fits_fused_list(L, rot, int(k), kbuf=kb):
+    if not fits_fused_list(L, rot, int(k), kbuf=kb, q_int8=q_int8):
         raise ValueError(
             f"{label}: list length {L} exceeds the kernel's shared-memory "
             f"budget; use {fallback}"
@@ -201,18 +202,24 @@ def check_fused_list_request(label: str, L: int, rot: int, k: int,
 
 
 def list_scan_select_k(lof, qres, store, base, k: int, strategy: str = "fused",
-                       kbuf: Optional[int] = None, inner_product: bool = False,
+                       q_scale=None, kbuf: Optional[int] = None, inner_product: bool = False,
                        chunk_valid=None, chunk_rows=None) -> Tuple[torch.Tensor, torch.Tensor]:
     """Per-list fused scan+select over a slot-table store: the
-    `ops.fused_scan.fused_list_topk` contract. The int8 datapath
-    ("fused_int8") waits for its kernel (ROADMAP Queue B row 3)."""
-    if strategy == "fused_int8":
-        raise NotImplementedError(
-            "strategy='fused_int8' needs the fused_list_topk_int8 kernel "
-            "(ROADMAP Queue B row 3)"
-        )
+    `ops.fused_scan` list contract. "fused" rounds the operands to bf16
+    (`fused_list_topk`); "fused_int8" takes int8 `qres` and store and the
+    (ncb, chunk, 1) per-row `q_scale` (`fused_list_topk_int8`)."""
     if strategy not in LIST_SCAN_STRATEGIES:
         raise ValueError(f"unknown list-scan strategy {strategy!r}")
+    if strategy == "fused_int8":
+        if q_scale is None:
+            raise ValueError("strategy='fused_int8' requires q_scale")
+        from raft_tpu_torch.ops.fused_scan import fused_list_topk_int8
+
+        return fused_list_topk_int8(lof, qres, store, base, q_scale, int(k), kbuf=kbuf,
+                                    inner_product=inner_product, chunk_valid=chunk_valid,
+                                    chunk_rows=chunk_rows)
+    if q_scale is not None:
+        raise ValueError("q_scale requires strategy='fused_int8'")
     from raft_tpu_torch.ops.fused_scan import fused_list_topk
 
     return fused_list_topk(lof, qres, store, base, int(k), kbuf=kbuf,

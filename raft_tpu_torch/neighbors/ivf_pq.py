@@ -5,26 +5,38 @@ Build: trainset subsample -> rotation -> balanced k-means coarse centers
 -> per-subspace PQ codebooks on the trainset residuals -> encode and pack
 every row into the padded (n_lists, max_list, pq_dim) code table.
 
-Search, the one engine of this slice: score_mode="recon8_list" with
-trim_engine="fused". The codes are decoded once into a per-dimension
-int8 reconstruction store, lane-padded to a multiple of 128 slots; the
-probe pairs of a query batch are inverted into per-list chunks
-(probe_invert), and each chunk's list is scored and trimmed to its exact
-top-k by the `fused_list_topk` kernel (ops/fused_scan.py, CUDA on the
-card); the per-(query, probe) candidates regroup to query-major order and
-merge exactly.
+Search: score_mode="recon8_list", the list-major engine. The codes are
+decoded once into a per-dimension int8 reconstruction store, lane-padded
+to a multiple of 128 slots; the probe pairs of a query batch are
+inverted into per-list chunks (probe_invert), each chunk's list is
+scored and trimmed by one kernel launch, and the per-(query, probe)
+candidates regroup to query-major order and merge exactly. Two trims:
+
+  trim_engine="fused"   an exact top-k per chunk row, ties to the smaller
+                        slot: `fused_list_topk` (bf16 rows) or, with
+                        score_dtype="int8", `fused_list_topk_int8`
+                        (ops/fused_scan.py);
+  trim_engine="pallas"  the bin fold, best and second best in each of 256
+                        bins per row (`ops/pq_list_scan.py`), then an exact
+                        top-min(k, 256) of the 512 candidates; k <= 256.
+
+score_dtype="int8" quantizes each scale-folded residual row to symmetric
+int8 (`_quantize_query_rows`) and scores int8 x int8 -> int32 with the
+per-row scale; both trims score the same f32 values. CUDA kernels on the
+card, their plain versions on the CPU.
 
 Not ported yet (each raises NotImplementedError naming ROADMAP Queue A):
-other score modes and trims, score_dtype="int8", adaptive probing,
-prefilters, tombstones, per-cluster codebooks, more than 1024 lists
-(the hierarchical trainer). Integrity digests, list radii, observability
-spans, fault hooks and save/load are left out.
+the lut and recon8 score modes, score_mode="auto", the approx, exact and
+auto trims, adaptive probing, prefilters, tombstones, per-cluster
+codebooks, more than 1024 lists (the hierarchical trainer). Integrity
+digests, list radii, observability spans, fault hooks and save/load are
+left out.
 """
 
 from __future__ import annotations
 
 import dataclasses
-from typing import Dict, Optional, Tuple
+from typing import Dict, NamedTuple, Optional, Tuple
 
 import numpy as np
 import torch
@@ -40,8 +52,8 @@ from raft_tpu_torch.random.rng import make_generator, sample_without_replacement
 
 def _not_ported(what: str) -> NotImplementedError:
     return NotImplementedError(
-        f"{what} is not ported yet (ROADMAP Queue A: the first slice runs "
-        "score_mode='recon8_list' with trim_engine='fused' only)"
+        f"{what} is not ported yet (ROADMAP Queue A: the port runs "
+        "score_mode='recon8_list' with trim_engine 'fused' or 'pallas')"
     )
 
 
@@ -73,7 +85,8 @@ class IndexParams:
 @dataclasses.dataclass
 class SearchParams:
     """Mirrors ivf_pq::search_params (ivf_pq_types.hpp:112-150). The
-    defaults name the one engine this slice runs."""
+    defaults name the fused exact trim on bf16 rows; trim_engine="pallas"
+    and score_dtype="int8" are the other engines the port runs."""
 
     n_probes: int = 20
     score_mode: str = "recon8_list"
@@ -361,12 +374,12 @@ def _decode_quantize(codes: torch.Tensor, pq_centers: torch.Tensor,
 
 def build_reconstruction(index: Index) -> Index:
     """Populate the int8 reconstruction store, once (the JAX package's
-    `build_reconstruction(pad_to_lanes=True)`, the only form the fused
-    trim runs). The slot axis is padded to `lane_padded(max_list)`, the
-    fused kernel's shape contract: pad slots get slot_rows_pad = -1 and
-    recon_norm = +inf, so they are masked like in-list padding."""
+    `build_reconstruction(pad_to_lanes=True)`, the form both trims run).
+    The slot axis is padded to `lane_padded(max_list)`, the list kernels'
+    shape contract: pad slots get slot_rows_pad = -1 and recon_norm =
+    +inf, so they are masked like in-list padding."""
     if index.recon8 is None:
-        from raft_tpu_torch.ops.fused_scan import lane_padded
+        from raft_tpu_torch.ops.pq_list_scan import lane_padded
 
         r8, scale, rnorm = _decode_quantize(index.codes, index.pq_centers)
         extra = lane_padded(r8.shape[1]) - r8.shape[1]
@@ -384,11 +397,14 @@ def build_reconstruction(index: Index) -> Index:
 
 
 def _quantize_query_rows(u: torch.Tensor):
-    """Symmetric per-row int8 quantization (u ~= q8 * row_scale), the
-    query side of the int8 trim (not run by this slice's engine)."""
+    """Symmetric per-row int8 quantization (u ~= q8 * row_scale), shared
+    by both trims' int8 rows, so their scores agree bit for bit. The
+    scale is times the f32 reciprocal of 127, not a division: the JAX
+    reference compiles its division by the constant to this multiply, and
+    every int8 score is `f32(idot) * row_scale`."""
     ua = torch.amax(torch.abs(u), dim=-1, keepdim=True) + 1e-12
     q8 = torch.clamp(torch.round(u / ua * 127.0), -127, 127).to(torch.int8)
-    return q8, ua / 127.0
+    return q8, ua * (1.0 / 127.0)
 
 
 def _coarse_select(queries: torch.Tensor, rotation: torch.Tensor, centers: torch.Tensor,
@@ -409,84 +425,163 @@ def _coarse_select(queries: torch.Tensor, rotation: torch.Tensor, centers: torch
     return q_rot, probes
 
 
-def _search_impl_recon8_listmajor_fused(queries, rotation, centers, recon8, recon_scale,
-                                        recon_norm, slot_rows_pad, k: int, n_probes: int,
-                                        metric: DistanceType, chunk: int = 128,
-                                        kb: Optional[int] = None):
-    """List-major search with the fused distance + exact select-k trim:
-    one kernel launch scores every chunk's list straight out of the int8
-    store and keeps each row's exact top-k (ties to the smaller slot);
-    the (chunk, L) scores never reach device memory. Returns (values,
-    slot-row positions) (nq, k)."""
-    from raft_tpu_torch.matrix.select_k import list_scan_select_k
+class _ListMajorBatch(NamedTuple):
+    """One query batch's list-major operands, shared by both trims."""
+
+    tables: object       # probe_invert.ChunkTables
+    live: torch.Tensor   # (ncb,) int32 live leading rows of each chunk
+    qs: torch.Tensor     # (ncb, chunk, rot) rotated query rows
+    cent: torch.Tensor   # (ncb, rot) each chunk's list center
+    qres: torch.Tensor   # (ncb, chunk, rot) residuals (IP: the rows)
+    qres_s: torch.Tensor  # residuals with the store's scale folded in
+    base: torch.Tensor   # (n_lists, 1, L) per-slot base, +inf invalid
+
+
+def _listmajor_batch(queries, rotation, centers, recon_scale, recon_norm, slot_rows_pad,
+                     n_probes: int, metric: DistanceType, chunk: int) -> _ListMajorBatch:
+    """Coarse select, probe inversion, query-row gather, residuals and
+    the additive per-slot base (L2: recon norm; IP: 0; +inf invalid)."""
     from raft_tpu_torch.neighbors.probe_invert import (
         chunk_live_rows,
         gather_query_rows,
         invert_probes_sort,
-        regroup_merge,
     )
 
     nq = queries.shape[0]
-    n_lists, _, rot_dim = recon8.shape
+    n_lists, rot_dim = centers.shape
     ip = metric == DistanceType.InnerProduct
-
     q_rot, probes = _coarse_select(queries, rotation, centers, n_probes, metric)
     tables = invert_probes_sort(probes, n_lists, chunk)
-    lof = tables.lof
     live = chunk_live_rows(tables.qid_tbl, nq)  # pad rows and empty chunks skip in-kernel
-
     q_pad = torch.cat([q_rot, q_rot.new_zeros((1, rot_dim))])
     qs = gather_query_rows(q_pad, tables.qid_tbl)  # (ncb, chunk, rot)
-    cent = centers[lof.long()]
+    cent = centers[tables.lof.long()]
     qres = qs if ip else qs - cent[:, None, :]
     qres_s = (qres * recon_scale[None, None, :]).contiguous()
-
     valid = slot_rows_pad >= 0
-    if ip:
-        base = torch.where(valid, 0.0, float("inf"))[:, None, :]
-    else:
-        base = torch.where(valid, recon_norm, float("inf"))[:, None, :]
+    fill = torch.where(valid, 0.0, float("inf")) if ip else torch.where(valid, recon_norm,
+                                                                        float("inf"))
+    return _ListMajorBatch(tables, live, qs, cent, qres, qres_s, fill[:, None, :].contiguous())
 
-    vals, slot_idx = list_scan_select_k(lof, qres_s, recon8, base.contiguous(), k,
-                                        strategy="fused", kbuf=kb, inner_product=ip,
-                                        chunk_rows=live)
-    vals = vals[:, :, :k]
-    slot_idx = slot_idx[:, :, :k]
 
+def _candidates(b: _ListMajorBatch, vals, slot_idx, slot_rows_pad, ip: bool):
+    """A trim's minimizing (ncb, chunk, w) candidates -> (values with the
+    per-query constants added back, slot-row positions), -1 and the worst
+    value where a candidate is not finite."""
     invalid = ~torch.isfinite(vals)
     slot_idx = torch.where(invalid, 0, slot_idx).long()  # sentinel -> safe gather
-    rows = torch.gather(slot_rows_pad[lof.long()][:, None, :].expand(-1, slot_idx.shape[1], -1),
+    lof = b.tables.lof.long()
+    rows = torch.gather(slot_rows_pad[lof][:, None, :].expand(-1, slot_idx.shape[1], -1),
                         2, slot_idx)
     rows = torch.where(invalid, -1, rows)
-
     if ip:
-        qdotc = torch.einsum("cqd,cd->cq", qs, cent)
-        vals = torch.where(invalid, float("-inf"), -vals + qdotc[:, :, None])
-    else:
-        vals = vals + torch.sum(qres * qres, dim=2)[:, :, None]
+        qdotc = torch.einsum("cqd,cd->cq", b.qs, b.cent)
+        return torch.where(invalid, float("-inf"), -vals + qdotc[:, :, None]), rows
+    return vals + torch.sum(b.qres * b.qres, dim=2)[:, :, None], rows
 
-    v, rows_out = regroup_merge(tables, vals, rows, _select_k_impl, nq, n_probes, int(k),
-                                not ip)
+
+def _merge(b: _ListMajorBatch, vals, rows, nq: int, n_probes: int, k: int,
+           metric: DistanceType):
+    from raft_tpu_torch.neighbors.probe_invert import regroup_merge
+
+    v, rows_out = regroup_merge(b.tables, vals, rows, _select_k_impl, nq, n_probes, int(k),
+                                metric != DistanceType.InnerProduct)
     if metric == DistanceType.L2SqrtExpanded:
         v = torch.sqrt(torch.clamp(v, min=0.0))
     return v.float(), rows_out
+
+
+def _search_impl_recon8_listmajor_fused(queries, rotation, centers, recon8, recon_scale,
+                                        recon_norm, slot_rows_pad, k: int, n_probes: int,
+                                        metric: DistanceType, chunk: int = 128,
+                                        kb: Optional[int] = None, int8_queries: bool = False):
+    """List-major search with the fused distance + exact select-k trim:
+    one kernel launch scores every chunk's list straight out of the int8
+    store and keeps each row's exact top-k (ties to the smaller slot);
+    the (chunk, L) scores never reach device memory. With `int8_queries`
+    the rows quantize through `_quantize_query_rows`, as the pallas
+    trim's do, and score int8 x int8 -> int32 ("fused_int8"). Returns
+    (values, slot-row positions) (nq, k)."""
+    from raft_tpu_torch.matrix.select_k import list_scan_select_k
+
+    ip = metric == DistanceType.InnerProduct
+    b = _listmajor_batch(queries, rotation, centers, recon_scale, recon_norm, slot_rows_pad,
+                         n_probes, metric, chunk)
+    lof = b.tables.lof
+    if int8_queries:
+        q8, row_scale = _quantize_query_rows(b.qres_s)
+        vals, slot_idx = list_scan_select_k(lof, q8, recon8, b.base, k, strategy="fused_int8",
+                                            q_scale=row_scale, kbuf=kb, inner_product=ip,
+                                            chunk_rows=b.live)
+    else:
+        vals, slot_idx = list_scan_select_k(lof, b.qres_s, recon8, b.base, k, strategy="fused",
+                                            kbuf=kb, inner_product=ip, chunk_rows=b.live)
+    vals, rows = _candidates(b, vals[:, :, :k], slot_idx[:, :, :k], slot_rows_pad, ip)
+    return _merge(b, vals, rows, queries.shape[0], n_probes, k, metric)
+
+
+def _search_impl_recon8_listmajor_pallas(queries, rotation, centers, recon8, recon_scale,
+                                         recon_norm, slot_rows_pad, k: int, n_probes: int,
+                                         metric: DistanceType, chunk: int = 128,
+                                         int8_queries: bool = False, fold: str = "exact"):
+    """List-major search with the bin-fold trim (ops/pq_list_scan.py):
+    per chunk, one kernel launch scores the list and folds each row's
+    scores into 256 bins, best and second best each, so only (chunk, 512)
+    candidates reach device memory; an exact top-min(k, 256) of them per
+    row and the shared exact merge finish. With `int8_queries` the rows
+    quantize through `_quantize_query_rows` and score int8 x int8 ->
+    int32, the same f32 values as the fused int8 trim's. Returns (values,
+    slot-row positions) (nq, k)."""
+    from raft_tpu_torch.ops.pq_list_scan import _BINS, pq_list_scan
+
+    ip = metric == DistanceType.InnerProduct
+    b = _listmajor_batch(queries, rotation, centers, recon_scale, recon_norm, slot_rows_pad,
+                         n_probes, metric, chunk)
+    lof = b.tables.lof
+    if int8_queries:
+        q8, row_scale = _quantize_query_rows(b.qres_s)
+        vals, slot_idx = pq_list_scan(lof, q8, recon8, b.base, inner_product=ip,
+                                      q_scale=row_scale, fold=fold, chunk_rows=b.live)
+    else:
+        vals, slot_idx = pq_list_scan(lof, b.qres_s, recon8, b.base, inner_product=ip,
+                                      fold=fold, chunk_rows=b.live)  # (ncb, chunk, 512)
+    vals, rows = _candidates(b, vals, slot_idx, slot_rows_pad, ip)
+    # trim the bin candidates to the merge width kk (a small exact top-k)
+    ncb, rows_per, cands = vals.shape
+    kk = min(int(k), _BINS)
+    tv, tpos = _select_k_impl(vals.reshape(ncb * rows_per, cands), kk, not ip)
+    tr = torch.gather(rows.reshape(ncb * rows_per, cands), 1, tpos)
+    return _merge(b, tv.reshape(ncb, rows_per, kk), tr.reshape(ncb, rows_per, kk),
+                  queries.shape[0], n_probes, k, metric)
 
 
 def search(params: SearchParams, index: Index, queries, k: int, prefilter=None
            ) -> Tuple[torch.Tensor, torch.Tensor]:
     """ANN search; returns (distances (nq, k) f32, neighbor source ids
     (nq, k) int32, -1 where fewer than k candidates exist), on the
-    index's device."""
+    index's device. Caps and shared-memory budgets are checked before
+    the first search builds the index's reconstruction store, so a
+    rejected request leaves the index as it was."""
     from raft_tpu_torch.matrix.select_k import check_fused_list_request
     from raft_tpu_torch.neighbors.probe_invert import macro_batched
-    from raft_tpu_torch.ops.fused_scan import lane_padded
+    from raft_tpu_torch.ops.pq_list_scan import _BINS, fits_pq_list_scan, fold_variant, lane_padded
 
-    if params.score_mode != "recon8_list":
-        raise _not_ported(f"score_mode={params.score_mode!r}")
-    if params.trim_engine != "fused":
-        raise _not_ported(f"trim_engine={params.trim_engine!r}")
-    if params.score_dtype != "bf16":
-        raise _not_ported(f"score_dtype={params.score_dtype!r}")
+    if params.score_dtype not in ("bf16", "int8"):
+        raise ValueError(f"unknown score_dtype {params.score_dtype!r}")
+    int8 = params.score_dtype == "int8"
+    mode = params.score_mode
+    if mode == "auto":
+        raise _not_ported("score_mode='auto'")
+    if int8 and mode != "recon8_list":
+        raise ValueError(
+            f"score_dtype='int8' requires score_mode 'recon8_list' or 'auto', got {mode!r}")
+    if mode != "recon8_list":
+        raise _not_ported(f"score_mode={mode!r}")
+    trim = params.trim_engine
+    if trim not in ("auto", "approx", "exact", "pallas", "fused"):
+        raise ValueError(f"unknown trim_engine {trim!r}")
+    if trim not in ("fused", "pallas"):
+        raise _not_ported(f"trim_engine={trim!r}")
     if params.adaptive:
         raise _not_ported("adaptive probing")
     if prefilter is not None:
@@ -497,18 +592,35 @@ def search(params: SearchParams, index: Index, queries, k: int, prefilter=None
     if index.size == 0:
         raise ValueError("index is empty")
     n_probes = int(min(max(1, params.n_probes), index.n_lists))
-    # caps and shared-memory budget checked BEFORE padding the store, at
-    # the buffer width the kernel will run with
-    kb = check_fused_list_request(
-        "trim_engine='fused'", lane_padded(int(index.codes.shape[1])), index.rot_dim,
-        int(k), index.fused_kb, "another trim_engine (not ported yet)")
-    build_reconstruction(index)
-    index.fused_kb = kb
+    lpad = lane_padded(int(index.codes.shape[1]))
+    if trim == "fused":
+        # at the buffer width the kernel will run with
+        kb = check_fused_list_request("trim_engine='fused'", lpad, index.rot_dim, int(k),
+                                      index.fused_kb, "trim_engine='pallas'", q_int8=int8)
+        build_reconstruction(index)
+        index.fused_kb = kb
 
-    vals, rows = macro_batched(
-        lambda sl: _search_impl_recon8_listmajor_fused(
-            sl, index.rotation, index.centers, index.recon8, index.recon_scale,
-            index.recon_norm, index.slot_rows_pad, int(k), n_probes, index.metric, kb=kb),
-        q, int(k))
+        def run(sl):
+            return _search_impl_recon8_listmajor_fused(
+                sl, index.rotation, index.centers, index.recon8, index.recon_scale,
+                index.recon_norm, index.slot_rows_pad, int(k), n_probes, index.metric, kb=kb,
+                int8_queries=int8)
+    else:
+        if int(k) > _BINS:
+            raise ValueError(f"trim_engine='pallas' caps per-list candidates at {_BINS}; k={k}")
+        if not fits_pq_list_scan(lpad, index.rot_dim, int8):
+            raise ValueError(
+                f"trim_engine='pallas': list length {lpad} or rot_dim {index.rot_dim} exceed "
+                "the kernel's shared-memory budget; use trim_engine='fused'")
+        build_reconstruction(index)
+        fold = fold_variant()
+
+        def run(sl):
+            return _search_impl_recon8_listmajor_pallas(
+                sl, index.rotation, index.centers, index.recon8, index.recon_scale,
+                index.recon_norm, index.slot_rows_pad, int(k), n_probes, index.metric,
+                int8_queries=int8, fold=fold)
+
+    vals, rows = macro_batched(run, q, int(k))
     ids = torch.where(rows >= 0, index.source_ids[torch.clamp(rows, min=0).long()], -1)
     return vals, ids.to(torch.int32)

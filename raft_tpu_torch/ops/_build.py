@@ -22,7 +22,8 @@ _PKG = Path(__file__).resolve().parent.parent
 CSRC = _PKG / "csrc"
 BUILD_DIR = _PKG / "_build"
 #: one shared library per kernel source
-KERNEL_SOURCES = ("fused_list_topk.cu", "fused_topk.cu")
+KERNEL_SOURCES = ("fused_list_topk.cu", "fused_topk.cu", "fused_list_topk_int8.cu",
+                  "pq_list_scan.cu")
 
 _lock = threading.Lock()
 _libs: dict = {}

@@ -1,15 +1,21 @@
 """Fused distance + exact select-k kernels (counterpart of raft_tpu/ops/fused_scan.py).
 
-Two wrappers, each over a hand-written CUDA kernel for Hopper
-(`csrc/fused_list_topk.cu`, `csrc/fused_topk.cu`) with a plain PyTorch
-version of the same function beside it:
+Three wrappers, each over a hand-written CUDA kernel for Hopper
+(`csrc/fused_topk.cu`, `csrc/fused_list_topk.cu`,
+`csrc/fused_list_topk_int8.cu`) with a plain PyTorch version of the same
+function beside it:
 
-  `fused_topk`      flat scan: every query against every dataset row,
-                    with a running exact top-k per query; only the
-                    (m, kbuf) result reaches device memory.
-  `fused_list_topk` list scan: each chunk of query rows against the one
-                    list `lof[chunk]` of a slot-table store, an exact
-                    top-k of the (chunk, L) scores per row.
+  `fused_topk`           flat scan: every query against every dataset row,
+                         with a running exact top-k per query; only the
+                         (m, kbuf) result reaches device memory.
+  `fused_list_topk`      list scan: each chunk of query rows against the
+                         one list `lof[chunk]` of a slot-table store, an
+                         exact top-k of the (chunk, L) scores per row.
+  `fused_list_topk_int8` the list scan on int8 query rows x an int8
+                         store: int32 dots, then the per-row scale
+                         (`int8_scores`, which `ops.pq_list_scan`'s int8
+                         rows share, so the two int8 engines score the same
+                         f32 values).
 
 Contracts (the JAX package's):
   - output (rows, kbuf) best-first, kbuf = fused_kbuf(k); slots past k,
@@ -17,7 +23,8 @@ Contracts (the JAX package's):
   - L2 scores are `base - 2<q,v>`, inner-product scores `base - <q,v>`;
     `base` is +inf on masked or padded slots;
   - operands are rounded to bf16 (round to nearest even) and the dots
-    accumulate in f32;
+    accumulate in f32; the int8 kernel's dots are exact int32 sums, and
+    its score rounds as the reference's does on the CPU (`int8_scores`);
   - ties go to the smaller slot / row id: the result is the k
     lexicographically smallest (score, id) pairs;
   - chunks with `chunk_valid == 0` write (+inf, sentinel) and do no work;
@@ -61,18 +68,23 @@ def fused_kbuf(k: int) -> int:
     return max(_LANES, -(-int(k) // _LANES) * _LANES)
 
 
-def lane_padded(width: int) -> int:
-    """Slot-axis width of a padded store: a multiple of 128, at least 256
-    (raft_tpu/ops/pq_list_scan.py:lane_padded)."""
-    return max(2 * _LANES, -(-width // _LANES) * _LANES)
-
-
-def _scan_smem_bytes(d: int) -> int:
-    """Shared memory of one block of either kernel (scan_smem_bytes in
-    csrc/fused_common.cuh): the tile's scores, the staged store tile and
-    the block's query rows. The running top-k lists live in registers."""
+def _dots_smem_bytes(d: int, q_int8: bool = False) -> int:
+    """Shared memory of a scoring policy's staging (Bf16Dots and
+    Int8Dots::smem_bytes in csrc/fused_common.cuh): the store tile, the
+    block's query rows and, for int8 rows, their scales."""
+    if q_int8:
+        depth = -(-d // 16) * 16               # i8_depth
+        stride = ((depth // 16) | 1) * 16      # i8_stride
+        return _TILE_SLOTS * stride + _ROWS * depth + 4 * _ROWS
     d_pad = -(-d // _D_STEP) * _D_STEP
-    return 4 * (_ROWS * _TILE_SLOTS + _TILE_SLOTS * _D_STRIDE + _ROWS * d_pad)
+    return 4 * (_TILE_SLOTS * _D_STRIDE + _ROWS * d_pad)
+
+
+def _topk_smem_bytes(d: int, q_int8: bool = False) -> int:
+    """Shared memory of one top-k block (topk_smem_bytes in
+    csrc/fused_common.cuh): the tile's scores, then the staging. The
+    running top-k lists live in registers."""
+    return 4 * _ROWS * _TILE_SLOTS + _dots_smem_bytes(d, q_int8)
 
 
 def fits_fused(m: int, n: int, d: int, k: int) -> bool:
@@ -80,18 +92,20 @@ def fits_fused(m: int, n: int, d: int, k: int) -> bool:
     streams through."""
     if not (0 < k <= FUSED_MAX_K and m >= 1 and n >= 1 and d >= 1):
         return False
-    return _scan_smem_bytes(d) <= SMEM_LIMIT
+    return _topk_smem_bytes(d) <= SMEM_LIMIT
 
 
-def fits_fused_list(L: int, rot: int, k: int, kbuf: Optional[int] = None) -> bool:
-    """Shared-memory budget of one `fused_list_topk` block (the list
-    streams through in tiles, so any length L that is a multiple of 128
-    fits). `kbuf` (the width the kernel will run with) must hold k."""
+def fits_fused_list(L: int, rot: int, k: int, kbuf: Optional[int] = None,
+                    q_int8: bool = False) -> bool:
+    """Shared-memory budget of one `fused_list_topk` block, or of one
+    `fused_list_topk_int8` block with `q_int8` (the list streams through
+    in tiles, so any length L that is a multiple of 128 fits). `kbuf` (the
+    width the kernel will run with) must hold k."""
     if not (0 < k <= FUSED_MAX_K):
         return False
     if kbuf is not None and int(kbuf) < fused_kbuf(k):
         return False
-    return L % _LANES == 0 and _scan_smem_bytes(rot) <= SMEM_LIMIT
+    return L % _LANES == 0 and _topk_smem_bytes(rot, q_int8) <= SMEM_LIMIT
 
 
 def _bf16(t: torch.Tensor) -> torch.Tensor:
@@ -140,7 +154,9 @@ def _tensor_arg(name, t, dtypes, ndim, device):
 
 
 _fns: dict = {}
-_launches = {"fused_topk": 0, "fused_list_topk": 0}
+#: launches per kernel, `ops.pq_list_scan` included
+_launches = {"fused_topk": 0, "fused_list_topk": 0, "fused_list_topk_int8": 0,
+             "pq_list_scan": 0}
 
 
 def _kernel_fn(source: str, name: str, argtypes):
@@ -247,6 +263,29 @@ def _live_rows(chunk_valid, chunk_rows, chunk: int):
     return live
 
 
+def _mask_dead_rows(vals, idx, live, fill_id: int):
+    """(+inf, fill_id) over the rows of each chunk at or past its live
+    count; `live` None leaves every row."""
+    if live is None:
+        return vals, idx
+    chunk = vals.shape[1]
+    dead = (torch.arange(chunk, device=live.device)[None, :] >= live[:, None])[..., None]
+    return torch.where(dead, float("inf"), vals), torch.where(dead, fill_id, idx)
+
+
+def _check_store_alignment(store, rot: int, int8_rows: bool) -> None:
+    """The kernels stage the store four elements a load when rot % 4 == 0
+    (csrc/fused_common.cuh: stage_tile), or sixteen bytes a load for int8
+    rows when rot % 16 == 0 (stage_tile_i8), which needs every row, and
+    so the store itself, aligned to that width; a view at an odd offset
+    would fault on the card."""
+    width = (16 if rot % 16 == 0 else 1) if int8_rows else (
+        4 * store.element_size() if rot % 4 == 0 else 1)
+    _check(store.data_ptr() % width == 0,
+           f"store must start on a {width}-byte boundary (a view at an odd offset; "
+           "pass store.clone())")
+
+
 def fused_list_topk_plain(lof, qres, store, base, k: int, kbuf: int,
                           inner_product: bool, chunk_valid=None, chunk_rows=None,
                           block_elems: int = 1 << 26):
@@ -266,13 +305,8 @@ def fused_list_topk_plain(lof, qres, store, base, k: int, kbuf: int,
         v, i = _lex_topk(scores, k, kbuf)
         outs_v.append(v)
         outs_i.append(i)
-    vals, idx = torch.cat(outs_v), torch.cat(outs_i)
-    live = _live_rows(chunk_valid, chunk_rows, chunk)
-    if live is not None:
-        dead = (torch.arange(chunk, device=live.device)[None, :] >= live[:, None])[..., None]
-        vals = torch.where(dead, float("inf"), vals)
-        idx = torch.where(dead, _ID_SENTINEL, idx)
-    return vals, idx
+    return _mask_dead_rows(torch.cat(outs_v), torch.cat(outs_i),
+                           _live_rows(chunk_valid, chunk_rows, chunk), _ID_SENTINEL)
 
 
 def fused_list_topk(lof, qres, store, base, k: int, *, kbuf: Optional[int] = None,
@@ -299,13 +333,7 @@ def fused_list_topk(lof, qres, store, base, k: int, *, kbuf: Optional[int] = Non
     _check(tuple(base.shape) == (n_lists, 1, L),
            f"base must be {(n_lists, 1, L)}, got {tuple(base.shape)}")
     _check(L % _LANES == 0, f"list length {L} must be a multiple of {_LANES}")
-    # the kernel stages the store four elements a load when rot % 4 == 0
-    # (csrc/fused_common.cuh: stage_tile), which needs every row, and so
-    # the store itself, aligned to four elements; a view at an odd offset
-    # would fault on the card
-    _check(rot % 4 != 0 or store.data_ptr() % (4 * store.element_size()) == 0,
-           "store must start on a 4-element boundary (a view at an odd offset; "
-           "pass store.clone())")
+    _check_store_alignment(store, rot, int8_rows=False)
     if chunk_valid is not None:
         _tensor_arg("chunk_valid", chunk_valid, (torch.int32,), 1, dev)
         _check(chunk_valid.shape[0] == ncb, "chunk_valid must have one entry per chunk")
@@ -334,6 +362,130 @@ def fused_list_topk(lof, qres, store, base, k: int, *, kbuf: Optional[int] = Non
                  int(bool(inner_product)), stream)
     _raise_on(err, "fused_list_topk")
     _launches["fused_list_topk"] += 1
+    return vals, idx
+
+
+# ---------------------------------------------------------------------------
+# int8 list scan: fused_list_topk_int8
+# ---------------------------------------------------------------------------
+
+
+def _fma_f32(a, b, c):
+    """f32 `a * b + c` rounded once, as a fused multiply-add rounds it,
+    where the product a * b is exact in float64 (here an integer below
+    2^24 times an f32). The f64 sum is rounded to odd (its error, exact by
+    TwoSum, sets the last bit) before the cast to f32, so the two
+    roundings give the correctly rounded f32 result."""
+    p = a.double() * b.double()
+    c = c.double()
+    s = c + p
+    pv = s - c
+    err = (c - (s - pv)) + (p - pv)
+    bits = s.view(torch.int64)
+    to_odd = (err != 0) & torch.isfinite(s) & ((bits & 1) == 0)
+    # away from zero where the exact sum lies beyond s, else towards it
+    step = torch.where((err > 0) == (s > 0), 1, -1)
+    return torch.where(to_odd, bits + step, bits).view(torch.float64).float()
+
+
+def int8_scores(idot, rs, base, inner_product: bool):
+    """Scores from exact integer dots (any dtype holding them exactly),
+    rounded as the JAX kernels round them on the CPU
+    (raft_tpu/ops/fused_scan.py:484-485, raft_tpu/ops/pq_list_scan.py:
+    184-200): L2 `base - 2 * (f32(idot) * rs)`, two roundings; inner
+    product `base - f32(idot) * rs` as one fused multiply-add. The CUDA
+    kernels compute the same (csrc/fused_common.cuh: int8_score)."""
+    f = idot.float()  # |idot| < 2^24: exact
+    if inner_product:
+        return _fma_f32(-f, rs, base)
+    return base - 2.0 * (f * rs)
+
+
+def _int8_list_scores(q8, store_rows, base_rows, rs, inner_product: bool):
+    """(b, chunk, L) int8 scores of chunk rows q8 (b, chunk, rot) against
+    their lists' rows (b, L, rot). The integer dots are exact in float64."""
+    idot = torch.bmm(q8.double(), store_rows.double().transpose(1, 2))
+    return int8_scores(idot, rs, base_rows, inner_product)
+
+
+def fused_list_topk_int8_plain(lof, q8, store, base, q_scale, k: int, kbuf: int,
+                               inner_product: bool, chunk_valid=None, chunk_rows=None,
+                               block_elems: int = 1 << 25):
+    """Plain PyTorch version of the int8 list kernel (same operands as
+    `fused_list_topk_int8`). Chunk blocks bound the gathered store copy."""
+    ncb, chunk, rot = q8.shape
+    L = store.shape[1]
+    outs_v, outs_i = [], []
+    cb = max(1, block_elems // max(1, L * rot))
+    for s in range(0, ncb, cb):
+        lids = lof[s:s + cb].long()
+        scores = _int8_list_scores(q8[s:s + cb], store[lids], base[lids], q_scale[s:s + cb],
+                                   inner_product)
+        v, i = _lex_topk(scores, k, kbuf)
+        outs_v.append(v)
+        outs_i.append(i)
+    return _mask_dead_rows(torch.cat(outs_v), torch.cat(outs_i),
+                           _live_rows(chunk_valid, chunk_rows, chunk), _ID_SENTINEL)
+
+
+def fused_list_topk_int8(lof, q8, store, base, q_scale, k: int, *, kbuf: Optional[int] = None,
+                         inner_product: bool = False, chunk_valid=None, chunk_rows=None):
+    """Exact fused int8 scan+select of each chunk's list: the
+    `fused_list_topk` contract (same outputs, same smaller-slot ties) with
+    int8 x int8 -> int32 dots and the per-row f32 scale.
+
+    lof (ncb,) int32; q8 (ncb, chunk, rot) int8 symmetric query rows;
+    store (n_lists, L, rot) int8; base (n_lists, 1, L) f32, +inf invalid;
+    q_scale (ncb, chunk, 1) f32 per-row scale; chunk_valid / chunk_rows as
+    for `fused_list_topk`. Returns ((ncb, chunk, kbuf) scores,
+    (ncb, chunk, kbuf) int32 in-list slots), best-first per row."""
+    _check(isinstance(q8, torch.Tensor), "q8 must be a tensor")
+    dev = q8.device
+    _check(q8.dtype == torch.int8 and getattr(store, "dtype", None) == torch.int8,
+           f"fused_list_topk_int8 requires int8 queries and store, got "
+           f"{q8.dtype}/{getattr(store, 'dtype', None)}")
+    _tensor_arg("lof", lof, (torch.int32,), 1, dev)
+    _tensor_arg("q8", q8, (torch.int8,), 3, dev)
+    _tensor_arg("store", store, (torch.int8,), 3, dev)
+    _tensor_arg("base", base, (torch.float32,), 3, dev)
+    _tensor_arg("q_scale", q_scale, (torch.float32,), 3, dev)
+    ncb, chunk, rot = q8.shape
+    n_lists, L, srot = store.shape
+    _check(srot == rot, f"store rows have {srot} columns, q8 {rot}")
+    _check(lof.shape[0] == ncb, f"lof has {lof.shape[0]} entries for {ncb} chunks")
+    _check(tuple(base.shape) == (n_lists, 1, L),
+           f"base must be {(n_lists, 1, L)}, got {tuple(base.shape)}")
+    _check(tuple(q_scale.shape) == (ncb, chunk, 1),
+           f"q_scale must be {(ncb, chunk, 1)}, got {tuple(q_scale.shape)}")
+    _check(L % _LANES == 0, f"list length {L} must be a multiple of {_LANES}")
+    _check_store_alignment(store, rot, int8_rows=True)
+    if chunk_valid is not None:
+        _tensor_arg("chunk_valid", chunk_valid, (torch.int32,), 1, dev)
+        _check(chunk_valid.shape[0] == ncb, "chunk_valid must have one entry per chunk")
+    if chunk_rows is not None:
+        _tensor_arg("chunk_rows", chunk_rows, (torch.int32,), 1, dev)
+        _check(chunk_rows.shape[0] == ncb, "chunk_rows must have one entry per chunk")
+    kb = fused_kbuf(k) if kbuf is None else int(kbuf)
+    _check(kb >= fused_kbuf(k), f"candidate buffer width {kb} cannot hold k={k}")
+    if dev.type == "cpu":
+        return fused_list_topk_int8_plain(lof, q8, store, base, q_scale, int(k), kb,
+                                          bool(inner_product), chunk_valid, chunk_rows)
+    _check(dev.type == "cuda", f"fused_list_topk_int8 runs on cpu or cuda, got {dev}")
+    _check(fits_fused_list(L, rot, int(k), kb, q_int8=True),
+           f"fused_list_topk_int8: L={L}, rot={rot} exceed the kernel's shared-memory budget")
+    vals = torch.empty((ncb, chunk, kb), dtype=torch.float32, device=dev)
+    idx = torch.empty((ncb, chunk, kb), dtype=torch.int32, device=dev)
+    fn = _kernel_fn("fused_list_topk_int8.cu", "fused_list_topk_int8_launch",
+                    [_P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _P])
+    live = _live_rows(chunk_valid, chunk_rows, chunk)
+    with torch.cuda.device(dev):
+        stream = torch.cuda.current_stream(dev).cuda_stream
+        err = fn(lof.data_ptr(), q8.data_ptr(), store.data_ptr(), base.data_ptr(),
+                 q_scale.data_ptr(), None if live is None else live.data_ptr(),
+                 vals.data_ptr(), idx.data_ptr(), ncb, chunk, rot, L, int(k), kb,
+                 int(bool(inner_product)), stream)
+    _raise_on(err, "fused_list_topk_int8")
+    _launches["fused_list_topk_int8"] += 1
     return vals, idx
 
 

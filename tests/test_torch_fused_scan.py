@@ -167,11 +167,12 @@ def test_fused_list_topk_plain_matches_jax_on_gaussian(rng, ip):
 
 def test_kbuf_and_lane_padding_match_jax():
     from raft_tpu.ops.pq_list_scan import lane_padded as jax_lane_padded
+    from raft_tpu_torch.ops.pq_list_scan import lane_padded
 
     for k in (1, 128, 129, 256):
         assert tfs.fused_kbuf(k) == jfs.fused_kbuf(k)
     for w in (1, 128, 255, 257, 1000):
-        assert tfs.lane_padded(w) == jax_lane_padded(w)
+        assert lane_padded(w) == jax_lane_padded(w)
     with pytest.raises(ValueError):
         tfs.fused_kbuf(257)
 

@@ -1,19 +1,22 @@
 """PyTorch port: the IVF-PQ slice against the JAX package.
 
-The slice: build -> search(score_mode="recon8_list", trim_engine="fused")
-for a 4k shortlist -> refine(strategy="fused") to k. The JAX fused
-kernels run in interpret mode; the port runs its plain versions on the
-CPU.
+The slice: build -> search(score_mode="recon8_list") for a 4k shortlist
+-> refine(strategy="fused") to k, through four engines: trim_engine
+"fused" or "pallas" (the bin fold), each on bf16 or int8 query rows. The
+JAX kernels run in interpret mode; the port runs its plain versions on
+the CPU.
 
 - `_decode_quantize` from identical codes and codebooks: the int8 store
   and the scales are equal; the decoded norms agree to rtol 1e-6 (sums
   in another order).
 - `label_and_encode` from identical rotation, centers and codebooks:
   labels and codes agree on at least 99.9% of rows (the rest near-ties).
-- Slice parity: a JAX-built index carried across with
+- Slice parity, for each engine: a JAX-built index carried across with
   `index_from_arrays`; the final ids agree in at least 99% of slots and
   the values to rtol 1e-4 where they agree (bf16 store scoring with sums
   in another order can swap near-tie candidates at the shortlist edge).
+- The two int8 trims score the same f32 values: with lists of at most
+  512 slots the bin fold loses nothing, so their shortlists are equal.
 - The port's own build reaches recall@10 within 0.03 of the JAX build's
   on the same data (the builds draw from different generators).
 """
@@ -31,6 +34,7 @@ from raft_tpu_torch.neighbors import ivf_pq as tpq
 from raft_tpu_torch.neighbors import probe_invert
 from raft_tpu_torch.neighbors.refine import refine as torch_refine
 from raft_tpu_torch.ops import fused_scan
+from raft_tpu_torch.ops.pq_list_scan import lane_padded
 
 N, DIM, NQ, K = 4000, 32, 64, 10
 N_LISTS, PQ_DIM, N_PROBES = 16, 16, 4
@@ -69,15 +73,16 @@ def _recall(ids, truth):
     return float(np.mean([len(set(ids[i]) & set(truth[i])) / K for i in range(len(truth))]))
 
 
-def _jax_slice(jindex, x, q):
-    sp = jpq.SearchParams(n_probes=N_PROBES, score_mode="recon8_list", trim_engine="fused")
+def _jax_slice(jindex, x, q, trim="fused", dtype="bf16"):
+    sp = jpq.SearchParams(n_probes=N_PROBES, score_mode="recon8_list", trim_engine=trim,
+                          score_dtype=dtype)
     _, cand = jpq.search(sp, jindex, q, 4 * K)
     v, i = jax_refine(x, q, cand, K, strategy="fused")
     return np.asarray(v), np.asarray(i), np.asarray(cand)
 
 
-def _port_slice(tindex, x, q):
-    sp = tpq.SearchParams(n_probes=N_PROBES)
+def _port_slice(tindex, x, q, trim="fused", dtype="bf16"):
+    sp = tpq.SearchParams(n_probes=N_PROBES, trim_engine=trim, score_dtype=dtype)
     _, cand = tpq.search(sp, tindex, torch.tensor(q), 4 * K)
     v, i = torch_refine(torch.tensor(x), torch.tensor(q), cand, K, strategy="fused",
                         device="cpu")
@@ -109,7 +114,7 @@ def test_label_and_encode_matches_jax(data, jax_index):
 def test_reconstruction_store_pads_to_lanes(jax_index):
     t = tpq.build_reconstruction(_port_index(jax_index))
     max_list = int(jax_index.codes.shape[1])
-    lpad = fused_scan.lane_padded(max_list)
+    lpad = lane_padded(max_list)
     assert t.recon8.shape == (N_LISTS, lpad, DIM) and t.recon8.dtype == torch.int8
     assert torch.all(t.slot_rows_pad[:, max_list:] == -1)
     assert torch.all(torch.isinf(t.recon_norm[:, max_list:]))
@@ -128,6 +133,66 @@ def test_slice_parity_on_a_carried_index(data, jax_index):
     assert same.mean() >= 0.99, same.mean()
     np.testing.assert_allclose(tv[same], jv[same], rtol=1e-4)
     assert abs(_recall(ti, truth) - _recall(ji, truth)) <= 0.01
+
+
+ENGINES = [("fused", "int8"), ("pallas", "bf16"), ("pallas", "int8")]
+
+
+@pytest.mark.parametrize("trim,dtype", ENGINES)
+def test_slice_parity_other_engines(data, jax_index, trim, dtype):
+    x, q, truth = data
+    jv, ji, jcand = _jax_slice(jax_index, x, q, trim, dtype)
+    tv, ti, tcand = _port_slice(_port_index(jax_index), x, q, trim, dtype)
+    assert ti.shape == (NQ, K) and ti.dtype == np.int32
+    shortlist = np.mean([len(set(tcand[r]) & set(jcand[r])) / (4 * K) for r in range(NQ)])
+    assert shortlist >= 0.99, shortlist
+    same = ti == ji
+    assert same.mean() >= 0.99, same.mean()
+    np.testing.assert_allclose(tv[same], jv[same], rtol=1e-4)
+    assert abs(_recall(ti, truth) - _recall(ji, truth)) <= 0.01
+
+
+def test_int8_trims_score_the_same_values(data):
+    """Both int8 trims quantize through one `_quantize_query_rows` and
+    score through one rounding, so with lists of at most 512 slots (the
+    bin fold keeps every slot) their shortlists are the same values and
+    ids."""
+    x, _, _ = data
+    tindex = tpq.build(tpq.IndexParams(n_lists=2 * N_LISTS, pq_dim=PQ_DIM, kmeans_n_iters=5), x,
+                       device="cpu")
+    assert lane_padded(int(tindex.codes.shape[1])) <= 512
+    q = torch.tensor(np.random.default_rng(11).standard_normal((40, DIM)).astype(np.float32))
+    out = [tpq.search(tpq.SearchParams(n_probes=N_PROBES, trim_engine=t, score_dtype="int8"),
+                      tindex, q, 4 * K) for t in ("fused", "pallas")]
+    (vf, i_f), (vp, i_p) = out
+    assert torch.equal(vf, vp)
+    for r in range(q.shape[0]):
+        assert set(i_f[r].tolist()) == set(i_p[r].tolist())
+
+
+def test_pallas_trim_caps_k_before_building_the_store(jax_index):
+    tindex = _port_index(jax_index)
+    for dtype in ("bf16", "int8"):
+        with pytest.raises(ValueError, match="256"):
+            tpq.search(tpq.SearchParams(trim_engine="pallas", score_dtype=dtype), tindex,
+                       torch.zeros((2, DIM)), 257)
+    with pytest.raises(ValueError, match="256"):
+        tpq.search(tpq.SearchParams(trim_engine="fused", score_dtype="int8"), tindex,
+                   torch.zeros((2, DIM)), 257)
+    assert tindex.recon8 is None and tindex.fused_kb is None
+
+
+@pytest.mark.parametrize("mode", ["lut", "recon8"])
+def test_int8_rows_need_the_list_major_mode(jax_index, mode):
+    with pytest.raises(ValueError, match="score_dtype='int8'"):
+        tpq.search(tpq.SearchParams(score_mode=mode, score_dtype="int8"), _port_index(jax_index),
+                   torch.zeros((2, DIM)), 5)
+    with pytest.raises(ValueError, match="score_dtype"):
+        tpq.search(tpq.SearchParams(score_dtype="fp8"), _port_index(jax_index),
+                   torch.zeros((2, DIM)), 5)
+    with pytest.raises(ValueError, match="trim_engine"):
+        tpq.search(tpq.SearchParams(trim_engine="warpsort"), _port_index(jax_index),
+                   torch.zeros((2, DIM)), 5)
 
 
 def test_port_build_recall_within_three_points_of_jax(data, jax_index):
@@ -225,8 +290,8 @@ def test_kernel_wrappers_check_dtype_and_contiguity():
 
 
 @pytest.mark.parametrize("change", [
-    {"score_mode": "lut"}, {"trim_engine": "approx"}, {"score_dtype": "int8"},
-    {"adaptive": True},
+    {"score_mode": "lut"}, {"trim_engine": "approx"}, {"trim_engine": "exact"},
+    {"adaptive": True}, {"trim_engine": "auto"}, {"score_mode": "auto", "score_dtype": "int8"},
 ])
 def test_search_paths_outside_the_slice_raise(jax_index, change):
     with pytest.raises(NotImplementedError, match="ROADMAP"):
