@@ -12,7 +12,11 @@ Phases, in order; any failure exits non-zero:
      shapes (ties, int8 values at +-127, ragged edges, +inf slots and
      tiles, dead rows, empty chunks, k past the finite slots, odd fold
      counts), and the int8 exact trim's values among the int8 bin fold's
-     candidates;
+     candidates; the pairwise kernel for every metric (ragged m, n, k,
+     k = 1, KL zeros, canberra zero denominators, integer grids bitwise),
+     the fused L2 argmin (duplicate rows, candidates that round below
+     zero, n = 1, sqrt) and the counting select (ties, +-0, +-inf, NaN,
+     k = 1 to L, rows of 128 to 1,048,576);
   4. the main path at full size: 1M x 96 clustered vectors (1024 blob
      centers U(-5, 5) plus unit gaussian noise, made from --seed), IVF-PQ
      build (n_lists 1024, pq_dim 48, kmeans_n_iters 10), exact truth with
@@ -24,7 +28,12 @@ Phases, in order; any failure exits non-zero:
      int8 rows. Gate: recall@10 >= 0.95 on some rung of every engine. Each
      engine is a path of its own: the launch counts are set to 0 just
      before it and read just after (the first path's window holds the
-     truth too), and each kernel of the path must have launched;
+     truth too), and each kernel of the path must have launched. A timed
+     A/B of the fused bf16 engine at n_probes 8 with select_k's earlier
+     float sort and its repaired order-key sort. Then three more paths on
+     the same data (slice_paths): the tiled L1 k-NN over every row, the
+     counting select on its first distance tile, and the fused L2 1-NN
+     labelling of the rotated rows against the index's coarse centres;
   5. each kernel against its plain version on the inputs the main path gave
      it, with kernel, plain and library times (CUDA events) and the bound;
   6. a JSON line of kernels, the card's line, then the device line last.
@@ -43,10 +52,21 @@ import numpy as np
 import torch
 
 #: H100 SXM peaks (NVIDIA data sheet, dense): bf16 and int8 tensor-core
-#: rates, HBM rate
+#: rates, f32 on the CUDA cores (an FMA counted as two), HBM rate; f32
+#: instructions a second: 132 SMs x 128 lanes x 1.98 GHz
 PEAK_BF16_FLOPS = 989e12
 PEAK_INT8_OPS = 1979e12
+PEAK_F32_FLOPS = 66.9e12
+PEAK_F32_INSTR = 33.5e12
 PEAK_HBM_BYTES = 3.35e12
+#: f32 instructions each pairwise term needs at least (the absolute value
+#: is a free operand modifier; a division and a logarithm count as one
+#: each, so the bound is a lower bound): l1 sub + add; linf sub + max; l2
+#: sub + fma; canberra sub, add, compare-select, div, add; KL two
+#: compares, div, log, fma, select; hamming compare-select + add. The two
+#: finalizes (sqrt, the 1/k scale) add one per output.
+TERM_OPS = {"l1": 2, "linf": 2, "l2_unexpanded": 2, "l2_sqrt_unexpanded": 2, "canberra": 5,
+            "kl_divergence": 6, "hamming": 2}
 RECALL_GATE = 0.95
 #: values agree to this relative tolerance, scaled by the row's largest
 #: finite magnitude (the f32 sums run in another order in kernel and plain)
@@ -346,6 +366,180 @@ def adversarial_checks(fs, pls, dev, rng):
         subset_case(f"int8 trims subset L 1280, {'ip' if ip else 'l2'}", 6, 16, 1280, 96, 3, ip)
 
 
+def matrix_compare(name, out, ref, exact):
+    """Hold a (m, n) distance matrix against its plain version: bitwise
+    where `exact`, else VAL_RTOL of the value plus VAL_RTOL of the row's
+    largest finite magnitude (the sums run in another order); non-finite
+    entries must match. Returns the max abs error over finite entries."""
+    out, ref = out.float(), ref.float()
+    if exact:
+        require_equal(name, (out, torch.zeros(1)), (ref, torch.zeros(1)))
+        return 0.0
+    fin = torch.isfinite(ref)
+    if not torch.equal(torch.where(fin, 0.0, out), torch.where(fin, 0.0, ref)):
+        raise AssertionError(f"{name}: non-finite entries differ")
+    scale = torch.where(fin, ref.abs(), 0.0).amax(dim=1, keepdim=True)
+    err = torch.where(fin, (out - ref).abs(), 0.0)
+    if bool((err > VAL_RTOL * torch.where(fin, ref.abs(), 0.0) + VAL_RTOL * scale).any()):
+        raise AssertionError(f"{name}: values differ by up to {float(err.max())}")
+    return float(err.max())
+
+
+#: pairwise metrics whose terms are exact on integer-grid data (canberra
+#: on values in {0, 1, 3}, whose terms are 0, 1/2 or 1): kernel and plain
+#: must agree bit for bit there; linf and hamming always
+GRID_EXACT = ("l1", "linf", "l2_unexpanded", "l2_sqrt_unexpanded", "hamming", "canberra")
+
+
+def expanded_floor(x, y):
+    """The rounding floor of an f32 distance computed in the expanded form
+    |x|^2 + |y|^2 - 2 x.y, row by row: 4 eps (|x|^2 + |y|^2 + 2|x.y|). The
+    terms cancel, so two f32 summation orders differ by up to this much
+    whatever the distance."""
+    x, y = x.double(), y.double()
+    eps = float(torch.finfo(torch.float32).eps)
+    return 4 * eps * ((x * x).sum(1) + (y * y).sum(1) + 2 * (x * y).sum(1).abs())
+
+
+def argmin_compare(name, out, ref, x, y):
+    """Hold a fused L2 argmin's (dist, idx) against its plain version's:
+    distances to VAL_RTOL of |d| plus the expanded form's f32 floor
+    (`expanded_floor` at the plain version's pick); where the ids differ,
+    the two candidates' float64 distances lie within that tolerance (a
+    near-tie the two summation orders may break either way). Returns
+    (max abs error, id agreement)."""
+    (kd, ki), (pd, pi) = (tuple(t.cpu() for t in o) for o in (out, ref))
+    floor = expanded_floor(x, y[pi.long().to(y.device)]).cpu()
+    tol = VAL_RTOL * pd.abs().double() + floor
+    err = (kd - pd).abs()
+    if bool((err > tol).any()):
+        raise AssertionError(f"{name}: distances differ by up to {float(err.max())}")
+    bad = (ki != pi).nonzero()[:, 0]
+    if bad.numel():
+        xr = x[bad.to(x.device)].double()
+        da = ((xr - y[ki[bad].long().to(y.device)].double()) ** 2).sum(1).cpu()
+        db = ((xr - y[pi[bad].long().to(y.device)].double()) ** 2).sum(1).cpu()
+        if bool(((da - db).abs() > tol[bad]).any()):
+            raise AssertionError(f"{name}: {bad.numel()} ids differ away from near-ties")
+    return float(err.max()), 1.0 - bad.numel() / max(1, ki.numel())
+
+
+def slice_checks(dev, rng):
+    """Kernels 8, 5 and 6 against their plain versions at adversarial
+    shapes: ragged m, n and k (and k = 1), KL rows with zeros, canberra
+    with zero denominators, hamming on 0..2, integer grids (bitwise);
+    duplicate rows of y, candidates that round below zero, n = 1, sqrt on
+    and off; heavy ties, +-0.0, +-inf and NaN, k = 1, k = L, k past the
+    finite values, L from 128 to 1,048,576 (a row that does not fit in
+    shared memory)."""
+    from raft_tpu_torch.ops import fused_l2_argmin as fla
+    from raft_tpu_torch.ops import pairwise_tiled as pt
+    from raft_tpu_torch.ops import select_counting as sc
+
+    def operands(metric, m, n, k, grid):
+        if grid:
+            vals = np.array([0, 1, 3]) if metric in ("canberra", "kl_divergence") else np.arange(-3, 4)
+            x, y = rng.choice(vals, (m, k)), rng.choice(vals, (n, k))
+        elif metric == "kl_divergence":
+            x = rng.random((m, k)) * (rng.random((m, k)) > 0.3)
+            y = rng.random((n, k)) * (rng.random((n, k)) > 0.3)
+            x, y = x / np.maximum(x.sum(1, keepdims=True), 1e-6), y / np.maximum(
+                y.sum(1, keepdims=True), 1e-6)
+        elif metric == "hamming":
+            x, y = rng.integers(0, 3, (m, k)), rng.integers(0, 3, (n, k))
+        else:
+            x, y = rng.standard_normal((m, k)), rng.standard_normal((n, k))
+            if metric == "canberra":
+                x[0, :], y[:3, : max(1, k // 2)] = 0.0, 0.0  # zero denominators
+        return (torch.tensor(x.astype(np.float32), device=dev),
+                torch.tensor(y.astype(np.float32), device=dev))
+
+    for metric in pt.METRIC_OPS:
+        for (m, n, k), grid in (((33, 47, 10), False), ((33, 47, 1), False), ((33, 47, 10), True),
+                                ((130, 257, 96), False), ((257, 130, 97), True)):
+            x, y = operands(metric, m, n, k, grid)
+            out = pt.pairwise_tiled(x, y, metric)
+            ref = pt.pairwise_tiled_plain(x, y, metric)
+            exact = metric in ("linf", "hamming") or (grid and metric in GRID_EXACT)
+            err = matrix_compare(f"pairwise_tiled {metric} {m}x{n}x{k}", out, ref, exact)
+            log(f"check pairwise_tiled {metric} {m}x{n}x{k}{' grid' if grid else ''}: ok, "
+                + ("bitwise equal" if exact else f"max_abs_err {err}"))
+
+    def argmin_case(name, x, y, sqrt, exact=False):
+        out = fla.fused_l2_argmin(x, y, sqrt=sqrt)
+        ref = fla.fused_l2_argmin_plain(x, y, sqrt=sqrt)
+        if exact:
+            require_equal(name, out, ref)
+            log(f"check {name}: ok, bitwise equal")
+            return out
+        err, agree = argmin_compare(name, out, ref, x, y)
+        log(f"check {name}: ok, max_abs_err {err}, id agreement {agree}")
+        return out
+
+    for sqrt in (False, True):
+        for m, n, k in ((70, 300, 12), (1000, 1, 96), (257, 129, 97), (33, 1024, 5)):
+            g = lambda s: torch.tensor(rng.integers(-3, 4, s).astype(np.float32), device=dev)
+            x, y = g((m, k)), g((n, k))
+            y[n // 2:] = y[:n - n // 2].clone()  # duplicate rows: the lower index wins
+            argmin_case(f"fused_l2_argmin grid {m}x{n}x{k} sqrt={sqrt}", x, y, sqrt, exact=True)
+            x = torch.tensor(rng.standard_normal((m, k)).astype(np.float32), device=dev)
+            y = torch.tensor(rng.standard_normal((n, k)).astype(np.float32), device=dev)
+            argmin_case(f"fused_l2_argmin gaussian {m}x{n}x{k} sqrt={sqrt}", x, y, sqrt)
+    # duplicates of the query rows at several indices: the lowest wins
+    y = torch.tensor(rng.standard_normal((300, 8)).astype(np.float32), device=dev)
+    y[130], y[257] = y[5], y[5]
+    _, i = argmin_case("fused_l2_argmin duplicate rows", y[[5, 130, 257, 7]].clone(), y, False)
+    if i.tolist() != [5, 5, 5, 7]:
+        raise AssertionError(f"fused_l2_argmin duplicate rows: ids {i.tolist()}")
+    # k = 1, y = x + j ulp: many candidates round below zero; after the
+    # clamp they tie at 0.0 and the lowest index whose kernel arithmetic
+    # (xn + fma(x, -2y, yn), emulated exactly in float64) is <= 0 wins
+    x0 = np.float32(1 + 2**-12)
+    yv = (x0 + np.arange(-40, 41, dtype=np.float32) * np.float32(2**-23)).astype(np.float32)
+    x, y = torch.tensor([[x0]], device=dev), torch.tensor(yv[:, None], device=dev)
+    d, i = argmin_case("fused_l2_argmin rounds below zero", x, y, False)
+    xn, yn = np.float32(x0) * np.float32(x0), yv * yv
+    acc = (yn.astype(np.float64) + np.float64(x0) * (-2.0 * yv.astype(np.float64))).astype(np.float32)
+    raw = (np.float64(xn) + acc.astype(np.float64)).astype(np.float32)
+    want = int(np.nonzero(np.maximum(raw, 0) == np.maximum(raw, 0).min())[0][0])
+    if int(i[0]) != want or float(d[0]) != float(max(raw.min(), 0.0)):
+        raise AssertionError(f"fused_l2_argmin rounds below zero: ({float(d[0])}, {int(i[0])}), "
+                             f"want index {want}")
+
+    def counting_case(name, vals, k):
+        t = torch.tensor(vals, device=dev)
+        out = sc.counting_select_min(t, k)
+        ref = sc.counting_select_min_plain(t, k)
+        nan = torch.isnan(ref[0])
+        if not torch.equal(torch.isnan(out[0]), nan):
+            raise AssertionError(f"{name}: NaN slots differ")
+        require_equal(name, (torch.where(nan, 0.0, out[0]), out[1]),
+                      (torch.where(nan, 0.0, ref[0]), ref[1]))
+        log(f"check {name}: ok, bitwise equal")
+
+    def padded(x):
+        pad = (-x.shape[1]) % 128
+        return np.pad(x, ((0, 0), (0, pad)), constant_values=np.inf).astype(np.float32)
+
+    ties = rng.integers(0, 6, (9, 1000)).astype(np.float32)
+    specials = rng.choice(np.array([0.0, -0.0, np.inf, -np.inf, np.nan, 1.0, -1.0], np.float32),
+                          (9, 1000)).astype(np.float32)
+    for k in (1, 10, 300, 1000, 1024):
+        counting_case(f"counting ties L 1000 padded k={k}", padded(ties), k)
+        counting_case(f"counting +-0/+-inf/NaN L 1000 padded k={k}", padded(specials), k)
+    short = rng.standard_normal((5, 128)).astype(np.float32)
+    short[:, 40:] = np.inf  # k past the finite values: real +inf before the pad
+    for k in (1, 40, 64, 128):
+        counting_case(f"counting L 128 k={k}", short, k)
+    wide = rng.integers(-50, 50, (6, 32768)).astype(np.float32)
+    for k in (1, 10, 256, 32768):
+        counting_case(f"counting L 32768 k={k}", wide, k)
+    long = rng.standard_normal((2, 1 << 20)).astype(np.float32)
+    long[1] = np.round(long[1])
+    for k in (1, 10, 1000):
+        counting_case(f"counting L 1048576 (device-memory row) k={k}", long, k)
+
+
 # ---------------------------------------------------------------------------
 # phase 4: the main path
 # ---------------------------------------------------------------------------
@@ -400,7 +594,11 @@ ENGINES = (("fused", "int8"), ("pallas", "bf16"), ("pallas", "int8"))
 PATH_KERNELS = {("fused", "bf16"): ("fused_topk", "fused_list_topk"),
                 ("fused", "int8"): ("fused_list_topk_int8", "fused_list_topk"),
                 ("pallas", "bf16"): ("pq_list_scan", "fused_list_topk"),
-                ("pallas", "int8"): ("pq_list_scan", "fused_list_topk")}
+                ("pallas", "int8"): ("pq_list_scan", "fused_list_topk"),
+                # the distance and selection slice (slice_paths)
+                ("knn", "l1"): ("pairwise_tiled",),
+                ("select_k", "counting"): ("counting_select_min",),
+                ("fused_l2_nn", "argmin"): ("fused_l2_argmin",)}
 
 
 def main_path(g, dev, fs, pls, sync):
@@ -488,9 +686,166 @@ def main_path(g, dev, fs, pls, sync):
             if n_probes == 8:
                 captured[(trim, dtype)] = spy.calls[0]
         launches[(trim, dtype)] = fs.launch_counts()
+    ab = sorted_top_ab(g, lambda: refine(
+        dataset, queries, ivf_pq.search(ivf_pq.SearchParams(n_probes=8), index, queries,
+                                        4 * g.k)[1], g.k, strategy="fused", device=dev), sync)
     return {"build_s": build_s, "truth_s": truth_s, "rungs": rungs, "breakdown": breakdown,
-            "dataset": dataset, "queries": queries, "truth": truth,
-            "launches": launches}, captured
+            "dataset": dataset, "queries": queries, "truth": truth, "index": index,
+            "launches": launches, "sorted_top_ab": ab}, captured
+
+
+def _float_sort_top(vals, k, largest):
+    """`matrix.select_k._sorted_top` as it was before the signed-zero
+    repair: a stable sort of the values themselves, which ranks -0.0 and
+    +0.0 as equal. Kept here only to time the repair against it."""
+    v, i = torch.sort(vals, dim=-1, descending=largest, stable=True)
+    return v[..., :k], i[..., :k]
+
+
+def sorted_top_ab(g, run, sync):
+    """QPS of the fused bf16 engine at n_probes 8 + refine (its coarse
+    select and merges go through `_sorted_top`) with the earlier float
+    sort and with the repaired order-key sort, in turns: earlier,
+    repaired, repaired, earlier; each turn QPS over g.windows windows of
+    g.batch_reps back-to-back batches."""
+    from raft_tpu_torch.matrix import select_k as sk
+
+    repaired, out = sk._sorted_top, {"earlier": [], "repaired": []}
+    try:
+        for label in ("earlier", "repaired", "repaired", "earlier"):
+            sk._sorted_top = _float_sort_top if label == "earlier" else repaired
+            run()
+            secs = 0.0
+            for _ in range(g.windows):
+                sync()
+                t0 = time.perf_counter()
+                for _ in range(g.batch_reps):
+                    run()
+                sync()
+                secs += time.perf_counter() - t0
+            out[label].append(g.nq * g.batch_reps * g.windows / secs)
+    finally:
+        sk._sorted_top = repaired
+    log(f"_sorted_top A/B, fused bf16 n_probes 8 + refine: earlier float sort "
+        f"{out['earlier'][0]:.1f} / {out['earlier'][1]:.1f} qps, repaired order-key sort "
+        f"{out['repaired'][0]:.1f} / {out['repaired'][1]:.1f} qps (turns 1, 4 / 2, 3)")
+    return out
+
+
+def l1_truth_check(dataset, queries, ids, k):
+    """The L1 k-NN ids of 16 queries against numpy float64 L1 over every
+    row (summed in blocks of rows). Returns the agreement."""
+    ds = dataset.cpu().numpy()
+    qs = queries[:16].cpu().numpy().astype(np.float64)
+    d = np.empty((16, ds.shape[0]))
+    for s in range(0, ds.shape[0], 1 << 16):
+        blk = ds[s:s + (1 << 16)].astype(np.float64)
+        d[:, s:s + blk.shape[0]] = np.abs(qs[:, None, :] - blk[None, :, :]).sum(-1)
+    ref = np.argsort(d, axis=1, kind="stable")[:, :k]
+    return recall(ids[:16], torch.from_numpy(ref))
+
+
+def slice_paths(g, dev, res, sync):
+    """The distance and selection slice on the main path's data, three
+    paths, each with its launch counts set to 0 just before it and read
+    just after:
+      1. brute_force.knn(metric="l1"), tiled over every row (pairwise_tiled
+         on each 32,768-row tile); QPS over three calls; ids against numpy
+         float64 L1 for 16 queries, agreement >= 0.99;
+      2. select_k(strategy="counting") on the first L1 distance tile;
+         ids and values equal to select_k(strategy="topk");
+      3. fused_l2_nn_argmin of the rotated rows against the index's coarse
+         centres (the build's own labelling), against
+         kmeans_balanced.predict: differing rows must be float64 near-ties
+         (1e-5 relative); distances against numpy float64 on 16,384 rows,
+         rtol 1e-5."""
+    from raft_tpu_torch.cluster import kmeans_balanced
+    from raft_tpu_torch.core.config import strict_f32_matmul
+    from raft_tpu_torch.distance.fused_l2_nn import fused_l2_nn, fused_l2_nn_argmin
+    from raft_tpu_torch.matrix.select_k import select_k
+    from raft_tpu_torch.neighbors import brute_force
+    from raft_tpu_torch.ops import _launch
+    from raft_tpu_torch.ops import pairwise_tiled as pt
+
+    dataset, queries, k = res["dataset"], res["queries"], g.k
+    out = {"launches": {}}
+
+    _launch.reset_launch_counts()
+    with Spy(pt, "pairwise_tiled") as spy:
+        _, ids = brute_force.knn(dataset, queries, k, metric="l1", device=dev)
+        sync()
+    t0 = time.perf_counter()
+    for _ in range(3):
+        brute_force.knn(dataset, queries, k, metric="l1", device=dev)
+    sync()
+    secs = (time.perf_counter() - t0) / 3
+    out["launches"][("knn", "l1")] = _launch.launch_counts()
+    agree = l1_truth_check(dataset, queries, ids, k)
+    out["knn_l1"] = {"qps": g.nq / secs, "call_s": secs, "agreement": agree,
+                     "tiles": len(spy.calls)}
+    log(f"path knn l1: {g.nq / secs:.1f} qps ({secs:.4f} s a {g.nq}-query call over "
+        f"{dataset.shape[0]} rows, mean of 3), ids vs numpy float64 L1 (16 queries x "
+        f"{dataset.shape[0]} rows): agreement {agree:.4f}")
+    if agree < 0.99:
+        raise AssertionError(f"L1 k-NN disagrees with numpy float64: {agree}")
+    out["tile_inputs"] = spy.calls[0][0][:2]
+
+    tile = pt.pairwise_tiled(*out["tile_inputs"], "l1")
+    tile = tile[:, :tile.shape[1] // 128 * 128].contiguous()
+    _launch.reset_launch_counts()
+    cv, ci = select_k(tile, k, strategy="counting", device=dev)
+    sync()
+    out["launches"][("select_k", "counting")] = _launch.launch_counts()
+    tv, ti = select_k(tile, k, strategy="topk", device=dev)
+    require_equal("select_k counting vs topk (L1 tile)", (cv, ci), (tv, ti))
+    out["tile"] = tile
+    log(f"path select_k counting on the first L1 tile {tuple(tile.shape)}, k {k}: ids and "
+        f"values equal to strategy='topk'")
+
+    index = res["index"]
+    strict_f32_matmul()
+    v_rot = dataset @ index.rotation.T
+    centers = index.centers
+    _launch.reset_launch_counts()
+    labels = fused_l2_nn_argmin(v_rot, centers, device=dev)
+    dist, _ = fused_l2_nn(v_rot[:16384], centers, device=dev)
+    sync()
+    out["launches"][("fused_l2_nn", "argmin")] = _launch.launch_counts()
+    ref = kmeans_balanced.predict(v_rot, centers, device=dev)
+    differ = (labels.long() != ref).nonzero()[:, 0]
+    if differ.numel():
+        rows = v_rot[differ].double()
+        da = ((rows - centers[labels[differ].long()].double()) ** 2).sum(1)
+        db = ((rows - centers[ref[differ]].double()) ** 2).sum(1)
+        if bool(((da - db).abs() > 1e-5 * torch.maximum(da, db)).any()):
+            raise AssertionError("fused_l2_nn labels differ from kmeans_balanced.predict away "
+                                 "from float64 near-ties")
+    label_agree = 1.0 - differ.numel() / labels.numel()
+    # float64 distance to the nearest centre against rtol 1e-5 plus the f32
+    # expanded form's own rounding floor (`expanded_floor`): a row that
+    # sits on a centre (a singleton list) is 0 in float64, ~eps |x|^2 in f32
+    x64 = v_rot[:16384].cpu().numpy().astype(np.float64)
+    c64 = centers.cpu().numpy().astype(np.float64)
+    full = (x64 * x64).sum(1)[:, None] + (c64 * c64).sum(1)[None, :] - 2.0 * x64 @ c64.T
+    near = full.argmin(1)
+    d64 = ((x64 - c64[near]) ** 2).sum(1)
+    floor = expanded_floor(torch.from_numpy(x64), torch.from_numpy(c64[near])).numpy()
+    err = np.abs(dist.cpu().numpy().astype(np.float64) - d64)
+    if bool((err > 1e-5 * d64 + floor).any()):
+        raise AssertionError(f"fused_l2_nn distances differ from float64 beyond rtol 1e-5 and "
+                             f"the f32 floor (max abs error {err.max()})")
+    away = d64 >= 100 * floor  # rows whose distance is not cancellation-dominated
+    rel = float((err[away] / d64[away]).max()) if away.any() else 0.0
+    over = int((err > 1e-5 * d64).sum())
+    out["fused_l2_nn"] = {"label_agreement": label_agree, "differing_rows": int(differ.numel()),
+                          "dist_max_rel_err": rel, "rows_past_rtol_within_floor": over}
+    out["rotated"], out["centers"] = v_rot, centers
+    log(f"path fused_l2_nn: labels of {labels.numel()} rotated rows vs kmeans_balanced.predict: "
+        f"agreement {label_agree:.6f} ({differ.numel()} rows differ, all float64 near-ties); "
+        f"distances vs numpy float64 on 16384 rows: max relative error {rel:.3e} (rows at "
+        f"least 100 floors from a centre), {over} rows past rtol 1e-5 and within the f32 floor "
+        f"of the expanded form")
+    return out
 
 
 def device_breakdown(run, reps, batch_ms):
@@ -783,6 +1138,122 @@ def fold_kernel_row(pls, call, launches, reps, label, fold):
             "shape": f"{label}: ncb={ncb} chunk={chunk} L={L} rot={rot}"}
 
 
+def pairwise_rows(slice_res, launches, reps):
+    """Kernel 8 at the brute-force tile shape (the first L1 tile's inputs:
+    the queries against 32,768 dataset rows), one row per metric: l1,
+    linf, the two L2 and canberra on the blobs, KL on the blobs' absolute
+    values normalised to sum 1, hamming on the blobs rounded to integers.
+    Library: torch.cdist where one call computes the same function."""
+    from raft_tpu_torch.ops import pairwise_tiled as pt
+
+    x, y = slice_res["tile_inputs"]
+    m, k = x.shape
+    n = y.shape[0]
+    xa, ya = x.abs(), y.abs()
+    inputs = {"kl_divergence": (xa / xa.sum(1, keepdim=True), ya / ya.sum(1, keepdim=True)),
+              "hamming": (x.round(), y.round())}
+    library = {"l1": {"p": 1.0}, "linf": {"p": float("inf")},
+               "l2_sqrt_unexpanded": {"p": 2.0, "compute_mode": "donot_use_mm_for_euclid_dist"},
+               "hamming": {"p": 0.0}}
+    rows = []
+    for metric in pt.METRIC_OPS:
+        a, b = inputs.get(metric, (x, y))
+        finalize = metric in ("l2_sqrt_unexpanded", "hamming")
+        ops = TERM_OPS[metric] * m * n * k + (m * n if finalize else 0)
+        b_ms, b_by, terms = bound_ms(ops, (m + n) * k * 4 + m * n * 4, PEAK_F32_INSTR)
+
+        def kernel():
+            return pt.pairwise_tiled(a, b, metric)
+
+        def plain():
+            return pt.pairwise_tiled_plain(a, b, metric)
+
+        exact = metric in ("linf", "hamming")
+        err = matrix_compare(f"pairwise_tiled {metric} (L1 tile)", kernel(), plain(), exact)
+        ms = time_ms(kernel, reps)
+        plain_ms = time_ms(plain, 1, warmup=0)
+        lib_ms = None
+        if metric in library:
+            lib_ms = time_ms(lambda: torch.cdist(a, b, **library[metric]), reps)
+        log(f"kernel pairwise_tiled {metric} (L1 tile): m {m}, n {n}, k {k}: {ms:.4f} ms, plain "
+            f"{plain_ms:.4f} ms, library {'-' if lib_ms is None else f'{lib_ms:.4f} ms'}, "
+            f"bound {b_ms:.4f} ms ({b_by}; ops {terms['ops_ms']:.4f}, bytes "
+            f"{terms['bytes_ms']:.4f}), " + ("bitwise equal to plain" if exact else
+                                             f"max_abs_err {err}"))
+        rows.append({"name": "pairwise_tiled", "route": "cuda",
+                     "source": "raft_tpu_torch/csrc/pairwise_tiled.cu",
+                     "replaces": "raft_tpu/ops/pairwise_pallas.py:113", "launches": launches,
+                     "max_abs_err": err, "ms": ms, "plain_ms": plain_ms, "bound_ms": b_ms,
+                     "bound_by": b_by, "library_ms": lib_ms, "bound_terms": terms,
+                     "metric": metric, "shape": f"L1 tile: m={m} n={n} k={k}"})
+    return rows
+
+
+def argmin_row(slice_res, launches, reps):
+    """Kernel 5 at the build's labelling shape: the rotated rows against
+    the coarse centres. Library: one f32 addmm (|c|^2 - 2 x.c, TF32 off)
+    and torch.min over it."""
+    from raft_tpu_torch.core.config import strict_f32_matmul
+    from raft_tpu_torch.ops import fused_l2_argmin as fla
+
+    x, y = slice_res["rotated"], slice_res["centers"]
+    m, k = x.shape
+    n = y.shape[0]
+    b_ms, b_by, terms = bound_ms(2.0 * m * n * (k + 1), (m + n) * k * 4 + m * 8, PEAK_F32_FLOPS)
+
+    def kernel():
+        return fla.fused_l2_argmin(x, y)
+
+    def plain():
+        return fla.fused_l2_argmin_plain(x, y)
+
+    err, agree = argmin_compare("fused_l2_argmin (labelling)", kernel(), plain(), x, y)
+    ms = time_ms(kernel, reps)
+    plain_ms = time_ms(plain, 1, warmup=0)
+    strict_f32_matmul()
+    yn = (y * y).sum(1)
+    lib_ms = time_ms(lambda: torch.min(torch.addmm(yn, x, y.T, alpha=-2.0), dim=1), reps)
+    log(f"kernel fused_l2_argmin (labelling): m {m}, n {n}, k {k}: {ms:.4f} ms, plain "
+        f"{plain_ms:.4f} ms, library {lib_ms:.4f} ms, bound {b_ms:.4f} ms ({b_by}; ops "
+        f"{terms['ops_ms']:.4f}, bytes {terms['bytes_ms']:.4f}), max_abs_err {err}, id "
+        f"agreement {agree}")
+    return {"name": "fused_l2_argmin", "route": "cuda",
+            "source": "raft_tpu_torch/csrc/fused_l2_argmin.cu",
+            "replaces": "raft_tpu/ops/fused_l2_argmin.py:114", "launches": launches,
+            "max_abs_err": err, "ms": ms, "plain_ms": plain_ms, "bound_ms": b_ms,
+            "bound_by": b_by, "library_ms": lib_ms, "bound_terms": terms,
+            "shape": f"labelling: m={m} n={n} k={k}"}
+
+
+def counting_row(slice_res, launches, reps, k):
+    """Kernel 6 on the first L1 distance tile. Library: torch.topk."""
+    from raft_tpu_torch.ops import select_counting as sc
+
+    tile = slice_res["tile"]
+    B, L = tile.shape
+    b_ms, b_by, terms = bound_ms(0.0, B * L * 4 + B * k * 8)
+
+    def kernel():
+        return sc.counting_select_min(tile, k)
+
+    def plain():
+        return sc.counting_select_min_plain(tile, k)
+
+    require_equal("counting_select_min (L1 tile)", kernel(), plain())
+    ms = time_ms(kernel, reps)
+    plain_ms = time_ms(plain, 1, warmup=0)
+    lib_ms = time_ms(lambda: torch.topk(tile, k, dim=1, largest=False), reps)
+    log(f"kernel counting_select_min (L1 tile): B {B}, L {L}, k {k}: {ms:.4f} ms, plain "
+        f"{plain_ms:.4f} ms, library {lib_ms:.4f} ms, bound {b_ms:.4f} ms ({b_by}), bitwise "
+        f"equal to plain")
+    return {"name": "counting_select_min", "route": "cuda",
+            "source": "raft_tpu_torch/csrc/select_counting.cu",
+            "replaces": "raft_tpu/ops/select_counting.py:140", "launches": launches,
+            "max_abs_err": 0.0, "ms": ms, "plain_ms": plain_ms, "bound_ms": b_ms,
+            "bound_by": b_by, "library_ms": lib_ms, "bound_terms": terms,
+            "shape": f"L1 tile: B={B} L={L} k={k}"}
+
+
 # ---------------------------------------------------------------------------
 
 
@@ -835,6 +1306,7 @@ def main(argv=None):
                 if "registers" in line or "spill" in line:
                     log(f"  {src}: {line.strip()}")
     adversarial_checks(fs, pls, dev, np.random.default_rng(g.seed + 1))
+    slice_checks(dev, np.random.default_rng(g.seed + 2))
 
     fs.reset_launch_counts()
     res, captured = main_path(g, dev, fs, pls, sync)
@@ -849,10 +1321,14 @@ def main(argv=None):
         if best < RECALL_GATE:
             raise AssertionError(f"trim={trim} score_dtype={dtype}: no rung reached "
                                  f"recall@{g.k} >= {RECALL_GATE} (best {best})")
+    sl = slice_paths(g, dev, res, sync)
+    for path, counts in sl["launches"].items():
+        log(f"path {' '.join(path)}: launches {counts}")
+    launches.update(sl["launches"])
+    for path, counts in launches.items():
         missing = [name for name in PATH_KERNELS[path] if counts[name] <= 0]
         if missing and dev.type == "cuda":
-            raise AssertionError(f"trim={trim} score_dtype={dtype}: kernels never launched "
-                                 f"on the path: {missing}")
+            raise AssertionError(f"path {path}: kernels never launched on the path: {missing}")
 
     def n(path, name):
         return launches[path][name]
@@ -872,10 +1348,16 @@ def main(argv=None):
             fold_kernel_row(pls, captured[("pallas", "int8")],
                             n(("pallas", "int8"), "pq_list_scan"), g.reps,
                             "IVF-PQ bin trim, packed fold, int8 rows, n_probes 8", "packed")]
+    rows += pairwise_rows(sl, n(("knn", "l1"), "pairwise_tiled"), g.reps)
+    rows.append(argmin_row(sl, n(("fused_l2_nn", "argmin"), "fused_l2_argmin"), g.reps))
+    rows.append(counting_row(sl, n(("select_k", "counting"), "counting_select_min"), g.reps,
+                             g.k))
     refine_row = list_kernel_row(fs, captured["refine"], n(("fused", "bf16"), "fused_list_topk"),
                                  g.reps, "refine, chunk 1")
     summary = {"build_s": res["build_s"], "truth_s": res["truth_s"], "rungs": res["rungs"],
-               "breakdown": res["breakdown"], "refine_kernel": refine_row, "wall_s": time.perf_counter() - t_all}
+               "breakdown": res["breakdown"], "refine_kernel": refine_row,
+               "sorted_top_ab": res["sorted_top_ab"], "knn_l1": sl["knn_l1"],
+               "fused_l2_nn": sl["fused_l2_nn"], "wall_s": time.perf_counter() - t_all}
     log("summary " + json.dumps(summary))
     if dev.type != "cuda":
         log("rehearsal complete: control flow ran on the CPU; no result printed")

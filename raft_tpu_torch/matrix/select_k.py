@@ -1,9 +1,18 @@
 """select_k: batched top-k selection (counterpart of raft_tpu/matrix/select_k.py).
 
-The tie rule is pinned: equal values go to the smaller index, the order
-`lax.top_k` gives the JAX reference. `torch.topk` promises no tie order,
-so selection here is a stable sort, which keeps equal values in index
-order in both directions.
+The order is pinned to the one `lax.top_k` gives the JAX reference: the
+total order of the float bits (-0.0 strictly before +0.0, NaNs at the
+ends by sign), equal values to the smaller index. `torch.topk` promises
+no tie order and `torch.sort` treats the two zeros as equal, so selection
+here is a stable sort of the order-preserving integer image of the bits
+(`_order_key`), which keeps equal keys in index order in both directions.
+
+`select_k` strategies: "topk" and "two_phase" (the chunked path for long
+rows) select with that sort; "counting" runs the `counting_select_min`
+kernel (ops/select_counting.py) on the f32 image and sorts only the k
+survivors. `strategy=None` never promotes to "counting": the JAX package
+does so only on a TPU backend under a tuned key, and tuned values do not
+carry over.
 
 `scan_select_k` is the operand-level door: "fused" hands scoring and
 selection to the fused kernel (ops/fused_scan.py), "two_phase"
@@ -28,11 +37,33 @@ from raft_tpu_torch.distance.distance_types import (
 _CHUNK_THRESHOLD = 1 << 16
 _CHUNK = 1 << 14
 
+# dtypes whose values embed exactly in f32: the ones strategy="counting"
+# admits (the JAX package's list)
+_COUNTING_DTYPES = (torch.float32, torch.bfloat16, torch.float16,
+                    torch.int8, torch.int16, torch.uint8, torch.uint16)
+
+
+def _order_key(vals: torch.Tensor) -> torch.Tensor:
+    """An integer image of `vals` in the total order `lax.top_k` ranks
+    by: the float bits as a signed integer, the magnitude bits flipped
+    where the sign is set (so -0.0 sorts strictly before +0.0). bf16 and
+    f16 go through f32, which is exact. Integer rows are their own key."""
+    if not vals.is_floating_point():
+        return vals
+    if vals.dtype == torch.float64:
+        b, flip = vals.contiguous().view(torch.int64), 0x7FFFFFFFFFFFFFFF
+    else:
+        b, flip = vals.float().contiguous().view(torch.int32), 0x7FFFFFFF
+    return torch.where(b < 0, b ^ flip, b)
+
 
 def _sorted_top(vals: torch.Tensor, k: int, largest: bool):
-    """The first k of a stable sort: ties keep index order."""
-    v, i = torch.sort(vals, dim=-1, descending=largest, stable=True)
-    return v[..., :k], i[..., :k]
+    """The first k of a stable sort of `_order_key(vals)`, ascending or,
+    for `largest`, descending: ties keep index order either way. Values
+    are gathered from `vals`, so they keep its dtype and bits."""
+    _, i = torch.sort(_order_key(vals), dim=-1, descending=largest, stable=True)
+    i = i[..., :k]
+    return torch.gather(vals, -1, i), i
 
 
 def _two_phase(vals: torch.Tensor, k: int, largest: bool, chunk: int = _CHUNK):
@@ -68,28 +99,52 @@ def _select_k_impl(vals: torch.Tensor, k: int, select_min: bool,
     return _two_phase(vals, k, largest)
 
 
+def _select_k_counting(vals: torch.Tensor, k: int, select_min: bool):
+    """The counting engine (ops/select_counting.py): exactly the k best,
+    unsorted, then a stable sort of those k for the best-first contract. Cast to f32 BEFORE negating (integer negation wraps; f32
+    negation is exact for every admitted dtype), pad to a multiple of 128
+    with +inf; values come back in the input dtype (exact)."""
+    from raft_tpu_torch.ops.select_counting import counting_select_min
+
+    v = vals.float()
+    if not select_min:
+        v = -v
+    pad = (-v.shape[-1]) % 128
+    if pad:
+        v = torch.nn.functional.pad(v, (0, pad), value=float("inf"))
+    cv, ci = counting_select_min(v.contiguous(), k)
+    sv, order = _sorted_top(cv, k, largest=False)
+    out = sv if select_min else -sv
+    return out.to(vals.dtype), torch.gather(ci, -1, order).long()
+
+
 def select_k(values, k: int, select_min: bool = True, indices=None,
              strategy: Optional[str] = None, device=None):
     """Select the k smallest (default) or largest values per row.
 
-    Returns (values, int64 indices), each (batch, k), best-first, ties to
-    the smaller index. `strategy`: None/"auto" by row length, "topk" or
-    "two_phase"; "counting" waits for its kernel (ROADMAP Queue B row 6)."""
+    Returns (values, int64 indices), each (batch, k), best-first, in the
+    total order of the float bits with ties to the smaller index.
+    `strategy`: None/"auto" by row length, "topk", "two_phase", or
+    "counting" (the `counting_select_min` kernel; 2-d rows of a dtype in
+    `_COUNTING_DTYPES`, others raise ValueError)."""
     vals = as_tensor(values, device)
     squeeze = vals.ndim == 1
     if squeeze:
         vals = vals[None, :]
     if not (0 < k <= vals.shape[-1]):
         raise ValueError(f"k={k} out of range for row length {vals.shape[-1]}")
-    if strategy == "counting":
-        raise NotImplementedError(
-            "strategy='counting' needs the counting_select_min kernel "
-            "(ROADMAP Queue B row 6)"
-        )
-    if strategy not in (None, "auto", "topk", "two_phase"):
+    if strategy not in (None, "auto", "topk", "two_phase", "counting"):
         raise ValueError(f"unknown select_k strategy {strategy!r}")
-    forced = strategy if strategy in ("topk", "two_phase") else None
-    v, i = _select_k_impl(vals, int(k), bool(select_min), forced)
+    if strategy == "counting":
+        if vals.dtype not in _COUNTING_DTYPES:
+            raise ValueError(
+                f"strategy='counting' requires an f32-embeddable dtype, got {vals.dtype}")
+        if vals.ndim != 2:
+            raise ValueError(f"strategy='counting' takes 1-d or 2-d values, got {vals.ndim}-d")
+        v, i = _select_k_counting(vals, int(k), bool(select_min))
+    else:
+        forced = strategy if strategy in ("topk", "two_phase") else None
+        v, i = _select_k_impl(vals, int(k), bool(select_min), forced)
     if indices is not None:
         idx = as_tensor(indices, vals.device)
         if idx.ndim == 1:

@@ -1,9 +1,13 @@
 """Brute-force (exact) k-nearest neighbors (counterpart of
 raft_tpu/neighbors/brute_force.py).
 
-  "tiled"  stream the dataset in column tiles; each tile's (q, tile)
-           distance block (one full-float32 matmul) reduces to a running
-           top-k merged with the previous tiles' (knn_merge_parts);
+  "tiled"  stream the dataset in row tiles; each tile's (q, tile)
+           distance block (`distance.pairwise._pairwise_impl`: every
+           metric, the unexpanded ones through the `pairwise_tiled`
+           kernel on the card) reduces to its top-k, merged into the
+           running top-k of the earlier tiles (knn_merge_parts). Within a
+           tile equal values keep the smaller id; in the merge the running
+           queue comes first, so a tie across tiles keeps the earlier row;
   "fused"  the `fused_topk` kernel (ops/fused_scan.py, CUDA on the card)
            through `matrix.scan_select_k(strategy="fused")`: the (nq, n)
            score matrix never reaches device memory; exact over the
@@ -32,11 +36,11 @@ _TILE = 1 << 15
 
 
 def _bf_knn_impl(dataset: torch.Tensor, queries: torch.Tensor, k: int,
-                 metric: DistanceType, tile: int = _TILE):
+                 metric: DistanceType, *, metric_arg: float = 2.0, tile: int = _TILE):
     n = dataset.shape[0]
     select_min = metric not in SIMILARITY_METRICS
     if n <= max(2 * tile, 4 * k):
-        d = _pairwise_impl(queries, dataset, metric)
+        d = _pairwise_impl(queries, dataset, metric, metric_arg=metric_arg)
         vals, idx = _select_k_impl(d, k, select_min)
         return vals, idx.to(torch.int32)
     worst = float("inf") if select_min else float("-inf")
@@ -44,21 +48,24 @@ def _bf_knn_impl(dataset: torch.Tensor, queries: torch.Tensor, k: int,
     best_v = torch.full((q, k), worst, dtype=torch.float32, device=queries.device)
     best_i = torch.full((q, k), -1, dtype=torch.int64, device=queries.device)
     for base in range(0, n, tile):
-        d = _pairwise_impl(queries, dataset[base:base + tile], metric)
-        v, i = _select_k_impl(d, min(k, d.shape[1]), select_min)
-        # merge the running queue with the tile's candidates; the queue
-        # comes first, so equal values keep the smaller row id
+        d = _pairwise_impl(queries, dataset[base:base + tile], metric, metric_arg=metric_arg)
+        if d.shape[1] < tile:
+            # the JAX scan pads the last tile with rows it masks to the
+            # worst value before selection; so do its columns here
+            d = torch.nn.functional.pad(d, (0, tile - d.shape[1]), value=worst)
+        v, i = _select_k_impl(d, min(k, tile), select_min)
         mv, mi = _select_k_impl(torch.cat([best_v, v], 1), k, select_min)
         best_i = torch.gather(torch.cat([best_i, i + base], 1), 1, mi)
         best_v = mv
     return best_v, best_i.to(torch.int32)
 
 
-def knn(dataset, queries, k: int, metric="sqeuclidean", engine: str = "tiled",
-        prefilter=None, device=None) -> Tuple[torch.Tensor, torch.Tensor]:
+def knn(dataset, queries, k: int, metric="sqeuclidean", metric_arg: float = 2.0,
+        engine: str = "tiled", prefilter=None, device=None) -> Tuple[torch.Tensor, torch.Tensor]:
     """Exact k-NN: (distances, int32 indices), each (n_queries, k),
-    best-first. `engine`: "tiled" (f32) or "fused" (the fused kernel;
-    L2/sqeuclidean/inner_product, k <= 256)."""
+    best-first. `metric` is any pylibraft metric; `metric_arg` is the Lp
+    exponent. `engine`: "tiled" (f32, every metric) or "fused" (the fused
+    kernel; L2/sqeuclidean/inner_product, k <= 256)."""
     if prefilter is not None:
         raise NotImplementedError(
             "brute_force.knn(prefilter=...) is not ported yet (ROADMAP Queue A)"
@@ -75,4 +82,4 @@ def knn(dataset, queries, k: int, metric="sqeuclidean", engine: str = "tiled",
         return scan_select_k(q, ds, int(k), metric=m, strategy="fused", device=q.device)
     if engine != "tiled":
         raise ValueError(f"unknown engine {engine!r}")
-    return _bf_knn_impl(ds.float(), q.float(), int(k), m)
+    return _bf_knn_impl(ds.float(), q.float(), int(k), m, metric_arg=float(metric_arg))

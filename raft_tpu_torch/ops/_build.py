@@ -5,7 +5,9 @@ library with a plain C interface, loaded with `ctypes`. The library's
 file name carries a hash of the sources it was built from, so an edited
 kernel never loads a stale build. Building happens at first use (or all
 at once, one `nvcc` per source in parallel, through `build_all`), inside
-the package's `_build/` directory, which git ignores.
+the package's `_build/` directory, which git ignores. nvcc keeps its IEEE
+defaults (no `--use_fast_math`): the pairwise kernel's canberra term needs
+a correctly rounded division and its KL term an accurate `logf`.
 """
 
 from __future__ import annotations
@@ -23,7 +25,8 @@ CSRC = _PKG / "csrc"
 BUILD_DIR = _PKG / "_build"
 #: one shared library per kernel source
 KERNEL_SOURCES = ("fused_list_topk.cu", "fused_topk.cu", "fused_list_topk_int8.cu",
-                  "pq_list_scan.cu")
+                  "pq_list_scan.cu", "pairwise_tiled.cu", "fused_l2_argmin.cu",
+                  "select_counting.cu")
 
 _lock = threading.Lock()
 _libs: dict = {}

@@ -1,0 +1,82 @@
+"""Fused L2 distance + argmin, the k-means labelling loop (counterpart of
+raft_tpu/ops/fused_l2_argmin.py).
+
+`fused_l2_argmin` is the wrapper over the hand-written CUDA kernel
+`csrc/fused_l2_argmin.cu`; `fused_l2_argmin_plain` is the plain PyTorch
+version of the same function beside it. The wrapper takes the plain
+version only for tensors on the CPU; for a CUDA tensor it launches the
+kernel or raises, and adds one to `launch_counts()["fused_l2_argmin"]`
+(`ops._launch`) where it launches.
+
+Contract (the JAX kernel's): for each row x_i of an f32 (m, k) matrix, the
+row j of an f32 (n, k) matrix minimizing d_ij = max(|x_i|^2 + (|y_j|^2 -
+2 <x_i, y_j>), 0), the augmented product [x, 1] . [-2y, |y|^2] (-2y is
+exact), clamped BEFORE the comparison, so candidates that round below
+zero all tie at 0.0 and the lowest index wins; the lowest index wins
+every exact tie. sqrt applies to the minimum, after the search. No TF32:
+the reference multiplies at Precision.HIGHEST. The row norms are
+computed once per call, here, and handed to the kernel.
+"""
+
+from __future__ import annotations
+
+import torch
+
+from raft_tpu_torch.core.config import strict_f32_matmul
+from raft_tpu_torch.ops._launch import _I, _P, _check, _kernel_fn, _launches, _raise_on, _tensor_arg
+
+
+def _norms(x: torch.Tensor, y: torch.Tensor):
+    """(|x_i|^2, |y_j|^2, -2y): the epilogue and augmented operand both
+    versions share."""
+    return torch.sum(x * x, dim=1), torch.sum(y * y, dim=1), -2.0 * y
+
+
+def fused_l2_argmin_plain(x: torch.Tensor, y: torch.Tensor, *, sqrt: bool = False,
+                          budget_elems: int = 1 << 22):
+    """Plain PyTorch version of the kernel, blocked over rows of x so one
+    (bm, n) distance tile exists at a time (the JAX `_fused_l2_nn_xla`
+    form, on the kernel's augmented operands)."""
+    strict_f32_matmul()
+    xn, yn, y2 = _norms(x, y)
+    m, n = x.shape[0], y.shape[0]
+    bm = max(1, min(m, budget_elems // max(1, n)))
+    dist = torch.empty((m,), dtype=torch.float32, device=x.device)
+    idx = torch.empty((m,), dtype=torch.int32, device=x.device)
+    for s in range(0, m, bm):
+        cross = yn[None, :] + x[s:s + bm] @ y2.T
+        d = torch.clamp(xn[s:s + bm, None] + cross, min=0.0)
+        best, arg = torch.min(d, dim=1)  # the first minimum: lowest index on ties
+        dist[s:s + bm], idx[s:s + bm] = best, arg.to(torch.int32)
+    return (torch.sqrt(dist) if sqrt else dist), idx
+
+
+def fused_l2_argmin(x: torch.Tensor, y: torch.Tensor, *, sqrt: bool = False):
+    """((m,) f32 min distance, (m,) int32 argmin) of squared L2 (or its
+    sqrt) over the rows of y, for each row of x; x (m, k) and y (n, k)
+    contiguous f32 on one device, n >= 1."""
+    _check(isinstance(x, torch.Tensor), "x must be a tensor")
+    dev = x.device
+    _tensor_arg("x", x, (torch.float32,), 2, dev)
+    _tensor_arg("y", y, (torch.float32,), 2, dev)
+    m, k = x.shape
+    n = y.shape[0]
+    _check(y.shape[1] == k, f"x has {k} columns, y has {y.shape[1]}")
+    _check(n >= 1, "fused_l2_argmin needs at least one row of y")
+    if dev.type == "cpu":
+        return fused_l2_argmin_plain(x, y, sqrt=sqrt)
+    _check(dev.type == "cuda", f"fused_l2_argmin runs on cpu or cuda, got {dev}")
+    xn, yn, y2 = _norms(x, y)
+    dist = torch.empty((m,), dtype=torch.float32, device=dev)
+    idx = torch.empty((m,), dtype=torch.int32, device=dev)
+    if m == 0:
+        return dist, idx
+    fn = _kernel_fn("fused_l2_argmin.cu", "fused_l2_argmin_launch",
+                    [_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _P])
+    with torch.cuda.device(dev):
+        stream = torch.cuda.current_stream(dev).cuda_stream
+        err = fn(x.data_ptr(), y2.data_ptr(), xn.data_ptr(), yn.data_ptr(), dist.data_ptr(),
+                 idx.data_ptr(), m, n, k, int(bool(sqrt)), stream)
+    _raise_on(err, "fused_l2_argmin")
+    _launches["fused_l2_argmin"] += 1
+    return dist, idx

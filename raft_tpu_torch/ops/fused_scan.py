@@ -35,17 +35,28 @@ Contracts (the JAX package's):
 A wrapper takes its plain version only for tensors on the CPU. For a
 CUDA tensor it launches the kernel or raises. Each wrapper adds one to
 its kernel's entry of `launch_counts()` where it launches the kernel,
-and nowhere else.
+and nowhere else; `launch_counts()` and `reset_launch_counts()` (from
+`ops._launch`) cover every kernel of the port.
 """
 
 from __future__ import annotations
 
-import ctypes
 from typing import Optional
 
 import torch
 
 from raft_tpu_torch.core.config import strict_f32_matmul
+from raft_tpu_torch.ops._launch import (  # noqa: F401  (the counters are re-exported)
+    _I,
+    _P,
+    _check,
+    _kernel_fn,
+    _launches,
+    _raise_on,
+    _tensor_arg,
+    launch_counts,
+    reset_launch_counts,
+)
 
 _LANES = 128
 #: hard cap on k for every fused engine (the JAX package's cap)
@@ -138,47 +149,6 @@ def _lex_topk(scores: torch.Tensor, k: int, kbuf: int):
     ov[..., :kk] = torch.gather(scores, -1, i)
     oi[..., :kk] = i.to(torch.int32)
     return ov, oi
-
-
-def _check(cond: bool, msg: str) -> None:
-    if not cond:
-        raise ValueError(msg)
-
-
-def _tensor_arg(name, t, dtypes, ndim, device):
-    _check(isinstance(t, torch.Tensor), f"{name} must be a tensor")
-    _check(t.dtype in dtypes, f"{name}: dtype {t.dtype} not in {dtypes}")
-    _check(t.ndim == ndim, f"{name}: expected {ndim}-d, got {t.ndim}-d")
-    _check(t.is_contiguous(), f"{name} must be contiguous")
-    _check(t.device == device, f"{name} is on {t.device}, expected {device}")
-
-
-_fns: dict = {}
-#: launches per kernel, `ops.pq_list_scan` included
-_launches = {"fused_topk": 0, "fused_list_topk": 0, "fused_list_topk_int8": 0,
-             "pq_list_scan": 0}
-
-
-def _kernel_fn(source: str, name: str, argtypes):
-    key = (source, name)
-    fn = _fns.get(key)
-    if fn is None:
-        from raft_tpu_torch.ops import _build
-
-        fn = getattr(_build.load(source), name)
-        fn.argtypes = argtypes
-        fn.restype = ctypes.c_int
-        _fns[key] = fn
-    return fn
-
-
-def _raise_on(err: int, name: str) -> None:
-    if err != 0:
-        raise RuntimeError(f"{name} launch failed: CUDA error {err}")
-
-
-_P = ctypes.c_void_p
-_I = ctypes.c_int
 
 
 # ---------------------------------------------------------------------------
@@ -487,13 +457,3 @@ def fused_list_topk_int8(lof, q8, store, base, q_scale, k: int, *, kbuf: Optiona
     _raise_on(err, "fused_list_topk_int8")
     _launches["fused_list_topk_int8"] += 1
     return vals, idx
-
-
-def reset_launch_counts() -> None:
-    for name in _launches:
-        _launches[name] = 0
-
-
-def launch_counts() -> dict:
-    """{kernel name: launches since the last reset}."""
-    return dict(_launches)

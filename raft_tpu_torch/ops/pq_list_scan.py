@@ -4,7 +4,7 @@
 `csrc/pq_list_scan.cu`; `pq_list_scan_plain` is the plain PyTorch version
 of the same function beside it. The wrapper takes the plain version only
 for tensors on the CPU; for a CUDA tensor it launches the kernel or
-raises, and adds one to `fused_scan.launch_counts()["pq_list_scan"]`
+raises, and adds one to `launch_counts()["pq_list_scan"]` (`ops._launch`)
 where it launches.
 
 Contract (the JAX package's): for each chunk i the query rows score every
@@ -45,23 +45,17 @@ from __future__ import annotations
 import torch
 
 from raft_tpu_torch.core.config import strict_f32_matmul
+from raft_tpu_torch.ops._launch import _I, _P, _check, _kernel_fn, _launches, _raise_on, _tensor_arg
 from raft_tpu_torch.ops.fused_scan import (
-    _I,
     _LANES,
-    _P,
     _STORE_KINDS,
     SMEM_LIMIT,
     _bf16,
-    _check,
     _check_store_alignment,
     _dots_smem_bytes,
     _int8_list_scores,
-    _kernel_fn,
-    _launches,
     _lex_key,
     _mask_dead_rows,
-    _raise_on,
-    _tensor_arg,
 )
 
 _BINS = 2 * _LANES  # two interleaved lane banks; also the engine's k cap

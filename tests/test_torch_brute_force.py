@@ -61,6 +61,66 @@ def test_knn_matches_jax_on_gaussian(rng, engine):
     np.testing.assert_allclose(tv.numpy()[same], np.asarray(jv)[same], rtol=1e-5)
 
 
+_SLICE_METRICS = ["l1", "chebyshev", "canberra", "hamming", "kl_divergence", "minkowski",
+                  "braycurtis", "cosine"]
+
+
+def _slice_operands(rng, metric, grid):
+    shape_ds, shape_q = (1000, 12), (17, 12)
+    if grid:
+        vals = np.array([0, 1, 3]) if metric in ("canberra", "kl_divergence") else np.arange(-3, 4)
+        if metric in ("braycurtis", "hamming"):
+            vals = np.arange(0, 4)
+        return (rng.choice(vals, shape_ds).astype(np.float32),
+                rng.choice(vals, shape_q).astype(np.float32))
+    ds = rng.standard_normal(shape_ds).astype(np.float32)
+    q = rng.standard_normal(shape_q).astype(np.float32)
+    if metric in ("kl_divergence", "braycurtis"):
+        ds, q = np.abs(ds), np.abs(q)
+    if metric == "kl_divergence":
+        ds = (ds / ds.sum(1, keepdims=True)).astype(np.float32)
+        q = (q / q.sum(1, keepdims=True)).astype(np.float32)
+    if metric == "hamming":
+        ds, q = np.round(ds), np.round(q)
+    return ds, q
+
+
+@pytest.mark.parametrize("grid", [True, False])
+@pytest.mark.parametrize("metric", _SLICE_METRICS)
+def test_tiled_knn_slice_matches_jax_for_every_metric(rng, metric, grid):
+    """Both packages' `_bf_knn_impl` with a tile of 128 rows, so the tile
+    loop and the running merge run on the CPU. Integer grids (values whose
+    canberra terms are exact where that metric needs it) give exact ids,
+    ties included; gaussian data ids in >= 99% of slots and values to
+    rtol 1e-5."""
+    ds, q = _slice_operands(rng, metric, grid)
+    arg = 3.0 if metric == "minkowski" else 2.0
+    jv, ji = jax_bf_knn_impl(ds, q, 10, jax_resolve_metric(metric), metric_arg=arg, tile=128)
+    tv, ti = tbf._bf_knn_impl(torch.tensor(ds), torch.tensor(q), 10, tbf.resolve_metric(metric),
+                              metric_arg=arg, tile=128)
+    jv, ji = np.asarray(jv), np.asarray(ji)
+    assert ti.dtype == torch.int32
+    if grid:
+        np.testing.assert_array_equal(ti.numpy(), ji)
+        np.testing.assert_allclose(tv.numpy(), jv, rtol=1e-6, atol=1e-6)
+        return
+    same = ti.numpy() == ji
+    assert same.mean() >= 0.99
+    np.testing.assert_allclose(tv.numpy(), jv, rtol=1e-5, atol=1e-6)
+
+
+def test_knn_passes_metric_arg_through(rng):
+    ds, q = _grid(rng, (300, 5)), _grid(rng, (7, 5))
+    for p in (1.0, 3.0):
+        jv, ji = jbf.knn(ds, q, 6, metric="minkowski", metric_arg=p)
+        tv, ti = tbf.knn(ds, q, 6, metric="minkowski", metric_arg=p, device="cpu")
+        np.testing.assert_array_equal(ti.numpy(), np.asarray(ji))
+        np.testing.assert_allclose(tv.numpy(), np.asarray(jv), rtol=1e-6)
+    l1 = tbf.knn(ds, q, 6, metric="l1", device="cpu")
+    p1 = tbf.knn(ds, q, 6, metric="minkowski", metric_arg=1.0, device="cpu")
+    np.testing.assert_array_equal(l1[1].numpy(), p1[1].numpy())
+
+
 def test_knn_rejects_prefilter_and_bad_engine(rng):
     ds = _grid(rng, (50, 4))
     with pytest.raises(NotImplementedError):

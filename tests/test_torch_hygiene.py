@@ -20,8 +20,10 @@ import torch
 
 import raft_tpu_torch
 from raft_tpu_torch.core.config import resolve_device
+from raft_tpu_torch.distance import fused_l2_nn, pairwise
+from raft_tpu_torch.matrix.select_k import select_k
 from raft_tpu_torch.neighbors import brute_force, ivf_pq, refine
-from raft_tpu_torch.ops import fused_scan
+from raft_tpu_torch.ops import _launch, fused_l2_argmin, fused_scan, pairwise_tiled, select_counting
 
 _ROOT = Path(__file__).resolve().parent.parent
 _FORBIDDEN = ("jax", "jaxlib", "raft_tpu")
@@ -75,6 +77,10 @@ def test_entry_points_never_answer_a_cuda_request_on_the_cpu(monkeypatch):
         lambda: refine.refine(x, x[:4], cand, 5, strategy="fused"),
         lambda: ivf_pq.build(ivf_pq.IndexParams(n_lists=4, pq_dim=4), x),
         lambda: ivf_pq.index_from_arrays({}, ivf_pq.IndexParams(n_lists=4)),
+        lambda: brute_force.knn(x, x[:4], 5, metric="l1"),
+        lambda: pairwise.pairwise_distance(x, x[:4], metric="canberra"),
+        lambda: fused_l2_nn.fused_l2_nn(x, x[:4]),
+        lambda: select_k(x, 3, strategy="counting"),
     ]
     for call in calls:
         with pytest.raises(RuntimeError, match="CUDA"):
@@ -92,3 +98,25 @@ def test_kernel_wrappers_refuse_devices_without_a_kernel():
     base = torch.empty((1, 1, 128), device=meta)
     with pytest.raises(ValueError, match="cpu or cuda"):
         fused_scan.fused_list_topk(lof, q, store, base, 2)
+
+
+def test_new_kernel_wrappers_refuse_devices_without_a_kernel():
+    meta = torch.device("meta")
+    x = torch.empty((4, 8), device=meta)
+    with pytest.raises(ValueError, match="cpu or cuda"):
+        pairwise_tiled.pairwise_tiled(x, x, "l1")
+    with pytest.raises(ValueError, match="cpu or cuda"):
+        fused_l2_argmin.fused_l2_argmin(x, x)
+    with pytest.raises(ValueError, match="cpu or cuda"):
+        select_counting.counting_select_min(torch.empty((2, 128), device=meta), 3)
+
+
+def test_launch_counts_cover_every_kernel():
+    names = {"fused_topk", "fused_list_topk", "fused_list_topk_int8", "pq_list_scan",
+             "pairwise_tiled", "fused_l2_argmin", "counting_select_min"}
+    assert set(_launch.launch_counts()) == names
+    assert fused_scan.launch_counts is _launch.launch_counts
+    assert fused_scan.reset_launch_counts is _launch.reset_launch_counts
+    _launch._launches["pairwise_tiled"] += 1
+    fused_scan.reset_launch_counts()
+    assert set(fused_scan.launch_counts().values()) == {0}

@@ -60,8 +60,64 @@ def test_select_k_rejects_bad_requests(rng):
         select_k(vals, 11, device="cpu")
     with pytest.raises(ValueError):
         select_k(vals, 3, strategy="nope", device="cpu")
-    with pytest.raises(NotImplementedError):
-        select_k(vals, 3, strategy="counting", device="cpu")
+    with pytest.raises(ValueError, match="f32-embeddable"):
+        select_k(vals.astype(np.float64), 3, strategy="counting", device="cpu")
+
+
+def _signed_zero_rows(rng, shape):
+    """Rows of +-0.0 with a few +-1.0: nearly every selected slot is a tie
+    under `==`, and only the total order (-0.0 before +0.0) separates
+    them."""
+    vals = rng.choice(np.array([0.0, -0.0, 1.0, -1.0], np.float32), shape,
+                      p=[0.499, 0.499, 0.001, 0.001])
+    return vals.astype(np.float32)
+
+
+def test_select_k_signed_zeros_follow_the_total_order():
+    row = np.array([[0.0, -0.0, 1.0, 0.0, -0.0]], np.float32)
+    assert select_k(row, 3, device="cpu")[1].tolist() == [[1, 4, 0]]
+    assert select_k(row, 3, select_min=False, device="cpu")[1].tolist() == [[2, 0, 3]]
+
+
+@pytest.mark.parametrize("strategy", [None, "topk", "two_phase"])
+@pytest.mark.parametrize("select_min", [True, False])
+@pytest.mark.parametrize("length,k", [(700, 7), (700, 300), (40000, 50)])
+def test_select_k_signed_zeros_match_jax(rng, strategy, select_min, length, k):
+    """-0.0 ranks strictly before +0.0, as in `lax.top_k`; the long rows
+    take the chunked two-phase path in both packages."""
+    vals = _signed_zero_rows(rng, (3, length))
+    jv, ji = jax_select_k(vals, k, select_min=select_min, strategy=strategy)
+    tv, ti = select_k(vals, k, select_min=select_min, strategy=strategy, device="cpu")
+    np.testing.assert_array_equal(ti.numpy(), np.asarray(ji))
+    assert (tv.numpy() == np.asarray(jv)).all()
+    np.testing.assert_array_equal(np.signbit(tv.numpy()), np.signbit(np.asarray(jv)))
+
+
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float16, torch.float64])
+def test_select_k_order_key_keeps_dtype_and_total_order(dtype):
+    row = torch.tensor([[0.0, -0.0, -2.0, 1.0, -0.0, 0.0]], dtype=dtype)
+    v, i = select_k(row, 4, device="cpu")
+    assert v.dtype == dtype
+    assert i.tolist() == [[2, 1, 4, 0]]
+    assert torch.signbit(v).tolist() == [[True, True, True, False]]
+
+
+def test_brute_force_tile_merge_keeps_signed_zero_order(rng):
+    """Inner products of +-1 against +-0.0 rows are signed zeros in both
+    packages; the per-tile selects and the running merge must rank +0.0
+    before -0.0 (a similarity: largest first) and keep index order among
+    equal keys across tiles."""
+    from raft_tpu.distance.distance_types import resolve_metric as jax_resolve_metric
+    from raft_tpu.neighbors.brute_force import _bf_knn_impl as jax_bf_knn_impl
+    from raft_tpu_torch.neighbors import brute_force as tbf
+
+    ds = rng.choice(np.array([0.0, -0.0], np.float32), (1000, 1)).astype(np.float32)
+    q = np.array([[-1.0], [1.0], [0.0], [-0.0]], np.float32)
+    jv, ji = jax_bf_knn_impl(ds, q, 10, jax_resolve_metric("inner_product"), tile=128)
+    tv, ti = tbf._bf_knn_impl(torch.tensor(ds), torch.tensor(q), 10,
+                              tbf.resolve_metric("inner_product"), tile=128)
+    np.testing.assert_array_equal(ti.numpy(), np.asarray(ji))
+    assert (tv.numpy() == np.asarray(jv)).all()
 
 
 @pytest.mark.parametrize("metric", ["sqeuclidean", "euclidean", "inner_product"])
