@@ -16,7 +16,12 @@ Phases, in order; any failure exits non-zero:
      k = 1, KL zeros, canberra zero denominators, integer grids bitwise),
      the fused L2 argmin (duplicate rows, candidates that round below
      zero, n = 1, sqrt) and the counting select (ties, +-0, +-inf, NaN,
-     k = 1 to L, rows of 128 to 1,048,576);
+     k = 1 to L, rows of 128 to 1,048,576); the RaBitQ bit-plane scan bit
+     for bit (1, 4 and 8 query bits, 1 to 4 words, duplicate codes, +inf
+     tails and tiles, empty chunks and live-row prefixes, k 1 to 256 and
+     past the finite slots, L 128 to 3840, L2 and inner product), its
+     integer scores S_u recovered exactly from a case whose estimator is
+     an exact map of them;
   4. the main path at full size: 1M x 96 clustered vectors (1024 blob
      centers U(-5, 5) plus unit gaussian noise, made from --seed), IVF-PQ
      build (n_lists 1024, pq_dim 48, kmeans_n_iters 10), exact truth with
@@ -33,7 +38,14 @@ Phases, in order; any failure exits non-zero:
      float sort and its repaired order-key sort. Then three more paths on
      the same data (slice_paths): the tiled L1 k-NN over every row, the
      counting select on its first distance tile, and the fused L2 1-NN
-     labelling of the rotated rows against the index's coarse centres;
+     labelling of the rotated rows against the index's coarse centres.
+     Then the IVF-RaBitQ path on the same data and truth (rabitq_path):
+     build (n_lists 1024, kmeans_n_iters 10; rot_dim 96, 3 words, 8
+     query bits), the ladder of bench/bench_ivf_rabitq.py (n_probes
+     8/16/32/64 x rerank_mult 4/8/16/25, up to the first rung at recall@10
+     >= 0.95) with scan_engine="fused" and the exact rerank, QPS over
+     windows; once at n_probes 8, rerank_mult 4, the "xla" engine against
+     the fused one on the estimator-ranked candidates;
   5. each kernel against its plain version on the inputs the main path gave
      it, with kernel, plain and library times (CUDA events) and the bound;
   6. a JSON line of kernels, the card's line, then the device line last.
@@ -59,6 +71,10 @@ PEAK_INT8_OPS = 1979e12
 PEAK_F32_FLOPS = 66.9e12
 PEAK_F32_INSTR = 33.5e12
 PEAK_HBM_BYTES = 3.35e12
+#: 32-bit population counts a second: 132 SMs x 16 a clock x 1.98 GHz (the
+#: CUDA programming guide's throughput for compute capability 9.0; the
+#: AND and the add beside each run at 64 a clock)
+PEAK_POPC = 4.18e12
 #: f32 instructions each pairwise term needs at least (the absolute value
 #: is a free operand modifier; a division and a logarithm count as one
 #: each, so the bound is a lower bound): l1 sub + add; linf sub + max; l2
@@ -540,6 +556,92 @@ def slice_checks(dev, rng):
         counting_case(f"counting L 1048576 (device-memory row) k={k}", long, k)
 
 
+def bitplane_checks(fs, dev, rng):
+    """Kernel 7 against its plain version, bit for bit (values and slots:
+    both round the estimator with the same explicit operations): 1, 4
+    and 8 query bits; 1, 3 and 4 words; duplicate codes (ties to the
+    smaller slot); +inf tails and whole +inf tiles; empty chunks and
+    live-row prefixes; k 1, 40 and 256 (kbuf 256) and k past the finite
+    slots; L 128 to 3840; L2 and inner product. Two cases make the
+    estimator an exact map of the integer scores (lo 0, delta 1, qsum 0,
+    qconst 0, |r| 1, o_dot 1, rot_dim 64: score = 1 - S_u / 2), so S_u
+    is read back from the kernel and held against `bitplane_su`."""
+    from raft_tpu_torch.neighbors import quantizer as tq
+
+    def operands(ncb, chunk, L, W, bits, n_lists, ties=False, inf_frac=0.1, inf_tiles=(),
+                 integer=False):
+        words = rng.integers(0, 2**32, (n_lists, L, W), dtype=np.uint64).astype(np.uint32)
+        if ties:
+            words[:, 1::2] = words[:, 0::2]  # every code twice
+        codes = torch.tensor(words.view(np.int32))
+        pop = tq.popcount32(codes).sum(-1).float()
+        rn = torch.tensor(rng.uniform(0.5, 20.0, (n_lists, L)).astype(np.float32))
+        od = torch.tensor(rng.uniform(0.5, 1.0, (n_lists, L)).astype(np.float32))
+        if ties:
+            rn[:, 1::2], od[:, 1::2] = rn[:, 0::2], od[:, 0::2]
+        if integer:
+            rn, od = torch.ones_like(rn), torch.ones_like(od)
+        meta = torch.stack([pop, rn, od], dim=1)
+        base = torch.zeros((n_lists, 1, L))
+        base[torch.tensor(rng.random((n_lists, 1, L)) < inf_frac)] = float("inf")
+        for t in inf_tiles:
+            base[:, :, 128 * t:128 * (t + 1)] = float("inf")
+        qres = torch.tensor((rng.standard_normal((ncb, chunk, 32 * W))
+                             * np.exp(rng.uniform(-3, 3, (ncb, chunk, 1)))).astype(np.float32))
+        planes, lo, delta = tq.quantize_queries(qres, bits)
+        qmeta = torch.stack([lo[..., 0], delta[..., 0], qres.sum(-1), (qres * qres).sum(-1)], 1)
+        if integer:
+            qmeta = torch.zeros_like(qmeta)
+            qmeta[:, 1] = 1.0
+        lof = torch.tensor(rng.integers(0, n_lists, ncb).astype(np.int32))
+        return [t.contiguous().to(dev) for t in (lof, planes.reshape(ncb, chunk, bits * W),
+                                                 codes.transpose(1, 2), meta, base, qmeta)]
+
+    def case(name, ncb, chunk, L, W, bits, k, n_lists, ip=False, kbuf=None, cv=False,
+             rows=False, integer=False, **kw):
+        args = operands(ncb, chunk, L, W, bits, n_lists, integer=integer, **kw)
+        rot = 64 if integer else 32 * W
+        cvt = torch.tensor((rng.random(ncb) < 0.7).astype(np.int32)).to(dev) if cv else None
+        crt = None
+        if rows:
+            live = rng.integers(0, chunk + 1, ncb).astype(np.int32)
+            live[0], live[-1] = chunk, 0  # a full chunk and an empty one
+            crt = torch.tensor(live).to(dev)
+        kb = kbuf or fs.fused_kbuf(k)
+        out = fs.fused_bitplane_topk(*args, k, rot_dim=rot, bits=bits, kbuf=kb, inner_product=ip,
+                                     chunk_valid=cvt, chunk_rows=crt)
+        ref = fs.fused_bitplane_topk_plain(*args, k, kb, rot, bits, ip, cvt, crt)
+        require_equal(name, out, ref)
+        note = "bitwise equal"
+        if integer:
+            lof, planes, codes_t = args[:3]
+            v, i = out[0][..., :k], out[1][..., :k]
+            fin = torch.isfinite(v)
+            su = fs.bitplane_su(planes, codes_t[lof.long()], bits)
+            want = torch.gather(su, 2, torch.where(fin, i, 0).long())
+            got = ((1.0 - v) * 2.0).round().to(torch.int32)
+            if bool((torch.where(fin, got, 0) != torch.where(fin, want, 0)).any()):
+                raise AssertionError(f"{name}: integer scores S_u differ from bitplane_su")
+            note += f", S_u of {int(fin.sum())} selected slots exact"
+        log(f"check {name}: ok, {note}")
+
+    case("bitplane bits 8 W 3 L 384 k 40", 20, 128, 384, 3, 8, 40, 5)
+    case("bitplane bits 1 W 1 L 128 k 1", 30, 64, 128, 1, 1, 1, 7)
+    case("bitplane bits 4 W 4 L 256 k 256 ip", 12, 128, 256, 4, 4, 256, 3, ip=True)
+    case("bitplane ties (duplicate codes) k 40", 16, 128, 256, 3, 8, 40, 4, ties=True)
+    case("bitplane ties ip, bits 4", 16, 37, 256, 3, 4, 100, 4, ties=True, ip=True)
+    case("bitplane +inf tails and tiles, k past the finite slots", 7, 19, 640, 3, 8, 256, 3,
+         inf_frac=0.6, inf_tiles=(0, 2, 4))
+    case("bitplane empty chunks and live-row prefixes, ip", 40, 128, 384, 3, 8, 40, 5, ip=True,
+         cv=True, rows=True)
+    case("bitplane k 10 in a 256-wide buffer", 10, 128, 384, 3, 8, 10, 5, kbuf=256, rows=True)
+    case("bitplane long list L 3840, +inf tail tiles", 12, 128, 3840, 3, 8, 40, 4, rows=True,
+         inf_tiles=tuple(range(8, 30)))
+    case("bitplane integer S_u, bits 8 W 3", 12, 128, 384, 3, 8, 100, 4, integer=True)
+    case("bitplane integer S_u, bits 1 W 4, ties", 12, 64, 256, 4, 1, 256, 3, integer=True,
+         ties=True)
+
+
 # ---------------------------------------------------------------------------
 # phase 4: the main path
 # ---------------------------------------------------------------------------
@@ -555,6 +657,22 @@ def make_blobs(seed, n, dim, nq, n_blobs):
     queries = centers[rng.integers(0, n_blobs, nq)]
     queries += rng.standard_normal((nq, dim), dtype=np.float32)
     return data, queries
+
+
+def timed_windows(g, run, sync):
+    """(seconds per batch, each window's QPS) over g.windows windows of
+    g.batch_reps back-to-back batches, one synchronize at each window's
+    end, so every stall inside a window counts."""
+    windows = []
+    for _ in range(g.windows):
+        sync()
+        t0 = time.perf_counter()
+        for _ in range(g.batch_reps):
+            run()
+        sync()
+        windows.append(time.perf_counter() - t0)
+    return (sum(windows) / (len(windows) * g.batch_reps),
+            [g.nq * g.batch_reps / w for w in windows])
 
 
 def recall(ids, truth):
@@ -598,7 +716,9 @@ PATH_KERNELS = {("fused", "bf16"): ("fused_topk", "fused_list_topk"),
                 # the distance and selection slice (slice_paths)
                 ("knn", "l1"): ("pairwise_tiled",),
                 ("select_k", "counting"): ("counting_select_min",),
-                ("fused_l2_nn", "argmin"): ("fused_l2_argmin",)}
+                ("fused_l2_nn", "argmin"): ("fused_l2_argmin",),
+                # IVF-RaBitQ, scan_engine="fused" (rabitq_path)
+                ("rabitq", "fused"): ("fused_bitplane_topk",)}
 
 
 def main_path(g, dev, fs, pls, sync):
@@ -644,19 +764,10 @@ def main_path(g, dev, fs, pls, sync):
             _, ids = run()
             sync()
         r = recall(ids, truth)
-        windows = []
-        for _ in range(g.windows):
-            sync()
-            t0 = time.perf_counter()
-            for _ in range(g.batch_reps):
-                run()
-            sync()
-            windows.append(time.perf_counter() - t0)
-        s = sum(windows) / (len(windows) * g.batch_reps)
-        w_qps = [g.nq * g.batch_reps / w for w in windows]
+        s, w_qps = timed_windows(g, run, sync)
         log(f"rung trim={trim} score_dtype={dtype} n_probes={n_probes} + refine: "
             f"recall@{g.k} {r:.4f}, {g.nq / s:.1f} qps ({s * 1e3:.4f} ms per {g.nq}-query "
-            f"batch over {len(windows)} windows of {g.batch_reps} batches; window qps "
+            f"batch over {len(w_qps)} windows of {g.batch_reps} batches; window qps "
             f"{min(w_qps):.1f} .. {max(w_qps):.1f})")
         return {"trim": trim, "score_dtype": dtype, "n_probes": n_probes, "refine": True,
                 "recall": r, "qps": g.nq / s, "batch_s": s, "window_qps": w_qps}
@@ -715,15 +826,7 @@ def sorted_top_ab(g, run, sync):
         for label in ("earlier", "repaired", "repaired", "earlier"):
             sk._sorted_top = _float_sort_top if label == "earlier" else repaired
             run()
-            secs = 0.0
-            for _ in range(g.windows):
-                sync()
-                t0 = time.perf_counter()
-                for _ in range(g.batch_reps):
-                    run()
-                sync()
-                secs += time.perf_counter() - t0
-            out[label].append(g.nq * g.batch_reps * g.windows / secs)
+            out[label].append(g.nq / timed_windows(g, run, sync)[0])
     finally:
         sk._sorted_top = repaired
     log(f"_sorted_top A/B, fused bf16 n_probes 8 + refine: earlier float sort "
@@ -848,7 +951,103 @@ def slice_paths(g, dev, res, sync):
     return out
 
 
-def device_breakdown(run, reps, batch_ms):
+def rabitq_path(g, dev, res, fs, sync):
+    """IVF-RaBitQ on the main path's data, queries and truth, one path
+    with its launch counts set to 0 just before the build and read just
+    after the ladder: build (n_lists g.n_lists, kmeans_n_iters 10), then
+    the ladder of bench/bench_ivf_rabitq.py:141-154 (n_probes 8/16/32/64 x
+    rerank_mult 4/8/16/25, stopping at the first rung with recall@k >=
+    RECALL_GATE) with scan_engine="fused" and the exact rerank through
+    refine; each rung's QPS over g.windows windows of g.batch_reps
+    back-to-back batches. Then, once at n_probes 8 and rerank_mult 4, the
+    "xla" engine against the fused one on the estimator-ranked
+    candidates: the share of equal ids and the largest value gap."""
+    from raft_tpu_torch.neighbors import ivf_rabitq
+    from raft_tpu_torch.ops import _launch
+
+    dataset, queries, truth = res["dataset"], res["queries"], res["truth"]
+    _launch.reset_launch_counts()
+    t0 = time.perf_counter()
+    index = ivf_rabitq.build(ivf_rabitq.IndexParams(n_lists=g.n_lists, kmeans_n_iters=10),
+                             dataset, seed=g.seed, device=dev)
+    sync()
+    build_s = time.perf_counter() - t0
+    log(f"rabitq build: {index} in {build_s:.3f} s, max list {int(index.list_sizes.max())}, "
+        f"words {index.words}")
+    rungs, captured, gate, gate_call = [], None, None, None
+    for n_probes in (8, 16, 32, 64):
+        for mult in (4, 8, 16, 25):
+            params = ivf_rabitq.SearchParams(n_probes=n_probes, rerank_mult=mult,
+                                             scan_engine="fused")
+
+            def run():
+                return ivf_rabitq.search(params, index, queries, g.k)
+
+            with Spy(fs, "fused_bitplane_topk") as spy:
+                _, ids = run()
+                sync()
+            if captured is None:
+                captured = spy.calls[0]
+            r = recall(ids, truth)
+            sec, w_qps = timed_windows(g, run, sync)
+            log(f"rung rabitq fused n_probes={n_probes} rerank_mult={mult} + rerank: "
+                f"recall@{g.k} {r:.4f}, {g.nq / sec:.1f} qps ({sec * 1e3:.4f} ms per "
+                f"{g.nq}-query batch over {len(w_qps)} windows of {g.batch_reps} batches; "
+                f"window qps {min(w_qps):.1f} .. {max(w_qps):.1f})")
+            rungs.append({"n_probes": n_probes, "rerank_mult": mult, "recall": r,
+                          "qps": g.nq / sec, "batch_s": sec, "window_qps": w_qps})
+            if r >= RECALL_GATE:
+                gate, gate_call = rungs[-1], spy.calls[0]
+                break
+        if gate:
+            break
+    launches = _launch.launch_counts()
+    log(f"path rabitq fused: launches {launches}, gate rung "
+        + (f"n_probes {gate['n_probes']} rerank_mult {gate['rerank_mult']} recall@{g.k} "
+           f"{gate['recall']:.4f}" if gate else "none"))
+    if gate is None:
+        raise AssertionError(f"rabitq fused: no rung reached recall@{g.k} >= {RECALL_GATE}")
+    gate_params = ivf_rabitq.SearchParams(n_probes=gate["n_probes"],
+                                          rerank_mult=gate["rerank_mult"], scan_engine="fused")
+
+    def gate_run():
+        return ivf_rabitq.search(gate_params, index, queries, g.k)
+
+    breakdown = None
+    if dev.type == "cuda":
+        breakdown = device_breakdown(
+            gate_run, g.batch_reps, gate["batch_s"] * 1e3,
+            label=f"rabitq gate rung n_probes {gate['n_probes']} rerank_mult "
+                  f"{gate['rerank_mult']}")
+    qconsts = query_consts_cost(ivf_rabitq, gate_run, g.reps, gate["batch_s"] * 1e3, dev, sync)
+
+    # the two scan engines on the estimator ranking (no rerank)
+    kk = ivf_rabitq.rerank_depth(g.k, 4)
+    t0 = time.perf_counter()
+    xv, xr = ivf_rabitq._search_impl_rabitq(queries, index.rotation, index.centers, index.codes,
+                                             index.aux, index.slot_rows, kk, 8, index.metric)
+    sync()
+    xla_s = time.perf_counter() - t0
+    fv, fr = ivf_rabitq._search_impl_rabitq_fused(queries, index.rotation, index.centers,
+                                                   index.codes_t, index.bp_meta,
+                                                   index.slot_rows_pad, kk, 8, index.metric,
+                                                   kb=index.fused_kb)
+    sync()
+    same = float((xr == fr).float().mean())
+    fin = torch.isfinite(xv) & torch.isfinite(fv)
+    gap = float(torch.where(fin, (xv - fv).abs(), 0.0).max())
+    bitwise = float((xv.contiguous().view(torch.int32) == fv.contiguous().view(torch.int32))
+                    .float().mean())
+    log(f"rabitq xla vs fused engine, n_probes 8, {kk} estimator-ranked candidates of "
+        f"{queries.shape[0]} queries: equal ids {same:.6f}, bitwise-equal values {bitwise:.6f}, "
+        f"largest value gap {gap}; xla engine {xla_s:.3f} s for the batch")
+    return {"build_s": build_s, "rungs": rungs, "gate": gate, "launches": launches,
+            "breakdown": breakdown, "query_consts": qconsts,
+            "xla_vs_fused": {"equal_ids": same, "equal_value_bits": bitwise, "max_gap": gap,
+                             "xla_s": xla_s}}, (captured, gate_call)
+
+
+def device_breakdown(run, reps, batch_ms, label="n_probes 8 + refine"):
     """Where a batch's time goes: `reps` batches under torch.profiler.
     Only the device's own activities count (kernels, copies, sets: events
     whose device_type is CUDA); the operator rows that launched them carry
@@ -881,7 +1080,7 @@ def device_breakdown(run, reps, batch_ms):
            "idle_share": 1.0 - device_ms / wall_ms,
            "idle_share_unprofiled": 1.0 - device_ms / batch_ms,
            "top": [{"kernel": name[:80], "ms": ms} for name, ms in ops[:10]]}
-    log(f"breakdown, n_probes 8 + refine, per batch: device busy {device_ms:.4f} ms "
+    log(f"breakdown, {label}, per batch: device busy {device_ms:.4f} ms "
         f"({len(spans) // reps} device activities); profiled wall {wall_ms:.4f} ms, idle "
         f"share {out['idle_share']:.4f}; unprofiled batch {batch_ms:.4f} ms, idle share "
         f"{out['idle_share_unprofiled']:.4f}")
@@ -889,6 +1088,58 @@ def device_breakdown(run, reps, batch_ms):
         log(f"  {row['ms']:9.4f} ms  {row['kernel']}")
     if not spans or device_ms > wall_ms:
         raise AssertionError(f"profile read no device activity or too much: {device_ms} ms")
+    return out
+
+
+def query_consts_cost(ivf_rabitq, run, reps, batch_ms, dev, sync):
+    """What the estimator's per-(query, list) constants cost a RaBitQ
+    batch: the calls of `ivf_rabitq._query_consts` (each pair's residual
+    sum and qconst) that one batch of `run` makes, replayed on their own
+    inputs: ms a batch by CUDA events and the device activities of one
+    replay. Beside them the same sums in the JAX reference's CPU order
+    (`quantizer.ordered_row_sum`, the CPU path of `_query_consts`): their
+    ms, device activities, and how far the two differ."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    from raft_tpu_torch.neighbors.quantizer import ordered_row_sum
+
+    with Spy(ivf_rabitq, "_query_consts") as spy:
+        run()
+        sync()
+    calls = spy.calls
+
+    def engine():
+        return [ivf_rabitq._query_consts(*a, **kw) for a, kw in calls]
+
+    def ordered():
+        return [(ordered_row_sum(qres), ordered_row_sum(qs, cent) if ip
+                 else ordered_row_sum(qres, qres)) for (qs, cent, qres, ip), _ in calls]
+
+    def activities(fn):
+        acts = [ProfilerActivity.CPU] + ([ProfilerActivity.CUDA] if dev.type == "cuda" else [])
+        with profile(activities=acts) as prof:
+            fn()
+            sync()
+        return sum(1 for e in prof.events() if e.device_type == DeviceType.CUDA
+                   and not getattr(e, "is_user_annotation", False))
+
+    ms, ordered_ms = time_ms(engine, reps), time_ms(ordered, reps)
+    n_dev, n_ordered = activities(engine), activities(ordered)
+    a = torch.cat([t.reshape(-1) for pair in engine() for t in pair])
+    b = torch.cat([t.reshape(-1) for pair in ordered() for t in pair])
+    equal = float((a.view(torch.int32) == b.view(torch.int32)).float().mean())
+    gap = float((a - b).abs().max())
+    out = {"calls": len(calls), "ms": ms, "device_activities": n_dev,
+           "share_of_batch": ms / batch_ms, "ordered_ms": ordered_ms,
+           "ordered_device_activities": n_ordered, "ordered_equal_bits": equal,
+           "ordered_max_abs_gap": gap}
+    log(f"rabitq query constants, gate rung: {len(calls)} call(s) a batch, {ms:.4f} ms a batch "
+        f"in {n_dev} device activities, {out['share_of_batch']:.4f} of the {batch_ms:.4f} ms "
+        f"batch; in the reference's order {ordered_ms:.4f} ms in {n_ordered} device "
+        f"activities, bitwise-equal sums {equal:.6f}, largest gap {gap:.3g}")
+    if not gap <= 1e-4 * float(b.abs().max()):  # f32 sums of 96 terms differ by ulps, not more
+        raise AssertionError(f"rabitq query constants differ from the ordered sums by {gap}")
     return out
 
 
@@ -1254,6 +1505,61 @@ def counting_row(slice_res, launches, reps, k):
             "shape": f"L1 tile: B={B} L={L} k={k}"}
 
 
+def bitplane_row(fs, call, launches, reps, label):
+    """Kernel 7 on the operands a rung of the RaBitQ path gave it (its
+    first call; `label` names the rung). Bound: the function is a
+    rot_dim-wide dot product of each live row's uint8 query levels against
+    each real (finite-base) slot's {0,1} code bits, so 2 x rot_dim x those
+    pairs operations at the card's int8 rate, as rows 1, 3 and 4 count
+    theirs, against the bytes at 3.35 TB/s (live rows' planes and qmeta,
+    the real slots' codes and meta and the base rows of the lists touched,
+    the chunk tables, the (chunk, kbuf) outputs). The popcounts of the
+    kernel's own algorithm (pairs x bits x words at PEAK_POPC) stand
+    beside them in bound_terms. No one PyTorch call computes the
+    function: library "-"."""
+    (lof, planes, codes_t, meta, base, qmeta, k), kw = call
+    rot, bits, kb = kw["rot_dim"], kw["bits"], kw.get("kbuf") or fs.fused_kbuf(k)
+    ip, cv, cr = bool(kw.get("inner_product", False)), kw.get("chunk_valid"), kw.get("chunk_rows")
+    ncb, chunk, pw = planes.shape
+    W, L = codes_t.shape[1:]
+    live = fs._live_rows(cv, cr, chunk)
+    if live is None:
+        live = torch.full((ncb,), chunk, dtype=torch.int32, device=lof.device)
+    ops, real, n_lists = list_work(lof, base, live, rot)
+    pairs = ops / (2.0 * rot)
+    n_popc = pairs * bits * W
+    nbytes = (ncb * 8 + int(live.sum()) * (pw * 4 + 16) + real * (W * 4 + 12)
+              + n_lists * L * 4 + ncb * chunk * kb * 8)
+    b_ms, b_by, terms = bound_ms(ops, nbytes, PEAK_INT8_OPS)
+    terms["popc_ms"] = n_popc / PEAK_POPC * 1e3
+
+    def kernel():
+        return fs.fused_bitplane_topk(lof, planes, codes_t, meta, base, qmeta, k, rot_dim=rot,
+                                      bits=bits, kbuf=kb, inner_product=ip, chunk_valid=cv,
+                                      chunk_rows=cr)
+
+    def plain():
+        return fs.fused_bitplane_topk_plain(lof, planes, codes_t, meta, base, qmeta, k, kb, rot,
+                                            bits, ip, cv, cr)
+
+    require_equal(f"fused_bitplane_topk ({label})", kernel(), plain())
+    ms = time_ms(kernel, reps)
+    plain_ms = time_ms(plain, 1, warmup=0)
+    log(f"kernel fused_bitplane_topk ({label}): ncb {ncb} ({int((live > 0).sum())} "
+        f"live, {int(live.sum())} live rows), chunk {chunk}, L {L}, words {W}, bits {bits}, "
+        f"k {k}, kbuf {kb}: {ms:.4f} ms, plain {plain_ms:.4f} ms, library -, bound "
+        f"{b_ms:.4f} ms ({b_by}; {pairs:.4g} row-slot pairs, {ops:.4g} int8 ops "
+        f"{terms['ops_ms']:.4f}, {nbytes} bytes {terms['bytes_ms']:.4f}; the kernel's "
+        f"{n_popc:.4g} popcounts {terms['popc_ms']:.4f}), bitwise equal to plain")
+    return {"name": "fused_bitplane_topk", "route": "cuda",
+            "source": "raft_tpu_torch/csrc/fused_bitplane_topk.cu",
+            "replaces": "raft_tpu/ops/fused_scan.py:781", "launches": launches,
+            "max_abs_err": 0.0, "ms": ms, "plain_ms": plain_ms, "bound_ms": b_ms,
+            "bound_by": b_by, "library_ms": None, "bound_terms": terms,
+            "shape": f"{label}: ncb={ncb} chunk={chunk} L={L} words={W} bits={bits} k={k} "
+                     f"kbuf={kb}"}
+
+
 # ---------------------------------------------------------------------------
 
 
@@ -1307,6 +1613,7 @@ def main(argv=None):
                     log(f"  {src}: {line.strip()}")
     adversarial_checks(fs, pls, dev, np.random.default_rng(g.seed + 1))
     slice_checks(dev, np.random.default_rng(g.seed + 2))
+    bitplane_checks(fs, dev, np.random.default_rng(g.seed + 3))
 
     fs.reset_launch_counts()
     res, captured = main_path(g, dev, fs, pls, sync)
@@ -1325,6 +1632,8 @@ def main(argv=None):
     for path, counts in sl["launches"].items():
         log(f"path {' '.join(path)}: launches {counts}")
     launches.update(sl["launches"])
+    rb, rb_call = rabitq_path(g, dev, res, fs, sync)
+    launches[("rabitq", "fused")] = rb["launches"]
     for path, counts in launches.items():
         missing = [name for name in PATH_KERNELS[path] if counts[name] <= 0]
         if missing and dev.type == "cuda":
@@ -1352,12 +1661,19 @@ def main(argv=None):
     rows.append(argmin_row(sl, n(("fused_l2_nn", "argmin"), "fused_l2_argmin"), g.reps))
     rows.append(counting_row(sl, n(("select_k", "counting"), "counting_select_min"), g.reps,
                              g.k))
+    rows.append(bitplane_row(fs, rb_call[0], n(("rabitq", "fused"), "fused_bitplane_topk"), g.reps,
+                             "rabitq n_probes 8, rerank_mult 4"))
+    gate = rb["gate"]
+    rows.append(bitplane_row(fs, rb_call[1], n(("rabitq", "fused"), "fused_bitplane_topk"), g.reps,
+                             f"rabitq gate rung n_probes {gate['n_probes']}, rerank_mult "
+                             f"{gate['rerank_mult']}"))
     refine_row = list_kernel_row(fs, captured["refine"], n(("fused", "bf16"), "fused_list_topk"),
                                  g.reps, "refine, chunk 1")
     summary = {"build_s": res["build_s"], "truth_s": res["truth_s"], "rungs": res["rungs"],
                "breakdown": res["breakdown"], "refine_kernel": refine_row,
                "sorted_top_ab": res["sorted_top_ab"], "knn_l1": sl["knn_l1"],
-               "fused_l2_nn": sl["fused_l2_nn"], "wall_s": time.perf_counter() - t_all}
+               "fused_l2_nn": sl["fused_l2_nn"], "rabitq": rb,
+               "wall_s": time.perf_counter() - t_all}
     log("summary " + json.dumps(summary))
     if dev.type != "cuda":
         log("rehearsal complete: control flow ran on the CPU; no result printed")

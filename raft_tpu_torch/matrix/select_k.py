@@ -17,7 +17,10 @@ carry over.
 `scan_select_k` is the operand-level door: "fused" hands scoring and
 selection to the fused kernel (ops/fused_scan.py), "two_phase"
 materializes the distances and selects. `list_scan_select_k` is the
-list-geometry door the IVF engines use.
+list-geometry door the IVF engines use, `bitplane_scan_select_k` the
+RaBitQ bit-plane one (`resolve_bitplane_strategy` picks the fused kernel
+only when the caller asks: "auto" resolves to "xla", as the JAX package
+does without a tuned key).
 """
 
 from __future__ import annotations
@@ -280,3 +283,52 @@ def list_scan_select_k(lof, qres, store, base, k: int, strategy: str = "fused",
     return fused_list_topk(lof, qres, store, base, int(k), kbuf=kbuf,
                            inner_product=inner_product, chunk_valid=chunk_valid,
                            chunk_rows=chunk_rows)
+
+
+# ---------------------------------------------------------------------------
+# bit-plane scan dispatch (IVF-RaBitQ)
+# ---------------------------------------------------------------------------
+
+BITPLANE_STRATEGIES = ("xla", "fused_bitplane")
+
+
+def resolve_bitplane_strategy(strategy: Optional[str] = None) -> str:
+    """The RaBitQ scan engine: "xla" is the materializing bit-plane scan
+    (`ivf_rabitq._search_impl_rabitq`), "fused_bitplane" the fused kernel.
+    Explicit wins (the call site validates the envelope with
+    `check_bitplane_request` and raises past it); None/"auto" is "xla":
+    the JAX package promotes the fused scan only on a tuned value measured
+    on its chip, and tuned values do not carry over, so the geometry the
+    JAX resolver takes is not needed here."""
+    if strategy in BITPLANE_STRATEGIES:
+        return strategy
+    if strategy not in (None, "auto"):
+        raise ValueError(f"unknown bitplane scan strategy {strategy!r}")
+    return "xla"
+
+
+def check_bitplane_request(label: str, L: int, words: int, bits: int, k: int,
+                           kbuf: Optional[int], fallback: str) -> int:
+    """`check_fused_list_request` for the bit-plane geometry: raises past
+    the kernel's caps or shared-memory budget; returns the candidate-buffer
+    width the kernel must run with (>= the caller's recorded `kbuf`)."""
+    from raft_tpu_torch.ops.fused_scan import FUSED_MAX_K, fits_fused_bitplane, fused_kbuf
+
+    if int(k) > FUSED_MAX_K:
+        raise ValueError(f"{label} caps scan candidates at {FUSED_MAX_K}; rerank depth {k}")
+    kb = max(fused_kbuf(int(k)), kbuf or 0)
+    if not fits_fused_bitplane(L, words, int(bits), int(k), kbuf=kb):
+        raise ValueError(
+            f"{label}: list length {L} x {words} words x {bits} query bits exceeds the "
+            f"kernel's shared-memory budget; use {fallback}"
+        )
+    return kb
+
+
+def bitplane_scan_select_k(*operands, **kw) -> Tuple[torch.Tensor, torch.Tensor]:
+    """The RaBitQ bit-plane fused scan+select (strategy "fused_bitplane")
+    at the select_k level: `ops.fused_scan.fused_bitplane_topk`, its
+    operands and keywords unchanged."""
+    from raft_tpu_torch.ops.fused_scan import fused_bitplane_topk
+
+    return fused_bitplane_topk(*operands, **kw)

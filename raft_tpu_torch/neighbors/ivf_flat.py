@@ -49,26 +49,37 @@ def _append_slots(labels_new: np.ndarray, old_sizes: np.ndarray, n_lists: int,
     return slot_abs.astype(np.int32), new_sizes.astype(np.int32), new_max
 
 
+def _grow_and_scatter_multi(tables, slot_rows: torch.Tensor, payloads, labels: torch.Tensor,
+                            slots: torch.Tensor, positions: torch.Tensor, new_max: int):
+    """Grow several (n_lists, max, ...) payload tables and their slot rows
+    to `new_max` slots and write the new batch into its (label, slot)
+    cells: one placement, one indexed write per table. The cells are
+    distinct, so an indexed write places every row exactly (the JAX
+    package replaces the scatter with a sort, which the TPU serializes; a
+    GPU scatters natively). Returns (grown tables, grown slot rows)."""
+    n_lists, old_max = slot_rows.shape
+    li, si = labels.long(), slots.long()
+    out = []
+    for table, new in zip(tables, payloads):
+        if new_max > old_max:
+            grown = torch.zeros((n_lists, new_max, *table.shape[2:]), dtype=table.dtype,
+                                device=table.device)
+            grown[:, :old_max] = table
+        else:
+            grown = table.clone()
+        grown[li, si] = new.to(grown.dtype)
+        out.append(grown)
+    rows = torch.full((n_lists, max(new_max, old_max)), -1, dtype=slot_rows.dtype,
+                      device=slot_rows.device)
+    rows[:, :old_max] = slot_rows
+    rows[li, si] = positions.to(rows.dtype)
+    return tuple(out), rows
+
+
 def _grow_and_scatter(list_data: torch.Tensor, slot_rows: torch.Tensor,
                       nv: torch.Tensor, labels: torch.Tensor, slots: torch.Tensor,
                       positions: torch.Tensor, new_max: int):
-    """Grow a (n_lists, max, d) table and its slot rows to `new_max`
-    slots and write the new batch into its (label, slot) cells. The
-    cells are distinct, so an indexed write places every row exactly
-    (the JAX package replaces the scatter with a sort, which the TPU
-    serializes; a GPU scatters natively)."""
-    n_lists, old_max, d = list_data.shape
-    if new_max > old_max:
-        grown = torch.zeros((n_lists, new_max, d), dtype=list_data.dtype,
-                            device=list_data.device)
-        grown[:, :old_max] = list_data
-        rows = torch.full((n_lists, new_max), -1, dtype=slot_rows.dtype,
-                          device=slot_rows.device)
-        rows[:, :old_max] = slot_rows
-        list_data, slot_rows = grown, rows
-    else:
-        list_data, slot_rows = list_data.clone(), slot_rows.clone()
-    li, si = labels.long(), slots.long()
-    list_data[li, si] = nv.to(list_data.dtype)
-    slot_rows[li, si] = positions.to(slot_rows.dtype)
-    return list_data, slot_rows
+    """`_grow_and_scatter_multi` for one (n_lists, max, d) table."""
+    (table,), rows = _grow_and_scatter_multi((list_data,), slot_rows, (nv,), labels, slots,
+                                             positions, new_max)
+    return table, rows

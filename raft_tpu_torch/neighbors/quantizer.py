@@ -1,20 +1,36 @@
-"""Product quantizer: codebook training and encode (counterpart of the
-`PqQuantizer` part of raft_tpu/neighbors/quantizer.py).
+"""Vector quantizers of the IVF indexes (counterpart of
+raft_tpu/neighbors/quantizer.py).
 
-Per-subspace codebooks only in this slice: every subspace trains its own
-2^pq_bits-entry codebook with balanced EM, all subspaces in one batched
-call (the JAX package vmaps the same trainer). Per-cluster codebooks and
-the RaBitQ quantizer are still to be ported.
+  `PqQuantizer`      product quantization. Per-subspace codebooks only:
+                     every subspace trains its own 2^pq_bits-entry
+                     codebook with balanced EM, all subspaces in one
+                     batched call (the JAX package vmaps the same
+                     trainer). Per-cluster codebooks are still to be
+                     ported.
+  `RabitqQuantizer`  RaBitQ: the sign bits of a rotated residual packed
+                     into 32-bit words, plus two correction scalars per
+                     row (|r| and <o, x_bar>), scored by AND+popcount
+                     over the query's quantized bit planes and the
+                     unbiased estimator <q, x_bar> / <o, x_bar>.
+
+Packed words are `int32` tensors holding the bits of the JAX package's
+`uint32` words (carry them across with `.view(np.int32)`): torch has no
+popcount and no shifts on `uint32`, so the bit helpers work in `int64`
+(`pack_bits`, `unpack_bits`, and `popcount32`, which lives beside the
+bit-plane kernel and its scorer `bitplane_scores` in ops/fused_scan.py).
 """
 
 from __future__ import annotations
 
+import math
 from typing import Dict, Optional
 
+import numpy as np
 import torch
 
 from raft_tpu_torch.cluster.kmeans_balanced import _balanced_em
 from raft_tpu_torch.core.config import strict_f32_matmul
+from raft_tpu_torch.ops.fused_scan import _as_uint_values, _fma_f32, popcount32, rsqrt_dim
 
 PER_SUBSPACE = "per_subspace"
 PER_CLUSTER = "per_cluster"
@@ -66,7 +82,21 @@ def _encode(residuals: torch.Tensor, pq_centers: torch.Tensor,
     return codes
 
 
-class PqQuantizer:
+class Quantizer:
+    """The verb every quantizer shares: the exact re-rank of candidate
+    rows through neighbors/refine, so a lossy code format never reaches
+    the exact stage."""
+
+    kind = "?"
+
+    def rerank_candidates(self, dataset, queries, candidates, k: int, metric="sqeuclidean"):
+        from raft_tpu_torch.neighbors.refine import refine
+
+        return refine(dataset, queries, candidates, k, metric=metric,
+                      device=torch.as_tensor(candidates).device)
+
+
+class PqQuantizer(Quantizer):
     """Product-quantization state: per-subspace codebooks
     (pq_dim, 2^pq_bits, pq_len)."""
 
@@ -104,3 +134,191 @@ class PqQuantizer:
 
     def encode(self, residuals: torch.Tensor, labels=None) -> Dict[str, torch.Tensor]:
         return {"codes": _encode(residuals, self.pq_centers)}
+
+
+# ---------------------------------------------------------------------------
+# RaBitQ bit codes
+# ---------------------------------------------------------------------------
+
+WORD_BITS = 32
+#: query-side quantization bits of the bit-plane scan (the JAX package's
+#: fallback when no tuned value exists; tuned values do not carry over)
+DEFAULT_QUERY_BITS = 8
+_SIGN32 = 1 << 31
+
+
+def packed_words(rot_dim: int) -> int:
+    """32-bit words per packed code row (rot_dim must be 32-aligned)."""
+    if rot_dim % WORD_BITS:
+        raise ValueError(f"rot_dim {rot_dim} must be a multiple of {WORD_BITS}")
+    return rot_dim // WORD_BITS
+
+
+def _as_int32_bits(v: torch.Tensor) -> torch.Tensor:
+    """int64 values in [0, 2^32) -> int32 tensors with the same 32 bits."""
+    return torch.where(v >= _SIGN32, v - (1 << 32), v).to(torch.int32)
+
+
+def pack_bits(bits: torch.Tensor) -> torch.Tensor:
+    """(..., rot_dim) {0,1} -> (..., W) int32 little-endian words (bit i
+    of word w = dimension w*32 + i), built in int64 so that bit 31 does
+    not overflow."""
+    b = bits.to(torch.int64)
+    w = b.reshape(*b.shape[:-1], -1, WORD_BITS)
+    shifts = torch.arange(WORD_BITS, dtype=torch.int64, device=b.device)
+    return _as_int32_bits(torch.sum(w << shifts, dim=-1))
+
+
+def unpack_bits(words: torch.Tensor, rot_dim: int) -> torch.Tensor:
+    """(..., W) int32 words -> (..., rot_dim) {0,1} int32, pack's inverse."""
+    shifts = torch.arange(WORD_BITS, dtype=torch.int64, device=words.device)
+    bits = (_as_uint_values(words)[..., None] >> shifts) & 1
+    return bits.reshape(*words.shape[:-1], rot_dim).to(torch.int32)
+
+
+_XLA_BLOCK = 32
+
+
+def sqrt_f32(v: torch.Tensor) -> torch.Tensor:
+    """Correctly rounded f32 square root, as the reference's: through
+    float64, since torch's vectorized CPU sqrt is not correctly rounded."""
+    return torch.sqrt(v.double()).float()
+
+
+def ordered_row_sum(x: torch.Tensor, y: Optional[torch.Tensor] = None) -> torch.Tensor:
+    """Sum of x (or of x * y) over the last axis in the order the JAX
+    reference's compiled reduction takes on the CPU (checked for rows of
+    up to 128): a row of at most 32 is summed left to right from 0, the
+    products as fused multiply-adds; a longer row is cut into blocks of 32
+    (the last padded with zeros), each block summed left to right from its
+    rounded terms, then the block sums the same way. RaBitQ's sums go
+    through here (|r| and sum |r| at encode; each (query, list) pair's
+    residual sum and qconst at search), so that the port's estimator
+    agrees with the reference's: torch.sum's order moves near-tie ranks.
+    It costs one step per element of a block."""
+    D = x.shape[-1]
+    if D <= _XLA_BLOCK:
+        acc = torch.zeros(torch.broadcast_shapes(x.shape, x.shape if y is None else y.shape)[:-1],
+                          dtype=torch.float32, device=x.device)
+        for i in range(D):
+            acc = acc + x[..., i] if y is None else _fma_f32(x[..., i], y[..., i], acc)
+        return acc
+    if y is not None:
+        x = x * y
+    blocks = torch.nn.functional.pad(x, (0, (-D) % _XLA_BLOCK)).reshape(*x.shape[:-1], -1,
+                                                                       _XLA_BLOCK)
+    acc = torch.zeros(blocks.shape[:-1], dtype=torch.float32, device=x.device)
+    for i in range(_XLA_BLOCK):
+        acc = acc + blocks[..., i]
+    return ordered_row_sum(acc)
+
+
+def quantize_queries(qres: torch.Tensor, query_bits: int):
+    """Per-row scalar quantization of query residuals for the bit-plane
+    scan: qres_i ~= lo + delta * u_i with u in [0, 2^bits). Returns
+    (planes (..., bits, W) int32, lo (..., 1), delta (..., 1)).
+
+    delta is (hi - lo) times the f32 reciprocal of the level count: the
+    jitted JAX reference compiles its division by that constant to this
+    multiply, and delta moves every plane bit. torch.round rounds half to
+    even, as jnp.round does."""
+    lo = torch.amin(qres, dim=-1, keepdim=True)
+    hi = torch.amax(qres, dim=-1, keepdim=True)
+    levels = (1 << query_bits) - 1
+    inv_levels = float(np.float32(1.0) / np.float32(levels))
+    delta = torch.clamp((hi - lo) * inv_levels, min=1e-12)
+    u = torch.clamp(torch.round((qres - lo) / delta), 0, levels).to(torch.int32)
+    planes = torch.stack([pack_bits((u >> j) & 1) for j in range(query_bits)], dim=-2)
+    return planes, lo, delta
+
+
+def binary_dot(codes: torch.Tensor, planes: torch.Tensor) -> torch.Tensor:
+    """sum_{i: code bit i set} u_i by AND+popcount over the query's bit
+    planes, the fast scan's integer core. `codes` (..., W) int32
+    broadcast against `planes` (..., bits, W); returns f32 of the
+    broadcast shape minus the (bits, W) axes (exact below 2^24)."""
+    per_plane = torch.sum(popcount32(codes[..., None, :] & planes), dim=-1)  # (..., bits)
+    weights = 1 << torch.arange(per_plane.shape[-1], dtype=torch.int32, device=planes.device)
+    return torch.sum(per_plane * weights, dim=-1).float()
+
+
+def estimate_dot(s_set, pop, qsum, o_dot, rot_dim: int) -> torch.Tensor:
+    """The unbiased RaBitQ estimator of <q_res, o>: <q_res, x_bar> /
+    <o, x_bar>, with <q_res, x_bar> = (2*S - sum(q_res)) / sqrt(D) and S
+    the sum of q_res over the set bits. `pop` is unused (S already folds
+    it), as in the JAX signature."""
+    del pop
+    return ((2.0 * s_set - qsum) * rsqrt_dim(rot_dim)) / torch.clamp(o_dot, min=1e-12)
+
+
+class RabitqQuantizer(Quantizer):
+    """RaBitQ: 1-bit sign codes over rotated residuals plus two
+    correction scalars per row.
+
+    encode(residuals) returns
+        codes (n, W) int32    packed sign bits of the rotated residual
+        aux   (n, 2) f32      [|r|, <o, x_bar>] with o = r/|r| and
+                              x_bar = sign(r)/sqrt(D)
+    The estimator: <q, o> ~= <q, x_bar>/<o, x_bar>, unbiased over the
+    random rotation, so |q - v|^2 ~= |q_res|^2 + |r|^2 - 2|r| <q,o>.
+    Training is a no-op: there is nothing to fit."""
+
+    kind = "rabitq"
+
+    def __init__(self, rot_dim: int, query_bits: int = DEFAULT_QUERY_BITS):
+        self.rot_dim = int(rot_dim)
+        self.words = packed_words(self.rot_dim)
+        if not (1 <= int(query_bits) <= 8):
+            raise ValueError(f"query_bits must be in [1, 8], got {query_bits}")
+        self.query_bits = int(query_bits)
+
+    def train(self, gen, residuals, labels=None) -> "RabitqQuantizer":
+        return self
+
+    def encode(self, residuals: torch.Tensor, labels=None) -> Dict[str, torch.Tensor]:
+        r = residuals.float()
+        # the sums in the reference build's order and a correctly rounded
+        # square root, so that aux agrees with the reference bit for bit
+        rnorm = sqrt_f32(ordered_row_sum(r, r))
+        # zero residuals (a row on its center) get o_dot 1 so the
+        # correction divide stays finite; rnorm 0 zeroes their term
+        denom = torch.clamp(rnorm, min=1e-30) * float(np.float32(math.sqrt(float(self.rot_dim))))
+        o_dot = torch.where(rnorm > 0, ordered_row_sum(torch.abs(r)) / denom,
+                            torch.ones_like(rnorm))
+        return {"codes": pack_bits(r >= 0), "aux": torch.stack([rnorm, o_dot], dim=-1)}
+
+    def decode(self, payload: Dict[str, torch.Tensor]) -> torch.Tensor:
+        """|r| <o, x_bar> x_bar: the L2-optimal reconstruction of the
+        residual from its sign code."""
+        signs = unpack_bits(payload["codes"], self.rot_dim) * 2 - 1
+        aux = payload["aux"].float()
+        scale = aux[..., 0] * aux[..., 1] / float(np.float32(math.sqrt(float(self.rot_dim))))
+        return signs.float() * scale[..., None]
+
+    def score_table(self, query_residuals: torch.Tensor, **kw) -> Dict[str, torch.Tensor]:
+        qres = query_residuals.float()
+        planes, lo, delta = quantize_queries(qres, self.query_bits)
+        return {"planes": planes, "lo": lo, "delta": delta,
+                "qsum": torch.sum(qres, dim=-1, keepdim=True),
+                "qnorm2": torch.sum(qres * qres, dim=-1, keepdim=True)}
+
+    def estimate_distances(self, table, payload, exact_queries=None) -> torch.Tensor:
+        """(nq, m) estimated squared L2 distances. With `exact_queries`
+        (the raw (nq, rot_dim) residuals) the set-bit sums are exact f32
+        dots instead of the quantized planes."""
+        codes = payload["codes"]
+        aux = payload["aux"].float()
+        rnorm, o_dot = aux[..., 0], aux[..., 1]
+        pop = torch.sum(popcount32(codes), dim=-1).float()  # (m,)
+        if exact_queries is not None:
+            strict_f32_matmul()
+            q = exact_queries.float()
+            s = q @ unpack_bits(codes, self.rot_dim).float().T
+            qsum = torch.sum(q, dim=-1, keepdim=True)
+            qnorm2 = torch.sum(q * q, dim=-1, keepdim=True)
+        else:
+            s_u = binary_dot(codes[None, :, :], table["planes"][:, None])
+            s = table["lo"] * pop[None, :] + table["delta"] * s_u
+            qsum, qnorm2 = table["qsum"], table["qnorm2"]
+        est = estimate_dot(s, pop, qsum, o_dot[None, :], self.rot_dim)
+        return qnorm2 + rnorm[None, :] ** 2 - 2.0 * rnorm[None, :] * est

@@ -26,7 +26,7 @@ BUILD_DIR = _PKG / "_build"
 #: one shared library per kernel source
 KERNEL_SOURCES = ("fused_list_topk.cu", "fused_topk.cu", "fused_list_topk_int8.cu",
                   "pq_list_scan.cu", "pairwise_tiled.cu", "fused_l2_argmin.cu",
-                  "select_counting.cu")
+                  "select_counting.cu", "fused_bitplane_topk.cu")
 
 _lock = threading.Lock()
 _libs: dict = {}

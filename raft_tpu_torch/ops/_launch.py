@@ -24,7 +24,7 @@ _I = ctypes.c_int
 #: launches per kernel since the last reset
 _launches = {"fused_topk": 0, "fused_list_topk": 0, "fused_list_topk_int8": 0,
              "pq_list_scan": 0, "pairwise_tiled": 0, "fused_l2_argmin": 0,
-             "counting_select_min": 0}
+             "counting_select_min": 0, "fused_bitplane_topk": 0}
 _fns: dict = {}
 
 
@@ -65,5 +65,5 @@ def reset_launch_counts() -> None:
 
 
 def launch_counts() -> dict:
-    """{kernel name: launches since the last reset}, all seven kernels."""
+    """{kernel name: launches since the last reset}, all eight kernels."""
     return dict(_launches)

@@ -1,9 +1,9 @@
 """Fused distance + exact select-k kernels (counterpart of raft_tpu/ops/fused_scan.py).
 
-Three wrappers, each over a hand-written CUDA kernel for Hopper
+Four wrappers, each over a hand-written CUDA kernel for Hopper
 (`csrc/fused_topk.cu`, `csrc/fused_list_topk.cu`,
-`csrc/fused_list_topk_int8.cu`) with a plain PyTorch version of the same
-function beside it:
+`csrc/fused_list_topk_int8.cu`, `csrc/fused_bitplane_topk.cu`) with a
+plain PyTorch version of the same function beside it:
 
   `fused_topk`           flat scan: every query against every dataset row,
                          with a running exact top-k per query; only the
@@ -16,6 +16,10 @@ function beside it:
                          (`int8_scores`, which `ops.pq_list_scan`'s int8
                          rows share, so the two int8 engines score the same
                          f32 values).
+  `fused_bitplane_topk`  the RaBitQ list scan: AND+popcount of the query
+                         rows' bit planes against a list's packed sign
+                         codes, the unbiased estimator in-kernel
+                         (`bitplane_scores`), an exact top-k per row.
 
 Contracts (the JAX package's):
   - output (rows, kbuf) best-first, kbuf = fused_kbuf(k); slots past k,
@@ -43,6 +47,10 @@ from __future__ import annotations
 
 from typing import Optional
 
+import ctypes
+import math
+
+import numpy as np
 import torch
 
 from raft_tpu_torch.core.config import strict_f32_matmul
@@ -456,4 +464,181 @@ def fused_list_topk_int8(lof, q8, store, base, q_scale, k: int, *, kbuf: Optiona
                  int(bool(inner_product)), stream)
     _raise_on(err, "fused_list_topk_int8")
     _launches["fused_list_topk_int8"] += 1
+    return vals, idx
+
+
+# ---------------------------------------------------------------------------
+# bit-plane list scan: fused_bitplane_topk (RaBitQ)
+# ---------------------------------------------------------------------------
+
+#: query quantization depth cap: the kernel's plane loop runs over at most
+#: this many planes (the JAX package's cap)
+BITPLANE_MAX_BITS = 8
+
+
+def _as_uint_values(words: torch.Tensor) -> torch.Tensor:
+    """int32 words -> int64 values in [0, 2^32) (the uint32 reading)."""
+    return words.to(torch.int64) & 0xFFFFFFFF
+
+
+def popcount32(words: torch.Tensor) -> torch.Tensor:
+    """Set bits of each 32-bit word of an int32 tensor, as int32: torch has
+    no popcount, so the SWAR count runs on int64."""
+    v = _as_uint_values(words)
+    v = v - ((v >> 1) & 0x55555555)
+    v = (v & 0x33333333) + ((v >> 2) & 0x33333333)
+    v = (v + (v >> 4)) & 0x0F0F0F0F
+    return (((v * 0x01010101) & 0xFFFFFFFF) >> 24).to(torch.int32)
+
+
+def rsqrt_dim(rot_dim: int) -> float:
+    """The f32 reciprocal of f32(sqrt(rot_dim)): XLA compiles the
+    estimator's division by the constant sqrt(D) to a multiply by it."""
+    return float(np.float32(1.0) / np.float32(math.sqrt(float(rot_dim))))
+
+
+def bitplane_scores(s_u, pop, rn, o_dot, lo, delta, qsum, qconst, rot_dim: int,
+                    inner_product: bool) -> torch.Tensor:
+    """Minimizing RaBitQ estimator scores from the integer bit-plane sums
+    `s_u` (as f32; the operands broadcast), rounded as the JAX bit-plane
+    kernel rounds them on the CPU (raft_tpu/ops/fused_scan.py:660-666,
+    where XLA contracts the mul+add pairs and turns the division by the
+    constant sqrt(D) into a multiply):
+      s   = fma(lo, pop, delta * s_u)
+      est = ((2 s - qsum) * rsqrt_dim(D)) / max(o_dot, 1e-12)
+      L2  = fma(-(2 rn), est, fma(rn, rn, qconst))
+      IP  = -fma(rn, est, qconst)   (the negated similarity)
+    csrc/fused_bitplane_topk.cu computes the same with explicit
+    intrinsics, so kernel and plain version agree bit for bit."""
+    s = _fma_f32(lo, pop, delta * s_u)
+    est = ((2.0 * s - qsum) * rsqrt_dim(rot_dim)) / torch.clamp(o_dot, min=1e-12)
+    if inner_product:
+        return -_fma_f32(rn, est, qconst)
+    return _fma_f32(-(2.0 * rn), est, _fma_f32(rn, rn, qconst))
+
+
+def _bitplane_smem_bytes(words: int, bits: int) -> int:
+    """Shared memory of one bit-plane block (topk_smem_bytes<BitplaneDots>
+    in csrc/fused_bitplane_topk.cu): the tile's scores, the block's plane
+    words and its four qmeta rows."""
+    return 4 * _ROWS * _TILE_SLOTS + 4 * _ROWS * (bits * words + 4)
+
+
+def fits_fused_bitplane(L: int, words: int, bits: int, k: int,
+                        kbuf: Optional[int] = None) -> bool:
+    """Shared-memory budget of one `fused_bitplane_topk` block on the card
+    (the list streams through in tiles, so any L that is a multiple of 128
+    fits); k <= 256, 1 <= bits <= BITPLANE_MAX_BITS, and `kbuf` (the width
+    the kernel will run with) must hold k."""
+    if not (0 < k <= FUSED_MAX_K and 1 <= bits <= BITPLANE_MAX_BITS and words >= 1):
+        return False
+    if kbuf is not None and int(kbuf) < fused_kbuf(k):
+        return False
+    return L % _LANES == 0 and _bitplane_smem_bytes(words, bits) <= SMEM_LIMIT
+
+
+def bitplane_su(planes, codes, bits: int) -> torch.Tensor:
+    """(b, chunk, L) int32 integer scores S_u = sum_j 2^j sum_w
+    popc(planes[:, c, j*W + w] & codes[:, w, s]) of chunk rows' planes
+    (b, chunk, bits*W) against their lists' word-transposed codes
+    (b, W, L). Integer sums: exact in any order."""
+    W = codes.shape[1]
+    acc = torch.zeros((planes.shape[0], planes.shape[1], codes.shape[2]), dtype=torch.int32,
+                      device=planes.device)
+    for j in range(bits):
+        for w in range(W):
+            inter = planes[:, :, j * W + w, None] & codes[:, None, w, :]
+            acc += popcount32(inter) << j
+    return acc
+
+
+def fused_bitplane_topk_plain(lof, planes, codes_t, meta, base, qmeta, k: int, kbuf: int,
+                              rot_dim: int, bits: int, inner_product: bool, chunk_valid=None,
+                              chunk_rows=None, block_elems: int = 1 << 23):
+    """Plain PyTorch version of the bit-plane kernel (same operands as
+    `fused_bitplane_topk`). Chunk blocks bound the (rows, L) strips."""
+    ncb, chunk, _ = planes.shape
+    L = codes_t.shape[2]
+    outs_v, outs_i = [], []
+    cb = max(1, block_elems // max(1, chunk * L))
+    for s in range(0, ncb, cb):
+        lids = lof[s:s + cb].long()
+        s_u = bitplane_su(planes[s:s + cb], codes_t[lids], bits).float()
+        m, qm = meta[lids], qmeta[s:s + cb]
+        scores = bitplane_scores(s_u, m[:, 0:1], m[:, 1:2], m[:, 2:3], qm[:, 0, :, None],
+                                 qm[:, 1, :, None], qm[:, 2, :, None], qm[:, 3, :, None],
+                                 rot_dim, inner_product) + base[lids]
+        v, i = _lex_topk(scores, k, kbuf)
+        outs_v.append(v)
+        outs_i.append(i)
+    return _mask_dead_rows(torch.cat(outs_v), torch.cat(outs_i),
+                           _live_rows(chunk_valid, chunk_rows, chunk), _ID_SENTINEL)
+
+
+def fused_bitplane_topk(lof, planes, codes_t, meta, base, qmeta, k: int, *, rot_dim: int,
+                        bits: int, kbuf: Optional[int] = None, inner_product: bool = False,
+                        chunk_valid=None, chunk_rows=None):
+    """Exact fused RaBitQ bit-plane scan+select of each chunk's list.
+
+    lof (ncb,) int32 chunk -> list id; planes (ncb, chunk, bits*W) int32
+    query bit planes (uint32 bits); codes_t (n_lists, W, L) int32
+    word-transposed sign codes; meta (n_lists, 3, L) f32 [popcount, |r|,
+    <o, x_bar>]; base (n_lists, 1, L) f32, 0 or +inf; qmeta (ncb, 4, chunk)
+    f32 [lo, delta, qsum, qconst]; chunk_valid / chunk_rows as for
+    `fused_list_topk`. Returns ((ncb, chunk, kbuf) minimizing estimator
+    scores, (ncb, chunk, kbuf) int32 in-list slots), best-first per row.
+    L2 scores are the full estimated distance (qconst = |q - center|^2);
+    inner-product scores are the negated estimated similarity (qconst =
+    q . center): negate back at the call site."""
+    _check(isinstance(planes, torch.Tensor), "planes must be a tensor")
+    dev = planes.device
+    _tensor_arg("lof", lof, (torch.int32,), 1, dev)
+    _tensor_arg("planes", planes, (torch.int32,), 3, dev)
+    _tensor_arg("codes_t", codes_t, (torch.int32,), 3, dev)
+    _tensor_arg("meta", meta, (torch.float32,), 3, dev)
+    _tensor_arg("base", base, (torch.float32,), 3, dev)
+    _tensor_arg("qmeta", qmeta, (torch.float32,), 3, dev)
+    ncb, chunk, pw = planes.shape
+    n_lists, W, L = codes_t.shape
+    _check(1 <= int(bits) <= BITPLANE_MAX_BITS,
+           f"bits must be in [1, {BITPLANE_MAX_BITS}], got {bits}")
+    _check(pw == int(bits) * W, f"planes width {pw} != bits*words = {int(bits) * W}")
+    _check(int(rot_dim) >= 1, f"rot_dim must be positive, got {rot_dim}")
+    _check(lof.shape[0] == ncb, f"lof has {lof.shape[0]} entries for {ncb} chunks")
+    _check(tuple(meta.shape) == (n_lists, 3, L),
+           f"meta must be {(n_lists, 3, L)}, got {tuple(meta.shape)}")
+    _check(tuple(base.shape) == (n_lists, 1, L),
+           f"base must be {(n_lists, 1, L)}, got {tuple(base.shape)}")
+    _check(tuple(qmeta.shape) == (ncb, 4, chunk),
+           f"qmeta must be {(ncb, 4, chunk)}, got {tuple(qmeta.shape)}")
+    _check(L % _LANES == 0, f"list length {L} must be a multiple of {_LANES}")
+    if chunk_valid is not None:
+        _tensor_arg("chunk_valid", chunk_valid, (torch.int32,), 1, dev)
+        _check(chunk_valid.shape[0] == ncb, "chunk_valid must have one entry per chunk")
+    if chunk_rows is not None:
+        _tensor_arg("chunk_rows", chunk_rows, (torch.int32,), 1, dev)
+        _check(chunk_rows.shape[0] == ncb, "chunk_rows must have one entry per chunk")
+    kb = fused_kbuf(k) if kbuf is None else int(kbuf)
+    _check(kb >= fused_kbuf(k), f"candidate buffer width {kb} cannot hold k={k}")
+    if dev.type == "cpu":
+        return fused_bitplane_topk_plain(lof, planes, codes_t, meta, base, qmeta, int(k), kb,
+                                         int(rot_dim), int(bits), bool(inner_product),
+                                         chunk_valid, chunk_rows)
+    _check(dev.type == "cuda", f"fused_bitplane_topk runs on cpu or cuda, got {dev}")
+    _check(fits_fused_bitplane(L, W, int(bits), int(k), kb),
+           f"fused_bitplane_topk: words={W}, bits={bits} exceed the kernel's shared-memory budget")
+    vals = torch.empty((ncb, chunk, kb), dtype=torch.float32, device=dev)
+    idx = torch.empty((ncb, chunk, kb), dtype=torch.int32, device=dev)
+    fn = _kernel_fn("fused_bitplane_topk.cu", "fused_bitplane_topk_launch",
+                    [_P, _P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I,
+                     ctypes.c_float, _I, _P])
+    live = _live_rows(chunk_valid, chunk_rows, chunk)
+    with torch.cuda.device(dev):
+        stream = torch.cuda.current_stream(dev).cuda_stream
+        err = fn(lof.data_ptr(), planes.data_ptr(), codes_t.data_ptr(), meta.data_ptr(),
+                 base.data_ptr(), qmeta.data_ptr(), None if live is None else live.data_ptr(),
+                 vals.data_ptr(), idx.data_ptr(), ncb, chunk, W, int(bits), L, int(k), kb,
+                 rsqrt_dim(int(rot_dim)), int(bool(inner_product)), stream)
+    _raise_on(err, "fused_bitplane_topk")
+    _launches["fused_bitplane_topk"] += 1
     return vals, idx

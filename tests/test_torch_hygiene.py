@@ -22,7 +22,7 @@ import raft_tpu_torch
 from raft_tpu_torch.core.config import resolve_device
 from raft_tpu_torch.distance import fused_l2_nn, pairwise
 from raft_tpu_torch.matrix.select_k import select_k
-from raft_tpu_torch.neighbors import brute_force, ivf_pq, refine
+from raft_tpu_torch.neighbors import brute_force, ivf_pq, ivf_rabitq, refine
 from raft_tpu_torch.ops import _launch, fused_l2_argmin, fused_scan, pairwise_tiled, select_counting
 
 _ROOT = Path(__file__).resolve().parent.parent
@@ -81,6 +81,9 @@ def test_entry_points_never_answer_a_cuda_request_on_the_cpu(monkeypatch):
         lambda: pairwise.pairwise_distance(x, x[:4], metric="canberra"),
         lambda: fused_l2_nn.fused_l2_nn(x, x[:4]),
         lambda: select_k(x, 3, strategy="counting"),
+        lambda: ivf_rabitq.build(ivf_rabitq.IndexParams(n_lists=4), x),
+        lambda: ivf_rabitq.build(ivf_rabitq.IndexParams(n_lists=4), x, device="cuda"),
+        lambda: ivf_rabitq.index_from_arrays({}, ivf_rabitq.IndexParams(n_lists=4)),
     ]
     for call in calls:
         with pytest.raises(RuntimeError, match="CUDA"):
@@ -111,9 +114,22 @@ def test_new_kernel_wrappers_refuse_devices_without_a_kernel():
         select_counting.counting_select_min(torch.empty((2, 128), device=meta), 3)
 
 
+def test_bitplane_wrapper_refuses_devices_without_a_kernel():
+    meta = torch.device("meta")
+    lof = torch.zeros((2,), dtype=torch.int32, device=meta)
+    planes = torch.empty((2, 4, 24), dtype=torch.int32, device=meta)
+    codes_t = torch.empty((1, 3, 128), dtype=torch.int32, device=meta)
+    rows = torch.empty((1, 3, 128), device=meta)
+    base = torch.empty((1, 1, 128), device=meta)
+    qmeta = torch.empty((2, 4, 4), device=meta)
+    with pytest.raises(ValueError, match="cpu or cuda"):
+        fused_scan.fused_bitplane_topk(lof, planes, codes_t, rows, base, qmeta, 2, rot_dim=96,
+                                       bits=8)
+
+
 def test_launch_counts_cover_every_kernel():
     names = {"fused_topk", "fused_list_topk", "fused_list_topk_int8", "pq_list_scan",
-             "pairwise_tiled", "fused_l2_argmin", "counting_select_min"}
+             "pairwise_tiled", "fused_l2_argmin", "counting_select_min", "fused_bitplane_topk"}
     assert set(_launch.launch_counts()) == names
     assert fused_scan.launch_counts is _launch.launch_counts
     assert fused_scan.reset_launch_counts is _launch.reset_launch_counts
