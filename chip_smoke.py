@@ -16,7 +16,12 @@ Phases, in order; any failure exits non-zero:
      k = 1, KL zeros, canberra zero denominators, integer grids bitwise),
      the fused L2 argmin (duplicate rows, candidates that round below
      zero, n = 1, sqrt) and the counting select (ties, +-0, +-inf, NaN,
-     k = 1 to L, rows of 128 to 1,048,576); the RaBitQ bit-plane scan bit
+     k = 1 to L, rows of 128 to 1,048,576, descending and all-equal rows,
+     k on both sides of its variant switch, B 1); the flat fused top-k's
+     tensor-core variant (m 1, 127, 129; n below k and ragged against
+     its tiles and n ranges; k 1 to 256; L2 and inner product; integer
+     grids with duplicate rows across the n ranges, ids exact); the
+     RaBitQ bit-plane scan bit
      for bit (1, 4 and 8 query bits, 1 to 4 words, duplicate codes, +inf
      tails and tiles, empty chunks and live-row prefixes, k 1 to 256 and
      past the finite slots, L 128 to 3840, L2 and inner product), its
@@ -35,9 +40,10 @@ Phases, in order; any failure exits non-zero:
      before it and read just after (the first path's window holds the
      truth too), and each kernel of the path must have launched. A timed
      A/B of the fused bf16 engine at n_probes 8 with select_k's earlier
-     float sort and its repaired order-key sort. Then three more paths on
+     float sort and its repaired order-key sort. Then four more paths on
      the same data (slice_paths): the tiled L1 k-NN over every row, the
-     counting select on its first distance tile, and the fused L2 1-NN
+     exact fused L2 k-NN (QPS over windows, ids equal to the truth), the
+     counting select on the first L1 distance tile, and the fused L2 1-NN
      labelling of the rotated rows against the index's coarse centres.
      Then the IVF-RaBitQ path on the same data and truth (rabitq_path):
      build (n_lists 1024, kmeans_n_iters 10; rot_dim 96, 3 words, 8
@@ -48,6 +54,8 @@ Phases, in order; any failure exits non-zero:
      the fused one on the estimator-ranked candidates;
   5. each kernel against its plain version on the inputs the main path gave
      it, with kernel, plain and library times (CUDA events) and the bound;
+     beside the counting select, descending rows of the tile's shape (its
+     one-pass variant's worst case);
   6. a JSON line of kernels, the card's line, then the device line last.
 """
 
@@ -234,10 +242,24 @@ def adversarial_checks(fs, pls, dev, rng):
             raise AssertionError(f"{name}: integer-grid ids must match exactly ({agree})")
         log(f"check {name}: ok, max_abs_err {err}, id agreement {agree}")
 
-    def flat_case(name, m, n, d, k, grid, ip=False):
+    num_sms = (torch.cuda.get_device_properties(dev).multi_processor_count
+                if dev.type == "cuda" else 132)
+
+    def flat_case(name, m, n, d, k, grid, ip=False, dup=False):
+        """dup: copies of dataset rows on both sides of every boundary
+        between the kernel's n ranges (flat_plan), and two rows duplicated
+        across the whole dataset; ties must still go to the smaller id."""
         gen = (lambda s: rng.integers(-3, 4, s)) if grid else rng.standard_normal
         x = torch.tensor(gen((m, d)).astype(np.float32), device=dev)
-        y = torch.tensor(gen((n, d)).astype(np.float32), device=dev)
+        yn = gen((n, d)).astype(np.float32)
+        if dup:
+            plan = fs.flat_plan(m, n, d, k, num_sms)
+            if plan.n_ranges < 2:
+                raise AssertionError(f"{name}: the case must cross n ranges ({plan})")
+            for b in range(plan.range_len, n, plan.range_len):
+                yn[b - 2:b + 3] = yn[b - 2]
+            yn[n - 1], yn[n // 3] = yn[0], yn[0]
+        y = torch.tensor(yn, device=dev)
         out = fs.fused_topk(x, y, k, inner_product=ip)
         yb = y.to(torch.bfloat16)
         base = torch.zeros(n, device=dev) if ip else (yb.float() ** 2).sum(1)
@@ -351,6 +373,23 @@ def adversarial_checks(fs, pls, dev, rng):
         flat_case(f"flat grid ip k={k}", 21, 777, 96, k, True, ip=True)
     flat_case("flat n < k", 5, 50, 8, 100, True)
     flat_case("flat gaussian", 100, 5000, 96, 10, False)
+    # the tensor-core variant: m not a multiple of a block's 128 query
+    # rows, n below k and ragged against the 128-row tile and the n
+    # ranges, k on both sides of the 32-, 128- and 96-row switches
+    for m in (1, 127, 129):
+        flat_case(f"flat gaussian m={m}", m, 3000, 96, 10, False)
+        flat_case(f"flat grid ip m={m}", m, 1100, 96, 33, True, ip=True)
+    flat_case("flat n < k, d 96", 7, 100, 96, 128, True)
+    flat_case("flat n < k, ip", 3, 200, 96, 256, True, ip=True)
+    for k in (1, 10, 32, 33, 128, 129, 256):
+        for ip in (False, True):
+            flat_case(f"flat grid n 2037 k={k}{' ip' if ip else ''}", 130, 2037, 96, k, True,
+                      ip=ip)
+    flat_case("flat gaussian d 40 k 97", 200, 4000, 40, 97, False)
+    for k, ip in ((10, False), (33, True), (200, False)):
+        flat_case(f"flat grid duplicates across n ranges k={k}{' ip' if ip else ''}", 64, 5000,
+                  96, k, True, ip=ip, dup=True)
+    flat_case("flat grid duplicates across n ranges m 300", 300, 20000, 96, 10, True, dup=True)
 
     int8_list_case("int8 list grid ties, empty chunks", 40, 128, 256, 96, 40, 7, True, cv=True)
     int8_list_case("int8 list +-127, ip, live-row prefixes", 40, 128, 384, 96, 40, 5, False,
@@ -548,8 +587,20 @@ def slice_checks(dev, rng):
     for k in (1, 40, 64, 128):
         counting_case(f"counting L 128 k={k}", short, k)
     wide = rng.integers(-50, 50, (6, 32768)).astype(np.float32)
-    for k in (1, 10, 256, 32768):
+    for k in (1, 10, sc.SMALL_K_MAX, sc.SMALL_K_MAX + 1, 256, 257, 32768):
         counting_case(f"counting L 32768 k={k}", wide, k)
+    # every element an insertion (the one-pass variant's worst case), and
+    # ties everywhere; k on both sides of the variant switch
+    # (sc.SMALL_K_MAX) and of the JAX envelope's cap (256)
+    i = np.arange(32768, dtype=np.float32)
+    desc = np.stack([32768.0 - i, -0.25 * i, 1e30 / (i + 1.0)]).astype(np.float32)
+    equal = np.stack([np.full(32768, 7.0), np.full(32768, -0.0),
+                      np.full(32768, np.inf)]).astype(np.float32)
+    for k in (1, 10, sc.SMALL_K_MAX, sc.SMALL_K_MAX + 1, 256, 257):
+        counting_case(f"counting descending L 32768 k={k}", desc, k)
+        counting_case(f"counting all-equal L 32768 k={k}", equal, k)
+    for k in (10, sc.SMALL_K_MAX, sc.SMALL_K_MAX + 1, 256, 257):
+        counting_case(f"counting B 1 L 32768 k={k}", wide[:1], k)
     long = rng.standard_normal((2, 1 << 20)).astype(np.float32)
     long[1] = np.round(long[1])
     for k in (1, 10, 1000):
@@ -715,6 +766,7 @@ PATH_KERNELS = {("fused", "bf16"): ("fused_topk", "fused_list_topk"),
                 ("pallas", "int8"): ("pq_list_scan", "fused_list_topk"),
                 # the distance and selection slice (slice_paths)
                 ("knn", "l1"): ("pairwise_tiled",),
+                ("knn", "fused"): ("fused_topk",),
                 ("select_k", "counting"): ("counting_select_min",),
                 ("fused_l2_nn", "argmin"): ("fused_l2_argmin",),
                 # IVF-RaBitQ, scan_engine="fused" (rabitq_path)
@@ -849,12 +901,15 @@ def l1_truth_check(dataset, queries, ids, k):
 
 
 def slice_paths(g, dev, res, sync):
-    """The distance and selection slice on the main path's data, three
+    """The distance and selection slice on the main path's data, four
     paths, each with its launch counts set to 0 just before it and read
     just after:
       1. brute_force.knn(metric="l1"), tiled over every row (pairwise_tiled
          on each 32,768-row tile); QPS over three calls; ids against numpy
          float64 L1 for 16 queries, agreement >= 0.99;
+      1b. brute_force.knn(engine="fused"), the exact L2 k-NN (fused_topk):
+         ids equal to the truth phase 4 computed with it, QPS over windows
+         of back-to-back calls;
       2. select_k(strategy="counting") on the first L1 distance tile;
          ids and values equal to select_k(strategy="topk");
       3. fused_l2_nn_argmin of the rotated rows against the index's coarse
@@ -892,6 +947,23 @@ def slice_paths(g, dev, res, sync):
     if agree < 0.99:
         raise AssertionError(f"L1 k-NN disagrees with numpy float64: {agree}")
     out["tile_inputs"] = spy.calls[0][0][:2]
+
+    _launch.reset_launch_counts()
+
+    def exact_l2():
+        return brute_force.knn(dataset, queries, k, engine="fused", device=dev)
+
+    _, ids = exact_l2()
+    sync()
+    if not torch.equal(ids, res["truth"]):
+        raise AssertionError("brute_force.knn(engine='fused') differs from the truth it computed")
+    s, w_qps = timed_windows(g, exact_l2, sync)
+    out["launches"][("knn", "fused")] = _launch.launch_counts()
+    out["knn_fused"] = {"qps": g.nq / s, "call_s": s, "window_qps": w_qps}
+    log(f"path knn fused (exact L2, bf16 operands): {g.nq / s:.1f} qps ({s * 1e3:.4f} ms a "
+        f"{g.nq}-query call over {dataset.shape[0]} rows, {len(w_qps)} windows of "
+        f"{g.batch_reps} calls; window qps {min(w_qps):.1f} .. {max(w_qps):.1f}); beside it "
+        f"knn l1 {out['knn_l1']['qps']:.1f} qps; ids equal to the truth")
 
     tile = pt.pairwise_tiled(*out["tile_inputs"], "l1")
     tile = tile[:, :tile.shape[1] // 128 * 128].contiguous()
@@ -1235,6 +1307,30 @@ def list_kernel_row(fs, call, launches, reps, label):
             "shape": f"{label}: ncb={ncb} chunk={chunk} L={L} rot={rot} k={k}"}
 
 
+def device_split(run, reps, kernel_names):
+    """Device milliseconds a call of `run` under torch.profiler, split into
+    the kernels named (substrings) and everything else the call launches."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    run()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        for _ in range(reps):
+            run()
+        torch.cuda.synchronize()
+    kern = other = 0.0
+    for e in prof.events():
+        if e.device_type != DeviceType.CUDA or getattr(e, "is_user_annotation", False):
+            continue
+        us = e.time_range.end - e.time_range.start
+        if any(name in e.name for name in kernel_names):
+            kern += us
+        else:
+            other += us
+    return {"kernel_device_ms": kern / 1e3 / reps, "setup_device_ms": other / 1e3 / reps}
+
+
 def flat_kernel_row(fs, call, launches, reps):
     (x, y, k), kw = call[0], call[1]
     ip = bool(kw.get("inner_product", False))
@@ -1254,6 +1350,8 @@ def flat_kernel_row(fs, call, launches, reps):
 
     err, agree = compare("fused_topk (truth)", out, plain(), k)
     ms = time_ms(lambda: fs.fused_topk(x, y, k, inner_product=ip), reps, warmup=0)
+    plan = fs.flat_plan(m, n, d, k, torch.cuda.get_device_properties(x.device).multi_processor_count
+                        if x.is_cuda else 132)
     plain_ms = time_ms(plain, 1, warmup=0)
     coef = 1.0 if ip else 2.0
     xh, yh, bh = x.to(torch.bfloat16), yb, base.to(torch.bfloat16)
@@ -1263,14 +1361,20 @@ def flat_kernel_row(fs, call, launches, reps):
                           largest=False)
 
     lib_ms = time_ms(library, reps)
-    log(f"kernel fused_topk (truth): m {m}, n {n}, d {d}, k {k}: {ms:.4f} ms, plain "
-        f"{plain_ms:.4f} ms, library {lib_ms:.4f} ms, bound {b_ms:.4f} ms ({b_by}), "
-        f"max_abs_err {err}, id agreement {agree}")
+    if x.is_cuda:  # the call's device time: the kernels, and the wrapper's setup around them
+        terms.update(device_split(lambda: fs.fused_topk(x, y, k, inner_product=ip), reps,
+                                  ("tc_range_kernel", "merge_ranges_kernel", "flat_kernel")))
+    log(f"kernel fused_topk (truth): m {m}, n {n}, d {d}, k {k} ({plan.variant}, "
+        f"{plan.rows} rows a block, {plan.n_ranges} n ranges of {plan.range_len}): {ms:.4f} "
+        f"ms, plain {plain_ms:.4f} ms, library {lib_ms:.4f} ms, bound {b_ms:.4f} ms ({b_by}), "
+        f"max_abs_err {err}, id agreement {agree}; device ms a call: kernels "
+        f"{terms.get('kernel_device_ms', float('nan')):.4f}, setup "
+        f"{terms.get('setup_device_ms', float('nan')):.4f}")
     return {"name": "fused_topk", "route": "cuda", "source": "raft_tpu_torch/csrc/fused_topk.cu",
             "replaces": "raft_tpu/ops/fused_scan.py:267", "launches": launches,
             "max_abs_err": err, "ms": ms, "plain_ms": plain_ms, "bound_ms": b_ms,
             "bound_by": b_by, "library_ms": lib_ms, "bound_terms": terms,
-            "shape": f"truth: m={m} n={n} d={d} k={k}"}
+            "shape": f"truth: m={m} n={n} d={d} k={k}", "plan": plan._asdict()}
 
 
 def bf16_bmm(a, b):
@@ -1494,9 +1598,32 @@ def counting_row(slice_res, launches, reps, k):
     ms = time_ms(kernel, reps)
     plain_ms = time_ms(plain, 1, warmup=0)
     lib_ms = time_ms(lambda: torch.topk(tile, k, dim=1, largest=False), reps)
+    # the worst case of the small-k variant, at the tile's shape: strictly
+    # descending rows, every element an insertion
+    desc = torch.arange(L, 0, -1, dtype=torch.float32, device=tile.device).expand(B, L)
+    desc = desc.contiguous()
+    require_equal("counting_select_min (descending rows)", sc.counting_select_min(desc, k),
+                  sc.counting_select_min_plain(desc, k))
+    desc_ms = time_ms(lambda: sc.counting_select_min(desc, k), reps)
+    desc_lib_ms = time_ms(lambda: torch.topk(desc, k, dim=1, largest=False), reps)
+    terms["descending_ms"], terms["descending_library_ms"] = desc_ms, desc_lib_ms
+    del desc
+    # at the variant switch (k = SMALL_K_MAX): the one-pass variant against
+    # the radix one, forced by a row view off 16-byte alignment, on the tile
+    off = torch.empty(B * L + 1, dtype=torch.float32, device=tile.device)[1:].view(B, L)
+    off.copy_(tile)
+    ks = sc.SMALL_K_MAX
+    require_equal(f"counting_select_min radix k {ks}", sc.counting_select_min(off, ks),
+                  sc.counting_select_min(tile, ks))
+    terms["switch_k"] = ks
+    terms["switch_one_pass_ms"] = time_ms(lambda: sc.counting_select_min(tile, ks), reps)
+    terms["switch_radix_ms"] = time_ms(lambda: sc.counting_select_min(off, ks), reps)
+    del off
     log(f"kernel counting_select_min (L1 tile): B {B}, L {L}, k {k}: {ms:.4f} ms, plain "
         f"{plain_ms:.4f} ms, library {lib_ms:.4f} ms, bound {b_ms:.4f} ms ({b_by}), bitwise "
-        f"equal to plain")
+        f"equal to plain; descending rows of the same shape {desc_ms:.4f} ms (library "
+        f"{desc_lib_ms:.4f} ms), bitwise equal to plain; at the variant switch, k {ks}: one pass "
+        f"{terms['switch_one_pass_ms']:.4f} ms, radix {terms['switch_radix_ms']:.4f} ms")
     return {"name": "counting_select_min", "route": "cuda",
             "source": "raft_tpu_torch/csrc/select_counting.cu",
             "replaces": "raft_tpu/ops/select_counting.py:140", "launches": launches,
@@ -1672,6 +1799,7 @@ def main(argv=None):
     summary = {"build_s": res["build_s"], "truth_s": res["truth_s"], "rungs": res["rungs"],
                "breakdown": res["breakdown"], "refine_kernel": refine_row,
                "sorted_top_ab": res["sorted_top_ab"], "knn_l1": sl["knn_l1"],
+               "knn_fused": sl["knn_fused"],
                "fused_l2_nn": sl["fused_l2_nn"], "rabitq": rb,
                "wall_s": time.perf_counter() - t_all}
     log("summary " + json.dumps(summary))

@@ -7,7 +7,11 @@ plain PyTorch version of the same function beside it:
 
   `fused_topk`           flat scan: every query against every dataset row,
                          with a running exact top-k per query; only the
-                         (m, kbuf) result reaches device memory.
+                         (m, kbuf) result (and, on the card, a small
+                         (m, n_ranges, k) workspace of per-range lists)
+                         reaches device memory. `flat_plan` is its
+                         launch plan, `fused_topk_ranges_plain` the plain
+                         twin of its range split and merge.
   `fused_list_topk`      list scan: each chunk of query rows against the
                          one list `lof[chunk]` of a slot-table store, an
                          exact top-k of the (chunk, L) scores per row.
@@ -45,7 +49,7 @@ and nowhere else; `launch_counts()` and `reset_launch_counts()` (from
 
 from __future__ import annotations
 
-from typing import Optional
+from typing import NamedTuple, Optional
 
 import ctypes
 import math
@@ -78,6 +82,12 @@ _D_STEP = 32
 _ROWS = 16             # query rows per block
 #: shared memory one Hopper block may use (227 KB)
 SMEM_LIMIT = 232448
+
+# the flat kernel's tensor-core variant: must match csrc/fused_topk.cu
+_TC_TILE = 128         # dataset rows per staged tile (kBN)
+_TC_MAX_RANGES = 128   # kMaxRanges: lists a row's merge takes
+_TC_STAGES = 3        # dataset tiles in shared memory (kStages)
+_TC_QUEUE = 128       # a warp's queue of flagged pairs (kQueue)
 
 
 def fused_kbuf(k: int) -> int:
@@ -132,15 +142,17 @@ def _bf16(t: torch.Tensor) -> torch.Tensor:
     return t.to(torch.bfloat16).float()
 
 
-def _lex_key(scores: torch.Tensor) -> torch.Tensor:
+def _lex_key(scores: torch.Tensor, ids: Optional[torch.Tensor] = None) -> torch.Tensor:
     """A unique int64 key per element whose order is the lexicographic
     (score, column) order: the f32 bits mapped to an order-preserving
-    int32 in the high word, the column in the low word. -0.0 is folded
-    onto +0.0 first, since the two compare equal."""
+    int32 in the high word, the column (or `ids`, non-negative int32
+    values, where given) in the low word. -0.0 is folded onto +0.0 first,
+    since the two compare equal."""
     s = (scores.float() + 0.0).contiguous()
     b = s.view(torch.int32).to(torch.int64)
     b = torch.where(b < 0, b ^ 0x7FFFFFFF, b)
-    col = torch.arange(s.shape[-1], dtype=torch.int64, device=s.device)
+    col = (torch.arange(s.shape[-1], dtype=torch.int64, device=s.device) if ids is None
+           else ids.to(torch.int64))
     return b * (1 << 32) + col
 
 
@@ -183,6 +195,89 @@ def fused_topk_plain(xb, yb, base, k: int, kbuf: int, inner_product: bool,
     return torch.cat(outs_v), torch.cat(outs_i)
 
 
+class FlatPlan(NamedTuple):
+    """How `fused_topk` runs on the card. `variant` "wgmma": the
+    tensor-core kernel, `rows` query rows a block (two warpgroups, or one
+    where the rows' k-deep heaps need the room), the dataset cut into
+    `n_ranges` ranges of `range_len` rows, each (row, range) writing its
+    k best to a `workspace` of that shape before the merge; rows padded
+    to `dp` columns (a multiple of 8). "simt": query rows too wide, or k
+    too deep, for that kernel's shared memory take the CUDA-core kernel
+    (one range, no workspace)."""
+    variant: str
+    rows: int
+    n_ranges: int
+    range_len: int
+    workspace: Optional[tuple]
+    dp: int
+
+
+def _tc_smem_bytes(dp: int, k: int, rows: int) -> int:
+    """Shared memory of one tensor-core block (tc_smem_bytes in
+    csrc/fused_topk.cu): 1024 bytes of alignment slack, the query rows and
+    the dataset stages (chunks of 64 bf16 columns, 128 bytes a row), the
+    stages' base values, and each row's heap of k (score, id) pairs."""
+    nk16 = -(-dp // 16)
+    nkc = -(-nk16 // 4)
+    st = _TC_STAGES
+    return (1024 + nkc * 128 * (rows + st * _TC_TILE) + st * _TC_TILE * 4 + st * 16
+            + rows * k * 8 + rows // 16 * _TC_QUEUE * 8)
+
+
+def flat_plan(m: int, n: int, d: int, k: int, num_sms: int) -> FlatPlan:
+    """The launch plan of `fused_topk` on a card with `num_sms` SMs: the
+    first tensor-core variant whose shared memory fits (128 query rows a
+    block, then 64; with d 96 the first holds k <= 88, the second k <=
+    216), else the CUDA-core kernel. The dataset is split into as
+    many ranges as leave every SM a block (query blocks x ranges <=
+    num_sms, at least one tile a range, at most 128 ranges)."""
+    dp = -(-int(d) // 8) * 8
+    for rows in (128, 64):
+        if _tc_smem_bytes(dp, k, rows) <= SMEM_LIMIT:
+            break
+    else:
+        return FlatPlan("simt", _ROWS, 1, -(-n // _TC_TILE) * _TC_TILE, None, d)
+    q_blocks = max(1, -(-int(m) // rows))
+    tiles = max(1, -(-int(n) // _TC_TILE))
+    n_ranges = max(1, min(tiles, _TC_MAX_RANGES, int(num_sms) // q_blocks))
+    range_len = -(-tiles // n_ranges) * _TC_TILE
+    n_ranges = max(1, -(-int(n) // range_len))
+    return FlatPlan("wgmma", rows, n_ranges, range_len, (int(m), n_ranges, int(k)), dp)
+
+
+def merge_ranges_plain(ws_v: torch.Tensor, ws_i: torch.Tensor, k: int, kbuf: int):
+    """Plain version of the flat kernel's merge: the k lexicographically
+    smallest (score, id) pairs of each row's (n_ranges, k) lists, best
+    first, padded to kbuf with (+inf, sentinel)."""
+    m = ws_v.shape[0]
+    v, i = ws_v.reshape(m, -1).float(), ws_i.reshape(m, -1)
+    _, o = torch.topk(_lex_key(v, i), k, dim=1, largest=False, sorted=True)
+    ov = torch.full((m, kbuf), float("inf"), device=v.device)
+    oi = torch.full((m, kbuf), _ID_SENTINEL, dtype=torch.int32, device=v.device)
+    ov[:, :k] = torch.gather(v, 1, o)
+    oi[:, :k] = torch.gather(i, 1, o).to(torch.int32)
+    return ov, oi
+
+
+def fused_topk_ranges_plain(xb, yb, base, k: int, kbuf: int, inner_product: bool,
+                            n_ranges: int, range_len: int):
+    """The flat kernel's range split in plain PyTorch: `fused_topk_plain`
+    over each range of `range_len` dataset rows (ids offset to the whole
+    dataset, (+inf, sentinel) where a range has fewer than k rows), then
+    `merge_ranges_plain`. Equal to `fused_topk_plain` whatever the split."""
+    m, n = xb.shape[0], yb.shape[0]
+    ws_v = torch.full((m, n_ranges, k), float("inf"), device=xb.device)
+    ws_i = torch.full((m, n_ranges, k), _ID_SENTINEL, dtype=torch.int32, device=xb.device)
+    for r in range(n_ranges):
+        a, b = r * range_len, min(n, (r + 1) * range_len)
+        if a >= b:
+            continue
+        v, i = fused_topk_plain(xb, yb[a:b], base[a:b], k, k, inner_product)
+        ws_v[:, r] = v
+        ws_i[:, r] = torch.where(i == _ID_SENTINEL, i, i + a)
+    return merge_ranges_plain(ws_v, ws_i, k, kbuf)
+
+
 def fused_topk(x: torch.Tensor, y: torch.Tensor, k: int, *,
                inner_product: bool = False):
     """Exact fused scan+select over the full (m, n) pair space.
@@ -212,13 +307,28 @@ def fused_topk(x: torch.Tensor, y: torch.Tensor, k: int, *,
            f"fused_topk: d={d}, k={k} exceed the kernel's shared-memory budget")
     vals = torch.empty((m, kbuf), dtype=torch.float32, device=dev)
     idx = torch.empty((m, kbuf), dtype=torch.int32, device=dev)
-    fn = _kernel_fn("fused_topk.cu", "fused_topk_launch",
-                    [_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _P])
+    plan = flat_plan(m, n, d, int(k), torch.cuda.get_device_properties(dev).multi_processor_count)
     with torch.cuda.device(dev):
         stream = torch.cuda.current_stream(dev).cuda_stream
-        err = fn(x.data_ptr(), yb.data_ptr(), base.data_ptr(), vals.data_ptr(),
-                 idx.data_ptr(), m, n, d, int(k), kbuf, int(bool(inner_product)),
-                 stream)
+        if plan.variant == "simt":
+            fn = _kernel_fn("fused_topk.cu", "fused_topk_launch",
+                            [_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _P])
+            err = fn(x.data_ptr(), yb.data_ptr(), base.data_ptr(), vals.data_ptr(),
+                     idx.data_ptr(), m, n, d, int(k), kbuf, int(bool(inner_product)),
+                     stream)
+        else:
+            if plan.dp != d:  # zero columns up to the kernel's 16-byte loads
+                yb = torch.nn.functional.pad(yb, (0, plan.dp - d))
+            ws_v = torch.empty(plan.workspace, dtype=torch.float32, device=dev)
+            ws_i = torch.empty(plan.workspace, dtype=torch.int32, device=dev)
+            bound = torch.full((m,), -1, dtype=torch.int32, device=dev)  # every bit set
+            fn = _kernel_fn("fused_topk.cu", "fused_topk_tc_launch",
+                            [_P] * 8 + [_I] * 10 + [_P])
+            err = fn(x.data_ptr(), yb.data_ptr(), base.data_ptr(), ws_v.data_ptr(),
+                     ws_i.data_ptr(), bound.data_ptr(), vals.data_ptr(), idx.data_ptr(), m,
+                     n, d, plan.dp,
+                     int(k), kbuf, int(bool(inner_product)), plan.rows, plan.n_ranges,
+                     plan.range_len, stream)
     _raise_on(err, "fused_topk")
     _launches["fused_topk"] += 1
     return vals, idx

@@ -23,8 +23,12 @@ elements equal to T in index order. The caller pads rows to a multiple of
 Left out: the JAX `fits_counting` envelope (`k <= 256`, 16 L bytes within
 10 MB). It is a TPU VMEM budget, and the JAX package consults it only
 where a tuned value promotes the counting engine; the Hopper kernel takes
-any L and any k <= L (rows that do not fit in shared memory are re-read
-from device memory on each pass).
+any L and any k <= L. Its launcher picks one of two variants by k (the
+switch is `SMALL_K_MAX`, csrc/select_counting.cu's kSmallK): up to it, one
+warp a row keeps the running k smallest in registers over one pass from
+device memory; past it (or for a row not 16-byte aligned), a radix select
+whose four histogram passes re-read rows that do not fit in shared
+memory. Both return the same bits.
 """
 
 from __future__ import annotations
@@ -34,6 +38,8 @@ import torch
 from raft_tpu_torch.ops._launch import _I, _P, _check, _kernel_fn, _launches, _raise_on, _tensor_arg
 
 _LANES = 128
+#: the largest k of the CUDA kernel's one-pass variant (kSmallK)
+SMALL_K_MAX = 128
 
 
 def _monotone_u32(x: torch.Tensor) -> torch.Tensor:

@@ -72,6 +72,90 @@ def test_fused_topk_plain_matches_jax_on_gaussian(rng, ip):
     _compare(jout, tout, exact=False)
 
 
+def _straddling_grid(rng, m, n, d, range_len):
+    """Integer-grid rows with copies of the rows on both sides of every
+    boundary between n ranges of `range_len`, and of row 0 at n // 3 and
+    n - 1: ties whose smaller id lies in another range."""
+    x, y = _grid(rng, (m, d)), _grid(rng, (n, d))
+    for b in range(range_len, n, range_len):
+        y[b - 2:b + 3] = y[b - 2]
+    y[n // 3] = y[n - 1] = y[0]
+    return x, y
+
+
+@pytest.mark.parametrize("k,ip", [(1, False), (10, True), (33, False), (129, True)])
+def test_fused_topk_plain_matches_jax_with_ties_across_n_ranges(rng, k, ip):
+    plan = tfs.flat_plan(20, 2000, 24, k, num_sms=132)
+    assert plan.n_ranges > 1
+    x, y = _straddling_grid(rng, 20, 2000, 24, plan.range_len)
+    jout = jfs.fused_topk(x, y, k, inner_product=ip, interpret=True)
+    tout = tfs.fused_topk(torch.tensor(x), torch.tensor(y), k, inner_product=ip)
+    _compare(jout, tout, exact=True)
+
+
+@pytest.mark.parametrize("n_ranges,range_len", [(16, 128), (3, 768), (1, 2048), (40, 128)])
+@pytest.mark.parametrize("k", [1, 10, 100])
+def test_range_split_and_merge_twin_matches_jax(rng, n_ranges, range_len, k):
+    """The card's split of the dataset into n ranges, each range's k best,
+    then a lexicographic merge of the lists: equal to the JAX kernel,
+    ids and values, on ties that straddle the ranges (and with ranges
+    past the dataset's end, or shorter than k)."""
+    n, ip = 1900, k == 10
+    x, y = _straddling_grid(rng, 9, n, 16, range_len)
+    xb, yb = tfs._bf16(torch.tensor(x)), torch.tensor(y).to(torch.bfloat16)
+    base = torch.zeros(n) if ip else (yb.float() ** 2).sum(1)
+    got = tfs.fused_topk_ranges_plain(xb, yb, base, k, tfs.fused_kbuf(k), ip, n_ranges,
+                                      range_len)
+    jout = jfs.fused_topk(x, y, k, inner_product=ip, interpret=True)
+    _compare(jout, got, exact=True)
+
+
+def test_merge_twin_keeps_sentinels_past_the_candidates():
+    ws_v = torch.tensor([[[1.0, 3.0, np.inf], [1.0, 2.0, np.inf]]])
+    ws_i = torch.tensor([[[7, 9, tfs._ID_SENTINEL], [4, 8, tfs._ID_SENTINEL]]], dtype=torch.int32)
+    v, i = tfs.merge_ranges_plain(ws_v, ws_i, 3, 5)
+    assert v.tolist() == [[1.0, 1.0, 2.0, np.inf, np.inf]]
+    assert i.tolist() == [[4, 7, 8, tfs._ID_SENTINEL, tfs._ID_SENTINEL]]
+    v, i = tfs.merge_ranges_plain(ws_v[:, :1], ws_i[:, :1], 3, 4)  # fewer candidates than k
+    assert i.tolist() == [[7, 9, tfs._ID_SENTINEL, tfs._ID_SENTINEL]]
+
+
+@pytest.mark.parametrize("m,n,d,k,num_sms,want", [
+    # the main path: 32 query blocks x 4 ranges fill 128 of 132 SMs
+    (4096, 1 << 20, 96, 10, 132, ("wgmma", 128, 4, 262144, (4096, 4, 10))),
+    # k past a 128-row block's heaps: 64 rows a block, twice the blocks
+    (4096, 1 << 20, 96, 88, 132, ("wgmma", 128, 4, 262144, (4096, 4, 88))),
+    (4096, 1 << 20, 96, 89, 132, ("wgmma", 64, 2, 524288, (4096, 2, 89))),
+    (4096, 1 << 20, 96, 216, 132, ("wgmma", 64, 2, 524288, (4096, 2, 216))),
+    # heaps too deep for either block: the CUDA-core kernel
+    (4096, 1 << 20, 96, 217, 132, ("simt", 16, 1, 1 << 20, None)),
+    (16, 100, 4096, 256, 132, ("simt", 16, 1, 128, None)),
+    # one query block: as many ranges as SMs, at most 128, at least a tile each
+    (1, 1 << 20, 96, 10, 132, ("wgmma", 128, 128, 8192, (1, 128, 10))),
+    (129, 1000, 96, 10, 132, ("wgmma", 128, 8, 128, (129, 8, 10))),
+    (5, 50, 8, 100, 132, ("wgmma", 128, 1, 128, (5, 1, 100))),
+    # more query blocks than SMs: one range
+    (65536, 1 << 20, 96, 10, 132, ("wgmma", 128, 1, 1 << 20, (65536, 1, 10))),
+])
+def test_flat_plan(m, n, d, k, num_sms, want):
+    plan = tfs.flat_plan(m, n, d, k, num_sms)
+    assert (plan.variant, plan.rows, plan.n_ranges, plan.range_len, plan.workspace) == want
+    if plan.variant == "wgmma":
+        assert tfs._tc_smem_bytes(plan.dp, k, plan.rows) <= tfs.SMEM_LIMIT
+        assert plan.range_len % 128 == 0 and (plan.n_ranges - 1) * plan.range_len < n
+        assert plan.n_ranges * plan.range_len >= n and plan.dp % 8 == 0 and plan.dp >= d
+
+
+def test_flat_plan_pads_rows_to_the_kernel_loads():
+    assert tfs.flat_plan(8, 100, 33, 5, 132).dp == 40
+    assert tfs.flat_plan(8, 100, 96, 5, 132).dp == 96
+    # bytes: 1024 slack, 2 chunks x 128 B x (128 query + 3 x 128 dataset rows),
+    # 3 x 128 base floats and 2 barriers each, 128 heaps of k 10 pairs, 8 warps'
+    # queues of 128 pairs
+    assert tfs._tc_smem_bytes(96, 10, 128) == (1024 + 2 * 128 * 512 + 1536 + 48 + 128 * 80
+                                               + 8 * 1024)
+
+
 # -- list scan: fused_list_topk ---------------------------------------------
 
 

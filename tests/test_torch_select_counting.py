@@ -116,3 +116,34 @@ def test_counting_wrapper_checks(rng):
         tsc.counting_select_min(x[:, :128].contiguous(), 129)
     with pytest.raises(ValueError, match="cpu or cuda"):
         tsc.counting_select_min(torch.empty((2, 128), device="meta"), 3)
+
+
+def _worst_rows(kind, length):
+    i = np.arange(length, dtype=np.float32)
+    if kind == "descending":  # every element below all before it
+        return np.stack([length - i, -0.25 * i, 1e30 / (i + 1.0)]).astype(np.float32)
+    return np.stack([np.full(length, 7.0), np.full(length, -0.0),  # all equal
+                     np.full(length, np.inf)]).astype(np.float32)
+
+
+@pytest.mark.parametrize("kind", ["descending", "all-equal"])
+@pytest.mark.parametrize("k", [1, 10, 32, 33, 128, 129, 256, 257])
+def test_kernel_plain_matches_the_jax_kernel_on_worst_rows(kind, k):
+    """Rows that make every element an insertion (descending) or tie
+    everywhere (all equal), k on both sides of the CUDA kernel's switches
+    (32/33: one list register a lane or two; 128/129, SMALL_K_MAX: the
+    one-pass variant or the radix select) and of the JAX envelope's cap
+    (256/257)."""
+    x = _worst_rows(kind, 1024)
+    want = jax_counting_select_min(x, k, interpret=True)
+    got = tsc.counting_select_min(torch.tensor(x), k)
+    _same(got, want)
+
+
+@pytest.mark.parametrize("k", [tsc.SMALL_K_MAX, tsc.SMALL_K_MAX + 1, 256, 257])
+def test_counting_select_k_at_the_variant_switch(rng, k):
+    x = rng.integers(-20, 20, (4, 1280)).astype(np.float32)
+    x[0, ::5] = -0.0
+    want = jax_select_k(x, k, select_min=True, strategy="counting")
+    got = select_k(x, k, select_min=True, strategy="counting", device="cpu")
+    _same(got, want)
