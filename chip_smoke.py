@@ -3,6 +3,8 @@
     python3 chip_smoke.py              # on a machine with a CUDA card
     python3 chip_smoke.py --rehearse   # tiny geometry on the CPU: checks the
                                        # control flow, prints no result, exits 3
+    python3 chip_smoke.py --checks     # on the card: phases 1-3 only (build,
+                                       # ptxas lines, adversarial checks); exits 4
 
 Phases, in order; any failure exits non-zero:
   1. the card's name and power limit (nvidia-smi), torch and CUDA versions;
@@ -14,8 +16,10 @@ Phases, in order; any failure exits non-zero:
      counts), and the int8 exact trim's values among the int8 bin fold's
      candidates; the pairwise kernel for every metric (ragged m, n, k,
      k = 1, KL zeros, canberra zero denominators, integer grids bitwise),
-     the fused L2 argmin (duplicate rows, candidates that round below
-     zero, n = 1, sqrt) and the counting select (ties, +-0, +-inf, NaN,
+     the fused L2 argmin (k 1 to 400, n 1 to 1024, m ragged against its
+     row blocks, duplicate rows and centres, blob rows and the same
+     shifted by +100, candidates that round below zero, sqrt) and the
+     counting select (ties, +-0, +-inf, NaN,
      k = 1 to L, rows of 128 to 1,048,576, descending and all-equal rows,
      k on both sides of its variant switch, B 1); the flat fused top-k's
      tensor-core variant (m 1, 127, 129; n below k and ragged against
@@ -26,7 +30,9 @@ Phases, in order; any failure exits non-zero:
      tails and tiles, empty chunks and live-row prefixes, k 1 to 256 and
      past the finite slots, L 128 to 3840, L2 and inner product), its
      integer scores S_u recovered exactly from a case whose estimator is
-     an exact map of them;
+     an exact map of them, k 32 and 33 (either side of its selection
+     switch) and 129 to 256 at L 4992, scores that fall with the slot and
+     all-equal scores;
   4. the main path at full size: 1M x 96 clustered vectors (1024 blob
      centers U(-5, 5) plus unit gaussian noise, made from --seed), IVF-PQ
      build (n_lists 1024, pq_dim 48, kmeans_n_iters 10), exact truth with
@@ -54,6 +60,9 @@ Phases, in order; any failure exits non-zero:
      the fused one on the estimator-ranked candidates;
   5. each kernel against its plain version on the inputs the main path gave
      it, with kernel, plain and library times (CUDA events) and the bound;
+     the fused L2 argmin's bound on both routes (split TF32 on the tensor
+     cores, f32 on the CUDA cores), the bit-plane scan over k 8 to 128
+     across its selection switch;
      beside the counting select, descending rows of the tile's shape (its
      one-pass variant's worst case);
   6. a JSON line of kernels, the card's line, then the device line last.
@@ -77,6 +86,7 @@ import torch
 PEAK_BF16_FLOPS = 989e12
 PEAK_INT8_OPS = 1979e12
 PEAK_F32_FLOPS = 66.9e12
+PEAK_TF32_FLOPS = 495e12
 PEAK_F32_INSTR = 33.5e12
 PEAK_HBM_BYTES = 3.35e12
 #: 32-bit population counts a second: 132 SMs x 16 a clock x 1.98 GHz (the
@@ -92,6 +102,13 @@ PEAK_POPC = 4.18e12
 TERM_OPS = {"l1": 2, "linf": 2, "l2_unexpanded": 2, "l2_sqrt_unexpanded": 2, "canberra": 5,
             "kl_divergence": 6, "hamming": 2}
 RECALL_GATE = 0.95
+#: earlier times, for the log lines only (figures quoted from PERF.md
+#: section 6, H100 80GB HBM3, 700.00 W; not measured by this run): the f32
+#: CUDA-core fused_l2_argmin the split-TF32 design replaced, at the
+#: labelling shape, and fused_bitplane_topk with register lists only, at
+#: the RaBitQ gate rung (k 250) and at k 40
+EARLIER_ARGMIN_MS = 7.1835
+EARLIER_BITPLANE_MS = {250: 32.7113, 40: 2.0828}
 #: values agree to this relative tolerance, scaled by the row's largest
 #: finite magnitude (the f32 sums run in another order in kernel and plain)
 VAL_RTOL = 1e-5
@@ -456,19 +473,25 @@ def expanded_floor(x, y):
     return 4 * eps * ((x * x).sum(1) + (y * y).sum(1) + 2 * (x * y).sum(1).abs())
 
 
-def argmin_compare(name, out, ref, x, y):
+def argmin_compare(name, out, ref, x, y, sqrt=False):
     """Hold a fused L2 argmin's (dist, idx) against its plain version's:
-    distances to VAL_RTOL of |d| plus the expanded form's f32 floor
-    (`expanded_floor` at the plain version's pick); where the ids differ,
-    the two candidates' float64 distances lie within that tolerance (a
-    near-tie the two summation orders may break either way). Returns
-    (max abs error, id agreement)."""
+    squared distances to VAL_RTOL of |d| plus the expanded form's f32 floor
+    (`expanded_floor` at the plain version's pick); with `sqrt` both
+    outputs are squared back (float64) first, since the floor is in squared
+    units; where the ids differ, the two candidates' float64 squared
+    distances lie within that tolerance (a near-tie the two summation
+    orders may break either way). Returns (max abs error of the outputs as
+    given, id agreement)."""
     (kd, ki), (pd, pi) = (tuple(t.cpu() for t in o) for o in (out, ref))
     floor = expanded_floor(x, y[pi.long().to(y.device)]).cpu()
-    tol = VAL_RTOL * pd.abs().double() + floor
+    kq, pq = kd.double(), pd.double()
+    if sqrt:
+        kq, pq = kq * kq, pq * pq
+    tol = VAL_RTOL * pq.abs() + floor
+    if bool(((kq - pq).abs() > tol).any()):
+        raise AssertionError(f"{name}: squared distances differ by up to "
+                             f"{float((kq - pq).abs().max())}")
     err = (kd - pd).abs()
-    if bool((err > tol).any()):
-        raise AssertionError(f"{name}: distances differ by up to {float(err.max())}")
     bad = (ki != pi).nonzero()[:, 0]
     if bad.numel():
         xr = x[bad.to(x.device)].double()
@@ -477,6 +500,41 @@ def argmin_compare(name, out, ref, x, y):
         if bool(((da - db).abs() > tol[bad]).any()):
             raise AssertionError(f"{name}: {bad.numel()} ids differ away from near-ties")
     return float(err.max()), 1.0 - bad.numel() / max(1, ki.numel())
+
+
+def tf32_split(a):
+    """(hi, lo) of f32 values: hi rounded to TF32 to nearest, ties away
+    from zero (cvt.rna.tf32.f32, on the bits), lo = TF32 of a - hi."""
+    def rna(v):
+        b = np.ascontiguousarray(v, np.float32).view(np.uint32)
+        return ((b + np.uint32(0x1000)) & np.uint32(0xFFFFE000)).view(np.float32)
+    hi = rna(a)
+    return hi, rna((a - hi).astype(np.float32))
+
+
+def split_tf32_depth1(x0, yv, mode):
+    """The fused L2 argmin kernel's arithmetic for one row x = [x0] against
+    rows y = yv[:, None] (depth 1), in numpy: |x|^2 and |y|^2 rounded once,
+    -2y split into TF32 hi and lo as x is, the three products lo.hi, hi.lo,
+    hi.hi (each exact) summed in that order with each tensor-core
+    accumulation rounded once, to nearest ("rn") or toward zero ("rz"),
+    added to |y|^2, then |x|^2 added. Returns the (unclamped) f32
+    distances."""
+    f64 = np.float64
+
+    def rnd(v):
+        r = v.astype(np.float32)
+        if mode == "rz":
+            r = np.where(np.abs(r.astype(f64)) > np.abs(v), np.nextafter(r, np.float32(0)), r)
+        return r
+
+    xn, yn = np.float32(x0 * x0), (yv * yv).astype(np.float32)
+    (xh,), (xl,) = tf32_split(np.array([x0], np.float32))
+    yh, yl = tf32_split((-2 * yv).astype(np.float32))
+    c = rnd(f64(xl) * yh.astype(f64))
+    c = rnd(c.astype(f64) + f64(xh) * yl.astype(f64))
+    c = rnd(c.astype(f64) + f64(xh) * yh.astype(f64))
+    return (xn + (yn + c).astype(np.float32)).astype(np.float32)
 
 
 def slice_checks(dev, rng):
@@ -527,12 +585,18 @@ def slice_checks(dev, rng):
             require_equal(name, out, ref)
             log(f"check {name}: ok, bitwise equal")
             return out
-        err, agree = argmin_compare(name, out, ref, x, y)
+        err, agree = argmin_compare(name, out, ref, x, y, sqrt)
         log(f"check {name}: ok, max_abs_err {err}, id agreement {agree}")
         return out
 
+    # k 1 to 400 (padded depth 128 is the last with x resident; 160, 224
+    # and 416 stream it), n 1 to 1024 (ragged against the 128-column
+    # tiles), m ragged against the 128-row blocks; each with and without sqrt
+    shapes = ((70, 300, 12), (1000, 1, 96), (257, 129, 97), (33, 1024, 5), (300, 1023, 1),
+              (129, 129, 7), (1000, 1023, 200), (131, 1, 200), (200, 130, 400),
+              (300, 257, 129), (70, 40, 160))
     for sqrt in (False, True):
-        for m, n, k in ((70, 300, 12), (1000, 1, 96), (257, 129, 97), (33, 1024, 5)):
+        for m, n, k in shapes:
             g = lambda s: torch.tensor(rng.integers(-3, 4, s).astype(np.float32), device=dev)
             x, y = g((m, k)), g((n, k))
             y[n // 2:] = y[:n - n // 2].clone()  # duplicate rows: the lower index wins
@@ -540,6 +604,23 @@ def slice_checks(dev, rng):
             x = torch.tensor(rng.standard_normal((m, k)).astype(np.float32), device=dev)
             y = torch.tensor(rng.standard_normal((n, k)).astype(np.float32), device=dev)
             argmin_case(f"fused_l2_argmin gaussian {m}x{n}x{k} sqrt={sqrt}", x, y, sqrt)
+    # the main path's kind of rows (centres U(-5, 5) plus unit noise), and
+    # the same shifted by +100: |x|^2 ~ 1e6 against distances ~ 100, the
+    # expanded form's cancellation
+    for off in (0.0, 100.0):
+        cen = rng.uniform(-5, 5, (1023, 96))
+        rows = cen[rng.integers(0, 1023, 3001)] + rng.standard_normal((3001, 96))
+        x = torch.tensor((rows + off).astype(np.float32), device=dev)
+        y = torch.tensor((cen + off).astype(np.float32), device=dev)
+        argmin_case(f"fused_l2_argmin blob rows + {off:g}, 3001x1023x96", x, y, False)
+    # duplicate centres across column tiles and blocks, rows near them:
+    # every pick is the first copy of its centre
+    y = torch.tensor(rng.standard_normal((256, 96)).astype(np.float32), device=dev)
+    y = torch.cat([y, y[:200], y[:64]]).contiguous()  # copies at 256 + j and 456 + j
+    x = (y[rng.integers(0, 256, 2000)] + 1e-3 * torch.randn(2000, 96, device=dev)).contiguous()
+    _, i = argmin_case("fused_l2_argmin duplicate centres 2000x520x96", x, y, False)
+    if bool((i >= 256).any()):
+        raise AssertionError("fused_l2_argmin duplicate centres: a later copy won")
     # duplicates of the query rows at several indices: the lowest wins
     y = torch.tensor(rng.standard_normal((300, 8)).astype(np.float32), device=dev)
     y[130], y[257] = y[5], y[5]
@@ -547,19 +628,33 @@ def slice_checks(dev, rng):
     if i.tolist() != [5, 5, 5, 7]:
         raise AssertionError(f"fused_l2_argmin duplicate rows: ids {i.tolist()}")
     # k = 1, y = x + j ulp: many candidates round below zero; after the
-    # clamp they tie at 0.0 and the lowest index whose kernel arithmetic
-    # (xn + fma(x, -2y, yn), emulated exactly in float64) is <= 0 wins
+    # clamp they tie at 0.0 and the lowest index wins. The expectation is
+    # independent of the kernel: its split-TF32 arithmetic in numpy
+    # (`split_tf32_depth1`) under either rounding of the tensor cores'
+    # accumulation; the case must discriminate (the unclamped minimum lies
+    # elsewhere), and every candidate's own distance from the kernel (n = 1)
+    # is >= 0
     x0 = np.float32(1 + 2**-12)
     yv = (x0 + np.arange(-40, 41, dtype=np.float32) * np.float32(2**-23)).astype(np.float32)
     x, y = torch.tensor([[x0]], device=dev), torch.tensor(yv[:, None], device=dev)
     d, i = argmin_case("fused_l2_argmin rounds below zero", x, y, False)
-    xn, yn = np.float32(x0) * np.float32(x0), yv * yv
-    acc = (yn.astype(np.float64) + np.float64(x0) * (-2.0 * yv.astype(np.float64))).astype(np.float32)
-    raw = (np.float64(xn) + acc.astype(np.float64)).astype(np.float32)
-    want = int(np.nonzero(np.maximum(raw, 0) == np.maximum(raw, 0).min())[0][0])
-    if int(i[0]) != want or float(d[0]) != float(max(raw.min(), 0.0)):
+    want, zeros = set(), set()
+    for mode in ("rn", "rz"):
+        raw = split_tf32_depth1(x0, yv, mode)
+        clamped = np.maximum(raw, np.float32(0))
+        w = int(np.argmin(clamped))  # the first minimum: the lowest index
+        if clamped[w] != 0 or int(np.argmin(raw)) == w or int((clamped == 0).sum()) < 2:
+            raise AssertionError(f"fused_l2_argmin rounds below zero: the {mode} model does not "
+                                 f"put several candidates below zero")
+        want.add(w)
+        zeros.add(int((clamped == 0).sum()))
+    each = torch.cat([fla.fused_l2_argmin(x, y[j:j + 1].contiguous())[0]
+                      for j in range(y.shape[0])]).cpu()
+    if int(i[0]) not in want or float(d[0]) != 0.0 or not bool((each >= 0).all()):
         raise AssertionError(f"fused_l2_argmin rounds below zero: ({float(d[0])}, {int(i[0])}), "
-                             f"want index {want}")
+                             f"want (0.0, {sorted(want)}); least candidate {float(each.min())}")
+    log(f"check fused_l2_argmin clamp before compare: index {int(i[0])} at 0.0 as the split-TF32 "
+        f"model gives ({sorted(zeros)} candidates clamp to 0.0, rn / rz)")
 
     def counting_case(name, vals, k):
         t = torch.tensor(vals, device=dev)
@@ -620,18 +715,28 @@ def bitplane_checks(fs, dev, rng):
     from raft_tpu_torch.neighbors import quantizer as tq
 
     def operands(ncb, chunk, L, W, bits, n_lists, ties=False, inf_frac=0.1, inf_tiles=(),
-                 integer=False):
+                 integer=False, equal=False, falling=False):
         words = rng.integers(0, 2**32, (n_lists, L, W), dtype=np.uint64).astype(np.uint32)
         if ties:
             words[:, 1::2] = words[:, 0::2]  # every code twice
+        if equal:
+            words[:] = words[:, :1]  # one code a list: every score of a row ties
+        if falling:
+            words[:] = 0  # S_u = 0: the estimator is the same for every slot
         codes = torch.tensor(words.view(np.int32))
         pop = tq.popcount32(codes).sum(-1).float()
         rn = torch.tensor(rng.uniform(0.5, 20.0, (n_lists, L)).astype(np.float32))
         od = torch.tensor(rng.uniform(0.5, 1.0, (n_lists, L)).astype(np.float32))
         if ties:
             rn[:, 1::2], od[:, 1::2] = rn[:, 0::2], od[:, 0::2]
-        if integer:
+        if integer or equal:
             rn, od = torch.ones_like(rn), torch.ones_like(od)
+        if falling:
+            # inner product, est = rsq > 0 for every slot (qsum -1 below):
+            # score -(rn est + qconst) falls strictly with the slot, so
+            # every slot beats the row's k-th pair (each one an insertion)
+            rn = (1.0 + torch.arange(L, dtype=torch.float32)).expand(n_lists, L).contiguous()
+            od = torch.ones_like(od)
         meta = torch.stack([pop, rn, od], dim=1)
         base = torch.zeros((n_lists, 1, L))
         base[torch.tensor(rng.random((n_lists, 1, L)) < inf_frac)] = float("inf")
@@ -644,6 +749,8 @@ def bitplane_checks(fs, dev, rng):
         if integer:
             qmeta = torch.zeros_like(qmeta)
             qmeta[:, 1] = 1.0
+        if falling:
+            qmeta[:, 2] = -1.0
         lof = torch.tensor(rng.integers(0, n_lists, ncb).astype(np.int32))
         return [t.contiguous().to(dev) for t in (lof, planes.reshape(ncb, chunk, bits * W),
                                                  codes.transpose(1, 2), meta, base, qmeta)]
@@ -691,6 +798,22 @@ def bitplane_checks(fs, dev, rng):
     case("bitplane integer S_u, bits 8 W 3", 12, 128, 384, 3, 8, 100, 4, integer=True)
     case("bitplane integer S_u, bits 1 W 4, ties", 12, 64, 256, 4, 1, 256, 3, integer=True,
          ties=True)
+    # the two selection variants (register lists to k 32, the shared-memory
+    # batch past it): k 32 and 33 at either side of the switch, 129 to 256
+    # at the gate rung's list length; scores that fall with the slot (every
+    # slot an insertion, the batch's worst case); all-equal scores (ties in
+    # id order); +inf tails and tiles with empty chunks and live-row prefixes
+    for k in (32, 33, 129, 160, 250, 256):
+        case(f"bitplane L 4992 k {k}", 24, 128, 4992, 3, 8, k, 4, rows=True)
+    case("bitplane falling scores L 4992 k 250, ip", 8, 128, 4992, 3, 8, 250, 3, ip=True,
+         inf_frac=0.0, falling=True)
+    case("bitplane falling scores L 4992 k 32, ip", 8, 128, 4992, 3, 8, 32, 3, ip=True,
+         inf_frac=0.0, falling=True)
+    for k in (32, 129, 256):
+        case(f"bitplane all-equal scores L 640 k {k}", 10, 128, 640, 3, 8, k, 3, inf_frac=0.0,
+             equal=True)
+    case("bitplane +inf tails, empty chunks, live rows, k 200", 30, 128, 1280, 3, 8, 200, 4,
+         cv=True, rows=True, inf_frac=0.5, inf_tiles=(1, 3, 4, 9))
 
 
 # ---------------------------------------------------------------------------
@@ -1012,14 +1135,22 @@ def slice_paths(g, dev, res, sync):
     away = d64 >= 100 * floor  # rows whose distance is not cancellation-dominated
     rel = float((err[away] / d64[away]).max()) if away.any() else 0.0
     over = int((err > 1e-5 * d64).sum())
+    # the labelling call itself (host clock, g.reps calls, one sync)
+    t0 = time.perf_counter()
+    for _ in range(g.reps):
+        fused_l2_nn_argmin(v_rot, centers, device=dev)
+    sync()
+    label_ms = (time.perf_counter() - t0) / g.reps * 1e3
     out["fused_l2_nn"] = {"label_agreement": label_agree, "differing_rows": int(differ.numel()),
-                          "dist_max_rel_err": rel, "rows_past_rtol_within_floor": over}
+                          "dist_max_rel_err": rel, "rows_past_rtol_within_floor": over,
+                          "labelling_ms": label_ms}
     out["rotated"], out["centers"] = v_rot, centers
     log(f"path fused_l2_nn: labels of {labels.numel()} rotated rows vs kmeans_balanced.predict: "
         f"agreement {label_agree:.6f} ({differ.numel()} rows differ, all float64 near-ties); "
         f"distances vs numpy float64 on 16384 rows: max relative error {rel:.3e} (rows at "
         f"least 100 floors from a centre), {over} rows past rtol 1e-5 and within the f32 floor "
-        f"of the expanded form")
+        f"of the expanded form; labelling {label_ms:.4f} ms a call of {v_rot.shape[0]} rows "
+        f"against {centers.shape[0]} centres (mean of {g.reps})")
     return out
 
 
@@ -1076,7 +1207,8 @@ def rabitq_path(g, dev, res, fs, sync):
     launches = _launch.launch_counts()
     log(f"path rabitq fused: launches {launches}, gate rung "
         + (f"n_probes {gate['n_probes']} rerank_mult {gate['rerank_mult']} recall@{g.k} "
-           f"{gate['recall']:.4f}" if gate else "none"))
+           f"{gate['recall']:.4f}, {gate['batch_s'] * 1e3:.4f} ms a {g.nq}-query batch, "
+           f"{gate['qps']:.1f} qps" if gate else "none"))
     if gate is None:
         raise AssertionError(f"rabitq fused: no rung reached recall@{g.k} >= {RECALL_GATE}")
     gate_params = ivf_rabitq.SearchParams(n_probes=gate["n_probes"],
@@ -1554,7 +1686,14 @@ def argmin_row(slice_res, launches, reps):
     x, y = slice_res["rotated"], slice_res["centers"]
     m, k = x.shape
     n = y.shape[0]
-    b_ms, b_by, terms = bound_ms(2.0 * m * n * (k + 1), (m + n) * k * 4 + m * 8, PEAK_F32_FLOPS)
+    # the same work on two routes: f32 on the CUDA cores, or split TF32
+    # (three TF32 products a multiply-add) on the tensor cores, as the
+    # kernel runs it; the bound is the cheaper route's
+    ops, nbytes = 2.0 * m * n * (k + 1), (m + n) * k * 4 + m * 8
+    b_ms, b_by, terms = bound_ms(3.0 * ops, nbytes, PEAK_TF32_FLOPS)
+    terms["split_tf32_ms"] = terms.pop("ops_ms")
+    terms["f32_cuda_core_ms"] = bound_ms(ops, nbytes, PEAK_F32_FLOPS)[2]["ops_ms"]
+    variant = "x resident" if -(-k // 32) * 32 <= fla.RESIDENT_MAX_DEPTH else "x streamed"
 
     def kernel():
         return fla.fused_l2_argmin(x, y)
@@ -1568,16 +1707,18 @@ def argmin_row(slice_res, launches, reps):
     strict_f32_matmul()
     yn = (y * y).sum(1)
     lib_ms = time_ms(lambda: torch.min(torch.addmm(yn, x, y.T, alpha=-2.0), dim=1), reps)
-    log(f"kernel fused_l2_argmin (labelling): m {m}, n {n}, k {k}: {ms:.4f} ms, plain "
-        f"{plain_ms:.4f} ms, library {lib_ms:.4f} ms, bound {b_ms:.4f} ms ({b_by}; ops "
-        f"{terms['ops_ms']:.4f}, bytes {terms['bytes_ms']:.4f}), max_abs_err {err}, id "
-        f"agreement {agree}")
+    log(f"kernel fused_l2_argmin (labelling, {variant}): m {m}, n {n}, k {k}: {ms:.4f} ms "
+        f"(PERF.md's figure for the earlier SIMT kernel: {EARLIER_ARGMIN_MS} ms), plain "
+        f"{plain_ms:.4f} ms, library {lib_ms:.4f} ms, bound {b_ms:.4f} ms ({b_by}; split TF32 "
+        f"{terms['split_tf32_ms']:.4f}, f32 on the CUDA cores "
+        f"{terms['f32_cuda_core_ms']:.4f}, bytes {terms['bytes_ms']:.4f}), max_abs_err {err}, "
+        f"id agreement {agree}")
     return {"name": "fused_l2_argmin", "route": "cuda",
             "source": "raft_tpu_torch/csrc/fused_l2_argmin.cu",
             "replaces": "raft_tpu/ops/fused_l2_argmin.py:114", "launches": launches,
             "max_abs_err": err, "ms": ms, "plain_ms": plain_ms, "bound_ms": b_ms,
             "bound_by": b_by, "library_ms": lib_ms, "bound_terms": terms,
-            "shape": f"labelling: m={m} n={n} k={k}"}
+            "shape": f"labelling: m={m} n={n} k={k} ({variant})"}
 
 
 def counting_row(slice_res, launches, reps, k):
@@ -1632,7 +1773,7 @@ def counting_row(slice_res, launches, reps, k):
             "shape": f"L1 tile: B={B} L={L} k={k}"}
 
 
-def bitplane_row(fs, call, launches, reps, label):
+def bitplane_row(fs, call, launches, reps, label, sweep=False):
     """Kernel 7 on the operands a rung of the RaBitQ path gave it (its
     first call; `label` names the rung). Bound: the function is a
     rot_dim-wide dot product of each live row's uint8 query levels against
@@ -1672,12 +1813,24 @@ def bitplane_row(fs, call, launches, reps, label):
     require_equal(f"fused_bitplane_topk ({label})", kernel(), plain())
     ms = time_ms(kernel, reps)
     plain_ms = time_ms(plain, 1, warmup=0)
+    if sweep:
+        # the kernel over k on these inputs, across its selection switch
+        # (register lists to BITPLANE_MAX_REGISTER_K, the batch past it)
+        terms["k_sweep_ms"] = {ks: time_ms(
+            lambda: fs.fused_bitplane_topk(lof, planes, codes_t, meta, base, qmeta, ks, rot_dim=rot,
+                                           bits=bits, kbuf=kb, inner_product=ip, chunk_valid=cv,
+                                           chunk_rows=cr), reps)
+            for ks in (8, 16, 32, 33, 40, 64, 96, 128) if ks <= kb}
+        log(f"kernel fused_bitplane_topk ({label}) over k (register lists to k "
+            f"{fs.BITPLANE_MAX_REGISTER_K}): " + ", ".join(
+                f"k {ks} {v:.4f} ms" for ks, v in terms["k_sweep_ms"].items()))
     log(f"kernel fused_bitplane_topk ({label}): ncb {ncb} ({int((live > 0).sum())} "
         f"live, {int(live.sum())} live rows), chunk {chunk}, L {L}, words {W}, bits {bits}, "
         f"k {k}, kbuf {kb}: {ms:.4f} ms, plain {plain_ms:.4f} ms, library -, bound "
         f"{b_ms:.4f} ms ({b_by}; {pairs:.4g} row-slot pairs, {ops:.4g} int8 ops "
         f"{terms['ops_ms']:.4f}, {nbytes} bytes {terms['bytes_ms']:.4f}; the kernel's "
-        f"{n_popc:.4g} popcounts {terms['popc_ms']:.4f}), bitwise equal to plain")
+        f"{n_popc:.4g} popcounts {terms['popc_ms']:.4f}), bitwise equal to plain (PERF.md's "
+        f"figure with register lists only: {EARLIER_BITPLANE_MS.get(k, '-')} ms)")
     return {"name": "fused_bitplane_topk", "route": "cuda",
             "source": "raft_tpu_torch/csrc/fused_bitplane_topk.cu",
             "replaces": "raft_tpu/ops/fused_scan.py:781", "launches": launches,
@@ -1701,6 +1854,9 @@ def main(argv=None):
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--rehearse", action="store_true",
                     help="tiny geometry on the CPU; prints no result and exits 3")
+    ap.add_argument("--checks", action="store_true",
+                    help="phases 1-3 only (build and adversarial checks); prints no result "
+                         "and exits 4")
     ap.add_argument("--seed", type=int, default=0)
     g = ap.parse_args(argv)
     if g.rehearse:
@@ -1736,11 +1892,16 @@ def main(argv=None):
         log(f"build kernels: {time.perf_counter() - t0:.3f} s")
         for src, rep in reports.items():
             for line in rep.splitlines():
-                if "registers" in line or "spill" in line:
+                if "Function properties for" in line:
+                    log(f"  {src}: {line.strip().split('for ')[-1]}")
+                elif "registers" in line or "spill" in line:
                     log(f"  {src}: {line.strip()}")
     adversarial_checks(fs, pls, dev, np.random.default_rng(g.seed + 1))
     slice_checks(dev, np.random.default_rng(g.seed + 2))
     bitplane_checks(fs, dev, np.random.default_rng(g.seed + 3))
+    if g.checks:
+        log(f"checks complete in {time.perf_counter() - t_all:.1f} s; no result printed")
+        return 4
 
     fs.reset_launch_counts()
     res, captured = main_path(g, dev, fs, pls, sync)
@@ -1789,7 +1950,7 @@ def main(argv=None):
     rows.append(counting_row(sl, n(("select_k", "counting"), "counting_select_min"), g.reps,
                              g.k))
     rows.append(bitplane_row(fs, rb_call[0], n(("rabitq", "fused"), "fused_bitplane_topk"), g.reps,
-                             "rabitq n_probes 8, rerank_mult 4"))
+                             "rabitq n_probes 8, rerank_mult 4", sweep=True))
     gate = rb["gate"]
     rows.append(bitplane_row(fs, rb_call[1], n(("rabitq", "fused"), "fused_bitplane_topk"), g.reps,
                              f"rabitq gate rung n_probes {gate['n_probes']}, rerank_mult "

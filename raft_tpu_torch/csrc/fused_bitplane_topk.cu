@@ -24,8 +24,8 @@
 // What bounds it on the H100: per (live row, real slot) it does bits * W
 // AND + popcount pairs (24 at rot_dim 96 and 8 query bits) on operands
 // read once: the popcount rate (16 a clock an SM) bounds it, far above
-// the bytes. The merge of the running top-k lists, as in the other list
-// kernels, is the larger cost in practice.
+// the bytes. The selection of each row's top k is the larger cost in
+// practice, and grows with k.
 //
 // Design: fused_common.cuh's scan_topk_dots with the BitplaneDots policy.
 // A block stages its rows' bit planes (bits * W words each) and qmeta in
@@ -34,10 +34,17 @@
 // codes_t (neighbouring threads on neighbouring slots, so every load
 // coalesces; nothing of the store is staged), and its slot's meta, and
 // ANDs each code word against the planes of its eight rows (warp-wide
-// shared-memory broadcasts). Blocks past a chunk's live rows exit, tiles
-// whose slots are all +inf skip their popcounts, and each row keeps a
-// running exact top-k in its warp's registers.
-#include "fused_common.cuh"
+// shared-memory broadcasts). Blocks past a chunk's live rows exit, and
+// tiles whose slots are all +inf skip their popcounts. Selection, by k
+// alone (never by the data): up to k = 32 each row keeps a running exact
+// top-k in its warp's registers (fused_common.cuh's WarpTopK, one
+// register a lane, one shuffle an insertion); past it each row's list and a
+// buffer of candidates live in shared memory and the warp sorts and
+// merges the buffer in batches (block_topk.cuh's SharedTopK), which frees
+// the registers the KR = 8 lists spilled and replaces ~k ln(L / k)
+// one-at-a-time insertions by a few sort-and-merge rounds. Both select
+// exactly, so both give the same bits.
+#include "block_topk.cuh"
 
 namespace rtt {
 
@@ -121,9 +128,16 @@ struct BitplaneDots {
   }
 };
 
+// The selection variant for k: the register lists (one register a lane)
+// up to kMaxRegisterK, the shared-memory batch past it. On the H100 at
+// the RaBitQ path's own inputs (PERF.md) the lists win at k <= 32 and the
+// batch from k = 40 up.
+constexpr int kMaxRegisterK = 32;
+
 // Three blocks per SM (at most 80 registers a thread), as the other list
-// kernels.
-template <int KR>
+// kernels. SHARED: SharedTopK selection, its lists after the scores and
+// the staged planes in shared memory; else WarpTopK<1> (k <= 32).
+template <bool SHARED>
 __global__ void __launch_bounds__(kThreads, 3)
     bitplane_kernel(const int* __restrict__ lof, const uint32_t* __restrict__ planes,
                     const uint32_t* __restrict__ codes_t, const float* __restrict__ meta,
@@ -144,8 +158,16 @@ __global__ void __launch_bounds__(kThreads, 3)
   BitplaneDots dots(sc + kRows * kTileSlots, planes + ((size_t)c * chunk + row0) * pw,
                     qmeta + (size_t)c * 4 * chunk + row0, chunk, live, meta + (size_t)list * 3 * L,
                     words, bits, L, rsq, ip);
-  scan_topk_dots<KR>(sc, dots, live, codes_t + (size_t)list * words * L, base + (size_t)list * L,
-                     L, k, kbuf, vals + out0, idx + out0);
+  const uint32_t* codes = codes_t + (size_t)list * words * L;
+  if constexpr (SHARED) {
+    // 16-byte aligned: the scores and staging are whole float4s before it
+    void* lists = smem4 + (topk_smem_bytes<BitplaneDots>(pw) + 15) / 16;
+    scan_topk_shared(sc, lists, dots, live, codes, base + (size_t)list * L, L, k, kbuf,
+                     vals + out0, idx + out0);
+  } else {
+    scan_topk_dots<1>(sc, dots, live, codes, base + (size_t)list * L, L, k, kbuf, vals + out0,
+                      idx + out0);
+  }
 }
 
 }  // namespace rtt
@@ -165,19 +187,19 @@ extern "C" int fused_bitplane_topk_launch(const void* lof, const void* planes, c
   if (k < 1 || k > kMaxK || kbuf < k || bits < 1 || bits > kMaxBits || words < 1 ||
       L % kTileSlots != 0)
     return (int)cudaErrorInvalidValue;
-  const size_t smem = topk_smem_bytes<BitplaneDots>(bits * words);
+  const bool shared = k > kMaxRegisterK;
+  size_t smem = topk_smem_bytes<BitplaneDots>(bits * words);
+  if (shared) smem = (smem + 15) / 16 * 16 + block_lists_bytes();
+  const auto kernel = shared ? bitplane_kernel<true> : bitplane_kernel<false>;
+  cudaError_t err =
+      cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+  if (err != cudaSuccess) return (int)err;
   const dim3 grid(ncb, (chunk + kRows - 1) / kRows);
-  return with_list_width(k, [&](auto kr) {
-    constexpr int KR = decltype(kr)::value;
-    cudaError_t err = cudaFuncSetAttribute(
-        bitplane_kernel<KR>, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
-    if (err != cudaSuccess) return (int)err;
-    bitplane_kernel<KR><<<grid, kThreads, smem, static_cast<cudaStream_t>(stream)>>>(
-        static_cast<const int*>(lof), static_cast<const uint32_t*>(planes),
-        static_cast<const uint32_t*>(codes_t), static_cast<const float*>(meta),
-        static_cast<const float*>(base), static_cast<const float*>(qmeta),
-        static_cast<const int*>(live_rows), static_cast<float*>(vals), static_cast<int*>(idx),
-        chunk, words, bits, L, k, kbuf, rsq, inner_product != 0);
-    return (int)cudaGetLastError();
-  });
+  kernel<<<grid, kThreads, smem, static_cast<cudaStream_t>(stream)>>>(
+      static_cast<const int*>(lof), static_cast<const uint32_t*>(planes),
+      static_cast<const uint32_t*>(codes_t), static_cast<const float*>(meta),
+      static_cast<const float*>(base), static_cast<const float*>(qmeta),
+      static_cast<const int*>(live_rows), static_cast<float*>(vals), static_cast<int*>(idx),
+      chunk, words, bits, L, k, kbuf, rsq, inner_product != 0);
+  return (int)cudaGetLastError();
 }

@@ -14,9 +14,16 @@ survivors. `strategy=None` never promotes to "counting": the JAX package
 does so only on a TPU backend under a tuned key, and tuned values do not
 carry over.
 
+`select_k` returns int32 indices on every strategy, as the JAX package
+does (`lax.top_k`'s and the counting kernel's index type); the private
+`_select_k_impl` keeps int64 positions for the callers that gather with
+them.
+
 `scan_select_k` is the operand-level door: "fused" hands scoring and
 selection to the fused kernel (ops/fused_scan.py), "two_phase"
-materializes the distances and selects. `list_scan_select_k` is the
+materializes the distances and selects; None/"auto" resolves through
+`resolve_scan_strategy`, which gives "two_phase" as the JAX package does
+without a tuned value. `list_scan_select_k` is the
 list-geometry door the IVF engines use, `bitplane_scan_select_k` the
 RaBitQ bit-plane one (`resolve_bitplane_strategy` picks the fused kernel
 only when the caller asks: "auto" resolves to "xla", as the JAX package
@@ -125,11 +132,12 @@ def select_k(values, k: int, select_min: bool = True, indices=None,
              strategy: Optional[str] = None, device=None):
     """Select the k smallest (default) or largest values per row.
 
-    Returns (values, int64 indices), each (batch, k), best-first, in the
+    Returns (values, int32 indices), each (batch, k), best-first, in the
     total order of the float bits with ties to the smaller index.
     `strategy`: None/"auto" by row length, "topk", "two_phase", or
     "counting" (the `counting_select_min` kernel; 2-d rows of a dtype in
-    `_COUNTING_DTYPES`, others raise ValueError)."""
+    `_COUNTING_DTYPES`, others raise ValueError). With `indices`, the
+    positions map to the caller's ids, in the ids' dtype."""
     vals = as_tensor(values, device)
     squeeze = vals.ndim == 1
     if squeeze:
@@ -153,6 +161,8 @@ def select_k(values, k: int, select_min: bool = True, indices=None,
         if idx.ndim == 1:
             idx = idx[None, :]
         i = torch.gather(idx.expand(vals.shape[0], -1), -1, i)
+    else:
+        i = i.to(torch.int32)
     if squeeze:
         v, i = v[0], i[0]
     return v, i
@@ -204,21 +214,35 @@ def _scan_two_phase_impl(queries, dataset, k: int, metric):
     return v, i.to(torch.int32)
 
 
+def resolve_scan_strategy(n_rows: int, dim: int, k: int, strategy=None,
+                          fused_ok: bool = True) -> str:
+    """Resolve a scan_select_k strategy: explicit wins, an unknown name
+    raises ValueError, None/"auto" is "two_phase". The JAX package
+    promotes "fused" only on a tuned value measured on its chip, and
+    tuned values do not carry over, so the geometry (`n_rows`, `dim`,
+    `k`) and `fused_ok` it would consult do not change the answer here."""
+    if strategy in SCAN_STRATEGIES:
+        return strategy
+    if strategy not in (None, "auto"):
+        raise ValueError(f"unknown scan_select_k strategy {strategy!r}")
+    return "two_phase"
+
+
 def scan_select_k(queries, dataset, k: int, metric="sqeuclidean",
-                  strategy: str = "two_phase", device=None):
+                  strategy: Optional[str] = None, device=None):
     """Top-k nearest dataset rows per query over OPERANDS; returns
     ((nq, k) values, (nq, k) int32 ids), best-first, ties to the smaller
     row id. "fused": the fused distance+select-k kernel (L2/IP, exact
     over bf16-rounded operands, k <= FUSED_MAX_K); "two_phase": f32
-    pairwise distances + select."""
+    pairwise distances + select; None/"auto": `resolve_scan_strategy`."""
     q = check_matrix(queries, device, name="queries")
     ds = check_matrix(dataset, q.device, name="dataset")
     check_same_cols(ds, q, "dataset", "queries")
     if not (0 < k <= ds.shape[0]):
         raise ValueError(f"k={k} out of range for dataset with {ds.shape[0]} rows")
     m = resolve_metric(metric)
-    if strategy not in SCAN_STRATEGIES:
-        raise ValueError(f"unknown scan_select_k strategy {strategy!r}")
+    strategy = resolve_scan_strategy(ds.shape[0], ds.shape[1], int(k), strategy,
+                                     fused_ok=_fused_metric_kind(m) is not None)
     if strategy == "fused":
         from raft_tpu_torch.ops.fused_scan import FUSED_MAX_K, fits_fused
 

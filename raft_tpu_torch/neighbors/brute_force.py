@@ -11,7 +11,12 @@ raft_tpu/neighbors/brute_force.py).
   "fused"  the `fused_topk` kernel (ops/fused_scan.py, CUDA on the card)
            through `matrix.scan_select_k(strategy="fused")`: the (nq, n)
            score matrix never reaches device memory; exact over the
-           bf16-rounded operands, ties to the smaller row id.
+           bf16-rounded operands, ties to the smaller row id;
+  "auto"   resolved through `matrix.select_k.resolve_scan_strategy`, as
+           the JAX package does: "tiled" unless it says "fused" (it
+           says "two_phase" without a tuned value).
+
+`knn_merge_parts` merges per-part top-k results into a global top-k.
 
 Prefilters are still to be ported (ROADMAP Queue A).
 """
@@ -22,7 +27,7 @@ from typing import Tuple
 
 import torch
 
-from raft_tpu_torch.core.validation import check_matrix, check_same_cols
+from raft_tpu_torch.core.validation import as_tensor, check_matrix, check_same_cols
 from raft_tpu_torch.distance.distance_types import (
     DistanceType,
     SIMILARITY_METRICS,
@@ -61,11 +66,15 @@ def _bf_knn_impl(dataset: torch.Tensor, queries: torch.Tensor, k: int,
 
 
 def knn(dataset, queries, k: int, metric="sqeuclidean", metric_arg: float = 2.0,
-        engine: str = "tiled", prefilter=None, device=None) -> Tuple[torch.Tensor, torch.Tensor]:
+        engine: str = "tiled", prefilter=None, compute_dtype=None,
+        device=None) -> Tuple[torch.Tensor, torch.Tensor]:
     """Exact k-NN: (distances, int32 indices), each (n_queries, k),
     best-first. `metric` is any pylibraft metric; `metric_arg` is the Lp
-    exponent. `engine`: "tiled" (f32, every metric) or "fused" (the fused
-    kernel; L2/sqeuclidean/inner_product, k <= 256)."""
+    exponent. `engine`: "tiled" (f32, every metric), "fused" (the fused
+    kernel; L2/sqeuclidean/inner_product, k <= 256) or "auto".
+    `compute_dtype` (tiled only): the operands are rounded to it before
+    the distances, which stay f32 sums (torch.bfloat16 ranks the
+    bf16-rounded points, as the JAX package's bf16 operands do)."""
     if prefilter is not None:
         raise NotImplementedError(
             "brute_force.knn(prefilter=...) is not ported yet (ROADMAP Queue A)"
@@ -73,13 +82,47 @@ def knn(dataset, queries, k: int, metric="sqeuclidean", metric_arg: float = 2.0,
     q = check_matrix(queries, device, name="queries")
     ds = check_matrix(dataset, q.device, name="dataset")
     check_same_cols(ds, q, "dataset", "queries")
+    if engine == "pallas":
+        engine = "fused"  # one fused engine, two spellings
+    if compute_dtype is not None:
+        if engine == "fused":
+            raise ValueError(
+                "compute_dtype applies to engine='tiled' only "
+                "(engine='pallas' already computes in bf16)"
+            )
+        ds, q = ds.to(compute_dtype), q.to(compute_dtype)
     if not (0 < k <= ds.shape[0]):
         raise ValueError(f"k={k} out of range for dataset with {ds.shape[0]} rows")
     m = resolve_metric(metric)
-    if engine in ("fused", "pallas"):
+    if engine == "auto":
+        from raft_tpu_torch.matrix.select_k import _fused_metric_kind, resolve_scan_strategy
+
+        strat = resolve_scan_strategy(
+            int(ds.shape[0]), int(ds.shape[1]), int(k), None,
+            fused_ok=_fused_metric_kind(m) is not None and compute_dtype is None)
+        engine = "fused" if strat == "fused" else "tiled"
+    if engine == "fused":
         from raft_tpu_torch.matrix.select_k import scan_select_k
 
         return scan_select_k(q, ds, int(k), metric=m, strategy="fused", device=q.device)
     if engine != "tiled":
         raise ValueError(f"unknown engine {engine!r}")
     return _bf_knn_impl(ds.float(), q.float(), int(k), m, metric_arg=float(metric_arg))
+
+
+def knn_merge_parts(distances, indices, k=None, select_min: bool = True,
+                    device=None) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Merge per-part top-k results into a global top-k (the JAX
+    package's `knn_merge_parts`): (n_parts, n_queries, k_part) stacks or
+    (n_queries, n_parts * k_part) concatenations whose indices are
+    already global. Equal values go to the earlier position (the earlier
+    part); the ids keep the dtype of `indices`."""
+    d = as_tensor(distances, device)
+    i = as_tensor(indices, d.device)
+    if d.ndim == 3:
+        n_parts, n_q, kp = d.shape
+        d = d.transpose(0, 1).reshape(n_q, n_parts * kp)
+        i = i.transpose(0, 1).reshape(n_q, n_parts * kp)
+    k = d.shape[1] if k is None else int(k)
+    v, sel = _select_k_impl(d, k, bool(select_min))
+    return v, torch.gather(i, 1, sel)

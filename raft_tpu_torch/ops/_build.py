@@ -1,9 +1,10 @@
 """Build and load the hand-written CUDA kernels under `raft_tpu_torch/csrc/`.
 
 Each `.cu` source compiles with `nvcc` for `sm_90a` into its own shared
-library with a plain C interface, loaded with `ctypes`. The library's
-file name carries a hash of the sources it was built from, so an edited
-kernel never loads a stale build. Building happens at first use (or all
+library with a plain C interface, loaded with `ctypes`. The headers
+(`fused_common.cuh`, `block_topk.cuh`, any `*.cuh` under `csrc/`) are not
+listed: the library's file name carries a hash of its source and of every
+header, so an edited kernel or header never loads a stale build. Building happens at first use (or all
 at once, one `nvcc` per source in parallel, through `build_all`), inside
 the package's `_build/` directory, which git ignores. nvcc keeps its IEEE
 defaults (no `--use_fast_math`): the pairwise kernel's canberra term needs

@@ -627,11 +627,21 @@ def bitplane_scores(s_u, pop, rn, o_dot, lo, delta, qsum, qconst, rot_dim: int,
     return _fma_f32(-(2.0 * rn), est, _fma_f32(rn, rn, qconst))
 
 
-def _bitplane_smem_bytes(words: int, bits: int) -> int:
+#: the bit-plane kernel's selection: register lists up to this k, the
+#: shared-memory batch past it (kMaxRegisterK in csrc/fused_bitplane_topk.cu)
+BITPLANE_MAX_REGISTER_K = 32
+
+
+def _bitplane_smem_bytes(words: int, bits: int, shared_lists: bool = False) -> int:
     """Shared memory of one bit-plane block (topk_smem_bytes<BitplaneDots>
     in csrc/fused_bitplane_topk.cu): the tile's scores, the block's plane
-    words and its four qmeta rows."""
-    return 4 * _ROWS * _TILE_SLOTS + 4 * _ROWS * (bits * words + 4)
+    words and its four qmeta rows; with `shared_lists`, 16-byte aligned,
+    then the rows' lists and buffers (block_lists_bytes in
+    csrc/block_topk.cuh: 16 rows x (256 + 128) pairs)."""
+    b = 4 * _ROWS * _TILE_SLOTS + 4 * _ROWS * (bits * words + 4)
+    if shared_lists:
+        b = -(-b // 16) * 16 + 8 * _ROWS * (FUSED_MAX_K + _TILE_SLOTS)
+    return b
 
 
 def fits_fused_bitplane(L: int, words: int, bits: int, k: int,
@@ -644,7 +654,8 @@ def fits_fused_bitplane(L: int, words: int, bits: int, k: int,
         return False
     if kbuf is not None and int(kbuf) < fused_kbuf(k):
         return False
-    return L % _LANES == 0 and _bitplane_smem_bytes(words, bits) <= SMEM_LIMIT
+    shared = int(k) > BITPLANE_MAX_REGISTER_K
+    return L % _LANES == 0 and _bitplane_smem_bytes(words, bits, shared) <= SMEM_LIMIT
 
 
 def bitplane_su(planes, codes, bits: int) -> torch.Tensor:
@@ -699,7 +710,9 @@ def fused_bitplane_topk(lof, planes, codes_t, meta, base, qmeta, k: int, *, rot_
     scores, (ncb, chunk, kbuf) int32 in-list slots), best-first per row.
     L2 scores are the full estimated distance (qconst = |q - center|^2);
     inner-product scores are the negated estimated similarity (qconst =
-    q . center): negate back at the call site."""
+    q . center): negate back at the call site. The kernel selects with
+    register lists up to k = BITPLANE_MAX_REGISTER_K and with shared-memory
+    lists merged in batches past it; both are exact."""
     _check(isinstance(planes, torch.Tensor), "planes must be a tensor")
     dev = planes.device
     _tensor_arg("lof", lof, (torch.int32,), 1, dev)

@@ -129,3 +129,67 @@ def test_knn_rejects_prefilter_and_bad_engine(rng):
         tbf.knn(ds, ds[:2], 3, engine="nope", device="cpu")
     with pytest.raises(ValueError):
         tbf.knn(ds, ds[:2, :3], 3, device="cpu")
+
+
+# --- public call shapes: engine="auto", compute_dtype, knn_merge_parts ------
+
+
+@pytest.mark.parametrize("metric", ["sqeuclidean", "inner_product", "l1"])
+def test_knn_engine_auto_matches_jax(rng, metric):
+    """"auto" resolves as the JAX package does without a tuned value (the
+    tiled engine); integer grids give exact ids and values."""
+    ds, q = _grid(rng, (700, 12)), _grid(rng, (11, 12))
+    jv, ji = jbf.knn(ds, q, 9, metric=metric, engine="auto")
+    tv, ti = tbf.knn(ds, q, 9, metric=metric, engine="auto", device="cpu")
+    np.testing.assert_array_equal(ti.numpy(), np.asarray(ji))
+    np.testing.assert_array_equal(tv.numpy(), np.asarray(jv))
+    assert ti.dtype == torch.int32
+
+
+def test_knn_compute_dtype_bfloat16_matches_jax(rng):
+    """Grid values plus a jitter that bf16 rounds away: the bf16 operands
+    are exact integers in both packages, so ids (ties included) match and
+    values agree within bf16 tolerance; the f32 call ranks the jitter."""
+    import jax.numpy as jnp
+
+    ds = _grid(rng, (600, 10)) + rng.choice([0.0, 0.004], (600, 10)).astype(np.float32)
+    q = _grid(rng, (9, 10)) + rng.choice([0.0, 0.004], (9, 10)).astype(np.float32)
+    jv, ji = jbf.knn(ds, q, 12, compute_dtype=jnp.bfloat16)
+    tv, ti = tbf.knn(ds, q, 12, compute_dtype=torch.bfloat16, device="cpu")
+    np.testing.assert_array_equal(ti.numpy(), np.asarray(ji))
+    np.testing.assert_allclose(tv.numpy(), np.asarray(jv, np.float32), rtol=2**-8, atol=1e-6)
+    f32 = tbf.knn(ds, q, 12, device="cpu")[0]
+    assert not torch.equal(f32, tv)
+
+
+@pytest.mark.parametrize("engine", ["fused", "pallas"])
+def test_knn_compute_dtype_with_fused_engine_raises_like_jax(rng, engine):
+    import jax.numpy as jnp
+
+    ds = _grid(rng, (50, 4))
+    with pytest.raises(ValueError, match="compute_dtype applies to engine='tiled' only"):
+        jbf.knn(ds, ds[:2], 3, engine=engine, compute_dtype=jnp.bfloat16)
+    with pytest.raises(ValueError, match="compute_dtype applies to engine='tiled' only"):
+        tbf.knn(ds, ds[:2], 3, engine=engine, compute_dtype=torch.bfloat16, device="cpu")
+
+
+@pytest.mark.parametrize("select_min", [True, False])
+@pytest.mark.parametrize("layout", ["stacked", "concatenated"])
+def test_knn_merge_parts_matches_jax_with_ties_across_parts(rng, layout, select_min):
+    """Four parts of sorted per-part results over few distinct values:
+    ties across parts go to the earlier part, as in the JAX merge."""
+    n_parts, n_q, kp = 4, 7, 6
+    d = np.sort(rng.integers(0, 4, (n_parts, n_q, kp)).astype(np.float32), axis=-1)
+    if not select_min:
+        d = d[..., ::-1].copy()
+    ids = rng.permutation(10_000)[:n_parts * n_q * kp].reshape(n_parts, n_q, kp)
+    ids = ids.astype(np.int32)
+    if layout == "concatenated":
+        d = np.moveaxis(d, 0, 1).reshape(n_q, n_parts * kp)
+        ids = np.moveaxis(ids, 0, 1).reshape(n_q, n_parts * kp)
+    for k in (None, 5):
+        jv, ji = jbf.knn_merge_parts(d, ids, k=k, select_min=select_min)
+        tv, ti = tbf.knn_merge_parts(d, ids, k=k, select_min=select_min, device="cpu")
+        np.testing.assert_array_equal(ti.numpy(), np.asarray(ji))
+        np.testing.assert_array_equal(tv.numpy(), np.asarray(jv))
+        assert ti.dtype == torch.int32

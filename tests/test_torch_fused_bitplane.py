@@ -201,3 +201,19 @@ def test_envelope_and_argument_checks(rng):
     with pytest.raises(ValueError, match="cannot hold"):
         tfs.fused_bitplane_topk(lof, planes, codes_t, meta, base, qmeta, 200, rot_dim=96, bits=8,
                                 kbuf=128)
+
+
+def test_selection_by_k_and_its_shared_memory_budget(rng):
+    """The kernel's selection is picked by k alone: register lists up to
+    k = 32, shared-memory lists past it, which add 16 rows x 384 pairs to
+    the block's shared memory. The plain version answers for both sides
+    of the switch, bit for bit as the JAX kernel does."""
+    assert tfs.BITPLANE_MAX_REGISTER_K == 32
+    assert tfs._bitplane_smem_bytes(3, 8, True) == (
+        -(-tfs._bitplane_smem_bytes(3, 8) // 16) * 16 + 16 * 384 * 8)
+    assert tfs.fits_fused_bitplane(4992, 3, 8, 250)
+    assert tfs.fits_fused_bitplane(3840, 400, 8, 32)
+    assert not tfs.fits_fused_bitplane(3840, 400, 8, 33)  # the lists no longer fit
+    args = _case(rng, rot=96)
+    for k in (32, 33):
+        _bitwise(_port(args, k, 96, 8, False), _jax(args, k, 96, 8, False))

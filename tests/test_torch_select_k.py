@@ -3,7 +3,9 @@
 The tie rule is the point: equal values go to the smaller index, as
 `lax.top_k` orders them. Rows full of exact ties must give the same ids
 in both packages, min and max, on every strategy. Inputs come from numpy
-and go through both packages; the port runs on the CPU.
+and go through both packages; the port runs on the CPU. Indices are
+int32 in both packages; `scan_select_k(strategy=None | "auto")`
+resolves as the JAX package does without a tuned value.
 """
 
 import numpy as np
@@ -12,7 +14,9 @@ import pytest
 import torch
 
 from raft_tpu.matrix import select_k as jax_select_k
-from raft_tpu_torch.matrix.select_k import scan_select_k, select_k
+from raft_tpu.matrix.select_k import resolve_scan_strategy as jax_resolve_scan_strategy
+from raft_tpu.matrix.select_k import scan_select_k as jax_scan_select_k
+from raft_tpu_torch.matrix.select_k import resolve_scan_strategy, scan_select_k, select_k
 
 
 def _rows(rng, kind, shape):
@@ -140,3 +144,48 @@ def test_scan_select_k_fused_rejects_unsupported_metric(rng):
         scan_select_k(x, x, 2, metric="l1", strategy="fused", device="cpu")
     with pytest.raises(ValueError):
         scan_select_k(x, x, 300, strategy="fused", device="cpu")
+
+
+# --- public call shapes: the strategy resolver and the index dtype ---------
+
+
+@pytest.mark.parametrize("strategy", [None, "auto"])
+@pytest.mark.parametrize("metric", ["sqeuclidean", "inner_product", "l1"])
+def test_scan_select_k_resolves_none_and_auto_like_jax(rng, strategy, metric):
+    """None/"auto" resolve as the JAX package does without a tuned value
+    ("two_phase"); on integer grids every distance is exact, so ids (ties
+    included) and values match."""
+    x = rng.integers(-5, 6, (13, 9)).astype(np.float32)
+    y = rng.integers(-5, 6, (300, 9)).astype(np.float32)
+    jv, ji = jax_scan_select_k(x, y, 8, metric=metric, strategy=strategy)
+    tv, ti = scan_select_k(x, y, 8, metric=metric, strategy=strategy, device="cpu")
+    np.testing.assert_array_equal(ti.numpy(), np.asarray(ji))
+    np.testing.assert_array_equal(tv.numpy(), np.asarray(jv))
+    assert ti.dtype == torch.int32
+    rv, ri = scan_select_k(x, y, 8, metric=metric, strategy="two_phase", device="cpu")
+    np.testing.assert_array_equal(ti.numpy(), ri.numpy())
+
+
+def test_resolve_scan_strategy_matches_jax():
+    for strategy in (None, "auto", "fused", "two_phase"):
+        for fused_ok in (True, False):
+            assert (resolve_scan_strategy(1000, 96, 10, strategy, fused_ok=fused_ok)
+                    == jax_resolve_scan_strategy(1000, 96, 10, strategy, fused_ok=fused_ok))
+    assert resolve_scan_strategy(1000, 96, 10) == "two_phase"
+    with pytest.raises(ValueError):
+        resolve_scan_strategy(1000, 96, 10, "nope")
+    with pytest.raises(ValueError):
+        scan_select_k(np.ones((2, 3), np.float32), np.ones((5, 3), np.float32), 2,
+                      strategy="nope", device="cpu")
+
+
+@pytest.mark.parametrize("strategy", [None, "auto", "topk", "two_phase", "counting"])
+def test_select_k_returns_int32_indices_like_jax(rng, strategy):
+    vals = _rows(rng, "ties", (4, 300))
+    jv, ji = jax_select_k(vals, 5, strategy=strategy)
+    tv, ti = select_k(vals, 5, strategy=strategy, device="cpu")
+    assert ti.dtype == torch.int32 and np.asarray(ji).dtype == np.int32
+    np.testing.assert_array_equal(ti.numpy(), np.asarray(ji))
+    np.testing.assert_array_equal(tv.numpy(), np.asarray(jv))
+    _, t1 = select_k(vals[0], 5, strategy=strategy, device="cpu")
+    assert t1.dtype == torch.int32 and t1.shape == (5,)
