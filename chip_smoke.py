@@ -32,7 +32,14 @@ Phases, in order; any failure exits non-zero:
      integer scores S_u recovered exactly from a case whose estimator is
      an exact map of them, k 32 and 33 (either side of its selection
      switch) and 129 to 256 at L 4992, scores that fall with the slot and
-     all-equal scores;
+     all-equal scores, and at the widest rotations its shared memory
+     admits at 8 query bits (389 / 373 / 341 code words at k 40 / 100 /
+     250); the list kernels' stop at a list's last real slot on lists of
+     0, 1, 5, 63, 64, 65 and 129 real slots, real slots in the last tile
+     only, whole +inf tiles between real ones, lengths up to L, at k 10,
+     32, 33, 40, 128 and 256, L2 and inner product, fused_list_topk on
+     int8, bf16 and f32 stores (integer grids, ids exact) and
+     fused_list_topk_int8 with and without its TMA staging (bit for bit);
   4. the main path at full size: 1M x 96 clustered vectors (1024 blob
      centers U(-5, 5) plus unit gaussian noise, made from --seed), IVF-PQ
      build (n_lists 1024, pq_dim 48, kmeans_n_iters 10), exact truth with
@@ -62,7 +69,9 @@ Phases, in order; any failure exits non-zero:
      it, with kernel, plain and library times (CUDA events) and the bound;
      the fused L2 argmin's bound on both routes (split TF32 on the tensor
      cores, f32 on the CUDA cores), the bit-plane scan over k 8 to 128
-     across its selection switch;
+     and the two IVF-PQ trim kernels over k 8 to 250 across their
+     selection switch, the trim kernels' tiles a live block scans, and
+     fused_list_topk's trim and refine launches counted apart;
      beside the counting select, descending rows of the tile's shape (its
      one-pass variant's worst case);
   6. a JSON line of kernels, the card's line, then the device line last.
@@ -374,6 +383,60 @@ def adversarial_checks(fs, pls, dev, rng):
                     seen[b] = seen.get(b, 0) + 1
         log(f"check {name}: ok, {checked} top-k pairs found among the fold's candidates")
 
+    def early_stop_base(L, n_lists, high):
+        """Base rows whose +inf patterns the list kernels' stop at a list's
+        last real slot, and their +inf fill past it, must survive: lists
+        of 0 (all +inf), 1, 5, 63, 64, 65 and 129 leading real slots
+        (fewer than k; the later tiles all +inf); real slots in the last
+        tile only; whole +inf tiles in the middle with real tiles after
+        them; L - 1, L and a random number of slots; scattered +inf slots
+        among the real ones of the last five."""
+        fin = np.ones((n_lists, L), bool)
+        ends = (0, 1, 5, 63, 64, 65, 129, None, None, L - 1, L, int(rng.integers(1, L)))
+        for i, e in enumerate(ends[:n_lists]):
+            if e is not None:
+                fin[i, e:] = False
+        fin[7, :L - 128] = False
+        fin[8, 128:384] = False
+        fin[8, 512:] = False
+        fin[7:] &= rng.random((n_lists - 7, L)) >= 0.1
+        base = rng.uniform(0, high, (n_lists, L)).astype(np.float32)
+        if high <= 20:
+            base = np.round(base)
+        base[~fin] = np.inf
+        return torch.tensor(base[:, None, :])
+
+    def early_stop_case(k, ip, dtype=None, rot=96, L=640, n_lists=12, chunk=19):
+        """Kernel 1 (`dtype` its store) or, with dtype None, kernel 3 on
+        every list of early_stop_base, each probed by two chunks, with
+        live-row prefixes (a full chunk, an empty one): kernel 1 on
+        integer grids (ids exact), kernel 3 at +-127 bit for bit."""
+        ncb = 2 * n_lists
+        lof = torch.tensor(np.arange(ncb) % n_lists, dtype=torch.int32).to(dev)
+        crt = live_rows(ncb, chunk)
+        tag = f"L {L} rot {rot} k {k}{' ip' if ip else ''}"
+        if dtype is None:
+            q8 = torch.tensor(rng.integers(-127, 128, (ncb, chunk, rot)).astype(np.int8))
+            st = torch.tensor(rng.integers(-127, 128, (n_lists, L, rot)).astype(np.int8))
+            rs = torch.tensor(rng.uniform(1e-3, 1.0, (ncb, chunk, 1)).astype(np.float32))
+            args = [lof] + [t.to(dev) for t in (q8, st, early_stop_base(L, n_lists, 1e5), rs)]
+            name = f"int8 list early stop {tag}"
+            out = fs.fused_list_topk_int8(*args, k, inner_product=ip, chunk_rows=crt)
+            require_equal(name, out, fs.fused_list_topk_int8_plain(*args, k, fs.fused_kbuf(k), ip,
+                                                                   None, crt))
+            log(f"check {name}: ok, bitwise equal")
+            return
+        q = torch.tensor(rng.integers(-3, 4, (ncb, chunk, rot)).astype(np.float32))
+        st = torch.tensor(rng.integers(-3, 4, (n_lists, L, rot)).astype(np.float32)).to(dtype)
+        args = [lof] + [t.to(dev) for t in (q, st, early_stop_base(L, n_lists, 20))]
+        name = f"list early stop {str(dtype).split('.')[-1]} {tag}"
+        out = fs.fused_list_topk(*args, k, inner_product=ip, chunk_rows=crt)
+        ref = fs.fused_list_topk_plain(*args, k, fs.fused_kbuf(k), ip, None, crt)
+        err, agree = compare(name, out, ref, k)
+        if agree != 1.0:
+            raise AssertionError(f"{name}: integer-grid ids must match exactly ({agree})")
+        log(f"check {name}: ok, max_abs_err {err}, id agreement {agree}")
+
     list_case("list int8 grid, empty chunks", 40, 128, 256, 96, 40, 7, torch.int8, True, cv=True)
     list_case("list bf16 grid, chunk 1", 50, 1, 128, 96, 10, 50, torch.bfloat16, True)
     list_case("list f32 grid ragged, ip", 9, 5, 384, 33, 100, 3, torch.float32, True, ip=True)
@@ -416,6 +479,17 @@ def adversarial_checks(fs, pls, dev, rng):
     int8_list_case("int8 list long", 12, 128, 3840, 96, 40, 4, False, rows=True,
                    inf_tiles=tuple(range(8, 30)))
     int8_list_case("int8 list ragged rot, chunk 1", 50, 1, 128, 33, 10, 50, False)
+    # the list kernels' early stop, +inf fill and both selections: k on
+    # both sides of the switch at 32, every store type of kernel 1, kernel
+    # 3 with its TMA ring (rot 96) and its byte staging (rot 40), L2 and IP
+    for k in (10, 32, 33, 40, 128, 256):
+        for ip in (False, True):
+            for dtype in (torch.int8, torch.bfloat16, torch.float32):
+                early_stop_case(k, ip, dtype)
+            early_stop_case(k, ip)
+            early_stop_case(k, ip, rot=40)
+    early_stop_case(40, False, torch.bfloat16, rot=33)
+    early_stop_case(40, True, torch.int8, rot=40)
     for ip in (False, True):
         for fold in ("exact", "packed"):
             tag = f"{'ip' if ip else 'l2'}, {fold}"
@@ -814,6 +888,12 @@ def bitplane_checks(fs, dev, rng):
              equal=True)
     case("bitplane +inf tails, empty chunks, live rows, k 200", 30, 128, 1280, 3, 8, 200, 4,
          cv=True, rows=True, inf_frac=0.5, inf_tiles=(1, 3, 4, 9))
+    # the widest rotations the shared memory admits at 8 query bits, now
+    # that a row's list is sized by k (64, 128 or 256 pairs)
+    for k in (40, 100, 250):
+        words = max(w for w in range(1, 1024) if fs.fits_fused_bitplane(256, w, 8, k))
+        case(f"bitplane widest envelope: {words} words, 8 bits, k {k}", 3, 16, 256, words, 8, k,
+             2, rows=True)
 
 
 # ---------------------------------------------------------------------------
@@ -878,6 +958,21 @@ class Spy:
         setattr(self.module, self.name, self.orig)
 
 
+class ListTally(Spy):
+    """Counts the calls to `fused_list_topk` by what they are, over a whole
+    path: the trim (chunks of many rows) and the refine (chunk 1). Each
+    call is one launch on the card, so the two sum to the wrapper's own
+    launch count for the path."""
+
+    def __init__(self, module):
+        super().__init__(module, "fused_list_topk")
+        self.counts = {"trim": 0, "refine": 0}
+
+    def __call__(self, *args, **kwargs):
+        self.counts["refine" if args[1].shape[1] == 1 else "trim"] += 1
+        return self.orig(*args, **kwargs)
+
+
 #: the engines the main path drives after the fused bf16 ladder: (trim, score_dtype)
 ENGINES = (("fused", "int8"), ("pallas", "bf16"), ("pallas", "int8"))
 #: the kernels each path must launch: the first path (truth, the fused bf16
@@ -915,6 +1010,9 @@ def main_path(g, dev, fs, pls, sync):
     build_s = time.perf_counter() - t0
     log(f"build: {index} in {build_s:.3f} s, max list {int(index.list_sizes.max())}")
 
+    # the first path's fused_list_topk calls, trim and refine apart
+    tally = ListTally(fs)
+    tally.__enter__()
     with Spy(fs, "fused_topk") as flat_spy:
         t0 = time.perf_counter()
         _, truth = brute_force.knn(dataset, queries, g.k, engine="fused", device=dev)
@@ -961,8 +1059,12 @@ def main_path(g, dev, fs, pls, sync):
             lambda: refine(dataset, queries, ivf_pq.search(params8, index, queries, 4 * g.k)[1],
                            g.k, strategy="fused", device=dev), g.batch_reps,
             rungs[0]["batch_s"] * 1e3)
+    tally.__exit__(None, None, None)
     # each later engine is a path of its own: its counts from 0, read after
     launches = {("fused", "bf16"): fs.launch_counts()}
+    log(f"path trim=fused score_dtype=bf16: fused_list_topk launches "
+        f"{launches[('fused', 'bf16')]['fused_list_topk']}, of them trim "
+        f"{tally.counts['trim']}, refine {tally.counts['refine']}")
     for trim, dtype in ENGINES:
         fs.reset_launch_counts()
         for n_probes in (8, 16):
@@ -977,7 +1079,7 @@ def main_path(g, dev, fs, pls, sync):
                                         4 * g.k)[1], g.k, strategy="fused", device=dev), sync)
     return {"build_s": build_s, "truth_s": truth_s, "rungs": rungs, "breakdown": breakdown,
             "dataset": dataset, "queries": queries, "truth": truth, "index": index,
-            "launches": launches, "sorted_top_ab": ab}, captured
+            "launches": launches, "list_launches": tally.counts, "sorted_top_ab": ab}, captured
 
 
 def _float_sort_top(vals, k, largest):
@@ -1389,7 +1491,36 @@ def list_work(lof, base, live, rot):
     return ops, int(slots[lists].sum()), lists.numel()
 
 
-def list_kernel_row(fs, call, launches, reps, label):
+#: k over which phase 5 times the list kernels on the trim's inputs (their
+#: selection switches from register to shared-memory lists past k 32)
+LIST_K_SWEEP = (8, 16, 32, 33, 40, 64, 128, 250)
+
+
+def scan_tiles(lof, base, live):
+    """The tiles each live block of a list kernel scans (its list's slots
+    up to the end of the last one whose base is not +inf, rounded up to 64
+    slots, in tiles of 128), over the call's live blocks (16 rows each):
+    (min, median, mean, max, total) and the total at the padded length."""
+    L = base.shape[2]
+    real = base[:, 0, :] != float("inf")
+    pos = torch.arange(1, L + 1, device=base.device)
+    last = torch.where(real, pos, 0).amax(1)            # end of the last real slot
+    tiles = (-(-last // 64) * 64 + 127) // 128          # per list
+    blocks = (live.long() + 15) // 16                   # live blocks per chunk
+    t = torch.repeat_interleave(tiles[lof.long()], blocks).float().cpu()
+    if t.numel() == 0:
+        return {"blocks": 0}
+    return {"blocks": int(t.numel()), "min": float(t.min()), "median": float(t.median()),
+            "mean": float(t.mean()), "max": float(t.max()), "total": float(t.sum()),
+            "total_at_L": float(t.numel() * (L // 128))}
+
+
+def k_sweep(run, reps, kb_of):
+    """{k: ms} of run(k, kbuf) over LIST_K_SWEEP."""
+    return {ks: time_ms(lambda: run(ks, kb_of(ks)), reps) for ks in LIST_K_SWEEP}
+
+
+def list_kernel_row(fs, call, launches, reps, label, sweep=False):
     (lof, qres, store, base, k), kw = call[0], call[1]
     ip = bool(kw.get("inner_product", False))
     cv, cr = kw.get("chunk_valid"), kw.get("chunk_rows")
@@ -1426,11 +1557,20 @@ def list_kernel_row(fs, call, launches, reps, label):
         return torch.topk(sc, k, dim=-1, largest=False)
 
     lib_ms = time_ms(library, reps)
+    terms["tiles"] = tiles = scan_tiles(lof, base, live)
+    if sweep:
+        terms["k_sweep_ms"] = k_sweep(
+            lambda ks, kbs: fs.fused_list_topk(lof, qres, store, base, ks, kbuf=kbs,
+                                               inner_product=ip, chunk_valid=cv, chunk_rows=cr),
+            reps, lambda ks: max(kb, fs.fused_kbuf(ks)))
+        log(f"kernel fused_list_topk ({label}) over k (register lists to k "
+            f"{fs.MAX_REGISTER_K}): " + ", ".join(
+                f"k {ks} {v:.4f} ms" for ks, v in terms["k_sweep_ms"].items()))
     log(f"kernel fused_list_topk ({label}): ncb {ncb} ({int((live > 0).sum())} live, "
         f"{int(live.sum())} live rows), chunk {chunk}, L {L}, "
         f"rot {rot}, store {store.dtype}, k {k}: {ms:.4f} ms, plain {plain_ms:.4f} ms, "
         f"library {lib_ms:.4f} ms, bound {b_ms:.4f} ms ({b_by}), max_abs_err {err}, "
-        f"id agreement {agree}")
+        f"id agreement {agree}; launches {launches}; tiles a live block {tiles}")
     return {"name": "fused_list_topk", "route": "cuda",
             "source": "raft_tpu_torch/csrc/fused_list_topk.cu",
             "replaces": "raft_tpu/ops/fused_scan.py:443", "launches": launches,
@@ -1517,7 +1657,7 @@ def bf16_bmm(a, b):
     return torch.bmm(a.float(), b.float())
 
 
-def int8_list_row(fs, call, launches, reps, label):
+def int8_list_row(fs, call, launches, reps, label, sweep=False):
     (lof, q8, store, base, q_scale, k), kw = call[0], call[1]
     ip = bool(kw.get("inner_product", False))
     cv, cr = kw.get("chunk_valid"), kw.get("chunk_rows")
@@ -1553,10 +1693,21 @@ def int8_list_row(fs, call, launches, reps, label):
         return torch.topk(base[lof.long()] - coef * (dots * q_scale), k, dim=-1, largest=False)
 
     lib_ms = time_ms(library, reps)
+    terms["tiles"] = tiles = scan_tiles(lof, base, live)
+    if sweep:
+        terms["k_sweep_ms"] = k_sweep(
+            lambda ks, kbs: fs.fused_list_topk_int8(lof, q8, store, base, q_scale, ks, kbuf=kbs,
+                                                    inner_product=ip, chunk_valid=cv,
+                                                    chunk_rows=cr),
+            reps, lambda ks: max(kb, fs.fused_kbuf(ks)))
+        log(f"kernel fused_list_topk_int8 ({label}) over k (register lists to k "
+            f"{fs.MAX_REGISTER_K}): " + ", ".join(
+                f"k {ks} {v:.4f} ms" for ks, v in terms["k_sweep_ms"].items()))
     log(f"kernel fused_list_topk_int8 ({label}): ncb {ncb} ({int((live > 0).sum())} live, "
         f"{int(live.sum())} live rows), chunk {chunk}, L {L}, rot {rot}, k {k}: {ms:.4f} ms, "
         f"plain {plain_ms:.4f} ms, library {lib_ms:.4f} ms, bound {b_ms:.4f} ms ({b_by}; "
-        f"ops {terms['ops_ms']:.4f}, bytes {terms['bytes_ms']:.4f}), bitwise equal to plain")
+        f"ops {terms['ops_ms']:.4f}, bytes {terms['bytes_ms']:.4f}), bitwise equal to plain; "
+        f"launches {launches}; tiles a live block {tiles}")
     return {"name": "fused_list_topk_int8", "route": "cuda",
             "source": "raft_tpu_torch/csrc/fused_list_topk_int8.cu",
             "replaces": "raft_tpu/ops/fused_scan.py:575", "launches": launches,
@@ -1815,14 +1966,14 @@ def bitplane_row(fs, call, launches, reps, label, sweep=False):
     plain_ms = time_ms(plain, 1, warmup=0)
     if sweep:
         # the kernel over k on these inputs, across its selection switch
-        # (register lists to BITPLANE_MAX_REGISTER_K, the batch past it)
+        # (register lists to MAX_REGISTER_K, the batch past it)
         terms["k_sweep_ms"] = {ks: time_ms(
             lambda: fs.fused_bitplane_topk(lof, planes, codes_t, meta, base, qmeta, ks, rot_dim=rot,
                                            bits=bits, kbuf=kb, inner_product=ip, chunk_valid=cv,
                                            chunk_rows=cr), reps)
             for ks in (8, 16, 32, 33, 40, 64, 96, 128) if ks <= kb}
         log(f"kernel fused_bitplane_topk ({label}) over k (register lists to k "
-            f"{fs.BITPLANE_MAX_REGISTER_K}): " + ", ".join(
+            f"{fs.MAX_REGISTER_K}): " + ", ".join(
                 f"k {ks} {v:.4f} ms" for ks, v in terms["k_sweep_ms"].items()))
     log(f"kernel fused_bitplane_topk ({label}): ncb {ncb} ({int((live > 0).sum())} "
         f"live, {int(live.sum())} live rows), chunk {chunk}, L {L}, words {W}, bits {bits}, "
@@ -1930,12 +2081,12 @@ def main(argv=None):
     def n(path, name):
         return launches[path][name]
 
-    rows = [list_kernel_row(fs, captured["trim"], n(("fused", "bf16"), "fused_list_topk"), g.reps,
-                            "IVF-PQ trim, n_probes 8"),
+    rows = [list_kernel_row(fs, captured["trim"], res["list_launches"]["trim"], g.reps,
+                            "IVF-PQ trim, n_probes 8", sweep=True),
             flat_kernel_row(fs, captured["flat"], n(("fused", "bf16"), "fused_topk"), g.reps),
             int8_list_row(fs, captured[("fused", "int8")],
                           n(("fused", "int8"), "fused_list_topk_int8"), g.reps,
-                          "IVF-PQ int8 trim, n_probes 8"),
+                          "IVF-PQ int8 trim, n_probes 8", sweep=True),
             fold_kernel_row(pls, captured[("pallas", "bf16")],
                             n(("pallas", "bf16"), "pq_list_scan"), g.reps,
                             "IVF-PQ bin trim, exact fold, bf16 rows, n_probes 8", "exact"),
@@ -1955,8 +2106,8 @@ def main(argv=None):
     rows.append(bitplane_row(fs, rb_call[1], n(("rabitq", "fused"), "fused_bitplane_topk"), g.reps,
                              f"rabitq gate rung n_probes {gate['n_probes']}, rerank_mult "
                              f"{gate['rerank_mult']}"))
-    refine_row = list_kernel_row(fs, captured["refine"], n(("fused", "bf16"), "fused_list_topk"),
-                                 g.reps, "refine, chunk 1")
+    refine_row = list_kernel_row(fs, captured["refine"], res["list_launches"]["refine"], g.reps,
+                                 "refine, chunk 1")
     summary = {"build_s": res["build_s"], "truth_s": res["truth_s"], "rungs": res["rungs"],
                "breakdown": res["breakdown"], "refine_kernel": refine_row,
                "sorted_top_ab": res["sorted_top_ab"], "knn_l1": sl["knn_l1"],

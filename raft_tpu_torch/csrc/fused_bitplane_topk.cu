@@ -128,16 +128,11 @@ struct BitplaneDots {
   }
 };
 
-// The selection variant for k: the register lists (one register a lane)
-// up to kMaxRegisterK, the shared-memory batch past it. On the H100 at
-// the RaBitQ path's own inputs (PERF.md) the lists win at k <= 32 and the
-// batch from k = 40 up.
-constexpr int kMaxRegisterK = 32;
-
 // Three blocks per SM (at most 80 registers a thread), as the other list
-// kernels. SHARED: SharedTopK selection, its lists after the scores and
-// the staged planes in shared memory; else WarpTopK<1> (k <= 32).
-template <bool SHARED>
+// kernels. CAP: the selection (block_topk.cuh: with_selection), 0 for
+// WarpTopK<1> (k <= 32), else SharedTopK<CAP> with its lists after the
+// scores and the staged planes in shared memory.
+template <int CAP>
 __global__ void __launch_bounds__(kThreads, 3)
     bitplane_kernel(const int* __restrict__ lof, const uint32_t* __restrict__ planes,
                     const uint32_t* __restrict__ codes_t, const float* __restrict__ meta,
@@ -159,11 +154,11 @@ __global__ void __launch_bounds__(kThreads, 3)
                     qmeta + (size_t)c * 4 * chunk + row0, chunk, live, meta + (size_t)list * 3 * L,
                     words, bits, L, rsq, ip);
   const uint32_t* codes = codes_t + (size_t)list * words * L;
-  if constexpr (SHARED) {
+  if constexpr (CAP > 0) {
     // 16-byte aligned: the scores and staging are whole float4s before it
     void* lists = smem4 + (topk_smem_bytes<BitplaneDots>(pw) + 15) / 16;
-    scan_topk_shared(sc, lists, dots, live, codes, base + (size_t)list * L, L, k, kbuf,
-                     vals + out0, idx + out0);
+    scan_topk_shared<CAP>(sc, lists, dots, live, codes, base + (size_t)list * L, L, k, kbuf,
+                          vals + out0, idx + out0);
   } else {
     scan_topk_dots<1>(sc, dots, live, codes, base + (size_t)list * L, L, k, kbuf, vals + out0,
                       idx + out0);
@@ -187,19 +182,20 @@ extern "C" int fused_bitplane_topk_launch(const void* lof, const void* planes, c
   if (k < 1 || k > kMaxK || kbuf < k || bits < 1 || bits > kMaxBits || words < 1 ||
       L % kTileSlots != 0)
     return (int)cudaErrorInvalidValue;
-  const bool shared = k > kMaxRegisterK;
-  size_t smem = topk_smem_bytes<BitplaneDots>(bits * words);
-  if (shared) smem = (smem + 15) / 16 * 16 + block_lists_bytes();
-  const auto kernel = shared ? bitplane_kernel<true> : bitplane_kernel<false>;
-  cudaError_t err =
-      cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
-  if (err != cudaSuccess) return (int)err;
   const dim3 grid(ncb, (chunk + kRows - 1) / kRows);
-  kernel<<<grid, kThreads, smem, static_cast<cudaStream_t>(stream)>>>(
-      static_cast<const int*>(lof), static_cast<const uint32_t*>(planes),
-      static_cast<const uint32_t*>(codes_t), static_cast<const float*>(meta),
-      static_cast<const float*>(base), static_cast<const float*>(qmeta),
-      static_cast<const int*>(live_rows), static_cast<float*>(vals), static_cast<int*>(idx),
-      chunk, words, bits, L, k, kbuf, rsq, inner_product != 0);
-  return (int)cudaGetLastError();
+  return with_selection(k, [&](auto cap) {
+    constexpr int CAP = decltype(cap)::value;
+    size_t smem = topk_smem_bytes<BitplaneDots>(bits * words);
+    if (CAP > 0) smem = (smem + 15) / 16 * 16 + block_lists_bytes(CAP);
+    cudaError_t err = cudaFuncSetAttribute(bitplane_kernel<CAP>,
+                                           cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+    if (err != cudaSuccess) return (int)err;
+    bitplane_kernel<CAP><<<grid, kThreads, smem, static_cast<cudaStream_t>(stream)>>>(
+        static_cast<const int*>(lof), static_cast<const uint32_t*>(planes),
+        static_cast<const uint32_t*>(codes_t), static_cast<const float*>(meta),
+        static_cast<const float*>(base), static_cast<const float*>(qmeta),
+        static_cast<const int*>(live_rows), static_cast<float*>(vals), static_cast<int*>(idx),
+        chunk, words, bits, L, k, kbuf, rsq, inner_product != 0);
+    return (int)cudaGetLastError();
+  });
 }

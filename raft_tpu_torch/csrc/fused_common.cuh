@@ -1,7 +1,8 @@
-// Shared core of the fused distance + exact select-k kernels
-// (fused_list_topk.cu, fused_topk.cu, fused_list_topk_int8.cu) and of the
-// bin-fold list scan (pq_list_scan.cu): a block scores kRows query rows
-// against a run of store rows, 128 slots (one tile) at a time, and no
+// Shared core of the CUDA-core scans: fused_topk.cu's CUDA-core variant,
+// the bit-plane scan (fused_bitplane_topk.cu) and the bin-fold list scan
+// (pq_list_scan.cu); the tensor-core list kernels (list_scan_tc.cuh) use
+// its row lists, int8 score and element loads. A block scores kRows query
+// rows against a run of store rows, 128 slots (one tile) at a time, and no
 // score ever reaches device memory.
 //
 // Scoring is a policy with one interface (`tile` accumulates the dots of
@@ -155,6 +156,12 @@ __device__ __forceinline__ void accumulate(float (&acc)[kRowsHalf], const float*
   }
 }
 
+// A scan that stops after its first `fill` slots of a list of L (every
+// slot past them +inf) leaves positions [fill, k) of a row's list empty
+// when fill < k; the full scan would have taken the next +inf slots there
+// in slot order: position j holds slot j, or the sentinel past the list.
+__device__ __forceinline__ int fill_id(int j, int L) { return j < L ? j : kSentinel; }
+
 // A sorted list of up to 32 * KR (score, id) pairs held by one warp:
 // pair j in register j / 32 of lane j % 32. Only the first k matter; the
 // registers past k hold whatever shifts into them.
@@ -233,14 +240,16 @@ struct WarpTopK {
     }
   }
 
-  // Row out[0 : kbuf): the k pairs best-first, then (+inf, kSentinel).
-  __device__ __forceinline__ void write(float* ov, int* oi, int k, int kbuf, int lane) const {
+  // Row out[0 : kbuf): the k pairs best-first, then (+inf, kSentinel);
+  // positions [fill, k) take fill_id(j, L).
+  __device__ __forceinline__ void write(float* ov, int* oi, int k, int kbuf, int lane,
+                                        int fill = kMaxK, int L = 0) const {
 #pragma unroll
     for (int u = 0; u < KR; ++u) {
       const int j = 32 * u + lane;
       if (j < kbuf) {
         ov[j] = j < k ? v[u] : CUDART_INF_F;
-        oi[j] = j < k ? id[u] : kSentinel;
+        oi[j] = j < k ? (j < fill ? id[u] : fill_id(j, L)) : kSentinel;
       }
     }
     for (int j = 32 * KR + lane; j < kbuf; j += 32) {
@@ -465,8 +474,8 @@ __device__ void scan_topk_dots(float* sc, Dots& dots, int nrows,
   }
 }
 
-// Dynamic shared memory of a bf16 scan_topk block (fused_list_topk,
-// fused_topk).
+// Dynamic shared memory of a bf16 scan_topk block (fused_topk's
+// CUDA-core variant).
 __host__ __device__ inline size_t scan_smem_bytes(int d) {
   return topk_smem_bytes<Bf16Dots<float>>(d);
 }

@@ -50,9 +50,8 @@
 // variant's shared memory take the CUDA-core kernel below (flat_kernel,
 // fused_common.cuh's scan_topk), which the wrapper launches through
 // fused_topk_launch.
-#include <cuda.h>  // CUtensorMap (types only; the encoder comes from the runtime)
-
 #include "fused_common.cuh"
+#include "tc_common.cuh"
 
 namespace rtt {
 
@@ -77,18 +76,6 @@ constexpr int kMaxRanges = 128;   // merge_ranges_kernel: 4 lists a lane
 constexpr int kStages = 3;        // dataset tiles in shared memory
 constexpr int kQueue = 128;       // a warp's queue of flagged (score, id) pairs
 
-__device__ __forceinline__ uint32_t smem_u32(const void* p) {
-  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
-}
-
-// Byte offset of 16-byte unit u (columns 8u .. 8u + 7) of row r in a
-// K-major bf16 operand of `rows` rows, 128-byte swizzled: chunks of 64
-// columns, each rows x 128 bytes, unit (u % 8) of row r stored at
-// (u % 8) ^ (r % 8). Chunks start on 1024-byte boundaries.
-__device__ __forceinline__ uint32_t swz(int u, int r, int rows) {
-  return (uint32_t)((u >> 3) * rows * 128 + r * 128 + ((((u & 7) ^ (r & 7))) << 4));
-}
-
 // The order-preserving uint32 image of a score that is not NaN (-0.0 folded
 // onto +0.0, as the two compare equal), and back.
 __device__ __forceinline__ unsigned score_key(float s) {
@@ -97,61 +84,6 @@ __device__ __forceinline__ unsigned score_key(float s) {
 }
 __device__ __forceinline__ float key_score(unsigned key) {
   return __uint_as_float((key & 0x80000000u) ? (key & 0x7fffffffu) : ~key);
-}
-
-// wgmma shared-memory descriptor of a K-major, 128-byte swizzled operand
-// at `addr`: stride between 8-row groups 1024 bytes.
-__device__ __forceinline__ uint64_t sw128_desc(uint32_t addr) {
-  return (uint64_t)((addr & 0x3FFFF) >> 4) | ((uint64_t)1 << 16) | ((uint64_t)(1024 >> 4) << 32) |
-         ((uint64_t)1 << 62);
-}
-
-// Shared-memory writes of this thread made visible to the async proxy
-// that wgmma reads through.
-__device__ __forceinline__ void fence_proxy_async() {
-  asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
-}
-__device__ __forceinline__ void mbar_init(uint32_t bar, unsigned count) {
-  asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;\n" ::"r"(bar), "r"(count) : "memory");
-}
-__device__ __forceinline__ void mbar_arrive(uint32_t bar) {
-  asm volatile("mbarrier.arrive.shared::cta.b64 _, [%0];\n" ::"r"(bar) : "memory");
-}
-__device__ __forceinline__ void mbar_expect_tx(uint32_t bar, unsigned bytes) {
-  asm volatile("mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;\n" ::"r"(bar), "r"(bytes)
-               : "memory");
-}
-// TMA: the (64-column, kBN-row) box at column c0, row r0 of the tensor
-// map into shared memory at `dst`, completing `bytes` on `bar`.
-__device__ __forceinline__ void tma_load_2d(uint32_t dst, const CUtensorMap* map, int c0, int r0,
-                                            uint32_t bar) {
-  asm volatile(
-      "cp.async.bulk.tensor.2d.shared::cluster.global.mbarrier::complete_tx::bytes [%0], [%1, {%2, "
-      "%3}], [%4];\n" ::"r"(dst),
-      "l"(reinterpret_cast<uint64_t>(map)), "r"(c0), "r"(r0), "r"(bar)
-      : "memory");
-}
-__device__ __forceinline__ void bulk_load(uint32_t dst, const void* src, unsigned bytes,
-                                          uint32_t bar) {
-  asm volatile(
-      "cp.async.bulk.shared::cluster.global.mbarrier::complete_tx::bytes [%0], [%1], %2, "
-      "[%3];\n" ::"r"(dst),
-      "l"(src), "r"(bytes), "r"(bar)
-      : "memory");
-}
-// Returns once the barrier's phase of parity `parity` has completed.
-__device__ __forceinline__ void mbar_wait(uint32_t bar, unsigned parity) {
-  asm volatile(
-      "{\n"
-      ".reg .pred p;\n"
-      "LAB_WAIT:\n"
-      "mbarrier.try_wait.parity.shared::cta.b64 p, [%0], %1;\n"
-      "@p bra.uni DONE;\n"
-      "bra.uni LAB_WAIT;\n"
-      "DONE:\n"
-      "}\n" ::"r"(bar),
-      "r"(parity)
-      : "memory");
 }
 
 // d (+)= A[64 x 16] * B[128 x 16]^T, both K-major in shared memory.
@@ -189,11 +121,6 @@ __device__ __forceinline__ void wgmma_m64n128k16(float (&d)[64], uint64_t da, ui
         "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]),
         "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63])
       : "l"(da), "l"(db), "r"(accumulate));
-}
-
-__device__ __forceinline__ uint32_t pack_bf16(float a, float b) {
-  const __nv_bfloat162 h = __floats2bfloat162_rn(a, b);  // a in the low half
-  return *reinterpret_cast<const uint32_t*>(&h);
 }
 
 // Offer (v, id) to a max-heap of k pairs (lexicographic order): it enters
@@ -579,32 +506,10 @@ extern "C" int fused_topk_launch(const void* x, const void* y, const void* base,
 
 // The tensor map of the (n, dp) bf16 dataset: boxes of 64 columns (128
 // bytes, the swizzle's span) x kBN rows, 128-byte swizzled, zero-filled
-// out of range. The encoder, cuTensorMapEncodeTiled, is looked up through
-// the runtime, so the library links no more than before.
+// out of range (tc_common.cuh: encode_tensor_map_2d).
 static int make_dataset_map(CUtensorMap* map, const void* y, int n, int dp) {
-  typedef CUresult (*Encode)(CUtensorMap*, CUtensorMapDataType, cuuint32_t, void*,
-                             const cuuint64_t*, const cuuint64_t*, const cuuint32_t*,
-                             const cuuint32_t*, CUtensorMapInterleave, CUtensorMapSwizzle,
-                             CUtensorMapL2promotion, CUtensorMapFloatOOBfill);
-  static Encode encode = nullptr;
-  if (encode == nullptr) {
-    void* fn = nullptr;
-    cudaDriverEntryPointQueryResult found;
-    const cudaError_t err =
-        cudaGetDriverEntryPoint("cuTensorMapEncodeTiled", &fn, cudaEnableDefault, &found);
-    if (err != cudaSuccess) return (int)err;
-    if (found != cudaDriverEntryPointSuccess || fn == nullptr) return (int)cudaErrorNotSupported;
-    encode = reinterpret_cast<Encode>(fn);
-  }
-  const cuuint64_t dims[2] = {(cuuint64_t)dp, (cuuint64_t)n};
-  const cuuint64_t strides[1] = {(cuuint64_t)dp * 2};
-  const cuuint32_t box[2] = {64, (cuuint32_t)rtt::kBN};
-  const cuuint32_t elem[2] = {1, 1};
-  const CUresult r = encode(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 2, const_cast<void*>(y), dims,
-                            strides, box, elem, CU_TENSOR_MAP_INTERLEAVE_NONE,
-                            CU_TENSOR_MAP_SWIZZLE_128B, CU_TENSOR_MAP_L2_PROMOTION_L2_256B,
-                            CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE);
-  return r == CUDA_SUCCESS ? 0 : (int)cudaErrorInvalidValue;
+  return rtt::encode_tensor_map_2d(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, y, dp, n, dp * 2ull, 64,
+                                   rtt::kBN);
 }
 
 // The tensor-core variant: `rows` (64 or 128) query rows a block, the

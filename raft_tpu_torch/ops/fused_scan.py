@@ -14,7 +14,11 @@ plain PyTorch version of the same function beside it:
                          twin of its range split and merge.
   `fused_list_topk`      list scan: each chunk of query rows against the
                          one list `lof[chunk]` of a slot-table store, an
-                         exact top-k of the (chunk, L) scores per row.
+                         exact top-k of the (chunk, L) scores per row. On
+                         the card (with `fused_list_topk_int8`,
+                         `csrc/list_scan_tc.cuh`) the dots run on the
+                         tensor cores and a block scans its list only up
+                         to its last slot whose base is not +inf.
   `fused_list_topk_int8` the list scan on int8 query rows x an int8
                          store: int32 dots, then the per-row scale
                          (`int8_scores`, which `ops.pq_list_scan`'s int8
@@ -109,11 +113,11 @@ def _dots_smem_bytes(d: int, q_int8: bool = False) -> int:
     return 4 * (_TILE_SLOTS * _D_STRIDE + _ROWS * d_pad)
 
 
-def _topk_smem_bytes(d: int, q_int8: bool = False) -> int:
-    """Shared memory of one top-k block (topk_smem_bytes in
-    csrc/fused_common.cuh): the tile's scores, then the staging. The
-    running top-k lists live in registers."""
-    return 4 * _ROWS * _TILE_SLOTS + _dots_smem_bytes(d, q_int8)
+def _topk_smem_bytes(d: int) -> int:
+    """Shared memory of one block of the flat kernel's CUDA-core variant
+    (topk_smem_bytes<Bf16Dots> in csrc/fused_common.cuh): the tile's
+    scores, then the staging. The running top-k lists live in registers."""
+    return 4 * _ROWS * _TILE_SLOTS + _dots_smem_bytes(d)
 
 
 def fits_fused(m: int, n: int, d: int, k: int) -> bool:
@@ -122,6 +126,53 @@ def fits_fused(m: int, n: int, d: int, k: int) -> bool:
     if not (0 < k <= FUSED_MAX_K and m >= 1 and n >= 1 and d >= 1):
         return False
     return _topk_smem_bytes(d) <= SMEM_LIMIT
+
+
+#: the list kernels' and the bit-plane kernel's selection: register lists
+#: up to this k, shared-memory lists past it (kMaxRegisterK in
+#: csrc/block_topk.cuh)
+MAX_REGISTER_K = 32
+_SC_STRIDE = _TILE_SLOTS + 4   # floats a row of the list kernels' score tile
+
+
+def _list_cap(k: int) -> int:
+    """Pairs a row's shared-memory list holds at this k (list_cap in
+    csrc/block_topk.cuh): 0 for register lists (k <= 32), else the
+    smallest of 64, 128 and 256 that holds k."""
+    if k <= MAX_REGISTER_K:
+        return 0
+    return 64 if k <= 64 else 128 if k <= 128 else FUSED_MAX_K
+
+
+def _lists_bytes(k: int) -> int:
+    """Shared memory of a block's 16 rows' lists and 128-pair buffers at
+    this k (block_lists_bytes in csrc/block_topk.cuh); none for register
+    lists."""
+    cap = _list_cap(k)
+    return 0 if cap == 0 else 8 * _ROWS * (cap + _TILE_SLOTS)
+
+
+def _list_tc_stages(rot: int, q_int8: bool) -> int:
+    """Store tiles in a list kernel's shared memory: a ring of two that
+    TMA fills for int8 rows of whole 16-byte rows, else the one that the
+    block's threads fill (csrc/fused_list_topk*.cu)."""
+    return 2 if q_int8 and rot % 16 == 0 else 1
+
+
+def _list_tc_smem_bytes(rot: int, q_int8: bool, k: int) -> int:
+    """Shared memory of one `fused_list_topk` block, or one
+    `fused_list_topk_int8` block with `q_int8` (list_tc_smem_bytes in
+    csrc/list_scan_tc.cuh): 1024 bytes of alignment slack, the store
+    stages (128 slots x 128-byte chunks of bf16 or int8 columns), the 16
+    query rows in the same chunks, the score tile (16 x 132 floats), the
+    rows' scales and the stages' barriers, then, 16-byte aligned, the
+    rows' shared lists at this k."""
+    units = -(-rot // (16 if q_int8 else 8))    # 16-byte units a row
+    chunks = -(-units // 8)                     # 128-byte chunks a row
+    stages = _list_tc_stages(rot, q_int8)
+    b = ((stages * _TILE_SLOTS + _ROWS) * chunks * 128 + 4 * _ROWS * (_SC_STRIDE + 1)
+         + 8 * stages)
+    return 1024 + -(-b // 16) * 16 + _lists_bytes(k)
 
 
 def fits_fused_list(L: int, rot: int, k: int, kbuf: Optional[int] = None,
@@ -134,7 +185,7 @@ def fits_fused_list(L: int, rot: int, k: int, kbuf: Optional[int] = None,
         return False
     if kbuf is not None and int(kbuf) < fused_kbuf(k):
         return False
-    return L % _LANES == 0 and _topk_smem_bytes(rot, q_int8) <= SMEM_LIMIT
+    return L % _LANES == 0 and _list_tc_smem_bytes(rot, q_int8, int(k)) <= SMEM_LIMIT
 
 
 def _bf16(t: torch.Tensor) -> torch.Tensor:
@@ -361,12 +412,25 @@ def _mask_dead_rows(vals, idx, live, fill_id: int):
     return torch.where(dead, float("inf"), vals), torch.where(dead, fill_id, idx)
 
 
+def _check_list_store_alignment(store, rot: int) -> None:
+    """`fused_list_topk` stages the store eight elements a load when rot %
+    8 == 0 (csrc/list_scan_tc.cuh: RegStage), which needs every row, and
+    so the store itself, aligned to that width (16 bytes at most); a view
+    at an odd offset would fault on the card."""
+    width = min(16, 8 * store.element_size()) if rot % 8 == 0 else 1
+    _check(store.data_ptr() % width == 0,
+           f"store must start on a {width}-byte boundary (a view at an odd offset; "
+           "pass store.clone())")
+
+
 def _check_store_alignment(store, rot: int, int8_rows: bool) -> None:
-    """The kernels stage the store four elements a load when rot % 4 == 0
-    (csrc/fused_common.cuh: stage_tile), or sixteen bytes a load for int8
-    rows when rot % 16 == 0 (stage_tile_i8), which needs every row, and
-    so the store itself, aligned to that width; a view at an odd offset
-    would fault on the card."""
+    """The bin-fold kernel stages the store four elements a load when rot
+    % 4 == 0 (csrc/fused_common.cuh: stage_tile), or sixteen bytes a load
+    for int8 rows when rot % 16 == 0 (stage_tile_i8), and
+    `fused_list_topk_int8` reads int8 rows of rot % 16 == 0 by TMA
+    (csrc/list_scan_tc.cuh: TmaStage); each needs every row, and so the
+    store itself, aligned to that width; a view at an odd offset would
+    fault on the card."""
     width = (16 if rot % 16 == 0 else 1) if int8_rows else (
         4 * store.element_size() if rot % 4 == 0 else 1)
     _check(store.data_ptr() % width == 0,
@@ -421,7 +485,7 @@ def fused_list_topk(lof, qres, store, base, k: int, *, kbuf: Optional[int] = Non
     _check(tuple(base.shape) == (n_lists, 1, L),
            f"base must be {(n_lists, 1, L)}, got {tuple(base.shape)}")
     _check(L % _LANES == 0, f"list length {L} must be a multiple of {_LANES}")
-    _check_store_alignment(store, rot, int8_rows=False)
+    _check_list_store_alignment(store, rot)
     if chunk_valid is not None:
         _tensor_arg("chunk_valid", chunk_valid, (torch.int32,), 1, dev)
         _check(chunk_valid.shape[0] == ncb, "chunk_valid must have one entry per chunk")
@@ -564,13 +628,13 @@ def fused_list_topk_int8(lof, q8, store, base, q_scale, k: int, *, kbuf: Optiona
     vals = torch.empty((ncb, chunk, kb), dtype=torch.float32, device=dev)
     idx = torch.empty((ncb, chunk, kb), dtype=torch.int32, device=dev)
     fn = _kernel_fn("fused_list_topk_int8.cu", "fused_list_topk_int8_launch",
-                    [_P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _P])
+                    [_P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _I, _P])
     live = _live_rows(chunk_valid, chunk_rows, chunk)
     with torch.cuda.device(dev):
         stream = torch.cuda.current_stream(dev).cuda_stream
         err = fn(lof.data_ptr(), q8.data_ptr(), store.data_ptr(), base.data_ptr(),
                  q_scale.data_ptr(), None if live is None else live.data_ptr(),
-                 vals.data_ptr(), idx.data_ptr(), ncb, chunk, rot, L, int(k), kb,
+                 vals.data_ptr(), idx.data_ptr(), ncb, chunk, rot, L, n_lists, int(k), kb,
                  int(bool(inner_product)), stream)
     _raise_on(err, "fused_list_topk_int8")
     _launches["fused_list_topk_int8"] += 1
@@ -627,20 +691,16 @@ def bitplane_scores(s_u, pop, rn, o_dot, lo, delta, qsum, qconst, rot_dim: int,
     return _fma_f32(-(2.0 * rn), est, _fma_f32(rn, rn, qconst))
 
 
-#: the bit-plane kernel's selection: register lists up to this k, the
-#: shared-memory batch past it (kMaxRegisterK in csrc/fused_bitplane_topk.cu)
-BITPLANE_MAX_REGISTER_K = 32
-
-
-def _bitplane_smem_bytes(words: int, bits: int, shared_lists: bool = False) -> int:
-    """Shared memory of one bit-plane block (topk_smem_bytes<BitplaneDots>
-    in csrc/fused_bitplane_topk.cu): the tile's scores, the block's plane
-    words and its four qmeta rows; with `shared_lists`, 16-byte aligned,
-    then the rows' lists and buffers (block_lists_bytes in
-    csrc/block_topk.cuh: 16 rows x (256 + 128) pairs)."""
+def _bitplane_smem_bytes(words: int, bits: int, k: int = 1) -> int:
+    """Shared memory of one bit-plane block at this k (topk_smem_bytes<
+    BitplaneDots> in csrc/fused_bitplane_topk.cu): the tile's scores, the
+    block's plane words and its four qmeta rows; past k 32, 16-byte
+    aligned, then the rows' lists and buffers (block_lists_bytes in
+    csrc/block_topk.cuh: 16 rows x (list width + 128) pairs, the list
+    width the smallest of 64, 128 and 256 that holds k)."""
     b = 4 * _ROWS * _TILE_SLOTS + 4 * _ROWS * (bits * words + 4)
-    if shared_lists:
-        b = -(-b // 16) * 16 + 8 * _ROWS * (FUSED_MAX_K + _TILE_SLOTS)
+    if _list_cap(k):
+        b = -(-b // 16) * 16 + _lists_bytes(k)
     return b
 
 
@@ -654,8 +714,7 @@ def fits_fused_bitplane(L: int, words: int, bits: int, k: int,
         return False
     if kbuf is not None and int(kbuf) < fused_kbuf(k):
         return False
-    shared = int(k) > BITPLANE_MAX_REGISTER_K
-    return L % _LANES == 0 and _bitplane_smem_bytes(words, bits, shared) <= SMEM_LIMIT
+    return L % _LANES == 0 and _bitplane_smem_bytes(words, bits, int(k)) <= SMEM_LIMIT
 
 
 def bitplane_su(planes, codes, bits: int) -> torch.Tensor:
@@ -711,7 +770,7 @@ def fused_bitplane_topk(lof, planes, codes_t, meta, base, qmeta, k: int, *, rot_
     L2 scores are the full estimated distance (qconst = |q - center|^2);
     inner-product scores are the negated estimated similarity (qconst =
     q . center): negate back at the call site. The kernel selects with
-    register lists up to k = BITPLANE_MAX_REGISTER_K and with shared-memory
+    register lists up to k = MAX_REGISTER_K and with shared-memory
     lists merged in batches past it; both are exact."""
     _check(isinstance(planes, torch.Tensor), "planes must be a tensor")
     dev = planes.device

@@ -205,12 +205,16 @@ def test_envelope_and_argument_checks(rng):
 
 def test_selection_by_k_and_its_shared_memory_budget(rng):
     """The kernel's selection is picked by k alone: register lists up to
-    k = 32, shared-memory lists past it, which add 16 rows x 384 pairs to
-    the block's shared memory. The plain version answers for both sides
-    of the switch, bit for bit as the JAX kernel does."""
-    assert tfs.BITPLANE_MAX_REGISTER_K == 32
-    assert tfs._bitplane_smem_bytes(3, 8, True) == (
-        -(-tfs._bitplane_smem_bytes(3, 8) // 16) * 16 + 16 * 384 * 8)
+    k = 32, shared-memory lists past it, which add 16 rows x (list width +
+    128) pairs to the block's shared memory, the list width the smallest
+    of 64, 128 and 256 that holds k. The plain version answers for both
+    sides of the switch, bit for bit as the JAX kernel does."""
+    assert tfs.MAX_REGISTER_K == 32
+    regs = tfs._bitplane_smem_bytes(3, 8, 32)
+    assert regs == tfs._bitplane_smem_bytes(3, 8)
+    for k, width in ((33, 64), (64, 64), (65, 128), (128, 128), (129, 256), (256, 256)):
+        assert tfs._bitplane_smem_bytes(3, 8, k) == (
+            -(-regs // 16) * 16 + 16 * (width + 128) * 8)
     assert tfs.fits_fused_bitplane(4992, 3, 8, 250)
     assert tfs.fits_fused_bitplane(3840, 400, 8, 32)
     assert not tfs.fits_fused_bitplane(3840, 400, 8, 33)  # the lists no longer fit

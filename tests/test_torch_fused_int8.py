@@ -195,3 +195,29 @@ def test_int8_shared_memory_budget():
     assert not tfs.fits_fused_list(256, 16384, 40, q_int8=True)
     with pytest.raises(ValueError, match="budget"):
         check_fused_list_request("t", 256, 16384, 40, None, "x", q_int8=True)
+
+
+@pytest.mark.parametrize("pattern", ["short", "holes", "none"])
+@pytest.mark.parametrize("ip", [False, True])
+def test_fused_list_topk_int8_plain_matches_jax_past_the_last_real_slot(rng, pattern, ip):
+    """Bases in the patterns the card kernel's stop at a list's last real
+    slot must survive: lists of 5, 40 and 1 real slots in the first tile,
+    the later tiles +inf ("short"); whole +inf tiles between real ones
+    ("holes"); a list with no real slot ("none"). Values bit for bit and
+    every id, the +inf fill in slot order included."""
+    _, q8, st, _, rs = _int8_case(rng, ncb=6, chunk=4, L=640, rot=32, n_lists=3)
+    lof = np.arange(6, dtype=np.int32) % 3
+    base = rng.uniform(0, 1e5, (3, 1, 640)).astype(np.float32)
+    if pattern == "short":
+        for i, n in enumerate((5, 40, 1)):
+            base[i, :, n:] = np.inf
+    elif pattern == "holes":
+        base[:, :, 128:384] = np.inf
+        base[1, :, 512:] = np.inf
+    else:
+        base[0] = np.inf
+    jv, ji = (np.asarray(a) for a in jfs.fused_list_topk_int8(
+        lof, q8, st, base, rs, 100, inner_product=ip, interpret=True))
+    tv, ti = tfs.fused_list_topk_int8(*_t(lof, q8, st, base, rs), 100, inner_product=ip)
+    np.testing.assert_array_equal(tv.numpy().view(np.int32), jv.view(np.int32))
+    np.testing.assert_array_equal(ti.numpy(), ji)

@@ -273,3 +273,85 @@ def test_shared_memory_envelopes():
     assert not tfs.fits_fused_list(200, 96, 40)
     assert not tfs.fits_fused_list(256, 96, 200, kbuf=128)
     assert not tfs.fits_fused(16, 100, 4096, 256)
+
+
+# -- the card kernels' stop at a list's last real slot ---------------------
+
+
+def _stop_bases(rng, L, pattern):
+    """(3, 1, L) integer bases in the patterns the card kernels' stop at a
+    list's last real slot must survive (csrc/list_scan_tc.cuh): "short"
+    lists of 5, 40 and 1 real slots, all in the first tile, the later tiles
+    +inf; "holes" whole +inf tiles between real tiles; "none" a list
+    without a real slot beside two full ones."""
+    base = rng.integers(0, 20, (3, 1, L)).astype(np.float32)
+    if pattern == "short":
+        for i, n in enumerate((5, 40, 1)):
+            base[i, :, n:] = np.inf
+    elif pattern == "holes":
+        base[:, :, 128:384] = np.inf
+        base[1, :, 512:] = np.inf
+    else:
+        base[0] = np.inf
+    return base
+
+
+def _compare_every_id(jax_out, port_out):
+    """Values bit for bit and every id, +inf slots too: past a list's real
+    slots both fill the rows with its +inf slots in slot order, then the
+    sentinel."""
+    (jv, ji), (tv, ti) = (np.asarray(a) for a in jax_out), (a.numpy() for a in port_out)
+    np.testing.assert_array_equal(tv.view(np.int32), jv.view(np.int32))
+    np.testing.assert_array_equal(ti, ji)
+
+
+@pytest.mark.parametrize("pattern", ["short", "holes", "none"])
+@pytest.mark.parametrize("store_dtype,ip", [("int8", False), ("bf16", True), ("f32", False)])
+def test_fused_list_topk_plain_matches_jax_past_the_last_real_slot(rng, pattern, store_dtype,
+                                                                   ip):
+    lof, q, st, _, _ = _list_case(rng, ncb=6, chunk=4, L=640, rot=33, n_lists=3,
+                                  store_dtype=store_dtype, grid=True)
+    lof = np.arange(6, dtype=np.int32) % 3
+    base = _stop_bases(rng, 640, pattern)
+    jout, tout = _run_both(lof, q, st, base, None, 100, ip, store_dtype)
+    _compare_every_id(jout, tout)
+
+
+def test_fused_list_topk_plain_fills_past_a_short_list_with_the_sentinel(rng):
+    """k past the list's length: its +inf slots in slot order, then the
+    sentinel, in both packages."""
+    lof, q, st, _, _ = _list_case(rng, ncb=3, chunk=4, L=128, rot=16, n_lists=3,
+                                  store_dtype="f32", grid=True)
+    lof = np.arange(3, dtype=np.int32)
+    jout, tout = _run_both(lof, q, st, _stop_bases(rng, 128, "short"), None, 200, False, "f32")
+    _compare_every_id(jout, tout)
+    ti = tout[1].numpy()
+    np.testing.assert_array_equal(ti[0, :, 5:128], np.broadcast_to(np.arange(5, 128), (4, 123)))
+    assert np.all(ti[:, :, 128:] == tfs._ID_SENTINEL)
+
+
+def test_list_kernel_shared_memory_at_the_main_path_shapes():
+    """The list kernels' blocks (csrc/list_scan_tc.cuh) fit at the main
+    path's shapes for every k, and at the trim's k 40 leave room for three
+    blocks an SM (228 KB, 1 KB of it reserved a block). Register lists (k
+    <= 32) take no shared memory; past k 32 a row's list and its buffer
+    of 128 pairs do, the list 64, 128 or 256 pairs as k needs."""
+    for q_int8 in (False, True):
+        for k in (10, 32, 33, 40, 64, 128, 250, 256):
+            assert tfs.fits_fused_list(3840, 96, k, q_int8=q_int8)
+        assert 3 * (tfs._list_tc_smem_bytes(96, q_int8, 40) + 1024) <= 228 * 1024
+        regs = tfs._list_tc_smem_bytes(96, q_int8, 32)
+        for k, width in ((33, 64), (64, 64), (65, 128), (129, 256), (256, 256)):
+            assert tfs._list_tc_smem_bytes(96, q_int8, k) == regs + 16 * (width + 128) * 8
+    # refine: chunk 1, L 128, bf16 rows, k 10
+    assert tfs.fits_fused_list(128, 96, 10)
+
+
+@pytest.mark.parametrize("k,words", [(40, 389), (100, 373), (250, 341)])
+def test_bitplane_envelope_follows_the_list_width(k, words):
+    """At 8 query bits the widest rotation a bit-plane block holds grows
+    as the list narrows with k (64, 128, 256 pairs): 389, 373 and 341 code
+    words, from 341 at every k when the lists were 256 pairs wide."""
+    assert tfs.fits_fused_bitplane(256, words, 8, k)
+    assert not tfs.fits_fused_bitplane(256, words + 1, 8, k)
+    assert tfs.fits_fused_bitplane(4992, 3, 8, k)
