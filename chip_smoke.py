@@ -14,9 +14,18 @@ Phases, in order; any failure exits non-zero:
      shapes (ties, int8 values at +-127, ragged edges, +inf slots and
      tiles, dead rows, empty chunks, k past the finite slots, odd fold
      counts), and the int8 exact trim's values among the int8 bin fold's
-     candidates; the pairwise kernel for every metric (ragged m, n, k,
-     k = 1, KL zeros, canberra zero denominators, integer grids bitwise),
-     the fused L2 argmin (k 1 to 400, n 1 to 1024, m ragged against its
+     candidates; the bin fold's stop at a list's last real slot and its
+     fill of the unscanned folds by rule (the lists of the list kernels'
+     stop below; both folds, L2 and IP, int8 rows by TMA and byte by
+     byte, f32 rows on int8, bf16 and f32 stores at rot 33, 96 and 128, L
+     384, 640 and 3840, live-row prefixes; bit for bit, gaussian rows by
+     fold_compare); the
+     pairwise kernel for every metric (ragged m, n, k, k = 1, KL zeros,
+     canberra zero denominators, integer grids bitwise), canberra and KL
+     on denormals, 1e-30, huge values, the fast paths' range edges,
+     magnitudes from 1e-44 to 1e30, KL ratios past the f32 range, and rows
+     equal to rows of the other side (exactly 0), the fused L2 argmin
+     (k 1 to 400, n 1 to 1024, m ragged against its
      row blocks, duplicate rows and centres, blob rows and the same
      shifted by +100, candidates that round below zero, sqrt) and the
      counting select (ties, +-0, +-inf, NaN,
@@ -35,8 +44,10 @@ Phases, in order; any failure exits non-zero:
      all-equal scores, and at the widest rotations its shared memory
      admits at 8 query bits (389 / 373 / 341 code words at k 40 / 100 /
      250); the list kernels' stop at a list's last real slot on lists of
-     0, 1, 5, 63, 64, 65 and 129 real slots, real slots in the last tile
-     only, whole +inf tiles between real ones, lengths up to L, at k 10,
+     0, 1, 5, 63, 64, 65, 127 and 129 real slots, real slots in the last
+     tile only, tombstone runs before the end (whole +inf tiles between
+     real ones, a run across a tile boundary, the first tile +inf),
+     lengths up to L, at k 10,
      32, 33, 40, 128 and 256, L2 and inner product, fused_list_topk on
      int8, bf16 and f32 stores (integer grids, ids exact) and
      fused_list_topk_int8 with and without its TMA staging (bit for bit);
@@ -48,8 +59,10 @@ Phases, in order; any failure exits non-zero:
      shortlist, refine(strategy="fused")) with ten profiled n_probes-8
      batches, then the same at n_probes 8/16 for three more engines: trim
      "fused" on int8 rows, trim "pallas" (the bin fold) on bf16 and on
-     int8 rows. Gate: recall@10 >= 0.95 on some rung of every engine. Each
-     engine is a path of its own: the launch counts are set to 0 just
+     int8 rows, with ten profiled n_probes-8 batches of the pallas bf16
+     engine (its device time op by op). Gate: recall@10 >= 0.95 on some
+     rung of every engine. Each engine is a path of its own: the launch
+     counts are set to 0 just
      before it and read just after (the first path's window holds the
      truth too), and each kernel of the path must have launched. A timed
      A/B of the fused bf16 engine at n_probes 8 with select_k's earlier
@@ -71,7 +84,10 @@ Phases, in order; any failure exits non-zero:
      cores, f32 on the CUDA cores), the bit-plane scan over k 8 to 128
      and the two IVF-PQ trim kernels over k 8 to 250 across their
      selection switch, the trim kernels' tiles a live block scans, and
-     fused_list_topk's trim and refine launches counted apart;
+     fused_list_topk's trim and refine launches counted apart; the list
+     kernels' and the bin fold's device time of each launch (CUDA events
+     behind a sleep kernel);
+     the pairwise bound with its f32 and MUFU terms apart;
      beside the counting select, descending rows of the tile's shape (its
      one-pass variant's worst case);
   6. a JSON line of kernels, the card's line, then the device line last.
@@ -102,14 +118,32 @@ PEAK_HBM_BYTES = 3.35e12
 #: CUDA programming guide's throughput for compute capability 9.0; the
 #: AND and the add beside each run at 64 a clock)
 PEAK_POPC = 4.18e12
+#: special-function unit (MUFU: reciprocal, lg2, ...) operations a second,
+#: the same 16 a clock an SM
+PEAK_MUFU = 4.18e12
 #: f32 instructions each pairwise term needs at least (the absolute value
-#: is a free operand modifier; a division and a logarithm count as one
-#: each, so the bound is a lower bound): l1 sub + add; linf sub + max; l2
-#: sub + fma; canberra sub, add, compare-select, div, add; KL two
-#: compares, div, log, fma, select; hamming compare-select + add. The two
-#: finalizes (sqrt, the 1/k scale) add one per output.
-TERM_OPS = {"l1": 2, "linf": 2, "l2_unexpanded": 2, "l2_sqrt_unexpanded": 2, "canberra": 5,
-            "kl_divergence": 6, "hamming": 2}
+#: and a negation are free operand modifiers): l1 sub + add; linf sub +
+#: max; l2 sub + fma; hamming compare-select + add; canberra sub, add and
+#: multiply-add beside a reciprocal, the fewer of two ways: two terms
+#: sharing one reciprocal of the product of their denominators (the
+#: product and the two scalings, 1.5 f32 and half a MUFU operation a
+#: term) bound it below one reciprocal a term (3 f32 and one MUFU, the
+#: kernel's way, which runs faster on the H100: PERF.md section 6);
+#: KL, held to the reference's rounded ratio q = RN(a / b) (PERF.md
+#: section 7), q from a staged reciprocal and two residual steps (a
+#: multiply, four multiply-adds), q's residual (one), the difference of
+#: two logarithms staged in two floats each (three adds) and two
+#: multiply-adds: 11. The two finalizes (sqrt, the 1/k scale) add one per
+#: output. MUFU operations beside them (the f32 pipe cannot give a
+#: reciprocal): canberra half a reciprocal a term (TERM_MUFU); KL one
+#: reciprocal an element of y, n k (Y_ELEM_MUFU; its logarithms, one an
+#: element of x and of y, run on the f64 pipe and are not counted). Each
+#: rate is its own term of the bound. (KL as a log a - a log b, 2 a term,
+#: misses the tolerance between rows close to each other.)
+TERM_OPS = {"l1": 2, "linf": 2, "l2_unexpanded": 2, "l2_sqrt_unexpanded": 2, "canberra": 4.5,
+            "kl_divergence": 11, "hamming": 2}
+TERM_MUFU = {"canberra": 0.5}
+Y_ELEM_MUFU = {"kl_divergence": 1}
 RECALL_GATE = 0.95
 #: earlier times, for the log lines only (figures quoted from PERF.md
 #: section 6, H100 80GB HBM3, 700.00 W; not measured by this run): the f32
@@ -383,34 +417,40 @@ def adversarial_checks(fs, pls, dev, rng):
                     seen[b] = seen.get(b, 0) + 1
         log(f"check {name}: ok, {checked} top-k pairs found among the fold's candidates")
 
-    def early_stop_base(L, n_lists, high):
-        """Base rows whose +inf patterns the list kernels' stop at a list's
-        last real slot, and their +inf fill past it, must survive: lists
-        of 0 (all +inf), 1, 5, 63, 64, 65 and 129 leading real slots
-        (fewer than k; the later tiles all +inf); real slots in the last
-        tile only; whole +inf tiles in the middle with real tiles after
-        them; L - 1, L and a random number of slots; scattered +inf slots
-        among the real ones of the last five."""
-        fin = np.ones((n_lists, L), bool)
-        ends = (0, 1, 5, 63, 64, 65, 129, None, None, L - 1, L, int(rng.integers(1, L)))
-        for i, e in enumerate(ends[:n_lists]):
-            if e is not None:
-                fin[i, e:] = False
-        fin[7, :L - 128] = False
-        fin[8, 128:384] = False
-        fin[8, 512:] = False
-        fin[7:] &= rng.random((n_lists - 7, L)) >= 0.1
-        base = rng.uniform(0, high, (n_lists, L)).astype(np.float32)
+    def stop_base(L, high):
+        """(n_lists, 1, L) base rows whose +inf patterns the list kernels'
+        stop at a list's last real slot, and their fill past it, must
+        survive: lists whose real slots end at 0 (all +inf), 1, 5, 63, 64,
+        65, 127, 129, L - 1, L and at random (fewer than k; the later tiles
+        all +inf); real slots in the last tile only; tombstone runs before
+        the end (whole +inf tiles between real ones, a run across a tile
+        boundary, the first tile +inf); scattered +inf slots among the
+        real ones of the last seven."""
+        ends = (0, 1, 5, 63, 64, 65, 127, 129, L - 1, L, int(rng.integers(1, L)))
+        t = len(ends)
+        fin = np.ones((t + 4, L), bool)
+        for i, e in enumerate(ends):
+            fin[i, e:] = False
+        fin[t, :L - 128] = False          # real slots in the last tile only
+        fin[t + 1, 128:384] = False       # whole +inf tiles, real ones after
+        fin[t + 1, 512:] = False
+        fin[t + 2, 100:300] = False       # a run across a tile boundary
+        fin[t + 2, L - 70:] = False
+        fin[t + 3, :128] = False          # the first tile +inf
+        fin[t - 3:] &= rng.random((7, L)) >= 0.1
+        base = rng.uniform(0, high, fin.shape).astype(np.float32)
         if high <= 20:
             base = np.round(base)
         base[~fin] = np.inf
         return torch.tensor(base[:, None, :])
 
-    def early_stop_case(k, ip, dtype=None, rot=96, L=640, n_lists=12, chunk=19):
+    def early_stop_case(k, ip, dtype=None, rot=96, L=640, chunk=19):
         """Kernel 1 (`dtype` its store) or, with dtype None, kernel 3 on
-        every list of early_stop_base, each probed by two chunks, with
-        live-row prefixes (a full chunk, an empty one): kernel 1 on
-        integer grids (ids exact), kernel 3 at +-127 bit for bit."""
+        every list of stop_base, each probed by two chunks, with live-row
+        prefixes (a full chunk, an empty one): kernel 1 on integer grids
+        (ids exact), kernel 3 at +-127 bit for bit."""
+        base = stop_base(L, 1e5 if dtype is None else 20)
+        n_lists = base.shape[0]
         ncb = 2 * n_lists
         lof = torch.tensor(np.arange(ncb) % n_lists, dtype=torch.int32).to(dev)
         crt = live_rows(ncb, chunk)
@@ -419,7 +459,7 @@ def adversarial_checks(fs, pls, dev, rng):
             q8 = torch.tensor(rng.integers(-127, 128, (ncb, chunk, rot)).astype(np.int8))
             st = torch.tensor(rng.integers(-127, 128, (n_lists, L, rot)).astype(np.int8))
             rs = torch.tensor(rng.uniform(1e-3, 1.0, (ncb, chunk, 1)).astype(np.float32))
-            args = [lof] + [t.to(dev) for t in (q8, st, early_stop_base(L, n_lists, 1e5), rs)]
+            args = [lof] + [t.to(dev) for t in (q8, st, base, rs)]
             name = f"int8 list early stop {tag}"
             out = fs.fused_list_topk_int8(*args, k, inner_product=ip, chunk_rows=crt)
             require_equal(name, out, fs.fused_list_topk_int8_plain(*args, k, fs.fused_kbuf(k), ip,
@@ -428,7 +468,7 @@ def adversarial_checks(fs, pls, dev, rng):
             return
         q = torch.tensor(rng.integers(-3, 4, (ncb, chunk, rot)).astype(np.float32))
         st = torch.tensor(rng.integers(-3, 4, (n_lists, L, rot)).astype(np.float32)).to(dtype)
-        args = [lof] + [t.to(dev) for t in (q, st, early_stop_base(L, n_lists, 20))]
+        args = [lof] + [t.to(dev) for t in (q, st, base)]
         name = f"list early stop {str(dtype).split('.')[-1]} {tag}"
         out = fs.fused_list_topk(*args, k, inner_product=ip, chunk_rows=crt)
         ref = fs.fused_list_topk_plain(*args, k, fs.fused_kbuf(k), ip, None, crt)
@@ -507,6 +547,58 @@ def adversarial_checks(fs, pls, dev, rng):
               fold="packed", inf_tiles=(0, 1, 2, 3))
     fold_case("fold gaussian rows L 3840", 12, 128, 3840, 96, 4, "gaussian", rows=True,
               inf_tiles=tuple(range(8, 30)))
+
+    def fold_stop_case(q_rows, fold, ip, rot=96, store_dtype=torch.int8, L=640, chunk=19):
+        """Kernel 4 on every list of stop_base, each probed by two chunks
+        with live-row prefixes (a full chunk, an empty one). q_rows "int8"
+        (int8 rows at +-127, bit for bit), "grid" (small-integer rows,
+        store and base: exact sums, bit for bit) or "gaussian"
+        (fold_compare)."""
+        grid = q_rows == "grid"
+        base = stop_base(L, 20 if grid else 1e5).to(dev)
+        n_lists = base.shape[0]
+        ncb = 2 * n_lists
+        lof = torch.tensor(np.arange(ncb) % n_lists, dtype=torch.int32).to(dev)
+        crt = live_rows(ncb, chunk)
+        lo, hi = (-3, 4) if grid else (-127, 128)
+        st = torch.tensor(rng.integers(lo, hi, (n_lists, L, rot)).astype(np.int8))
+        rs = None
+        if q_rows == "int8":
+            q = torch.tensor(rng.integers(-127, 128, (ncb, chunk, rot)).astype(np.int8)).to(dev)
+            rs = torch.tensor(rng.uniform(1e-3, 1.0, (ncb, chunk, 1)).astype(np.float32)).to(dev)
+        elif grid:
+            q = torch.tensor(rng.integers(-3, 4, (ncb, chunk, rot)).astype(np.float32)).to(dev)
+        else:
+            q = torch.tensor(rng.standard_normal((ncb, chunk, rot)).astype(np.float32)).to(dev)
+        st = st.to(store_dtype).to(dev)
+        name = (f"fold stop {q_rows} rows {str(store_dtype).split('.')[-1]} store L {L} rot "
+                f"{rot}, {'ip' if ip else 'l2'}, {fold}")
+        out = pls.pq_list_scan(lof, q, st, base, inner_product=ip, q_scale=rs, fold=fold,
+                               chunk_rows=crt)
+        ref = pls.pq_list_scan_plain(lof, q, st, base, ip, rs, fold, crt)
+        if q_rows == "gaussian":
+            err, agree = fold_compare(name, out, ref, bf16_rescore(lof, q, st, base, ip))
+            log(f"check {name}: ok, max_abs_err {err}, slot agreement {agree}")
+        else:
+            require_equal(name, out, ref)
+            log(f"check {name}: ok, bitwise equal")
+
+    # the fold's stop at a list's last real slot and its fill by rule: both
+    # folds, L2 and IP, every kind of rows; int8 rows with TMA staging (rot
+    # 96, 128) and byte staging (rot 33); f32 rows against int8, bf16 and
+    # f32 stores at rot 33, 96 and 128; an odd fold count (L 384) and L 3840
+    for fold in ("exact", "packed"):
+        for ip in (False, True):
+            for q_rows in ("int8", "grid", "gaussian"):
+                fold_stop_case(q_rows, fold, ip)
+        for rot in (33, 128):
+            fold_stop_case("int8", fold, False, rot=rot)
+        for rot in (33, 96, 128):
+            for dtype in (torch.bfloat16, torch.float32):
+                fold_stop_case("grid", fold, rot % 2 == 1, rot=rot, store_dtype=dtype)
+            fold_stop_case("gaussian", fold, False, rot=rot, store_dtype=torch.bfloat16)
+        fold_stop_case("int8", fold, True, L=384)
+        fold_stop_case("grid", fold, False, L=3840, chunk=40)
     for ip in (False, True):
         subset_case(f"int8 trims subset L 384, {'ip' if ip else 'l2'}", 6, 16, 384, 96, 3, ip)
         subset_case(f"int8 trims subset L 1280, {'ip' if ip else 'l2'}", 6, 16, 1280, 96, 3, ip)
@@ -651,6 +743,64 @@ def slice_checks(dev, rng):
             err = matrix_compare(f"pairwise_tiled {metric} {m}x{n}x{k}", out, ref, exact)
             log(f"check pairwise_tiled {metric} {m}x{n}x{k}{' grid' if grid else ''}: ok, "
                 + ("bitwise equal" if exact else f"max_abs_err {err}"))
+
+    # canberra's MUFU reciprocal and KL's staged reciprocals and logarithms, and their
+    # general path past the fast paths' range: denormals (no flush to zero),
+    # 1e-30, huge values, the range's edges 2^-62 and 2^61, magnitudes from
+    # 1e-44 to 1e30 (canberra: every term lies in [0, 1]), KL ratios a / b
+    # past the f32 range (the reference's +inf); rows equal to rows of the
+    # other side (exact zeros), zeros beside all of them
+    edge = np.float32(2.0 ** 61)
+    uniform = lambda scale: (lambda sh: rng.random(sh) * scale)  # noqa: E731
+    for name, metrics, gen_x, gen_y in (
+            ("denormals", ("canberra", "kl_divergence"), uniform(1e-39), None),
+            ("1e-30", ("canberra", "kl_divergence"), uniform(1e-30), None),
+            ("huge", ("canberra", "kl_divergence"), uniform(1e30), None),
+            ("range edges", ("canberra", "kl_divergence"), lambda sh: rng.choice(
+                np.array([2.0 ** -62, edge, edge * 0.75, 1.0, 3.0, 2.0 ** -61]), sh), None),
+            ("magnitudes 1e-44 to 1e30", ("canberra",),
+             lambda sh: 10.0 ** rng.uniform(-44, 30, sh), None),
+            ("ratio overflow", ("kl_divergence",), lambda sh: 0.5 + 0.5 * rng.random(sh),
+             uniform(1e-39))):
+        for metric in metrics:
+            m, n, k = 130, 257, 97
+            x, y = gen_x((m, k)), (gen_y or gen_x)((n, k))
+            if metric == "canberra":
+                x, y = x * rng.choice([-1.0, 1.0], x.shape), y * rng.choice([-1.0, 1.0], y.shape)
+            x[:, ::7], y[:, ::5] = 0.0, 0.0   # zeros: canberra 0/0, KL's guards
+            y[:40] = x[:40]                   # rows equal across x and y
+            x, y = (torch.tensor(t.astype(np.float32), device=dev) for t in (x, y))
+            out = pt.pairwise_tiled(x, y, metric)
+            ref = pt.pairwise_tiled_plain(x, y, metric)
+            label = f"pairwise_tiled {metric} {name} {m}x{n}x{k}"
+            err = matrix_compare(label, out, ref, False)
+            eq = torch.arange(40, device=dev)
+            if bool((out[eq, eq] != 0).any()) or bool((ref[eq, eq] != 0).any()):
+                raise AssertionError(f"{label}: equal rows must give exactly 0")
+            log(f"check {label}: ok, max_abs_err {err}, equal rows exactly 0")
+
+    # rows close to each other in every column: one profile times 1 + delta
+    # gaussian noise, each row normalised to sum 1. KL's terms a log(a / b)
+    # are ~delta a, of both signs, and their sum ~delta^2 / 2: at delta
+    # 1e-2 the reference's one rounding of a / b a term sets the last
+    # digits VAL_RTOL sees, and the summation order does not
+    for delta in (1e-2, 3e-2):
+        m, n, k = 130, 257, 97
+        base = rng.random(k) + 0.5
+        x = base * (1 + delta * rng.standard_normal((m, k)))
+        y = base * (1 + delta * rng.standard_normal((n, k)))
+        x, y = x / x.sum(1, keepdims=True), y / y.sum(1, keepdims=True)
+        y[:40] = x[:40]
+        x, y = (torch.tensor(t.astype(np.float32), device=dev) for t in (x, y))
+        for metric in ("canberra", "kl_divergence"):
+            out = pt.pairwise_tiled(x, y, metric)
+            ref = pt.pairwise_tiled_plain(x, y, metric)
+            label = f"pairwise_tiled {metric} near-identical rows delta {delta} {m}x{n}x{k}"
+            err = matrix_compare(label, out, ref, False)
+            eq = torch.arange(40, device=dev)
+            if bool((out[eq, eq] != 0).any()) or bool((ref[eq, eq] != 0).any()):
+                raise AssertionError(f"{label}: equal rows must give exactly 0")
+            log(f"check {label}: ok, max_abs_err {err}, equal rows exactly 0")
 
     def argmin_case(name, x, y, sqrt, exact=False):
         out = fla.fused_l2_argmin(x, y, sqrt=sqrt)
@@ -1052,7 +1202,7 @@ def main_path(g, dev, fs, pls, sync):
         rungs.append(rung(n_probes, "fused", "bf16", [spy]))
         if n_probes == 8:
             captured["trim"], captured["refine"] = spy.calls[0], spy.calls[-1]
-    breakdown = None
+    breakdown = pallas_breakdown = None
     if dev.type == "cuda":
         params8 = ivf_pq.SearchParams(n_probes=8)
         breakdown = device_breakdown(
@@ -1073,11 +1223,21 @@ def main_path(g, dev, fs, pls, sync):
             rungs.append(rung(n_probes, trim, dtype, [spy]))
             if n_probes == 8:
                 captured[(trim, dtype)] = spy.calls[0]
+        if (trim, dtype) == ("pallas", "bf16") and dev.type == "cuda":
+            # where the bin trim's batch goes beside its kernel, op by op
+            pparams = ivf_pq.SearchParams(n_probes=8, trim_engine=trim, score_dtype=dtype)
+            pallas_breakdown = device_breakdown(
+                lambda: refine(dataset, queries,
+                               ivf_pq.search(pparams, index, queries, 4 * g.k)[1], g.k,
+                               strategy="fused", device=dev), g.batch_reps,
+                rungs[-2]["batch_s"] * 1e3, label="trim pallas bf16, n_probes 8 + refine",
+                top=20)
         launches[(trim, dtype)] = fs.launch_counts()
     ab = sorted_top_ab(g, lambda: refine(
         dataset, queries, ivf_pq.search(ivf_pq.SearchParams(n_probes=8), index, queries,
                                         4 * g.k)[1], g.k, strategy="fused", device=dev), sync)
     return {"build_s": build_s, "truth_s": truth_s, "rungs": rungs, "breakdown": breakdown,
+            "pallas_breakdown": pallas_breakdown,
             "dataset": dataset, "queries": queries, "truth": truth, "index": index,
             "launches": launches, "list_launches": tally.counts, "sorted_top_ab": ab}, captured
 
@@ -1353,7 +1513,7 @@ def rabitq_path(g, dev, res, fs, sync):
                              "xla_s": xla_s}}, (captured, gate_call)
 
 
-def device_breakdown(run, reps, batch_ms, label="n_probes 8 + refine"):
+def device_breakdown(run, reps, batch_ms, label="n_probes 8 + refine", top=10):
     """Where a batch's time goes: `reps` batches under torch.profiler.
     Only the device's own activities count (kernels, copies, sets: events
     whose device_type is CUDA); the operator rows that launched them carry
@@ -1385,7 +1545,7 @@ def device_breakdown(run, reps, batch_ms, label="n_probes 8 + refine"):
     out = {"wall_ms": wall_ms, "device_ms": device_ms, "device_events": len(spans),
            "idle_share": 1.0 - device_ms / wall_ms,
            "idle_share_unprofiled": 1.0 - device_ms / batch_ms,
-           "top": [{"kernel": name[:80], "ms": ms} for name, ms in ops[:10]]}
+           "top": [{"kernel": name[:80], "ms": ms} for name, ms in ops[:top]]}
     log(f"breakdown, {label}, per batch: device busy {device_ms:.4f} ms "
         f"({len(spans) // reps} device activities); profiled wall {wall_ms:.4f} ms, idle "
         f"share {out['idle_share']:.4f}; unprofiled batch {batch_ms:.4f} ms, idle share "
@@ -1557,6 +1717,8 @@ def list_kernel_row(fs, call, launches, reps, label, sweep=False):
         return torch.topk(sc, k, dim=-1, largest=False)
 
     lib_ms = time_ms(library, reps)
+    if qres.is_cuda:  # the device time of each launch
+        terms.update(launch_ms(kernel, reps))
     terms["tiles"] = tiles = scan_tiles(lof, base, live)
     if sweep:
         terms["k_sweep_ms"] = k_sweep(
@@ -1570,7 +1732,10 @@ def list_kernel_row(fs, call, launches, reps, label, sweep=False):
         f"{int(live.sum())} live rows), chunk {chunk}, L {L}, "
         f"rot {rot}, store {store.dtype}, k {k}: {ms:.4f} ms, plain {plain_ms:.4f} ms, "
         f"library {lib_ms:.4f} ms, bound {b_ms:.4f} ms ({b_by}), max_abs_err {err}, "
-        f"id agreement {agree}; launches {launches}; tiles a live block {tiles}")
+        f"id agreement {agree}; launches {launches}; device ms a launch "
+        f"{terms.get('launch_ms', float('nan')):.4f} (each "
+        f"{[round(v, 4) for v in terms.get('launch_ms_each', [])]}); "
+        f"tiles a live block {tiles}")
     return {"name": "fused_list_topk", "route": "cuda",
             "source": "raft_tpu_torch/csrc/fused_list_topk.cu",
             "replaces": "raft_tpu/ops/fused_scan.py:443", "launches": launches,
@@ -1581,7 +1746,8 @@ def list_kernel_row(fs, call, launches, reps, label, sweep=False):
 
 def device_split(run, reps, kernel_names):
     """Device milliseconds a call of `run` under torch.profiler, split into
-    the kernels named (substrings) and everything else the call launches."""
+    the kernels named (substrings) and everything else the call launches,
+    and how many launches of the named kernels the profiler reported."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
@@ -1592,15 +1758,45 @@ def device_split(run, reps, kernel_names):
             run()
         torch.cuda.synchronize()
     kern = other = 0.0
+    seen = 0
     for e in prof.events():
         if e.device_type != DeviceType.CUDA or getattr(e, "is_user_annotation", False):
             continue
         us = e.time_range.end - e.time_range.start
         if any(name in e.name for name in kernel_names):
             kern += us
+            seen += 1
         else:
             other += us
-    return {"kernel_device_ms": kern / 1e3 / reps, "setup_device_ms": other / 1e3 / reps}
+    return {"kernel_device_ms": kern / 1e3 / reps, "setup_device_ms": other / 1e3 / reps,
+            "kernel_launches_seen": seen, "calls": reps}
+
+
+#: cycles of the sleep kernel `launch_ms` queues ahead of a timed launch
+#: (about 2 ms at 1.98 GHz, far longer than the host takes to queue it)
+SLEEP_CYCLES = 4_000_000
+
+
+def launch_ms(run, reps):
+    """The device milliseconds of each of `reps` launches of a one-kernel
+    call, by CUDA events around that call alone: a sleep kernel queued
+    first keeps the stream busy while the host queues the start event, the
+    call and the end event, so the interval holds the launch and none of
+    the host's time. (torch.profiler, late in this script, reports only
+    some launches of the list kernels, PERF.md section 7.)"""
+    run()
+    torch.cuda.synchronize()
+    each = []
+    for _ in range(reps):
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        torch.cuda._sleep(SLEEP_CYCLES)
+        start.record()
+        run()
+        end.record()
+        end.synchronize()
+        each.append(start.elapsed_time(end))
+    return {"launch_ms": sum(each) / reps, "launch_ms_each": each}
 
 
 def flat_kernel_row(fs, call, launches, reps):
@@ -1693,6 +1889,8 @@ def int8_list_row(fs, call, launches, reps, label, sweep=False):
         return torch.topk(base[lof.long()] - coef * (dots * q_scale), k, dim=-1, largest=False)
 
     lib_ms = time_ms(library, reps)
+    if q8.is_cuda:  # the device time of each launch
+        terms.update(launch_ms(kernel, reps))
     terms["tiles"] = tiles = scan_tiles(lof, base, live)
     if sweep:
         terms["k_sweep_ms"] = k_sweep(
@@ -1707,7 +1905,10 @@ def int8_list_row(fs, call, launches, reps, label, sweep=False):
         f"{int(live.sum())} live rows), chunk {chunk}, L {L}, rot {rot}, k {k}: {ms:.4f} ms, "
         f"plain {plain_ms:.4f} ms, library {lib_ms:.4f} ms, bound {b_ms:.4f} ms ({b_by}; "
         f"ops {terms['ops_ms']:.4f}, bytes {terms['bytes_ms']:.4f}), bitwise equal to plain; "
-        f"launches {launches}; tiles a live block {tiles}")
+        f"launches {launches}; device ms a launch "
+        f"{terms.get('launch_ms', float('nan')):.4f} (each "
+        f"{[round(v, 4) for v in terms.get('launch_ms_each', [])]}); "
+        f"tiles a live block {tiles}")
     return {"name": "fused_list_topk_int8", "route": "cuda",
             "source": "raft_tpu_torch/csrc/fused_list_topk_int8.cu",
             "replaces": "raft_tpu/ops/fused_scan.py:575", "launches": launches,
@@ -1764,11 +1965,17 @@ def fold_kernel_row(pls, call, launches, reps, label, fold):
         return torch.topk(sc.view(ncb, chunk, -1, 2, 128), 2, dim=2, largest=False)
 
     lib_ms = time_ms(library, reps)
+    if q.is_cuda:  # the device time of each launch
+        terms.update(launch_ms(kernel, reps))
+    terms["tiles"] = tiles = scan_tiles(lof, base, live)
     log(f"kernel pq_list_scan ({label}): ncb {ncb} ({int((live > 0).sum())} live, "
         f"{int(live.sum())} live rows), chunk {chunk}, L {L}, rot {rot}: {ms:.4f} ms, plain "
         f"{plain_ms:.4f} ms, library {lib_ms:.4f} ms, bound {b_ms:.4f} ms ({b_by}; ops "
         f"{terms['ops_ms']:.4f}, bytes {terms['bytes_ms']:.4f}: {in_bytes} in + {out_bytes} "
-        f"out), max_abs_err {err}, slot agreement {agree}")
+        f"out), max_abs_err {err}, slot agreement {agree}; device ms a launch "
+        f"{terms.get('launch_ms', float('nan')):.4f} (each "
+        f"{[round(v, 4) for v in terms.get('launch_ms_each', [])]}); "
+        f"tiles a live block {tiles}")
     return {"name": "pq_list_scan", "route": "cuda", "source": "raft_tpu_torch/csrc/pq_list_scan.cu",
             "replaces": "raft_tpu/ops/pq_list_scan.py:303", "launches": launches,
             "max_abs_err": err, "ms": ms, "plain_ms": plain_ms, "bound_ms": b_ms,
@@ -1798,7 +2005,10 @@ def pairwise_rows(slice_res, launches, reps):
         a, b = inputs.get(metric, (x, y))
         finalize = metric in ("l2_sqrt_unexpanded", "hamming")
         ops = TERM_OPS[metric] * m * n * k + (m * n if finalize else 0)
-        b_ms, b_by, terms = bound_ms(ops, (m + n) * k * 4 + m * n * 4, PEAK_F32_INSTR)
+        mufu = TERM_MUFU.get(metric, 0) * m * n * k + Y_ELEM_MUFU.get(metric, 0) * n * k
+        b_ms, b_by, terms = bound_ms(max(ops, mufu * PEAK_F32_INSTR / PEAK_MUFU),
+                                     (m + n) * k * 4 + m * n * 4, PEAK_F32_INSTR)
+        terms.update(f32_ms=ops / PEAK_F32_INSTR * 1e3, mufu_ms=mufu / PEAK_MUFU * 1e3)
 
         def kernel():
             return pt.pairwise_tiled(a, b, metric)
@@ -1815,9 +2025,9 @@ def pairwise_rows(slice_res, launches, reps):
             lib_ms = time_ms(lambda: torch.cdist(a, b, **library[metric]), reps)
         log(f"kernel pairwise_tiled {metric} (L1 tile): m {m}, n {n}, k {k}: {ms:.4f} ms, plain "
             f"{plain_ms:.4f} ms, library {'-' if lib_ms is None else f'{lib_ms:.4f} ms'}, "
-            f"bound {b_ms:.4f} ms ({b_by}; ops {terms['ops_ms']:.4f}, bytes "
-            f"{terms['bytes_ms']:.4f}), " + ("bitwise equal to plain" if exact else
-                                             f"max_abs_err {err}"))
+            f"bound {b_ms:.4f} ms ({b_by}; f32 {terms['f32_ms']:.4f}, MUFU "
+            f"{terms['mufu_ms']:.4f}, bytes {terms['bytes_ms']:.4f}), "
+            + ("bitwise equal to plain" if exact else f"max_abs_err {err}"))
         rows.append({"name": "pairwise_tiled", "route": "cuda",
                      "source": "raft_tpu_torch/csrc/pairwise_tiled.cu",
                      "replaces": "raft_tpu/ops/pairwise_pallas.py:113", "launches": launches,
@@ -2109,7 +2319,8 @@ def main(argv=None):
     refine_row = list_kernel_row(fs, captured["refine"], res["list_launches"]["refine"], g.reps,
                                  "refine, chunk 1")
     summary = {"build_s": res["build_s"], "truth_s": res["truth_s"], "rungs": res["rungs"],
-               "breakdown": res["breakdown"], "refine_kernel": refine_row,
+               "breakdown": res["breakdown"], "pallas_breakdown": res["pallas_breakdown"],
+               "refine_kernel": refine_row,
                "sorted_top_ab": res["sorted_top_ab"], "knn_l1": sl["knn_l1"],
                "knn_fused": sl["knn_fused"],
                "fused_l2_nn": sl["fused_l2_nn"], "rabitq": rb,

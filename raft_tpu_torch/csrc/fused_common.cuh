@@ -1,18 +1,17 @@
-// Shared core of the CUDA-core scans: fused_topk.cu's CUDA-core variant,
-// the bit-plane scan (fused_bitplane_topk.cu) and the bin-fold list scan
-// (pq_list_scan.cu); the tensor-core list kernels (list_scan_tc.cuh) use
-// its row lists, int8 score and element loads. A block scores kRows query
-// rows against a run of store rows, 128 slots (one tile) at a time, and no
-// score ever reaches device memory.
+// Shared core of the CUDA-core scans: fused_topk.cu's CUDA-core variant and
+// the bit-plane scan (fused_bitplane_topk.cu); the tensor-core list kernels
+// (list_scan_tc.cuh) use its row lists, int8 score and element loads. A
+// block scores kRows query rows against a run of store rows, 128 slots
+// (one tile) at a time, and no score ever reaches device memory.
 //
 // Scoring is a policy with one interface (`tile` accumulates the dots of
-// one tile, `score` turns a dot into the minimized score):
+// one tile, `score` turns a dot into the minimized score; the bit-plane
+// scan brings its own):
 //   Bf16Dots<T>  the block stages its query rows, rounded to bf16 (round
 //                to nearest even) and held as float, in shared memory
 //                once, then streams store rows in tiles of kTileSlots rows
 //                x kDStep depth, each element converted to bf16-exact float
-//                (int8 and bf16 convert exactly, float32 is rounded; four
-//                elements per load where the row width allows), and
+//                (four elements per load where the row width allows), and
 //                accumulates f32 dots. Thread t owns store row
 //                (t % kTileSlots) of the tile and kRowsHalf query rows
 //                (half t / kTileSlots), so one 16-byte shared load of the
@@ -20,9 +19,6 @@
 //                loads are warp-wide broadcasts. The staged rows use a
 //                stride of kDStride floats, which keeps the 16-byte loads
 //                of eight neighbouring threads on distinct banks.
-//   Int8Dots     int8 query rows and an int8 store, staged as bytes over
-//                the whole depth, dots by __dp4a into int32 (exact in any
-//                order), then the per-row scale (int8_score).
 // A tile whose base is +inf on every slot skips the dots: its scores are
 // +inf whatever they are.
 //
@@ -65,12 +61,6 @@ __host__ __device__ constexpr int depth_padded(int d) {
   return (d + kDStep - 1) / kDStep * kDStep;
 }
 
-// int8 rows: bytes per staged query row (16-byte words), and per staged
-// store row, an odd number of words so that the 16-byte loads of eight
-// neighbouring threads fall on distinct banks.
-__host__ __device__ constexpr int i8_depth(int d) { return (d + 15) / 16 * 16; }
-__host__ __device__ constexpr int i8_stride(int d) { return (i8_depth(d) / 16 | 1) * 16; }
-
 __device__ __forceinline__ float bf16_round(float v) {
   return __bfloat162float(__float2bfloat16_rn(v));
 }
@@ -82,20 +72,12 @@ __device__ __forceinline__ float load1(const int8_t* p) {
 __device__ __forceinline__ float load1(const __nv_bfloat16* p) { return __bfloat162float(*p); }
 __device__ __forceinline__ float load1(const float* p) { return bf16_round(*p); }
 
-// Four consecutive elements (4-element aligned), as bf16-exact floats.
-__device__ __forceinline__ float4 load4(const int8_t* p) {
-  const char4 c = *reinterpret_cast<const char4*>(p);
-  return make_float4(c.x, c.y, c.z, c.w);
-}
+// Four consecutive elements (4-element aligned), as floats.
 __device__ __forceinline__ float4 load4(const __nv_bfloat16* p) {
   const uint2 u = *reinterpret_cast<const uint2*>(p);
   const float2 a = __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(&u.x));
   const float2 b = __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(&u.y));
   return make_float4(a.x, a.y, b.x, b.y);
-}
-__device__ __forceinline__ float4 load4(const float* p) {
-  const float4 v = *reinterpret_cast<const float4*>(p);
-  return make_float4(bf16_round(v.x), bf16_round(v.y), bf16_round(v.z), bf16_round(v.w));
 }
 
 __device__ __forceinline__ bool lex_less(float av, int ai, float bv, int bi) {
@@ -335,94 +317,6 @@ __device__ __forceinline__ float int8_score(int idot, float rs, float b, bool ip
   const float f = __int2float_rn(idot);  // |idot| < 2^24: exact
   return ip ? __fmaf_rn(-f, rs, b) : __fsub_rn(b, __fmul_rn(2.f, __fmul_rn(f, rs)));
 }
-
-// st[kTileSlots][stride] <- rows [t0, t0 + kTileSlots) x columns [0, dpad)
-// of a (nrows, d) int8 store; zeros past the edges. With d % 16 == 0 (and
-// the store 16-byte aligned) a tile is one run of 16-byte words.
-__device__ __forceinline__ void stage_tile_i8(int8_t* st, const int8_t* rows, int nrows, int t0,
-                                              int d, int dpad, int stride) {
-  if (d % 16 == 0) {
-    const int w = d / 16;
-    for (int e = threadIdx.x; e < kTileSlots * w; e += kThreads) {
-      const int s = e / w, c = e - s * w;
-      const int slot = t0 + s;
-      *reinterpret_cast<int4*>(st + s * stride + 16 * c) =
-          slot < nrows ? *reinterpret_cast<const int4*>(rows + (size_t)slot * d + 16 * c)
-                       : make_int4(0, 0, 0, 0);
-    }
-    return;
-  }
-  for (int e = threadIdx.x; e < kTileSlots * dpad; e += kThreads) {
-    const int s = e / dpad, c = e - s * dpad;
-    const int slot = t0 + s;
-    st[s * stride + c] = (slot < nrows && c < d) ? rows[(size_t)slot * d + c] : int8_t(0);
-  }
-}
-
-// acc[r] += <q_s[half*kRowsHalf + r][0 : dpad], st[s][0 : dpad]>, four
-// bytes per __dp4a
-__device__ __forceinline__ void accumulate_i8(int (&acc)[kRowsHalf], const int8_t* q_s,
-                                              const int8_t* st, int dpad, int stride) {
-  const int s = threadIdx.x % kTileSlots, half = threadIdx.x / kTileSlots;
-  const int4* srow = reinterpret_cast<const int4*>(st + s * stride);
-  const int4* qrow = reinterpret_cast<const int4*>(q_s + half * kRowsHalf * dpad);
-  const int w = dpad / 16;
-  for (int c = 0; c < w; ++c) {
-    const int4 sv = srow[c];
-#pragma unroll
-    for (int r = 0; r < kRowsHalf; ++r) {
-      const int4 qv = qrow[r * w + c];
-      acc[r] = __dp4a(qv.x, sv.x, acc[r]);
-      acc[r] = __dp4a(qv.y, sv.y, acc[r]);
-      acc[r] = __dp4a(qv.z, sv.z, acc[r]);
-      acc[r] = __dp4a(qv.w, sv.w, acc[r]);
-    }
-  }
-}
-
-// int8 query rows x an int8 store, int32 dots, per-row f32 scale.
-struct Int8Dots {
-  using Query = int8_t;
-  using Store = int8_t;
-  using Acc = int;
-  int8_t* st;   // kTileSlots x stride bytes
-  int8_t* q_s;  // kRows x dpad bytes
-  float* rs_s;  // kRows
-  int d, dpad, stride;
-  bool ip;
-
-  __host__ __device__ static size_t smem_bytes(int d) {
-    return (size_t)kTileSlots * i8_stride(d) + (size_t)kRows * i8_depth(d) +
-           sizeof(float) * kRows;
-  }
-  // Stages rows [0, nrows) of q (row stride d) and their scales rs; the
-  // first tile's barrier publishes them.
-  __device__ Int8Dots(void* smem, const int8_t* q, const float* rs, int nrows, int d_, bool ip_)
-      : st(static_cast<int8_t*>(smem)),
-        q_s(st + kTileSlots * i8_stride(d_)),
-        rs_s(reinterpret_cast<float*>(q_s + kRows * i8_depth(d_))),
-        d(d_),
-        dpad(i8_depth(d_)),
-        stride(i8_stride(d_)),
-        ip(ip_) {
-    for (int e = threadIdx.x; e < kRows * dpad; e += kThreads) {
-      const int r = e / dpad, c = e - r * dpad;
-      q_s[e] = (r < nrows && c < d) ? q[(size_t)r * d + c] : int8_t(0);
-    }
-    const int t = threadIdx.x;
-    if (t < kRows) rs_s[t] = t < nrows ? rs[t] : 0.f;
-  }
-  __device__ __forceinline__ void tile(int (&acc)[kRowsHalf], const int8_t* y, int n, int t0) {
-    __syncthreads();  // staged rows ready / last tile's readers done
-    stage_tile_i8(st, y, n, t0, d, dpad, stride);
-    __syncthreads();
-    accumulate_i8(acc, q_s, st, dpad, stride);
-  }
-  // `row`: the query row within the block
-  __device__ __forceinline__ float score(float b, int acc, int row) const {
-    return int8_score(acc, rs_s[row], b, ip);
-  }
-};
 
 // Dynamic shared memory of one scan_topk block: the tile's scores, then
 // the scoring policy's staging.

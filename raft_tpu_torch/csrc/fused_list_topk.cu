@@ -54,10 +54,11 @@ __global__ void __launch_bounds__(kThreads, list_tc_min_blocks(CAP))
   stage.first();
   stage_query_bf16(lay.q, qres + ((size_t)c * chunk + row0) * rot, live, rot, nkc);
   const int nscan = scan_extent(lbase, L, reinterpret_cast<int*>(lay.sc));
-  stage.start(nscan);  // fences the query rows too, for wgmma
+  const TileOrder<TopKEpi<CAP>::kEvensFirst> ord(nscan);
+  stage.start(nscan, ord);  // fences the query rows too, for wgmma
   __syncthreads();
-  list_scan_tc<false, CAP>(lay, stage, lbase, L, nscan, live, tc_ksteps(rot, false), coef, k,
-                           kbuf, vals + out0, idx + out0);
+  TopKEpi<CAP> epi(lay, live, k, kbuf, L, nscan, vals + out0, idx + out0);
+  list_scan_tc<false>(lay, stage, ord, lbase, nscan, tc_ksteps(rot, false), coef, epi);
 }
 
 template <typename T>

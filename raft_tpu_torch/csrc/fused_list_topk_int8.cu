@@ -60,11 +60,12 @@ __global__ void __launch_bounds__(kThreads, list_tc_min_blocks(CAP))
   const int t = threadIdx.x;
   if (t < kRows) lay.rs[t] = t < live ? q_scale[q0 + t] : 0.f;
   const int nscan = scan_extent(lbase, L, reinterpret_cast<int*>(lay.sc));
-  stage.start(nscan);
+  const TileOrder<TopKEpi<CAP>::kEvensFirst> ord(nscan);
+  stage.start(nscan, ord);
   fence_proxy_async();  // the query rows, for wgmma
   __syncthreads();
-  list_scan_tc<true, CAP>(lay, stage, lbase, L, nscan, live, tc_ksteps(rot, true), coef, k, kbuf,
-                          vals + out0, idx + out0);
+  TopKEpi<CAP> epi(lay, live, k, kbuf, L, nscan, vals + out0, idx + out0);
+  list_scan_tc<true>(lay, stage, ord, lbase, nscan, tc_ksteps(rot, true), coef, epi);
 }
 
 }  // namespace rtt

@@ -1,8 +1,10 @@
-// The tensor-core list scan shared by fused_list_topk.cu (bf16 operands)
-// and fused_list_topk_int8.cu (int8 operands): a block scores kRows = 16
-// query rows of one chunk against the slots of its chunk's list, 128
-// slots (one tile) at a time, and keeps each row's exact top k; no score
-// reaches device memory.
+// The tensor-core list scan shared by fused_list_topk.cu (bf16 operands),
+// fused_list_topk_int8.cu (int8 operands) and pq_list_scan.cu (either): a
+// block scores kRows = 16 query rows of one chunk against the slots of its
+// chunk's list, 128 slots (one tile) at a time, and hands each tile's
+// scores to an epilogue policy: TopKEpi keeps each row's exact top k
+// (kernels 1 and 3), pq_list_scan.cu's FoldEpi folds them into bins
+// (kernel 4). No score reaches device memory.
 //
 //  - Only a list's real tiles. The store is padded to its largest list,
 //    so most tiles of a typical list are +inf pad. The block first reduces
@@ -12,6 +14,9 @@
 //    has fewer than k scanned slots, the full scan would have filled its
 //    list with the unscanned +inf slots in slot order: the write-out puts
 //    slot j (or the sentinel past L) at position j >= nscan (fill_id).
+//  - Tiles in the epilogue's order (TileOrder): in slot order for the
+//    top k, the even tiles and then the odd ones for the bin fold (one
+//    bank at a time). The staging follows that order.
 //  - Dots on the tensor cores. Warpgroup g of the block's two multiplies
 //    the tile's slots [64 g, 64 g + 64) (wgmma M) by the 16 query rows
 //    (N), both operands K-major in 128-byte swizzled shared memory
@@ -28,10 +33,10 @@
 //    tile) and widths that do not split into whole 8-byte or 16-byte
 //    loads (RegStage, RegStageI8: element by element) are loaded when the
 //    stage frees up.
-//  - Selection by k (block_topk.cuh: with_selection): up to k = 32 each
-//    row keeps its list in its warp's registers (WarpTopK<1>), past it in
-//    shared memory, merged in batches (SharedTopK<CAP>). Both select the
-//    k lexicographically smallest (score, slot) pairs, ties to the
+//  - TopKEpi's selection by k (block_topk.cuh: with_selection): up to k =
+//    32 each row keeps its list in its warp's registers (WarpTopK<1>), past
+//    it in shared memory, merged in batches (SharedTopK<CAP>). Both select
+//    the k lexicographically smallest (score, slot) pairs, ties to the
 //    smaller slot, as the TPU epilogue (_extract_topk) does.
 #pragma once
 
@@ -107,6 +112,23 @@ __device__ __forceinline__ int scan_extent(const float* __restrict__ base, int L
   for (int w = 0; w < kThreads / 32; ++w) m = max(m, red[w]);
   return min(L, (m + kHalfSlots - 1) / kHalfSlots * kHalfSlots);
 }
+
+// The order in which a block scans its T = ceil(nscan / kTileSlots)
+// tiles: step i scans tile (*this)(i). In slot order, or (EvensFirst) the
+// even tiles in slot order and then the odd ones.
+template <bool EvensFirst>
+struct TileOrder {
+  int T, evens;
+
+  __device__ explicit TileOrder(int nscan)
+      : T((nscan + kTileSlots - 1) / kTileSlots), evens((T + 1) / 2) {}
+  __device__ __forceinline__ int operator()(int i) const {
+    if constexpr (EvensFirst)
+      return i < evens ? 2 * i : 2 * (i - evens) + 1;
+    else
+      return i;
+  }
+};
 
 // ---------------------------------------------------------------------------
 // wgmma: d (+)= A[64 x K-step] * B[16 x K-step]^T, both K-major, swizzled
@@ -325,27 +347,31 @@ struct RegStage {
   __device__ __forceinline__ void first() {
     if (hold) fetch(0, L);
   }
-  // the block scans nscan slots: tile 0 into the stage, tile 1 in flight
-  __device__ __forceinline__ void start(int nscan_) {
+  // the block scans nscan slots in the order `ord` (whose first tile is
+  // tile 0): tile 0 into the stage, ord(1) in flight
+  template <class Ord>
+  __device__ __forceinline__ void start(int nscan_, const Ord& ord) {
     nscan = nscan_;
     zero_pad_units(st, nu, ksteps);
     if (nscan > 0) {
       if (hold) {
         put_held(0, L);
-        if (nscan > kTileSlots) fetch(1, nscan);
+        if (ord.T > 1) fetch(ord(1), nscan);
       } else {
         put_now(0);
       }
     }
     fence_proxy_async();
   }
-  // tile t's products are done: tile t + 1 (< ntiles) into the stage, t + 2 in flight
-  __device__ __forceinline__ void next(int t, int ntiles) {
+  // step i's products are done: tile ord(i + 1) into the stage, ord(i + 2)
+  // in flight
+  template <class Ord>
+  __device__ __forceinline__ void next(int i, const Ord& ord) {
     if (hold) {
-      put_held(t + 1, nscan);
-      if (t + 2 < ntiles) fetch(t + 2, nscan);
+      put_held(ord(i + 1), nscan);
+      if (i + 2 < ord.T) fetch(ord(i + 2), nscan);
     } else {
-      put_now(t + 1);
+      put_now(ord(i + 1));
     }
     fence_proxy_async();
   }
@@ -377,14 +403,16 @@ struct RegStageI8 {
     }
   }
   __device__ __forceinline__ void first() const {}
-  __device__ __forceinline__ void start(int nscan_) {
+  template <class Ord>
+  __device__ __forceinline__ void start(int nscan_, const Ord&) {
     nscan = nscan_;
     zero_pad_units(st, nu, ksteps);
     if (nscan > 0) put_now(0);
     fence_proxy_async();
   }
-  __device__ __forceinline__ void next(int t, int) {
-    put_now(t + 1);
+  template <class Ord>
+  __device__ __forceinline__ void next(int i, const Ord& ord) {
+    put_now(ord(i + 1));
     fence_proxy_async();
   }
   __device__ __forceinline__ void wait(int) const {}
@@ -395,9 +423,9 @@ struct RegStageI8 {
 // each filled by TMA (boxes of 128 columns x kHalfSlots rows, 128-byte
 // swizzled, zeros past rot) and completed on its mbarrier. One thread
 // initializes the barriers and issues every copy: tile 0 (both halves)
-// before the block knows its extent, then the scanned halves only; tile
-// t + 2 goes into tile t's stage once tile t's products are done, so two
-// tiles are in flight.
+// before the block knows its extent, then the scanned halves only; step
+// i's tile goes into stage i % kI8Stages, step i + 2's into the same stage
+// once step i's products are done, so two tiles are in flight.
 struct TmaStage {
   const CUtensorMap* map;  // the store as (n_lists * L, rot) bytes
   uint32_t st0, bar0, stage_bytes;
@@ -413,9 +441,9 @@ struct TmaStage {
         L(L_),
         nscan(0) {}
 
-  // tile t's halves among the first `bound` slots
-  __device__ __forceinline__ void issue(int t, int bound) const {
-    const int s = t % kI8Stages, t0 = t * kTileSlots;
+  // step i's tile t, its halves among the first `bound` slots
+  __device__ __forceinline__ void issue(int i, int t, int bound) const {
+    const int s = i % kI8Stages, t0 = t * kTileSlots;
     const int halves = min(kTileSlots, bound - t0) / kHalfSlots;
     const uint32_t bar = bar0 + 8 * s, dst = st0 + s * stage_bytes;
     mbar_expect_tx(bar, (unsigned)(halves * nkc * kHalfSlots * 128));
@@ -429,22 +457,27 @@ struct TmaStage {
     if (threadIdx.x == 0) {
       for (int s = 0; s < kI8Stages; ++s) mbar_init(bar0 + 8 * s, 1);
       asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
-      issue(0, L);
+      issue(0, 0, L);
     }
   }
-  __device__ __forceinline__ void start(int nscan_) {
+  // the block scans nscan slots in the order `ord` (whose first tile is
+  // tile 0, in flight already)
+  template <class Ord>
+  __device__ __forceinline__ void start(int nscan_, const Ord& ord) {
     nscan = nscan_;
     if (threadIdx.x == 0)
-      for (int t = 1; t < kI8Stages && t * kTileSlots < nscan; ++t) issue(t, nscan);
+      for (int i = 1; i < kI8Stages && i < ord.T; ++i) issue(i, ord(i), nscan);
   }
-  __device__ __forceinline__ void next(int t, int ntiles) const {
-    if (threadIdx.x == 0 && t + kI8Stages < ntiles) issue(t + kI8Stages, nscan);
+  template <class Ord>
+  __device__ __forceinline__ void next(int i, const Ord& ord) const {
+    if (threadIdx.x == 0 && i + kI8Stages < ord.T) issue(i + kI8Stages, ord(i + kI8Stages), nscan);
   }
-  __device__ __forceinline__ void wait(int t) const {
-    mbar_wait(bar0 + 8 * (t % kI8Stages), (t / kI8Stages) & 1);
+  // step i's tile
+  __device__ __forceinline__ void wait(int i) const {
+    mbar_wait(bar0 + 8 * (i % kI8Stages), (i / kI8Stages) & 1);
   }
-  __device__ __forceinline__ uint32_t addr(int t) const {
-    return st0 + (t % kI8Stages) * stage_bytes;
+  __device__ __forceinline__ uint32_t addr(int i) const {
+    return st0 + (i % kI8Stages) * stage_bytes;
   }
 };
 
@@ -463,6 +496,98 @@ __device__ __forceinline__ std::conditional_t<TMA, TmaStage, RegStageI8> make_i8
 // the scan
 // ---------------------------------------------------------------------------
 
+// This thread's accumulator i of a tile (wgmma m64n16's layout): tile slot
+// acc_slot(i), query row acc_row(i).
+__device__ __forceinline__ int acc_slot(int i) {
+  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
+  return kHalfSlots * (warp >> 2) + 16 * (warp & 3) + (lane >> 2) + 8 * ((i >> 1) & 1);
+}
+__device__ __forceinline__ int acc_row(int i) {
+  return 8 * (i >> 2) + 2 * (threadIdx.x & 3) + (i & 1);
+}
+
+// Scores the block's query rows (staged in lay.q; for int8 operands their
+// scales in lay.rs) against the list's slots [0, nscan), tile by tile in
+// the order `ord` (the tiles staged by `stage`, started on nscan and ord),
+// and hands each tile to the epilogue `epi`:
+//   epi.scores(t, s, active)  every thread, its 8 scores of tile t (s[i]
+//                             for acc_slot(i), acc_row(i); +inf where the
+//                             tile was not scored); `active`: its
+//                             warpgroup's 64 slots lie before nscan;
+//   epi.merge(t)              after the barrier that follows scores;
+//   epi.finish()              after the last tile;
+// the order is the epilogue's (Epi::kEvensFirst, TileOrder).
+// L2 scores base - coef * dot (coef 2) or inner product base - dot (coef
+// 1); int8 operands score through int8_score. Every thread of the block
+// must call it, after a barrier that publishes lay.q and lay.rs.
+template <bool I8, class Stage, class Ord, class Epi>
+__device__ __forceinline__ void list_scan_tc(const TcLayout& lay, Stage& stage, const Ord& ord,
+                                             const float* __restrict__ base, int nscan,
+                                             int ksteps, float coef, Epi& epi) {
+  using Acc = std::conditional_t<I8, int, float>;
+  const int wg = threadIdx.x >> 7, s0 = acc_slot(0);
+  const bool ip = coef == 1.f;
+  float rs[4] = {0.f, 0.f, 0.f, 0.f};  // the scales of rows acc_row(i), at 2 (i >> 2) + (i & 1)
+  if constexpr (I8) {
+#pragma unroll
+    for (int i = 0; i < 4; ++i) rs[i] = lay.rs[acc_row(4 * (i >> 1) + (i & 1))];
+  }
+  const uint32_t qa = smem_u32(lay.q);
+  Acc acc[8];
+#pragma unroll
+  for (int i = 0; i < 8; ++i) acc[i] = 0;
+  if (ord.T == 0) stage.wait(0);  // nothing to scan: copies issued before the extent land first
+  // this thread's two base values of the step's tile (tile 0), loaded a step ahead
+  float b0 = CUDART_INF_F, b1 = CUDART_INF_F;
+  if (kHalfSlots * wg < nscan) {
+    b0 = base[s0];
+    b1 = base[s0 + 8];
+  }
+
+  for (int i = 0; i < ord.T; ++i) {
+    const int t = ord(i), t0 = t * kTileSlots;
+    const bool active = t0 + kHalfSlots * wg < nscan;  // warpgroup-uniform
+    stage.wait(i);
+    // block-uniform, and a barrier: the last step's merges are done and
+    // this step's stage is written
+    const bool any = __syncthreads_or(b0 != CUDART_INF_F || b1 != CUDART_INF_F);
+    float s[8];
+#pragma unroll
+    for (int j = 0; j < 8; ++j) s[j] = CUDART_INF_F;
+    if (active && any) {
+      const uint32_t a = stage.addr(i) + wg * kHalfSlots * 128;
+      wgmma_fence();
+      for (int kk = 0; kk < ksteps; ++kk) {
+        const uint32_t ka = (kk >> 2) * kTileSlots * 128 + (kk & 3) * 32;
+        const uint32_t kq = (kk >> 2) * kRows * 128 + (kk & 3) * 32;
+        wgmma_step(acc, sw128_desc(a + ka), sw128_desc(qa + kq), kk > 0);
+      }
+      wgmma_commit_wait();
+#pragma unroll
+      for (int j = 0; j < 8; ++j) {
+        const float b = (j >> 1) & 1 ? b1 : b0;
+        if constexpr (I8)
+          s[j] = int8_score(acc[j], rs[(j >> 2) * 2 + (j & 1)], b, ip);
+        else
+          s[j] = b - coef * acc[j];
+      }
+    }
+    epi.scores(t, s, active);
+    __syncthreads();  // the scores are in; every product of step i is done
+    b0 = b1 = CUDART_INF_F;
+    if (i + 1 < ord.T) {
+      stage.next(i, ord);
+      const int n0 = ord(i + 1) * kTileSlots;
+      if (n0 + kHalfSlots * wg < nscan) {
+        b0 = base[n0 + s0];
+        b1 = base[n0 + s0 + 8];
+      }
+    }
+    epi.merge(t);
+  }
+  epi.finish();
+}
+
 // A row's running top k: WarpTopK<1> (CAP 0, k <= 32) or SharedTopK<CAP>.
 template <int CAP>
 struct RowTopK : SharedTopK<CAP> {};
@@ -471,101 +596,50 @@ struct RowTopK<0> : WarpTopK<1> {
   __device__ __forceinline__ void init(void*, int, int) { WarpTopK<1>::init(); }
 };
 
-// Scores the block's `live` query rows (staged in lay.q; for int8
-// operands their scales in lay.rs) against the list's slots [0, nscan)
-// (tiles staged by `stage`, started on nscan) and writes each
-// row's k lexicographically smallest (score, slot) pairs best-first into
-// vals/idx rows of width kbuf, positions [nscan, k) as (+inf, fill_id),
-// past k (+inf, kSentinel). L2 scores base - coef * dot (coef 2) or inner
-// product base - dot (coef 1); int8 operands score through int8_score.
-// Every thread of the block must call it, after a barrier that publishes
-// lay.q and lay.rs.
-template <bool I8, int CAP, class Stage>
-__device__ __forceinline__ void list_scan_tc(const TcLayout& lay, Stage& stage,
-                                             const float* __restrict__ base, int L, int nscan,
-                                             int live, int ksteps, float coef, int k, int kbuf,
-                                             float* __restrict__ vals, int* __restrict__ idx) {
-  using Acc = std::conditional_t<I8, int, float>;
-  const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5, wg = warp >> 2, q4 = lane & 3;
-  // acc[4j + 2h + e]: tile slot s0 + 8h, query row 8j + 2 q4 + e
-  const int s0 = kHalfSlots * wg + 16 * (warp & 3) + (lane >> 2);
-  const bool ip = coef == 1.f;
-  float rs[4] = {0.f, 0.f, 0.f, 0.f};  // the scales of rows 8j + 2 q4 + e, at 2j + e
-  if constexpr (I8) {
-#pragma unroll
-    for (int i = 0; i < 4; ++i) rs[i] = lay.rs[8 * (i >> 1) + 2 * q4 + (i & 1)];
-  }
+// Kernels 1 and 3's epilogue: each tile's scores into the score tile
+// lay.sc, then warp w merges rows kRowsPerWarp w + rr (< live) into their
+// running top k; at the end each row's k lexicographically smallest
+// (score, slot) pairs go best-first into its vals/idx row of width kbuf,
+// positions [nscan, k) as (+inf, fill_id), past k (+inf, kSentinel).
+template <int CAP>
+struct TopKEpi {
+  static constexpr bool kEvensFirst = false;
+  const TcLayout& lay;
   RowTopK<CAP> top[kRowsPerWarp];
-#pragma unroll
-  for (int rr = 0; rr < kRowsPerWarp; ++rr) top[rr].init(lay.lists, warp * kRowsPerWarp + rr, lane);
-  const uint32_t qa = smem_u32(lay.q);
-  const int T = (nscan + kTileSlots - 1) / kTileSlots;
-  Acc acc[8];
-#pragma unroll
-  for (int i = 0; i < 8; ++i) acc[i] = 0;
-  if (T == 0) stage.wait(0);  // nothing to scan: copies issued before the extent land first
-  // this thread's two base values of the tile, loaded a tile ahead
-  float b0 = CUDART_INF_F, b1 = CUDART_INF_F;
-  if (kHalfSlots * wg < nscan) {
-    b0 = base[s0];
-    b1 = base[s0 + 8];
-  }
+  int live, k, kbuf, L, nscan;
+  float* vals;
+  int* idx;
 
-  for (int t = 0; t < T; ++t) {
-    const int t0 = t * kTileSlots;
-    const bool active = t0 + kHalfSlots * wg < nscan;  // warpgroup-uniform
-    stage.wait(t);
-    // block-uniform, and a barrier: the last tile's merges are done and
-    // this tile's stage is written
-    const bool any = __syncthreads_or(b0 != CUDART_INF_F || b1 != CUDART_INF_F);
-    if (active) {
-      if (any) {
-        const uint32_t a = stage.addr(t) + wg * kHalfSlots * 128;
-        wgmma_fence();
-        for (int kk = 0; kk < ksteps; ++kk) {
-          const uint32_t ka = (kk >> 2) * kTileSlots * 128 + (kk & 3) * 32;
-          const uint32_t kq = (kk >> 2) * kRows * 128 + (kk & 3) * 32;
-          wgmma_step(acc, sw128_desc(a + ka), sw128_desc(qa + kq), kk > 0);
-        }
-        wgmma_commit_wait();
-      }
+  __device__ TopKEpi(const TcLayout& lay_, int live_, int k_, int kbuf_, int L_, int nscan_,
+                     float* vals_, int* idx_)
+      : lay(lay_), live(live_), k(k_), kbuf(kbuf_), L(L_), nscan(nscan_), vals(vals_), idx(idx_) {
+    const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
 #pragma unroll
-      for (int i = 0; i < 8; ++i) {
-        const int n = 8 * (i >> 2) + 2 * q4 + (i & 1), h = (i >> 1) & 1;
-        const float b = h ? b1 : b0;
-        float s = CUDART_INF_F;
-        if (any) {
-          if constexpr (I8)
-            s = int8_score(acc[i], rs[(i >> 2) * 2 + (i & 1)], b, ip);
-          else
-            s = b - coef * acc[i];
-        }
-        lay.sc[n * kScStride + s0 + 8 * h] = s;
-      }
-    }
-    __syncthreads();  // the scores are in; every product of tile t is done
-    b0 = b1 = CUDART_INF_F;
-    if (t + 1 < T) {
-      stage.next(t, T);
-      if (t0 + kTileSlots + kHalfSlots * wg < nscan) {
-        b0 = base[t0 + kTileSlots + s0];
-        b1 = base[t0 + kTileSlots + s0 + 8];
-      }
-    }
+    for (int rr = 0; rr < kRowsPerWarp; ++rr) top[rr].init(lay.lists, warp * kRowsPerWarp + rr, lane);
+  }
+  __device__ __forceinline__ void scores(int, const float (&s)[8], bool active) {
+    if (!active) return;  // slots past nscan: merge never reads them
+#pragma unroll
+    for (int i = 0; i < 8; ++i) lay.sc[acc_row(i) * kScStride + acc_slot(i)] = s[i];
+  }
+  __device__ __forceinline__ void merge(int t) {
+    const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
 #pragma unroll
     for (int rr = 0; rr < kRowsPerWarp; ++rr) {
       const int r = warp * kRowsPerWarp + rr;  // warp-uniform
-      if (r < live) top[rr].merge(lay.sc + r * kScStride, t0, nscan, k, lane);
+      if (r < live) top[rr].merge(lay.sc + r * kScStride, t * kTileSlots, nscan, k, lane);
     }
   }
-
+  __device__ __forceinline__ void finish() {
+    const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
 #pragma unroll
-  for (int rr = 0; rr < kRowsPerWarp; ++rr) {
-    const int r = warp * kRowsPerWarp + rr;
-    if (r < live)
-      top[rr].write(vals + (size_t)r * kbuf, idx + (size_t)r * kbuf, k, kbuf, lane, nscan, L);
+    for (int rr = 0; rr < kRowsPerWarp; ++rr) {
+      const int r = warp * kRowsPerWarp + rr;
+      if (r < live)
+        top[rr].write(vals + (size_t)r * kbuf, idx + (size_t)r * kbuf, k, kbuf, lane, nscan, L);
+    }
   }
-}
+};
 
 // Blocks an SM a list_scan_tc kernel is built for: three (at most 80
 // registers a thread) where its shared memory allows (register lists, and

@@ -101,14 +101,10 @@ def fused_kbuf(k: int) -> int:
     return max(_LANES, -(-int(k) // _LANES) * _LANES)
 
 
-def _dots_smem_bytes(d: int, q_int8: bool = False) -> int:
-    """Shared memory of a scoring policy's staging (Bf16Dots and
-    Int8Dots::smem_bytes in csrc/fused_common.cuh): the store tile, the
-    block's query rows and, for int8 rows, their scales."""
-    if q_int8:
-        depth = -(-d // 16) * 16               # i8_depth
-        stride = ((depth // 16) | 1) * 16      # i8_stride
-        return _TILE_SLOTS * stride + _ROWS * depth + 4 * _ROWS
+def _dots_smem_bytes(d: int) -> int:
+    """Shared memory of the CUDA-core scoring policy's staging
+    (Bf16Dots::smem_bytes in csrc/fused_common.cuh): the store tile and the
+    block's query rows."""
     d_pad = -(-d // _D_STEP) * _D_STEP
     return 4 * (_TILE_SLOTS * _D_STRIDE + _ROWS * d_pad)
 
@@ -412,27 +408,17 @@ def _mask_dead_rows(vals, idx, live, fill_id: int):
     return torch.where(dead, float("inf"), vals), torch.where(dead, fill_id, idx)
 
 
-def _check_list_store_alignment(store, rot: int) -> None:
-    """`fused_list_topk` stages the store eight elements a load when rot %
-    8 == 0 (csrc/list_scan_tc.cuh: RegStage), which needs every row, and
-    so the store itself, aligned to that width (16 bytes at most); a view
-    at an odd offset would fault on the card."""
-    width = min(16, 8 * store.element_size()) if rot % 8 == 0 else 1
-    _check(store.data_ptr() % width == 0,
-           f"store must start on a {width}-byte boundary (a view at an odd offset; "
-           "pass store.clone())")
-
-
-def _check_store_alignment(store, rot: int, int8_rows: bool) -> None:
-    """The bin-fold kernel stages the store four elements a load when rot
-    % 4 == 0 (csrc/fused_common.cuh: stage_tile), or sixteen bytes a load
-    for int8 rows when rot % 16 == 0 (stage_tile_i8), and
-    `fused_list_topk_int8` reads int8 rows of rot % 16 == 0 by TMA
-    (csrc/list_scan_tc.cuh: TmaStage); each needs every row, and so the
-    store itself, aligned to that width; a view at an odd offset would
-    fault on the card."""
-    width = (16 if rot % 16 == 0 else 1) if int8_rows else (
-        4 * store.element_size() if rot % 4 == 0 else 1)
+def _check_list_store_alignment(store, rot: int, int8_rows: bool = False) -> None:
+    """The list kernels' staging (csrc/list_scan_tc.cuh) loads the store
+    eight elements a load when rot % 8 == 0 (RegStage: `fused_list_topk`,
+    and `pq_list_scan` on f32 rows), and int8 rows of rot % 16 == 0 by TMA
+    (TmaStage: `fused_list_topk_int8`, and `pq_list_scan` on int8 rows);
+    each needs every row, and so the store itself, aligned to that width
+    (16 bytes at most); a view at an odd offset would fault on the card."""
+    if int8_rows:
+        width = 16 if rot % 16 == 0 else 1
+    else:
+        width = min(16, 8 * store.element_size()) if rot % 8 == 0 else 1
     _check(store.data_ptr() % width == 0,
            f"store must start on a {width}-byte boundary (a view at an odd offset; "
            "pass store.clone())")
@@ -610,7 +596,7 @@ def fused_list_topk_int8(lof, q8, store, base, q_scale, k: int, *, kbuf: Optiona
     _check(tuple(q_scale.shape) == (ncb, chunk, 1),
            f"q_scale must be {(ncb, chunk, 1)}, got {tuple(q_scale.shape)}")
     _check(L % _LANES == 0, f"list length {L} must be a multiple of {_LANES}")
-    _check_store_alignment(store, rot, int8_rows=True)
+    _check_list_store_alignment(store, rot, int8_rows=True)
     if chunk_valid is not None:
         _tensor_arg("chunk_valid", chunk_valid, (torch.int32,), 1, dev)
         _check(chunk_valid.shape[0] == ncb, "chunk_valid must have one entry per chunk")

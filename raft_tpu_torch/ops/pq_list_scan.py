@@ -51,10 +51,10 @@ from raft_tpu_torch.ops.fused_scan import (
     _STORE_KINDS,
     SMEM_LIMIT,
     _bf16,
-    _check_store_alignment,
-    _dots_smem_bytes,
+    _check_list_store_alignment,
     _int8_list_scores,
     _lex_key,
+    _list_tc_smem_bytes,
     _mask_dead_rows,
 )
 
@@ -95,13 +95,21 @@ def _unpack_scores(packed: torch.Tensor):
     return i.view(torch.float32), fold
 
 
+def _fold_smem_bytes(rot: int, q_int8: bool) -> int:
+    """Shared memory of one kernel block: the tensor-core list scan's
+    staging without row lists (list_tc_smem_bytes(rot, i8, stages, 0) in
+    csrc/list_scan_tc.cuh, as `fused_list_topk` at k <= 32 or
+    `fused_list_topk_int8` with `q_int8`). The fold keeps its bins in
+    registers; the layout's score tile serves only as scratch."""
+    return _list_tc_smem_bytes(rot, q_int8, 1)
+
+
 def fits_pq_list_scan(L: int, rot: int, q_int8: bool = False) -> bool:
-    """Shared-memory budget of one kernel block (the scoring policy's
-    staging: Bf16Dots or Int8Dots::smem_bytes in csrc/fused_common.cuh),
-    and the list contract: L a multiple of 128, at least 256, and fold ids
+    """Shared-memory budget of one kernel block (`_fold_smem_bytes`), and
+    the list contract: L a multiple of 128, at least 256, and fold ids
     within the packing's 16 bits."""
     return (L % _LANES == 0 and L >= _BINS and L // _LANES <= 0xFFFF
-            and _dots_smem_bytes(rot, q_int8) <= SMEM_LIMIT)
+            and _fold_smem_bytes(rot, q_int8) <= SMEM_LIMIT)
 
 
 def _two_smallest(x: torch.Tensor):
@@ -219,7 +227,7 @@ def pq_list_scan(lof, qres_s, store, base, *, inner_product: bool, q_scale=None,
     if q_int8:
         _check(tuple(q_scale.shape) == (ncb, chunk, 1),
                f"q_scale must be {(ncb, chunk, 1)}, got {tuple(q_scale.shape)}")
-    _check_store_alignment(store, rot, int8_rows=q_int8)
+    _check_list_store_alignment(store, rot, int8_rows=q_int8)
     if chunk_rows is not None:
         _tensor_arg("chunk_rows", chunk_rows, (torch.int32,), 1, dev)
         _check(chunk_rows.shape[0] == ncb, "chunk_rows must have one entry per chunk")
@@ -232,13 +240,13 @@ def pq_list_scan(lof, qres_s, store, base, *, inner_product: bool, q_scale=None,
     vals = torch.empty((ncb, chunk, _CANDS), dtype=torch.float32, device=dev)
     idx = torch.empty((ncb, chunk, _CANDS), dtype=torch.int32, device=dev)
     fn = _kernel_fn("pq_list_scan.cu", "pq_list_scan_launch",
-                    [_P, _P, _P, _P, _I, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _P])
+                    [_P, _P, _P, _P, _I, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _P])
     with torch.cuda.device(dev):
         stream = torch.cuda.current_stream(dev).cuda_stream
         err = fn(lof.data_ptr(), qres_s.data_ptr(), q_scale.data_ptr() if q_int8 else None,
                  store.data_ptr(), _STORE_KINDS[store.dtype], base.data_ptr(),
                  None if chunk_rows is None else chunk_rows.data_ptr(), vals.data_ptr(),
-                 idx.data_ptr(), ncb, chunk, rot, L, int(bool(inner_product)),
+                 idx.data_ptr(), ncb, chunk, rot, L, n_lists, int(bool(inner_product)),
                  int(fold == "packed"), stream)
     _raise_on(err, "pq_list_scan")
     _launches["pq_list_scan"] += 1

@@ -169,3 +169,103 @@ def test_wrapper_errors_constants_and_budget():
     assert not tpls.fits_pq_list_scan(300, 96)      # not a multiple of 128
     assert not tpls.fits_pq_list_scan(256, 8192)    # rows too wide for 227 KB
     assert "pq_list_scan" in tfs.launch_counts()
+
+
+# -- the card kernel's stop at a list's last real slot ----------------------
+
+
+def _fold_smem_bytes(rot: int, q_int8: bool) -> int:
+    """One kernel block's shared memory, counted here from the layout of
+    csrc/list_scan_tc.cuh (TcLayout) as the kernel uses it: 1024 bytes of
+    alignment slack; the store stages (two for int8 rows of whole 16-byte
+    rows, which TMA fills, else one), 128 slots x 128-byte chunks of bf16
+    or int8 columns each; the 16 query rows in the same chunks; the score
+    tile's 16 x 132 floats (scratch here) and 16 row scales; 8 bytes of
+    barrier a stage; rounded up to 16 bytes. No row lists: the bins live
+    in registers."""
+    unit = 16 if q_int8 else 8                       # columns a 16-byte unit
+    chunks = -(-(-(-rot // unit)) // 8)              # 128-byte chunks a row
+    stages = 2 if q_int8 and rot % 16 == 0 else 1
+    body = (stages * 128 + 16) * chunks * 128 + 4 * 16 * (132 + 1) + 8 * stages
+    return 1024 + -(-body // 16) * 16
+
+
+@pytest.mark.parametrize("q_int8", [False, True])
+@pytest.mark.parametrize("rot", [33, 40, 64, 96, 100, 128])
+@pytest.mark.parametrize("L", [256, 384, 640, 1280, 3840])
+def test_fits_pq_list_scan_follows_the_kernel_layout(L, rot, q_int8):
+    smem = _fold_smem_bytes(rot, q_int8)
+    assert tpls._fold_smem_bytes(rot, q_int8) == smem
+    assert tpls.fits_pq_list_scan(L, rot, q_int8) == (smem <= tfs.SMEM_LIMIT)
+    # three blocks an SM (228 KB, 1 KB of it reserved a block) at every
+    # width the engines use
+    assert 3 * (smem + 1024) <= 228 * 1024
+    assert not tpls.fits_pq_list_scan(L + 64, rot, q_int8)  # L % 128
+
+
+def test_fits_pq_list_scan_rejects_rows_past_the_block():
+    for q_int8 in (False, True):
+        widest = max(r for r in range(1, 4096) if _fold_smem_bytes(r, q_int8) <= tfs.SMEM_LIMIT)
+        assert tpls.fits_pq_list_scan(3840, widest, q_int8)
+        assert not tpls.fits_pq_list_scan(3840, widest + 1, q_int8)
+    assert not tpls.fits_pq_list_scan(128 * 0x10000, 96)  # fold ids past 16 bits
+
+
+#: where the real slots of the lists of `_stop_case` end: the kernel scans
+#: up to the end of the last one (rounded up to 64) and fills the folds
+#: past it by rule
+_ENDS = (0, 1, 63, 64, 65, 127, 129, 383)
+
+
+def _stop_case(rng, rows, L=384, rot=16, chunk=4):
+    """Lists whose real slots end at each of _ENDS, and three with
+    tombstone runs before their end (whole +inf folds between real ones,
+    a run across a fold boundary, the first fold +inf), each probed by
+    two chunks; rows "grid" (f32 integer rows) or "int8"."""
+    n_lists = len(_ENDS) + 3
+    fin = np.ones((n_lists, L), bool)
+    for i, e in enumerate(_ENDS):
+        fin[i, e:] = False
+    t = len(_ENDS)
+    fin[t, 128:256] = False
+    fin[t, 300:] = False
+    fin[t + 1, 100:200] = False
+    fin[t + 2, :128] = False
+    ncb = 2 * n_lists
+    lof = (np.arange(ncb) % n_lists).astype(np.int32)
+    if rows == "int8":
+        q = rng.integers(-127, 128, (ncb, chunk, rot)).astype(np.int8)
+        st = rng.integers(-127, 128, (n_lists, L, rot)).astype(np.int8)
+        base = rng.uniform(0, 1e5, (n_lists, 1, L)).astype(np.float32)
+        rs = rng.uniform(1e-3, 1.0, (ncb, chunk, 1)).astype(np.float32)
+    else:
+        q = rng.integers(-3, 4, (ncb, chunk, rot)).astype(np.float32)
+        st = rng.integers(-3, 4, (n_lists, L, rot)).astype(np.int8)
+        base = rng.integers(0, 20, (n_lists, 1, L)).astype(np.float32)
+        rs = None
+    base[~fin[:, None, :]] = np.inf
+    return lof, q, st, base, rs
+
+
+@pytest.mark.parametrize("fold", ["exact", "packed"])
+@pytest.mark.parametrize("rows", ["grid", "int8"])
+@pytest.mark.parametrize("ip", [False, True])
+def test_pq_list_scan_plain_equals_jax_past_the_last_real_slot(rng, fold, rows, ip):
+    """The inputs on which the card kernel's stop at a list's last real slot
+    and its fill of the unscanned folds could go wrong (chip_smoke.py phase
+    3 runs the kernel on the same patterns): both packages bit for bit,
+    every candidate, +inf ones and their slots too."""
+    (jv, ji), (tv, ti) = _run_both(_stop_case(rng, rows), ip, fold)
+    np.testing.assert_array_equal(tv.view(np.int32), jv.view(np.int32))
+    np.testing.assert_array_equal(ti, ji)
+    # a list without a real slot: the exact fold holds (+inf, 0) in every
+    # bin; the packed fold takes each bank's two smallest +inf folds
+    assert np.all(np.isinf(tv[0])) and np.all(np.isinf(tv[len(_ENDS) + 3]))
+    if fold == "exact":
+        assert np.all(ti[0] == 0)
+    else:
+        lane = np.arange(128)
+        np.testing.assert_array_equal(ti[0, :, :128], np.broadcast_to(lane, (4, 128)))
+        np.testing.assert_array_equal(ti[0, :, 128:256], np.broadcast_to(128 + lane, (4, 128)))
+        np.testing.assert_array_equal(ti[0, :, 256:384], np.broadcast_to(256 + lane, (4, 128)))
+        assert np.all(ti[0, :, 384:] == 0)  # bank 1 has one fold at L 384
