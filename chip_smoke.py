@@ -33,13 +33,17 @@ Phases, in order; any failure exits non-zero:
      k on both sides of its variant switch, B 1); the flat fused top-k's
      tensor-core variant (m 1, 127, 129; n below k and ragged against
      its tiles and n ranges; k 1 to 256; L2 and inner product; integer
-     grids with duplicate rows across the n ranges, ids exact); the
+     grids with duplicate rows across the n ranges, ids exact; a
+     prefilter's +inf base columns through its `valid` operand: density 1
+     and 0.5, k - 1 survivors, none, survivors only in its last n range,
+     +inf and id -1 past the survivors); the
      RaBitQ bit-plane scan bit
      for bit (1, 4 and 8 query bits, 1 to 4 words, duplicate codes, +inf
      tails and tiles, empty chunks and live-row prefixes, k 1 to 256 and
      past the finite slots, L 128 to 3840, L2 and inner product), its
      integer scores S_u recovered exactly from a case whose estimator is
-     an exact map of them, k 32 and 33 (either side of its selection
+     an exact map of them, half its real slots filtered (+inf between real
+     ones) at k 10 and 40, k 32 and 33 (either side of its selection
      switch) and 129 to 256 at L 4992, scores that fall with the slot and
      all-equal scores, and at the widest rotations its shared memory
      admits at 8 query bits (389 / 373 / 341 code words at k 40 / 100 /
@@ -51,6 +55,8 @@ Phases, in order; any failure exits non-zero:
      32, 33, 40, 128 and 256, L2 and inner product, fused_list_topk on
      int8, bf16 and f32 stores (integer grids, ids exact) and
      fused_list_topk_int8 with and without its TMA staging (bit for bit);
+     and the same lists with half their real slots filtered at k 10 and
+     40 (L 640 and 3840, IVF-Flat's bf16 store);
   4. the main path at full size: 1M x 96 clustered vectors (1024 blob
      centers U(-5, 5) plus unit gaussian noise, made from --seed), IVF-PQ
      build (n_lists 1024, pq_dim 48, kmeans_n_iters 10), exact truth with
@@ -77,10 +83,23 @@ Phases, in order; any failure exits non-zero:
      8/16/32/64 x rerank_mult 4/8/16/25, up to the first rung at recall@10
      >= 0.95) with scan_engine="fused" and the exact rerank, QPS over
      windows; once at n_probes 8, rerank_mult 4, the "xla" engine against
-     the fused one on the estimator-ranked candidates;
+     the fused one on the estimator-ranked candidates. Then IVF-Flat on
+     the same data and truth (ivf_flat_path): build (n_lists 1024,
+     kmeans_n_iters 10), the engines "fused" (kernel 1 over the bf16
+     residual store), "list", "query" and "auto" over n_probes 8/16/32 up
+     to the first rung at recall@10 >= 0.95 and always 32, QPS over
+     windows (the "query" engine one window of three batches), one
+     profiled n_probes-32 batch of the fused engine. Then the filtered
+     searches (prefilter_path): one seeded bitset keeping half the ids;
+     brute_force.knn(engine="fused") with it is the filtered truth
+     (against the tiled engine on 16 queries); IVF-Flat fused, IVF-PQ
+     fused bf16 + refine and IVF-RaBitQ fused at the rungs where each
+     cleared unfiltered (one rung up where short): every id passes the
+     filter, recall@10 >= 0.95 against the filtered truth;
   5. each kernel against its plain version on the inputs the main path gave
      it, with kernel, plain and library times (CUDA events) and the bound;
-     the fused L2 argmin's bound on both routes (split TF32 on the tensor
+     kernel 1 also at IVF-Flat's own shape (bf16 residual store, n_probes
+     32); the fused L2 argmin's bound on both routes (split TF32 on the tensor
      cores, f32 on the CUDA cores), the bit-plane scan over k 8 to 128
      and the two IVF-PQ trim kernels over k 8 to 250 across their
      selection switch, the trim kernels' tiles a live block scans, and
@@ -166,18 +185,22 @@ def log(*a):
 # ---------------------------------------------------------------------------
 
 
-def compare(name, kernel_out, plain_out, k):
+def compare(name, kernel_out, plain_out, k, terms=None):
     """Hold a kernel's (values, ids) against its plain version's. Values
-    agree to VAL_RTOL times the row's largest finite magnitude; ids agree
-    exactly except where the plain version's neighbouring scores lie
-    within that tolerance (a near-tie that the two summation orders may
-    break either way). Returns the max abs error over finite values."""
+    agree to VAL_RTOL times the row's largest finite magnitude (or, where
+    `terms` gives it, the row's largest sum of its scores' term magnitudes,
+    `list_term_scale`, if larger); ids agree exactly except where the
+    plain version's neighbouring scores lie within that tolerance (a
+    near-tie that the two summation orders may break either way). Returns
+    the max abs error over finite values."""
     kv, ki = (t[..., :k].float().cpu().reshape(-1, k) for t in kernel_out)
     pv, pi = (t[..., :k].float().cpu().reshape(-1, k) for t in plain_out)
     kfin, pfin = torch.isfinite(kv), torch.isfinite(pv)
     if not torch.equal(kfin, pfin):
         raise AssertionError(f"{name}: finite slots differ")
     scale = torch.where(pfin, pv.abs(), 0.0).amax(dim=1, keepdim=True).clamp_min(1.0)
+    if terms is not None:
+        scale = torch.maximum(scale, terms.float().cpu().reshape(-1, 1))
     tol = VAL_RTOL * scale
     err = torch.where(pfin, (kv - pv).abs(), 0.0)
     if bool((err > tol).any()):
@@ -230,6 +253,26 @@ def fold_compare(name, out, ref, rescore):
             raise AssertionError(f"{name}: slots differ away from near-ties")
     agree = 1.0 - float(bad.sum()) / max(1, int(pfin.sum()))
     return float(err.max()), agree
+
+
+def list_term_scale(lof, q, store, base, slots, ip):
+    """Per chunk row of a list kernel's output, the largest |base| + coef
+    |q| |v| over its selected slots (`slots`, (ncb, chunk, k)): by
+    Cauchy-Schwarz a bound on the sum of the magnitudes of a score's
+    terms, which scales the difference two summation orders of its dot may
+    give. Where the score cancels (a residual row far from its list's
+    centre: large |q| . |v|, a score near |v|^2), the score's own
+    magnitude understates it. bf16-rounded operands, as the kernel scores."""
+    coef = 1.0 if ip else 2.0
+    chunk = slots.shape[1]
+    s = slots.long().clamp(0, store.shape[1] - 1)
+    vn = store.to(torch.bfloat16).float().norm(dim=-1)[lof.long()]  # (ncb, L)
+    b = base[lof.long(), 0]
+    vn = torch.gather(vn[:, None, :].expand(-1, chunk, -1), 2, s)
+    b = torch.gather(b[:, None, :].expand(-1, chunk, -1), 2, s)
+    qn = q.to(torch.bfloat16).float().norm(dim=-1)[..., None]
+    t = torch.where(torch.isfinite(b), b.abs() + coef * qn * vn, 0.0)
+    return t.amax(-1)
 
 
 def bf16_rescore(lof, q, store, base, ip):
@@ -305,10 +348,32 @@ def adversarial_checks(fs, pls, dev, rng):
     num_sms = (torch.cuda.get_device_properties(dev).multi_processor_count
                 if dev.type == "cuda" else 132)
 
-    def flat_case(name, m, n, d, k, grid, ip=False, dup=False):
+    def valid_mask(kind, m, n, d, k):
+        """A (n,) survivor mask for the flat kernel's `valid` operand (the
+        prefilter's +inf base columns): "all", "half" (density 0.5),
+        "k-1" (exactly k - 1 survivors), "none", or "last range" (the
+        survivors only in the last n range of its tensor-core plan)."""
+        mask = np.ones(n, bool)
+        if kind == "half":
+            mask = rng.random(n) < 0.5
+        elif kind == "k-1":
+            mask[:] = False
+            mask[rng.choice(n, k - 1, replace=False)] = True
+        elif kind == "none":
+            mask[:] = False
+        elif kind == "last range":
+            plan = fs.flat_plan(m, n, d, k, num_sms)
+            if plan.n_ranges < 2:
+                raise AssertionError(f"last range: the case must cross n ranges ({plan})")
+            mask[:(plan.n_ranges - 1) * plan.range_len] = False
+        return torch.tensor(mask, device=dev)
+
+    def flat_case(name, m, n, d, k, grid, ip=False, dup=False, valid=None):
         """dup: copies of dataset rows on both sides of every boundary
         between the kernel's n ranges (flat_plan), and two rows duplicated
-        across the whole dataset; ties must still go to the smaller id."""
+        across the whole dataset; ties must still go to the smaller id.
+        valid: a `valid_mask` kind; the slots past the survivors must hold
+        +inf, and `scan_select_k` must turn their ids to -1."""
         gen = (lambda s: rng.integers(-3, 4, s)) if grid else rng.standard_normal
         x = torch.tensor(gen((m, d)).astype(np.float32), device=dev)
         yn = gen((n, d)).astype(np.float32)
@@ -320,11 +385,12 @@ def adversarial_checks(fs, pls, dev, rng):
                 yn[b - 2:b + 3] = yn[b - 2]
             yn[n - 1], yn[n // 3] = yn[0], yn[0]
         y = torch.tensor(yn, device=dev)
-        out = fs.fused_topk(x, y, k, inner_product=ip)
+        vt = None if valid is None else valid_mask(valid, m, n, d, k)
+        out = fs.fused_topk(x, y, k, inner_product=ip, valid=vt)
         yb = y.to(torch.bfloat16)
         base = torch.zeros(n, device=dev) if ip else (yb.float() ** 2).sum(1)
         ref = fs.fused_topk_plain(x.to(torch.bfloat16).float(), yb, base, k,
-                                  fs.fused_kbuf(k), ip)
+                                  fs.fused_kbuf(k), ip, valid=vt)
         kk = min(k, n)
         err, agree = compare(name, (out[0][:, :kk], out[1][:, :kk]),
                              (ref[0][:, :kk], ref[1][:, :kk]), kk)
@@ -332,7 +398,21 @@ def adversarial_checks(fs, pls, dev, rng):
             raise AssertionError(f"{name}: integer-grid ids must match exactly ({agree})")
         if bool((out[1][:, kk:k] != fs._ID_SENTINEL).any()):
             raise AssertionError(f"{name}: exhausted slots must hold the sentinel")
-        log(f"check {name}: ok, max_abs_err {err}, id agreement {agree}")
+        note = ""
+        if vt is not None:
+            from raft_tpu_torch.matrix.select_k import scan_select_k
+
+            live = min(kk, int(vt.sum()))
+            if not bool(torch.isfinite(out[0][:, :live]).all()
+                        and torch.isinf(out[0][:, live:kk]).all()):
+                raise AssertionError(f"{name}: the slots past the {live} survivors must be +inf")
+            sv, si = scan_select_k(x, y, kk, metric="inner_product" if ip else "sqeuclidean",
+                                   strategy="fused", valid=vt, device=dev)
+            if not bool((si[:, live:] == -1).all() and vt[si[:, :live].long()].all()):
+                raise AssertionError(f"{name}: scan_select_k must give the survivors' ids, "
+                                     "then -1")
+            note = f", {live} of {kk} slots survivors, the rest +inf and id -1"
+        log(f"check {name}: ok, max_abs_err {err}, id agreement {agree}{note}")
 
     def int8_operands(ncb, chunk, L, rot, n_lists, grid, inf_frac=0.1, inf_tiles=()):
         """int8 rows and store: small values (ties everywhere, one scale)
@@ -444,17 +524,20 @@ def adversarial_checks(fs, pls, dev, rng):
         base[~fin] = np.inf
         return torch.tensor(base[:, None, :])
 
-    def early_stop_case(k, ip, dtype=None, rot=96, L=640, chunk=19):
+    def early_stop_case(k, ip, dtype=None, rot=96, L=640, chunk=19, filtered=False):
         """Kernel 1 (`dtype` its store) or, with dtype None, kernel 3 on
         every list of stop_base, each probed by two chunks, with live-row
         prefixes (a full chunk, an empty one): kernel 1 on integer grids
-        (ids exact), kernel 3 at +-127 bit for bit."""
+        (ids exact), kernel 3 at +-127 bit for bit. `filtered`: half of
+        the real slots +inf besides (a prefilter's view)."""
         base = stop_base(L, 1e5 if dtype is None else 20)
+        if filtered:
+            base[torch.tensor(rng.random(base.shape) < 0.5)] = float("inf")
         n_lists = base.shape[0]
         ncb = 2 * n_lists
         lof = torch.tensor(np.arange(ncb) % n_lists, dtype=torch.int32).to(dev)
         crt = live_rows(ncb, chunk)
-        tag = f"L {L} rot {rot} k {k}{' ip' if ip else ''}"
+        tag = f"L {L} rot {rot} k {k}{' ip' if ip else ''}{', filtered' if filtered else ''}"
         if dtype is None:
             q8 = torch.tensor(rng.integers(-127, 128, (ncb, chunk, rot)).astype(np.int8))
             st = torch.tensor(rng.integers(-127, 128, (n_lists, L, rot)).astype(np.int8))
@@ -510,6 +593,18 @@ def adversarial_checks(fs, pls, dev, rng):
         flat_case(f"flat grid duplicates across n ranges k={k}{' ip' if ip else ''}", 64, 5000,
                   96, k, True, ip=ip, dup=True)
     flat_case("flat grid duplicates across n ranges m 300", 300, 20000, 96, 10, True, dup=True)
+    # a prefilter's +inf base columns (`valid`): density 1 and 0.5,
+    # exactly k - 1 survivors, none, and survivors only in the last n
+    # range of the tensor-core plan; k on both sides of the 32- and
+    # 128-row switches, L2 and inner product, integer grids (ids exact)
+    for k in (10, 33, 129):
+        for ip in (False, True):
+            for kind in ("all", "half", "k-1", "none", "last range"):
+                flat_case(f"flat valid {kind} k={k}{' ip' if ip else ''}", 130, 2037, 96, k,
+                          True, ip=ip, valid=kind)
+    flat_case("flat valid half gaussian m 300", 300, 20000, 96, 10, False, valid="half")
+    flat_case("flat valid last range gaussian m 300", 300, 20000, 96, 10, False,
+              valid="last range")
 
     int8_list_case("int8 list grid ties, empty chunks", 40, 128, 256, 96, 40, 7, True, cv=True)
     int8_list_case("int8 list +-127, ip, live-row prefixes", 40, 128, 384, 96, 40, 5, False,
@@ -530,6 +625,17 @@ def adversarial_checks(fs, pls, dev, rng):
             early_stop_case(k, ip, rot=40)
     early_stop_case(40, False, torch.bfloat16, rot=33)
     early_stop_case(40, True, torch.int8, rot=40)
+    # a prefilter's filtered slots: +inf between real ones, half of every
+    # list's real slots, on the lists of stop_base (kernel 1 on the bf16
+    # store IVF-Flat scans, and on int8; kernel 3 bit for bit), k 10 and 40
+    for k in (10, 40):
+        for ip in (False, True):
+            early_stop_case(k, ip, torch.bfloat16, filtered=True)
+            early_stop_case(k, ip, torch.int8, filtered=True)
+            early_stop_case(k, ip, filtered=True)
+        early_stop_case(k, False, torch.bfloat16, L=3840, chunk=128, filtered=True)
+        list_case(f"list bf16 gaussian L 3840, half the slots filtered, k {k}", 12, 128, 3840,
+                  96, k, 4, torch.bfloat16, False, rows=True, inf_frac=0.5)
     for ip in (False, True):
         for fold in ("exact", "packed"):
             tag = f"{'ip' if ip else 'l2'}, {fold}"
@@ -1040,6 +1146,14 @@ def bitplane_checks(fs, dev, rng):
          cv=True, rows=True, inf_frac=0.5, inf_tiles=(1, 3, 4, 9))
     # the widest rotations the shared memory admits at 8 query bits, now
     # that a row's list is sized by k (64, 128 or 256 pairs)
+    # a prefilter's filtered slots: +inf between real ones (half of them),
+    # with and without +inf tail tiles, k 10 and 40
+    for k in (10, 40):
+        for ip in (False, True):
+            case(f"bitplane half the slots filtered k {k}{' ip' if ip else ''}", 20, 128, 1280,
+                 3, 8, k, 4, ip=ip, rows=True, inf_frac=0.5)
+        case(f"bitplane filtered slots and +inf tail L 4992 k {k}", 12, 128, 4992, 3, 8, k, 4,
+             rows=True, inf_frac=0.5, inf_tiles=tuple(range(20, 39)))
     for k in (40, 100, 250):
         words = max(w for w in range(1, 1024) if fs.fits_fused_bitplane(256, w, 8, k))
         case(f"bitplane widest envelope: {words} words, 8 bits, k {k}", 3, 16, 256, words, 8, k,
@@ -1138,7 +1252,19 @@ PATH_KERNELS = {("fused", "bf16"): ("fused_topk", "fused_list_topk"),
                 ("select_k", "counting"): ("counting_select_min",),
                 ("fused_l2_nn", "argmin"): ("fused_l2_argmin",),
                 # IVF-RaBitQ, scan_engine="fused" (rabitq_path)
-                ("rabitq", "fused"): ("fused_bitplane_topk",)}
+                ("rabitq", "fused"): ("fused_bitplane_topk",),
+                # IVF-Flat, every engine; only "fused" launches a kernel (ivf_flat_path)
+                ("ivf_flat", "fused"): ("fused_list_topk",),
+                # the filtered searches (prefilter_path): the filtered truth,
+                # IVF-Flat and IVF-PQ fused (with its refine), IVF-RaBitQ fused
+                ("prefilter", "all"): ("fused_topk", "fused_list_topk", "fused_bitplane_topk")}
+#: IVF-Flat's engines and n_probes ladder on the main path's data
+#: (bench/bench_neighbors.py:93-118 runs n_probes 32)
+FLAT_ENGINES = ("fused", "list", "query", "auto")
+FLAT_PROBES = (8, 16, 32)
+#: the "query" engine's timing: one window of this many batches (its
+#: gathers copy n_probes x max_list rows a query)
+QUERY_ENGINE_BATCHES = 3
 
 
 def main_path(g, dev, fs, pls, sync):
@@ -1508,9 +1634,171 @@ def rabitq_path(g, dev, res, fs, sync):
         f"{queries.shape[0]} queries: equal ids {same:.6f}, bitwise-equal values {bitwise:.6f}, "
         f"largest value gap {gap}; xla engine {xla_s:.3f} s for the batch")
     return {"build_s": build_s, "rungs": rungs, "gate": gate, "launches": launches,
-            "breakdown": breakdown, "query_consts": qconsts,
+            "breakdown": breakdown, "query_consts": qconsts, "index": index,
             "xla_vs_fused": {"equal_ids": same, "equal_value_bits": bitwise, "max_gap": gap,
                              "xla_s": xla_s}}, (captured, gate_call)
+
+
+def ivf_flat_path(g, dev, res, fs, sync):
+    """IVF-Flat on the main path's data, queries and truth, one path with
+    its launch counts set to 0 just before the build and read just after
+    the last engine: build (n_lists g.n_lists, kmeans_n_iters 10, as
+    bench/bench_neighbors.py:86-124), then each engine of FLAT_ENGINES over
+    the n_probes ladder FLAT_PROBES up to the first rung at recall@k >=
+    RECALL_GATE, and always n_probes 32, the bench's own setting. QPS over
+    g.windows windows of g.batch_reps back-to-back batches; the "query"
+    engine over one window of QUERY_ENGINE_BATCHES batches. "auto" prints
+    what it resolved to. Then one n_probes-32 batch of the fused engine
+    under torch.profiler."""
+    from raft_tpu_torch.neighbors import ivf_flat
+    from raft_tpu_torch.ops import _launch
+
+    dataset, queries, truth = res["dataset"], res["queries"], res["truth"]
+    _launch.reset_launch_counts()
+    t0 = time.perf_counter()
+    index = ivf_flat.build(ivf_flat.IndexParams(n_lists=g.n_lists, kmeans_n_iters=10), dataset,
+                           seed=g.seed, device=dev)
+    sync()
+    build_s = time.perf_counter() - t0
+    log(f"ivf_flat build: {index} in {build_s:.3f} s, max list {int(index.list_sizes.max())}")
+    rungs, captured = [], None
+    for engine in FLAT_ENGINES:
+        gw = g if engine != "query" else argparse.Namespace(
+            **{**vars(g), "windows": 1, "batch_reps": QUERY_ENGINE_BATCHES})
+        cleared = False
+        for n_probes in FLAT_PROBES:
+            if cleared and n_probes != 32:
+                continue
+            params = ivf_flat.SearchParams(n_probes=n_probes, engine=engine)
+
+            def run():
+                return ivf_flat.search(params, index, queries, g.k)
+
+            with Spy(fs, "fused_list_topk") as spy:
+                _, ids = run()
+                sync()
+            if engine == "fused" and n_probes == 32:
+                captured = spy.calls[0]
+            r = recall(ids, truth)
+            sec, w_qps = timed_windows(gw, run, sync)
+            resolved = (ivf_flat.resolve_auto_engine(g.nq, n_probes, index.n_lists)
+                        if engine == "auto" else engine)
+            log(f"rung ivf_flat engine={engine}" + (f" (resolved to {resolved!r})"
+                                                   if engine == "auto" else "")
+                + f" n_probes={n_probes}: recall@{g.k} {r:.4f}, {g.nq / sec:.1f} qps "
+                f"({sec * 1e3:.4f} ms per {g.nq}-query batch over {len(w_qps)} window(s) of "
+                f"{gw.batch_reps} batches; window qps {min(w_qps):.1f} .. {max(w_qps):.1f})")
+            rungs.append({"engine": engine, "resolved": resolved, "n_probes": n_probes,
+                          "recall": r, "qps": g.nq / sec, "batch_s": sec, "window_qps": w_qps,
+                          "windows": len(w_qps), "batches_a_window": gw.batch_reps})
+            cleared = cleared or r >= RECALL_GATE
+        best = max(x["recall"] for x in rungs if x["engine"] == engine)
+        if best < RECALL_GATE:
+            raise AssertionError(f"ivf_flat engine={engine}: no rung reached recall@{g.k} >= "
+                                 f"{RECALL_GATE} (best {best})")
+    launches = _launch.launch_counts()
+    log(f"path ivf_flat: launches {launches}; fused_list_topk launched by the fused engine "
+        f"only (list, query and auto={rungs[-1]['resolved']!r} run torch operations)")
+    breakdown = None
+    if dev.type == "cuda":
+        p32 = ivf_flat.SearchParams(n_probes=32, engine="fused")
+        b32 = next(x for x in rungs if x["engine"] == "fused" and x["n_probes"] == 32)
+        breakdown = device_breakdown(lambda: ivf_flat.search(p32, index, queries, g.k), 1,
+                                     b32["batch_s"] * 1e3, label="ivf_flat fused, n_probes 32",
+                                     top=20)
+    return {"build_s": build_s, "rungs": rungs, "launches": launches, "breakdown": breakdown,
+            "index": index, "max_list": int(index.list_sizes.max())}, captured
+
+
+#: the n_probes ladder a filtered search steps up when it falls short
+PROBE_LADDER = (8, 16, 32, 64)
+
+
+def prefilter_path(g, dev, res, flat, rb, sync):
+    """The filtered searches on the main path's data, one path with its
+    launch counts set to 0 just before it and read just after. One seeded
+    bitset keeps half of the ids. brute_force.knn(engine="fused") with it
+    is the filtered truth, cross-checked against the tiled engine on 16
+    queries (agreement >= 0.95: bf16 operands against f32). Then IVF-Flat
+    "fused", IVF-PQ trim "fused" on bf16 rows (4k shortlist + refine) and
+    IVF-RaBitQ "fused" (with its rerank), each at the rung where its
+    unfiltered search first cleared RECALL_GATE: every id returned must
+    pass the filter, and recall@k against the filtered truth must reach
+    RECALL_GATE, else n_probes steps up one rung (PROBE_LADDER), said in
+    the log."""
+    from raft_tpu_torch.core.bitset import Bitset
+    from raft_tpu_torch.neighbors import brute_force, ivf_flat, ivf_pq, ivf_rabitq
+    from raft_tpu_torch.neighbors.refine import refine
+    from raft_tpu_torch.ops import _launch
+
+    dataset, queries, k = res["dataset"], res["queries"], g.k
+    keep = np.random.default_rng(g.seed + 9).random(dataset.shape[0]) < 0.5
+    bs = Bitset.from_mask(torch.from_numpy(keep), device=dev)
+    out = {"kept": int(bs.count())}
+
+    def passes(ids):
+        ids = ids.reshape(-1)
+        return bool(bs.test(ids[ids >= 0]).all())
+
+    _launch.reset_launch_counts()
+    t0 = time.perf_counter()
+    _, ftruth = brute_force.knn(dataset, queries, k, engine="fused", prefilter=bs, device=dev)
+    sync()
+    out["truth_s"] = time.perf_counter() - t0
+    if not passes(ftruth) or bool((ftruth < 0).any()):
+        raise AssertionError("filtered truth: ids fail the filter or fall short of k")
+    _, tiled = brute_force.knn(dataset, queries[:16], k, engine="tiled", prefilter=bs, device=dev)
+    agree = recall(tiled, ftruth[:16])
+    out["truth_tiled_agreement"] = agree
+    log(f"path prefilter: {out['kept']} of {dataset.shape[0]} ids kept; filtered truth "
+        f"(brute_force.knn fused) in {out['truth_s']:.3f} s, every id passes; against the "
+        f"tiled engine on 16 queries: agreement {agree:.4f}")
+    if agree < 0.95 or not passes(tiled):
+        raise AssertionError(f"filtered truth disagrees with the tiled engine: {agree}")
+
+    def first_cleared(rungs, **match):
+        return min(x["n_probes"] for x in rungs if x["recall"] >= RECALL_GATE
+                   and all(x.get(key) == v for key, v in match.items()))
+
+    def ladder(name, start, search):
+        """Run `search(n_probes)` from `start` up PROBE_LADDER until recall
+        against the filtered truth reaches the gate."""
+        steps = [p for p in PROBE_LADDER if p >= start]
+        for n_probes in steps:
+            _, ids = search(n_probes)
+            sync()
+            if not passes(ids):
+                raise AssertionError(f"{name}: a returned id fails the filter")
+            r = recall(ids, ftruth)
+            note = "" if n_probes == start else f" (stepped up from n_probes {start})"
+            log(f"path prefilter {name} n_probes={n_probes}{note}: recall@{k} against the "
+                f"filtered truth {r:.4f}, every id passes the filter")
+            if r >= RECALL_GATE:
+                return {"n_probes": n_probes, "start": start, "recall": r}
+        raise AssertionError(f"{name}: recall under the filter below {RECALL_GATE} up to "
+                             f"n_probes {steps[-1]}")
+
+    out["ivf_flat"] = ladder(
+        "ivf_flat fused", first_cleared(flat["rungs"], engine="fused"),
+        lambda p: ivf_flat.search(ivf_flat.SearchParams(n_probes=p, engine="fused"),
+                                  flat["index"], queries, k, prefilter=bs))
+    pq_index = res["index"]
+    out["ivf_pq"] = ladder(
+        "ivf_pq fused bf16 + refine", first_cleared(res["rungs"], trim="fused",
+                                                    score_dtype="bf16"),
+        lambda p: refine(dataset, queries, ivf_pq.search(
+            ivf_pq.SearchParams(n_probes=p), pq_index, queries, 4 * k, prefilter=bs)[1], k,
+            strategy="fused", device=dev))
+    gate = rb["gate"]
+    out["ivf_rabitq"] = ladder(
+        f"ivf_rabitq fused rerank_mult {gate['rerank_mult']}", gate["n_probes"],
+        lambda p: ivf_rabitq.search(
+            ivf_rabitq.SearchParams(n_probes=p, rerank_mult=gate["rerank_mult"],
+                                    scan_engine="fused"), rb["index"], queries, k,
+            prefilter=bs))
+    out["launches"] = _launch.launch_counts()
+    log(f"path prefilter: launches {out['launches']}")
+    return out
 
 
 def device_breakdown(run, reps, batch_ms, label="n_probes 8 + refine", top=10):
@@ -1680,7 +1968,12 @@ def k_sweep(run, reps, kb_of):
     return {ks: time_ms(lambda: run(ks, kb_of(ks)), reps) for ks in LIST_K_SWEEP}
 
 
-def list_kernel_row(fs, call, launches, reps, label, sweep=False):
+def list_kernel_row(fs, call, launches, reps, label, sweep=False, term_scale=False):
+    """Kernel 1 on one captured call, against its plain version. With
+    `term_scale` the values are held to VAL_RTOL times the rows' term
+    magnitudes (`list_term_scale`) where those exceed the scores', and both
+    the kernel's and the plain version's values of 32 sampled chunks are
+    held to the same tolerance against float64 scores of their slots."""
     (lof, qres, store, base, k), kw = call[0], call[1]
     ip = bool(kw.get("inner_product", False))
     cv, cr = kw.get("chunk_valid"), kw.get("chunk_rows")
@@ -1706,7 +1999,16 @@ def list_kernel_row(fs, call, launches, reps, label, sweep=False):
     def plain():
         return fs.fused_list_topk_plain(lof, qres, store, base, k, kb, ip, cv, cr)
 
-    err, agree = compare(f"fused_list_topk ({label})", kernel(), plain(), k)
+    ref = plain()
+    terms_f64 = None
+    if term_scale:
+        out = kernel()
+        scale = list_term_scale(lof, qres, store, base, ref[1][..., :k], ip)
+        err, agree = compare(f"fused_list_topk ({label})", out, ref, k, terms=scale)
+        terms_f64 = f64_check(f"fused_list_topk ({label})", lof, qres, store, base, ip, out, ref,
+                              k, scale)
+    else:
+        err, agree = compare(f"fused_list_topk ({label})", kernel(), ref, k)
     ms = time_ms(kernel, reps)
     plain_ms = time_ms(plain, max(1, reps // 4))
     coef = 1.0 if ip else 2.0
@@ -1728,6 +2030,8 @@ def list_kernel_row(fs, call, launches, reps, label, sweep=False):
         log(f"kernel fused_list_topk ({label}) over k (register lists to k "
             f"{fs.MAX_REGISTER_K}): " + ", ".join(
                 f"k {ks} {v:.4f} ms" for ks, v in terms["k_sweep_ms"].items()))
+    if terms_f64 is not None:
+        terms["vs_float64"] = terms_f64
     log(f"kernel fused_list_topk ({label}): ncb {ncb} ({int((live > 0).sum())} live, "
         f"{int(live.sum())} live rows), chunk {chunk}, L {L}, "
         f"rot {rot}, store {store.dtype}, k {k}: {ms:.4f} ms, plain {plain_ms:.4f} ms, "
@@ -1735,13 +2039,41 @@ def list_kernel_row(fs, call, launches, reps, label, sweep=False):
         f"id agreement {agree}; launches {launches}; device ms a launch "
         f"{terms.get('launch_ms', float('nan')):.4f} (each "
         f"{[round(v, 4) for v in terms.get('launch_ms_each', [])]}); "
-        f"tiles a live block {tiles}")
+        f"tiles a live block {tiles}"
+        + ("" if terms_f64 is None else f"; tolerance from the term scale, against float64 "
+           f"on 32 chunks {terms_f64}"))
     return {"name": "fused_list_topk", "route": "cuda",
             "source": "raft_tpu_torch/csrc/fused_list_topk.cu",
             "replaces": "raft_tpu/ops/fused_scan.py:443", "launches": launches,
             "max_abs_err": err, "ms": ms, "plain_ms": plain_ms, "bound_ms": b_ms,
             "bound_by": b_by, "library_ms": lib_ms, "bound_terms": terms,
             "shape": f"{label}: ncb={ncb} chunk={chunk} L={L} rot={rot} k={k}"}
+
+
+def f64_check(name, lof, q, store, base, ip, out, ref, k, scale, n_chunks=32):
+    """The kernel's and the plain version's values of `n_chunks` sampled
+    live chunks against float64 scores of their own slots (bf16-rounded
+    operands, `bf16_rescore`), each within VAL_RTOL times `scale`. Returns
+    the two largest errors and the largest tolerance-scaled one."""
+    rescore = bf16_rescore(lof, q, store, base, ip)
+    chunks = torch.nonzero(torch.isfinite(ref[0][:, :, 0]).any(1))[:, 0]
+    chunks = chunks[torch.linspace(0, chunks.numel() - 1, min(n_chunks, chunks.numel()),
+                                   device=chunks.device).long()]
+    res = {}
+    worst = 0.0
+    for label, (v, i) in (("kernel", out), ("plain", ref)):
+        v, i = v[chunks, :, :k], i[chunks, :, :k]
+        fin = torch.isfinite(v)
+        c, r, j = torch.nonzero(fin, as_tuple=True)
+        exact = rescore(chunks[c], r, i[c, r, j])
+        e = (v[c, r, j].double() - exact).abs()
+        rel = e / (VAL_RTOL * scale[chunks[c], r].double())
+        res[f"{label}_max_abs_err"] = float(e.max()) if e.numel() else 0.0
+        worst = max(worst, float(rel.max()) if rel.numel() else 0.0)
+    res["max_err_in_tolerances"] = worst
+    if worst > 1.0:
+        raise AssertionError(f"{name}: values differ from float64 beyond VAL_RTOL x the term scale")
+    return res
 
 
 def device_split(run, reps, kernel_names):
@@ -2283,6 +2615,10 @@ def main(argv=None):
     launches.update(sl["launches"])
     rb, rb_call = rabitq_path(g, dev, res, fs, sync)
     launches[("rabitq", "fused")] = rb["launches"]
+    fl, fl_call = ivf_flat_path(g, dev, res, fs, sync)
+    launches[("ivf_flat", "fused")] = fl["launches"]
+    pf = prefilter_path(g, dev, res, fl, rb, sync)
+    launches[("prefilter", "all")] = pf["launches"]
     for path, counts in launches.items():
         missing = [name for name in PATH_KERNELS[path] if counts[name] <= 0]
         if missing and dev.type == "cuda":
@@ -2318,13 +2654,18 @@ def main(argv=None):
                              f"{gate['rerank_mult']}"))
     refine_row = list_kernel_row(fs, captured["refine"], res["list_launches"]["refine"], g.reps,
                                  "refine, chunk 1")
+    rows.append(list_kernel_row(fs, fl_call, n(("ivf_flat", "fused"), "fused_list_topk"), g.reps,
+                                "IVF-Flat fused, bf16 residual store, n_probes 32",
+                                term_scale=True))
     summary = {"build_s": res["build_s"], "truth_s": res["truth_s"], "rungs": res["rungs"],
                "breakdown": res["breakdown"], "pallas_breakdown": res["pallas_breakdown"],
                "refine_kernel": refine_row,
                "sorted_top_ab": res["sorted_top_ab"], "knn_l1": sl["knn_l1"],
                "knn_fused": sl["knn_fused"],
-               "fused_l2_nn": sl["fused_l2_nn"], "rabitq": rb,
-               "wall_s": time.perf_counter() - t_all}
+               "fused_l2_nn": sl["fused_l2_nn"],
+               "rabitq": {key: v for key, v in rb.items() if key != "index"},
+               "ivf_flat": {key: v for key, v in fl.items() if key != "index"},
+               "prefilter": pf, "wall_s": time.perf_counter() - t_all}
     log("summary " + json.dumps(summary))
     if dev.type != "cuda":
         log("rehearsal complete: control flow ran on the CPU; no result printed")

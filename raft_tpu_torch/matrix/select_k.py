@@ -187,12 +187,12 @@ def _fused_metric_kind(metric):
     return None
 
 
-def _scan_fused_impl(queries, dataset, k: int, metric):
+def _scan_fused_impl(queries, dataset, k: int, metric, valid=None):
     from raft_tpu_torch.ops.fused_scan import fused_topk
 
     kind, want_sqrt = _fused_metric_kind(metric)
     ip = kind == "ip"
-    vc, ids = fused_topk(queries.float(), dataset.float(), k, inner_product=ip)
+    vc, ids = fused_topk(queries.float(), dataset.float(), k, inner_product=ip, valid=valid)
     vc, ids = vc[:, :k], ids[:, :k]
     ids = torch.where(torch.isfinite(vc), ids, -1)
     if ip:
@@ -204,12 +204,16 @@ def _scan_fused_impl(queries, dataset, k: int, metric):
     return (torch.sqrt(v) if want_sqrt else v), ids
 
 
-def _scan_two_phase_impl(queries, dataset, k: int, metric):
+def _scan_two_phase_impl(queries, dataset, k: int, metric, valid=None):
     from raft_tpu_torch.distance.pairwise import _pairwise_impl
 
     select_min = metric not in SIMILARITY_METRICS
     d = _pairwise_impl(queries, dataset, metric)
+    if valid is not None:
+        d = torch.where(valid[None, :], d, float("inf") if select_min else float("-inf"))
     v, i = _select_k_impl(d, k, select_min, forced="two_phase")
+    # one contract on both strategies: a slot holding the worst value
+    # (fewer than k survivors of `valid`) reports id -1
     i = torch.where(torch.isfinite(v), i, -1)
     return v, i.to(torch.int32)
 
@@ -229,17 +233,24 @@ def resolve_scan_strategy(n_rows: int, dim: int, k: int, strategy=None,
 
 
 def scan_select_k(queries, dataset, k: int, metric="sqeuclidean",
-                  strategy: Optional[str] = None, device=None):
+                  strategy: Optional[str] = None, valid=None, device=None):
     """Top-k nearest dataset rows per query over OPERANDS; returns
     ((nq, k) values, (nq, k) int32 ids), best-first, ties to the smaller
     row id. "fused": the fused distance+select-k kernel (L2/IP, exact
     over bf16-rounded operands, k <= FUSED_MAX_K); "two_phase": f32
-    pairwise distances + select; None/"auto": `resolve_scan_strategy`."""
+    pairwise distances + select; None/"auto": `resolve_scan_strategy`.
+    `valid`: optional (n_rows,) bool mask; False rows are excluded before
+    selection, and where fewer than k rows survive the tail holds the
+    worst value with id -1 on both strategies."""
     q = check_matrix(queries, device, name="queries")
     ds = check_matrix(dataset, q.device, name="dataset")
     check_same_cols(ds, q, "dataset", "queries")
     if not (0 < k <= ds.shape[0]):
         raise ValueError(f"k={k} out of range for dataset with {ds.shape[0]} rows")
+    if valid is not None:
+        valid = as_tensor(valid, q.device, torch.bool)
+        if tuple(valid.shape) != (ds.shape[0],):
+            raise ValueError(f"valid must be ({ds.shape[0]},), got {tuple(valid.shape)}")
     m = resolve_metric(metric)
     strategy = resolve_scan_strategy(ds.shape[0], ds.shape[1], int(k), strategy,
                                      fused_ok=_fused_metric_kind(m) is not None)
@@ -253,8 +264,8 @@ def scan_select_k(queries, dataset, k: int, metric="sqeuclidean",
                 f"strategy='fused' caps k at {FUSED_MAX_K} and the dimension "
                 "at the kernel's shared-memory budget; use strategy='two_phase'"
             )
-        return _scan_fused_impl(q, ds, int(k), m)
-    return _scan_two_phase_impl(q, ds, int(k), m)
+        return _scan_fused_impl(q, ds, int(k), m, valid)
+    return _scan_two_phase_impl(q, ds, int(k), m, valid)
 
 
 # ---------------------------------------------------------------------------

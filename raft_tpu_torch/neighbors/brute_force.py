@@ -16,9 +16,14 @@ raft_tpu/neighbors/brute_force.py).
            the JAX package does: "tiled" unless it says "fused" (it
            says "two_phase" without a tuned value).
 
-`knn_merge_parts` merges per-part top-k results into a global top-k.
+`prefilter` (a `core.bitset.Bitset` or a boolean mask over the dataset
+rows) excludes rows before selection on both engines: the tiled engine
+masks their distances to the worst value, the fused one folds the mask
+into the kernel's base row as +inf. The returned ids are tested against
+the bitset afterwards, -1 where the bit is clear (fewer than k rows
+pass); a row that passes keeps its id even where its distance is +inf.
 
-Prefilters are still to be ported (ROADMAP Queue A).
+`knn_merge_parts` merges per-part top-k results into a global top-k.
 """
 
 from __future__ import annotations
@@ -41,19 +46,27 @@ _TILE = 1 << 15
 
 
 def _bf_knn_impl(dataset: torch.Tensor, queries: torch.Tensor, k: int,
-                 metric: DistanceType, *, metric_arg: float = 2.0, tile: int = _TILE):
+                 metric: DistanceType, *, metric_arg: float = 2.0, tile: int = _TILE,
+                 prefilter=None):
+    """`prefilter` (a Bitset over the dataset row ids) masks the rows
+    whose bit is clear to the worst value before selection."""
     n = dataset.shape[0]
     select_min = metric not in SIMILARITY_METRICS
+    worst = float("inf") if select_min else float("-inf")
     if n <= max(2 * tile, 4 * k):
         d = _pairwise_impl(queries, dataset, metric, metric_arg=metric_arg)
+        if prefilter is not None:
+            d = torch.where(prefilter.test(torch.arange(n, device=d.device))[None, :], d, worst)
         vals, idx = _select_k_impl(d, k, select_min)
         return vals, idx.to(torch.int32)
-    worst = float("inf") if select_min else float("-inf")
     q = queries.shape[0]
     best_v = torch.full((q, k), worst, dtype=torch.float32, device=queries.device)
     best_i = torch.full((q, k), -1, dtype=torch.int64, device=queries.device)
     for base in range(0, n, tile):
         d = _pairwise_impl(queries, dataset[base:base + tile], metric, metric_arg=metric_arg)
+        if prefilter is not None:
+            col = torch.arange(base, base + d.shape[1], device=d.device)
+            d = torch.where(prefilter.test(col)[None, :], d, worst)
         if d.shape[1] < tile:
             # the JAX scan pads the last tile with rows it masks to the
             # worst value before selection; so do its columns here
@@ -74,11 +87,11 @@ def knn(dataset, queries, k: int, metric="sqeuclidean", metric_arg: float = 2.0,
     kernel; L2/sqeuclidean/inner_product, k <= 256) or "auto".
     `compute_dtype` (tiled only): the operands are rounded to it before
     the distances, which stay f32 sums (torch.bfloat16 ranks the
-    bf16-rounded points, as the JAX package's bf16 operands do)."""
-    if prefilter is not None:
-        raise NotImplementedError(
-            "brute_force.knn(prefilter=...) is not ported yet (ROADMAP Queue A)"
-        )
+    bf16-rounded points, as the JAX package's bf16 operands do).
+    `prefilter`: a `core.bitset.Bitset` or 1-d boolean mask over the
+    dataset rows; rows whose bit is clear are excluded before selection,
+    and where fewer than k pass, the tail holds the worst distance with
+    id -1."""
     q = check_matrix(queries, device, name="queries")
     ds = check_matrix(dataset, q.device, name="dataset")
     check_same_cols(ds, q, "dataset", "queries")
@@ -101,13 +114,28 @@ def knn(dataset, queries, k: int, metric="sqeuclidean", metric_arg: float = 2.0,
             int(ds.shape[0]), int(ds.shape[1]), int(k), None,
             fused_ok=_fused_metric_kind(m) is not None and compute_dtype is None)
         engine = "fused" if strat == "fused" else "tiled"
+    if engine not in ("tiled", "fused"):
+        raise ValueError(f"unknown engine {engine!r}")
+    pf = None
+    if prefilter is not None:
+        from raft_tpu_torch.core.bitset import as_bitset
+
+        pf = as_bitset(prefilter, ds.shape[0], q.device)
     if engine == "fused":
         from raft_tpu_torch.matrix.select_k import scan_select_k
 
-        return scan_select_k(q, ds, int(k), metric=m, strategy="fused", device=q.device)
-    if engine != "tiled":
-        raise ValueError(f"unknown engine {engine!r}")
-    return _bf_knn_impl(ds.float(), q.float(), int(k), m, metric_arg=float(metric_arg))
+        valid = None if pf is None else pf.test(torch.arange(ds.shape[0], device=q.device))
+        vals, idx = scan_select_k(q, ds, int(k), metric=m, strategy="fused", valid=valid,
+                                  device=q.device)
+    else:
+        vals, idx = _bf_knn_impl(ds.float(), q.float(), int(k), m,
+                                 metric_arg=float(metric_arg), prefilter=pf)
+    if pf is not None:
+        # the worst-scored tail of a row with fewer than k survivors can
+        # carry a masked row's id: test the ids themselves (a test of the
+        # score would also drop a survivor whose distance is +inf)
+        idx = torch.where(pf.test(idx), idx, -1)
+    return vals, idx
 
 
 def knn_merge_parts(distances, indices, k=None, select_min: bool = True,

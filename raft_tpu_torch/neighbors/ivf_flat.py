@@ -1,33 +1,216 @@
-"""List-packing helpers of the IVF indexes (counterpart of the helpers
-in raft_tpu/neighbors/ivf_flat.py that IVF-PQ builds on).
+"""IVF-Flat: inverted-file index over raw vectors (counterpart of
+raft_tpu/neighbors/ivf_flat.py), and the list-packing helpers that the
+IVF-PQ and IVF-RaBitQ indexes share.
 
 An IVF index keeps each list in a padded slot table: (n_lists, max_list,
 ...) payload plus (n_lists, max_list) source-row positions, -1 on empty
-slots. The IVF-Flat index itself is still to be ported.
+slots. IVF-Flat's payload is the vectors themselves (`list_data`).
+
+Build: balanced k-means on a trainset drawn without replacement, then
+`extend`, which labels only the new rows and scatters them into grown
+tables (`adaptive_centers` moves the centers to the running mean).
+
+Search, engines:
+
+  "query"   query-major: per block of queries, gather the probed lists,
+            score with one batched f32 product, select exactly. The JAX
+            package maps blocks of 8 queries; the port blocks the queries
+            by memory (`QUERY_BLOCK_ELEMS` gathered values a block), and
+            the exact select makes the answer independent of the block;
+  "list"    list-major: the probe pairs invert to per-list chunks
+            (probe_invert), each list's vectors score against its chunk's
+            queries, an exact per-row trim and merge (`score_and_select`);
+  "fused"   (alias "pallas") list-major with the `fused_list_topk` kernel
+            over a bf16 residual store (v - center, zero at pad slots,
+            beside its f32 norms), exact in-kernel top-k a row; k <= 256.
+            The first such search pads the store to the kernels' lane
+            multiple in place, for good; the fit is checked first, so a
+            rejected request leaves the index as it was;
+  "auto"    `resolve_auto_engine`: "list" when nq * n_probes / n_lists >=
+            4, else "query", as the JAX package decides without a tuned
+            value.
+
+A `prefilter` (a `core.bitset.Bitset` or boolean mask over the index's
+ids) is one view of the slot table, which every engine masks to the
+worst value before any selection.
+
+Not ported yet (each raises NotImplementedError naming ROADMAP Queue A):
+more than 1024 lists (the hierarchical trainer, item 5), adaptive probing
+and list radii (item 7), save/load and the integrity digests (item 9).
+Tombstones (item 6) stay None. Observability spans and fault hooks are
+left out.
 """
 
 from __future__ import annotations
 
+import dataclasses
+from typing import Dict, Optional, Tuple
+
 import numpy as np
 import torch
 
+from raft_tpu_torch.cluster import kmeans_balanced
+from raft_tpu_torch.core.config import resolve_device, strict_f32_matmul
+from raft_tpu_torch.core.validation import check_matrix
+from raft_tpu_torch.distance.distance_types import DistanceType, resolve_metric
+from raft_tpu_torch.matrix.select_k import _select_k_impl
+from raft_tpu_torch.random.rng import make_generator, sample_without_replacement
 
-def _pack_lists(labels: np.ndarray, n_lists: int, group: int = 32):
-    """Padded slot table from assignment labels: (row_ids (n_lists,
-    max_sz) int32 with -1 padding, sizes (n_lists,) int32). max_sz is
-    rounded up to a multiple of `group` (kIndexGroupSize=32,
-    ivf_list_types.hpp:42); members keep their row order."""
-    labels = np.asarray(labels, np.int64)
-    sizes = np.bincount(labels, minlength=n_lists)
-    max_sz = max(int(sizes.max()) if len(labels) else 0, 1)
-    max_sz = -(-max_sz // group) * group
-    row_ids = np.full((n_lists, max_sz), -1, np.int32)
-    order = np.argsort(labels, kind="stable")
-    starts = np.zeros(n_lists + 1, np.int64)
-    np.cumsum(sizes, out=starts[1:])
-    rank = np.arange(len(labels)) - starts[labels[order]]
-    row_ids[labels[order], rank] = order
-    return row_ids, sizes.astype(np.int32)
+#: gathered list values a block of the "query" engine holds
+QUERY_BLOCK_ELEMS = 1 << 27
+#: list-major engines' queries a call (the JAX package's macro batch)
+MACRO_BATCH = 4096
+
+
+def _not_ported(what: str, item: int) -> NotImplementedError:
+    return NotImplementedError(f"{what} is not ported yet (ROADMAP Queue A item {item})")
+
+
+@dataclasses.dataclass
+class IndexParams:
+    """Mirrors ivf_flat::index_params (ivf_flat_types.hpp:44-70)."""
+
+    n_lists: int = 1024
+    metric: DistanceType = DistanceType.L2Expanded
+    metric_arg: float = 2.0
+    kmeans_n_iters: int = 20
+    kmeans_trainset_fraction: float = 0.5
+    adaptive_centers: bool = False
+    add_data_on_build: bool = True
+
+    def __post_init__(self):
+        self.metric = resolve_metric(self.metric)
+
+
+@dataclasses.dataclass
+class SearchParams:
+    """Mirrors ivf_flat::search_params (ivf_flat_types.hpp:125). `engine`:
+    "query", "list", "fused"/"pallas" or "auto" (module docstring).
+    `adaptive`, `recall_target` and `budget_tau` are the JAX package's
+    requests for adaptive probing, which raise until it is ported; its
+    other budget fields are left out until then."""
+
+    n_probes: int = 20
+    engine: str = "query"
+    adaptive: bool = False
+    recall_target: Optional[float] = None
+    budget_tau: Optional[float] = None
+
+
+class Index:
+    """IVF-Flat index (tensors on one device).
+
+    centers    (n_lists, dim) f32 coarse centroids
+    list_data  (n_lists, max_list, dim) f32 vectors in list-major slots
+    slot_rows  (n_lists, max_list) int32 slot -> source_ids position, -1 pad
+    list_sizes (n_lists,) int32; source_ids (n_rows,) int32 caller ids
+
+    The fused engine's store is derived at its first search
+    (`_pad_store_to_lanes`): resid_bf16 (n_lists, L, dim) bf16 residuals,
+    resid_norm (n_lists, L) f32 their squared norms, L the lane-padded
+    max_list, and fused_kb, the candidate-buffer width, grown
+    monotonically."""
+
+    def __init__(self, params: IndexParams, centers, list_data, slot_rows, list_sizes,
+                 source_ids):
+        self.params = params
+        self.centers = centers
+        self.list_data = list_data
+        self.slot_rows = slot_rows
+        self.list_sizes = list_sizes
+        self.source_ids = source_ids
+        self.resid_bf16 = None
+        self.resid_norm = None
+        self.fused_kb = None
+        # the dead-slot mask of live mutation (ROADMAP Queue A item 6):
+        # None (all live) on every port index
+        self.tombstones = None
+        self._id_bound = None
+
+    @property
+    def n_tombstones(self) -> int:
+        if self.tombstones is None:
+            return 0
+        return int(torch.as_tensor(self.tombstones).bool().sum())
+
+    @property
+    def id_bound(self) -> int:
+        """One past the largest source id: the id space a `prefilter`
+        covers (past `size` when extend was given custom ids). Read from
+        the device once an index (extend returns a new one), so searches
+        after the first wait on no device value."""
+        if self._id_bound is None:
+            self._id_bound = int(self.source_ids.max()) + 1 if self.size else 0
+        return self._id_bound
+
+    @property
+    def list_radii(self):
+        raise _not_ported("adaptive probing (list radii)", 7)
+
+    @property
+    def device(self) -> torch.device:
+        return self.centers.device
+
+    @property
+    def metric(self) -> DistanceType:
+        return self.params.metric
+
+    @property
+    def n_lists(self) -> int:
+        return int(self.centers.shape[0])
+
+    @property
+    def dim(self) -> int:
+        return int(self.centers.shape[1])
+
+    @property
+    def size(self) -> int:
+        return int(self.source_ids.shape[0])
+
+    @property
+    def adaptive_centers(self) -> bool:
+        return self.params.adaptive_centers
+
+    @property
+    def dataset(self) -> torch.Tensor:
+        """The stored vectors as a flat (n, dim) table in insertion order."""
+        return _unpack_flat(self.list_data, self.slot_rows, self.size)
+
+    def __repr__(self):
+        return (f"ivf_flat.Index(n_lists={self.n_lists}, dim={self.dim}, size={self.size}, "
+                f"metric={self.metric.name}, device={self.device})")
+
+
+#: the JAX Index fields `index_from_arrays` takes
+INDEX_FIELDS = ("centers", "list_data", "slot_rows", "list_sizes", "source_ids")
+
+
+def index_from_arrays(arrays: Dict[str, np.ndarray], params: IndexParams,
+                      device=None) -> Index:
+    """The port's Index from the JAX Index fields as numpy arrays
+    (`INDEX_FIELDS`), so both packages can search one identical index."""
+    dev = resolve_device(device)
+    missing = [f for f in INDEX_FIELDS if f not in arrays]
+    if missing:
+        raise ValueError(f"index_from_arrays: missing fields {missing}")
+    dtypes = {"slot_rows": torch.int32, "list_sizes": torch.int32, "source_ids": torch.int32}
+    t = {f: torch.as_tensor(np.array(arrays[f]))
+         .to(device=dev, dtype=dtypes.get(f, torch.float32)) for f in INDEX_FIELDS}
+    return Index(params, t["centers"], t["list_data"], t["slot_rows"], t["list_sizes"],
+                 t["source_ids"])
+
+
+def save(filename: str, index: Index) -> None:
+    raise _not_ported("ivf_flat.save", 9)
+
+
+def load(filename: str) -> Index:
+    raise _not_ported("ivf_flat.load", 9)
+
+
+# ---------------------------------------------------------------------------
+# list packing (shared with IVF-PQ and IVF-RaBitQ)
+# ---------------------------------------------------------------------------
 
 
 def _append_slots(labels_new: np.ndarray, old_sizes: np.ndarray, n_lists: int,
@@ -83,3 +266,368 @@ def _grow_and_scatter(list_data: torch.Tensor, slot_rows: torch.Tensor,
     (table,), rows = _grow_and_scatter_multi((list_data,), slot_rows, (nv,), labels, slots,
                                              positions, new_max)
     return table, rows
+
+
+def _unpack_flat(list_data: torch.Tensor, slot_rows: torch.Tensor, n: int) -> torch.Tensor:
+    """The flat (n, d) row table from the list-major slots."""
+    flat = torch.zeros((n, list_data.shape[-1]), dtype=list_data.dtype,
+                       device=list_data.device)
+    valid = slot_rows >= 0
+    flat[slot_rows[valid].long()] = list_data[valid]
+    return flat
+
+
+# ---------------------------------------------------------------------------
+# build / extend
+# ---------------------------------------------------------------------------
+
+
+def _metric_name(metric: DistanceType) -> str:
+    return "inner_product" if metric == DistanceType.InnerProduct else "sqeuclidean"
+
+
+def build(params: IndexParams, dataset, seed: int = 0, device=None) -> Index:
+    """Train coarse centers (balanced k-means on a trainset fraction drawn
+    without replacement from a generator seeded by `seed`) and populate
+    the lists (detail/ivf_flat_build.cuh `build`)."""
+    x = check_matrix(dataset, device, name="dataset").float()
+    dev = x.device
+    n = x.shape[0]
+    if params.n_lists > n:
+        raise ValueError(f"n_lists={params.n_lists} > dataset rows {n}")
+    if params.n_lists > 1024:
+        raise _not_ported("n_lists > 1024 (kmeans_balanced.fit_hierarchical)", 5)
+    frac = min(max(params.kmeans_trainset_fraction, 0.0), 1.0)
+    n_train = min(n, max(params.n_lists, int(n * frac)) if frac < 1.0 else n)
+    x_train = x
+    if n_train < n:
+        x_train = x[sample_without_replacement(make_generator(seed, dev), n, n_train)]
+    centers = kmeans_balanced.fit(x_train, params.n_lists, n_iters=params.kmeans_n_iters,
+                                  metric=_metric_name(params.metric), seed=seed, device=dev)
+    index = Index(
+        params, centers,
+        torch.zeros((params.n_lists, 1, x.shape[1]), dtype=torch.float32, device=dev),
+        torch.full((params.n_lists, 1), -1, dtype=torch.int32, device=dev),
+        torch.zeros((params.n_lists,), dtype=torch.int32, device=dev),
+        torch.zeros((0,), dtype=torch.int32, device=dev),
+    )
+    if params.add_data_on_build:
+        index = extend(index, x, torch.arange(n, dtype=torch.int32, device=dev))
+    return index
+
+
+def extend(index: Index, new_vectors, new_indices=None) -> Index:
+    """Append vectors (ivf_flat build.cuh `extend`): label only the new
+    rows, grow the list tables, place the batch in its slots. A store
+    padded for the fused engine never shrinks. With `adaptive_centers`
+    each center moves to the running mean of its old and new members."""
+    from raft_tpu_torch.core.bitset import carry_tombstones
+
+    dev = index.device
+    nv = check_matrix(new_vectors, dev, name="new_vectors").float()
+    old_n = index.size
+    if new_indices is None:
+        new_indices = torch.arange(old_n, old_n + nv.shape[0], dtype=torch.int32, device=dev)
+    else:
+        new_indices = torch.as_tensor(new_indices, device=dev).to(torch.int32)
+    labels = kmeans_balanced.predict(nv, index.centers, metric=_metric_name(index.metric),
+                                     device=dev)
+    old_sizes = index.list_sizes.cpu().numpy().astype(np.int64)
+    slot_abs, new_sizes, new_max = _append_slots(labels.cpu().numpy(), old_sizes, index.n_lists)
+    new_max = max(new_max, int(index.list_data.shape[1]))
+    positions = torch.arange(old_n, old_n + nv.shape[0], dtype=torch.int32, device=dev)
+    list_data, slot_rows = _grow_and_scatter(index.list_data, index.slot_rows, nv, labels,
+                                             torch.as_tensor(slot_abs, device=dev), positions,
+                                             new_max)
+    all_ids = torch.cat([index.source_ids, new_indices]) if old_n else new_indices
+    centers = index.centers
+    if index.adaptive_centers:
+        # the running mean from the new batch only (ivf_flat_types.hpp:63)
+        from raft_tpu_torch.cluster.kmeans_common import assign_and_reduce
+
+        _, sums, counts, _ = assign_and_reduce(nv, centers)
+        old_w = torch.as_tensor(old_sizes, dtype=torch.float32, device=dev)[:, None]
+        total = old_w + counts[:, None]
+        upd = (centers * old_w + sums) / torch.clamp(total, min=1.0)
+        centers = torch.where(counts[:, None] > 0, upd, centers)
+    out = Index(index.params, centers, list_data, slot_rows,
+                torch.as_tensor(new_sizes, device=dev), all_ids)
+    out.tombstones = carry_tombstones(index.tombstones, new_max)
+    return out
+
+
+# ---------------------------------------------------------------------------
+# search
+# ---------------------------------------------------------------------------
+
+
+def _coarse_scores(queries: torch.Tensor, centers: torch.Tensor, metric: DistanceType):
+    """(scores, smaller_is_better) of every (query, center) pair: inner
+    products, or clamped squared L2 distances."""
+    from raft_tpu_torch.distance.pairwise import _dot
+
+    d = _dot(queries, centers)
+    if metric == DistanceType.InnerProduct:
+        return d, False
+    qn = torch.sum(queries.float() ** 2, dim=1)[:, None]
+    cn = torch.sum(centers.float() ** 2, dim=1)[None, :]
+    return torch.clamp(qn + cn - 2.0 * d, min=0.0), True
+
+
+def _probes(queries, centers, n_probes: int, metric: DistanceType):
+    cs, coarse_min = _coarse_scores(queries, centers, metric)
+    return _select_k_impl(cs, n_probes, coarse_min)[1]
+
+
+def resolve_auto_engine(nq: int, n_probes: int, n_lists: int, pallas_ok=None) -> str:
+    """The "auto" engine policy. The JAX package first takes a tuned
+    winner (`flat_auto_engine`, which may name the fused engine where
+    `pallas_ok()` holds); tuned values do not carry over, so the port
+    decides as the JAX package does without one: "list" when the batch
+    re-reads each list at least 4 times (nq * n_probes / n_lists >= 4),
+    else "query". `pallas_ok` is kept for an H100 default that a later
+    measurement may set; it does not change the answer yet."""
+    dup = nq * n_probes / max(1, n_lists)
+    return "list" if dup >= 4.0 else "query"
+
+
+def _query_block(n_probes: int, max_list: int, dim: int) -> int:
+    return max(1, QUERY_BLOCK_ELEMS // max(1, n_probes * max_list * (dim + 3)))
+
+
+def _search_impl(queries, centers, list_data, slot_rows, k: int, n_probes: int,
+                 metric: DistanceType, query_block: Optional[int] = None):
+    """The "query" engine: per block of queries, gather each query's
+    probed lists, score them with one batched f32 product, mask the empty
+    slots to the worst value and select exactly. Returns (distances,
+    slot-table values) (nq, k)."""
+    strict_f32_matmul()
+    nq, dim = queries.shape
+    max_list = list_data.shape[1]
+    ip = metric == DistanceType.InnerProduct
+    worst = float("-inf") if ip else float("inf")
+    probes = _probes(queries, centers, n_probes, metric)
+    qb = query_block or _query_block(n_probes, max_list, dim)
+    vals, rows = [], []
+    for s in range(0, nq, qb):
+        qs, pr = queries[s:s + qb].float(), probes[s:s + qb].long()
+        b = qs.shape[0]
+        cand = slot_rows[pr].reshape(b, -1)                   # (b, C), -1 pad
+        cdata = list_data[pr].reshape(b, cand.shape[1], dim)  # (b, C, dim)
+        dots = torch.bmm(cdata, qs[:, :, None])[..., 0]
+        if ip:
+            score = dots
+        else:
+            qn = torch.sum(qs * qs, dim=1)[:, None]
+            cn = torch.sum(cdata * cdata, dim=2)
+            score = torch.clamp(qn + cn - 2.0 * dots, min=0.0)
+        score = torch.where(cand >= 0, score, worst)
+        v, pos = _select_k_impl(score, k, not ip)
+        vals.append(v)
+        rows.append(torch.gather(cand, 1, pos))
+    v, r = torch.cat(vals), torch.cat(rows)
+    if metric == DistanceType.L2SqrtExpanded:
+        v = torch.sqrt(v)
+    return v, r
+
+
+def _search_impl_listmajor(queries, centers, list_data, slot_rows, k: int, n_probes: int,
+                           metric: DistanceType, chunk: int = 128):
+    """The "list" engine: probe pairs invert to per-list chunks, each
+    chunk's queries score against its list's vectors (one batched f32
+    product a superblock), then the exact trim and merge of
+    `probe_invert.score_and_select`."""
+    from raft_tpu_torch.neighbors.probe_invert import (
+        gather_query_rows,
+        invert_probes_sort,
+        score_and_select,
+    )
+
+    strict_f32_matmul()
+    nq, dim = queries.shape
+    n_lists, max_list, _ = list_data.shape
+    ip = metric == DistanceType.InnerProduct
+    worst = float("-inf") if ip else float("inf")
+    probes = _probes(queries, centers, n_probes, metric)
+    tables = invert_probes_sort(probes, n_lists, chunk)
+    qf = queries.float()
+    q_pad = torch.cat([qf, qf.new_zeros((1, dim))])
+
+    def block(lofb, qids):
+        lb = lofb.long()
+        v = list_data[lb]  # (b, max_list, dim): this batch's only read of these vectors
+        qs = gather_query_rows(q_pad, qids)  # (b, chunk, dim)
+        dots = torch.bmm(qs, v.transpose(1, 2))
+        if ip:
+            score = dots
+        else:
+            qn = torch.sum(qs * qs, dim=2)[:, :, None]
+            vn = torch.sum(v * v, dim=2)[:, None, :]
+            score = torch.clamp(qn + vn - 2.0 * dots, min=0.0)
+        return torch.where(slot_rows[lb][:, None, :] >= 0, score, worst)
+
+    v, rows = score_and_select(tables, block, slot_rows, _select_k_impl, nq, n_probes, int(k),
+                               not ip, chunk, max_list)
+    if metric == DistanceType.L2SqrtExpanded:
+        v = torch.sqrt(v)
+    return v, rows
+
+
+def _pad_store_to_lanes(index: Index, k: int) -> None:
+    """Pad the list store in place to the list kernels' slot width
+    (`ops.pq_list_scan.lane_padded`), for good: pad slots hold zero
+    vectors and slot value -1, which every engine masks. Derive the fused
+    engine's store when it is missing or the store's shape changed: bf16
+    residuals v - center (exact zeros at pad slots; small magnitudes keep
+    the bf16 product precise and halve the scanned bytes) and their f32
+    squared norms. Grow the recorded candidate-buffer width `fused_kb` to
+    hold k (monotone)."""
+    from raft_tpu_torch.ops.fused_scan import fused_kbuf
+    from raft_tpu_torch.ops.pq_list_scan import lane_padded
+
+    max_list = int(index.list_data.shape[1])
+    extra = lane_padded(max_list) - max_list
+    if extra:
+        pad = torch.nn.functional.pad
+        index.list_data = pad(index.list_data, (0, 0, 0, extra))
+        index.slot_rows = pad(index.slot_rows, (0, extra), value=-1)
+    if index.resid_bf16 is None or index.resid_bf16.shape != index.list_data.shape:
+        resid = index.list_data - index.centers[:, None, :]
+        resid = torch.where((index.slot_rows >= 0)[:, :, None], resid, 0.0)
+        index.resid_bf16 = resid.to(torch.bfloat16)
+        index.resid_norm = torch.sum(resid * resid, dim=2)
+    kb = fused_kbuf(int(k))
+    if index.fused_kb is None or kb > index.fused_kb:
+        index.fused_kb = kb
+
+
+def _search_impl_listmajor_pallas(queries, centers, resid_bf16, resid_norm, slot_rows, k: int,
+                                  n_probes: int, metric: DistanceType, chunk: int = 128,
+                                  kb: Optional[int] = None):
+    """The "fused" engine: list-major, scored by `fused_list_topk` over
+    the bf16 residual store. |q - v|^2 = |q - c|^2 - 2 (q - c).(v - c) +
+    |v - c|^2, so the kernel scores residual rows against base |v - c|^2
+    (0 for inner product) and returns each row's exact top-k; +inf base
+    wherever the slot table reads -1 (pad, or filtered). The query
+    constant (|q - c|^2, or q.c for inner product) is added back before
+    the exact merge."""
+    from raft_tpu_torch.matrix.select_k import list_scan_select_k
+    from raft_tpu_torch.neighbors.probe_invert import (
+        chunk_live_rows,
+        gather_query_rows,
+        invert_probes_sort,
+        regroup_merge,
+    )
+
+    strict_f32_matmul()
+    nq, dim = queries.shape
+    n_lists = resid_bf16.shape[0]
+    ip = metric == DistanceType.InnerProduct
+    probes = _probes(queries, centers, n_probes, metric)
+    tables = invert_probes_sort(probes, n_lists, chunk)
+    lof = tables.lof
+    live = chunk_live_rows(tables.qid_tbl, nq)  # pad rows and empty chunks skip in-kernel
+    qf = queries.float()
+    qs = gather_query_rows(torch.cat([qf, qf.new_zeros((1, dim))]), tables.qid_tbl)
+    cent = centers[lof.long()]  # (ncb, dim)
+    qres = (qs if ip else qs - cent[:, None, :]).contiguous()
+    valid = slot_rows >= 0
+    base = torch.where(valid, 0.0 if ip else resid_norm, float("inf"))[:, None, :].contiguous()
+    vals, slot_idx = list_scan_select_k(lof, qres, resid_bf16, base, k, strategy="fused",
+                                        kbuf=kb, inner_product=ip, chunk_rows=live)
+    # the buffer is sorted: its first k slots are each row's top-k
+    vals, slot_idx = vals[:, :, :k], slot_idx[:, :, :k]
+    invalid = ~torch.isfinite(vals)
+    slot_idx = torch.where(invalid, 0, slot_idx).long()  # sentinel -> safe gather
+    rows = torch.gather(slot_rows[lof.long()][:, None, :].expand(-1, slot_idx.shape[1], -1), 2,
+                        slot_idx)
+    rows = torch.where(invalid, -1, rows)
+    if ip:  # the kernel returned -(q . res); add q . c back
+        qdotc = torch.einsum("cqd,cd->cq", qs, cent)
+        vals = torch.where(invalid, float("-inf"), -vals + qdotc[:, :, None])
+    else:
+        vals = torch.clamp(vals + torch.sum(qres * qres, dim=2)[:, :, None], min=0.0)
+    v, rows_out = regroup_merge(tables, vals, rows, _select_k_impl, nq, n_probes, int(k), not ip)
+    if metric == DistanceType.L2SqrtExpanded:
+        v = torch.sqrt(torch.clamp(v, min=0.0))
+    return v.float(), rows_out
+
+
+def _pallas_fits(index: Index, k: int) -> bool:
+    """The fused engine's envelope (k cap, shared memory) at the buffer
+    width the kernel will run with: the recorded `fused_kb` where it is
+    already wider than this k needs."""
+    from raft_tpu_torch.ops.fused_scan import FUSED_MAX_K, fits_fused_list, fused_kbuf
+    from raft_tpu_torch.ops.pq_list_scan import lane_padded
+
+    if not 0 < k <= FUSED_MAX_K:
+        return False
+    kb = max(fused_kbuf(int(k)), index.fused_kb or 0)
+    return fits_fused_list(lane_padded(int(index.list_data.shape[1])), index.dim, int(k),
+                           kbuf=kb)
+
+
+def search(params: SearchParams, index: Index, queries, k: int, prefilter=None
+           ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """ANN search; returns (distances (nq, k) f32, neighbor source ids
+    (nq, k) int32), best-first, on the index's device.
+
+    `prefilter`: a `core.bitset.Bitset` or 1-d boolean mask over the
+    index's id space (`index.id_bound` ids); samples whose bit is clear
+    are excluded before any selection, on every engine. Where fewer than
+    k samples pass (or the probed lists hold fewer), the tail holds the
+    worst distance with id -1."""
+    from raft_tpu_torch.core.bitset import make_slot_filter
+    from raft_tpu_torch.neighbors.probe_invert import macro_batched
+
+    q = check_matrix(queries, index.device, name="queries").float()
+    if q.shape[1] != index.dim:
+        raise ValueError(f"query dim {q.shape[1]} != index dim {index.dim}")
+    if index.size == 0:
+        raise ValueError("index is empty")
+    k = int(k)
+    if k <= 0:
+        raise ValueError("k must be positive")
+    if params.adaptive or params.recall_target is not None or params.budget_tau is not None:
+        raise _not_ported("adaptive probing", 7)
+    n_probes = int(min(max(1, params.n_probes), index.n_lists))
+    maybe_filter = make_slot_filter(prefilter, index.id_bound, index.source_ids,
+                                    tombstones=index.tombstones)
+    engine = params.engine
+    if engine == "pallas":
+        engine = "fused"  # one fused engine, two spellings
+    if engine == "auto":
+        engine = resolve_auto_engine(q.shape[0], n_probes, index.n_lists,
+                                     pallas_ok=lambda: _pallas_fits(index, k))
+    if engine not in ("fused", "list", "query"):
+        raise ValueError(f"unknown engine {engine!r}")
+    if engine != "fused" and k > n_probes * int(index.list_data.shape[1]):
+        raise ValueError(f"k={k} exceeds the {n_probes} probed lists' "
+                         f"{n_probes * int(index.list_data.shape[1])} slots")
+    if engine == "fused":
+        from raft_tpu_torch.matrix.select_k import check_fused_list_request
+        from raft_tpu_torch.ops.pq_list_scan import lane_padded
+
+        # checked before the store is padded: a rejected request leaves
+        # the index as it was
+        kb = check_fused_list_request("engine='fused'",
+                                      lane_padded(int(index.list_data.shape[1])), index.dim,
+                                      k, index.fused_kb, "engine='list'")
+        _pad_store_to_lanes(index, k)
+        srows = maybe_filter(index.slot_rows)
+        vals, rows = macro_batched(
+            lambda sl: _search_impl_listmajor_pallas(
+                sl, index.centers, index.resid_bf16, index.resid_norm, srows, k, n_probes,
+                index.metric, kb=kb),
+            q, k, MACRO_BATCH)
+    elif engine == "list":
+        srows = maybe_filter(index.slot_rows)
+        vals, rows = macro_batched(
+            lambda sl: _search_impl_listmajor(sl, index.centers, index.list_data, srows, k,
+                                              n_probes, index.metric),
+            q, k, MACRO_BATCH)
+    else:
+        vals, rows = _search_impl(q, index.centers, index.list_data,
+                                  maybe_filter(index.slot_rows), k, n_probes, index.metric)
+    ids = torch.where(rows >= 0, index.source_ids[torch.clamp(rows, min=0).long()], -1)
+    return vals, ids.to(torch.int32)

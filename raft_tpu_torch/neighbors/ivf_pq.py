@@ -25,12 +25,15 @@ int8 (`_quantize_query_rows`) and scores int8 x int8 -> int32 with the
 per-row scale; both trims score the same f32 values. CUDA kernels on the
 card, their plain versions on the CPU.
 
+A `prefilter` (a `core.bitset.Bitset` or boolean mask over the index's
+ids) is one view of the padded slot table: filtered slots read -1, so
+both trims see +inf base there and the refine never sees a filtered row.
+
 Not ported yet (each raises NotImplementedError naming ROADMAP Queue A):
 the lut and recon8 score modes, score_mode="auto", the approx, exact and
-auto trims, adaptive probing, prefilters, tombstones, per-cluster
-codebooks, more than 1024 lists (the hierarchical trainer). Integrity
-digests, list radii, observability spans, fault hooks and save/load are
-left out.
+auto trims, adaptive probing, tombstones, per-cluster codebooks, more
+than 1024 lists (the hierarchical trainer). Integrity digests, list
+radii, observability spans, fault hooks and save/load are left out.
 """
 
 from __future__ import annotations
@@ -128,6 +131,7 @@ class Index:
         # fused-trim candidate-buffer width, grown monotonically when a
         # later search's k outruns it
         self.fused_kb = None
+        self._id_bound = None
 
     @property
     def device(self) -> torch.device:
@@ -164,6 +168,16 @@ class Index:
     @property
     def size(self):
         return int(self.source_ids.shape[0])
+
+    @property
+    def id_bound(self) -> int:
+        """One past the largest source id: the id space a `prefilter`
+        covers (past `size` when extend was given custom ids). Read from
+        the device once an index (extend returns a new one), so searches
+        after the first wait on no device value."""
+        if self._id_bound is None:
+            self._id_bound = int(self.source_ids.max()) + 1 if self.size else 0
+        return self._id_bound
 
     def __repr__(self):
         return (
@@ -561,7 +575,11 @@ def search(params: SearchParams, index: Index, queries, k: int, prefilter=None
     (nq, k) int32, -1 where fewer than k candidates exist), on the
     index's device. Caps and shared-memory budgets are checked before
     the first search builds the index's reconstruction store, so a
-    rejected request leaves the index as it was."""
+    rejected request leaves the index as it was. `prefilter`: a
+    `core.bitset.Bitset` or 1-d boolean mask over the index's id space
+    (`index.id_bound` ids); samples whose bit is clear are excluded
+    before either trim."""
+    from raft_tpu_torch.core.bitset import make_slot_filter
     from raft_tpu_torch.matrix.select_k import check_fused_list_request
     from raft_tpu_torch.neighbors.probe_invert import macro_batched
     from raft_tpu_torch.ops.pq_list_scan import _BINS, fits_pq_list_scan, fold_variant, lane_padded
@@ -584,8 +602,6 @@ def search(params: SearchParams, index: Index, queries, k: int, prefilter=None
         raise _not_ported(f"trim_engine={trim!r}")
     if params.adaptive:
         raise _not_ported("adaptive probing")
-    if prefilter is not None:
-        raise _not_ported("prefilter")
     q = check_matrix(queries, index.device, name="queries").float()
     if q.shape[1] != index.dim:
         raise ValueError(f"query dim {q.shape[1]} != index dim {index.dim}")
@@ -593,17 +609,21 @@ def search(params: SearchParams, index: Index, queries, k: int, prefilter=None
         raise ValueError("index is empty")
     n_probes = int(min(max(1, params.n_probes), index.n_lists))
     lpad = lane_padded(int(index.codes.shape[1]))
+    # a filtered view of the padded slot table is the whole prefilter:
+    # both trims put +inf base where it reads -1
+    maybe_filter = make_slot_filter(prefilter, index.id_bound, index.source_ids)
     if trim == "fused":
         # at the buffer width the kernel will run with
         kb = check_fused_list_request("trim_engine='fused'", lpad, index.rot_dim, int(k),
                                       index.fused_kb, "trim_engine='pallas'", q_int8=int8)
         build_reconstruction(index)
         index.fused_kb = kb
+        srows_pad = maybe_filter(index.slot_rows_pad)
 
         def run(sl):
             return _search_impl_recon8_listmajor_fused(
                 sl, index.rotation, index.centers, index.recon8, index.recon_scale,
-                index.recon_norm, index.slot_rows_pad, int(k), n_probes, index.metric, kb=kb,
+                index.recon_norm, srows_pad, int(k), n_probes, index.metric, kb=kb,
                 int8_queries=int8)
     else:
         if int(k) > _BINS:
@@ -614,11 +634,12 @@ def search(params: SearchParams, index: Index, queries, k: int, prefilter=None
                 "the kernel's shared-memory budget; use trim_engine='fused'")
         build_reconstruction(index)
         fold = fold_variant()
+        srows_pad = maybe_filter(index.slot_rows_pad)
 
         def run(sl):
             return _search_impl_recon8_listmajor_pallas(
                 sl, index.rotation, index.centers, index.recon8, index.recon_scale,
-                index.recon_norm, index.slot_rows_pad, int(k), n_probes, index.metric,
+                index.recon_norm, srows_pad, int(k), n_probes, index.metric,
                 int8_queries=int8, fold=fold)
 
     vals, rows = macro_batched(run, q, int(k))

@@ -35,10 +35,16 @@ Both engines score through `ops.fused_scan.bitplane_scores`, so their
 estimator values agree; the CUDA kernel runs on the card, its plain
 version on the CPU.
 
+A `prefilter` (a `core.bitset.Bitset` or boolean mask over the index's
+ids) is one view of each engine's slot table, filtered per call: the
+"xla" engine masks where `slot_rows` reads -1, the fused one takes +inf
+base where `slot_rows_pad` does (the derived bit-plane store stays as it
+was cached), and the rerank never sees a filtered row.
+
 Not ported yet (each raises NotImplementedError naming ROADMAP Queue A):
-prefilters, tombstones and live mutation, adaptive probing (probe budgets,
-list radii), save/load, integrity digests, observability spans, fault
-hooks and the distributed (MNMG) index.
+tombstones and live mutation, adaptive probing (probe budgets, list
+radii), save/load, integrity digests, observability spans, fault hooks
+and the distributed (MNMG) index.
 """
 
 from __future__ import annotations
@@ -163,6 +169,7 @@ class Index:
         self.bp_meta = None
         self.slot_rows_pad = None
         self.fused_kb = None
+        self._id_bound = None
 
     @property
     def list_radii(self):
@@ -195,6 +202,16 @@ class Index:
     @property
     def size(self) -> int:
         return int(self.source_ids.shape[0])
+
+    @property
+    def id_bound(self) -> int:
+        """One past the largest source id: the id space a `prefilter`
+        covers (past `size` when extend was given custom ids). Read from
+        the device once an index (extend returns a new one), so searches
+        after the first wait on no device value."""
+        if self._id_bound is None:
+            self._id_bound = int(self.source_ids.max()) + 1 if self.size else 0
+        return self._id_bound
 
     def __repr__(self):
         return (f"ivf_rabitq.Index(n_lists={self.n_lists}, dim={self.dim}, "
@@ -505,7 +522,10 @@ def search(params: SearchParams, index: Index, queries, k: int, prefilter=None,
     neighbors/refine and the distances are exact; without, the estimator
     ranking and its estimates are returned. An explicit
     scan_engine="fused" is checked against the kernel's caps (k <= 256)
-    before the fused store is derived."""
+    before the fused store is derived. `prefilter`: a `core.bitset.Bitset`
+    or 1-d boolean mask over the index's id space (`index.id_bound` ids);
+    samples whose bit is clear are excluded before the scan's selection."""
+    from raft_tpu_torch.core.bitset import make_slot_filter
     from raft_tpu_torch.matrix.select_k import check_bitplane_request, resolve_bitplane_strategy
     from raft_tpu_torch.neighbors.probe_invert import macro_batched
     from raft_tpu_torch.ops.pq_list_scan import lane_padded
@@ -514,8 +534,6 @@ def search(params: SearchParams, index: Index, queries, k: int, prefilter=None,
         raise ValueError(f"unknown scan_engine {params.scan_engine!r}")
     if params.adaptive:
         raise _not_ported("adaptive probing")
-    if prefilter is not None:
-        raise _not_ported("prefilter")
     q = check_matrix(queries, index.device, name="queries").float()
     if q.shape[1] != index.dim:
         raise ValueError(f"query dim {q.shape[1]} != index dim {index.dim}")
@@ -531,6 +549,7 @@ def search(params: SearchParams, index: Index, queries, k: int, prefilter=None,
     if refine_dataset is not None:
         ds = check_matrix(refine_dataset, index.device, name="refine_dataset")
     kk = rerank_depth(k, rerank_mult) if ds is not None else k
+    maybe_filter = make_slot_filter(prefilter, index.id_bound, index.source_ids)
 
     engine = params.scan_engine
     if resolve_bitplane_strategy("fused_bitplane" if engine == "fused" else engine) != "xla":
@@ -538,15 +557,16 @@ def search(params: SearchParams, index: Index, queries, k: int, prefilter=None,
                                index.words, query_bits, kk, index.fused_kb, "scan_engine='xla'")
         build_bitplane_store(index, kk)
         kb = index.fused_kb
+        srows_pad = maybe_filter(index.slot_rows_pad)
         vals, rows = macro_batched(
             lambda sl: _search_impl_rabitq_fused(
                 sl, index.rotation, index.centers, index.codes_t, index.bp_meta,
-                index.slot_rows_pad, kk, n_probes, index.metric, query_bits=query_bits, kb=kb),
+                srows_pad, kk, n_probes, index.metric, query_bits=query_bits, kb=kb),
             q, kk)
     else:
         vals, rows = _search_impl_rabitq(q, index.rotation, index.centers, index.codes,
-                                         index.aux, index.slot_rows, kk, n_probes,
-                                         index.metric, query_bits=query_bits)
+                                         index.aux, maybe_filter(index.slot_rows), kk,
+                                         n_probes, index.metric, query_bits=query_bits)
     if ds is not None:
         # candidates are dataset positions (insertion order; -1 skipped)
         quant = RabitqQuantizer(index.rot_dim, query_bits)

@@ -14,7 +14,8 @@ are its leading slots; `chunk_live_rows` counts them, so the fused kernel
 skips pad rows and the empty chunks past the populated ones
 (`chunk_validity` is the JAX package's per-chunk flag). The sort-based
 construction is ported; the counting one and the one-hot query-row impls
-are still to be ported.
+are still to be ported. `score_and_select` is the back half of the
+engines that materialize their scores (IVF-Flat's "list" engine).
 """
 
 from __future__ import annotations
@@ -119,6 +120,40 @@ def regroup_merge(tables: ChunkTables, vals: torch.Tensor, rows: torch.Tensor,
     cand_r = rows[tables.g0, tables.s0].reshape(nq, n_probes * kk)
     v, pos2 = select_k_fn(cand_v, k, select_min)
     return v, torch.gather(cand_r, 1, pos2)
+
+
+#: materialized scores a superblock of `score_and_select` may hold
+SCORE_BUDGET = 1 << 27
+
+
+def score_and_select(tables: ChunkTables, block_fn, slot_rows: torch.Tensor, select_k_fn,
+                     nq: int, n_probes: int, k: int, select_min: bool, chunk: int,
+                     max_list: int):
+    """The back half of a list-major search: score superblocks of chunks
+    (at most SCORE_BUDGET scores each, whatever the list length), trim each
+    chunk row to its best min(k, max_list) with `select_k_fn`, gather
+    their slot rows, then `regroup_merge`.
+
+    `block_fn(lof_block, qid_block) -> (b, chunk, max_list)` scores a
+    block of chunks with invalid slots already at the worst value. The
+    trim is exact: the JAX package trims with `lax.approx_min_k` at
+    recall_target 0.99, which its CPU backend computes exactly. The JAX
+    package's `chunk_block` knob (a tuned key) is left out: one batched
+    call scores a whole superblock, its untuned default."""
+    lof, qid_tbl = tables.lof, tables.qid_tbl
+    ncb = lof.shape[0]
+    kk = min(int(k), int(max_list))
+    sb = max(1, min(ncb, SCORE_BUDGET // max(1, chunk * max_list)))
+    vals, rows = [], []
+    for s in range(0, ncb, sb):
+        lofs = lof[s:s + sb]
+        scores = block_fn(lofs, qid_tbl[s:s + sb])
+        v, si = select_k_fn(scores, kk, select_min)
+        srows = slot_rows[lofs.long()][:, None, :].expand(-1, scores.shape[1], -1)
+        vals.append(v)
+        rows.append(torch.gather(srows, 2, si))
+    return regroup_merge(tables, torch.cat(vals), torch.cat(rows), select_k_fn, nq, n_probes,
+                         k, select_min)
 
 
 def macro_batched(search_slice_fn, queries: torch.Tensor, k: int, mb: int = 4096):

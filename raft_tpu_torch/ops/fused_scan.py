@@ -224,11 +224,14 @@ def _lex_topk(scores: torch.Tensor, k: int, kbuf: int):
 
 
 def fused_topk_plain(xb, yb, base, k: int, kbuf: int, inner_product: bool,
-                     block_elems: int = 1 << 27):
+                     block_elems: int = 1 << 27, valid=None):
     """Plain PyTorch version of the flat kernel: `xb`/`yb` already
-    bf16-rounded (any float dtype), `base` (n,) f32. Row blocks bound the
-    materialized score strip."""
+    bf16-rounded (any float dtype), `base` (n,) f32; `valid` (n,) bool or
+    None folds into `base` as +inf, as `fused_topk` does. Row blocks bound
+    the materialized score strip."""
     strict_f32_matmul()
+    if valid is not None:
+        base = torch.where(valid, base, float("inf"))
     coef = 1.0 if inner_product else 2.0
     m, n = xb.shape[0], yb.shape[0]
     yf = yb.float()
@@ -326,13 +329,15 @@ def fused_topk_ranges_plain(xb, yb, base, k: int, kbuf: int, inner_product: bool
 
 
 def fused_topk(x: torch.Tensor, y: torch.Tensor, k: int, *,
-               inner_product: bool = False):
+               inner_product: bool = False, valid: Optional[torch.Tensor] = None):
     """Exact fused scan+select over the full (m, n) pair space.
 
     `x` (m, d) and `y` (n, d) are contiguous float32 on one device.
     Returns ((m, kbuf) scores, (m, kbuf) int32 row ids), best-first. L2
     scores are |y|^2 - 2<x,y> over the bf16-rounded rows (add |x|^2 at the
-    call site); inner-product scores are -<x,y>."""
+    call site); inner-product scores are -<x,y>. `valid` (n,) bool or
+    None: False rows are excluded, folded into the base row as +inf, so
+    the kernel needs no mask operand; slots past the survivors hold +inf."""
     _check(isinstance(x, torch.Tensor), "x must be a tensor")
     dev = x.device
     _tensor_arg("x", x, (torch.float32,), 2, dev)
@@ -347,6 +352,10 @@ def fused_topk(x: torch.Tensor, y: torch.Tensor, k: int, *,
     else:
         yf = yb.float()
         base = torch.sum(yf * yf, dim=1)
+    if valid is not None:
+        _tensor_arg("valid", valid, (torch.bool,), 1, dev)
+        _check(valid.shape[0] == n, f"valid has {valid.shape[0]} entries for {n} rows")
+        base = torch.where(valid, base, float("inf"))
     if dev.type == "cpu":
         return fused_topk_plain(_bf16(x), yb, base, int(k), kbuf, bool(inner_product))
     _check(dev.type == "cuda", f"fused_topk runs on cpu or cuda, got {dev}")

@@ -122,9 +122,16 @@ def test_knn_passes_metric_arg_through(rng):
 
 
 def test_knn_rejects_prefilter_and_bad_engine(rng):
+    """A prefilter is ported now: held to the JAX package's knn on the
+    same mask (the other probes still raise)."""
     ds = _grid(rng, (50, 4))
-    with pytest.raises(NotImplementedError):
-        tbf.knn(ds, ds[:2], 3, prefilter=np.ones(50, bool), device="cpu")
+    keep = rng.random(50) < 0.5
+    for engine in ("tiled", "fused"):
+        jv, ji = jbf.knn(ds, ds[:2], 3, engine=engine, prefilter=keep)
+        tv, ti = tbf.knn(ds, ds[:2], 3, engine=engine, prefilter=keep, device="cpu")
+        np.testing.assert_array_equal(ti.numpy(), np.asarray(ji))
+        np.testing.assert_array_equal(tv.numpy(), np.asarray(jv))
+        assert keep[ti.numpy()].all()
     with pytest.raises(ValueError):
         tbf.knn(ds, ds[:2], 3, engine="nope", device="cpu")
     with pytest.raises(ValueError):

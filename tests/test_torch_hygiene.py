@@ -22,7 +22,7 @@ import raft_tpu_torch
 from raft_tpu_torch.core.config import resolve_device
 from raft_tpu_torch.distance import fused_l2_nn, pairwise
 from raft_tpu_torch.matrix.select_k import select_k
-from raft_tpu_torch.neighbors import brute_force, ivf_pq, ivf_rabitq, refine
+from raft_tpu_torch.neighbors import brute_force, ivf_flat, ivf_pq, ivf_rabitq, refine
 from raft_tpu_torch.ops import _launch, fused_l2_argmin, fused_scan, pairwise_tiled, select_counting
 
 _ROOT = Path(__file__).resolve().parent.parent
@@ -84,6 +84,9 @@ def test_entry_points_never_answer_a_cuda_request_on_the_cpu(monkeypatch):
         lambda: ivf_rabitq.build(ivf_rabitq.IndexParams(n_lists=4), x),
         lambda: ivf_rabitq.build(ivf_rabitq.IndexParams(n_lists=4), x, device="cuda"),
         lambda: ivf_rabitq.index_from_arrays({}, ivf_rabitq.IndexParams(n_lists=4)),
+        lambda: ivf_flat.build(ivf_flat.IndexParams(n_lists=4), x),
+        lambda: ivf_flat.index_from_arrays({}, ivf_flat.IndexParams(n_lists=4)),
+        lambda: brute_force.knn(x, x[:4], 5, prefilter=np.ones(300, bool)),
     ]
     for call in calls:
         with pytest.raises(RuntimeError, match="CUDA"):

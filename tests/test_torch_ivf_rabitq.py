@@ -203,10 +203,15 @@ def test_own_build_reaches_the_jax_recall():
 
 def test_not_ported_and_bad_requests(data, indexes):
     _, q = data
-    tidx = indexes["sqeuclidean"][1]
+    jidx, tidx = indexes["sqeuclidean"]
     qt = torch.tensor(q)
-    with pytest.raises(NotImplementedError, match="Queue A"):
-        tr.search(tr.SearchParams(), tidx, qt, 10, prefilter=np.ones(3000, bool))
+    # a prefilter is ported now: held to the JAX search on the same mask
+    keep = np.random.default_rng(5).random(3000) < 0.5
+    sp = dict(n_probes=N_LISTS, scan_engine="xla")
+    jv, ji = jr.search(jr.SearchParams(**sp), jidx, q, 10, prefilter=keep)
+    tv, ti = tr.search(tr.SearchParams(**sp), tidx, qt, 10, prefilter=keep)
+    _bitwise((tv.numpy(), ti.numpy()), (np.asarray(jv), np.asarray(ji)))
+    assert keep[ti.numpy()].all()
     with pytest.raises(NotImplementedError, match="Queue A"):
         tr.search(tr.SearchParams(adaptive=True), tidx, qt, 10)
     with pytest.raises(NotImplementedError, match="Queue A"):
