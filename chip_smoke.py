@@ -95,11 +95,21 @@ Phases, in order; any failure exits non-zero:
      (against the tiled engine on 16 queries); IVF-Flat fused, IVF-PQ
      fused bf16 + refine and IVF-RaBitQ fused at the rungs where each
      cleared unfiltered (one rung up where short): every id passes the
-     filter, recall@10 >= 0.95 against the filtered truth;
+     filter, recall@10 >= 0.95 against the filtered truth. Then IVF-PQ's
+     other modes and builds (pq_modes_path): the default-params ladder
+     SearchParams(n_probes=p) (recon8_list with the "approx" trim at nq
+     4096) with the "exact" trim, bf16 distances and "recon8" at its gate
+     rung; 128 queries at n_probes 20 (the default resolves to "lut"):
+     lut f32 and bf16, recon8, the fused trim; per-cluster codebooks on
+     the fused bf16, fused int8 and pallas ladders and lut; an index of
+     4096 lists (kmeans_balanced.fit_hierarchical) on the fused ladder;
+     Lloyd kmeans.fit (1024 clusters, 20 iterations, k-means++) beside
+     kmeans_balanced.fit's cost;
   5. each kernel against its plain version on the inputs the main path gave
      it, with kernel, plain and library times (CUDA events) and the bound;
      kernel 1 also at IVF-Flat's own shape (bf16 residual store, n_probes
-     32); the fused L2 argmin's bound on both routes (split TF32 on the tensor
+     32), kernels 1, 3 and 4 on the per-cluster store and kernel 1 on the
+     4096-list index; the fused L2 argmin's bound on both routes (split TF32 on the tensor
      cores, f32 on the CUDA cores), the bit-plane scan over k 8 to 128
      and the two IVF-PQ trim kernels over k 8 to 250 across their
      selection switch, the trim kernels' tiles a live block scans, and
@@ -1257,7 +1267,16 @@ PATH_KERNELS = {("fused", "bf16"): ("fused_topk", "fused_list_topk"),
                 ("ivf_flat", "fused"): ("fused_list_topk",),
                 # the filtered searches (prefilter_path): the filtered truth,
                 # IVF-Flat and IVF-PQ fused (with its refine), IVF-RaBitQ fused
-                ("prefilter", "all"): ("fused_topk", "fused_list_topk", "fused_bitplane_topk")}
+                ("prefilter", "all"): ("fused_topk", "fused_list_topk", "fused_bitplane_topk"),
+                # IVF-PQ's other modes (pq_modes_path): the default ladder
+                # (the approx trim is tensor code; its refine launches kernel 1),
+                # the small batches (the fused trim among them), per-cluster
+                # codebooks on the three kernel trims, the index past 1024 lists
+                ("pq_default", "approx"): ("fused_list_topk",),
+                ("pq_small", "nq"): ("fused_list_topk",),
+                ("per_cluster", "all"): ("fused_list_topk", "fused_list_topk_int8",
+                                         "pq_list_scan"),
+                ("pq_wide", "fused"): ("fused_list_topk",)}
 #: IVF-Flat's engines and n_probes ladder on the main path's data
 #: (bench/bench_neighbors.py:93-118 runs n_probes 32)
 FLAT_ENGINES = ("fused", "list", "query", "auto")
@@ -1301,7 +1320,8 @@ def main_path(g, dev, fs, pls, sync):
         `spies`), then QPS over windows of back-to-back batches, one
         synchronize at each window's end, so every stall inside a window
         counts."""
-        params = ivf_pq.SearchParams(n_probes=n_probes, trim_engine=trim, score_dtype=dtype)
+        params = ivf_pq.SearchParams(n_probes=n_probes, score_mode="recon8_list",
+                                     trim_engine=trim, score_dtype=dtype)
 
         def run():
             _, cand = ivf_pq.search(params, index, queries, 4 * g.k)
@@ -1330,7 +1350,7 @@ def main_path(g, dev, fs, pls, sync):
             captured["trim"], captured["refine"] = spy.calls[0], spy.calls[-1]
     breakdown = pallas_breakdown = None
     if dev.type == "cuda":
-        params8 = ivf_pq.SearchParams(n_probes=8)
+        params8 = ivf_pq.SearchParams(n_probes=8, score_mode="recon8_list", trim_engine="fused")
         breakdown = device_breakdown(
             lambda: refine(dataset, queries, ivf_pq.search(params8, index, queries, 4 * g.k)[1],
                            g.k, strategy="fused", device=dev), g.batch_reps,
@@ -1351,7 +1371,8 @@ def main_path(g, dev, fs, pls, sync):
                 captured[(trim, dtype)] = spy.calls[0]
         if (trim, dtype) == ("pallas", "bf16") and dev.type == "cuda":
             # where the bin trim's batch goes beside its kernel, op by op
-            pparams = ivf_pq.SearchParams(n_probes=8, trim_engine=trim, score_dtype=dtype)
+            pparams = ivf_pq.SearchParams(n_probes=8, score_mode="recon8_list",
+                                          trim_engine=trim, score_dtype=dtype)
             pallas_breakdown = device_breakdown(
                 lambda: refine(dataset, queries,
                                ivf_pq.search(pparams, index, queries, 4 * g.k)[1], g.k,
@@ -1359,9 +1380,10 @@ def main_path(g, dev, fs, pls, sync):
                 rungs[-2]["batch_s"] * 1e3, label="trim pallas bf16, n_probes 8 + refine",
                 top=20)
         launches[(trim, dtype)] = fs.launch_counts()
+    fused8 = ivf_pq.SearchParams(n_probes=8, score_mode="recon8_list", trim_engine="fused")
     ab = sorted_top_ab(g, lambda: refine(
-        dataset, queries, ivf_pq.search(ivf_pq.SearchParams(n_probes=8), index, queries,
-                                        4 * g.k)[1], g.k, strategy="fused", device=dev), sync)
+        dataset, queries, ivf_pq.search(fused8, index, queries, 4 * g.k)[1], g.k,
+        strategy="fused", device=dev), sync)
     return {"build_s": build_s, "truth_s": truth_s, "rungs": rungs, "breakdown": breakdown,
             "pallas_breakdown": pallas_breakdown,
             "dataset": dataset, "queries": queries, "truth": truth, "index": index,
@@ -1787,8 +1809,8 @@ def prefilter_path(g, dev, res, flat, rb, sync):
         "ivf_pq fused bf16 + refine", first_cleared(res["rungs"], trim="fused",
                                                     score_dtype="bf16"),
         lambda p: refine(dataset, queries, ivf_pq.search(
-            ivf_pq.SearchParams(n_probes=p), pq_index, queries, 4 * k, prefilter=bs)[1], k,
-            strategy="fused", device=dev))
+            ivf_pq.SearchParams(n_probes=p, score_mode="recon8_list", trim_engine="fused"),
+            pq_index, queries, 4 * k, prefilter=bs)[1], k, strategy="fused", device=dev))
     gate = rb["gate"]
     out["ivf_rabitq"] = ladder(
         f"ivf_rabitq fused rerank_mult {gate['rerank_mult']}", gate["n_probes"],
@@ -1799,6 +1821,209 @@ def prefilter_path(g, dev, res, flat, rb, sync):
     out["launches"] = _launch.launch_counts()
     log(f"path prefilter: launches {out['launches']}")
     return out
+
+
+#: n_probes of the small-batch searches (an online caller's few queries:
+#: nq * 20 / 1024 = 2.5 at nq 128, so the default resolves to "lut")
+SMALL_PROBES = 20
+#: batches a timing of a slow engine takes (one window)
+SLOW_BATCHES = 3
+#: the n_probes ladder of the index past 1024 lists
+WIDE_PROBES = (8, 16, 32, 64, 128)
+
+
+def pq_modes_path(g, dev, res, fs, pls, sync):
+    """IVF-PQ's full search surface on the main path's data, queries and
+    truth, five paths, each with its launch counts set to 0 just before it
+    and read just after:
+      1. ("pq_default", "approx"): the JAX bench's own ladder,
+         SearchParams(n_probes=p) with every other field at its default
+         (at nq g.nq: recon8_list, trim "approx", f32 scores; the resolution
+         is logged), n_probes up PROBE_LADDER to the first rung at
+         recall@k >= RECALL_GATE, each with a 4k shortlist and
+         refine(strategy="fused"); QPS over windows; the gate batch under
+         torch.profiler; at the gate rung also trim "exact", bf16 trim
+         scores and score_mode "recon8" (one window of SLOW_BATCHES);
+      2. ("pq_small", "nq"): g.small_nq queries at n_probes SMALL_PROBES:
+         the default (it resolves to "lut"), the bf16 LUT, "recon8" and
+         the fused trim, each + refine, recall against those queries'
+         truth, ms a batch;
+      3. ("per_cluster", "all"): the main path's IndexParams with
+         codebook_kind="per_cluster" (build seconds), the fused bf16,
+         fused int8 and pallas bf16 ladders + refine to the gate, and the
+         lut engine at g.small_nq; the trims' first kernel calls kept for
+         phase 5;
+      4. ("pq_wide", "fused"): IVF-PQ with n_lists g.wide_lists (past
+         1024: kmeans_balanced.fit_hierarchical), pq_dim g.dim // 2,
+         kmeans_n_iters 10 (build seconds, largest and smallest list), the
+         fused bf16 ladder WIDE_PROBES + refine to the gate;
+      5. Lloyd k-means, kmeans.fit(n_clusters=g.n_lists, max_iter=20,
+         init="k-means++") on every row: seconds, n_iter, inertia, and the
+         cost of kmeans_balanced.fit's centers (20 iterations) beside it.
+         No kernel: the assignment is a matmul, as in the JAX package.
+    Any gate missed raises."""
+    from raft_tpu_torch.cluster import kmeans, kmeans_balanced
+    from raft_tpu_torch.neighbors import ivf_pq
+    from raft_tpu_torch.neighbors.refine import refine
+    from raft_tpu_torch.ops import _launch
+
+    dataset, queries, truth, index = res["dataset"], res["queries"], res["truth"], res["index"]
+    slow = argparse.Namespace(**{**vars(g), "windows": 1, "batch_reps": SLOW_BATCHES})
+    out, launches, calls = {}, {}, {}
+
+    def measure(label, params, idx, qs, tr, gw, spy=None):
+        """Recall and batch time of search(params) + refine on qs."""
+        def run():
+            _, cand = ivf_pq.search(params, idx, qs, 4 * g.k)
+            return refine(dataset, qs, cand, g.k, strategy="fused", device=dev)
+
+        with contextlib.ExitStack() as stack:
+            if spy is not None:
+                stack.enter_context(spy)
+            _, ids = run()
+            sync()
+        r = recall(ids, tr)
+        gq = argparse.Namespace(**{**vars(gw), "nq": qs.shape[0]})
+        sec, w_qps = timed_windows(gq, run, sync)
+        n_probes = min(params.n_probes, idx.n_lists)
+        mode, trim, idd = ivf_pq.resolve_search(params, qs.shape[0], n_probes, idx.n_lists)
+        log(f"rung {label} n_probes={n_probes} (score_mode {mode}, trim {trim}, distances "
+            f"{idd}, score_dtype {params.score_dtype}, lut {params.lut_dtype}) + refine, nq "
+            f"{qs.shape[0]}: recall@{g.k} {r:.4f}, {qs.shape[0] / sec:.1f} qps ({sec * 1e3:.4f} "
+            f"ms a batch over {len(w_qps)} window(s) of {gq.batch_reps} batches; window qps "
+            f"{min(w_qps):.1f} .. {max(w_qps):.1f})")
+        return {"label": label, "n_probes": n_probes, "score_mode": mode, "trim": trim,
+                "distances": idd, "nq": qs.shape[0], "recall": r, "qps": qs.shape[0] / sec,
+                "batch_s": sec, "window_qps": w_qps, "run": run}
+
+    def ladder(label, probes, make, idx, spy_of=None):
+        """Rungs of make(n_probes) up `probes` to the first at the gate;
+        the first rung's kernel call kept when `spy_of` names one."""
+        rungs = []
+        for n_probes in probes:
+            spy = spy_of() if spy_of is not None and not rungs else None
+            rungs.append(measure(label, make(n_probes), idx, queries, truth, g, spy))
+            if spy is not None:
+                calls[label] = spy.calls[0]
+            if rungs[-1]["recall"] >= RECALL_GATE:
+                return rungs
+        raise AssertionError(f"{label}: no rung reached recall@{g.k} >= {RECALL_GATE} "
+                             f"(best {max(x['recall'] for x in rungs)})")
+
+    def strip(rows):
+        return [{key: v for key, v in x.items() if key != "run"} for x in rows]
+
+    # 1. the default-params ladder
+    _launch.reset_launch_counts()
+    rungs = ladder("ivf_pq default", PROBE_LADDER, lambda p: ivf_pq.SearchParams(n_probes=p),
+                   index)
+    gate = rungs[-1]
+    breakdown = None
+    if dev.type == "cuda":
+        breakdown = device_breakdown(gate["run"], 2, gate["batch_s"] * 1e3,
+                                     label=f"ivf_pq default n_probes {gate['n_probes']} + "
+                                           "refine", top=12)
+    variants = [measure(label, ivf_pq.SearchParams(n_probes=gate["n_probes"], **kw), index,
+                        queries, truth, slow)
+                for label, kw in (("ivf_pq trim exact", {"trim_engine": "exact"}),
+                                  ("ivf_pq bf16 distances",
+                                   {"internal_distance_dtype": "bfloat16"}),
+                                  ("ivf_pq recon8", {"score_mode": "recon8"}))]
+    launches[("pq_default", "approx")] = _launch.launch_counts()
+    out["default"] = {"rungs": strip(rungs), "gate_variants": strip(variants),
+                      "breakdown": breakdown}
+
+    # 2. small batches
+    _launch.reset_launch_counts()
+    qs, tr = queries[:g.small_nq], truth[:g.small_nq]
+    small = [measure(label, ivf_pq.SearchParams(n_probes=SMALL_PROBES, **kw), index, qs, tr, g)
+             for label, kw in (("small default", {}),
+                               ("small lut bf16", {"score_mode": "lut",
+                                                   "lut_dtype": "bfloat16"}),
+                               ("small recon8", {"score_mode": "recon8"}),
+                               ("small fused", {"score_mode": "recon8_list",
+                                                "trim_engine": "fused"}))]
+    if small[0]["score_mode"] != "lut":
+        raise AssertionError(f"nq {g.small_nq} at n_probes {SMALL_PROBES} resolved to "
+                             f"{small[0]['score_mode']}, not lut")
+    launches[("pq_small", "nq")] = _launch.launch_counts()
+    out["small"] = strip(small)
+    for x in small:
+        if x["recall"] < RECALL_GATE:
+            raise AssertionError(f"{x['label']}: recall@{g.k} {x['recall']} < {RECALL_GATE}")
+
+    # 3. per-cluster codebooks
+    _launch.reset_launch_counts()
+    t0 = time.perf_counter()
+    pc = ivf_pq.build(ivf_pq.IndexParams(n_lists=g.n_lists, pq_dim=g.dim // 2, kmeans_n_iters=10,
+                                         codebook_kind="per_cluster"),
+                      dataset, seed=g.seed, device=dev)
+    sync()
+    pc_build_s = time.perf_counter() - t0
+    log(f"per-cluster build: {pc} in {pc_build_s:.3f} s, codebooks "
+        f"{tuple(pc.pq_centers.shape)}, max list {int(pc.list_sizes.max())}")
+    pc_rungs = []
+    for trim, dtype, spy_of in (("fused", "bf16", lambda: Spy(fs, "fused_list_topk")),
+                                ("fused", "int8", lambda: Spy(fs, "fused_list_topk_int8")),
+                                ("pallas", "bf16", lambda: Spy(pls, "pq_list_scan"))):
+        pc_rungs += ladder(f"per_cluster {trim} {dtype}", PROBE_LADDER,
+                           lambda p, t=trim, d=dtype: ivf_pq.SearchParams(
+                               n_probes=p, score_mode="recon8_list", trim_engine=t,
+                               score_dtype=d), pc, spy_of)
+    pc_lut = measure("per_cluster small lut", ivf_pq.SearchParams(n_probes=SMALL_PROBES,
+                                                                  score_mode="lut"),
+                     pc, qs, tr, g)
+    if pc_lut["recall"] < RECALL_GATE:
+        raise AssertionError(f"per-cluster lut: recall@{g.k} {pc_lut['recall']}")
+    launches[("per_cluster", "all")] = _launch.launch_counts()
+    out["per_cluster"] = {"build_s": pc_build_s, "rungs": strip(pc_rungs),
+                          "small_lut": strip([pc_lut])[0]}
+
+    # 4. past 1024 lists
+    _launch.reset_launch_counts()
+    t0 = time.perf_counter()
+    wide = ivf_pq.build(ivf_pq.IndexParams(n_lists=g.wide_lists, pq_dim=g.dim // 2,
+                                           kmeans_n_iters=10), dataset, seed=g.seed, device=dev)
+    sync()
+    wide_build_s = time.perf_counter() - t0
+    sizes = wide.list_sizes
+    log(f"wide build: {wide} in {wide_build_s:.3f} s (fit_hierarchical), largest list "
+        f"{int(sizes.max())}, smallest {int(sizes.min())}, slot width {int(wide.codes.shape[1])}")
+    if not bool(torch.isfinite(wide.centers).all()):
+        raise AssertionError("wide build: non-finite centers")
+    wide_rungs = ladder(f"ivf_pq {g.wide_lists} lists fused bf16", WIDE_PROBES,
+                        lambda p: ivf_pq.SearchParams(n_probes=p, score_mode="recon8_list",
+                                                      trim_engine="fused"),
+                        wide, lambda: Spy(fs, "fused_list_topk"))
+    calls["wide"] = calls.pop(f"ivf_pq {g.wide_lists} lists fused bf16")
+    launches[("pq_wide", "fused")] = _launch.launch_counts()
+    out["wide"] = {"n_lists": g.wide_lists, "build_s": wide_build_s,
+                   "largest_list": int(sizes.max()), "smallest_list": int(sizes.min()),
+                   "rungs": strip(wide_rungs)}
+
+    # 5. Lloyd k-means
+    t0 = time.perf_counter()
+    centers, inertia, n_iter = kmeans.fit(dataset, n_clusters=g.n_lists, max_iter=20,
+                                          init="k-means++", seed=g.seed, device=dev)
+    sync()
+    lloyd_s = time.perf_counter() - t0
+    lloyd_cost = kmeans.cluster_cost(dataset, centers, device=dev)
+    t0 = time.perf_counter()
+    bal = kmeans_balanced.fit(dataset, g.n_lists, n_iters=20, seed=g.seed, device=dev)
+    sync()
+    bal_s = time.perf_counter() - t0
+    bal_cost = kmeans.cluster_cost(dataset, bal, device=dev)
+    log(f"lloyd kmeans.fit(n_clusters={g.n_lists}, max_iter=20, init='k-means++') on "
+        f"{dataset.shape[0]} rows: {lloyd_s:.3f} s, n_iter {n_iter}, inertia {inertia}, cost "
+        f"of its centers {lloyd_cost}; kmeans_balanced.fit (20 iterations) {bal_s:.3f} s, "
+        f"cost {bal_cost}")
+    if not (np.isfinite(inertia) and 1 <= n_iter <= 20 and bool(torch.isfinite(centers).all())
+            and lloyd_cost <= inertia * (1 + 1e-4)):
+        raise AssertionError(f"lloyd: inertia {inertia}, n_iter {n_iter}, cost {lloyd_cost}")
+    out["lloyd"] = {"seconds": lloyd_s, "n_iter": n_iter, "inertia": inertia,
+                    "cost": lloyd_cost, "balanced_s": bal_s, "balanced_cost": bal_cost}
+    out["launches"] = launches
+    return out, calls
 
 
 def device_breakdown(run, reps, batch_ms, label="n_probes 8 + refine", top=10):
@@ -2555,6 +2780,8 @@ def main(argv=None):
     if g.rehearse:
         g.n, g.dim, g.nq, g.k, g.n_lists, g.reps, g.batch_reps, g.windows = (
             20_000, 32, 256, 10, 64, 1, 1, 1)
+        # small batches below the lut threshold; a wide index past 1024 lists
+        g.small_nq, g.wide_lists = 8, 1088
         dev = torch.device("cpu")
     else:
         if not torch.cuda.is_available():
@@ -2565,6 +2792,8 @@ def main(argv=None):
         # back-to-back batches each
         g.n, g.dim, g.nq, g.k, g.n_lists, g.reps, g.batch_reps, g.windows = (
             1_000_000, 96, 4096, 10, 1024, 3, 10, 3)
+        # bench/bench_10m_build.py:250-252 builds at 4096 lists
+        g.small_nq, g.wide_lists = 128, 4096
         dev = torch.device("cuda", 0)
     from raft_tpu_torch.ops import _build
     from raft_tpu_torch.ops import fused_scan as fs
@@ -2619,6 +2848,10 @@ def main(argv=None):
     launches[("ivf_flat", "fused")] = fl["launches"]
     pf = prefilter_path(g, dev, res, fl, rb, sync)
     launches[("prefilter", "all")] = pf["launches"]
+    pm, pm_calls = pq_modes_path(g, dev, res, fs, pls, sync)
+    launches.update(pm["launches"])
+    for path, counts in pm["launches"].items():
+        log(f"path {' '.join(path)}: launches {counts}")
     for path, counts in launches.items():
         missing = [name for name in PATH_KERNELS[path] if counts[name] <= 0]
         if missing and dev.type == "cuda":
@@ -2657,6 +2890,21 @@ def main(argv=None):
     rows.append(list_kernel_row(fs, fl_call, n(("ivf_flat", "fused"), "fused_list_topk"), g.reps,
                                 "IVF-Flat fused, bf16 residual store, n_probes 32",
                                 term_scale=True))
+    # kernels 1, 3 and 4 on a store decoded from per-cluster codebooks, and
+    # kernel 1 on the shorter lists of the index past 1024 lists
+    pcl = ("per_cluster", "all")
+    rows.append(list_kernel_row(fs, pm_calls["per_cluster fused bf16"],
+                                n(pcl, "fused_list_topk"), g.reps,
+                                "IVF-PQ per-cluster store, trim, n_probes 8"))
+    rows.append(int8_list_row(fs, pm_calls["per_cluster fused int8"],
+                              n(pcl, "fused_list_topk_int8"), g.reps,
+                              "IVF-PQ per-cluster store, int8 trim, n_probes 8"))
+    rows.append(fold_kernel_row(pls, pm_calls["per_cluster pallas bf16"],
+                                n(pcl, "pq_list_scan"), g.reps,
+                                "IVF-PQ per-cluster store, bin trim, exact fold, bf16 rows, "
+                                "n_probes 8", "exact"))
+    rows.append(list_kernel_row(fs, pm_calls["wide"], n(("pq_wide", "fused"), "fused_list_topk"),
+                                g.reps, f"IVF-PQ {g.wide_lists} lists, trim, n_probes 8"))
     summary = {"build_s": res["build_s"], "truth_s": res["truth_s"], "rungs": res["rungs"],
                "breakdown": res["breakdown"], "pallas_breakdown": res["pallas_breakdown"],
                "refine_kernel": refine_row,
@@ -2665,7 +2913,9 @@ def main(argv=None):
                "fused_l2_nn": sl["fused_l2_nn"],
                "rabitq": {key: v for key, v in rb.items() if key != "index"},
                "ivf_flat": {key: v for key, v in fl.items() if key != "index"},
-               "prefilter": pf, "wall_s": time.perf_counter() - t_all}
+               "prefilter": pf,
+               "pq_modes": {key: v for key, v in pm.items() if key != "launches"},
+               "wall_s": time.perf_counter() - t_all}
     log("summary " + json.dumps(summary))
     if dev.type != "cuda":
         log("rehearsal complete: control flow ran on the CPU; no result printed")

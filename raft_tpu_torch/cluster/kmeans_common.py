@@ -74,3 +74,9 @@ def assign_and_reduce(x: torch.Tensor, centers: torch.Tensor,
 def predict_labels(x: torch.Tensor, centers: torch.Tensor) -> torch.Tensor:
     labels, _, _, _ = assign_and_reduce(x, centers, needs_sums=False)
     return labels
+
+
+def cluster_cost_impl(x: torch.Tensor, centers: torch.Tensor) -> torch.Tensor:
+    """Sum of every row's squared L2 distance to its nearest center."""
+    _, _, _, inertia = assign_and_reduce(x, centers, needs_sums=False)
+    return inertia

@@ -6,7 +6,8 @@ An IVF index keeps each list in a padded slot table: (n_lists, max_list,
 ...) payload plus (n_lists, max_list) source-row positions, -1 on empty
 slots. IVF-Flat's payload is the vectors themselves (`list_data`).
 
-Build: balanced k-means on a trainset drawn without replacement, then
+Build: balanced k-means on a trainset drawn without replacement (the
+hierarchical trainer past 1024 lists), then
 `extend`, which labels only the new rows and scatters them into grown
 tables (`adaptive_centers` moves the centers to the running mean).
 
@@ -35,8 +36,8 @@ ids) is one view of the slot table, which every engine masks to the
 worst value before any selection.
 
 Not ported yet (each raises NotImplementedError naming ROADMAP Queue A):
-more than 1024 lists (the hierarchical trainer, item 5), adaptive probing
-and list radii (item 7), save/load and the integrity digests (item 9).
+adaptive probing and list radii (item 7), save/load and the integrity
+digests (item 9).
 Tombstones (item 6) stay None. Observability spans and fault hooks are
 left out.
 """
@@ -213,6 +214,24 @@ def load(filename: str) -> Index:
 # ---------------------------------------------------------------------------
 
 
+def _pack_lists(labels: torch.Tensor, n_lists: int, group: int = 32):
+    """The padded slot table of a labelling (the JAX `ivf_flat._pack_lists`):
+    (row_ids (n_lists, max_size) int32, -1 past each list's rows, which
+    keep their order; sizes (n_lists,) int32), max_size rounded up to a
+    multiple of `group`. Built on the labels' device."""
+    labels = labels.long()
+    sizes = torch.bincount(labels, minlength=n_lists)
+    max_sz = max(int(sizes.max()) if labels.numel() else 0, 1)
+    max_sz = -(-max_sz // group) * group
+    order = torch.argsort(labels, stable=True)
+    starts = torch.cumsum(sizes, 0) - sizes
+    sorted_labels = labels[order]
+    rank = torch.arange(labels.numel(), device=labels.device) - starts[sorted_labels]
+    row_ids = torch.full((n_lists, max_sz), -1, dtype=torch.int32, device=labels.device)
+    row_ids[sorted_labels, rank] = order.to(torch.int32)
+    return row_ids, sizes.to(torch.int32)
+
+
 def _append_slots(labels_new: np.ndarray, old_sizes: np.ndarray, n_lists: int,
                   group: int = 32):
     """Per-new-row slots appended after the existing list contents, and
@@ -295,15 +314,14 @@ def build(params: IndexParams, dataset, seed: int = 0, device=None) -> Index:
     n = x.shape[0]
     if params.n_lists > n:
         raise ValueError(f"n_lists={params.n_lists} > dataset rows {n}")
-    if params.n_lists > 1024:
-        raise _not_ported("n_lists > 1024 (kmeans_balanced.fit_hierarchical)", 5)
     frac = min(max(params.kmeans_trainset_fraction, 0.0), 1.0)
     n_train = min(n, max(params.n_lists, int(n * frac)) if frac < 1.0 else n)
     x_train = x
     if n_train < n:
         x_train = x[sample_without_replacement(make_generator(seed, dev), n, n_train)]
-    centers = kmeans_balanced.fit(x_train, params.n_lists, n_iters=params.kmeans_n_iters,
-                                  metric=_metric_name(params.metric), seed=seed, device=dev)
+    fit = kmeans_balanced.fit_hierarchical if params.n_lists > 1024 else kmeans_balanced.fit
+    centers = fit(x_train, params.n_lists, n_iters=params.kmeans_n_iters,
+                  metric=_metric_name(params.metric), seed=seed, device=dev)
     index = Index(
         params, centers,
         torch.zeros((params.n_lists, 1, x.shape[1]), dtype=torch.float32, device=dev),

@@ -2,38 +2,65 @@
 raft_tpu/neighbors/ivf_pq.py).
 
 Build: trainset subsample -> rotation -> balanced k-means coarse centers
--> per-subspace PQ codebooks on the trainset residuals -> encode and pack
-every row into the padded (n_lists, max_list, pq_dim) code table.
+(`kmeans_balanced.fit_hierarchical` past 1024 lists) -> PQ codebooks on
+the trainset residuals, per subspace or per cluster (`codebook_kind`)
+-> encode and pack every row into the padded (n_lists, max_list, pq_dim)
+code table.
 
-Search: score_mode="recon8_list", the list-major engine. The codes are
-decoded once into a per-dimension int8 reconstruction store, lane-padded
-to a multiple of 128 slots; the probe pairs of a query batch are
-inverted into per-list chunks (probe_invert), each chunk's list is
-scored and trimmed by one kernel launch, and the per-(query, probe)
-candidates regroup to query-major order and merge exactly. Two trims:
+Search, `score_mode`:
 
-  trim_engine="fused"   an exact top-k per chunk row, ties to the smaller
-                        slot: `fused_list_topk` (bf16 rows) or, with
-                        score_dtype="int8", `fused_list_topk_int8`
-                        (ops/fused_scan.py);
-  trim_engine="pallas"  the bin fold, best and second best in each of 256
-                        bins per row (`ops/pq_list_scan.py`), then an exact
-                        top-min(k, 256) of the 512 candidates; k <= 256.
+  "lut"          query-major: per (query, probe) a (pq_dim, 2^pq_bits)
+                 table of sub-distances (`lut_dtype` f32 or bf16), the
+                 codes' entries gathered and summed; queries in blocks of
+                 at most `LUT_BLOCK_ELEMS` gathered entries;
+  "recon8"       query-major over the int8 reconstruction store: each
+                 query's probed lists dequantized to bf16 and scored, in
+                 blocks of at most `RECON8_BLOCK_ELEMS` store values;
+  "recon8_list"  list-major over the same store: the probe pairs of a
+                 query batch invert into per-list chunks (probe_invert),
+                 each chunk's list is scored once for all its queries and
+                 trimmed, and the per-(query, probe) candidates regroup
+                 to query-major order and merge exactly;
+  "auto"         `_resolve_score_mode`: "recon8_list" when an int8 or a
+                 pallas, exact or fused trim is asked for, or when the
+                 batch re-reads each list at least 4 times (nq * n_probes
+                 / n_lists >= 4); else "lut". This is the JAX package's
+                 choice off a TPU without a tuned value.
+
+The trims of "recon8_list", `trim_engine`:
+
+  "approx", "exact"  the scores of a superblock of chunks materialized (f32,
+                 or bf16 with `internal_distance_dtype` "bfloat16" or
+                 "float16"), each chunk row trimmed to its best k with an
+                 exact select, ties to the smaller slot
+                 (`probe_invert.score_and_select`). The JAX package's
+                 "approx" is `lax.approx_min_k`, exact on its CPU backend;
+                 the port runs the exact select for both;
+  "fused"        an exact top-k per chunk row inside one kernel launch,
+                 the scores never in device memory: `fused_list_topk`
+                 (bf16 rows) or, with score_dtype="int8",
+                 `fused_list_topk_int8` (ops/fused_scan.py);
+  "pallas"       the bin fold, best and second best in each of 256 bins
+                 per row (`ops/pq_list_scan.py`), then an exact
+                 top-min(k, 256) of the 512 candidates; k <= 256;
+  "auto"         "approx", as the JAX package resolves it without a
+                 tuned key.
 
 score_dtype="int8" quantizes each scale-folded residual row to symmetric
 int8 (`_quantize_query_rows`) and scores int8 x int8 -> int32 with the
-per-row scale; both trims score the same f32 values. CUDA kernels on the
-card, their plain versions on the CPU.
+per-row scale; every list-major trim scores the same f32 values from
+them. CUDA kernels on the card, their plain versions on the CPU; the lut,
+recon8, approx and exact engines are tensor code on either.
 
 A `prefilter` (a `core.bitset.Bitset` or boolean mask over the index's
-ids) is one view of the padded slot table: filtered slots read -1, so
-both trims see +inf base there and the refine never sees a filtered row.
+ids) is one view of the slot table: filtered slots read -1, which every
+engine scores as the worst value, so no filtered row is ever a candidate.
 
 Not ported yet (each raises NotImplementedError naming ROADMAP Queue A):
-the lut and recon8 score modes, score_mode="auto", the approx, exact and
-auto trims, adaptive probing, tombstones, per-cluster codebooks, more
-than 1024 lists (the hierarchical trainer). Integrity digests, list
-radii, observability spans, fault hooks and save/load are left out.
+adaptive probing (item 7), tombstones (item 6), save/load (item 9).
+Integrity digests, list radii, observability spans and fault hooks are
+left out, and so is the JAX package's fence against the lut engine on a
+TPU (`_check_lut_allowed`, a guard for a TPU device fault).
 """
 
 from __future__ import annotations
@@ -49,15 +76,22 @@ from raft_tpu_torch.core.config import resolve_device, strict_f32_matmul
 from raft_tpu_torch.core.validation import check_matrix
 from raft_tpu_torch.distance.distance_types import DistanceType, resolve_metric
 from raft_tpu_torch.matrix.select_k import _select_k_impl
-from raft_tpu_torch.neighbors.quantizer import PER_CLUSTER, PER_SUBSPACE, PqQuantizer
+from raft_tpu_torch.neighbors.quantizer import (
+    PER_CLUSTER,
+    PER_SUBSPACE,
+    PqQuantizer,
+    ordered_row_sum,
+)
 from raft_tpu_torch.random.rng import make_generator, sample_without_replacement
 
+#: gathered LUT entries a block of the "lut" engine holds
+LUT_BLOCK_ELEMS = 1 << 25
+#: reconstruction-store values a block of the "recon8" engine holds
+RECON8_BLOCK_ELEMS = 1 << 25
 
-def _not_ported(what: str) -> NotImplementedError:
-    return NotImplementedError(
-        f"{what} is not ported yet (ROADMAP Queue A: the port runs "
-        "score_mode='recon8_list' with trim_engine 'fused' or 'pallas')"
-    )
+
+def _not_ported(what: str, item: int) -> NotImplementedError:
+    return NotImplementedError(f"{what} is not ported yet (ROADMAP Queue A item {item})")
 
 
 @dataclasses.dataclass
@@ -87,15 +121,31 @@ class IndexParams:
 
 @dataclasses.dataclass
 class SearchParams:
-    """Mirrors ivf_pq::search_params (ivf_pq_types.hpp:112-150). The
-    defaults name the fused exact trim on bf16 rows; trim_engine="pallas"
-    and score_dtype="int8" are the other engines the port runs."""
+    """Mirrors ivf_pq::search_params (ivf_pq_types.hpp:112-150), with the
+    JAX package's fields and defaults.
+
+    `score_mode` "lut" | "recon8" | "recon8_list" | "auto" and
+    `trim_engine` "auto" | "approx" | "exact" | "pallas" | "fused" (module
+    docstring); `score_dtype` "bf16" | "int8" (the list-major rows);
+    `lut_dtype` "float32" | "bfloat16" (the lut engine's table);
+    `internal_distance_dtype` "float32" | "float16" | "bfloat16" | "auto"
+    (= "float32"): the dtype of the approx and exact trims' scores (the
+    two half types both mean bf16 scores, as in the JAX package).
+    `adaptive`, `recall_target` and `budget_tau` ask for adaptive probing
+    and raise until it is ported; `min_probes` and `early_term` are its
+    other fields."""
 
     n_probes: int = 20
-    score_mode: str = "recon8_list"
-    trim_engine: str = "fused"
+    lut_dtype: str = "float32"
+    internal_distance_dtype: str = "auto"
+    score_mode: str = "auto"
     score_dtype: str = "bf16"
+    trim_engine: str = "auto"
     adaptive: bool = False
+    recall_target: Optional[float] = None
+    budget_tau: Optional[float] = None
+    min_probes: int = 1
+    early_term: bool = True
 
 
 class Index:
@@ -103,7 +153,8 @@ class Index:
 
     rotation   (rot_dim, dim) f32 orthogonal input transform
     centers    (n_lists, rot_dim) f32 coarse centroids (rotated space)
-    pq_centers (pq_dim, 2^bits, pq_len) f32 per-subspace codebooks
+    pq_centers (pq_dim, 2^bits, pq_len) f32 per-subspace codebooks, or
+               (n_lists, 2^bits, pq_len) per-cluster ones
     codes      (n_lists, max_list, pq_dim) uint8 slot table
     slot_rows  (n_lists, max_list) int32 -> row position, -1 empty
     list_sizes (n_lists,) int32; source_ids (n_rows,) int32
@@ -201,8 +252,6 @@ def index_from_arrays(arrays: Dict[str, np.ndarray], params: IndexParams,
     missing = [f for f in INDEX_FIELDS if f not in arrays]
     if missing:
         raise ValueError(f"index_from_arrays: missing fields {missing}")
-    if params.codebook_kind != PER_SUBSPACE:
-        raise _not_ported("codebook_kind='per_cluster'")
     dtypes = {"codes": torch.uint8, "slot_rows": torch.int32,
               "list_sizes": torch.int32, "source_ids": torch.int32}
     t = {f: torch.as_tensor(np.array(arrays[f]))
@@ -245,7 +294,8 @@ def _metric_name(metric: DistanceType) -> str:
 
 def _coarse_fit(params: IndexParams, x: torch.Tensor, rotation: torch.Tensor,
                 gen: torch.Generator, seed: int):
-    """Trainset-fraction subsample, rotate, balanced k-means. Returns
+    """Trainset-fraction subsample, rotate, balanced k-means (hierarchical
+    past 1024 lists); shared by the PQ and RaBitQ builds. Returns
     (centers, rotated trainset)."""
     n = x.shape[0]
     frac = min(max(params.kmeans_trainset_fraction, 0.0), 1.0)
@@ -255,19 +305,15 @@ def _coarse_fit(params: IndexParams, x: torch.Tensor, rotation: torch.Tensor,
         x_train_rot = x[sample_without_replacement(gen, n, n_train)] @ rotation.T
     else:
         x_train_rot = x @ rotation.T
-    if params.n_lists > 1024:
-        raise _not_ported("n_lists > 1024 (kmeans_balanced.fit_hierarchical)")
-    centers = kmeans_balanced.fit(x_train_rot, params.n_lists, n_iters=params.kmeans_n_iters,
-                                  metric=_metric_name(params.metric), seed=seed,
-                                  device=x.device)
+    fit = kmeans_balanced.fit_hierarchical if params.n_lists > 1024 else kmeans_balanced.fit
+    centers = fit(x_train_rot, params.n_lists, n_iters=params.kmeans_n_iters,
+                  metric=_metric_name(params.metric), seed=seed, device=x.device)
     return centers, x_train_rot
 
 
 def build(params: IndexParams, dataset, seed: int = 0, device=None) -> Index:
     """Train rotation, coarse centers and codebooks; encode and pack the
     dataset (detail/ivf_pq_build.cuh:1074)."""
-    if params.codebook_kind != PER_SUBSPACE:
-        raise _not_ported("codebook_kind='per_cluster'")
     x = check_matrix(dataset, device, name="dataset").float()
     dev = x.device
     n, dim = x.shape
@@ -281,9 +327,12 @@ def build(params: IndexParams, dataset, seed: int = 0, device=None) -> Index:
                               params.force_random_rotation or rot_dim != dim)
     centers, x_train_rot = _coarse_fit(params, x, rotation, gen, seed)
 
-    # codebooks from (a capped sample of) the trainset residuals
+    # codebooks from (a capped sample of) the trainset residuals; per
+    # cluster the cap grows with n_lists, so that every list keeps samples
     nb = 1 << params.pq_bits
     max_cb_rows = max(65536, 64 * nb)
+    if params.codebook_kind == PER_CLUSTER:
+        max_cb_rows = max(max_cb_rows, 256 * params.n_lists)
     n_train = x_train_rot.shape[0]
     if n_train > max_cb_rows:
         x_cb = x_train_rot[sample_without_replacement(gen, n_train, max_cb_rows)]
@@ -292,9 +341,9 @@ def build(params: IndexParams, dataset, seed: int = 0, device=None) -> Index:
     train_labels = kmeans_balanced.predict(x_cb, centers, metric=_metric_name(params.metric),
                                            device=dev)
     residuals = x_cb - centers[train_labels]
-    quant = PqQuantizer(pq_bits=params.pq_bits, pq_dim=pq_dim, pq_len=pq_len,
-                        n_lists=params.n_lists)
-    pq_centers = quant.train(gen, residuals).pq_centers
+    quant = PqQuantizer(params.codebook_kind, pq_bits=params.pq_bits, pq_dim=pq_dim,
+                        pq_len=pq_len, n_lists=params.n_lists)
+    pq_centers = quant.train(gen, residuals, train_labels).pq_centers
 
     index = Index(
         params, rotation, centers, pq_centers,
@@ -311,14 +360,15 @@ def build(params: IndexParams, dataset, seed: int = 0, device=None) -> Index:
 def label_and_encode(vectors: torch.Tensor, rotation: torch.Tensor, centers: torch.Tensor,
                      pq_centers: torch.Tensor, metric: DistanceType,
                      per_cluster: bool = False) -> Tuple[torch.Tensor, torch.Tensor]:
-    """Rotate, assign to coarse lists, and PQ-encode the residuals.
-    Returns (labels (n,) int64, codes (n, pq_dim) uint8)."""
+    """Rotate, assign to coarse lists, and PQ-encode the residuals (each
+    against its list's codebook when `per_cluster`). Returns (labels (n,)
+    int64, codes (n, pq_dim) uint8)."""
     strict_f32_matmul()
     v_rot = vectors.float() @ rotation.T
     labels = kmeans_balanced.predict(v_rot, centers, metric=_metric_name(metric),
                                      device=v_rot.device)
     residuals = v_rot - centers[labels]
-    codes = PqQuantizer.from_centers(pq_centers, per_cluster).encode(residuals)["codes"]
+    codes = PqQuantizer.from_centers(pq_centers, per_cluster).encode(residuals, labels)["codes"]
     return labels, codes
 
 
@@ -335,7 +385,8 @@ def extend(index: Index, new_vectors, new_indices=None) -> Index:
     else:
         new_indices = torch.as_tensor(new_indices, device=dev).to(torch.int32)
     labels, new_codes = label_and_encode(nv, index.rotation, index.centers,
-                                         index.pq_centers, index.metric)
+                                         index.pq_centers, index.metric,
+                                         index.params.codebook_kind == PER_CLUSTER)
     labels_np = labels.cpu().numpy()
     old_sizes = index.list_sizes.cpu().numpy().astype(np.int64)
     slot_abs, new_sizes, new_max = _append_slots(labels_np, old_sizes, index.n_lists)
@@ -359,17 +410,21 @@ def _decode_quantize(codes: torch.Tensor, pq_centers: torch.Tensor,
     """Decode PQ codes to per-dimension symmetric int8 and the decoded
     norms: (recon8 (L, S, rot) int8, scale (rot,) f32, rnorm (L, S) f32).
     The scale is a per-dimension max-abs over the codebooks, so it bounds
-    every reconstruction without a pass over the decoded data."""
-    if per_cluster:
-        raise _not_ported("codebook_kind='per_cluster'")
+    every reconstruction without a pass over the decoded data; per-cluster
+    codebooks share their entries across subspaces, so their scale is one
+    per position in a subvector, repeated pq_dim times. The norms sum in
+    the reference's CPU order (`ordered_row_sum`)."""
     n_lists, max_list, pq_dim = codes.shape
     pq_len = pq_centers.shape[-1]
     rot_dim = pq_dim * pq_len
-    amax = torch.amax(torch.abs(pq_centers), dim=1)  # (pq_dim, pq_len)
+    if per_cluster:
+        amax = torch.amax(torch.abs(pq_centers), dim=(0, 1)).repeat(pq_dim)  # (rot,)
+    else:
+        amax = torch.amax(torch.abs(pq_centers), dim=1).reshape(rot_dim)
     # times the reciprocal, not a division: the JAX reference compiles
     # its division by the constant 127 to this multiply, and the scale
     # must agree with it bit for bit
-    scale = torch.clamp(amax.reshape(rot_dim) * (1.0 / 127.0), min=1e-12)
+    scale = torch.clamp(amax * (1.0 / 127.0), min=1e-12)
     inv = (1.0 / scale).reshape(pq_dim, pq_len)
     scale_pl = scale.reshape(pq_dim, pq_len)
     dev = codes.device
@@ -378,10 +433,14 @@ def _decode_quantize(codes: torch.Tensor, pq_centers: torch.Tensor,
     sub = torch.arange(pq_dim, device=dev)[None, None, :]
     for s in range(0, n_lists, list_block):
         idx = codes[s:s + list_block].long()
-        rec = pq_centers[sub, idx]  # (lb, S, P, pl)
+        if per_cluster:
+            lid = torch.arange(s, s + idx.shape[0], device=dev)[:, None, None]
+            rec = pq_centers[lid, idx]  # (lb, S, P, pl)
+        else:
+            rec = pq_centers[sub, idx]
         q = torch.clamp(torch.round(rec * inv), -127, 127)
-        deq = q * scale_pl
-        rnorm[s:s + list_block] = torch.sum((deq * deq).reshape(*q.shape[:2], -1), dim=-1)
+        deq = (q * scale_pl).reshape(*q.shape[:2], rot_dim)
+        rnorm[s:s + list_block] = ordered_row_sum(deq, deq)
         recon8[s:s + list_block] = q.to(torch.int8).reshape(*q.shape[:2], rot_dim)
     return recon8, scale, rnorm
 
@@ -395,7 +454,8 @@ def build_reconstruction(index: Index) -> Index:
     if index.recon8 is None:
         from raft_tpu_torch.ops.pq_list_scan import lane_padded
 
-        r8, scale, rnorm = _decode_quantize(index.codes, index.pq_centers)
+        r8, scale, rnorm = _decode_quantize(index.codes, index.pq_centers,
+                                            index.params.codebook_kind == PER_CLUSTER)
         extra = lane_padded(r8.shape[1]) - r8.shape[1]
         pad = torch.nn.functional.pad
         index.recon8 = pad(r8, (0, 0, 0, extra))
@@ -569,62 +629,295 @@ def _search_impl_recon8_listmajor_pallas(queries, rotation, centers, recon8, rec
                   queries.shape[0], n_probes, k, metric)
 
 
+def _query_blocks(nq: int, per_query: int, budget: int, query_block: Optional[int] = None):
+    """Row slices of `query_block` queries, or of as many as `budget`
+    holds at `per_query` values a query (one at least)."""
+    qb = query_block or max(1, budget // max(1, per_query))
+    return [slice(s, s + qb) for s in range(0, nq, qb)]
+
+
+def _probe_residuals(qs: torch.Tensor, pc: torch.Tensor, ip: bool) -> torch.Tensor:
+    """(b, n_probes, rot) residuals of each query against its probed
+    centers (IP: the query itself)."""
+    return qs[:, None, :].expand_as(pc) if ip else qs[:, None, :] - pc
+
+
+def _score_constant(qs: torch.Tensor, pc: torch.Tensor, qres: torch.Tensor,
+                    ip: bool) -> torch.Tensor:
+    """The per-(query, probe) term the code scores leave out: <q, center>
+    (IP) or |q - center|^2 (L2), summed in the reference's CPU order."""
+    return ordered_row_sum(qs[:, None, :].expand_as(pc), pc) if ip else ordered_row_sum(qres,
+                                                                                         qres)
+
+
+def _select_query_major(scores, rows, k: int, ip: bool):
+    """Exact top-k over each query's (b, n_probes, L) candidate scores,
+    -1 slots at the worst value. Returns (values, slot rows) (b, k)."""
+    b = scores.shape[0]
+    rows = rows.reshape(b, -1)
+    scores = torch.where(rows >= 0, scores.reshape(b, -1), float("-inf") if ip else float("inf"))
+    v, pos = _select_k_impl(scores, k, not ip)
+    return v, torch.gather(rows, 1, pos)
+
+
+def _finish(vals, rows, metric: DistanceType):
+    """f32 values (from bf16 trims too), square-rooted for L2SqrtExpanded."""
+    vals = vals.float()
+    if metric == DistanceType.L2SqrtExpanded:
+        vals = torch.sqrt(torch.clamp(vals, min=0.0))
+    return vals, rows
+
+
+def _search_impl(queries, rotation, centers, pq_centers, codes, slot_rows, k: int,
+                 n_probes: int, metric: DistanceType, per_cluster: bool, lut_bf16: bool = False,
+                 query_block: Optional[int] = None):
+    """The "lut" engine (compute_similarity, ivf_pq_search.cuh:611): per
+    block of queries, each (query, probe) pair's (pq_dim, nb) table of
+    sub-scores from one batched product (L2: |c_b|^2 - 2 <q_sub, c_b>;
+    IP: <q_sub, c_b>), rounded to bf16 with `lut_bf16`; each slot's score
+    is the sum of its codes' entries (in the reference's CPU order) plus
+    the pair's constant; an exact top-k a query. Blocks hold at most
+    LUT_BLOCK_ELEMS gathered entries (`query_block` queries when given);
+    the select is exact, so the block does not change the answer.
+    Returns (values, slot-table values) (nq, k)."""
+    strict_f32_matmul()
+    nq = queries.shape[0]
+    n_lists, max_list, pq_dim = codes.shape
+    nb, pq_len = pq_centers.shape[-2:]
+    ip = metric == DistanceType.InnerProduct
+    q_rot, probes = _coarse_select(queries, rotation, centers, n_probes, metric)
+    offs = torch.arange(pq_dim, device=codes.device) * nb
+    if not per_cluster:
+        bn_sub = torch.sum(pq_centers * pq_centers, dim=2)  # (pq_dim, nb)
+    blocks = _query_blocks(nq, n_probes * max_list * pq_dim, LUT_BLOCK_ELEMS, query_block)
+    vals, rows = [], []
+    for sl in blocks:
+        qs, pr = q_rot[sl], probes[sl].long()
+        b = qs.shape[0]
+        pc = centers[pr]
+        qres = _probe_residuals(qs, pc, ip)
+        qsub = qres.reshape(b, n_probes, pq_dim, pq_len)
+        if per_cluster:
+            books = pq_centers[pr]  # (b, n_probes, nb, pq_len)
+            dots = torch.matmul(qsub, books.transpose(-1, -2))
+            bn = torch.sum(books * books, dim=3)[:, :, None, :]
+        else:
+            dots = torch.einsum("qnpl,pbl->qnpb", qsub, pq_centers)
+            bn = bn_sub[None, None]
+        lut = dots if ip else bn - 2.0 * dots
+        if lut_bf16:
+            lut = lut.to(torch.bfloat16)
+        idx = (codes[pr].long() + offs).reshape(b * n_probes, max_list * pq_dim)
+        gathered = torch.gather(lut.reshape(b * n_probes, pq_dim * nb), 1, idx)
+        scores = ordered_row_sum(gathered.float().reshape(b, n_probes, max_list, pq_dim))
+        scores = scores + _score_constant(qs, pc, qres, ip)[:, :, None]
+        v, r = _select_query_major(scores, slot_rows[pr], k, ip)
+        vals.append(v)
+        rows.append(r)
+    return _finish(torch.cat(vals), torch.cat(rows), metric)
+
+
+def _dequantize_bf16(r8: torch.Tensor, recon_scale: torch.Tensor) -> torch.Tensor:
+    """int8 store values times the bf16-rounded scale, each product
+    rounded to bf16 (the list-major engine's `r8.astype(bf16) *
+    scale_bf`), as f32 for the product that follows: a product of two
+    bf16 values is exact in f32, so an f32 matmul with TF32 off computes
+    the reference's bf16 dot with f32 accumulation, up to its summation
+    order."""
+    return (r8.float() * recon_scale.to(torch.bfloat16).float()).to(torch.bfloat16).float()
+
+
+def _search_impl_recon8(queries, rotation, centers, recon8, recon_scale, recon_norm,
+                        slot_rows, k: int, n_probes: int, metric: DistanceType,
+                        query_block: Optional[int] = None):
+    """The "recon8" engine, query-major: per block of queries, the probed
+    lists of the int8 store dequantized (int8 times the bf16 scale, kept
+    in f32: the reference writes a bf16 product, which XLA on the CPU
+    keeps in f32 into its f32 dot) and scored against the bf16-rounded
+    residuals (f32 accumulation); L2: |q - c|^2 - 2 dots +
+    |recon|^2, IP: dots + <q, c>; an exact top-k a query. Blocks hold at
+    most RECON8_BLOCK_ELEMS store values (`query_block` queries when
+    given). Returns (values, slot-table values) (nq, k)."""
+    strict_f32_matmul()
+    nq = queries.shape[0]
+    n_lists, max_list, rot_dim = recon8.shape
+    ip = metric == DistanceType.InnerProduct
+    q_rot, probes = _coarse_select(queries, rotation, centers, n_probes, metric)
+    blocks = _query_blocks(nq, n_probes * max_list * rot_dim, RECON8_BLOCK_ELEMS, query_block)
+    vals, rows = [], []
+    for sl in blocks:
+        qs, pr = q_rot[sl], probes[sl].long()
+        pc = centers[pr]
+        qres = _probe_residuals(qs, pc, ip)
+        # sum_d bf16(qres_d) * (r8_d * bf16(scale_d)): every product is
+        # exact in f32 however it is grouped (8 + 8 + 7 significant bits),
+        # so the scale folds into the query side
+        qs_scaled = qres.to(torch.bfloat16).float() * recon_scale.to(torch.bfloat16).float()
+        dots = torch.matmul(recon8[pr].float(), qs_scaled[..., None])[..., 0]
+        const = _score_constant(qs, pc, qres, ip)[:, :, None]
+        scores = dots + const if ip else const - 2.0 * dots + recon_norm[pr]
+        v, r = _select_query_major(scores, slot_rows[pr], k, ip)
+        vals.append(v)
+        rows.append(r)
+    return _finish(torch.cat(vals), torch.cat(rows), metric)
+
+
+def _search_impl_recon8_listmajor(queries, rotation, centers, recon8, recon_scale, recon_norm,
+                                  slot_rows_pad, k: int, n_probes: int, metric: DistanceType,
+                                  chunk: int = 128, int8_queries: bool = False,
+                                  trim_bf16: bool = False):
+    """List-major search with the "approx" and "exact" trims: each chunk
+    scores its list once for all its query rows (bf16 rows: the residuals
+    and the dequantized store rounded to bf16, f32 accumulation; int8
+    rows: `_quantize_query_rows` of the scale-folded residuals, int8 dots
+    times the row scale), the scores of a superblock of chunks are
+    materialized (bf16 with `trim_bf16`), each chunk row is trimmed to its
+    exact best k and the candidates merge
+    (`probe_invert.score_and_select`). Returns (values, slot-row
+    positions) (nq, k)."""
+    from raft_tpu_torch.neighbors.probe_invert import (
+        gather_query_rows,
+        invert_probes_sort,
+        score_and_select,
+    )
+
+    strict_f32_matmul()
+    nq = queries.shape[0]
+    n_lists, max_list, rot_dim = recon8.shape
+    ip = metric == DistanceType.InnerProduct
+    worst = float("-inf") if ip else float("inf")
+    q_rot, probes = _coarse_select(queries, rotation, centers, n_probes, metric)
+    tables = invert_probes_sort(probes, n_lists, chunk)
+    q_pad = torch.cat([q_rot, q_rot.new_zeros((1, rot_dim))])
+
+    def block(lofb, qids):
+        lb = lofb.long()
+        cent = centers[lb]
+        qs = gather_query_rows(q_pad, qids)  # (b, chunk, rot)
+        qres = qs if ip else qs - cent[:, None, :]
+        if int8_queries:
+            # int8 x int8 dots are exact in f32: |sum| < 2^24 to rot_dim 1040
+            u8, row_scale = _quantize_query_rows(qres * recon_scale)
+            dots = torch.bmm(u8.float(), recon8[lb].float().transpose(1, 2)) * row_scale
+        else:
+            dots = torch.bmm(qres.to(torch.bfloat16).float(),
+                             _dequantize_bf16(recon8[lb], recon_scale).transpose(1, 2))
+        if ip:
+            scores = dots + ordered_row_sum(qs, cent[:, None, :])[:, :, None]
+        else:
+            scores = ordered_row_sum(qres, qres)[:, :, None] - 2.0 * dots + recon_norm[lb][:, None]
+        scores = torch.where(slot_rows_pad[lb][:, None, :] >= 0, scores, worst)
+        return scores.to(torch.bfloat16) if trim_bf16 else scores
+
+    v, rows = score_and_select(tables, block, slot_rows_pad, _select_k_impl, nq, n_probes, int(k),
+                               not ip, chunk, max_list)
+    return _finish(v, rows, metric)
+
+
+def _resolve_score_mode(params: SearchParams, nq: int, n_probes: int, n_lists: int) -> str:
+    """score_mode="auto" as the JAX package resolves it off a TPU without
+    a tuned key: an int8 or a pallas, exact or fused trim pins
+    "recon8_list" (the only engine that honors them); else "recon8_list"
+    when the batch re-reads each list at least 4 times (nq * n_probes /
+    n_lists >= 4), and "lut" below that."""
+    mode = params.score_mode
+    if mode != "auto":
+        return mode
+    if params.score_dtype == "int8" or params.trim_engine in ("pallas", "exact", "fused"):
+        return "recon8_list"
+    return "recon8_list" if nq * n_probes / max(1, n_lists) >= 4.0 else "lut"
+
+
+def resolve_search(params: SearchParams, nq: int, n_probes: int, n_lists: int):
+    """(score_mode, trim_engine, internal_distance_dtype) that a search
+    with `params` runs, each "auto" resolved as the JAX package resolves
+    it without a tuned value (trim "approx", distances "float32"); raises
+    ValueError on an unknown or contradictory request."""
+    if params.score_dtype not in ("bf16", "int8"):
+        raise ValueError(f"unknown score_dtype {params.score_dtype!r}")
+    idd = "float32" if params.internal_distance_dtype == "auto" else params.internal_distance_dtype
+    if idd not in ("float32", "float16", "bfloat16"):
+        raise ValueError(f"unknown internal_distance_dtype {params.internal_distance_dtype!r}")
+    if params.lut_dtype not in ("float32", "bfloat16"):
+        raise ValueError(f"unknown lut_dtype {params.lut_dtype!r}")
+    mode = params.score_mode
+    if mode == "auto":
+        mode = _resolve_score_mode(params, nq, n_probes, n_lists)
+    elif params.score_dtype == "int8" and mode != "recon8_list":
+        raise ValueError(
+            f"score_dtype='int8' requires score_mode 'recon8_list' or 'auto', got {mode!r}")
+    if mode not in ("lut", "recon8", "recon8_list"):
+        raise ValueError(f"unknown score_mode {mode!r}")
+    trim = params.trim_engine
+    if trim not in ("auto", "approx", "exact", "pallas", "fused"):
+        raise ValueError(f"unknown trim_engine {trim!r}")
+    trim = "approx" if trim == "auto" else trim
+    if trim in ("pallas", "exact", "fused") and mode != "recon8_list":
+        raise ValueError(f"trim_engine='{trim}' requires score_mode 'recon8_list'")
+    return mode, trim, idd
+
+
 def search(params: SearchParams, index: Index, queries, k: int, prefilter=None
            ) -> Tuple[torch.Tensor, torch.Tensor]:
     """ANN search; returns (distances (nq, k) f32, neighbor source ids
     (nq, k) int32, -1 where fewer than k candidates exist), on the
-    index's device. Caps and shared-memory budgets are checked before
-    the first search builds the index's reconstruction store, so a
-    rejected request leaves the index as it was. `prefilter`: a
-    `core.bitset.Bitset` or 1-d boolean mask over the index's id space
+    index's device. The engine is `resolve_search`'s (module docstring).
+    Caps and shared-memory budgets of the fused and pallas trims are
+    checked before the first search builds the index's reconstruction
+    store, so a rejected request leaves the index as it was. `prefilter`:
+    a `core.bitset.Bitset` or 1-d boolean mask over the index's id space
     (`index.id_bound` ids); samples whose bit is clear are excluded
-    before either trim."""
+    before any selection."""
     from raft_tpu_torch.core.bitset import make_slot_filter
     from raft_tpu_torch.matrix.select_k import check_fused_list_request
     from raft_tpu_torch.neighbors.probe_invert import macro_batched
     from raft_tpu_torch.ops.pq_list_scan import _BINS, fits_pq_list_scan, fold_variant, lane_padded
 
-    if params.score_dtype not in ("bf16", "int8"):
-        raise ValueError(f"unknown score_dtype {params.score_dtype!r}")
-    int8 = params.score_dtype == "int8"
-    mode = params.score_mode
-    if mode == "auto":
-        raise _not_ported("score_mode='auto'")
-    if int8 and mode != "recon8_list":
-        raise ValueError(
-            f"score_dtype='int8' requires score_mode 'recon8_list' or 'auto', got {mode!r}")
-    if mode != "recon8_list":
-        raise _not_ported(f"score_mode={mode!r}")
-    trim = params.trim_engine
-    if trim not in ("auto", "approx", "exact", "pallas", "fused"):
-        raise ValueError(f"unknown trim_engine {trim!r}")
-    if trim not in ("fused", "pallas"):
-        raise _not_ported(f"trim_engine={trim!r}")
-    if params.adaptive:
-        raise _not_ported("adaptive probing")
     q = check_matrix(queries, index.device, name="queries").float()
     if q.shape[1] != index.dim:
         raise ValueError(f"query dim {q.shape[1]} != index dim {index.dim}")
     if index.size == 0:
         raise ValueError("index is empty")
     n_probes = int(min(max(1, params.n_probes), index.n_lists))
+    mode, trim, idd = resolve_search(params, q.shape[0], n_probes, index.n_lists)
+    if params.adaptive or params.recall_target is not None or params.budget_tau is not None:
+        raise _not_ported("adaptive probing", 7)
+    int8 = params.score_dtype == "int8"
+    per_cluster = index.params.codebook_kind == PER_CLUSTER
     lpad = lane_padded(int(index.codes.shape[1]))
-    # a filtered view of the padded slot table is the whole prefilter:
-    # both trims put +inf base where it reads -1
+    # a filtered view of a slot table is the whole prefilter: every
+    # engine scores its -1 slots as the worst value
     maybe_filter = make_slot_filter(prefilter, index.id_bound, index.source_ids)
-    if trim == "fused":
+    if mode == "lut":
+        vals, rows = _search_impl(q, index.rotation, index.centers, index.pq_centers,
+                                  index.codes, maybe_filter(index.slot_rows), int(k), n_probes,
+                                  index.metric, per_cluster, params.lut_dtype == "bfloat16")
+    elif mode == "recon8":
+        build_reconstruction(index)
+        vals, rows = _search_impl_recon8(q, index.rotation, index.centers, index.recon8,
+                                         index.recon_scale, index.recon_norm,
+                                         maybe_filter(index.slot_rows_pad), int(k), n_probes,
+                                         index.metric)
+    elif trim in ("approx", "exact"):
+        build_reconstruction(index)
+        srows_pad = maybe_filter(index.slot_rows_pad)
+        vals, rows = macro_batched(
+            lambda sl: _search_impl_recon8_listmajor(
+                sl, index.rotation, index.centers, index.recon8, index.recon_scale,
+                index.recon_norm, srows_pad, int(k), n_probes, index.metric,
+                int8_queries=int8, trim_bf16=idd != "float32"), q, int(k))
+    elif trim == "fused":
         # at the buffer width the kernel will run with
         kb = check_fused_list_request("trim_engine='fused'", lpad, index.rot_dim, int(k),
                                       index.fused_kb, "trim_engine='pallas'", q_int8=int8)
         build_reconstruction(index)
         index.fused_kb = kb
         srows_pad = maybe_filter(index.slot_rows_pad)
-
-        def run(sl):
-            return _search_impl_recon8_listmajor_fused(
+        vals, rows = macro_batched(
+            lambda sl: _search_impl_recon8_listmajor_fused(
                 sl, index.rotation, index.centers, index.recon8, index.recon_scale,
                 index.recon_norm, srows_pad, int(k), n_probes, index.metric, kb=kb,
-                int8_queries=int8)
+                int8_queries=int8), q, int(k))
     else:
         if int(k) > _BINS:
             raise ValueError(f"trim_engine='pallas' caps per-list candidates at {_BINS}; k={k}")
@@ -635,13 +928,10 @@ def search(params: SearchParams, index: Index, queries, k: int, prefilter=None
         build_reconstruction(index)
         fold = fold_variant()
         srows_pad = maybe_filter(index.slot_rows_pad)
-
-        def run(sl):
-            return _search_impl_recon8_listmajor_pallas(
+        vals, rows = macro_batched(
+            lambda sl: _search_impl_recon8_listmajor_pallas(
                 sl, index.rotation, index.centers, index.recon8, index.recon_scale,
                 index.recon_norm, srows_pad, int(k), n_probes, index.metric,
-                int8_queries=int8, fold=fold)
-
-    vals, rows = macro_batched(run, q, int(k))
+                int8_queries=int8, fold=fold), q, int(k))
     ids = torch.where(rows >= 0, index.source_ids[torch.clamp(rows, min=0).long()], -1)
     return vals, ids.to(torch.int32)

@@ -1,12 +1,12 @@
 """Vector quantizers of the IVF indexes (counterpart of
 raft_tpu/neighbors/quantizer.py).
 
-  `PqQuantizer`      product quantization. Per-subspace codebooks only:
-                     every subspace trains its own 2^pq_bits-entry
-                     codebook with balanced EM, all subspaces in one
-                     batched call (the JAX package vmaps the same
-                     trainer). Per-cluster codebooks are still to be
-                     ported.
+  `PqQuantizer`      product quantization. Per-subspace codebooks (every
+                     subspace trains its own 2^pq_bits-entry codebook)
+                     or per-cluster ones (every list trains one codebook
+                     over the pooled subvectors of its residuals); either
+                     way one batched balanced-EM call trains them all
+                     (the JAX package vmaps the same trainer).
   `RabitqQuantizer`  RaBitQ: the sign bits of a rotated residual packed
                      into 32-bit words, plus two correction scalars per
                      row (|r| and <o, x_bar>), scored by AND+popcount
@@ -36,13 +36,6 @@ PER_SUBSPACE = "per_subspace"
 PER_CLUSTER = "per_cluster"
 
 
-def _per_cluster_not_ported():
-    return NotImplementedError(
-        "codebook_kind='per_cluster' is not ported yet (ROADMAP Queue A, "
-        "left out of the first slice)"
-    )
-
-
 def _train_codebooks_per_subspace(gen: torch.Generator, residuals: torch.Tensor,
                                   pq_dim: int, n_codebook: int, n_iters: int) -> torch.Tensor:
     """residuals (n, rot_dim) -> (pq_dim, n_codebook, pq_len) codebooks
@@ -61,24 +54,74 @@ def _train_codebooks_per_subspace(gen: torch.Generator, residuals: torch.Tensor,
     return _balanced_em(gen, sub, inits, n_iters, "sqeuclidean")
 
 
-def _encode(residuals: torch.Tensor, pq_centers: torch.Tensor,
-            block_elems: int = 1 << 26) -> torch.Tensor:
-    """Residuals (n, rot_dim) -> codes (n, pq_dim) uint8: per-subspace
-    nearest codebook entry (compute_pq_code, ivf_pq_build.cuh:578), ties
-    to the lower entry as `jnp.argmin`."""
+def _train_codebooks_per_cluster(gen: torch.Generator, residuals: torch.Tensor,
+                                 labels: torch.Tensor, n_lists: int, pq_len: int,
+                                 n_codebook: int, n_iters: int,
+                                 samples_per_cluster: int = 2048) -> torch.Tensor:
+    """Per-cluster codebooks (train_per_cluster, ivf_pq_build.cuh:473):
+    residuals (n, rot_dim) with their lists `labels` -> (n_lists,
+    n_codebook, pq_len). Each list trains one codebook over the pooled
+    pq_len-subvectors of its residuals, all lists in one batched EM. A
+    list's `samples_per_cluster` training subvectors are drawn on the
+    device: without replacement from its subvectors when it has enough,
+    with replacement when it has fewer, and gaussian when it has none (as
+    the JAX package's host loop draws them)."""
+    n, rot_dim = residuals.shape
+    pq_dim = rot_dim // pq_len
+    dev = residuals.device
+    sub = residuals.float().reshape(n * pq_dim, pq_len)
+    sub_labels = labels.long().repeat_interleave(pq_dim)
+    # each list's subvectors in a random order: sort by (list, random key)
+    keys = sub_labels.double() + torch.rand(sub.shape[0], generator=gen, device=dev,
+                                            dtype=torch.float64)
+    order = torch.argsort(keys)
+    counts = torch.bincount(sub_labels, minlength=n_lists)
+    starts = torch.cumsum(counts, 0) - counts
+    j = torch.arange(samples_per_cluster, device=dev)[None, :]
+    redraw = torch.floor(torch.rand((n_lists, samples_per_cluster), generator=gen, device=dev)
+                         * counts[:, None]).long()
+    pos = torch.where(counts[:, None] >= samples_per_cluster, j, redraw)
+    take = order[torch.clamp(starts[:, None] + pos, max=sub.shape[0] - 1)]
+    batch = sub[take]  # (n_lists, spc, pq_len)
+    empty = counts == 0
+    if bool(empty.any()):
+        noise = torch.randn((n_lists, samples_per_cluster, pq_len), generator=gen, device=dev)
+        batch = torch.where(empty[:, None, None], noise, batch)
+    init_idx = torch.topk(torch.rand((n_lists, samples_per_cluster), generator=gen, device=dev),
+                          n_codebook, dim=1).indices
+    inits = torch.gather(batch, 1, init_idx[..., None].expand(-1, -1, pq_len))
+    return _balanced_em(gen, batch, inits, n_iters, "sqeuclidean")
+
+
+def _encode(residuals: torch.Tensor, labels: Optional[torch.Tensor], pq_centers: torch.Tensor,
+            per_cluster: bool = False, block_elems: int = 1 << 26) -> torch.Tensor:
+    """Residuals (n, rot_dim) -> codes (n, pq_dim) uint8, the nearest
+    codebook entry of each subvector (compute_pq_code,
+    ivf_pq_build.cuh:578), ties to the lower entry as `jnp.argmin`.
+    Per-subspace codebooks (pq_dim, nb, pq_len); per-cluster ones
+    (n_lists, nb, pq_len), each row against its list's (`labels`)."""
     strict_f32_matmul()
     n, rot_dim = residuals.shape
-    pq_dim, nb, pq_len = pq_centers.shape
+    nb, pq_len = pq_centers.shape[1:]
+    pq_dim = rot_dim // pq_len
     cb = pq_centers.float()
-    cn = torch.sum(cb * cb, dim=2)  # (pq_dim, nb)
+    cn = torch.sum(cb * cb, dim=2)  # (books, nb)
     codes = torch.empty((n, pq_dim), dtype=torch.uint8, device=residuals.device)
-    bm = max(1, block_elems // max(1, pq_dim * nb))
+    bm = max(1, block_elems // max(1, pq_dim * nb + (nb * pq_len if per_cluster else 0)))
     for s in range(0, n, bm):
-        rb = residuals[s:s + bm].float().reshape(-1, pq_dim, pq_len).transpose(0, 1)
-        d = (torch.sum(rb * rb, dim=2)[:, :, None]
-             - 2.0 * torch.bmm(rb, cb.transpose(1, 2))
-             + cn[:, None, :])  # (pq_dim, bm, nb)
-        codes[s:s + bm] = torch.argmin(d, dim=2).T.to(torch.uint8)
+        rb = residuals[s:s + bm].float().reshape(-1, pq_dim, pq_len)
+        if per_cluster:
+            lb = labels[s:s + bm].long()
+            d = (torch.sum(rb * rb, dim=2)[:, :, None]
+                 - 2.0 * torch.bmm(rb, cb[lb].transpose(1, 2))
+                 + cn[lb][:, None, :])  # (bm, pq_dim, nb)
+            codes[s:s + bm] = torch.argmin(d, dim=2).to(torch.uint8)
+        else:
+            rb = rb.transpose(0, 1)
+            d = (torch.sum(rb * rb, dim=2)[:, :, None]
+                 - 2.0 * torch.bmm(rb, cb.transpose(1, 2))
+                 + cn[:, None, :])  # (pq_dim, bm, nb)
+            codes[s:s + bm] = torch.argmin(d, dim=2).T.to(torch.uint8)
     return codes
 
 
@@ -98,7 +141,8 @@ class Quantizer:
 
 class PqQuantizer(Quantizer):
     """Product-quantization state: per-subspace codebooks
-    (pq_dim, 2^pq_bits, pq_len)."""
+    (pq_dim, 2^pq_bits, pq_len) or per-cluster ones (n_lists, 2^pq_bits,
+    pq_len)."""
 
     kind = "pq"
 
@@ -107,8 +151,6 @@ class PqQuantizer(Quantizer):
                  pq_centers: Optional[torch.Tensor] = None, n_iters: int = 25):
         if codebook_kind not in (PER_SUBSPACE, PER_CLUSTER):
             raise ValueError(f"bad codebook_kind {codebook_kind}")
-        if codebook_kind == PER_CLUSTER:
-            raise _per_cluster_not_ported()
         self.codebook_kind = codebook_kind
         self.pq_bits = int(pq_bits)
         self.pq_dim = int(pq_dim)
@@ -117,23 +159,32 @@ class PqQuantizer(Quantizer):
         self.n_iters = int(n_iters)
         self.pq_centers = pq_centers
 
+    @property
+    def per_cluster(self) -> bool:
+        return self.codebook_kind == PER_CLUSTER
+
     @classmethod
     def from_centers(cls, pq_centers: torch.Tensor, per_cluster: bool = False) -> "PqQuantizer":
         """Wrap already-trained codebooks (the encode-only path of extend)."""
-        if per_cluster:
-            raise _per_cluster_not_ported()
-        q = cls(PER_SUBSPACE, pq_dim=int(pq_centers.shape[0]),
+        q = cls(PER_CLUSTER if per_cluster else PER_SUBSPACE,
                 pq_len=int(pq_centers.shape[-1]))
         q.pq_centers = pq_centers
         return q
 
     def train(self, gen: torch.Generator, residuals: torch.Tensor, labels=None) -> "PqQuantizer":
-        self.pq_centers = _train_codebooks_per_subspace(
-            gen, residuals, self.pq_dim, 1 << self.pq_bits, self.n_iters)
+        """Fit the codebooks to a residual sample; per-cluster training
+        needs the residuals' lists (`labels`)."""
+        nb = 1 << self.pq_bits
+        if self.per_cluster:
+            self.pq_centers = _train_codebooks_per_cluster(
+                gen, residuals, labels, self.n_lists, self.pq_len, nb, self.n_iters)
+        else:
+            self.pq_centers = _train_codebooks_per_subspace(
+                gen, residuals, self.pq_dim, nb, self.n_iters)
         return self
 
     def encode(self, residuals: torch.Tensor, labels=None) -> Dict[str, torch.Tensor]:
-        return {"codes": _encode(residuals, self.pq_centers)}
+        return {"codes": _encode(residuals, labels, self.pq_centers, self.per_cluster)}
 
 
 # ---------------------------------------------------------------------------
@@ -195,21 +246,25 @@ def ordered_row_sum(x: torch.Tensor, y: Optional[torch.Tensor] = None) -> torch.
     through here (|r| and sum |r| at encode; each (query, list) pair's
     residual sum and qconst at search), so that the port's estimator
     agrees with the reference's: torch.sum's order moves near-tie ranks.
-    It costs one step per element of a block."""
+    It costs one step per element of a block; the summed axis is moved to
+    the front once, so that each step reads contiguous memory."""
     D = x.shape[-1]
     if D <= _XLA_BLOCK:
-        acc = torch.zeros(torch.broadcast_shapes(x.shape, x.shape if y is None else y.shape)[:-1],
-                          dtype=torch.float32, device=x.device)
+        shape = torch.broadcast_shapes(x.shape, x.shape if y is None else y.shape)
+        xt = x.expand(shape).movedim(-1, 0).contiguous()
+        yt = None if y is None else y.expand(shape).movedim(-1, 0).contiguous()
+        acc = torch.zeros(shape[:-1], dtype=torch.float32, device=x.device)
         for i in range(D):
-            acc = acc + x[..., i] if y is None else _fma_f32(x[..., i], y[..., i], acc)
+            acc = acc + xt[i] if y is None else _fma_f32(xt[i], yt[i], acc)
         return acc
     if y is not None:
         x = x * y
     blocks = torch.nn.functional.pad(x, (0, (-D) % _XLA_BLOCK)).reshape(*x.shape[:-1], -1,
                                                                        _XLA_BLOCK)
+    bt = blocks.movedim(-1, 0).contiguous()
     acc = torch.zeros(blocks.shape[:-1], dtype=torch.float32, device=x.device)
     for i in range(_XLA_BLOCK):
-        acc = acc + blocks[..., i]
+        acc = acc + bt[i]
     return ordered_row_sum(acc)
 
 

@@ -19,6 +19,7 @@ import pytest
 import torch
 
 import raft_tpu_torch
+from raft_tpu_torch.cluster import kmeans, kmeans_balanced
 from raft_tpu_torch.core.config import resolve_device
 from raft_tpu_torch.distance import fused_l2_nn, pairwise
 from raft_tpu_torch.matrix.select_k import select_k
@@ -87,6 +88,9 @@ def test_entry_points_never_answer_a_cuda_request_on_the_cpu(monkeypatch):
         lambda: ivf_flat.build(ivf_flat.IndexParams(n_lists=4), x),
         lambda: ivf_flat.index_from_arrays({}, ivf_flat.IndexParams(n_lists=4)),
         lambda: brute_force.knn(x, x[:4], 5, prefilter=np.ones(300, bool)),
+        lambda: kmeans.fit(x, n_clusters=4),
+        lambda: kmeans.predict(x, x[:4]),
+        lambda: kmeans_balanced.fit_hierarchical(x, 100),
     ]
     for call in calls:
         with pytest.raises(RuntimeError, match="CUDA"):

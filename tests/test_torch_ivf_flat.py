@@ -18,10 +18,12 @@ port runs its plain kernel versions on the CPU.
   (rtol 1e-6);
 - `resolve_auto_engine` decides as the JAX package does without a tuned
   value, over a grid of (nq, n_probes, n_lists);
-- the port's own build reaches recall@10 within 0.03 of the JAX build's;
+- the port's own build reaches recall@10 within 0.03 of the JAX build's,
+  and so does a build past 1024 lists (the hierarchical trainer);
 - probes: k 257 on "pallas" raises before the residual store is built;
   adaptive probing, save, load and list radii raise NotImplementedError
-  naming ROADMAP Queue A.
+  naming ROADMAP Queue A; a build at 1025 lists of equal rows gives
+  finite centers.
 """
 
 import numpy as np
@@ -227,6 +229,30 @@ def test_own_build_reaches_the_jax_recall(data):
             assert tr >= jr - 0.03, (n_probes, engine, tr, jr)
 
 
+def test_build_past_1024_lists_reaches_the_jax_recall():
+    """n_lists 1025 on 10,000 x 8 blob rows: both packages train the
+    coarse centers with fit_hierarchical; recall@10 of the port's engines
+    within 0.03 of the JAX default engine's."""
+    rng = np.random.default_rng(32)
+    blobs = rng.uniform(-5, 5, (64, 8)).astype(np.float32)
+    x = (blobs[rng.integers(0, 64, 10_000)] + rng.standard_normal((10_000, 8))).astype(np.float32)
+    q = (blobs[rng.integers(0, 64, 64)] + rng.standard_normal((64, 8))).astype(np.float32)
+    truth = np.asarray(jbf.knn(x, q, K)[1])
+
+    def recall(ids):
+        return np.mean([len(set(ids[r]) & set(truth[r])) / K for r in range(len(q))])
+
+    params = dict(n_lists=1025, kmeans_n_iters=5)
+    jidx = jfl.build(jfl.IndexParams(**params), x)
+    tidx = tfl.build(tfl.IndexParams(**params), x, device="cpu")
+    assert tidx.centers.shape == (1025, 8) and int(tidx.list_sizes.sum()) == 10_000
+    jr = recall(np.asarray(jfl.search(jfl.SearchParams(n_probes=32), jidx, q, K)[1]))
+    for engine in ("query", "fused"):
+        tr = recall(tfl.search(tfl.SearchParams(n_probes=32, engine=engine), tidx,
+                               torch.tensor(q), K)[1].numpy())
+        assert tr >= jr - 0.03, (engine, tr, jr)
+
+
 def test_probes_raise(data, indexes):
     _, q = data
     jidx, tidx = indexes["sqeuclidean"]
@@ -246,8 +272,12 @@ def test_probes_raise(data, indexes):
         tfl.load("x.bin")
     with pytest.raises(NotImplementedError, match="Queue A item 7"):
         tidx.list_radii
-    with pytest.raises(NotImplementedError, match="Queue A item 5"):
-        tfl.build(tfl.IndexParams(n_lists=1025), np.zeros((2000, 4), np.float32), device="cpu")
+    # past 1024 lists the build trains hierarchically (Queue A item 5 is
+    # ported): 2000 equal rows still give 1025 finite centers
+    wide = tfl.build(tfl.IndexParams(n_lists=1025), np.zeros((2000, 4), np.float32),
+                     device="cpu")
+    assert wide.centers.shape == (1025, 4) and torch.isfinite(wide.centers).all()
+    assert int(wide.list_sizes.sum()) == 2000
     with pytest.raises(ValueError, match="unknown engine"):
         tfl.search(tfl.SearchParams(engine="nope"), tidx, qt, K)
     with pytest.raises(ValueError, match="query dim"):

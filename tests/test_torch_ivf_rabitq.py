@@ -25,7 +25,9 @@ exact rotation, on that index:
   values bit for bit (grid rows: exact distances);
 - extend with custom indices: the same slot tables as the JAX extend
   (codes and aux bit for bit), and the same search answers.
-The port's own build reaches the JAX tests' recall (test_ivf_rabitq.py:65).
+The port's own build reaches the JAX tests' recall (test_ivf_rabitq.py:65),
+and past 1024 lists (the hierarchical coarse trainer) the JAX build's
+recall within 0.03.
 """
 
 import jax.numpy as jnp
@@ -199,6 +201,26 @@ def test_own_build_reaches_the_jax_recall():
         assert rec >= 0.9, (engine, rec)
         d0 = ((blobs[:50] - blobs[i[:, 0]]) ** 2).sum(1)  # exact after the rerank
         np.testing.assert_allclose(v.numpy()[:, 0], d0, rtol=1e-4, atol=1e-3)
+
+
+def test_build_past_1024_lists_reaches_the_jax_recall():
+    rng = np.random.default_rng(33)
+    blobs = rng.uniform(-5, 5, (64, 32)).astype(np.float32)
+    x = (blobs[rng.integers(0, 64, 10_000)] + rng.standard_normal((10_000, 32))).astype(np.float32)
+    q = (blobs[rng.integers(0, 64, 32)] + rng.standard_normal((32, 32))).astype(np.float32)
+    truth = np.asarray(jbf.knn(x, q, 10)[1])
+
+    def recall(ids):
+        return np.mean([len(set(ids[r]) & set(truth[r])) / 10 for r in range(len(q))])
+
+    params = dict(n_lists=1025, kmeans_n_iters=5)
+    sp = dict(n_probes=32, rerank_mult=8, scan_engine="xla")
+    jidx = jr.build(jr.IndexParams(**params), x)
+    tidx = tr.build(tr.IndexParams(**params), x, device="cpu")
+    assert tidx.centers.shape == (1025, 32) and int(tidx.list_sizes.sum()) == 10_000
+    jrec = recall(np.asarray(jr.search(jr.SearchParams(**sp), jidx, q, 10)[1]))
+    trec = recall(tr.search(tr.SearchParams(**sp), tidx, torch.tensor(q), 10)[1].numpy())
+    assert trec >= jrec - 0.03, (trec, jrec)
 
 
 def test_not_ported_and_bad_requests(data, indexes):

@@ -99,3 +99,72 @@ def test_sample_without_replacement_draws_distinct_rows():
     assert int(s.min()) >= 0 and int(s.max()) < 1000
     with pytest.raises(ValueError):
         sample_without_replacement(gen, 5, 6)
+
+
+def test_pack_lists_matches_jax(rng):
+    from raft_tpu.neighbors.ivf_flat import _pack_lists as jax_pack
+    from raft_tpu_torch.neighbors.ivf_flat import _pack_lists
+
+    labels = rng.integers(0, 7, 500)
+    labels[labels == 3] = 2  # list 3 empty
+    for group in (8, 32):
+        jr, js = jax_pack(labels.astype(np.int64), 9, group=group)
+        tr, ts = _pack_lists(torch.tensor(labels), 9, group=group)
+        np.testing.assert_array_equal(tr.numpy(), jr)
+        np.testing.assert_array_equal(ts.numpy(), js)
+
+
+def test_padded_rows_never_move_a_center(rng):
+    """Padding rows (weight 0, past `valid_n`) sit far away; no center of
+    the batched EM may move toward them, whatever their count."""
+    real = [300, 120, 7]
+    parts = torch.full((3, 320, 4), 1e6)
+    weights = torch.zeros((3, 320))
+    for b, nv in enumerate(real):
+        parts[b, :nv] = torch.tensor(rng.standard_normal((nv, 4)).astype(np.float32))
+        weights[b, :nv] = 1.0
+    gen = make_generator(0, "cpu")
+    c = tkb._fit_partitions(gen, parts, weights, torch.tensor(real), 6, 5, "sqeuclidean")
+    assert c.shape == (3, 6, 4) and torch.isfinite(c).all()
+    assert float(c.abs().max()) < 10.0
+
+
+def test_fit_with_max_train_points_and_fit_predict(rng):
+    x = _blobs(rng, 3000, 8, 6)
+    c = tkb.fit(x, 24, n_iters=5, seed=1, max_train_points=500, device="cpu")
+    jc = np.asarray(jkb.fit(x, 24, n_iters=5, seed=1, max_train_points=500))
+    _, _, _, ti = assign_and_reduce(torch.tensor(x), c)
+    _, _, _, ji = assign_and_reduce(torch.tensor(x), torch.tensor(jc))
+    assert abs(float(ti) / float(ji) - 1.0) <= 0.05
+    centers, labels = tkb.fit_predict(x, 6, n_iters=5, seed=1, device="cpu")
+    assert torch.equal(labels, tkb.predict(x, centers, device="cpu"))
+
+
+@pytest.mark.parametrize("n_clusters", [100, 103])
+def test_fit_hierarchical_inertia_within_five_percent_of_jax(rng, n_clusters):
+    """103 is not a multiple of k_meso (10): 7 surplus centers drop."""
+    x = _blobs(rng, 5000, 8, 40)
+    jc = np.asarray(jkb.fit_hierarchical(x, n_clusters, n_iters=6, seed=2))
+    tc = tkb.fit_hierarchical(x, n_clusters, n_iters=6, seed=2, device="cpu")
+    assert tc.shape == jc.shape == (n_clusters, 8) and torch.isfinite(tc).all()
+    _, _, _, j_inertia = assign_and_reduce(torch.tensor(x), torch.tensor(jc))
+    _, _, _, t_inertia = assign_and_reduce(torch.tensor(x), tc)
+    ratio = float(t_inertia) / float(j_inertia)
+    assert abs(ratio - 1.0) <= 0.05, ratio
+
+
+def test_fit_hierarchical_empty_partitions_take_their_mesocenter(rng):
+    """Five distinct points for ten mesoclusters: duplicate mesocenters
+    leave partitions empty; their fine centers are the mesocenter, and
+    every center stays finite (as in the JAX package)."""
+    pts = rng.uniform(-3, 3, (5, 4)).astype(np.float32)
+    x = pts[rng.integers(0, 5, 2000)]
+    tc = tkb.fit_hierarchical(x, 100, n_iters=3, seed=0, device="cpu")
+    jc = np.asarray(jkb.fit_hierarchical(x, 100, n_iters=3, seed=0))
+    assert tc.shape == jc.shape == (100, 4)
+    assert torch.isfinite(tc).all() and np.isfinite(jc).all()
+    meso = tkb.fit(x, 10, n_iters=3, seed=0, device="cpu")
+    labels = tkb.predict(x, meso, device="cpu")
+    assert len(set(labels.tolist())) < 10  # some partition is empty
+    d = ((tc[:, None, :] - torch.tensor(pts)[None]) ** 2).sum(-1).min(dim=1).values
+    assert float(d.max()) < 1e-6  # every center is one of the points

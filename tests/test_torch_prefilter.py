@@ -265,7 +265,8 @@ def test_ivf_pq_keeps_k_minus_one_rows(data, pq):
     keep[np.random.default_rng(6).choice(N, K - 1, replace=False)] = True
     _, ji = jpq.search(jpq.SearchParams(n_probes=N_LISTS, score_mode="recon8_list",
                                         trim_engine="fused"), jidx, q, K, prefilter=keep)
-    tv, ti = tpq.search(tpq.SearchParams(n_probes=N_LISTS), tidx, torch.tensor(q), K,
+    tv, ti = tpq.search(tpq.SearchParams(n_probes=N_LISTS, score_mode="recon8_list",
+                                         trim_engine="fused"), tidx, torch.tensor(q), K,
                         prefilter=keep)
     for r in range(NQ):
         assert set(ti[r].tolist()) == set(np.asarray(ji)[r].tolist())
