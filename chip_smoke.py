@@ -5,6 +5,9 @@
                                        # control flow, prints no result, exits 3
     python3 chip_smoke.py --checks     # on the card: phases 1-3 only (build,
                                        # ptxas lines, adversarial checks); exits 4
+    python3 chip_smoke.py --apply      # as the first, and writes the tuned A/B
+                                       # winners and the adaptive policy as
+                                       # raft_tpu_torch/tuned_defaults.json
 
 Phases, in order; any failure exits non-zero:
   1. the card's name and power limit (nvidia-smi), torch and CUDA versions;
@@ -104,7 +107,28 @@ Phases, in order; any failure exits non-zero:
      the fused bf16, fused int8 and pallas ladders and lut; an index of
      4096 lists (kmeans_balanced.fit_hierarchical) on the fused ladder;
      Lloyd kmeans.fit (1024 clusters, 20 iterations, k-means++) beside
-     kmeans_balanced.fit's cost;
+     kmeans_balanced.fit's cost. Phases 4 and 5 run under an empty tuned
+     table: the JAX package's untuned program, each engine by name;
+  4b. the tuned table (tuned_path): every tuned key the port reads, A/B
+     of the untuned resolution against each candidate by name, with
+     recall@10, each key on top of the winners before it (the cells in
+     tuned_path's docstring); with --apply the winners are written as
+     raft_tpu_torch/tuned_defaults.json. Then the committed table, read
+     afresh (a file that does not load fails): each promotion's default
+     call launches its kernel, clears the gate and returns the ids of the
+     explicit engine it resolved to (order within equal values aside);
+     the default IVF-PQ batch's QPS at nq 4096 and 128 and its profile;
+  4c. adaptive probing: the adaptive_probe_policy calibration
+     (calibrate_policy: bench/bench_adaptive_probes.py's procedure and
+     data, overlapping blobs; a ladder that reads one recall at every tau
+     gives no policy; with --apply a policy is committed), then
+     (adaptive_path) at n_probes 32 on IVF-PQ fused bf16 + refine,
+     IVF-Flat fused and IVF-RaBitQ fused the recall_target ladder 0.90 /
+     0.95 / 0.99 / 1.0 and budget_tau rungs, with and without early
+     termination: recall@10, lists a query, ms a batch; recall_target 1.0
+     equal to the fixed search bit for bit; every masked rung's ids in the
+     lists its mask kept, and its search equal to the same search through
+     the kernels' plain versions (256 queries);
   5. each kernel against its plain version on the inputs the main path gave
      it, with kernel, plain and library times (CUDA events) and the bound;
      kernel 1 also at IVF-Flat's own shape (bf16 residual store, n_probes
@@ -127,8 +151,10 @@ from __future__ import annotations
 import argparse
 import contextlib
 import json
+import os
 import subprocess
 import sys
+import tempfile
 import time
 
 import numpy as np
@@ -1404,8 +1430,10 @@ def sorted_top_ab(g, run, sync):
     sort and with the repaired order-key sort, in turns: earlier,
     repaired, repaired, earlier; each turn QPS over g.windows windows of
     g.batch_reps back-to-back batches."""
-    from raft_tpu_torch.matrix import select_k as sk
+    import importlib
 
+    # the module (the package's `select_k` is the function)
+    sk = importlib.import_module("raft_tpu_torch.matrix.select_k")
     repaired, out = sk._sorted_top, {"earlier": [], "repaired": []}
     try:
         for label in ("earlier", "repaired", "repaired", "earlier"):
@@ -2142,6 +2170,808 @@ def check_truth(res, k, dev):
 
 
 # ---------------------------------------------------------------------------
+# phase 4b: the tuned table (A/B of every key, then the committed table)
+# ---------------------------------------------------------------------------
+
+
+@contextlib.contextmanager
+def table(values):
+    """Run under the tuned table `values` (a dict) in place of the
+    committed file, on any device (the CPU rehearsal too). `table({})` is
+    the untuned resolution, the JAX package's program without a tuned
+    value."""
+    from raft_tpu_torch.core import tuned
+
+    load, applies = tuned._load, tuned.applies
+    tuned._load = lambda: dict(values)
+    tuned.applies = lambda device: device is not None
+    try:
+        yield
+    finally:
+        tuned._load, tuned.applies = load, applies
+
+
+@contextlib.contextmanager
+def committed(dev):
+    """Run under the committed table file, read afresh. On the CPU
+    rehearsal the table is made to govern the CPU too, so that the
+    promoted paths run (their kernels' plain versions)."""
+    from raft_tpu_torch.core import tuned
+
+    tuned.reload()
+    applies = tuned.applies
+    if dev.type != "cuda":
+        tuned.applies = lambda device: device is not None
+    try:
+        yield
+    finally:
+        tuned.applies = applies
+
+
+def tie_equal(v1, i1, v2, i2) -> bool:
+    """Equal values, and ids equal but for their order within a group of
+    equal values (a group that reaches the row's end may hold other ids
+    of that value)."""
+    a, b = i1.cpu().numpy(), i2.cpu().numpy()
+    va, vb = v1.cpu().numpy(), v2.cpu().numpy()
+    if a.shape != b.shape or not np.array_equal(va, vb):
+        return False
+    for r in np.nonzero((a != b).any(axis=1))[0]:
+        for val in np.unique(va[r]):
+            m = va[r] == val
+            if not m[-1] and set(a[r][m]) != set(b[r][m]):
+                return False
+    return True
+
+
+#: a candidate wins a key when it is at most AB_KEEP times the untuned time
+#: in every cell, below AB_WIN times it in one, clears the recall gate, and
+#: loses at most AB_RECALL_LOSS of the untuned resolution's recall in every
+#: cell (the JAX package's rule for its engine defaults: a candidate more
+#: than 0.01 recall under the baseline is dropped, bench/apply_profile_hints.py)
+AB_WIN, AB_KEEP, AB_RECALL_LOSS = 0.97, 1.03, 0.01
+
+
+def ab_cells(key, cells, cands, base, g, sync):
+    """The A/B of one tuned key. `cells`: (label, run, truth, batches),
+    truth None for an exact engine held to its untuned answer;
+    `cands`: (name, value or None for the untuned resolution). Every
+    candidate runs under `base` (the winners of the keys before) with the
+    key set to its value: a first run for ids, recall and launches, then
+    ms a batch over `batches` back-to-back batches in two turns, the
+    candidates in order and then reversed, the better turn kept. Returns
+    {cell label: [row a candidate]}."""
+    from raft_tpu_torch.ops import _launch
+
+    def values(v):
+        t = {k2: v2 for k2, v2 in base.items() if k2 != key}
+        if v is not None:
+            if key == "hints":
+                t["hints"] = {**t.get("hints", {}), **v}
+            else:
+                t[key] = v
+        return t
+
+    out = {}
+    for label, run, truth, batches in cells:
+        rows = []
+        for name, v in cands:
+            with table(values(v)):
+                _launch.reset_launch_counts()
+                vals, ids = run()
+                sync()
+                launches = {n: c for n, c in _launch.launch_counts().items() if c}
+            rows.append({"candidate": name, "value": v, "launches": launches, "vals": vals,
+                         "ids": ids, "turns_ms": []})
+        for row in rows:  # truth None: the untuned (first) candidate's exact answer
+            row["recall"] = recall(row["ids"], truth if truth is not None else rows[0]["ids"])
+        for order in (rows, rows[::-1]):
+            for row in order:
+                with table(values(row["value"])):
+                    sync()
+                    t0 = time.perf_counter()
+                    for _ in range(batches):
+                        run()
+                    sync()
+                    row["turns_ms"].append((time.perf_counter() - t0) * 1e3 / batches)
+        for row in rows:
+            row["ms"] = min(row["turns_ms"])
+            log(f"tuned A/B {key}, {label}: {row['candidate']}: {row['ms']:.4f} ms a batch "
+                f"(turns {', '.join(f'{t:.4f}' for t in row['turns_ms'])}; {batches} batches "
+                f"a turn), recall@{g.k} {row['recall']:.4f}, launches {row['launches']}")
+        out[label] = rows
+    return out
+
+
+def ab_winner(key, res_by_cell, admissible=None):
+    """The winning candidate name of an A/B (the `AB_WIN`/`AB_KEEP`/
+    `AB_RECALL_LOSS` rule, the smallest summed time ratio among the
+    winners), or None."""
+    names = [r["candidate"] for r in next(iter(res_by_cell.values()))]
+    best, best_score = None, None
+    for name in names:
+        if name == "untuned" or (admissible is not None and name not in admissible):
+            continue
+        ratios, ok = [], True
+        for rows in res_by_cell.values():
+            base = next(r for r in rows if r["candidate"] == "untuned")
+            row = next(r for r in rows if r["candidate"] == name)
+            ratios.append(row["ms"] / base["ms"])
+            ok = (ok and row["recall"] >= RECALL_GATE and ratios[-1] <= AB_KEEP
+                  and row["recall"] >= base["recall"] - AB_RECALL_LOSS)
+        if ok and min(ratios) < AB_WIN and (best is None or sum(ratios) < best_score):
+            best, best_score = name, sum(ratios)
+    log(f"tuned A/B {key}: winner {best!r}" if best else
+        f"tuned A/B {key}: no winner (no candidate below {AB_WIN} of the untuned time in a "
+        f"cell and at most {AB_KEEP} in every cell at recall@10 >= {RECALL_GATE} and within "
+        f"{AB_RECALL_LOSS} of the untuned recall); left out")
+    return best
+
+
+def gate_winner(key, rows):
+    """Recall-driven keys (the RaBitQ depths): the fastest candidate that
+    clears the recall gate, unless the untuned one clears it within AB_KEEP
+    of that time (then None)."""
+    ok = [r for r in rows if r["recall"] >= RECALL_GATE]
+    if not ok:
+        log(f"tuned A/B {key}: no candidate clears recall@10 >= {RECALL_GATE}; left out")
+        return None
+    best = min(ok, key=lambda r: r["ms"])
+    base = next(r for r in rows if r["candidate"] == "untuned")
+    if best["candidate"] == "untuned" or (base["recall"] >= RECALL_GATE
+                                          and base["ms"] <= AB_KEEP * best["ms"]):
+        log(f"tuned A/B {key}: no winner (the untuned value clears the gate within "
+            f"{AB_KEEP} of the fastest); left out")
+        return None
+    log(f"tuned A/B {key}: winner {best['candidate']!r}")
+    return best["candidate"]
+
+
+def strip_ab(res_by_cell):
+    return {label: [{k2: v2 for k2, v2 in r.items() if k2 not in ("vals", "ids")}
+                    for r in rows] for label, rows in res_by_cell.items()}
+
+
+def tuned_path(g, dev, res, pm, fl, rb, sync, card, apply):
+    """Phase 4b: the A/B of every tuned key on the main path's data, then
+    the committed table's default calls. Each key's candidates run under
+    the winners of the keys before it (the order of the dispatch layers),
+    each candidate by name beside the untuned resolution, in the cells:
+      select_k_auto_strategy   the default IVF-PQ batch (SearchParams at
+                               the default ladder's gate rung + refine) and
+                               exact L1 k-NN over every row;
+      select_k_strategy        exact L2 k-NN, brute_force.knn(engine="auto");
+      select_k_strategy_int8   the default IVF-PQ batch with int8 rows;
+      select_k_strategy_bitplane  IVF-RaBitQ's default scan at its gate rung;
+      flat_auto_engine         IVF-Flat engine="auto" at its gate n_probes,
+                               nq g.nq and g.small_nq;
+      pq_auto_engine           IVF-PQ defaults at g.small_nq, n_probes
+                               SMALL_PROBES, and at g.nq (the gate rung);
+      internal_distance_dtype  the default IVF-PQ batch (a hint);
+      pallas_fold              trim "pallas", bf16 and int8 rows;
+      listmajor_chunk          the default IVF-PQ batch, 64 / 128 / 256
+                               (256 is outside the reference's set: timed,
+                               never committed);
+      rabitq_rerank_mult, rabitq_query_bits  IVF-RaBitQ defaults at its
+                               gate n_probes, the fastest depth that clears
+                               the gate.
+    With `apply`, the winners and hints.measured_on (the card) are written
+    as raft_tpu_torch/tuned_defaults.json (`apply_table`). Then, under the
+    committed table (read afresh; a file that does not load fails),
+    `committed_checks`: each promoted default
+    call must launch its kernel, clear the gate and return the ids of the
+    explicit engine it resolved to (order within equal values aside), each
+    a path of its own (launch counts set to 0 just before, read after)."""
+    from raft_tpu_torch.core import tuned
+    from raft_tpu_torch.neighbors import brute_force, ivf_flat, ivf_pq, ivf_rabitq
+    from raft_tpu_torch.neighbors.refine import refine
+    from raft_tpu_torch.ops import _launch
+
+    dataset, queries, truth, index = res["dataset"], res["queries"], res["truth"], res["index"]
+    k = g.k
+    np_pq = pm["default"]["rungs"][-1]["n_probes"]
+    np_flat = next(x["n_probes"] for x in fl["rungs"]
+                   if x["engine"] == "fused" and x["recall"] >= RECALL_GATE)
+    flat_index, rb_index = fl["index"], rb["index"]
+    np_rb = rb["gate"]["n_probes"]
+    qs, tr = queries[:g.small_nq], truth[:g.small_nq]
+    # batches a turn: 5, and 1 where the untuned engine takes seconds a
+    # batch (RaBitQ's "xla" scan); a candidate that is the untuned engine
+    # in a cell reads 1 +- its noise there, and one-batch turns of one
+    # engine differ by several percent on the card: AB_KEEP would fail by
+    # noise alone
+    slow, fast = 1, (5 if dev.type == "cuda" else 1)
+
+    def pq_run(params, q=queries):
+        def run():
+            _, cand = ivf_pq.search(params, index, q, 4 * k)
+            return refine(dataset, q, cand, k, strategy="fused", device=dev)
+        return run
+
+    def knn_run(**kw):
+        return lambda: brute_force.knn(dataset, queries, k, device=dev, **kw)
+
+    def flat_run(params, q=queries):
+        return lambda: ivf_flat.search(params, flat_index, q, k)
+
+    def rb_run(params):
+        return lambda: ivf_rabitq.search(params, rb_index, queries, k)
+
+    default_pq = ivf_pq.SearchParams(n_probes=np_pq)
+    wins, report = {}, {}
+    # 1. the per-row select of every internal top-k
+    r = ab_cells("select_k_auto_strategy",
+                 [("ivf_pq default", pq_run(default_pq), truth, fast),
+                  ("knn l1", knn_run(metric="l1"), None, 1)],
+                 [("untuned", None), ("counting", "counting")], wins, g, sync)
+    report["select_k_auto_strategy"] = strip_ab(r)
+    if ab_winner("select_k_auto_strategy", r):
+        wins["select_k_auto_strategy"] = "counting"
+    r = ab_cells("select_k_strategy", [("knn l2 auto", knn_run(engine="auto"), truth, fast)],
+                 [("untuned", None), ("fused", "fused")], wins, g, sync)
+    report["select_k_strategy"] = strip_ab(r)
+    if ab_winner("select_k_strategy", r):
+        wins["select_k_strategy"] = "fused"
+    # 2. the list-scan kernels
+    r = ab_cells("select_k_strategy_int8",
+                 [("ivf_pq default int8", pq_run(ivf_pq.SearchParams(n_probes=np_pq,
+                                                                     score_dtype="int8")),
+                   truth, fast)],
+                 [("untuned", None), ("fused_int8", "fused_int8")], wins, g, sync)
+    report["select_k_strategy_int8"] = strip_ab(r)
+    if ab_winner("select_k_strategy_int8", r):
+        wins["select_k_strategy_int8"] = "fused_int8"
+    r = ab_cells("select_k_strategy_bitplane",
+                 [("rabitq default", rb_run(ivf_rabitq.SearchParams(
+                     n_probes=np_rb, rerank_mult=rb["gate"]["rerank_mult"])), truth, slow)],
+                 [("untuned", None), ("fused_bitplane", "fused_bitplane")], wins, g, sync)
+    report["select_k_strategy_bitplane"] = strip_ab(r)
+    if ab_winner("select_k_strategy_bitplane", r):
+        wins["select_k_strategy_bitplane"] = "fused_bitplane"
+    r = ab_cells("flat_auto_engine",
+                 [(f"ivf_flat auto nq {g.nq}", flat_run(ivf_flat.SearchParams(
+                     n_probes=np_flat, engine="auto")), truth, fast),
+                  (f"ivf_flat auto nq {g.small_nq}", flat_run(ivf_flat.SearchParams(
+                      n_probes=np_flat, engine="auto"), qs), tr, fast)],
+                 [("untuned", None), ("query", "query"), ("list", "list"), ("fused", "fused")],
+                 wins, g, sync)
+    report["flat_auto_engine"] = strip_ab(r)
+    w = ab_winner("flat_auto_engine", r)
+    if w:
+        wins["flat_auto_engine"] = w
+    # 3. IVF-PQ's engine choices
+    r = ab_cells("pq_auto_engine",
+                 [(f"ivf_pq default nq {g.small_nq} n_probes {SMALL_PROBES}",
+                   pq_run(ivf_pq.SearchParams(n_probes=SMALL_PROBES), qs), tr, fast),
+                  (f"ivf_pq default nq {g.nq}", pq_run(default_pq), truth, fast)],
+                 [("untuned", None), ("lut", "lut"), ("recon8", "recon8"),
+                  ("recon8_list", "recon8_list")], wins, g, sync)
+    report["pq_auto_engine"] = strip_ab(r)
+    w = ab_winner("pq_auto_engine", r)
+    if w:
+        wins["pq_auto_engine"] = w
+    r = ab_cells("hints", [("ivf_pq default", pq_run(default_pq), truth, fast)],
+                 [("untuned", None), ("bfloat16", {"internal_distance_dtype": "bfloat16"})],
+                 wins, g, sync)
+    report["internal_distance_dtype"] = strip_ab(r)
+    if ab_winner("internal_distance_dtype", r):
+        wins["hints"] = {**wins.get("hints", {}), "internal_distance_dtype": "bfloat16"}
+    r = ab_cells("pallas_fold",
+                 [(f"ivf_pq pallas {d}", pq_run(ivf_pq.SearchParams(
+                     n_probes=np_pq, score_mode="recon8_list", trim_engine="pallas",
+                     score_dtype=d)), truth, fast) for d in ("bf16", "int8")],
+                 [("untuned", None), ("packed", "packed")], wins, g, sync)
+    report["pallas_fold"] = strip_ab(r)
+    if ab_winner("pallas_fold", r):
+        wins["pallas_fold"] = "packed"
+    chunks = ivf_pq._LISTMAJOR_CHUNKS
+    ivf_pq._LISTMAJOR_CHUNKS = chunks + (256,)  # 256 timed only
+    try:
+        r = ab_cells("listmajor_chunk", [("ivf_pq default", pq_run(default_pq), truth, fast)],
+                     [("untuned", None), ("64", 64), ("256", 256)], wins, g, sync)
+    finally:
+        ivf_pq._LISTMAJOR_CHUNKS = chunks
+    report["listmajor_chunk"] = strip_ab(r)
+    w = ab_winner("listmajor_chunk", r, admissible={str(c) for c in chunks})
+    if w:
+        wins["listmajor_chunk"] = int(w)
+    # 4. IVF-RaBitQ's depths at its gate n_probes, the fastest that clears the gate
+    for key, cands in (("rabitq_rerank_mult", (8, 16, 25)), ("rabitq_query_bits", (4, 6))):
+        r = ab_cells(key, [("rabitq default", rb_run(ivf_rabitq.SearchParams(n_probes=np_rb)),
+                            truth, fast)],
+                     [("untuned", None)] + [(str(c), c) for c in cands], wins, g, sync)
+        report[key] = strip_ab(r)
+        w = gate_winner(key, next(iter(r.values())))
+        if w:
+            wins[key] = int(w)
+    log("tuned winners " + json.dumps(wins, sort_keys=True))
+    return wins, report
+
+
+def apply_table(wins, card):
+    """Write the winners and where they were measured as
+    raft_tpu_torch/tuned_defaults.json, in place of what it held (a key
+    this run finds no winner for leaves the table), by temp-then-rename."""
+    from raft_tpu_torch.core import tuned
+
+    record = dict(wins)
+    record["hints"] = {**wins.get("hints", {}), "measured_on": card,
+                       "measured_by": "chip_smoke.py"}
+    fd, tmp = tempfile.mkstemp(dir=os.path.dirname(tuned.path()), suffix=".tmp")
+    with os.fdopen(fd, "w") as f:
+        json.dump(record, f, indent=1, sort_keys=True)
+        f.write("\n")
+    os.replace(tmp, tuned.path())
+    tuned.reload()
+    log(f"tuned table written: {tuned.path()}: {json.dumps(tuned._load(), sort_keys=True)}")
+
+
+def committed_checks(g, dev, res, pm, fl, rb, sync):
+    """Each promotion of the committed table on its default call: the
+    kernel it promotes launches (a path of its own), recall@k clears the
+    gate, and the ids equal those of the explicit engine the call resolved
+    to (for the select promotions, the untuned run), order within equal
+    values aside. A table file that does not load, or holds an unknown key
+    or value, fails."""
+    from raft_tpu_torch.core import tuned
+    from raft_tpu_torch.neighbors import brute_force, ivf_flat, ivf_pq, ivf_rabitq
+    from raft_tpu_torch.neighbors.refine import refine
+    from raft_tpu_torch.ops import _launch
+
+    with open(tuned.path()) as f:
+        record = json.load(f)  # a corrupt file fails here
+    bad = [key for key, v in record.items()
+           if key not in tuned.TUNED_KEYS or (tuned.TUNED_KEYS[key]["choices"] is not None
+                                               and v not in tuned.TUNED_KEYS[key]["choices"])]
+    if not isinstance(record, dict) or bad:
+        raise AssertionError(f"tuned table: unknown keys or values {bad}")
+    tuned.reload()
+    if record and tuned._load() != record:
+        raise AssertionError("tuned table did not load")
+    log(f"committed tuned table ({tuned.path()}): {json.dumps(record, sort_keys=True)}")
+    dataset, queries, truth, index = res["dataset"], res["queries"], res["truth"], res["index"]
+    k = g.k
+    np_pq = pm["default"]["rungs"][-1]["n_probes"]
+    np_flat = next(x["n_probes"] for x in fl["rungs"]
+                   if x["engine"] == "fused" and x["recall"] >= RECALL_GATE)
+    np_rb = rb["gate"]["n_probes"]
+    qs, tr = queries[:g.small_nq], truth[:g.small_nq]
+    out, launches = [], {}
+
+    def pq(params, q=queries):
+        _, cand = ivf_pq.search(params, index, q, 4 * k)
+        return refine(dataset, q, cand, k, strategy="fused", device=dev)
+
+    def check(label, default, explicit, tr_, kernels, explicit_table=None):
+        """default() under the committed table against explicit() (under
+        `explicit_table` where given, else the committed table too)."""
+        with committed(dev):
+            _launch.reset_launch_counts()
+            v, ids = default()
+            sync()
+            counts = _launch.launch_counts()
+        with contextlib.ExitStack() as st:
+            st.enter_context(table(explicit_table) if explicit_table is not None
+                             else committed(dev))
+            ev, eids = explicit()
+            sync()
+        # tr_ None: an exact engine, held to the explicit engine's answer
+        rc, same = recall(ids, tr_ if tr_ is not None else eids), tie_equal(v, ids, ev, eids)
+        missing = [n for n in kernels if counts[n] <= 0]
+        log(f"committed {label}: recall@{k} {rc:.4f}, ids equal to the explicit engine's "
+            f"{same}, launches {({n: c for n, c in counts.items() if c})}")
+        launches[("tuned", label)] = counts
+        out.append({"label": label, "recall": rc, "ids_equal": same,
+                    "launches": {n: c for n, c in counts.items() if c}})
+        if rc < RECALL_GATE or not same or (missing and dev.type == "cuda"):
+            raise AssertionError(f"committed table, {label}: recall {rc}, ids equal {same}, "
+                                 f"kernels never launched {missing}")
+
+    if record.get("select_k_auto_strategy") == "counting":
+        p = ivf_pq.SearchParams(n_probes=np_pq)
+        check("select_k_auto_strategy=counting, ivf_pq default", lambda: pq(p), lambda: pq(p),
+              truth, ("counting_select_min",), explicit_table={})
+        check("select_k_auto_strategy=counting, knn l1",
+              lambda: brute_force.knn(dataset, queries, k, metric="l1", device=dev),
+              lambda: brute_force.knn(dataset, queries, k, metric="l1", device=dev),
+              None, ("counting_select_min", "pairwise_tiled"), explicit_table={})
+    if record.get("select_k_strategy") == "fused":
+        check("select_k_strategy=fused, knn auto",
+              lambda: brute_force.knn(dataset, queries, k, engine="auto", device=dev),
+              lambda: brute_force.knn(dataset, queries, k, engine="fused", device=dev),
+              truth, ("fused_topk",))
+    if record.get("select_k_strategy_int8") == "fused_int8":
+        check("select_k_strategy_int8=fused_int8, ivf_pq default int8",
+              lambda: pq(ivf_pq.SearchParams(n_probes=np_pq, score_dtype="int8")),
+              lambda: pq(ivf_pq.SearchParams(n_probes=np_pq, score_dtype="int8",
+                                             score_mode="recon8_list", trim_engine="fused")),
+              truth, ("fused_list_topk_int8",))
+    rb_index, flat_index = rb["index"], fl["index"]
+    if record.get("select_k_strategy_bitplane") == "fused_bitplane":
+        m = rb["gate"]["rerank_mult"]
+        check("select_k_strategy_bitplane=fused_bitplane, rabitq default",
+              lambda: ivf_rabitq.search(ivf_rabitq.SearchParams(n_probes=np_rb, rerank_mult=m),
+                                        rb_index, queries, k),
+              lambda: ivf_rabitq.search(ivf_rabitq.SearchParams(
+                  n_probes=np_rb, rerank_mult=m, scan_engine="fused"), rb_index, queries, k),
+              truth, ("fused_bitplane_topk",))
+    if "flat_auto_engine" in record:
+        eng = {"pallas": "fused"}.get(record["flat_auto_engine"], record["flat_auto_engine"])
+        for q_, t_ in ((queries, truth), (qs, tr)):
+            check(f"flat_auto_engine={eng}, ivf_flat auto nq {q_.shape[0]}",
+                  lambda q_=q_: ivf_flat.search(ivf_flat.SearchParams(n_probes=np_flat,
+                                                                      engine="auto"),
+                                                flat_index, q_, k),
+                  lambda q_=q_: ivf_flat.search(ivf_flat.SearchParams(n_probes=np_flat,
+                                                                      engine=eng),
+                                                flat_index, q_, k),
+                  t_, ("fused_list_topk",) if eng == "fused" else ())
+    if "pq_auto_engine" in record:
+        mode = record["pq_auto_engine"]
+        check(f"pq_auto_engine={mode}, ivf_pq default nq {g.small_nq}",
+              lambda: pq(ivf_pq.SearchParams(n_probes=SMALL_PROBES), qs),
+              lambda: pq(ivf_pq.SearchParams(n_probes=SMALL_PROBES, score_mode=mode), qs),
+              tr, ("fused_list_topk",))
+    idd = tuned.hints().get("internal_distance_dtype") if record else None
+    if idd is not None:
+        check(f"internal_distance_dtype={idd}, ivf_pq default",
+              lambda: pq(ivf_pq.SearchParams(n_probes=np_pq)),
+              lambda: pq(ivf_pq.SearchParams(n_probes=np_pq, internal_distance_dtype=idd)),
+              truth, ("fused_list_topk",))
+    if "pallas_fold" in record:
+        p = ivf_pq.SearchParams(n_probes=np_pq, score_mode="recon8_list", trim_engine="pallas")
+        check(f"pallas_fold={record['pallas_fold']}, ivf_pq pallas", lambda: pq(p),
+              lambda: pq(p), truth, ("pq_list_scan",))
+    if "listmajor_chunk" in record:
+        p = ivf_pq.SearchParams(n_probes=np_pq)
+        check(f"listmajor_chunk={record['listmajor_chunk']}, ivf_pq default", lambda: pq(p),
+              lambda: pq(p), truth, ("fused_list_topk",), explicit_table={})
+    depth = {"rerank_mult": record.get("rabitq_rerank_mult"),
+             "query_bits": record.get("rabitq_query_bits")}
+    if any(v is not None for v in depth.values()):
+        explicit = {f: v for f, v in depth.items() if v is not None}
+        check(f"rabitq depths {explicit}, rabitq default",
+              lambda: ivf_rabitq.search(ivf_rabitq.SearchParams(n_probes=np_rb), rb_index,
+                                        queries, k),
+              lambda: ivf_rabitq.search(ivf_rabitq.SearchParams(n_probes=np_rb, **explicit),
+                                        rb_index, queries, k),
+              truth, ())
+    # the default IVF-PQ batch a caller who sets nothing now runs: QPS over
+    # windows at g.nq and g.small_nq, the g.nq batch under torch.profiler
+    timing = {}
+    with committed(dev):
+        for label, q_, t_, p in (("nq", queries, truth, ivf_pq.SearchParams(n_probes=np_pq)),
+                                 ("small", qs, tr, ivf_pq.SearchParams(n_probes=SMALL_PROBES))):
+            def run(p=p, q_=q_):
+                return pq(p, q_)
+
+            _, ids = run()
+            sync()
+            gq = argparse.Namespace(**{**vars(g), "nq": q_.shape[0]})
+            sec, w_qps = timed_windows(gq, run, sync)
+            mode, trim, idd = ivf_pq.resolve_search(
+                p, q_.shape[0], p.n_probes, index.n_lists, index.device, k=4 * k,
+                L=int(index.recon8.shape[1]), rot=index.rot_dim, kbuf=index.fused_kb)
+            timing[label] = {"nq": q_.shape[0], "n_probes": p.n_probes, "score_mode": mode,
+                             "trim": trim, "distances": idd, "recall": recall(ids, t_),
+                             "batch_s": sec, "qps": q_.shape[0] / sec, "window_qps": w_qps}
+            log(f"committed default ivf_pq SearchParams(n_probes={p.n_probes}) + refine, nq "
+                f"{q_.shape[0]} (score_mode {mode}, trim {trim}, distances {idd}): recall@{k} "
+                f"{timing[label]['recall']:.4f}, {q_.shape[0] / sec:.1f} qps ({sec * 1e3:.4f} ms "
+                f"a batch over {len(w_qps)} windows of {g.batch_reps} batches; window qps "
+                f"{min(w_qps):.1f} .. {max(w_qps):.1f})")
+            if label == "nq" and dev.type == "cuda":
+                timing["breakdown"] = device_breakdown(
+                    run, 2, sec * 1e3, label=f"ivf_pq default n_probes {np_pq} + refine, "
+                    "committed table", top=12)
+    return {"checks": out, "default_batch": timing}, launches
+
+
+# ---------------------------------------------------------------------------
+# phase 4c: adaptive probing
+# ---------------------------------------------------------------------------
+
+#: the recall_target ladder and the explicit budget_tau rungs
+ADAPTIVE_TARGETS = (0.90, 0.95, 0.99, 1.0)
+ADAPTIVE_TAUS = (0.2, 0.4)
+#: the calibration's tau grid
+CALIBRATION_TAUS = (0.02, 0.05, 0.1, 0.2, 0.3, 0.4, 0.5, 0.6, 0.7, 0.8, 0.9)
+ADAPTIVE_PROBES = 32
+
+
+def adaptive_families(g, dev, res, fl, rb):
+    """The three families adaptive probing runs on, at n_probes P:
+    {name: (params maker, run(params) -> (values, ids), index, the plan's
+    k, the coarse rotation or None, the kernels the family launches,
+    scan(params, queries) -> the index search's own (values, ids), before
+    any refine)}."""
+    from raft_tpu_torch.neighbors import ivf_flat, ivf_pq, ivf_rabitq
+    from raft_tpu_torch.neighbors.refine import refine
+
+    dataset, queries, pq_index = res["dataset"], res["queries"], res["index"]
+    k, P = g.k, min(ADAPTIVE_PROBES, g.n_lists)
+    flat_index, rb_index = fl["index"], rb["index"]
+    mult = rb["gate"]["rerank_mult"]
+    return {
+        "ivf_pq fused bf16 + refine": (
+            lambda **kw: ivf_pq.SearchParams(n_probes=P, score_mode="recon8_list",
+                                             trim_engine="fused", **kw),
+            lambda p: refine(dataset, queries, ivf_pq.search(p, pq_index, queries, 4 * k)[1], k,
+                             strategy="fused", device=dev),
+            pq_index, 4 * k, pq_index.rotation, ("fused_list_topk",),
+            lambda p, q: ivf_pq.search(p, pq_index, q, 4 * k)),
+        "ivf_flat fused": (
+            lambda **kw: ivf_flat.SearchParams(n_probes=P, engine="fused", **kw),
+            lambda p: ivf_flat.search(p, flat_index, queries, k),
+            flat_index, k, None, ("fused_list_topk",),
+            lambda p, q: ivf_flat.search(p, flat_index, q, k)),
+        "ivf_rabitq fused": (
+            lambda **kw: ivf_rabitq.SearchParams(n_probes=P, rerank_mult=mult,
+                                                 scan_engine="fused", **kw),
+            lambda p: ivf_rabitq.search(p, rb_index, queries, k),
+            rb_index, ivf_rabitq.rerank_depth(k, mult), rb_index.rotation,
+            ("fused_bitplane_topk",),
+            lambda p, q: ivf_rabitq.search(p, rb_index, q, k)),
+    }
+
+
+@contextlib.contextmanager
+def plain_list_kernels():
+    """The list kernels' wrappers (`fused_list_topk`, `fused_bitplane_topk`,
+    which every engine imports at call time) replaced by their plain
+    PyTorch versions on every device: a search run under it is the same
+    search with each kernel launch done by its plain version."""
+    from raft_tpu_torch.ops import fused_scan as fs
+
+    orig = fs.fused_list_topk, fs.fused_bitplane_topk
+
+    def list_plain(lof, qres, store, base, k, *, kbuf=None, inner_product=False,
+                   chunk_valid=None, chunk_rows=None):
+        return fs.fused_list_topk_plain(lof, qres, store, base, int(k),
+                                        fs.fused_kbuf(k) if kbuf is None else int(kbuf),
+                                        bool(inner_product), chunk_valid, chunk_rows)
+
+    def bitplane_plain(lof, planes, codes_t, meta, base, qmeta, k, *, rot_dim, bits, kbuf=None,
+                       inner_product=False, chunk_valid=None, chunk_rows=None):
+        return fs.fused_bitplane_topk_plain(lof, planes, codes_t, meta, base, qmeta, int(k),
+                                            fs.fused_kbuf(k) if kbuf is None else int(kbuf),
+                                            int(rot_dim), int(bits), bool(inner_product),
+                                            chunk_valid, chunk_rows)
+
+    fs.fused_list_topk, fs.fused_bitplane_topk = list_plain, bitplane_plain
+    try:
+        yield
+    finally:
+        fs.fused_list_topk, fs.fused_bitplane_topk = orig
+
+
+def kept_lists(queries, idx, P, ap, plan_k, rot):
+    """(nq, P) the list ids a search scanned (-1 where its plan masked the
+    probe): the plan the engines take (`probe_budget.search_plan`: the
+    probes they scan and the mask over them), or the fixed search's coarse
+    select where the search plans nothing."""
+    from raft_tpu_torch.neighbors import probe_budget
+
+    plan = probe_budget.search_plan(ap, queries, idx.centers, n_probes=P, k=plan_k,
+                                    metric=idx.metric, rotation=rot, radii=idx.list_radii,
+                                    sizes=idx.list_sizes)
+    if plan is None:
+        q = queries.float() if rot is None else queries.float() @ rot.T
+        return probe_budget.coarse_select(q, idx.centers, idx.metric, P,
+                                          pq_style=rot is not None)[1].long()
+    keep, probes = plan
+    return torch.where(keep, probes.long(), -1)
+
+
+def list_of_ids(idx):
+    """(id_bound,) int64 the list holding each id of an IVF index (-1:
+    none), from its slot table."""
+    sr = idx.slot_rows.long()
+    lists = torch.arange(sr.shape[0], device=sr.device)[:, None].expand_as(sr)
+    live = sr >= 0
+    out = torch.full((int(idx.id_bound),), -1, dtype=torch.long, device=sr.device)
+    out[idx.source_ids.long()[sr[live]]] = lists[live]
+    return out
+
+
+#: the masked rungs' kernel-against-plain check runs on this many queries
+ADAPTIVE_CHECK_NQ = 256
+
+
+def masked_checks(g, dev, res, fams, fam, label, p, ids, sync):
+    """A masked rung held on the card: every id it returned lies in a list
+    its keep mask kept (all queries), and the index search on the first
+    ADAPTIVE_CHECK_NQ queries equals the same search with every kernel
+    launch done by its plain version (`compare`: values to VAL_RTOL of the
+    row, ids but at near-ties). Returns the check's numbers."""
+    from raft_tpu_torch.neighbors import probe_budget
+
+    make, run, idx, plan_k, rot, _, scan = fams[fam]
+    queries, P = res["queries"], min(ADAPTIVE_PROBES, g.n_lists)
+    ap = probe_budget.resolve_params(p, P, dev)
+    kept = kept_lists(queries, idx, P, ap, plan_k, rot)
+    held = list_of_ids(idx)[ids.long().clamp(min=0)]
+    outside = int(((ids >= 0) & ~(held[..., None] == kept[:, None, :]).any(-1)).sum())
+    if outside:
+        raise AssertionError(f"adaptive {fam}, {label}: {outside} ids from lists the keep mask "
+                             "dropped")
+    qs = queries[:ADAPTIVE_CHECK_NQ]
+    kv, ki = scan(p, qs)
+    with plain_list_kernels():
+        pv, pi = scan(p, qs)
+    sync()
+    err, agree = compare(f"adaptive {fam}, {label}, kernel against plain", (kv, ki), (pv, pi),
+                         kv.shape[1])
+    masked = int((kept < 0).sum())
+    log(f"adaptive {fam}, {label}: every id in a kept list ({masked} of {kept.numel()} probes "
+        f"masked); kernel against plain on {qs.shape[0]} queries: max abs err {err:.3g}, ids "
+        f"agree {agree:.4f}")
+    return {"masked_probes": masked, "plain_max_abs_err": err, "plain_id_agreement": agree}
+
+
+def adaptive_rung(g, dev, res, fams, fam, label, p, sync):
+    """One adaptive rung: recall@k, the mean of the lists a query scanned
+    (probe_budget.account over the plan the search made), ms a batch over
+    back-to-back batches. Returns (row, values, ids)."""
+    from raft_tpu_torch.neighbors import probe_budget
+
+    make, run, idx, plan_k, rot = fams[fam][:5]
+    queries, P = res["queries"], min(ADAPTIVE_PROBES, g.n_lists)
+    batches = 5 if dev.type == "cuda" else 1
+    v, ids = run(p)
+    sync()
+    t0 = time.perf_counter()
+    for _ in range(batches):
+        run(p)
+    sync()
+    ms = (time.perf_counter() - t0) * 1e3 / batches
+    ap = probe_budget.resolve_params(p, P, dev)
+    lists = float(P)
+    if ap is not None:
+        _, counts = probe_budget.probe_plan(
+            queries, idx.centers, n_probes=P, min_probes=ap.min_probes, k=plan_k,
+            metric=idx.metric, tau=ap.tau, rotation=rot,
+            radii=idx.list_radii if ap.early_term else None, sizes=idx.list_sizes)
+        lists = probe_budget.account(fam, counts, queries.shape[0], P)
+    row = {"family": fam, "rung": label, "recall": recall(ids, res["truth"]), "scanned": lists,
+           "ms": ms}
+    log(f"adaptive {fam}, n_probes {P}, {label}: recall@{g.k} {row['recall']:.4f}, "
+        f"{lists:.3f} lists a query, {ms:.4f} ms a batch")
+    return row, v, ids
+
+
+#: the calibration's data and search, bench/bench_adaptive_probes.py's
+#: defaults (its --smoke sizes on the CPU rehearsal): overlapping blobs,
+#: max(n_lists // 2, 8) clusters of std 3.0 with centres U(-10, 10) (the
+#: regime adaptive budgets exist for: easy queries deep in a cluster,
+#: hard ones between), the queries drawn from the rows, k 10
+CALIBRATION = dict(rows=100_000, dim=64, n_lists=256, n_probes=32, nq=1024)
+CALIBRATION_SMOKE = dict(rows=20_000, dim=64, n_lists=64, n_probes=16, nq=256)
+
+
+def calibration_data(g, dev):
+    """(dataset, queries, exact truth, geometry) of the calibration."""
+    from raft_tpu_torch.neighbors import brute_force
+
+    c = CALIBRATION_SMOKE if dev.type != "cuda" else CALIBRATION
+    rng = np.random.default_rng(11)
+    centers = rng.uniform(-10.0, 10.0, (max(c["n_lists"] // 2, 8), c["dim"])).astype(np.float32)
+    x = centers[rng.integers(0, centers.shape[0], c["rows"])]
+    x += 3.0 * rng.standard_normal(x.shape, dtype=np.float32)
+    q = x[rng.choice(c["rows"], c["nq"], replace=False)]
+    x, q = torch.as_tensor(x, device=dev), torch.as_tensor(q, device=dev)
+    _, truth = brute_force.knn(x, q, g.k, device=dev)  # exact f32 ("tiled")
+    return x, q, truth, c
+
+
+def calibrate_policy(g, dev, sync):
+    """The adaptive_probe_policy by the JAX package's procedure
+    (bench/bench_adaptive_probes.py --apply) on its data
+    (`calibration_data`): IVF-Flat (SearchParams(n_probes)) and IVF-PQ
+    (pq_dim dim // 4, score_mode "recon8_list", no refine), each built
+    with kmeans_n_iters 10, under the committed table, at each tau of
+    CALIBRATION_TAUS (budget_tau, early termination on); per tau the
+    worse family's recall@k; targets [[recall, tau], ...] sorted by
+    recall; default_tau the smallest tau whose recall clears the gate
+    (0.6 where none does). A ladder that reads one recall at every tau
+    tells no tau from another: no policy (None), so DEFAULT_POLICY
+    stays in force. Returns (policy or None, rows)."""
+    from raft_tpu_torch.neighbors import ivf_flat, ivf_pq, probe_budget
+
+    x, q, truth, c = calibration_data(g, dev)
+    P = c["n_probes"]
+    by_tau, rows = {}, []
+    with committed(dev):
+        fams = (("ivf_flat", ivf_flat.build(ivf_flat.IndexParams(
+                    n_lists=c["n_lists"], kmeans_n_iters=10), x, device=dev),
+                 lambda **kw: ivf_flat.SearchParams(n_probes=P, **kw), None),
+                ("ivf_pq", ivf_pq.build(ivf_pq.IndexParams(
+                    n_lists=c["n_lists"], pq_dim=max(c["dim"] // 4, 8), kmeans_n_iters=10), x,
+                    device=dev),
+                 lambda **kw: ivf_pq.SearchParams(n_probes=P, score_mode="recon8_list", **kw),
+                 True))
+        for fam, idx, make, rotated in fams:
+            search = ivf_flat.search if fam == "ivf_flat" else ivf_pq.search
+            fixed = recall(search(make(), idx, q, g.k)[1], truth)
+            for tau in CALIBRATION_TAUS:
+                _, ids = search(make(budget_tau=tau, early_term=True), idx, q, g.k)
+                sync()
+                _, counts = probe_budget.probe_plan(
+                    q, idx.centers, n_probes=P, min_probes=1, k=g.k, metric=idx.metric,
+                    tau=tau, rotation=idx.rotation if rotated else None, radii=idx.list_radii,
+                    sizes=idx.list_sizes)
+                row = {"family": fam, "tau": tau, "recall": recall(ids, truth),
+                       "fixed_recall": fixed,
+                       "scanned": probe_budget.account(fam, counts, q.shape[0], P)}
+                rows.append(row)
+                by_tau[tau] = min(by_tau.get(tau, 1.0), row["recall"])
+                log(f"calibration {fam} ({c['rows']} x {c['dim']} overlapping blobs, n_lists "
+                    f"{c['n_lists']}, n_probes {P}, nq {c['nq']}): budget_tau {tau}: recall@"
+                    f"{g.k} {row['recall']:.4f} (fixed {fixed:.4f}), {row['scanned']:.3f} lists "
+                    "a query")
+    targets = sorted([round(r, 4), t] for t, r in by_tau.items())
+    if len({r for r, _ in targets}) < 2:
+        log(f"adaptive_probe_policy: recall@{g.k} {targets[0][0]} at every tau; no policy "
+            "(DEFAULT_POLICY stays in force)")
+        return None, rows
+    default = float(min((t for r, t in targets if r >= RECALL_GATE), default=0.6))
+    policy = {"default_tau": default, "targets": targets}
+    log("adaptive_probe_policy measured " + json.dumps(policy))
+    return policy, rows
+
+
+def adaptive_path(g, dev, res, fams, sync):
+    """Phase 4c: adaptive probing at n_probes ADAPTIVE_PROBES on IVF-PQ
+    (trim "fused", bf16 rows, 4k shortlist + refine), IVF-Flat "fused" and
+    IVF-RaBitQ "fused" (its gate rerank_mult). Under the committed table,
+    for each family
+    the fixed search, the recall_target ladder ADAPTIVE_TARGETS and the
+    budget_tau rungs ADAPTIVE_TAUS, each with early termination on (L2,
+    radii) and off: recall@k, the mean of the lists a query scanned
+    (probe_budget.account over the search's own plan), ms a batch. Each
+    family is a path of its own. recall_target 1.0 must equal the fixed
+    search bit for bit (values and ids); every other rung, after the
+    path's launch counts are read, passes `masked_checks` (its ids in the
+    lists its mask kept; kernel against plain on the masked search)."""
+    from raft_tpu_torch.ops import _launch
+
+    out, launches = [], {}
+    with committed(dev):
+        for fam, (make, run, idx, plan_k, rot, kernels, _) in fams.items():
+            _launch.reset_launch_counts()
+            fixed, fv, fids = adaptive_rung(g, dev, res, fams, fam, "fixed", make(), sync)
+            out.append(fixed)
+            masked = []  # (row, params, ids) of the rungs a mask may cut
+            for early in (True, False):
+                for rt in ADAPTIVE_TARGETS:
+                    p = make(recall_target=rt, early_term=early)
+                    row, v, ids = adaptive_rung(g, dev, res, fams, fam,
+                                                f"recall_target {rt}, early_term {early}", p, sync)
+                    out.append(row)
+                    if rt < 1.0:
+                        masked.append((row, p, ids))
+                    elif not (torch.equal(v, fv) and torch.equal(ids, fids)):
+                        raise AssertionError(f"adaptive {fam}: recall_target 1.0 is not the "
+                                             "fixed search bit for bit")
+                for tau in ADAPTIVE_TAUS:
+                    p = make(budget_tau=tau, early_term=early)
+                    row, _, ids = adaptive_rung(g, dev, res, fams, fam,
+                                                f"budget_tau {tau}, early_term {early}", p, sync)
+                    out.append(row)
+                    masked.append((row, p, ids))
+            launches[("adaptive", fam)] = _launch.launch_counts()
+            missing = [n for n in kernels if launches[("adaptive", fam)][n] <= 0]
+            if missing and dev.type == "cuda":
+                raise AssertionError(f"adaptive {fam}: kernels never launched {missing}")
+            log(f"path adaptive {fam}: launches {launches[('adaptive', fam)]}; recall_target "
+                "1.0 equal to the fixed search bit for bit")
+            # after the path's counts: these launches are comparisons
+            for row, p, ids in masked:
+                row.update(masked_checks(g, dev, res, fams, fam, row["rung"], p, ids, sync))
+    return out, launches
+
+
+# ---------------------------------------------------------------------------
 # phase 5: kernels on the main path's inputs
 # ---------------------------------------------------------------------------
 
@@ -2775,6 +3605,11 @@ def main(argv=None):
     ap.add_argument("--checks", action="store_true",
                     help="phases 1-3 only (build and adversarial checks); prints no result "
                          "and exits 4")
+    ap.add_argument("--apply", action="store_true",
+                    help="write the tuned A/B winners of this run as "
+                         "raft_tpu_torch/tuned_defaults.json, and merge the adaptive policy "
+                         "where its calibration tells taus apart, before the committed-table "
+                         "checks")
     ap.add_argument("--seed", type=int, default=0)
     g = ap.parse_args(argv)
     if g.rehearse:
@@ -2825,86 +3660,101 @@ def main(argv=None):
         log(f"checks complete in {time.perf_counter() - t_all:.1f} s; no result printed")
         return 4
 
-    fs.reset_launch_counts()
-    res, captured = main_path(g, dev, fs, pls, sync)
-    launches = res["launches"]
-    check_truth(res, g.k, dev)
-    for path, counts in launches.items():
-        trim, dtype = path
-        best = max(r["recall"] for r in res["rungs"]
-                   if (r["trim"], r["score_dtype"]) == path)
-        log(f"path trim={trim} score_dtype={dtype}: launches {counts}, best recall@{g.k} "
-            f"{best:.4f}")
-        if best < RECALL_GATE:
-            raise AssertionError(f"trim={trim} score_dtype={dtype}: no rung reached "
-                                 f"recall@{g.k} >= {RECALL_GATE} (best {best})")
-    sl = slice_paths(g, dev, res, sync)
-    for path, counts in sl["launches"].items():
-        log(f"path {' '.join(path)}: launches {counts}")
-    launches.update(sl["launches"])
-    rb, rb_call = rabitq_path(g, dev, res, fs, sync)
-    launches[("rabitq", "fused")] = rb["launches"]
-    fl, fl_call = ivf_flat_path(g, dev, res, fs, sync)
-    launches[("ivf_flat", "fused")] = fl["launches"]
-    pf = prefilter_path(g, dev, res, fl, rb, sync)
-    launches[("prefilter", "all")] = pf["launches"]
-    pm, pm_calls = pq_modes_path(g, dev, res, fs, pls, sync)
-    launches.update(pm["launches"])
-    for path, counts in pm["launches"].items():
-        log(f"path {' '.join(path)}: launches {counts}")
-    for path, counts in launches.items():
-        missing = [name for name in PATH_KERNELS[path] if counts[name] <= 0]
-        if missing and dev.type == "cuda":
-            raise AssertionError(f"path {path}: kernels never launched on the path: {missing}")
+    # phases 4 and 5 run the JAX package's untuned program (the engines by
+    # name); phases 4b and 4c read the tuned table
+    with table({}):
+        fs.reset_launch_counts()
+        res, captured = main_path(g, dev, fs, pls, sync)
+        launches = res["launches"]
+        check_truth(res, g.k, dev)
+        for path, counts in launches.items():
+            trim, dtype = path
+            best = max(r["recall"] for r in res["rungs"]
+                       if (r["trim"], r["score_dtype"]) == path)
+            log(f"path trim={trim} score_dtype={dtype}: launches {counts}, best recall@{g.k} "
+                f"{best:.4f}")
+            if best < RECALL_GATE:
+                raise AssertionError(f"trim={trim} score_dtype={dtype}: no rung reached "
+                                     f"recall@{g.k} >= {RECALL_GATE} (best {best})")
+        sl = slice_paths(g, dev, res, sync)
+        for path, counts in sl["launches"].items():
+            log(f"path {' '.join(path)}: launches {counts}")
+        launches.update(sl["launches"])
+        rb, rb_call = rabitq_path(g, dev, res, fs, sync)
+        launches[("rabitq", "fused")] = rb["launches"]
+        fl, fl_call = ivf_flat_path(g, dev, res, fs, sync)
+        launches[("ivf_flat", "fused")] = fl["launches"]
+        pf = prefilter_path(g, dev, res, fl, rb, sync)
+        launches[("prefilter", "all")] = pf["launches"]
+        pm, pm_calls = pq_modes_path(g, dev, res, fs, pls, sync)
+        launches.update(pm["launches"])
+        for path, counts in pm["launches"].items():
+            log(f"path {' '.join(path)}: launches {counts}")
+        for path, counts in launches.items():
+            missing = [name for name in PATH_KERNELS[path] if counts[name] <= 0]
+            if missing and dev.type == "cuda":
+                raise AssertionError(f"path {path}: kernels never launched on the path: {missing}")
 
-    def n(path, name):
-        return launches[path][name]
+        def n(path, name):
+            return launches[path][name]
 
-    rows = [list_kernel_row(fs, captured["trim"], res["list_launches"]["trim"], g.reps,
-                            "IVF-PQ trim, n_probes 8", sweep=True),
-            flat_kernel_row(fs, captured["flat"], n(("fused", "bf16"), "fused_topk"), g.reps),
-            int8_list_row(fs, captured[("fused", "int8")],
-                          n(("fused", "int8"), "fused_list_topk_int8"), g.reps,
-                          "IVF-PQ int8 trim, n_probes 8", sweep=True),
-            fold_kernel_row(pls, captured[("pallas", "bf16")],
-                            n(("pallas", "bf16"), "pq_list_scan"), g.reps,
-                            "IVF-PQ bin trim, exact fold, bf16 rows, n_probes 8", "exact"),
-            fold_kernel_row(pls, captured[("pallas", "int8")],
-                            n(("pallas", "int8"), "pq_list_scan"), g.reps,
-                            "IVF-PQ bin trim, exact fold, int8 rows, n_probes 8", "exact"),
-            fold_kernel_row(pls, captured[("pallas", "int8")],
-                            n(("pallas", "int8"), "pq_list_scan"), g.reps,
-                            "IVF-PQ bin trim, packed fold, int8 rows, n_probes 8", "packed")]
-    rows += pairwise_rows(sl, n(("knn", "l1"), "pairwise_tiled"), g.reps)
-    rows.append(argmin_row(sl, n(("fused_l2_nn", "argmin"), "fused_l2_argmin"), g.reps))
-    rows.append(counting_row(sl, n(("select_k", "counting"), "counting_select_min"), g.reps,
-                             g.k))
-    rows.append(bitplane_row(fs, rb_call[0], n(("rabitq", "fused"), "fused_bitplane_topk"), g.reps,
-                             "rabitq n_probes 8, rerank_mult 4", sweep=True))
-    gate = rb["gate"]
-    rows.append(bitplane_row(fs, rb_call[1], n(("rabitq", "fused"), "fused_bitplane_topk"), g.reps,
-                             f"rabitq gate rung n_probes {gate['n_probes']}, rerank_mult "
-                             f"{gate['rerank_mult']}"))
-    refine_row = list_kernel_row(fs, captured["refine"], res["list_launches"]["refine"], g.reps,
-                                 "refine, chunk 1")
-    rows.append(list_kernel_row(fs, fl_call, n(("ivf_flat", "fused"), "fused_list_topk"), g.reps,
-                                "IVF-Flat fused, bf16 residual store, n_probes 32",
-                                term_scale=True))
-    # kernels 1, 3 and 4 on a store decoded from per-cluster codebooks, and
-    # kernel 1 on the shorter lists of the index past 1024 lists
-    pcl = ("per_cluster", "all")
-    rows.append(list_kernel_row(fs, pm_calls["per_cluster fused bf16"],
-                                n(pcl, "fused_list_topk"), g.reps,
-                                "IVF-PQ per-cluster store, trim, n_probes 8"))
-    rows.append(int8_list_row(fs, pm_calls["per_cluster fused int8"],
-                              n(pcl, "fused_list_topk_int8"), g.reps,
-                              "IVF-PQ per-cluster store, int8 trim, n_probes 8"))
-    rows.append(fold_kernel_row(pls, pm_calls["per_cluster pallas bf16"],
-                                n(pcl, "pq_list_scan"), g.reps,
-                                "IVF-PQ per-cluster store, bin trim, exact fold, bf16 rows, "
-                                "n_probes 8", "exact"))
-    rows.append(list_kernel_row(fs, pm_calls["wide"], n(("pq_wide", "fused"), "fused_list_topk"),
-                                g.reps, f"IVF-PQ {g.wide_lists} lists, trim, n_probes 8"))
+        rows = [list_kernel_row(fs, captured["trim"], res["list_launches"]["trim"], g.reps,
+                                "IVF-PQ trim, n_probes 8", sweep=True),
+                flat_kernel_row(fs, captured["flat"], n(("fused", "bf16"), "fused_topk"), g.reps),
+                int8_list_row(fs, captured[("fused", "int8")],
+                              n(("fused", "int8"), "fused_list_topk_int8"), g.reps,
+                              "IVF-PQ int8 trim, n_probes 8", sweep=True),
+                fold_kernel_row(pls, captured[("pallas", "bf16")],
+                                n(("pallas", "bf16"), "pq_list_scan"), g.reps,
+                                "IVF-PQ bin trim, exact fold, bf16 rows, n_probes 8", "exact"),
+                fold_kernel_row(pls, captured[("pallas", "int8")],
+                                n(("pallas", "int8"), "pq_list_scan"), g.reps,
+                                "IVF-PQ bin trim, exact fold, int8 rows, n_probes 8", "exact"),
+                fold_kernel_row(pls, captured[("pallas", "int8")],
+                                n(("pallas", "int8"), "pq_list_scan"), g.reps,
+                                "IVF-PQ bin trim, packed fold, int8 rows, n_probes 8", "packed")]
+        rows += pairwise_rows(sl, n(("knn", "l1"), "pairwise_tiled"), g.reps)
+        rows.append(argmin_row(sl, n(("fused_l2_nn", "argmin"), "fused_l2_argmin"), g.reps))
+        rows.append(counting_row(sl, n(("select_k", "counting"), "counting_select_min"), g.reps,
+                                 g.k))
+        rows.append(bitplane_row(fs, rb_call[0], n(("rabitq", "fused"), "fused_bitplane_topk"), g.reps,
+                                 "rabitq n_probes 8, rerank_mult 4", sweep=True))
+        gate = rb["gate"]
+        rows.append(bitplane_row(fs, rb_call[1], n(("rabitq", "fused"), "fused_bitplane_topk"), g.reps,
+                                 f"rabitq gate rung n_probes {gate['n_probes']}, rerank_mult "
+                                 f"{gate['rerank_mult']}"))
+        refine_row = list_kernel_row(fs, captured["refine"], res["list_launches"]["refine"], g.reps,
+                                     "refine, chunk 1")
+        rows.append(list_kernel_row(fs, fl_call, n(("ivf_flat", "fused"), "fused_list_topk"), g.reps,
+                                    "IVF-Flat fused, bf16 residual store, n_probes 32",
+                                    term_scale=True))
+        # kernels 1, 3 and 4 on a store decoded from per-cluster codebooks, and
+        # kernel 1 on the shorter lists of the index past 1024 lists
+        pcl = ("per_cluster", "all")
+        rows.append(list_kernel_row(fs, pm_calls["per_cluster fused bf16"],
+                                    n(pcl, "fused_list_topk"), g.reps,
+                                    "IVF-PQ per-cluster store, trim, n_probes 8"))
+        rows.append(int8_list_row(fs, pm_calls["per_cluster fused int8"],
+                                  n(pcl, "fused_list_topk_int8"), g.reps,
+                                  "IVF-PQ per-cluster store, int8 trim, n_probes 8"))
+        rows.append(fold_kernel_row(pls, pm_calls["per_cluster pallas bf16"],
+                                    n(pcl, "pq_list_scan"), g.reps,
+                                    "IVF-PQ per-cluster store, bin trim, exact fold, bf16 rows, "
+                                    "n_probes 8", "exact"))
+        rows.append(list_kernel_row(fs, pm_calls["wide"], n(("pq_wide", "fused"), "fused_list_topk"),
+                                    g.reps, f"IVF-PQ {g.wide_lists} lists, trim, n_probes 8"))
+    wins, tuned_report = tuned_path(g, dev, res, pm, fl, rb, sync, card, g.apply)
+    if g.apply:
+        apply_table(wins, card)
+    policy, calibration = calibrate_policy(g, dev, sync)
+    if g.apply and policy is not None:
+        from raft_tpu_torch.core import tuned
+
+        tuned.merge({tuned.POLICY_KEY: policy})
+        log(f"adaptive_probe_policy merged into {tuned.path()}")
+    fams = adaptive_families(g, dev, res, fl, rb)
+    committed_rows, _ = committed_checks(g, dev, res, pm, fl, rb, sync)
+    adaptive_rows, _ = adaptive_path(g, dev, res, fams, sync)
     summary = {"build_s": res["build_s"], "truth_s": res["truth_s"], "rungs": res["rungs"],
                "breakdown": res["breakdown"], "pallas_breakdown": res["pallas_breakdown"],
                "refine_kernel": refine_row,
@@ -2915,6 +3765,9 @@ def main(argv=None):
                "ivf_flat": {key: v for key, v in fl.items() if key != "index"},
                "prefilter": pf,
                "pq_modes": {key: v for key, v in pm.items() if key != "launches"},
+               "tuned": {"winners": wins, "ab": tuned_report, "committed": committed_rows},
+               "adaptive": {"policy": policy, "calibration": calibration,
+                            "rows": adaptive_rows},
                "wall_s": time.perf_counter() - t_all}
     log("summary " + json.dumps(summary))
     if dev.type != "cuda":

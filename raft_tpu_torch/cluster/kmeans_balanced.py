@@ -110,15 +110,20 @@ def fit(X, n_clusters: int, n_iters: int = 20, metric: str = "sqeuclidean",
     return _balanced_em(gen, x, centers0, int(n_iters), metric)
 
 
-def predict(X, centers, metric: str = "sqeuclidean", device=None) -> torch.Tensor:
-    """Nearest-center labels (int64) under the training metric
-    (cluster/kmeans_balanced.cuh:133)."""
+def _predict_long(X, centers, metric: str = "sqeuclidean", device=None) -> torch.Tensor:
+    """`predict`'s labels as int64, the index type the builds gather with."""
     x = check_matrix(X, device, name="X").float()
     c = torch.as_tensor(centers, device=x.device).float()
     if metric in ("inner_product", "cosine"):
         strict_f32_matmul()
         return torch.argmax(x @ _maybe_normalize(c, metric).T, dim=1)
-    return predict_labels(x, c)
+    return predict_labels(x, c).long()
+
+
+def predict(X, centers, metric: str = "sqeuclidean", device=None) -> torch.Tensor:
+    """Nearest-center labels (int32, as the JAX package returns them)
+    under the training metric (cluster/kmeans_balanced.cuh:133)."""
+    return _predict_long(X, centers, metric=metric, device=device).to(torch.int32)
 
 
 def fit_predict(X, n_clusters: int, n_iters: int = 20, metric: str = "sqeuclidean",
@@ -173,7 +178,7 @@ def fit_hierarchical(X, n_clusters: int, n_iters: int = 20, metric: str = "sqeuc
     fine_k = -(-n_clusters // k_meso)
 
     meso_centers = fit(x, k_meso, n_iters=n_iters, metric=metric, seed=seed, device=dev)
-    meso_labels = predict(x, meso_centers, metric=metric, device=dev)
+    meso_labels = _predict_long(x, meso_centers, metric=metric, device=dev)
     slots, sizes = _pack_lists(meso_labels, k_meso, group=8)
     gen = make_generator(seed + 1, dev)
     max_sz = min(slots.shape[1], max(max_partition_rows, 4 * fine_k))
@@ -197,7 +202,7 @@ def fit_hierarchical(X, n_clusters: int, n_iters: int = 20, metric: str = "sqeuc
     centers = torch.where(bad, meso_centers[:, None, :], centers).reshape(k_meso * fine_k, d)
     surplus = k_meso * fine_k - n_clusters
     if surplus:
-        counts = torch.bincount(predict(x, centers, metric=metric, device=dev),
+        counts = torch.bincount(_predict_long(x, centers, metric=metric, device=dev),
                                 minlength=k_meso * fine_k)
         keep = torch.sort(torch.argsort(counts, stable=True)[surplus:]).values
         centers = centers[keep]

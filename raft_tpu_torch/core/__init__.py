@@ -1,0 +1,10 @@
+"""Core runtime (counterpart of raft_tpu/core): the ported names of the
+JAX package's `__all__`, in its order."""
+
+from raft_tpu_torch.core.bitset import Bitset
+from raft_tpu_torch.core.validation import check_matrix
+
+__all__ = [
+    "Bitset",
+    "check_matrix",
+]

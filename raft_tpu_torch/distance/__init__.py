@@ -1,0 +1,20 @@
+"""Pairwise distances and fused 1-NN (counterpart of raft_tpu/distance):
+the ported names of the JAX package's `__all__`, in its order."""
+
+from raft_tpu_torch.distance.distance_types import (
+    DistanceType,
+    DISTANCE_TYPES,
+    resolve_metric,
+)
+from raft_tpu_torch.distance.pairwise import pairwise_distance, distance
+from raft_tpu_torch.distance.fused_l2_nn import fused_l2_nn, fused_l2_nn_argmin
+
+__all__ = [
+    "DistanceType",
+    "DISTANCE_TYPES",
+    "resolve_metric",
+    "pairwise_distance",
+    "distance",
+    "fused_l2_nn",
+    "fused_l2_nn_argmin",
+]

@@ -237,3 +237,6 @@ def pairwise_distance(X, Y, out=None, metric="euclidean", p: float = 2.0, device
     if out is not None and tuple(out.shape) != (x.shape[0], y.shape[0]):
         raise ValueError("out has wrong shape")
     return result
+
+
+distance = pairwise_distance  # raft::distance::distance() alias

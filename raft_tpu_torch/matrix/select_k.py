@@ -10,9 +10,14 @@ here is a stable sort of the order-preserving integer image of the bits
 `select_k` strategies: "topk" and "two_phase" (the chunked path for long
 rows) select with that sort; "counting" runs the `counting_select_min`
 kernel (ops/select_counting.py) on the f32 image and sorts only the k
-survivors. `strategy=None` never promotes to "counting": the JAX package
-does so only on a TPU backend under a tuned key, and tuned values do not
-carry over.
+survivors. `strategy=None` reads the tuned table (core/tuned.py) for
+CUDA tensors, as the JAX package reads it on a TPU: `select_k_strategy`
+may force an engine, `select_k_chunk_threshold` moves the length past
+which rows go two-phase, and `select_k_auto_strategy` = "counting" (or
+`select_k_strategy` = "counting") promotes every internal
+`_select_k_impl` whose rows fit the kernel (`_counting_promoted`). On the
+CPU, and without a tuned value, the choice is the JAX package's untuned
+one.
 
 `select_k` returns int32 indices on every strategy, as the JAX package
 does (`lax.top_k`'s and the counting kernel's index type); the private
@@ -22,12 +27,12 @@ them.
 `scan_select_k` is the operand-level door: "fused" hands scoring and
 selection to the fused kernel (ops/fused_scan.py), "two_phase"
 materializes the distances and selects; None/"auto" resolves through
-`resolve_scan_strategy`, which gives "two_phase" as the JAX package does
-without a tuned value. `list_scan_select_k` is the
-list-geometry door the IVF engines use, `bitplane_scan_select_k` the
-RaBitQ bit-plane one (`resolve_bitplane_strategy` picks the fused kernel
-only when the caller asks: "auto" resolves to "xla", as the JAX package
-does without a tuned key).
+`resolve_scan_strategy` (a tuned `select_k_strategy` = "fused" promotes
+the kernel where it fits). `list_scan_select_k` is the list-geometry
+door the IVF engines use, with `resolve_int8_trim_strategy` for IVF-PQ's
+int8 trim, and `bitplane_scan_select_k` the RaBitQ bit-plane one
+(`resolve_bitplane_strategy`); both promote their kernel only on a tuned
+value, for CUDA tensors.
 """
 
 from __future__ import annotations
@@ -36,6 +41,8 @@ from typing import Optional, Tuple
 
 import torch
 
+from raft_tpu_torch.core import tuned
+from raft_tpu_torch.core.tuned import BITPLANE_SCAN_KEY, INT8_SCAN_KEY
 from raft_tpu_torch.core.validation import as_tensor, check_matrix, check_same_cols
 from raft_tpu_torch.distance.distance_types import (
     DistanceType,
@@ -95,28 +102,83 @@ def _two_phase(vals: torch.Tensor, k: int, largest: bool, chunk: int = _CHUNK):
     return mv, torch.gather(ci, -1, mi)
 
 
+#: matrix-input strategies the tuned `select_k_strategy` key may name
+#: ("fused" is operand-level only)
+_MATRIX_STRATEGIES = ("topk", "two_phase", "counting")
+
+
+def _tuned_strategy(device):
+    """The tuned `select_k_strategy` for work on `device`, or None (no
+    value, an out-of-set value, or a device the table does not govern)."""
+    if not tuned.applies(device):
+        return None
+    t = tuned.get("select_k_strategy")
+    return t if t in _MATRIX_STRATEGIES + ("fused",) else None
+
+
+def _tuned_chunk_threshold(device):
+    """The tuned row length past which rows go two-phase, or None; a
+    value that is not a positive number degrades to the built-in one."""
+    if not tuned.applies(device):
+        return None
+    t = tuned.get("select_k_chunk_threshold")
+    if not isinstance(t, (int, float)) or isinstance(t, bool) or t <= 0:
+        return None
+    return int(t)
+
+
+def _counting_promoted(vals: torch.Tensor, k: int) -> bool:
+    """Whether an untold select goes to the counting kernel: a tuned
+    promotion (`select_k_auto_strategy` = "counting", or
+    `select_k_strategy` = "counting") for a CUDA tensor of a dtype in
+    `_COUNTING_DTYPES`, within the kernel's envelope
+    (`ops.select_counting.fits_counting`). Rows of more than two axes
+    select along the last one as one (B, L) matrix: the port's list-major
+    trims select over (chunks, rows, slots) scores, where the JAX package
+    calls `lax.approx_min_k`."""
+    if vals.ndim < 2 or vals.dtype not in _COUNTING_DTYPES or not tuned.applies(vals.device):
+        return False
+    if not (tuned.get("select_k_auto_strategy") == "counting"
+            or _tuned_strategy(vals.device) == "counting"):
+        return False
+    from raft_tpu_torch.ops.select_counting import fits_counting
+
+    L = int(vals.shape[-1])
+    return fits_counting(vals.numel() // max(1, L), L + (-L) % 128, int(k))
+
+
 def _select_k_impl(vals: torch.Tensor, k: int, select_min: bool,
                    forced: Optional[str] = None):
     """(values, int64 indices) of the k best per row, best-first."""
+    if forced is None and _counting_promoted(vals, k):
+        return _select_k_counting(vals, k, select_min)
     n = vals.shape[-1]
     largest = not select_min
+    if forced is None:
+        forced = _tuned_strategy(vals.device)
+    if forced == "topk":
+        return _sorted_top(vals, k, largest)
     if forced == "two_phase":
         if n > 2 * _CHUNK and k <= _CHUNK // 4:
             return _two_phase(vals, k, largest)
         return _sorted_top(vals, k, largest)
-    if forced == "topk" or n <= _CHUNK_THRESHOLD or k > _CHUNK // 4:
+    thresh = _tuned_chunk_threshold(vals.device) or _CHUNK_THRESHOLD
+    if n <= thresh or n <= 2 * _CHUNK or k > _CHUNK // 4:
         return _sorted_top(vals, k, largest)
     return _two_phase(vals, k, largest)
 
 
 def _select_k_counting(vals: torch.Tensor, k: int, select_min: bool):
     """The counting engine (ops/select_counting.py): exactly the k best,
-    unsorted, then a stable sort of those k for the best-first contract. Cast to f32 BEFORE negating (integer negation wraps; f32
-    negation is exact for every admitted dtype), pad to a multiple of 128
-    with +inf; values come back in the input dtype (exact)."""
+    unsorted, then a stable sort of those k for the best-first contract.
+    Leading axes fold into the kernel's rows. Cast to f32 BEFORE negating
+    (integer negation wraps; f32 negation is exact for every admitted
+    dtype), pad to a multiple of 128 with +inf; values come back in the
+    input dtype (exact)."""
     from raft_tpu_torch.ops.select_counting import counting_select_min
 
-    v = vals.float()
+    lead = vals.shape[:-1]
+    v = vals.float().reshape(-1, vals.shape[-1])
     if not select_min:
         v = -v
     pad = (-v.shape[-1]) % 128
@@ -125,7 +187,8 @@ def _select_k_counting(vals: torch.Tensor, k: int, select_min: bool):
     cv, ci = counting_select_min(v.contiguous(), k)
     sv, order = _sorted_top(cv, k, largest=False)
     out = sv if select_min else -sv
-    return out.to(vals.dtype), torch.gather(ci, -1, order).long()
+    idx = torch.gather(ci, -1, order).long()
+    return out.to(vals.dtype).reshape(*lead, k), idx.reshape(*lead, k)
 
 
 def select_k(values, k: int, select_min: bool = True, indices=None,
@@ -219,16 +282,21 @@ def _scan_two_phase_impl(queries, dataset, k: int, metric, valid=None):
 
 
 def resolve_scan_strategy(n_rows: int, dim: int, k: int, strategy=None,
-                          fused_ok: bool = True) -> str:
+                          fused_ok: bool = True, device=None) -> str:
     """Resolve a scan_select_k strategy: explicit wins, an unknown name
-    raises ValueError, None/"auto" is "two_phase". The JAX package
-    promotes "fused" only on a tuned value measured on its chip, and
-    tuned values do not carry over, so the geometry (`n_rows`, `dim`,
-    `k`) and `fused_ok` it would consult do not change the answer here."""
+    raises ValueError; None/"auto" is "fused" where a tuned
+    `select_k_strategy` = "fused" governs `device` (CUDA) and the kernel
+    covers the metric (`fused_ok`) and the geometry (`fits_fused`), else
+    "two_phase"."""
     if strategy in SCAN_STRATEGIES:
         return strategy
     if strategy not in (None, "auto"):
         raise ValueError(f"unknown scan_select_k strategy {strategy!r}")
+    if fused_ok and _tuned_strategy(device) == "fused":
+        from raft_tpu_torch.ops.fused_scan import fits_fused
+
+        if fits_fused(1, n_rows, dim, k):
+            return "fused"
     return "two_phase"
 
 
@@ -253,7 +321,8 @@ def scan_select_k(queries, dataset, k: int, metric="sqeuclidean",
             raise ValueError(f"valid must be ({ds.shape[0]},), got {tuple(valid.shape)}")
     m = resolve_metric(metric)
     strategy = resolve_scan_strategy(ds.shape[0], ds.shape[1], int(k), strategy,
-                                     fused_ok=_fused_metric_kind(m) is not None)
+                                     fused_ok=_fused_metric_kind(m) is not None,
+                                     device=q.device)
     if strategy == "fused":
         from raft_tpu_torch.ops.fused_scan import FUSED_MAX_K, fits_fused
 
@@ -273,6 +342,26 @@ def scan_select_k(queries, dataset, k: int, metric="sqeuclidean",
 # ---------------------------------------------------------------------------
 
 LIST_SCAN_STRATEGIES = ("fused", "fused_int8")
+
+
+def resolve_int8_trim_strategy(L: int, rot: int, k: int, kbuf: Optional[int] = None,
+                               strategy: Optional[str] = None, device=None):
+    """IVF-PQ's int8 list-major trim: explicit "fused_int8" wins (the call
+    site checks its envelope and raises past it); None/"auto" is
+    "fused_int8" where a tuned `select_k_strategy_int8` governs `device`
+    (CUDA) and the int8 kernel fits the geometry, else None (the caller
+    keeps its own trim)."""
+    if strategy == "fused_int8":
+        return strategy
+    if strategy not in (None, "auto"):
+        raise ValueError(f"unknown int8 trim strategy {strategy!r}")
+    if not tuned.applies(device) or tuned.get(INT8_SCAN_KEY) != "fused_int8":
+        return None
+    from raft_tpu_torch.ops.fused_scan import fits_fused_list
+
+    if fits_fused_list(L, rot, int(k), kbuf=kbuf, q_int8=True):
+        return "fused_int8"
+    return None
 
 
 def check_fused_list_request(label: str, L: int, rot: int, k: int,
@@ -327,18 +416,25 @@ def list_scan_select_k(lof, qres, store, base, k: int, strategy: str = "fused",
 BITPLANE_STRATEGIES = ("xla", "fused_bitplane")
 
 
-def resolve_bitplane_strategy(strategy: Optional[str] = None) -> str:
+def resolve_bitplane_strategy(L: int, words: int, bits: int, k: int,
+                              kbuf: Optional[int] = None, strategy: Optional[str] = None,
+                              device=None) -> str:
     """The RaBitQ scan engine: "xla" is the materializing bit-plane scan
     (`ivf_rabitq._search_impl_rabitq`), "fused_bitplane" the fused kernel.
     Explicit wins (the call site validates the envelope with
-    `check_bitplane_request` and raises past it); None/"auto" is "xla":
-    the JAX package promotes the fused scan only on a tuned value measured
-    on its chip, and tuned values do not carry over, so the geometry the
-    JAX resolver takes is not needed here."""
+    `check_bitplane_request` and raises past it); None/"auto" is
+    "fused_bitplane" where a tuned `select_k_strategy_bitplane` governs
+    `device` (CUDA) and the kernel fits the geometry, else "xla"."""
     if strategy in BITPLANE_STRATEGIES:
         return strategy
     if strategy not in (None, "auto"):
         raise ValueError(f"unknown bitplane scan strategy {strategy!r}")
+    if not tuned.applies(device) or tuned.get(BITPLANE_SCAN_KEY) != "fused_bitplane":
+        return "xla"
+    from raft_tpu_torch.ops.fused_scan import fits_fused_bitplane
+
+    if fits_fused_bitplane(L, words, int(bits), int(k), kbuf=kbuf):
+        return "fused_bitplane"
     return "xla"
 
 

@@ -13,8 +13,11 @@ raft_tpu/neighbors/brute_force.py).
            score matrix never reaches device memory; exact over the
            bf16-rounded operands, ties to the smaller row id;
   "auto"   resolved through `matrix.select_k.resolve_scan_strategy`, as
-           the JAX package does: "tiled" unless it says "fused" (it
-           says "two_phase" without a tuned value).
+           the JAX package does: "fused" where a tuned
+           `select_k_strategy` = "fused" governs the queries' device
+           (CUDA) and the kernel covers the metric and k, else "tiled".
+           The tiled engine's per-tile selects follow select_k's tuned
+           readers too (`_select_k_impl`).
 
 `prefilter` (a `core.bitset.Bitset` or a boolean mask over the dataset
 rows) excludes rows before selection on both engines: the tiled engine
@@ -112,7 +115,8 @@ def knn(dataset, queries, k: int, metric="sqeuclidean", metric_arg: float = 2.0,
 
         strat = resolve_scan_strategy(
             int(ds.shape[0]), int(ds.shape[1]), int(k), None,
-            fused_ok=_fused_metric_kind(m) is not None and compute_dtype is None)
+            fused_ok=_fused_metric_kind(m) is not None and compute_dtype is None,
+            device=q.device)
         engine = "fused" if strat == "fused" else "tiled"
     if engine not in ("tiled", "fused"):
         raise ValueError(f"unknown engine {engine!r}")

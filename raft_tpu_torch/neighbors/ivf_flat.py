@@ -27,17 +27,26 @@ Search, engines:
             The first such search pads the store to the kernels' lane
             multiple in place, for good; the fit is checked first, so a
             rejected request leaves the index as it was;
-  "auto"    `resolve_auto_engine`: "list" when nq * n_probes / n_lists >=
-            4, else "query", as the JAX package decides without a tuned
-            value.
+  "auto"    `resolve_auto_engine`: the tuned `flat_auto_engine` (CUDA
+            only, core/tuned.py; "fused" where the kernel fits the index
+            and k), else "list" when nq * n_probes / n_lists >= 4, else
+            "query", as the JAX package decides without a tuned value.
+
+Adaptive probing (`adaptive`, `recall_target`, `budget_tau`;
+neighbors/probe_budget) plans one (nq, n_probes) keep mask a batch; the
+"query" engine masks the dropped probes' slots, the list-major engines
+drop their pairs before the inversion. `list_radii` (each list's largest
+member distance to its centroid) bound the scan for L2 metrics: zero at
+build, raised by every `extend`, computed from the store for an index
+carried across (`index_from_arrays`), and None once `adaptive_centers`
+moves the centers (budgets only).
 
 A `prefilter` (a `core.bitset.Bitset` or boolean mask over the index's
 ids) is one view of the slot table, which every engine masks to the
 worst value before any selection.
 
 Not ported yet (each raises NotImplementedError naming ROADMAP Queue A):
-adaptive probing and list radii (item 7), save/load and the integrity
-digests (item 9).
+save/load and the integrity digests (item 9).
 Tombstones (item 6) stay None. Observability spans and fault hooks are
 left out.
 """
@@ -51,10 +60,12 @@ import numpy as np
 import torch
 
 from raft_tpu_torch.cluster import kmeans_balanced
+from raft_tpu_torch.core import tuned
 from raft_tpu_torch.core.config import resolve_device, strict_f32_matmul
 from raft_tpu_torch.core.validation import check_matrix
 from raft_tpu_torch.distance.distance_types import DistanceType, resolve_metric
 from raft_tpu_torch.matrix.select_k import _select_k_impl
+from raft_tpu_torch.neighbors import probe_budget
 from raft_tpu_torch.random.rng import make_generator, sample_without_replacement
 
 #: gathered list values a block of the "query" engine holds
@@ -87,15 +98,18 @@ class IndexParams:
 class SearchParams:
     """Mirrors ivf_flat::search_params (ivf_flat_types.hpp:125). `engine`:
     "query", "list", "fused"/"pallas" or "auto" (module docstring).
-    `adaptive`, `recall_target` and `budget_tau` are the JAX package's
-    requests for adaptive probing, which raise until it is ported; its
-    other budget fields are left out until then."""
+    `adaptive`, `recall_target` and `budget_tau` ask for adaptive probing
+    (`recall_target` >= 1.0 is the fixed search bit for bit);
+    `min_probes` floors each query's budget and `early_term` allows the
+    radius bounds."""
 
     n_probes: int = 20
     engine: str = "query"
     adaptive: bool = False
     recall_target: Optional[float] = None
     budget_tau: Optional[float] = None
+    min_probes: int = 1
+    early_term: bool = True
 
 
 class Index:
@@ -105,6 +119,8 @@ class Index:
     list_data  (n_lists, max_list, dim) f32 vectors in list-major slots
     slot_rows  (n_lists, max_list) int32 slot -> source_ids position, -1 pad
     list_sizes (n_lists,) int32; source_ids (n_rows,) int32 caller ids
+    list_radii (n_lists,) f32 largest member distance to its centroid, or
+               None (adaptive probing then keeps budgets only)
 
     The fused engine's store is derived at its first search
     (`_pad_store_to_lanes`): resid_bf16 (n_lists, L, dim) bf16 residuals,
@@ -123,6 +139,7 @@ class Index:
         self.resid_bf16 = None
         self.resid_norm = None
         self.fused_kb = None
+        self.list_radii = None
         # the dead-slot mask of live mutation (ROADMAP Queue A item 6):
         # None (all live) on every port index
         self.tombstones = None
@@ -143,10 +160,6 @@ class Index:
         if self._id_bound is None:
             self._id_bound = int(self.source_ids.max()) + 1 if self.size else 0
         return self._id_bound
-
-    @property
-    def list_radii(self):
-        raise _not_ported("adaptive probing (list radii)", 7)
 
     @property
     def device(self) -> torch.device:
@@ -189,7 +202,8 @@ INDEX_FIELDS = ("centers", "list_data", "slot_rows", "list_sizes", "source_ids")
 def index_from_arrays(arrays: Dict[str, np.ndarray], params: IndexParams,
                       device=None) -> Index:
     """The port's Index from the JAX Index fields as numpy arrays
-    (`INDEX_FIELDS`), so both packages can search one identical index."""
+    (`INDEX_FIELDS`), so both packages can search one identical index.
+    Its `list_radii` are the given ones, else computed from the store."""
     dev = resolve_device(device)
     missing = [f for f in INDEX_FIELDS if f not in arrays]
     if missing:
@@ -197,8 +211,15 @@ def index_from_arrays(arrays: Dict[str, np.ndarray], params: IndexParams,
     dtypes = {"slot_rows": torch.int32, "list_sizes": torch.int32, "source_ids": torch.int32}
     t = {f: torch.as_tensor(np.array(arrays[f]))
          .to(device=dev, dtype=dtypes.get(f, torch.float32)) for f in INDEX_FIELDS}
-    return Index(params, t["centers"], t["list_data"], t["slot_rows"], t["list_sizes"],
-                 t["source_ids"])
+    index = Index(params, t["centers"], t["list_data"], t["slot_rows"], t["list_sizes"],
+                  t["source_ids"])
+    if arrays.get("list_radii") is not None:
+        index.list_radii = torch.as_tensor(np.array(arrays["list_radii"]),
+                                           dtype=torch.float32, device=dev)
+    else:
+        index.list_radii = probe_budget.list_radii_from_store(index.list_data, index.slot_rows,
+                                                              index.centers)
+    return index
 
 
 def save(filename: str, index: Index) -> None:
@@ -329,6 +350,8 @@ def build(params: IndexParams, dataset, seed: int = 0, device=None) -> Index:
         torch.zeros((params.n_lists,), dtype=torch.int32, device=dev),
         torch.zeros((0,), dtype=torch.int32, device=dev),
     )
+    # zero radii on the empty index: every extend raises them
+    index.list_radii = torch.zeros((params.n_lists,), dtype=torch.float32, device=dev)
     if params.add_data_on_build:
         index = extend(index, x, torch.arange(n, dtype=torch.int32, device=dev))
     return index
@@ -338,7 +361,8 @@ def extend(index: Index, new_vectors, new_indices=None) -> Index:
     """Append vectors (ivf_flat build.cuh `extend`): label only the new
     rows, grow the list tables, place the batch in its slots. A store
     padded for the fused engine never shrinks. With `adaptive_centers`
-    each center moves to the running mean of its old and new members."""
+    each center moves to the running mean of its old and new members, and
+    the list radii, taken against the old centers, become None."""
     from raft_tpu_torch.core.bitset import carry_tombstones
 
     dev = index.device
@@ -348,7 +372,7 @@ def extend(index: Index, new_vectors, new_indices=None) -> Index:
         new_indices = torch.arange(old_n, old_n + nv.shape[0], dtype=torch.int32, device=dev)
     else:
         new_indices = torch.as_tensor(new_indices, device=dev).to(torch.int32)
-    labels = kmeans_balanced.predict(nv, index.centers, metric=_metric_name(index.metric),
+    labels = kmeans_balanced._predict_long(nv, index.centers, metric=_metric_name(index.metric),
                                      device=dev)
     old_sizes = index.list_sizes.cpu().numpy().astype(np.int64)
     slot_abs, new_sizes, new_max = _append_slots(labels.cpu().numpy(), old_sizes, index.n_lists)
@@ -370,6 +394,13 @@ def extend(index: Index, new_vectors, new_indices=None) -> Index:
         centers = torch.where(counts[:, None] > 0, upd, centers)
     out = Index(index.params, centers, list_data, slot_rows,
                 torch.as_tensor(new_sizes, device=dev), all_ids)
+    if not index.adaptive_centers:
+        from raft_tpu_torch.neighbors.quantizer import ordered_row_sum, sqrt_f32
+
+        res = nv - index.centers[labels]
+        dists = sqrt_f32(torch.clamp(ordered_row_sum(res, res), min=0.0))
+        out.list_radii = probe_budget.updated_radii(index.list_radii, labels, dists,
+                                                    index.n_lists)
     out.tombstones = carry_tombstones(index.tombstones, new_max)
     return out
 
@@ -379,32 +410,39 @@ def extend(index: Index, new_vectors, new_indices=None) -> Index:
 # ---------------------------------------------------------------------------
 
 
-def _coarse_scores(queries: torch.Tensor, centers: torch.Tensor, metric: DistanceType):
-    """(scores, smaller_is_better) of every (query, center) pair: inner
-    products, or clamped squared L2 distances."""
-    from raft_tpu_torch.distance.pairwise import _dot
-
-    d = _dot(queries, centers)
-    if metric == DistanceType.InnerProduct:
-        return d, False
-    qn = torch.sum(queries.float() ** 2, dim=1)[:, None]
-    cn = torch.sum(centers.float() ** 2, dim=1)[None, :]
-    return torch.clamp(qn + cn - 2.0 * d, min=0.0), True
-
-
 def _probes(queries, centers, n_probes: int, metric: DistanceType):
-    cs, coarse_min = _coarse_scores(queries, centers, metric)
-    return _select_k_impl(cs, n_probes, coarse_min)[1]
+    """The n_probes best coarse centers of each query (adaptive probing's
+    `probe_budget.coarse_select`, the one coarse select of every engine)."""
+    return probe_budget.coarse_select(queries, centers, metric, n_probes)[1]
 
 
-def resolve_auto_engine(nq: int, n_probes: int, n_lists: int, pallas_ok=None) -> str:
-    """The "auto" engine policy. The JAX package first takes a tuned
-    winner (`flat_auto_engine`, which may name the fused engine where
-    `pallas_ok()` holds); tuned values do not carry over, so the port
-    decides as the JAX package does without one: "list" when the batch
-    re-reads each list at least 4 times (nq * n_probes / n_lists >= 4),
-    else "query". `pallas_ok` is kept for an H100 default that a later
-    measurement may set; it does not change the answer yet."""
+def _planned_probes(queries, centers, n_probes: int, metric: DistanceType, plan):
+    """(probes, keep mask or None): an adaptive `plan`'s ((keep mask,
+    probes), `probe_budget.search_plan`, which made the coarse select
+    already), else the fixed search's probes."""
+    if plan is not None:
+        return plan[1], plan[0]
+    return _probes(queries, centers, n_probes, metric), None
+
+
+def resolve_auto_engine(nq: int, n_probes: int, n_lists: int, pallas_ok=None,
+                        device=None) -> str:
+    """The "auto" engine policy: the tuned `flat_auto_engine` where the
+    table governs `device` (CUDA), "fused" spelled "pallas" as in the JAX
+    package; a tuned fused engine needs `pallas_ok()` to hold (None: the
+    caller has no fused engine, and the winner maps to "list"; False: the
+    winner is passed over). Else "list" when the batch re-reads each list
+    at least 4 times (nq * n_probes / n_lists >= 4), else "query"."""
+    t = tuned.get("flat_auto_engine") if tuned.applies(device) else None
+    if t == "fused":
+        t = "pallas"  # one fused engine, two spellings
+    if t == "pallas":
+        if pallas_ok is None:
+            t = "list"
+        elif not pallas_ok():
+            t = None
+    if t in ("query", "list", "pallas"):
+        return t
     dup = nq * n_probes / max(1, n_lists)
     return "list" if dup >= 4.0 else "query"
 
@@ -414,23 +452,27 @@ def _query_block(n_probes: int, max_list: int, dim: int) -> int:
 
 
 def _search_impl(queries, centers, list_data, slot_rows, k: int, n_probes: int,
-                 metric: DistanceType, query_block: Optional[int] = None):
+                 metric: DistanceType, query_block: Optional[int] = None, plan=None):
     """The "query" engine: per block of queries, gather each query's
     probed lists, score them with one batched f32 product, mask the empty
-    slots to the worst value and select exactly. Returns (distances,
-    slot-table values) (nq, k)."""
+    slots (and those of the probes an adaptive `plan` masked) to the
+    worst value and select exactly. Returns (distances, slot-table
+    values) (nq, k)."""
     strict_f32_matmul()
     nq, dim = queries.shape
     max_list = list_data.shape[1]
     ip = metric == DistanceType.InnerProduct
     worst = float("-inf") if ip else float("inf")
-    probes = _probes(queries, centers, n_probes, metric)
+    probes, pvalid = _planned_probes(queries, centers, n_probes, metric, plan)
     qb = query_block or _query_block(n_probes, max_list, dim)
     vals, rows = [], []
     for s in range(0, nq, qb):
         qs, pr = queries[s:s + qb].float(), probes[s:s + qb].long()
         b = qs.shape[0]
-        cand = slot_rows[pr].reshape(b, -1)                   # (b, C), -1 pad
+        cand = slot_rows[pr]
+        if pvalid is not None:
+            cand = torch.where(pvalid[s:s + qb][:, :, None], cand, -1)
+        cand = cand.reshape(b, -1)                            # (b, C), -1 pad
         cdata = list_data[pr].reshape(b, cand.shape[1], dim)  # (b, C, dim)
         dots = torch.bmm(cdata, qs[:, :, None])[..., 0]
         if ip:
@@ -450,11 +492,11 @@ def _search_impl(queries, centers, list_data, slot_rows, k: int, n_probes: int,
 
 
 def _search_impl_listmajor(queries, centers, list_data, slot_rows, k: int, n_probes: int,
-                           metric: DistanceType, chunk: int = 128):
-    """The "list" engine: probe pairs invert to per-list chunks, each
-    chunk's queries score against its list's vectors (one batched f32
-    product a superblock), then the exact trim and merge of
-    `probe_invert.score_and_select`."""
+                           metric: DistanceType, chunk: int = 128, plan=None):
+    """The "list" engine: probe pairs (those an adaptive `plan`'s mask
+    keeps) invert to per-list chunks, each chunk's queries score against
+    its list's vectors (one batched f32 product a superblock), then the
+    exact trim and merge of `probe_invert.score_and_select`."""
     from raft_tpu_torch.neighbors.probe_invert import (
         gather_query_rows,
         invert_probes_sort,
@@ -466,8 +508,8 @@ def _search_impl_listmajor(queries, centers, list_data, slot_rows, k: int, n_pro
     n_lists, max_list, _ = list_data.shape
     ip = metric == DistanceType.InnerProduct
     worst = float("-inf") if ip else float("inf")
-    probes = _probes(queries, centers, n_probes, metric)
-    tables = invert_probes_sort(probes, n_lists, chunk)
+    probes, pvalid = _planned_probes(queries, centers, n_probes, metric, plan)
+    tables = invert_probes_sort(probes, n_lists, chunk, pvalid)
     qf = queries.float()
     q_pad = torch.cat([qf, qf.new_zeros((1, dim))])
 
@@ -521,14 +563,15 @@ def _pad_store_to_lanes(index: Index, k: int) -> None:
 
 def _search_impl_listmajor_pallas(queries, centers, resid_bf16, resid_norm, slot_rows, k: int,
                                   n_probes: int, metric: DistanceType, chunk: int = 128,
-                                  kb: Optional[int] = None):
+                                  kb: Optional[int] = None, plan=None):
     """The "fused" engine: list-major, scored by `fused_list_topk` over
     the bf16 residual store. |q - v|^2 = |q - c|^2 - 2 (q - c).(v - c) +
     |v - c|^2, so the kernel scores residual rows against base |v - c|^2
     (0 for inner product) and returns each row's exact top-k; +inf base
     wherever the slot table reads -1 (pad, or filtered). The query
     constant (|q - c|^2, or q.c for inner product) is added back before
-    the exact merge."""
+    the exact merge. Pairs outside an adaptive `plan`'s mask are dropped
+    before the inversion."""
     from raft_tpu_torch.matrix.select_k import list_scan_select_k
     from raft_tpu_torch.neighbors.probe_invert import (
         chunk_live_rows,
@@ -541,8 +584,8 @@ def _search_impl_listmajor_pallas(queries, centers, resid_bf16, resid_norm, slot
     nq, dim = queries.shape
     n_lists = resid_bf16.shape[0]
     ip = metric == DistanceType.InnerProduct
-    probes = _probes(queries, centers, n_probes, metric)
-    tables = invert_probes_sort(probes, n_lists, chunk)
+    probes, pvalid = _planned_probes(queries, centers, n_probes, metric, plan)
+    tables = invert_probes_sort(probes, n_lists, chunk, pvalid)
     lof = tables.lof
     live = chunk_live_rows(tables.qid_tbl, nq)  # pad rows and empty chunks skip in-kernel
     qf = queries.float()
@@ -594,7 +637,10 @@ def search(params: SearchParams, index: Index, queries, k: int, prefilter=None
     index's id space (`index.id_bound` ids); samples whose bit is clear
     are excluded before any selection, on every engine. Where fewer than
     k samples pass (or the probed lists hold fewer), the tail holds the
-    worst distance with id -1."""
+    worst distance with id -1. Adaptive probing plans one keep mask for
+    the batch over the probes the engine then scans
+    (`probe_budget.search_plan`), with radius bounds for L2 metrics when
+    the index has radii and no prefilter is given."""
     from raft_tpu_torch.core.bitset import make_slot_filter
     from raft_tpu_torch.neighbors.probe_invert import macro_batched
 
@@ -606,8 +652,6 @@ def search(params: SearchParams, index: Index, queries, k: int, prefilter=None
     k = int(k)
     if k <= 0:
         raise ValueError("k must be positive")
-    if params.adaptive or params.recall_target is not None or params.budget_tau is not None:
-        raise _not_ported("adaptive probing", 7)
     n_probes = int(min(max(1, params.n_probes), index.n_lists))
     maybe_filter = make_slot_filter(prefilter, index.id_bound, index.source_ids,
                                     tombstones=index.tombstones)
@@ -616,12 +660,23 @@ def search(params: SearchParams, index: Index, queries, k: int, prefilter=None
         engine = "fused"  # one fused engine, two spellings
     if engine == "auto":
         engine = resolve_auto_engine(q.shape[0], n_probes, index.n_lists,
-                                     pallas_ok=lambda: _pallas_fits(index, k))
+                                     pallas_ok=lambda: _pallas_fits(index, k),
+                                     device=index.device)
+        if engine == "pallas":
+            engine = "fused"
     if engine not in ("fused", "list", "query"):
         raise ValueError(f"unknown engine {engine!r}")
     if engine != "fused" and k > n_probes * int(index.list_data.shape[1]):
         raise ValueError(f"k={k} exceeds the {n_probes} probed lists' "
                          f"{n_probes * int(index.list_data.shape[1])} slots")
+    # bounds off under a prefilter or tombstones: the sizes count the
+    # members a filter drops, so a k-covering prefix could be all filtered
+    # and a list with eligible neighbours skipped
+    plan = probe_budget.search_plan(
+        probe_budget.resolve_params(params, n_probes, index.device), q, index.centers,
+        n_probes=n_probes, k=k, metric=index.metric,
+        radii=index.list_radii if prefilter is None and index.tombstones is None else None,
+        sizes=index.list_sizes)
     if engine == "fused":
         from raft_tpu_torch.matrix.select_k import check_fused_list_request
         from raft_tpu_torch.ops.pq_list_scan import lane_padded
@@ -634,18 +689,19 @@ def search(params: SearchParams, index: Index, queries, k: int, prefilter=None
         _pad_store_to_lanes(index, k)
         srows = maybe_filter(index.slot_rows)
         vals, rows = macro_batched(
-            lambda sl: _search_impl_listmajor_pallas(
+            lambda sl, pl=None: _search_impl_listmajor_pallas(
                 sl, index.centers, index.resid_bf16, index.resid_norm, srows, k, n_probes,
-                index.metric, kb=kb),
-            q, k, MACRO_BATCH)
+                index.metric, kb=kb, plan=pl),
+            q, k, MACRO_BATCH, extra=plan)
     elif engine == "list":
         srows = maybe_filter(index.slot_rows)
         vals, rows = macro_batched(
-            lambda sl: _search_impl_listmajor(sl, index.centers, index.list_data, srows, k,
-                                              n_probes, index.metric),
-            q, k, MACRO_BATCH)
+            lambda sl, pl=None: _search_impl_listmajor(sl, index.centers, index.list_data, srows,
+                                                       k, n_probes, index.metric, plan=pl),
+            q, k, MACRO_BATCH, extra=plan)
     else:
         vals, rows = _search_impl(q, index.centers, index.list_data,
-                                  maybe_filter(index.slot_rows), k, n_probes, index.metric)
+                                  maybe_filter(index.slot_rows), k, n_probes, index.metric,
+                                  plan=plan)
     ids = torch.where(rows >= 0, index.source_ids[torch.clamp(rows, min=0).long()], -1)
     return vals, ids.to(torch.int32)

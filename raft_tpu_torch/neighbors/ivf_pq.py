@@ -22,10 +22,11 @@ Search, `score_mode`:
                  trimmed, and the per-(query, probe) candidates regroup
                  to query-major order and merge exactly;
   "auto"         `_resolve_score_mode`: "recon8_list" when an int8 or a
-                 pallas, exact or fused trim is asked for, or when the
-                 batch re-reads each list at least 4 times (nq * n_probes
-                 / n_lists >= 4); else "lut". This is the JAX package's
-                 choice off a TPU without a tuned value.
+                 pallas, exact or fused trim is asked for; else the tuned
+                 `pq_auto_engine` (CUDA only, core/tuned.py); else
+                 "recon8_list" when the batch re-reads each list at least
+                 4 times (nq * n_probes / n_lists >= 4), and "lut" below
+                 that, the JAX package's choice off a TPU.
 
 The trims of "recon8_list", `trim_engine`:
 
@@ -43,8 +44,18 @@ The trims of "recon8_list", `trim_engine`:
   "pallas"       the bin fold, best and second best in each of 256 bins
                  per row (`ops/pq_list_scan.py`), then an exact
                  top-min(k, 256) of the 512 candidates; k <= 256;
-  "auto"         "approx", as the JAX package resolves it without a
-                 tuned key.
+  "auto"         "approx", unless a tuned `select_k_strategy_int8`
+                 (CUDA only) promotes the fused int8 trim for int8 rows
+                 whose geometry fits the kernel. A bf16 trim's "auto"
+                 stays "approx", as in the JAX package; on the card its
+                 per-row selects may go to the counting kernel
+                 (matrix/select_k `_counting_promoted`).
+
+`internal_distance_dtype="auto"` is the tuned hint
+`hints()["internal_distance_dtype"]` on CUDA, else "float32"; the
+"approx" and "exact" trims take their chunk width from the tuned
+`listmajor_chunk` (32, 64 or 128) where a batch re-reads each list at
+most 48 times (`resolve_listmajor_chunk`), else 128.
 
 score_dtype="int8" quantizes each scale-folded residual row to symmetric
 int8 (`_quantize_query_rows`) and scores int8 x int8 -> int32 with the
@@ -56,11 +67,16 @@ A `prefilter` (a `core.bitset.Bitset` or boolean mask over the index's
 ids) is one view of the slot table: filtered slots read -1, which every
 engine scores as the worst value, so no filtered row is ever a candidate.
 
-Not ported yet (each raises NotImplementedError naming ROADMAP Queue A):
-adaptive probing (item 7), tombstones (item 6), save/load (item 9).
-Integrity digests, list radii, observability spans and fault hooks are
-left out, and so is the JAX package's fence against the lut engine on a
-TPU (`_check_lut_allowed`, a guard for a TPU device fault).
+Adaptive probing (`adaptive`, `recall_target`, `budget_tau`;
+neighbors/probe_budget): one (nq, n_probes) keep mask from the rotated
+coarse geometry, with radius bounds for L2 metrics without a prefilter.
+`list_radii` are zero at build and raised by every `extend` to the
+largest rotated-space residual norm of each list's members.
+
+Not ported yet: tombstones (ROADMAP Queue A item 6), save/load (item 9).
+Integrity digests, observability spans and fault hooks are left out, and
+so is the JAX package's fence against the lut engine on a TPU
+(`_check_lut_allowed`, a guard for a TPU device fault).
 """
 
 from __future__ import annotations
@@ -72,15 +88,18 @@ import numpy as np
 import torch
 
 from raft_tpu_torch.cluster import kmeans_balanced
+from raft_tpu_torch.core import tuned
 from raft_tpu_torch.core.config import resolve_device, strict_f32_matmul
 from raft_tpu_torch.core.validation import check_matrix
 from raft_tpu_torch.distance.distance_types import DistanceType, resolve_metric
 from raft_tpu_torch.matrix.select_k import _select_k_impl
+from raft_tpu_torch.neighbors import probe_budget
 from raft_tpu_torch.neighbors.quantizer import (
     PER_CLUSTER,
     PER_SUBSPACE,
     PqQuantizer,
     ordered_row_sum,
+    sqrt_f32,
 )
 from raft_tpu_torch.random.rng import make_generator, sample_without_replacement
 
@@ -88,10 +107,11 @@ from raft_tpu_torch.random.rng import make_generator, sample_without_replacement
 LUT_BLOCK_ELEMS = 1 << 25
 #: reconstruction-store values a block of the "recon8" engine holds
 RECON8_BLOCK_ELEMS = 1 << 25
-
-
-def _not_ported(what: str, item: int) -> NotImplementedError:
-    return NotImplementedError(f"{what} is not ported yet (ROADMAP Queue A item {item})")
+#: duplication (nq * n_probes / n_lists) up to which the tuned
+#: `listmajor_chunk` applies (the JAX package's bound)
+_LOW_DUP_CHUNK_BOUND = 48
+#: the chunk widths `listmajor_chunk` may name (the JAX package's set)
+_LISTMAJOR_CHUNKS = (32, 64, 128)
 
 
 @dataclasses.dataclass
@@ -132,8 +152,9 @@ class SearchParams:
     (= "float32"): the dtype of the approx and exact trims' scores (the
     two half types both mean bf16 scores, as in the JAX package).
     `adaptive`, `recall_target` and `budget_tau` ask for adaptive probing
-    and raise until it is ported; `min_probes` and `early_term` are its
-    other fields."""
+    (neighbors/probe_budget; `recall_target` >= 1.0 is the fixed search
+    bit for bit); `min_probes` floors each query's budget and
+    `early_term` allows the radius bounds."""
 
     n_probes: int = 20
     lut_dtype: str = "float32"
@@ -158,6 +179,8 @@ class Index:
     codes      (n_lists, max_list, pq_dim) uint8 slot table
     slot_rows  (n_lists, max_list) int32 -> row position, -1 empty
     list_sizes (n_lists,) int32; source_ids (n_rows,) int32
+    list_radii (n_lists,) f32 largest rotated-space residual norm of each
+               list's members (adaptive probing's bounds), or None
 
     The reconstruction store is built at the first search:
     recon8 (n_lists, lpad, rot_dim) int8, recon_scale (rot_dim,) f32,
@@ -182,6 +205,7 @@ class Index:
         # fused-trim candidate-buffer width, grown monotonically when a
         # later search's k outruns it
         self.fused_kb = None
+        self.list_radii = None
         self._id_bound = None
 
     @property
@@ -246,8 +270,9 @@ INDEX_FIELDS = ("rotation", "centers", "pq_centers", "codes", "slot_rows",
 def index_from_arrays(arrays: Dict[str, np.ndarray], params: IndexParams,
                       device=None) -> Index:
     """The port's Index from the JAX Index fields as numpy arrays
-    (`INDEX_FIELDS`, raft_tpu/neighbors/ivf_pq.py:185-207), so both
-    packages can search one identical index."""
+    (`INDEX_FIELDS`, raft_tpu/neighbors/ivf_pq.py:185-207, and its
+    `list_radii` where given), so both packages can search one identical
+    index."""
     dev = resolve_device(device)
     missing = [f for f in INDEX_FIELDS if f not in arrays]
     if missing:
@@ -256,8 +281,12 @@ def index_from_arrays(arrays: Dict[str, np.ndarray], params: IndexParams,
               "list_sizes": torch.int32, "source_ids": torch.int32}
     t = {f: torch.as_tensor(np.array(arrays[f]))
          .to(device=dev, dtype=dtypes.get(f, torch.float32)) for f in INDEX_FIELDS}
-    return Index(params, t["rotation"], t["centers"], t["pq_centers"], t["codes"],
-                 t["slot_rows"], t["list_sizes"], t["source_ids"])
+    index = Index(params, t["rotation"], t["centers"], t["pq_centers"], t["codes"],
+                  t["slot_rows"], t["list_sizes"], t["source_ids"])
+    if arrays.get("list_radii") is not None:
+        index.list_radii = torch.as_tensor(np.array(arrays["list_radii"]),
+                                           dtype=torch.float32, device=dev)
+    return index
 
 
 # ---------------------------------------------------------------------------
@@ -338,7 +367,7 @@ def build(params: IndexParams, dataset, seed: int = 0, device=None) -> Index:
         x_cb = x_train_rot[sample_without_replacement(gen, n_train, max_cb_rows)]
     else:
         x_cb = x_train_rot
-    train_labels = kmeans_balanced.predict(x_cb, centers, metric=_metric_name(params.metric),
+    train_labels = kmeans_balanced._predict_long(x_cb, centers, metric=_metric_name(params.metric),
                                            device=dev)
     residuals = x_cb - centers[train_labels]
     quant = PqQuantizer(params.codebook_kind, pq_bits=params.pq_bits, pq_dim=pq_dim,
@@ -352,6 +381,8 @@ def build(params: IndexParams, dataset, seed: int = 0, device=None) -> Index:
         torch.zeros((params.n_lists,), dtype=torch.int32, device=dev),
         torch.zeros((0,), dtype=torch.int32, device=dev),
     )
+    # zero radii on the empty index: every extend raises them
+    index.list_radii = torch.zeros((params.n_lists,), dtype=torch.float32, device=dev)
     if params.add_data_on_build:
         index = extend(index, x, torch.arange(n, dtype=torch.int32, device=dev))
     return index
@@ -359,16 +390,20 @@ def build(params: IndexParams, dataset, seed: int = 0, device=None) -> Index:
 
 def label_and_encode(vectors: torch.Tensor, rotation: torch.Tensor, centers: torch.Tensor,
                      pq_centers: torch.Tensor, metric: DistanceType,
-                     per_cluster: bool = False) -> Tuple[torch.Tensor, torch.Tensor]:
+                     per_cluster: bool = False, with_dists: bool = False):
     """Rotate, assign to coarse lists, and PQ-encode the residuals (each
     against its list's codebook when `per_cluster`). Returns (labels (n,)
-    int64, codes (n, pq_dim) uint8)."""
+    int64, codes (n, pq_dim) uint8), and with `with_dists` the exact
+    rotated-space residual norms (n,) f32 that the list radii take."""
     strict_f32_matmul()
     v_rot = vectors.float() @ rotation.T
-    labels = kmeans_balanced.predict(v_rot, centers, metric=_metric_name(metric),
-                                     device=v_rot.device)
+    labels = kmeans_balanced._predict_long(v_rot, centers, metric=_metric_name(metric),
+                                           device=v_rot.device)
     residuals = v_rot - centers[labels]
     codes = PqQuantizer.from_centers(pq_centers, per_cluster).encode(residuals, labels)["codes"]
+    if with_dists:
+        return labels, codes, sqrt_f32(torch.clamp(ordered_row_sum(residuals, residuals),
+                                                   min=0.0))
     return labels, codes
 
 
@@ -384,9 +419,10 @@ def extend(index: Index, new_vectors, new_indices=None) -> Index:
         new_indices = torch.arange(old_n, old_n + nv.shape[0], dtype=torch.int32, device=dev)
     else:
         new_indices = torch.as_tensor(new_indices, device=dev).to(torch.int32)
-    labels, new_codes = label_and_encode(nv, index.rotation, index.centers,
-                                         index.pq_centers, index.metric,
-                                         index.params.codebook_kind == PER_CLUSTER)
+    labels, new_codes, dists = label_and_encode(nv, index.rotation, index.centers,
+                                                index.pq_centers, index.metric,
+                                                index.params.codebook_kind == PER_CLUSTER,
+                                                with_dists=True)
     labels_np = labels.cpu().numpy()
     old_sizes = index.list_sizes.cpu().numpy().astype(np.int64)
     slot_abs, new_sizes, new_max = _append_slots(labels_np, old_sizes, index.n_lists)
@@ -396,8 +432,11 @@ def extend(index: Index, new_vectors, new_indices=None) -> Index:
         index.codes, index.slot_rows, new_codes, labels,
         torch.as_tensor(slot_abs, device=dev), positions, new_max)
     all_ids = torch.cat([index.source_ids, new_indices]) if old_n else new_indices
-    return Index(index.params, index.rotation, index.centers, index.pq_centers,
-                 codes_tbl, slot_rows, torch.as_tensor(new_sizes, device=dev), all_ids)
+    out = Index(index.params, index.rotation, index.centers, index.pq_centers,
+                codes_tbl, slot_rows, torch.as_tensor(new_sizes, device=dev), all_ids)
+    out.list_radii = probe_budget.updated_radii(index.list_radii, labels, dists,
+                                                index.n_lists)
+    return out
 
 
 # ---------------------------------------------------------------------------
@@ -482,21 +521,20 @@ def _quantize_query_rows(u: torch.Tensor):
 
 
 def _coarse_select(queries: torch.Tensor, rotation: torch.Tensor, centers: torch.Tensor,
-                   n_probes: int, metric: DistanceType):
+                   n_probes: int, metric: DistanceType, plan=None):
     """Rotate queries and pick the n_probes closest coarse centers
-    (select_clusters, ivf_pq_search.cuh:133). Returns (q_rot, probes)."""
-    from raft_tpu_torch.distance.pairwise import _dot
-
+    (select_clusters, ivf_pq_search.cuh:133). Returns (q_rot, probes,
+    keep mask or None). L2 ranks by |c|^2 - 2 <q, c> (the query norm is
+    constant per row), through adaptive probing's
+    `probe_budget.coarse_select`; an adaptive `plan` ((keep mask, probes),
+    `probe_budget.search_plan`) made that select already and brings its
+    probes with its mask."""
     strict_f32_matmul()
     q_rot = queries.float() @ rotation.T
-    cd = _dot(q_rot, centers)
-    if metric == DistanceType.InnerProduct:
-        coarse = cd
-    else:
-        # the query norm is constant per row; the ranking is unaffected
-        coarse = torch.sum(centers * centers, dim=1)[None, :] - 2.0 * cd
-    _, probes = _select_k_impl(coarse, n_probes, metric != DistanceType.InnerProduct)
-    return q_rot, probes
+    if plan is not None:
+        return q_rot, plan[1], plan[0]
+    probes = probe_budget.coarse_select(q_rot, centers, metric, n_probes, pq_style=True)[1]
+    return q_rot, probes, None
 
 
 class _ListMajorBatch(NamedTuple):
@@ -512,9 +550,11 @@ class _ListMajorBatch(NamedTuple):
 
 
 def _listmajor_batch(queries, rotation, centers, recon_scale, recon_norm, slot_rows_pad,
-                     n_probes: int, metric: DistanceType, chunk: int) -> _ListMajorBatch:
-    """Coarse select, probe inversion, query-row gather, residuals and
-    the additive per-slot base (L2: recon norm; IP: 0; +inf invalid)."""
+                     n_probes: int, metric: DistanceType, chunk: int,
+                     plan=None) -> _ListMajorBatch:
+    """Coarse select, probe inversion (pairs outside an adaptive `plan`'s
+    mask dropped), query-row gather, residuals and the additive
+    per-slot base (L2: recon norm; IP: 0; +inf invalid)."""
     from raft_tpu_torch.neighbors.probe_invert import (
         chunk_live_rows,
         gather_query_rows,
@@ -524,8 +564,8 @@ def _listmajor_batch(queries, rotation, centers, recon_scale, recon_norm, slot_r
     nq = queries.shape[0]
     n_lists, rot_dim = centers.shape
     ip = metric == DistanceType.InnerProduct
-    q_rot, probes = _coarse_select(queries, rotation, centers, n_probes, metric)
-    tables = invert_probes_sort(probes, n_lists, chunk)
+    q_rot, probes, pvalid = _coarse_select(queries, rotation, centers, n_probes, metric, plan)
+    tables = invert_probes_sort(probes, n_lists, chunk, pvalid)
     live = chunk_live_rows(tables.qid_tbl, nq)  # pad rows and empty chunks skip in-kernel
     q_pad = torch.cat([q_rot, q_rot.new_zeros((1, rot_dim))])
     qs = gather_query_rows(q_pad, tables.qid_tbl)  # (ncb, chunk, rot)
@@ -568,19 +608,21 @@ def _merge(b: _ListMajorBatch, vals, rows, nq: int, n_probes: int, k: int,
 def _search_impl_recon8_listmajor_fused(queries, rotation, centers, recon8, recon_scale,
                                         recon_norm, slot_rows_pad, k: int, n_probes: int,
                                         metric: DistanceType, chunk: int = 128,
-                                        kb: Optional[int] = None, int8_queries: bool = False):
+                                        kb: Optional[int] = None, int8_queries: bool = False,
+                                        plan=None):
     """List-major search with the fused distance + exact select-k trim:
     one kernel launch scores every chunk's list straight out of the int8
     store and keeps each row's exact top-k (ties to the smaller slot);
     the (chunk, L) scores never reach device memory. With `int8_queries`
     the rows quantize through `_quantize_query_rows`, as the pallas
-    trim's do, and score int8 x int8 -> int32 ("fused_int8"). Returns
-    (values, slot-row positions) (nq, k)."""
+    trim's do, and score int8 x int8 -> int32 ("fused_int8"). `plan`: an
+    adaptive plan (keep mask, probes), or None. Returns (values,
+    slot-row positions) (nq, k)."""
     from raft_tpu_torch.matrix.select_k import list_scan_select_k
 
     ip = metric == DistanceType.InnerProduct
     b = _listmajor_batch(queries, rotation, centers, recon_scale, recon_norm, slot_rows_pad,
-                         n_probes, metric, chunk)
+                         n_probes, metric, chunk, plan)
     lof = b.tables.lof
     if int8_queries:
         q8, row_scale = _quantize_query_rows(b.qres_s)
@@ -597,20 +639,22 @@ def _search_impl_recon8_listmajor_fused(queries, rotation, centers, recon8, reco
 def _search_impl_recon8_listmajor_pallas(queries, rotation, centers, recon8, recon_scale,
                                          recon_norm, slot_rows_pad, k: int, n_probes: int,
                                          metric: DistanceType, chunk: int = 128,
-                                         int8_queries: bool = False, fold: str = "exact"):
+                                         int8_queries: bool = False, fold: str = "exact",
+                                         plan=None):
     """List-major search with the bin-fold trim (ops/pq_list_scan.py):
     per chunk, one kernel launch scores the list and folds each row's
     scores into 256 bins, best and second best each, so only (chunk, 512)
     candidates reach device memory; an exact top-min(k, 256) of them per
     row and the shared exact merge finish. With `int8_queries` the rows
     quantize through `_quantize_query_rows` and score int8 x int8 ->
-    int32, the same f32 values as the fused int8 trim's. Returns (values,
-    slot-row positions) (nq, k)."""
+    int32, the same f32 values as the fused int8 trim's. `plan`: an
+    adaptive plan (keep mask, probes), or None. Returns (values, slot-row
+    positions) (nq, k)."""
     from raft_tpu_torch.ops.pq_list_scan import _BINS, pq_list_scan
 
     ip = metric == DistanceType.InnerProduct
     b = _listmajor_batch(queries, rotation, centers, recon_scale, recon_norm, slot_rows_pad,
-                         n_probes, metric, chunk)
+                         n_probes, metric, chunk, plan)
     lof = b.tables.lof
     if int8_queries:
         q8, row_scale = _quantize_query_rows(b.qres_s)
@@ -650,6 +694,15 @@ def _score_constant(qs: torch.Tensor, pc: torch.Tensor, qres: torch.Tensor,
                                                                                          qres)
 
 
+def _probed_rows(slot_rows, pr, pvalid, sl):
+    """The probed lists' slot rows (b, n_probes, L) of a query block, -1
+    on the probes the keep mask `pvalid` dropped."""
+    rows = slot_rows[pr]
+    if pvalid is None:
+        return rows
+    return torch.where(pvalid[sl][:, :, None], rows, -1)
+
+
 def _select_query_major(scores, rows, k: int, ip: bool):
     """Exact top-k over each query's (b, n_probes, L) candidate scores,
     -1 slots at the worst value. Returns (values, slot rows) (b, k)."""
@@ -670,7 +723,7 @@ def _finish(vals, rows, metric: DistanceType):
 
 def _search_impl(queries, rotation, centers, pq_centers, codes, slot_rows, k: int,
                  n_probes: int, metric: DistanceType, per_cluster: bool, lut_bf16: bool = False,
-                 query_block: Optional[int] = None):
+                 query_block: Optional[int] = None, plan=None):
     """The "lut" engine (compute_similarity, ivf_pq_search.cuh:611): per
     block of queries, each (query, probe) pair's (pq_dim, nb) table of
     sub-scores from one batched product (L2: |c_b|^2 - 2 <q_sub, c_b>;
@@ -679,13 +732,14 @@ def _search_impl(queries, rotation, centers, pq_centers, codes, slot_rows, k: in
     the pair's constant; an exact top-k a query. Blocks hold at most
     LUT_BLOCK_ELEMS gathered entries (`query_block` queries when given);
     the select is exact, so the block does not change the answer.
-    Returns (values, slot-table values) (nq, k)."""
+    `plan`: an adaptive plan (keep mask, probes), or None; a masked
+    probe's slots read -1. Returns (values, slot-table values) (nq, k)."""
     strict_f32_matmul()
     nq = queries.shape[0]
     n_lists, max_list, pq_dim = codes.shape
     nb, pq_len = pq_centers.shape[-2:]
     ip = metric == DistanceType.InnerProduct
-    q_rot, probes = _coarse_select(queries, rotation, centers, n_probes, metric)
+    q_rot, probes, pvalid = _coarse_select(queries, rotation, centers, n_probes, metric, plan)
     offs = torch.arange(pq_dim, device=codes.device) * nb
     if not per_cluster:
         bn_sub = torch.sum(pq_centers * pq_centers, dim=2)  # (pq_dim, nb)
@@ -711,7 +765,7 @@ def _search_impl(queries, rotation, centers, pq_centers, codes, slot_rows, k: in
         gathered = torch.gather(lut.reshape(b * n_probes, pq_dim * nb), 1, idx)
         scores = ordered_row_sum(gathered.float().reshape(b, n_probes, max_list, pq_dim))
         scores = scores + _score_constant(qs, pc, qres, ip)[:, :, None]
-        v, r = _select_query_major(scores, slot_rows[pr], k, ip)
+        v, r = _select_query_major(scores, _probed_rows(slot_rows, pr, pvalid, sl), k, ip)
         vals.append(v)
         rows.append(r)
     return _finish(torch.cat(vals), torch.cat(rows), metric)
@@ -729,7 +783,7 @@ def _dequantize_bf16(r8: torch.Tensor, recon_scale: torch.Tensor) -> torch.Tenso
 
 def _search_impl_recon8(queries, rotation, centers, recon8, recon_scale, recon_norm,
                         slot_rows, k: int, n_probes: int, metric: DistanceType,
-                        query_block: Optional[int] = None):
+                        query_block: Optional[int] = None, plan=None):
     """The "recon8" engine, query-major: per block of queries, the probed
     lists of the int8 store dequantized (int8 times the bf16 scale, kept
     in f32: the reference writes a bf16 product, which XLA on the CPU
@@ -737,12 +791,13 @@ def _search_impl_recon8(queries, rotation, centers, recon8, recon_scale, recon_n
     residuals (f32 accumulation); L2: |q - c|^2 - 2 dots +
     |recon|^2, IP: dots + <q, c>; an exact top-k a query. Blocks hold at
     most RECON8_BLOCK_ELEMS store values (`query_block` queries when
-    given). Returns (values, slot-table values) (nq, k)."""
+    given). `plan`: an adaptive plan (keep mask, probes), or None.
+    Returns (values, slot-table values) (nq, k)."""
     strict_f32_matmul()
     nq = queries.shape[0]
     n_lists, max_list, rot_dim = recon8.shape
     ip = metric == DistanceType.InnerProduct
-    q_rot, probes = _coarse_select(queries, rotation, centers, n_probes, metric)
+    q_rot, probes, pvalid = _coarse_select(queries, rotation, centers, n_probes, metric, plan)
     blocks = _query_blocks(nq, n_probes * max_list * rot_dim, RECON8_BLOCK_ELEMS, query_block)
     vals, rows = [], []
     for sl in blocks:
@@ -756,7 +811,7 @@ def _search_impl_recon8(queries, rotation, centers, recon8, recon_scale, recon_n
         dots = torch.matmul(recon8[pr].float(), qs_scaled[..., None])[..., 0]
         const = _score_constant(qs, pc, qres, ip)[:, :, None]
         scores = dots + const if ip else const - 2.0 * dots + recon_norm[pr]
-        v, r = _select_query_major(scores, slot_rows[pr], k, ip)
+        v, r = _select_query_major(scores, _probed_rows(slot_rows, pr, pvalid, sl), k, ip)
         vals.append(v)
         rows.append(r)
     return _finish(torch.cat(vals), torch.cat(rows), metric)
@@ -765,7 +820,7 @@ def _search_impl_recon8(queries, rotation, centers, recon8, recon_scale, recon_n
 def _search_impl_recon8_listmajor(queries, rotation, centers, recon8, recon_scale, recon_norm,
                                   slot_rows_pad, k: int, n_probes: int, metric: DistanceType,
                                   chunk: int = 128, int8_queries: bool = False,
-                                  trim_bf16: bool = False):
+                                  trim_bf16: bool = False, plan=None):
     """List-major search with the "approx" and "exact" trims: each chunk
     scores its list once for all its query rows (bf16 rows: the residuals
     and the dequantized store rounded to bf16, f32 accumulation; int8
@@ -773,7 +828,8 @@ def _search_impl_recon8_listmajor(queries, rotation, centers, recon8, recon_scal
     times the row scale), the scores of a superblock of chunks are
     materialized (bf16 with `trim_bf16`), each chunk row is trimmed to its
     exact best k and the candidates merge
-    (`probe_invert.score_and_select`). Returns (values, slot-row
+    (`probe_invert.score_and_select`); pairs outside an adaptive `plan`'s
+    mask are dropped before the inversion. Returns (values, slot-row
     positions) (nq, k)."""
     from raft_tpu_torch.neighbors.probe_invert import (
         gather_query_rows,
@@ -786,8 +842,8 @@ def _search_impl_recon8_listmajor(queries, rotation, centers, recon8, recon_scal
     n_lists, max_list, rot_dim = recon8.shape
     ip = metric == DistanceType.InnerProduct
     worst = float("-inf") if ip else float("inf")
-    q_rot, probes = _coarse_select(queries, rotation, centers, n_probes, metric)
-    tables = invert_probes_sort(probes, n_lists, chunk)
+    q_rot, probes, pvalid = _coarse_select(queries, rotation, centers, n_probes, metric, plan)
+    tables = invert_probes_sort(probes, n_lists, chunk, pvalid)
     q_pad = torch.cat([q_rot, q_rot.new_zeros((1, rot_dim))])
 
     def block(lofb, qids):
@@ -814,35 +870,73 @@ def _search_impl_recon8_listmajor(queries, rotation, centers, recon8, recon_scal
     return _finish(v, rows, metric)
 
 
-def _resolve_score_mode(params: SearchParams, nq: int, n_probes: int, n_lists: int) -> str:
-    """score_mode="auto" as the JAX package resolves it off a TPU without
-    a tuned key: an int8 or a pallas, exact or fused trim pins
-    "recon8_list" (the only engine that honors them); else "recon8_list"
-    when the batch re-reads each list at least 4 times (nq * n_probes /
-    n_lists >= 4), and "lut" below that."""
+def _resolve_score_mode(params: SearchParams, nq: int, n_probes: int, n_lists: int,
+                        device=None) -> str:
+    """score_mode="auto": an int8 or a pallas, exact or fused trim pins
+    "recon8_list" (the only engine that honors them); else the tuned
+    `pq_auto_engine` where the table governs `device` (CUDA; "lut" is
+    allowed: the JAX package's fence against it guards a TPU fault); else
+    "recon8_list" when the batch re-reads each list at least 4 times
+    (nq * n_probes / n_lists >= 4), and "lut" below that."""
     mode = params.score_mode
     if mode != "auto":
         return mode
     if params.score_dtype == "int8" or params.trim_engine in ("pallas", "exact", "fused"):
         return "recon8_list"
+    if tuned.applies(device):
+        t = tuned.get("pq_auto_engine")
+        if t in ("lut", "recon8", "recon8_list"):
+            return t
     return "recon8_list" if nq * n_probes / max(1, n_lists) >= 4.0 else "lut"
 
 
-def resolve_search(params: SearchParams, nq: int, n_probes: int, n_lists: int):
+def _resolve_distance_dtype(params: SearchParams, device=None) -> str:
+    """internal_distance_dtype="auto": the tuned hint
+    `hints()["internal_distance_dtype"]` where the table governs `device`
+    (CUDA) and names a known dtype, else "float32"."""
+    idd = params.internal_distance_dtype
+    if idd != "auto":
+        return idd
+    if tuned.applies(device):
+        hinted = tuned.hints().get("internal_distance_dtype")
+        if hinted in ("float32", "float16", "bfloat16"):
+            return hinted
+    return "float32"
+
+
+def resolve_listmajor_chunk(nq: int, n_probes: int, n_lists: int, device=None) -> int:
+    """Chunk rows of the "approx" and "exact" trims: the tuned
+    `listmajor_chunk` where the table governs `device` (CUDA), names one
+    of `_LISTMAJOR_CHUNKS` and the batch re-reads each list at most
+    `_LOW_DUP_CHUNK_BOUND` times (the shapes it was measured at); else
+    128."""
+    if tuned.applies(device) and nq * n_probes / max(1, n_lists) <= _LOW_DUP_CHUNK_BOUND:
+        t = tuned.get("listmajor_chunk", 128)
+        if t in _LISTMAJOR_CHUNKS:
+            return int(t)
+    return 128
+
+
+def resolve_search(params: SearchParams, nq: int, n_probes: int, n_lists: int, device=None,
+                   k: Optional[int] = None, L: Optional[int] = None, rot: Optional[int] = None,
+                   kbuf: Optional[int] = None):
     """(score_mode, trim_engine, internal_distance_dtype) that a search
-    with `params` runs, each "auto" resolved as the JAX package resolves
-    it without a tuned value (trim "approx", distances "float32"); raises
-    ValueError on an unknown or contradictory request."""
+    with `params` runs on `device`; raises ValueError on an unknown or
+    contradictory request. Each "auto" resolves through the tuned table
+    for a CUDA device (module docstring), and as the JAX package resolves
+    it without a tuned value otherwise. The int8 trim's promotion needs
+    the search's `k`, the store's lane-padded slot width `L`, `rot` and
+    the index's recorded buffer width `kbuf`."""
     if params.score_dtype not in ("bf16", "int8"):
         raise ValueError(f"unknown score_dtype {params.score_dtype!r}")
-    idd = "float32" if params.internal_distance_dtype == "auto" else params.internal_distance_dtype
+    idd = _resolve_distance_dtype(params, device)
     if idd not in ("float32", "float16", "bfloat16"):
         raise ValueError(f"unknown internal_distance_dtype {params.internal_distance_dtype!r}")
     if params.lut_dtype not in ("float32", "bfloat16"):
         raise ValueError(f"unknown lut_dtype {params.lut_dtype!r}")
     mode = params.score_mode
     if mode == "auto":
-        mode = _resolve_score_mode(params, nq, n_probes, n_lists)
+        mode = _resolve_score_mode(params, nq, n_probes, n_lists, device)
     elif params.score_dtype == "int8" and mode != "recon8_list":
         raise ValueError(
             f"score_dtype='int8' requires score_mode 'recon8_list' or 'auto', got {mode!r}")
@@ -851,7 +945,18 @@ def resolve_search(params: SearchParams, nq: int, n_probes: int, n_lists: int):
     trim = params.trim_engine
     if trim not in ("auto", "approx", "exact", "pallas", "fused"):
         raise ValueError(f"unknown trim_engine {trim!r}")
-    trim = "approx" if trim == "auto" else trim
+    if trim == "auto":
+        trim = "approx"
+        if (mode == "recon8_list" and params.score_dtype == "int8" and k is not None
+                and L is not None and rot is not None):
+            from raft_tpu_torch.matrix.select_k import resolve_int8_trim_strategy
+            from raft_tpu_torch.ops.fused_scan import FUSED_MAX_K, fused_kbuf
+
+            if 0 < int(k) <= FUSED_MAX_K:
+                kb_probe = max(fused_kbuf(int(k)), kbuf or 0)
+                if resolve_int8_trim_strategy(L, rot, int(k), kbuf=kb_probe,
+                                              device=device) == "fused_int8":
+                    trim = "fused"
     if trim in ("pallas", "exact", "fused") and mode != "recon8_list":
         raise ValueError(f"trim_engine='{trim}' requires score_mode 'recon8_list'")
     return mode, trim, idd
@@ -867,7 +972,11 @@ def search(params: SearchParams, index: Index, queries, k: int, prefilter=None
     store, so a rejected request leaves the index as it was. `prefilter`:
     a `core.bitset.Bitset` or 1-d boolean mask over the index's id space
     (`index.id_bound` ids); samples whose bit is clear are excluded
-    before any selection."""
+    before any selection. Adaptive probing (`recall_target`,
+    `budget_tau`, `adaptive`) plans one keep mask for the batch over the
+    probes the engine then scans (`probe_budget.search_plan`), with radius
+    bounds for L2 metrics when the index has radii and no prefilter is
+    given."""
     from raft_tpu_torch.core.bitset import make_slot_filter
     from raft_tpu_torch.matrix.select_k import check_fused_list_request
     from raft_tpu_torch.neighbors.probe_invert import macro_batched
@@ -879,33 +988,40 @@ def search(params: SearchParams, index: Index, queries, k: int, prefilter=None
     if index.size == 0:
         raise ValueError("index is empty")
     n_probes = int(min(max(1, params.n_probes), index.n_lists))
-    mode, trim, idd = resolve_search(params, q.shape[0], n_probes, index.n_lists)
-    if params.adaptive or params.recall_target is not None or params.budget_tau is not None:
-        raise _not_ported("adaptive probing", 7)
+    lpad = lane_padded(int(index.codes.shape[1]))
+    mode, trim, idd = resolve_search(params, q.shape[0], n_probes, index.n_lists, index.device,
+                                     k=int(k), L=lpad, rot=index.rot_dim, kbuf=index.fused_kb)
     int8 = params.score_dtype == "int8"
     per_cluster = index.params.codebook_kind == PER_CLUSTER
-    lpad = lane_padded(int(index.codes.shape[1]))
+    # bounds off under a prefilter: the sizes count filtered members
+    plan = probe_budget.search_plan(
+        probe_budget.resolve_params(params, n_probes, index.device), q, index.centers,
+        n_probes=n_probes, k=int(k), metric=index.metric, rotation=index.rotation,
+        radii=index.list_radii if prefilter is None else None, sizes=index.list_sizes)
     # a filtered view of a slot table is the whole prefilter: every
     # engine scores its -1 slots as the worst value
     maybe_filter = make_slot_filter(prefilter, index.id_bound, index.source_ids)
     if mode == "lut":
         vals, rows = _search_impl(q, index.rotation, index.centers, index.pq_centers,
                                   index.codes, maybe_filter(index.slot_rows), int(k), n_probes,
-                                  index.metric, per_cluster, params.lut_dtype == "bfloat16")
+                                  index.metric, per_cluster, params.lut_dtype == "bfloat16",
+                                  plan=plan)
     elif mode == "recon8":
         build_reconstruction(index)
         vals, rows = _search_impl_recon8(q, index.rotation, index.centers, index.recon8,
                                          index.recon_scale, index.recon_norm,
                                          maybe_filter(index.slot_rows_pad), int(k), n_probes,
-                                         index.metric)
+                                         index.metric, plan=plan)
     elif trim in ("approx", "exact"):
         build_reconstruction(index)
         srows_pad = maybe_filter(index.slot_rows_pad)
+        chunk = resolve_listmajor_chunk(q.shape[0], n_probes, index.n_lists, index.device)
         vals, rows = macro_batched(
-            lambda sl: _search_impl_recon8_listmajor(
+            lambda sl, pl=None: _search_impl_recon8_listmajor(
                 sl, index.rotation, index.centers, index.recon8, index.recon_scale,
-                index.recon_norm, srows_pad, int(k), n_probes, index.metric,
-                int8_queries=int8, trim_bf16=idd != "float32"), q, int(k))
+                index.recon_norm, srows_pad, int(k), n_probes, index.metric, chunk=chunk,
+                int8_queries=int8, trim_bf16=idd != "float32", plan=pl), q, int(k),
+            extra=plan)
     elif trim == "fused":
         # at the buffer width the kernel will run with
         kb = check_fused_list_request("trim_engine='fused'", lpad, index.rot_dim, int(k),
@@ -914,10 +1030,10 @@ def search(params: SearchParams, index: Index, queries, k: int, prefilter=None
         index.fused_kb = kb
         srows_pad = maybe_filter(index.slot_rows_pad)
         vals, rows = macro_batched(
-            lambda sl: _search_impl_recon8_listmajor_fused(
+            lambda sl, pl=None: _search_impl_recon8_listmajor_fused(
                 sl, index.rotation, index.centers, index.recon8, index.recon_scale,
                 index.recon_norm, srows_pad, int(k), n_probes, index.metric, kb=kb,
-                int8_queries=int8), q, int(k))
+                int8_queries=int8, plan=pl), q, int(k), extra=plan)
     else:
         if int(k) > _BINS:
             raise ValueError(f"trim_engine='pallas' caps per-list candidates at {_BINS}; k={k}")
@@ -926,12 +1042,12 @@ def search(params: SearchParams, index: Index, queries, k: int, prefilter=None
                 f"trim_engine='pallas': list length {lpad} or rot_dim {index.rot_dim} exceed "
                 "the kernel's shared-memory budget; use trim_engine='fused'")
         build_reconstruction(index)
-        fold = fold_variant()
+        fold = fold_variant(index.device)
         srows_pad = maybe_filter(index.slot_rows_pad)
         vals, rows = macro_batched(
-            lambda sl: _search_impl_recon8_listmajor_pallas(
+            lambda sl, pl=None: _search_impl_recon8_listmajor_pallas(
                 sl, index.rotation, index.centers, index.recon8, index.recon_scale,
                 index.recon_norm, srows_pad, int(k), n_probes, index.metric,
-                int8_queries=int8, fold=fold), q, int(k))
+                int8_queries=int8, fold=fold, plan=pl), q, int(k), extra=plan)
     ids = torch.where(rows >= 0, index.source_ids[torch.clamp(rows, min=0).long()], -1)
     return vals, ids.to(torch.int32)

@@ -28,8 +28,17 @@ engines:
                        `fused_bitplane_topk` kernel scores every chunk and
                        keeps each row's exact top-k; the regrouped
                        candidates merge exactly;
-  scan_engine="auto"   "xla" (the JAX package promotes "fused" only on a
-                       tuned value measured on its chip).
+  scan_engine="auto"   "fused" where a tuned `select_k_strategy_bitplane`
+                       (CUDA only, core/tuned.py) names it and the kernel
+                       fits, else "xla" (matrix/select_k
+                       `resolve_bitplane_strategy`).
+
+`query_bits` and `rerank_mult` of 0 resolve through the tuned
+`rabitq_query_bits` and `rabitq_rerank_mult` on CUDA, else 8 and 4.
+Adaptive probing (`adaptive`, `recall_target`, `budget_tau`;
+neighbors/probe_budget) plans one keep mask a batch at the rerank depth;
+the radii are the per-list max of `aux`'s |r| column (`list_radii`,
+derived at first use).
 
 Both engines score through `ops.fused_scan.bitplane_scores`, so their
 estimator values agree; the CUDA kernel runs on the card, its plain
@@ -42,9 +51,8 @@ base where `slot_rows_pad` does (the derived bit-plane store stays as it
 was cached), and the rerank never sees a filtered row.
 
 Not ported yet (each raises NotImplementedError naming ROADMAP Queue A):
-tombstones and live mutation, adaptive probing (probe budgets, list
-radii), save/load, integrity digests, observability spans, fault hooks
-and the distributed (MNMG) index.
+tombstones and live mutation, save/load, integrity digests,
+observability spans, fault hooks and the distributed (MNMG) index.
 """
 
 from __future__ import annotations
@@ -56,10 +64,12 @@ import numpy as np
 import torch
 
 from raft_tpu_torch.cluster import kmeans_balanced
+from raft_tpu_torch.core import tuned
 from raft_tpu_torch.core.config import resolve_device, strict_f32_matmul
 from raft_tpu_torch.core.validation import check_matrix
 from raft_tpu_torch.distance.distance_types import DistanceType, resolve_metric
 from raft_tpu_torch.matrix.select_k import _select_k_impl
+from raft_tpu_torch.neighbors import probe_budget
 from raft_tpu_torch.neighbors.ivf_pq import _coarse_fit, _coarse_select, _make_rotation, _metric_name
 from raft_tpu_torch.neighbors.quantizer import (
     DEFAULT_QUERY_BITS,
@@ -114,35 +124,46 @@ class SearchParams:
     rerank_mult  exact-rerank depth multiplier: the scan keeps
                  max(k, min(rerank_mult * k, 256)) candidates when raw
                  rows are available; 0 = 4.
-    scan_engine  "xla", "fused" or "auto" (= "xla"); an explicit "fused"
-                 past the kernel's caps raises.
-    adaptive     adaptive probing: not ported yet (True raises); its
-                 budget fields are left out until it is."""
+    scan_engine  "xla", "fused" or "auto" (module docstring); an explicit
+                 "fused" past the kernel's caps raises.
+    adaptive, recall_target, budget_tau, min_probes, early_term
+                 adaptive probing (neighbors/probe_budget), planned at the
+                 rerank depth; recall_target >= 1.0 is the fixed search
+                 bit for bit."""
 
     n_probes: int = 20
     query_bits: int = 0
     rerank_mult: int = 0
     scan_engine: str = "auto"
     adaptive: bool = False
+    recall_target: Optional[float] = None
+    budget_tau: Optional[float] = None
+    min_probes: int = 1
+    early_term: bool = True
 
 
-def resolve_query_bits(query_bits: int) -> int:
-    """An explicit depth in [1, 8], else DEFAULT_QUERY_BITS (8), the JAX
-    fallback when no tuned value exists; tuned values do not carry over."""
+def resolve_query_bits(query_bits: int, device=None) -> int:
+    """An explicit depth in [1, 8]; 0 is the tuned `rabitq_query_bits`
+    where the table governs `device` (CUDA) and holds a depth in [1, 8],
+    else DEFAULT_QUERY_BITS (8)."""
     if query_bits:
         if not (1 <= int(query_bits) <= 8):
             raise ValueError(f"query_bits must be in [1, 8], got {query_bits}")
         return int(query_bits)
-    return DEFAULT_QUERY_BITS
+    t = tuned.get("rabitq_query_bits") if tuned.applies(device) else None
+    return int(t) if t in (1, 2, 3, 4, 5, 6, 7, 8) else DEFAULT_QUERY_BITS
 
 
-def resolve_rerank_mult(rerank_mult: int) -> int:
-    """An explicit multiplier >= 1, else DEFAULT_RERANK_MULT (4)."""
+def resolve_rerank_mult(rerank_mult: int, device=None) -> int:
+    """An explicit multiplier >= 1; 0 is the tuned `rabitq_rerank_mult`
+    where the table governs `device` (CUDA) and holds an int in [1, 64],
+    else DEFAULT_RERANK_MULT (4)."""
     if rerank_mult:
         if rerank_mult < 1:
             raise ValueError(f"rerank_mult must be >= 1, got {rerank_mult}")
         return int(rerank_mult)
-    return DEFAULT_RERANK_MULT
+    t = tuned.get("rabitq_rerank_mult") if tuned.applies(device) else None
+    return int(t) if isinstance(t, int) and 1 <= t <= 64 else DEFAULT_RERANK_MULT
 
 
 class Index:
@@ -169,11 +190,17 @@ class Index:
         self.bp_meta = None
         self.slot_rows_pad = None
         self.fused_kb = None
+        self._list_radii = None
         self._id_bound = None
 
     @property
     def list_radii(self):
-        raise _not_ported("adaptive probing (list radii)")
+        """(n_lists,) f32 largest member residual norm of each list (the
+        bounds of adaptive probing): a per-list max over `aux`'s |r|
+        column, derived at first use (extend returns a new Index)."""
+        if self._list_radii is None and self.size:
+            self._list_radii = probe_budget.list_radii_from_aux(self.aux, self.slot_rows)
+        return self._list_radii
 
     @property
     def device(self) -> torch.device:
@@ -275,7 +302,7 @@ def label_and_encode(vectors: torch.Tensor, rotation: torch.Tensor, centers: tor
     Returns (labels (n,) int64, codes (n, W) int32, aux (n, 2) f32)."""
     strict_f32_matmul()
     v_rot = vectors.float() @ rotation.T
-    labels = kmeans_balanced.predict(v_rot, centers, metric=_metric_name(metric),
+    labels = kmeans_balanced._predict_long(v_rot, centers, metric=_metric_name(metric),
                                      device=v_rot.device)
     codes, aux = _encode_rotated(v_rot, labels, centers)
     return labels, codes, aux
@@ -368,19 +395,20 @@ def _query_consts(qs: torch.Tensor, cent: torch.Tensor, qres: torch.Tensor, ip: 
 
 def _search_impl_rabitq(queries, rotation, centers, codes, aux, slot_rows, k: int,
                         n_probes: int, metric: DistanceType,
-                        query_bits: int = DEFAULT_QUERY_BITS):
+                        query_bits: int = DEFAULT_QUERY_BITS, plan=None):
     """The materializing scan: per query block, the probed lists' codes
     are gathered and scored by AND+popcount against each (query, probe)
     pair's quantized bit planes (quantizer.binary_dot), then the
-    estimator. Returns (estimated distances (nq, k), slot-row positions
-    (nq, k) int32); past the probed width the tail holds (worst, -1)."""
+    estimator; the slots of probes an adaptive `plan` (keep mask, probes)
+    masked read -1. Returns (estimated distances (nq, k), slot-row positions (nq, k)
+    int32); past the probed width the tail holds (worst, -1)."""
     nq = queries.shape[0]
     n_lists, max_list, W = codes.shape
     rot_dim = rotation.shape[0]
     ip = metric == DistanceType.InnerProduct
     select_min = not ip
     worst = float("inf") if select_min else float("-inf")
-    q_rot, probes = _coarse_select(queries, rotation, centers, n_probes, metric)
+    q_rot, probes, pvalid = _coarse_select(queries, rotation, centers, n_probes, metric, plan)
     rnorm, o_dot = aux[..., 0], aux[..., 1]
     k_sel = int(min(k, n_probes * max_list))
     qb = _rabitq_query_block(n_probes, max_list, query_bits, W)
@@ -398,7 +426,10 @@ def _search_impl_rabitq(queries, rotation, centers, codes, aux, slot_rows, k: in
                                  qconst[..., None], rot_dim, ip)
         if ip:
             scores = -scores  # the estimated similarity, maximized
-        r = slot_rows[pr].reshape(pr.shape[0], -1)
+        r = slot_rows[pr]
+        if pvalid is not None:
+            r = torch.where(pvalid[s:s + qb][:, :, None], r, -1)
+        r = r.reshape(pr.shape[0], -1)
         scores = torch.where(r >= 0, scores.reshape(r.shape), worst)
         v, pos = _select_k_impl(scores, k_sel, select_min)
         r = torch.gather(r, 1, pos)
@@ -461,13 +492,15 @@ def build_bitplane_store(index: Index, k: int) -> None:
 def _search_impl_rabitq_fused(queries, rotation, centers, codes_t, bp_meta, slot_rows_pad,
                               k: int, n_probes: int, metric: DistanceType,
                               query_bits: int = DEFAULT_QUERY_BITS, chunk: int = 128,
-                              kb: Optional[int] = None):
+                              kb: Optional[int] = None, plan=None):
     """List-major bit-plane search: the probe pairs invert to per-list
     chunks, each chunk's residual rows quantize to bit planes through the
     same `quantize_queries` the "xla" engine uses, and one kernel launch
     scores every chunk and keeps each row's exact top-k (the estimator
     in-kernel, ties to the smaller slot); the candidates regroup to query
-    order and merge exactly. Returns the `_search_impl_rabitq` contract."""
+    order and merge exactly; pairs outside an adaptive `plan`'s mask are
+    dropped before the inversion. Returns the `_search_impl_rabitq`
+    contract."""
     from raft_tpu_torch.neighbors.probe_invert import (
         chunk_live_rows,
         gather_query_rows,
@@ -480,8 +513,8 @@ def _search_impl_rabitq_fused(queries, rotation, centers, codes_t, bp_meta, slot
     n_lists, W, L = codes_t.shape
     rot_dim = rotation.shape[0]
     ip = metric == DistanceType.InnerProduct
-    q_rot, probes = _coarse_select(queries, rotation, centers, n_probes, metric)
-    tables = invert_probes_sort(probes, n_lists, chunk)
+    q_rot, probes, pvalid = _coarse_select(queries, rotation, centers, n_probes, metric, plan)
+    tables = invert_probes_sort(probes, n_lists, chunk, pvalid)
     live = chunk_live_rows(tables.qid_tbl, nq)  # pad rows and empty chunks skip in-kernel
     q_pad = torch.cat([q_rot, q_rot.new_zeros((1, rot_dim))])
     qs = gather_query_rows(q_pad, tables.qid_tbl)  # (ncb, chunk, rot)
@@ -528,12 +561,11 @@ def search(params: SearchParams, index: Index, queries, k: int, prefilter=None,
     from raft_tpu_torch.core.bitset import make_slot_filter
     from raft_tpu_torch.matrix.select_k import check_bitplane_request, resolve_bitplane_strategy
     from raft_tpu_torch.neighbors.probe_invert import macro_batched
+    from raft_tpu_torch.ops.fused_scan import FUSED_MAX_K, fused_kbuf
     from raft_tpu_torch.ops.pq_list_scan import lane_padded
 
     if params.scan_engine not in ("auto", "xla", "fused"):
         raise ValueError(f"unknown scan_engine {params.scan_engine!r}")
-    if params.adaptive:
-        raise _not_ported("adaptive probing")
     q = check_matrix(queries, index.device, name="queries").float()
     if q.shape[1] != index.dim:
         raise ValueError(f"query dim {q.shape[1]} != index dim {index.dim}")
@@ -542,31 +574,48 @@ def search(params: SearchParams, index: Index, queries, k: int, prefilter=None,
     k = int(k)
     if k <= 0:
         raise ValueError("k must be positive")
+    dev = index.device
     n_probes = int(min(max(1, params.n_probes), index.n_lists))
-    query_bits = resolve_query_bits(params.query_bits)
-    rerank_mult = resolve_rerank_mult(params.rerank_mult)
+    query_bits = resolve_query_bits(params.query_bits, dev)
+    rerank_mult = resolve_rerank_mult(params.rerank_mult, dev)
     ds = index.dataset
     if refine_dataset is not None:
         ds = check_matrix(refine_dataset, index.device, name="refine_dataset")
     kk = rerank_depth(k, rerank_mult) if ds is not None else k
     maybe_filter = make_slot_filter(prefilter, index.id_bound, index.source_ids)
 
-    engine = params.scan_engine
-    if resolve_bitplane_strategy("fused_bitplane" if engine == "fused" else engine) != "xla":
-        check_bitplane_request("scan_engine='fused'", lane_padded(int(index.codes.shape[1])),
-                               index.words, query_bits, kk, index.fused_kb, "scan_engine='xla'")
+    lpad = lane_padded(int(index.codes.shape[1]))
+    if params.scan_engine == "fused":
+        check_bitplane_request("scan_engine='fused'", lpad, index.words, query_bits, kk,
+                               index.fused_kb, "scan_engine='xla'")
+        strat = "fused_bitplane"
+    elif params.scan_engine == "auto" and 0 < kk <= FUSED_MAX_K:
+        strat = resolve_bitplane_strategy(lpad, index.words, query_bits, kk,
+                                          kbuf=max(fused_kbuf(kk), index.fused_kb or 0),
+                                          device=dev)
+    else:
+        strat = "xla"
+
+    # the plan's depth is kk: the rerank shortlist must survive the bounds
+    plan = probe_budget.search_plan(
+        probe_budget.resolve_params(params, n_probes, dev), q, index.centers, n_probes=n_probes,
+        k=kk, metric=index.metric, rotation=index.rotation,
+        radii=index.list_radii if prefilter is None else None, sizes=index.list_sizes)
+    if strat == "fused_bitplane":
         build_bitplane_store(index, kk)
         kb = index.fused_kb
         srows_pad = maybe_filter(index.slot_rows_pad)
         vals, rows = macro_batched(
-            lambda sl: _search_impl_rabitq_fused(
+            lambda sl, pl=None: _search_impl_rabitq_fused(
                 sl, index.rotation, index.centers, index.codes_t, index.bp_meta,
-                srows_pad, kk, n_probes, index.metric, query_bits=query_bits, kb=kb),
-            q, kk)
+                srows_pad, kk, n_probes, index.metric, query_bits=query_bits, kb=kb,
+                plan=pl),
+            q, kk, extra=plan)
     else:
         vals, rows = _search_impl_rabitq(q, index.rotation, index.centers, index.codes,
                                          index.aux, maybe_filter(index.slot_rows), kk,
-                                         n_probes, index.metric, query_bits=query_bits)
+                                         n_probes, index.metric, query_bits=query_bits,
+                                         plan=plan)
     if ds is not None:
         # candidates are dataset positions (insertion order; -1 skipped)
         quant = RabitqQuantizer(index.rot_dim, query_bits)

@@ -16,11 +16,17 @@ skips pad rows and the empty chunks past the populated ones
 construction is ported; the counting one and the one-hot query-row impls
 are still to be ported. `score_and_select` is the back half of the
 engines that materialize their scores (IVF-Flat's "list" engine).
+
+Adaptive probing (neighbors/probe_budget) hands the inversion a
+(nq, n_probes) keep mask, `pvalid`: masked pairs move to the sentinel
+list `n_lists`, so they fill no chunk (fewer live rows, and chunks that
+empty out skip in-kernel), and `regroup_merge` reads their candidates as
+the worst value with row -1.
 """
 
 from __future__ import annotations
 
-from typing import NamedTuple
+from typing import NamedTuple, Optional
 
 import torch
 
@@ -33,12 +39,16 @@ class ChunkTables(NamedTuple):
                             (callers append a zero sentinel query row)
     g0       (nq*n_probes,) chunk holding each original probe pair
     s0       (nq*n_probes,) slot of that pair within its chunk
+    pair_valid (nq*n_probes,) bool, or None when every pair is live:
+             False pairs were dropped before the inversion (their g0 and
+             s0 read 0, and `regroup_merge` masks what they address)
     """
 
     lof: torch.Tensor
     qid_tbl: torch.Tensor
     g0: torch.Tensor
     s0: torch.Tensor
+    pair_valid: Optional[torch.Tensor] = None
 
 
 def chunk_count(nq: int, n_probes: int, n_lists: int, chunk: int) -> int:
@@ -64,14 +74,21 @@ def _chunk_geometry(counts: torch.Tensor, nq: int, n_probes: int, n_lists: int,
     return base, lof, cl, pos, valid
 
 
-def invert_probes_sort(probes: torch.Tensor, n_lists: int, chunk: int) -> ChunkTables:
+def invert_probes_sort(probes: torch.Tensor, n_lists: int, chunk: int,
+                       pvalid: Optional[torch.Tensor] = None) -> ChunkTables:
     """Sort-based construction: a stable sort of the P = nq*n_probes pairs
     by list (pairs of one list keep query order), and its inverse
-    permutation for the regroup addresses."""
+    permutation for the regroup addresses. Pairs masked out by `pvalid`
+    ((nq, n_probes) bool) sort into the sentinel list `n_lists`, past
+    every real list, and count toward no chunk."""
     nq, n_probes = probes.shape
     p_total = nq * n_probes
     dev = probes.device
     flat = probes.reshape(-1).long()
+    pv = None
+    if pvalid is not None:
+        pv = pvalid.reshape(-1).to(device=dev, dtype=torch.bool)
+        flat = torch.where(pv, flat, n_lists)
     sorted_lists, order = torch.sort(flat, stable=True)
     sorted_q = order // n_probes
     lids = torch.arange(n_lists, device=dev)
@@ -84,10 +101,14 @@ def invert_probes_sort(probes: torch.Tensor, n_lists: int, chunk: int) -> ChunkT
 
     inv = torch.empty_like(order)
     inv[order] = torch.arange(p_total, device=dev)  # original pair -> sorted position
-    pos0 = inv - starts[flat]
-    g0 = base[flat] + pos0 // chunk
+    lst = torch.clamp(flat, max=n_lists - 1)
+    pos0 = inv - starts[lst]
+    g0 = base[lst] + pos0 // chunk
     s0 = pos0 % chunk
-    return ChunkTables(lof.to(torch.int32), qid_tbl, g0, s0)
+    if pv is not None:
+        g0 = torch.where(pv, g0, 0)
+        s0 = torch.where(pv, s0, 0)
+    return ChunkTables(lof.to(torch.int32), qid_tbl, g0, s0, pv)
 
 
 def gather_query_rows(q_pad: torch.Tensor, qids: torch.Tensor) -> torch.Tensor:
@@ -114,10 +135,18 @@ def regroup_merge(tables: ChunkTables, vals: torch.Tensor, rows: torch.Tensor,
                   select_k_fn, nq: int, n_probes: int, k: int, select_min: bool):
     """Regroup per-chunk candidates (ncb, chunk, kk) to query-major order
     through the (g0, s0) pair addresses and merge exactly: each query's
-    n_probes*kk candidates, in probe order, go through `select_k_fn`."""
+    n_probes*kk candidates, in probe order, go through `select_k_fn`.
+    Pairs the keep mask dropped (`tables.pair_valid` False) give the
+    worst value and row -1, like a prefilter's short tail."""
     kk = vals.shape[-1]
-    cand_v = vals[tables.g0, tables.s0].reshape(nq, n_probes * kk)
-    cand_r = rows[tables.g0, tables.s0].reshape(nq, n_probes * kk)
+    cand_v = vals[tables.g0, tables.s0]
+    cand_r = rows[tables.g0, tables.s0]
+    if tables.pair_valid is not None:
+        m = tables.pair_valid[:, None]
+        cand_v = torch.where(m, cand_v, float("inf") if select_min else float("-inf"))
+        cand_r = torch.where(m, cand_r, -1)
+    cand_v = cand_v.reshape(nq, n_probes * kk)
+    cand_r = cand_r.reshape(nq, n_probes * kk)
     v, pos2 = select_k_fn(cand_v, k, select_min)
     return v, torch.gather(cand_r, 1, pos2)
 
@@ -156,18 +185,29 @@ def score_and_select(tables: ChunkTables, block_fn, slot_rows: torch.Tensor, sel
                          k, select_min)
 
 
-def macro_batched(search_slice_fn, queries: torch.Tensor, k: int, mb: int = 4096):
+def macro_batched(search_slice_fn, queries: torch.Tensor, k: int, mb: int = 4096,
+                  extra=None):
     """Run a list-major search over macro-batches of at most `mb` queries,
     bounding the chunk tables and score buffers per call.
 
     PyTorch does not recompile per shape, so slices run at their own size
     (the JAX package pads them up a power-of-two ladder to bound its
-    compiled shapes)."""
+    compiled shapes). `extra`: an optional (nq, ...) per-query tensor, or
+    a tuple of them (an adaptive plan: keep mask and probes), sliced with
+    the queries and passed as the slice function's second argument."""
     nq_total = queries.shape[0]
     if nq_total == 0:
         return (torch.zeros((0, k), dtype=torch.float32, device=queries.device),
                 torch.full((0, k), -1, dtype=torch.int32, device=queries.device))
-    outs = [search_slice_fn(queries[s:s + mb]) for s in range(0, nq_total, mb)]
+
+    def rows(s):
+        if isinstance(extra, tuple):
+            return tuple(e[s:s + mb] for e in extra)
+        return extra[s:s + mb]
+
+    outs = [search_slice_fn(queries[s:s + mb]) if extra is None
+            else search_slice_fn(queries[s:s + mb], rows(s))
+            for s in range(0, nq_total, mb)]
     if len(outs) == 1:
         return outs[0]
     return torch.cat([v for v, _ in outs]), torch.cat([r for _, r in outs])

@@ -36,8 +36,8 @@ Left out: `rot_pad_enabled` and the `RAFT_TPU_PALLAS_ROT_PAD` rescue. They
 work around a TPU Mosaic compile of a contracting dimension that is not a
 multiple of 128, behind an environment variable, and their results are
 bit-identical; a Hopper kernel has no such constraint. `fold_variant`
-returns "exact": the JAX package picks "packed" only from a tuned key
-measured on a TPU, and tuned values do not carry over.
+reads the tuned `pallas_fold` key (core/tuned.py) for work on a CUDA
+device, and is "exact" otherwise.
 """
 
 from __future__ import annotations
@@ -71,9 +71,15 @@ def lane_padded(width: int) -> int:
     return max(_BINS, -(-width // _LANES) * _LANES)
 
 
-def fold_variant() -> str:
-    """The fold the engines use: "exact" (no tuned value carries over)."""
-    return "exact"
+def fold_variant(device=None) -> str:
+    """The fold the engines use on `device`: the tuned `pallas_fold` where
+    the table governs it (CUDA) and names a known fold, else "exact"."""
+    from raft_tpu_torch.core import tuned
+
+    if not tuned.applies(device):
+        return "exact"
+    v = tuned.get("pallas_fold", "exact")
+    return v if v in _FOLDS else "exact"
 
 
 def _pack_scores(scores: torch.Tensor, fold_ids: torch.Tensor) -> torch.Tensor:

@@ -20,15 +20,15 @@ every element below T in index order, then the first k - count(< T)
 elements equal to T in index order. The caller pads rows to a multiple of
 128 with +inf, so a real +inf precedes the pad columns and wins by index.
 
-Left out: the JAX `fits_counting` envelope (`k <= 256`, 16 L bytes within
-10 MB). It is a TPU VMEM budget, and the JAX package consults it only
-where a tuned value promotes the counting engine; the Hopper kernel takes
-any L and any k <= L. Its launcher picks one of two variants by k (the
+`fits_counting` is the port's own envelope, not the JAX one (`k <= 256`,
+16 L bytes within 10 MB: a TPU VMEM budget). The Hopper kernel takes any
+L and any k <= L. Its launcher picks one of two variants by k (the
 switch is `SMALL_K_MAX`, csrc/select_counting.cu's kSmallK): up to it, one
 warp a row keeps the running k smallest in registers over one pass from
 device memory; past it (or for a row not 16-byte aligned), a radix select
 whose four histogram passes re-read rows that do not fit in shared
-memory. Both return the same bits.
+memory. Both return the same bits. A tuned promotion (matrix/select_k
+`_counting_promoted`) sends only the one-pass variant's shapes here.
 """
 
 from __future__ import annotations
@@ -40,6 +40,14 @@ from raft_tpu_torch.ops._launch import _I, _P, _check, _kernel_fn, _launches, _r
 _LANES = 128
 #: the largest k of the CUDA kernel's one-pass variant (kSmallK)
 SMALL_K_MAX = 128
+
+
+def fits_counting(B: int, L: int, k: int) -> bool:
+    """The shapes a tuned promotion sends to the kernel: rows of a
+    multiple of 128 (the caller pads), 0 < k <= min(L, SMALL_K_MAX) (the
+    one-pass variant), and B and L within the launcher's int arguments."""
+    return (0 < int(k) <= min(int(L), SMALL_K_MAX) and int(L) % _LANES == 0
+            and 0 < int(B) < 2**31 and int(L) < 2**31)
 
 
 def _monotone_u32(x: torch.Tensor) -> torch.Tensor:

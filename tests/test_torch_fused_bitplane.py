@@ -169,11 +169,13 @@ def test_select_k_door_and_strategy(rng):
     out = bitplane_scan_select_k(*_torch_args(args), 10, rot_dim=96, bits=8)
     ref = _port(args, 10, 96, 8, False)
     np.testing.assert_array_equal(out[0].numpy(), ref[0])
-    # "auto" is "xla" (tuned values do not carry over); explicit wins
-    assert resolve_bitplane_strategy() == resolve_bitplane_strategy("auto") == "xla"
-    assert resolve_bitplane_strategy("fused_bitplane") == "fused_bitplane"
+    # "auto" is "xla" without a tuned value for the device; explicit wins
+    geo = (384, 3, 8, 40)
+    assert (resolve_bitplane_strategy(*geo) == resolve_bitplane_strategy(*geo, strategy="auto")
+            == "xla")
+    assert resolve_bitplane_strategy(*geo, strategy="fused_bitplane") == "fused_bitplane"
     with pytest.raises(ValueError, match="unknown"):
-        resolve_bitplane_strategy("nope")
+        resolve_bitplane_strategy(*geo, strategy="nope")
     assert check_bitplane_request("x", 384, 3, 8, 40, None, "y") == 128
     assert check_bitplane_request("x", 384, 3, 8, 40, 256, "y") == 256
     with pytest.raises(ValueError, match="caps scan candidates at 256"):

@@ -23,7 +23,7 @@ import torch
 from raft_tpu.distance.fused_l2_nn import fused_l2_nn as jax_fused_l2_nn
 from raft_tpu.distance.fused_l2_nn import fused_l2_nn_argmin as jax_fused_l2_nn_argmin
 from raft_tpu.ops.fused_l2_argmin import fused_l2_argmin_pallas
-from raft_tpu_torch.distance import fused_l2_nn as tnn
+from raft_tpu_torch.distance import fused_l2_nn, fused_l2_nn_argmin
 from raft_tpu_torch.ops import fused_l2_argmin as tfa
 
 
@@ -74,15 +74,15 @@ def test_public_fused_l2_nn_matches_jax(rng):
     x = rng.standard_normal((120, 16)).astype(np.float32) * 3
     y = rng.standard_normal((257, 16)).astype(np.float32) * 3
     jd, ji = (np.asarray(a) for a in jax_fused_l2_nn(x, y))
-    td, ti = tnn.fused_l2_nn(x, y, device="cpu")
+    td, ti = fused_l2_nn(x, y, device="cpu")
     np.testing.assert_allclose(td.numpy(), jd, rtol=1e-5, atol=1e-5)
     _assert_ids_up_to_near_ties(x, y, ti.numpy(), ji)
     ja = np.asarray(jax_fused_l2_nn_argmin(x, y, sqrt=True))
-    ta = tnn.fused_l2_nn_argmin(x, y, sqrt=True, device="cpu")
+    ta = fused_l2_nn_argmin(x, y, sqrt=True, device="cpu")
     assert ta.dtype == torch.int32
     _assert_ids_up_to_near_ties(x, y, ta.numpy(), ja)
     gx, gy = np.round(x), np.round(y)
-    np.testing.assert_array_equal(tnn.fused_l2_nn_argmin(gx, gy, device="cpu").numpy(),
+    np.testing.assert_array_equal(fused_l2_nn_argmin(gx, gy, device="cpu").numpy(),
                                   np.asarray(jax_fused_l2_nn_argmin(gx, gy)))
 
 
@@ -127,11 +127,11 @@ def test_plain_blocks_rows_of_x(rng):
 def test_fused_l2_nn_validates_like_jax(rng):
     x = rng.standard_normal((4, 3)).astype(np.float32)
     with pytest.raises(ValueError):
-        tnn.fused_l2_nn(x, x[:, :2], device="cpu")
+        fused_l2_nn(x, x[:, :2], device="cpu")
     with pytest.raises(ValueError):
-        tnn.fused_l2_nn_argmin(x, x[:0], device="cpu")
+        fused_l2_nn_argmin(x, x[:0], device="cpu")
     with pytest.raises(ValueError):
-        tnn.fused_l2_nn(x[0], x, device="cpu")
+        fused_l2_nn(x[0], x, device="cpu")
     with pytest.raises(ValueError, match="cpu or cuda"):
         meta = torch.empty((4, 3), device="meta")
         tfa.fused_l2_argmin(meta, meta)

@@ -75,12 +75,12 @@ def test_entry_points_never_answer_a_cuda_request_on_the_cpu(monkeypatch):
     calls = [
         lambda: brute_force.knn(x, x[:4], 5),
         lambda: brute_force.knn(x, x[:4], 5, engine="fused", device="cuda"),
-        lambda: refine.refine(x, x[:4], cand, 5, strategy="fused"),
+        lambda: refine(x, x[:4], cand, 5, strategy="fused"),
         lambda: ivf_pq.build(ivf_pq.IndexParams(n_lists=4, pq_dim=4), x),
         lambda: ivf_pq.index_from_arrays({}, ivf_pq.IndexParams(n_lists=4)),
         lambda: brute_force.knn(x, x[:4], 5, metric="l1"),
         lambda: pairwise.pairwise_distance(x, x[:4], metric="canberra"),
-        lambda: fused_l2_nn.fused_l2_nn(x, x[:4]),
+        lambda: fused_l2_nn(x, x[:4]),
         lambda: select_k(x, 3, strategy="counting"),
         lambda: ivf_rabitq.build(ivf_rabitq.IndexParams(n_lists=4), x),
         lambda: ivf_rabitq.build(ivf_rabitq.IndexParams(n_lists=4), x, device="cuda"),
@@ -143,3 +143,67 @@ def test_launch_counts_cover_every_kernel():
     _launch._launches["pairwise_tiled"] += 1
     fused_scan.reset_launch_counts()
     assert set(fused_scan.launch_counts().values()) == {0}
+
+
+_SUBPACKAGES = ("cluster", "core", "distance", "matrix", "neighbors", "random")
+
+
+def _port_names(pkg: str) -> set:
+    """The names the port's subpackage defines: its module files and the
+    public top-level functions, classes and assignments in them."""
+    names = set()
+    for path in (_ROOT / "raft_tpu_torch" / pkg).glob("*.py"):
+        if path.name == "__init__.py":
+            continue
+        names.add(path.stem)
+        for node in ast.parse(path.read_text()).body:
+            if isinstance(node, (ast.FunctionDef, ast.ClassDef)):
+                names.add(node.name)
+            elif isinstance(node, ast.Assign):
+                names.update(t.id for t in node.targets if isinstance(t, ast.Name))
+    return {n for n in names if not n.startswith("_")}
+
+
+@pytest.mark.parametrize("pkg", _SUBPACKAGES)
+def test_namespaces_export_the_ported_part_of_the_jax_all(pkg):
+    import importlib
+    import inspect
+
+    jax_pkg = importlib.import_module(f"raft_tpu.{pkg}")
+    port_pkg = importlib.import_module(f"raft_tpu_torch.{pkg}")
+    want = [n for n in jax_pkg.__all__ if n in _port_names(pkg)]
+    assert port_pkg.__all__ == want, (pkg, port_pkg.__all__, want)
+    for name in want:
+        j, t = getattr(jax_pkg, name), getattr(port_pkg, name)
+        assert inspect.ismodule(j) == inspect.ismodule(t), name
+        assert inspect.isclass(j) == inspect.isclass(t), name
+        assert callable(j) == callable(t), name
+    namespace = {}
+    exec(f"from raft_tpu_torch.{pkg} import *", namespace)  # no import cycle, every name bound
+    assert set(want) <= set(namespace)
+
+
+def test_neighbors_refine_is_the_function():
+    from raft_tpu_torch.neighbors import refine as port_refine
+    from raft_tpu_torch.neighbors.refine import refine as module_refine
+
+    assert port_refine is module_refine and callable(port_refine)
+    from raft_tpu_torch.distance import distance as port_distance
+
+    assert port_distance is pairwise.pairwise_distance
+
+
+def test_new_modules_stand_alone():
+    """The tuned table and adaptive probing import neither JAX nor the
+    JAX package (checked above over every file) and read no device."""
+    files = {str(f.relative_to(_ROOT)) for f in _port_files()}
+    assert {"raft_tpu_torch/core/tuned.py", "raft_tpu_torch/neighbors/probe_budget.py"} <= files
+    from raft_tpu_torch.core import tuned
+    from raft_tpu_torch.neighbors import probe_budget
+
+    assert tuned.path().endswith("raft_tpu_torch/tuned_defaults.json")
+    assert not tuned.applies("cpu")
+    mask, counts = probe_budget.probe_plan(
+        torch.zeros((3, 4)), torch.eye(4), n_probes=2, min_probes=1, k=1,
+        metric=probe_budget.DistanceType.L2Expanded, tau=1.0)
+    assert mask.device.type == "cpu" and mask.all() and counts.tolist() == [2, 2, 2]

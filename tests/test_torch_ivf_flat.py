@@ -21,7 +21,7 @@ port runs its plain kernel versions on the CPU.
 - the port's own build reaches recall@10 within 0.03 of the JAX build's,
   and so does a build past 1024 lists (the hierarchical trainer);
 - probes: k 257 on "pallas" raises before the residual store is built;
-  adaptive probing, save, load and list radii raise NotImplementedError
+  save and load raise NotImplementedError
   naming ROADMAP Queue A; a build at 1025 lists of equal rows gives
   finite centers.
 """
@@ -262,16 +262,18 @@ def test_probes_raise(data, indexes):
         tfl.search(tfl.SearchParams(engine="pallas"), fresh, torch.tensor(q), 257)
     assert fresh.resid_bf16 is None and fresh.list_data.shape[1] == width  # untouched
     qt = torch.tensor(q)
-    for params in (tfl.SearchParams(adaptive=True), tfl.SearchParams(recall_target=0.9),
-                   tfl.SearchParams(budget_tau=0.5)):
-        with pytest.raises(NotImplementedError, match="Queue A item 7"):
-            tfl.search(params, tidx, qt, K)
+    # adaptive probing is ported: a saturated plan is the fixed search
+    fixed = tfl.search(tfl.SearchParams(n_probes=N_PROBES), tidx, qt, K)
+    sat = tfl.search(tfl.SearchParams(n_probes=N_PROBES, recall_target=1.0), tidx, qt, K)
+    for a, b in zip(fixed, sat):
+        assert torch.equal(a, b)
+    with pytest.raises(ValueError):
+        tfl.search(tfl.SearchParams(recall_target="high"), tidx, qt, K)
     with pytest.raises(NotImplementedError, match="Queue A item 9"):
         tfl.save("x.bin", tidx)
     with pytest.raises(NotImplementedError, match="Queue A item 9"):
         tfl.load("x.bin")
-    with pytest.raises(NotImplementedError, match="Queue A item 7"):
-        tidx.list_radii
+    assert tidx.list_radii.shape == (N_LISTS,) and torch.isfinite(tidx.list_radii).all()
     # past 1024 lists the build trains hierarchically (Queue A item 5 is
     # ported): 2000 equal rows still give 1025 finite centers
     wide = tfl.build(tfl.IndexParams(n_lists=1025), np.zeros((2000, 4), np.float32),

@@ -293,9 +293,13 @@ def test_kernel_wrappers_check_dtype_and_contiguity():
         fused_scan.fused_list_topk(lof, q, store, base, 200, kbuf=128)
 
 
-@pytest.mark.parametrize("change", [{"adaptive": True}])
+@pytest.mark.parametrize("change", [{"adaptive": True, "recall_target": "high"}])
 def test_search_paths_outside_the_slice_raise(jax_index, change):
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
+    # adaptive probing is in the slice now; a malformed request raises
+    # ValueError, as the JAX search does
+    with pytest.raises(ValueError):
+        jpq.search(jpq.SearchParams(**change), jax_index, np.zeros((2, DIM), np.float32), 5)
+    with pytest.raises(ValueError):
         tpq.search(tpq.SearchParams(**change), _port_index(jax_index),
                    torch.zeros((2, DIM)), 5)
 

@@ -234,14 +234,13 @@ def test_not_ported_and_bad_requests(data, indexes):
     tv, ti = tr.search(tr.SearchParams(**sp), tidx, qt, 10, prefilter=keep)
     _bitwise((tv.numpy(), ti.numpy()), (np.asarray(jv), np.asarray(ji)))
     assert keep[ti.numpy()].all()
-    with pytest.raises(NotImplementedError, match="Queue A"):
-        tr.search(tr.SearchParams(adaptive=True), tidx, qt, 10)
+    with pytest.raises(ValueError):  # adaptive probing is ported; JAX raises alike
+        tr.search(tr.SearchParams(recall_target="high"), tidx, qt, 10)
     with pytest.raises(NotImplementedError, match="Queue A"):
         tr.save("x.bin", tidx)
     with pytest.raises(NotImplementedError, match="Queue A"):
         tr.load("x.bin")
-    with pytest.raises(NotImplementedError, match="Queue A"):
-        tidx.list_radii
+    np.testing.assert_array_equal(tidx.list_radii.numpy(), np.asarray(jidx.list_radii))
     with pytest.raises(ValueError, match=r"\[1, 8\]"):
         tr.search(tr.SearchParams(query_bits=9), tidx, qt, 10)
     with pytest.raises(ValueError, match="unknown scan_engine"):

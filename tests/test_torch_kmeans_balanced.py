@@ -66,9 +66,15 @@ def test_predict_matches_jax(rng, metric):
     x = _blobs(rng, 1500, 8, 10)
     centers = _blobs(rng, 10, 8, 10)
     jl = np.asarray(jkb.predict(x, centers, metric=metric))
-    tl = tkb.predict(x, centers, metric=metric, device="cpu").numpy()
+    tp = tkb.predict(x, centers, metric=metric, device="cpu")
+    # int32 labels, as the JAX package returns them (L2 and IP branches)
+    assert jl.dtype == np.int32 and tp.dtype == torch.int32
+    tl = tp.numpy()
     agree = (jl == tl).mean()
     assert agree >= 0.999, agree
+    _, jfl = jkb.fit_predict(x[:300], 5, n_iters=3, metric=metric)
+    _, tfl = tkb.fit_predict(x[:300], 5, n_iters=3, metric=metric, device="cpu")
+    assert np.asarray(jfl).dtype == np.int32 and tfl.dtype == torch.int32
 
 
 @pytest.mark.parametrize("n_clusters", [8, 520])
