@@ -107,7 +107,13 @@ Phases, in order; any failure exits non-zero:
      the fused bf16, fused int8 and pallas ladders and lut; an index of
      4096 lists (kmeans_balanced.fit_hierarchical) on the fused ladder;
      Lloyd kmeans.fit (1024 clusters, 20 iterations, k-means++) beside
-     kmeans_balanced.fit's cost. Phases 4 and 5 run under an empty tuned
+     kmeans_balanced.fit's cost. Then live mutation and persistence
+     (mutation_path) on the three 1M-row indexes, each at its gate rung:
+     delete 10% of the ids, upsert 5%, insert 5%; recall@10 against the
+     live truth (kernel 2 with the deleted ids invalid), no deleted id,
+     delete equal to the exclusion prefilter bit for bit, compact, save
+     and load on the card bit for bit, and a Mutator over IVF-Flat with
+     its cold resume bit for bit. Phases 4 and 5 run under an empty tuned
      table: the JAX package's untuned program, each engine by name;
   4b. the tuned table (tuned_path): every tuned key the port reads, A/B
      of the untuned resolution against each candidate by name, with
@@ -133,7 +139,9 @@ Phases, in order; any failure exits non-zero:
      it, with kernel, plain and library times (CUDA events) and the bound;
      kernel 1 also at IVF-Flat's own shape (bf16 residual store, n_probes
      32), kernels 1, 3 and 4 on the per-cluster store and kernel 1 on the
-     4096-list index; the fused L2 argmin's bound on both routes (split TF32 on the tensor
+     4096-list index, kernels 1, 2 and 7 on the mutation path (the mutated
+     IVF-Flat store, the live truth, the mutated RaBitQ store); the fused
+     L2 argmin's bound on both routes (split TF32 on the tensor
      cores, f32 on the CUDA cores), the bit-plane scan over k 8 to 128
      and the two IVF-PQ trim kernels over k 8 to 250 across their
      selection switch, the trim kernels' tiles a live block scans, and
@@ -1302,7 +1310,11 @@ PATH_KERNELS = {("fused", "bf16"): ("fused_topk", "fused_list_topk"),
                 ("pq_small", "nq"): ("fused_list_topk",),
                 ("per_cluster", "all"): ("fused_list_topk", "fused_list_topk_int8",
                                          "pq_list_scan"),
-                ("pq_wide", "fused"): ("fused_list_topk",)}
+                ("pq_wide", "fused"): ("fused_list_topk",),
+                # live mutation and persistence on the three indexes
+                # (mutation_path): the live truth, IVF-PQ fused (with its
+                # refine) and IVF-Flat fused, RaBitQ fused
+                ("mutation", "all"): ("fused_list_topk", "fused_topk", "fused_bitplane_topk")}
 #: IVF-Flat's engines and n_probes ladder on the main path's data
 #: (bench/bench_neighbors.py:93-118 runs n_probes 32)
 FLAT_ENGINES = ("fused", "list", "query", "auto")
@@ -1764,6 +1776,13 @@ def ivf_flat_path(g, dev, res, fs, sync):
 PROBE_LADDER = (8, 16, 32, 64)
 
 
+def first_cleared(rungs, **match):
+    """The smallest n_probes of the `rungs` matching `match` whose recall
+    cleared RECALL_GATE."""
+    return min(x["n_probes"] for x in rungs if x["recall"] >= RECALL_GATE
+               and all(x.get(key) == v for key, v in match.items()))
+
+
 def prefilter_path(g, dev, res, flat, rb, sync):
     """The filtered searches on the main path's data, one path with its
     launch counts set to 0 just before it and read just after. One seeded
@@ -1805,10 +1824,6 @@ def prefilter_path(g, dev, res, flat, rb, sync):
         f"tiled engine on 16 queries: agreement {agree:.4f}")
     if agree < 0.95 or not passes(tiled):
         raise AssertionError(f"filtered truth disagrees with the tiled engine: {agree}")
-
-    def first_cleared(rungs, **match):
-        return min(x["n_probes"] for x in rungs if x["recall"] >= RECALL_GATE
-                   and all(x.get(key) == v for key, v in match.items()))
 
     def ladder(name, start, search):
         """Run `search(n_probes)` from `start` up PROBE_LADDER until recall
@@ -2054,6 +2069,300 @@ def pq_modes_path(g, dev, res, fs, pls, sync):
     return out, calls
 
 
+# ---------------------------------------------------------------------------
+# phase 4: live mutation and persistence on the three 1M-row indexes
+# ---------------------------------------------------------------------------
+
+
+def bit_equal(a, b) -> bool:
+    """Two (values, ids) results equal bit for bit."""
+    return (torch.equal(a[1], b[1])
+            and torch.equal(a[0].contiguous().view(torch.int32),
+                            b[0].contiguous().view(torch.int32)))
+
+
+def blob_rows(seed, n_blobs, dim, n, rng):
+    """`n` fresh rows of make_blobs' blobs (the same centres from `seed`,
+    new unit noise from `rng`)."""
+    centers = np.random.default_rng(seed).uniform(-5.0, 5.0, (n_blobs, dim)).astype(np.float32)
+    rows = centers[rng.integers(0, n_blobs, n)]
+    return rows + rng.standard_normal((n, dim), dtype=np.float32)
+
+
+def mutation_path(g, dev, res, fl, rb, sync):
+    """Live mutation and persistence (neighbors/mutation, core/serialize)
+    on the three 1M-row indexes of phase 4, one path with its launch
+    counts set to 0 just before it and read just after. Each family
+    searches at its phase-4 gate rung with its engine by name (IVF-PQ
+    trim "fused" on bf16 rows + refine(strategy="fused"), IVF-Flat
+    "fused", RaBitQ scan "fused" with its rerank); the indexes of `res`,
+    `fl` and `rb` are only read (mutations return new objects), which is
+    asserted on their slot_rows and one payload table at the end.
+      1. From --seed: delete 10% of the ids, upsert 5% others with fresh
+         rows of the same blobs, insert 5% new rows (ids=None), after
+         ensure_append_slack(64); each call timed.
+      2. The live truth: an (id_bound, dim) id-indexed table on the card
+         (original rows, upserted ids' new rows, inserted rows),
+         brute_force.knn(engine="fused") over it with the deleted ids
+         excluded by its `valid` operand; refine reads that table.
+      3. Gates per family: no deleted id returned; an upserted id re-ranked
+         (IVF-PQ's refine, RaBitQ's rerank) returns its new row's
+         distance (float64 over the rows the re-rank reads, to 1e-5 of
+         |q|^2 + |v|^2); recall@k >= RECALL_GATE against the live truth;
+         delete(index, v) searches bit for bit like search(index,
+         prefilter=Bitset.excluding(id_bound, v)); after compact: no
+         tombstones, live rows unchanged, recall within 0.002 of the
+         search before, values within VAL_RTOL and ids equal but within a
+         group of equal values.
+      4. Save each mutated index to a temporary directory and load it onto
+         the card: the search equal bit for bit (RaBitQ with the rows as
+         refine_dataset on both sides); seconds, bytes and GB/s.
+      5. A Mutator over IVF-Flat (ckpt_every 4): upsert, delete, upsert,
+         delete, rebalance, upsert; a cold resume from the directory
+         equals it bit for bit (slot_rows, tombstones, list_sizes,
+         source_ids, the search).
+    Times: ms a batch before mutation, the first batch after it (the
+    derived store's rebuild included), steady batches after it (dead slots
+    still scanned), the first and steady batches after compact (the three
+    steady states timed in turns, the better of two windows each), and
+    the seconds of compact."""
+    from raft_tpu_torch.core.bitset import Bitset
+    from raft_tpu_torch.neighbors import brute_force, ivf_flat, ivf_pq, ivf_rabitq, mutation
+    from raft_tpu_torch.neighbors.refine import refine
+    from raft_tpu_torch.ops import _launch
+    from raft_tpu_torch.ops import fused_scan as fs
+
+    dataset, queries, k = res["dataset"], res["queries"], g.k
+    n, dim = dataset.shape
+    originals = {"ivf_pq": res["index"], "ivf_flat": fl["index"], "ivf_rabitq": rb["index"]}
+    payload = {"ivf_pq": "codes", "ivf_flat": "list_data", "ivf_rabitq": "codes"}
+    kept = {f: (idx.slot_rows.clone(), getattr(idx, payload[f]).clone())
+            for f, idx in originals.items()}
+
+    p_pq = first_cleared(res["rungs"], trim="fused", score_dtype="bf16")
+    p_fl = first_cleared(fl["rungs"], engine="fused")
+    gate = rb["gate"]
+    pq_params = ivf_pq.SearchParams(n_probes=p_pq, score_mode="recon8_list", trim_engine="fused")
+    fl_params = ivf_flat.SearchParams(n_probes=p_fl, engine="fused")
+    rb_params = ivf_rabitq.SearchParams(n_probes=gate["n_probes"],
+                                        rerank_mult=gate["rerank_mult"], scan_engine="fused")
+    rung = {"ivf_pq": f"trim fused bf16 n_probes {p_pq} + refine",
+            "ivf_flat": f"fused n_probes {p_fl}",
+            "ivf_rabitq": f"fused n_probes {gate['n_probes']} rerank_mult {gate['rerank_mult']}"}
+
+    def searcher(fam, idx, table=None, prefilter=None, rows=None):
+        """One batch of `fam` at its gate rung on `idx`: IVF-PQ refines over
+        `table` (ids index it), RaBitQ re-ranks over `rows` (positions)."""
+        if fam == "ivf_pq":
+            return lambda: refine(table, queries, ivf_pq.search(
+                pq_params, idx, queries, 4 * k, prefilter=prefilter)[1], k, strategy="fused",
+                device=dev)
+        if fam == "ivf_flat":
+            return lambda: ivf_flat.search(fl_params, idx, queries, k, prefilter=prefilter)
+        return lambda: ivf_rabitq.search(rb_params, idx, queries, k, prefilter=prefilter,
+                                         refine_dataset=rows)
+
+    def first_ms(run):
+        sync()
+        t0 = time.perf_counter()
+        out = run()
+        sync()
+        return out, (time.perf_counter() - t0) * 1e3
+
+    def steady_ms(run):
+        return timed_windows(g, run, sync)[0] * 1e3
+
+    out = {"rungs": rung}
+    _launch.reset_launch_counts()
+    t_path = time.perf_counter()
+
+    # 1. the script, from --seed
+    rng = np.random.default_rng(g.seed + 12)
+    n_del, n_up, n_new = n // 10, n // 20, n // 20
+    perm = rng.permutation(n).astype(np.int32)
+    deleted, upserted = perm[:n_del], perm[n_del:n_del + n_up]
+    up_rows = torch.from_numpy(blob_rows(g.seed, g.n_lists, dim, n_up, rng)).to(dev)
+    new_rows = torch.from_numpy(blob_rows(g.seed, g.n_lists, dim, n_new, rng)).to(dev)
+    deleted_t = torch.from_numpy(deleted).to(dev)
+    upserted_t = torch.from_numpy(upserted).to(dev)
+
+    # 2. the live truth over the id-indexed table (ids n .. n + n_new inserted)
+    id_bound = n + n_new
+    table_rows = torch.cat([dataset, new_rows])
+    table_rows[upserted_t.long()] = up_rows
+    live = torch.ones(id_bound, dtype=torch.bool, device=dev)
+    live[deleted_t.long()] = False
+    live_bs = Bitset.from_mask(live)
+    with Spy(fs, "fused_topk") as truth_spy:
+        (_, truth), truth_ms = first_ms(lambda: brute_force.knn(
+            table_rows, queries, k, engine="fused", prefilter=live_bs, device=dev))
+    if bool(torch.isin(truth, deleted_t).any()) or bool((truth < 0).any()):
+        raise AssertionError("live truth: a deleted id or a short row")
+    log(f"path mutation: delete {n_del}, upsert {n_up}, insert {n_new} of {n} ids; live truth "
+        f"(brute_force.knn fused over the {id_bound} x {dim} id table, valid = live ids) in "
+        f"{truth_ms:.3f} ms")
+
+    mutated, timing, calls = {}, {}, {}
+    for fam, idx in originals.items():
+        rows0 = idx.dataset if fam == "ivf_rabitq" else None
+        _, before_first = first_ms(searcher(fam, idx, dataset, rows=rows0))
+        t = {}
+        # delete equals the exclusion prefilter, bit for bit
+        dead = mutation.delete(idx, deleted_t)
+        a = searcher(fam, dead, dataset, rows=rows0)()
+        b = searcher(fam, idx, dataset, rows=rows0,
+                     prefilter=Bitset.excluding(idx.id_bound, deleted_t, device=dev))()
+        if not bit_equal(a, b):
+            raise AssertionError(f"{fam}: delete differs from the exclusion prefilter")
+        # the script, each call timed
+        cur = idx
+        for name, op in (("slack_ms", lambda i: mutation.ensure_append_slack(i, 64)),
+                         ("delete_ms", lambda i: mutation.delete(i, deleted_t)),
+                         ("upsert_ms", lambda i: mutation.upsert(i, up_rows, upserted_t)),
+                         ("insert_ms", lambda i: mutation.upsert(i, new_rows))):
+            cur, t[name] = first_ms(lambda: op(cur))
+        if cur.id_bound != id_bound or mutation.live_rows(cur) != n - n_del + n_new:
+            raise AssertionError(f"{fam}: id_bound {cur.id_bound}, live rows "
+                                 f"{mutation.live_rows(cur)}")
+        rows = cur.dataset if fam == "ivf_rabitq" else None
+        spy = (Spy(fs, "fused_bitplane_topk") if fam == "ivf_rabitq"
+               else Spy(fs, "fused_list_topk"))
+        with spy:
+            (vals, ids), t["first_after_ms"] = first_ms(searcher(fam, cur, table_rows, rows=rows))
+        if fam != "ivf_pq":
+            calls[fam] = spy.calls[0]
+        if bool(torch.isin(ids, deleted_t).any()):
+            raise AssertionError(f"{fam}: a deleted id was returned")
+        r = recall(ids, truth)
+        # an upserted id re-ranked returns its new row's distance
+        checked = 0
+        if fam != "ivf_flat":
+            hit = torch.isin(ids, upserted_t) & (ids >= 0)
+            qi, ci = torch.nonzero(hit, as_tuple=True)
+            got = vals[qi, ci].double()
+            if fam == "ivf_pq":  # the fused refine: exact over bf16-rounded rows
+                qv = queries[qi].to(torch.bfloat16).double()
+                vv = table_rows[ids[qi, ci].long()].to(torch.bfloat16).double()
+                ov = dataset[ids[qi, ci].long()].to(torch.bfloat16).double()
+            else:
+                qv, vv = queries[qi].double(), table_rows[ids[qi, ci].long()].double()
+                ov = dataset[ids[qi, ci].long()].double()
+            want = ((qv - vv) ** 2).sum(1)
+            tol = VAL_RTOL * ((qv * qv).sum(1) + (vv * vv).sum(1))
+            old = ((qv - ov) ** 2).sum(1)
+            checked = int(hit.sum())
+            if checked == 0 or bool(((got - want).abs() > tol).any()):
+                raise AssertionError(f"{fam}: {checked} upserted ids re-ranked, largest gap "
+                                     f"{float((got - want).abs().max()) if checked else None}")
+            t["upserted_checked"] = checked
+            t["old_row_would_differ"] = int(((got - old).abs() > tol).sum())
+        if r < RECALL_GATE:
+            raise AssertionError(f"{fam}: recall@{k} {r} against the live truth")
+        # compact
+        pre_live = mutation.live_rows(cur)
+        packed, t["compact_ms"] = first_ms(lambda: mutation.compact(cur))
+        if packed.tombstones is not None or mutation.live_rows(packed) != pre_live:
+            raise AssertionError(f"{fam}: compact kept tombstones or lost live rows")
+        (cv, cids), t["first_compact_ms"] = first_ms(searcher(fam, packed, table_rows,
+                                                              rows=rows))
+        # steady batches of the three states in turns (before, after,
+        # compacted, then back), the better of each state's two windows
+        turns = {"before_ms": searcher(fam, idx, dataset, rows=rows0),
+                 "steady_after_ms": searcher(fam, cur, table_rows, rows=rows),
+                 "steady_compact_ms": searcher(fam, packed, table_rows, rows=rows)}
+        for name in list(turns) + list(turns)[::-1]:
+            t[name] = min(t.get(name, float("inf")), steady_ms(turns[name]))
+        rc = recall(cids, truth)
+        if abs(rc - r) > 0.002 or not tie_equal(vals, ids, cv, cids, rtol=VAL_RTOL):
+            raise AssertionError(f"{fam}: compact changed the search (recall {r} -> {rc})")
+        t.update({"recall": r, "recall_compact": rc, "width": int(cur.slot_rows.shape[1]),
+                  "width_compact": int(packed.slot_rows.shape[1]),
+                  "dead_slots": cur.n_tombstones, "first_before_ms": before_first})
+        log(f"path mutation {fam} ({rung[fam]}): ensure_append_slack {t['slack_ms']:.3f} ms, "
+            f"delete {t['delete_ms']:.3f} ms, upsert {t['upsert_ms']:.3f} ms, insert "
+            f"{t['insert_ms']:.3f} ms; recall@{k} against the live truth {r:.4f}, no deleted "
+            f"id, delete == exclusion prefilter bit for bit"
+            + (f", {checked} upserted ids at their new rows' distance" if checked else "")
+            + f"; ms a batch: before {t['before_ms']:.4f}, first after the upsert "
+            f"{t['first_after_ms']:.4f}, steady {t['steady_after_ms']:.4f} "
+            f"({t['dead_slots']} dead slots of width {t['width']}); compact "
+            f"{t['compact_ms']:.3f} ms -> width {t['width_compact']}, first "
+            f"{t['first_compact_ms']:.4f}, steady {t['steady_compact_ms']:.4f}, recall {rc:.4f}")
+        mutated[fam], timing[fam] = (cur, rows), t
+
+    # 4. persistence on the card
+    persist = {}
+    with tempfile.TemporaryDirectory(prefix="raft_tpu_torch_mutation_") as tmp:
+        for fam, (cur, rows) in mutated.items():
+            mod = {"ivf_pq": ivf_pq, "ivf_flat": ivf_flat, "ivf_rabitq": ivf_rabitq}[fam]
+            path = os.path.join(tmp, f"{fam}.ckpt")
+            _, save_ms = first_ms(lambda: mod.save(path, cur))
+            loaded, load_ms = first_ms(lambda: mod.load(path, device=dev))
+            nbytes = os.path.getsize(path)
+            a = searcher(fam, cur, table_rows, rows=rows)()
+            b = searcher(fam, loaded, table_rows, rows=rows)()
+            if loaded.device != dev or not bit_equal(a, b):
+                raise AssertionError(f"{fam}: the loaded index searches differently")
+            persist[fam] = {"bytes": nbytes, "save_s": save_ms / 1e3, "load_s": load_ms / 1e3,
+                            "save_gb_s": nbytes / save_ms / 1e6, "load_gb_s": nbytes / load_ms / 1e6}
+            log(f"path mutation {fam}: save {save_ms / 1e3:.3f} s, load onto {dev} "
+                f"{load_ms / 1e3:.3f} s, {nbytes} bytes ({persist[fam]['save_gb_s']:.3f} / "
+                f"{persist[fam]['load_gb_s']:.3f} GB/s); the loaded index searches bit for bit")
+            del loaded
+
+        # 5. the crash-atomic Mutator over IVF-Flat, then a cold resume
+        root = os.path.join(tmp, "mutator")
+        batch = max(1, n // 100)
+        mrng = np.random.default_rng(g.seed + 13)
+        ids_of = mrng.permutation(n).astype(np.int32)
+        t0 = time.perf_counter()
+        mut = mutation.Mutator(root, originals["ivf_flat"], ckpt_every=4)
+        for step, op in enumerate(("upsert", "delete", "upsert", "delete", "rebalance",
+                                   "upsert")):
+            chunk = ids_of[step * batch:(step + 1) * batch]
+            if op == "upsert":
+                mut.upsert(blob_rows(g.seed, g.n_lists, dim, batch, mrng), chunk)
+            elif op == "delete":
+                mut.delete(chunk)
+            else:
+                mut.rebalance()
+        sync()
+        mutator_s = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        again = mutation.Mutator(root, kind="ivf_flat", device=dev)
+        sync()
+        resume_s = time.perf_counter() - t0
+        for f in ("slot_rows", "list_sizes", "source_ids"):
+            if not torch.equal(getattr(again.index, f), getattr(mut.index, f)):
+                raise AssertionError(f"mutator resume: {f} differs")
+        if not torch.equal(again.index.tombstones, mut.index.tombstones):
+            raise AssertionError("mutator resume: tombstones differ")
+        a = ivf_flat.search(fl_params, mut.index, queries, k)
+        b = ivf_flat.search(fl_params, again.index, queries, k)
+        if not bit_equal(a, b):
+            raise AssertionError("mutator resume: the search differs")
+        out["mutator"] = {"batches": 6, "batch_rows": batch, "seconds": mutator_s,
+                          "resume_s": resume_s, "cursor": int(again.index.mut_cursor),
+                          "replayed": again.applied - int(again.index.mut_cursor),
+                          "ckpt_bytes": os.path.getsize(os.path.join(root, "index.ckpt"))}
+        log(f"path mutation mutator (IVF-Flat, ckpt_every 4): 6 batches of {batch} rows "
+            f"(upsert, delete, upsert, delete, rebalance, upsert) in {mutator_s:.3f} s; cold "
+            f"resume {resume_s:.3f} s (checkpoint at cursor {out['mutator']['cursor']}, "
+            f"{out['mutator']['ckpt_bytes']} bytes, {out['mutator']['replayed']} replayed), "
+            f"slot_rows, tombstones, list_sizes, source_ids and search bit for bit")
+    for fam, idx in originals.items():
+        sr, pay = kept[fam]
+        if not (torch.equal(idx.slot_rows, sr) and torch.equal(getattr(idx, payload[fam]), pay)):
+            raise AssertionError(f"{fam}: the phase-4 index changed under mutation")
+    out.update({"timing": timing, "persist": persist, "truth_ms": truth_ms,
+                "wall_s": time.perf_counter() - t_path,
+                "launches": _launch.launch_counts()})
+    calls["truth"] = truth_spy.calls[0]
+    log(f"path mutation: launches {out['launches']}, {out['wall_s']:.1f} s; the phase-4 "
+        f"indexes unchanged")
+    return out, calls
+
+
 def device_breakdown(run, reps, batch_ms, label="n_probes 8 + refine", top=10):
     """Where a batch's time goes: `reps` batches under torch.profiler.
     Only the device's own activities count (kernels, copies, sets: events
@@ -2208,19 +2517,26 @@ def committed(dev):
         tuned.applies = applies
 
 
-def tie_equal(v1, i1, v2, i2) -> bool:
-    """Equal values, and ids equal but for their order within a group of
-    equal values (a group that reaches the row's end may hold other ids
-    of that value)."""
+def tie_equal(v1, i1, v2, i2, rtol=0.0) -> bool:
+    """Values equal (within `rtol` of each row's largest finite magnitude),
+    and ids equal but for their order within a group of such equal values
+    (a group that reaches the row's end may hold other ids of that
+    value)."""
     a, b = i1.cpu().numpy(), i2.cpu().numpy()
-    va, vb = v1.cpu().numpy(), v2.cpu().numpy()
-    if a.shape != b.shape or not np.array_equal(va, vb):
+    va, vb = v1.cpu().numpy().astype(np.float64), v2.cpu().numpy().astype(np.float64)
+    fin = np.isfinite(va)
+    if (a.shape != b.shape or not np.array_equal(fin, np.isfinite(vb))
+            or not np.array_equal(va[~fin], vb[~fin])):
         return False
-    for r in np.nonzero((a != b).any(axis=1))[0]:
-        for val in np.unique(va[r]):
-            m = va[r] == val
-            if not m[-1] and set(a[r][m]) != set(b[r][m]):
-                return False
+    tol = rtol * np.where(fin, np.abs(va), 0).max(axis=1)
+    with np.errstate(invalid="ignore"):  # inf - inf: not within any tolerance
+        if (np.where(fin, np.abs(va - vb), 0) > tol[:, None]).any():
+            return False
+        for r in np.nonzero((a != b).any(axis=1))[0]:
+            for c in np.nonzero(a[r] != b[r])[0]:
+                group = (va[r] == va[r, c]) | (np.abs(va[r] - va[r, c]) <= tol[r])
+                if not group[-1] and set(a[r][group]) != set(b[r][group]):
+                    return False
     return True
 
 
@@ -3186,7 +3502,7 @@ def launch_ms(run, reps):
     return {"launch_ms": sum(each) / reps, "launch_ms_each": each}
 
 
-def flat_kernel_row(fs, call, launches, reps):
+def flat_kernel_row(fs, call, launches, reps, label="truth"):
     (x, y, k), kw = call[0], call[1]
     ip = bool(kw.get("inner_product", False))
     m, d = x.shape
@@ -3195,7 +3511,7 @@ def flat_kernel_row(fs, call, launches, reps):
     flops = 2.0 * m * n * d
     nbytes = (m + n) * d * 4 + m * kb * 8
     b_ms, b_by, terms = bound_ms(flops, nbytes)
-    out = fs.fused_topk(x, y, k, inner_product=ip)
+    out = fs.fused_topk(x, y, k, inner_product=ip, valid=kw.get("valid"))
     yb = y.to(torch.bfloat16)
     base = torch.zeros(n, device=y.device) if ip else (yb.float() ** 2).sum(1)
     xb = x.to(torch.bfloat16).float()
@@ -3203,8 +3519,12 @@ def flat_kernel_row(fs, call, launches, reps):
     def plain():
         return fs.fused_topk_plain(xb, yb, base, k, kb, ip)
 
-    err, agree = compare("fused_topk (truth)", out, plain(), k)
-    ms = time_ms(lambda: fs.fused_topk(x, y, k, inner_product=ip), reps, warmup=0)
+    valid = kw.get("valid")
+    if valid is not None:  # filtered columns: +inf base, as the wrapper makes them
+        base = torch.where(valid.bool(), base, float("inf"))
+    err, agree = compare(f"fused_topk ({label})", out, plain(), k)
+    ms = time_ms(lambda: fs.fused_topk(x, y, k, inner_product=ip, valid=valid), reps,
+                 warmup=0)
     plan = fs.flat_plan(m, n, d, k, torch.cuda.get_device_properties(x.device).multi_processor_count
                         if x.is_cuda else 132)
     plain_ms = time_ms(plain, 1, warmup=0)
@@ -3217,9 +3537,9 @@ def flat_kernel_row(fs, call, launches, reps):
 
     lib_ms = time_ms(library, reps)
     if x.is_cuda:  # the call's device time: the kernels, and the wrapper's setup around them
-        terms.update(device_split(lambda: fs.fused_topk(x, y, k, inner_product=ip), reps,
-                                  ("tc_range_kernel", "merge_ranges_kernel", "flat_kernel")))
-    log(f"kernel fused_topk (truth): m {m}, n {n}, d {d}, k {k} ({plan.variant}, "
+        terms.update(device_split(lambda: fs.fused_topk(x, y, k, inner_product=ip, valid=valid),
+                                  reps, ("tc_range_kernel", "merge_ranges_kernel", "flat_kernel")))
+    log(f"kernel fused_topk ({label}): m {m}, n {n}, d {d}, k {k} ({plan.variant}, "
         f"{plan.rows} rows a block, {plan.n_ranges} n ranges of {plan.range_len}): {ms:.4f} "
         f"ms, plain {plain_ms:.4f} ms, library {lib_ms:.4f} ms, bound {b_ms:.4f} ms ({b_by}), "
         f"max_abs_err {err}, id agreement {agree}; device ms a call: kernels "
@@ -3229,7 +3549,7 @@ def flat_kernel_row(fs, call, launches, reps):
             "replaces": "raft_tpu/ops/fused_scan.py:267", "launches": launches,
             "max_abs_err": err, "ms": ms, "plain_ms": plain_ms, "bound_ms": b_ms,
             "bound_by": b_by, "library_ms": lib_ms, "bound_terms": terms,
-            "shape": f"truth: m={m} n={n} d={d} k={k}", "plan": plan._asdict()}
+            "shape": f"{label}: m={m} n={n} d={d} k={k}", "plan": plan._asdict()}
 
 
 def bf16_bmm(a, b):
@@ -3690,6 +4010,8 @@ def main(argv=None):
         launches.update(pm["launches"])
         for path, counts in pm["launches"].items():
             log(f"path {' '.join(path)}: launches {counts}")
+        mt, mt_calls = mutation_path(g, dev, res, fl, rb, sync)
+        launches[("mutation", "all")] = mt["launches"]
         for path, counts in launches.items():
             missing = [name for name in PATH_KERNELS[path] if counts[name] <= 0]
             if missing and dev.type == "cuda":
@@ -3743,6 +4065,15 @@ def main(argv=None):
                                     "n_probes 8", "exact"))
         rows.append(list_kernel_row(fs, pm_calls["wide"], n(("pq_wide", "fused"), "fused_list_topk"),
                                     g.reps, f"IVF-PQ {g.wide_lists} lists, trim, n_probes 8"))
+        # kernels 1, 2 and 7 on the mutation path: the tombstoned and
+        # upserted IVF-Flat store, the live truth, the tombstoned RaBitQ store
+        mpath = ("mutation", "all")
+        rows.append(list_kernel_row(fs, mt_calls["ivf_flat"], n(mpath, "fused_list_topk"), g.reps,
+                                    f"IVF-Flat fused after mutation, {mt['rungs']['ivf_flat']}"))
+        rows.append(flat_kernel_row(fs, mt_calls["truth"], n(mpath, "fused_topk"), g.reps,
+                                    label="live truth after mutation, valid = live ids"))
+        rows.append(bitplane_row(fs, mt_calls["ivf_rabitq"], n(mpath, "fused_bitplane_topk"),
+                                 g.reps, f"rabitq after mutation, {mt['rungs']['ivf_rabitq']}"))
     wins, tuned_report = tuned_path(g, dev, res, pm, fl, rb, sync, card, g.apply)
     if g.apply:
         apply_table(wins, card)
@@ -3765,6 +4096,7 @@ def main(argv=None):
                "ivf_flat": {key: v for key, v in fl.items() if key != "index"},
                "prefilter": pf,
                "pq_modes": {key: v for key, v in pm.items() if key != "launches"},
+               "mutation": mt,
                "tuned": {"winners": wins, "ab": tuned_report, "committed": committed_rows},
                "adaptive": {"policy": policy, "calibration": calibration,
                             "rows": adaptive_rows},

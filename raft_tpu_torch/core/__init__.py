@@ -2,9 +2,12 @@
 JAX package's `__all__`, in its order."""
 
 from raft_tpu_torch.core.bitset import Bitset
+from raft_tpu_torch.core.serialize import deserialize_arrays, serialize_arrays
 from raft_tpu_torch.core.validation import check_matrix
 
 __all__ = [
     "Bitset",
     "check_matrix",
+    "serialize_arrays",
+    "deserialize_arrays",
 ]

@@ -43,12 +43,13 @@ moves the centers (budgets only).
 
 A `prefilter` (a `core.bitset.Bitset` or boolean mask over the index's
 ids) is one view of the slot table, which every engine masks to the
-worst value before any selection.
+worst value before any selection. So are the `tombstones` of live
+mutation (neighbors/mutation), applied before the prefilter.
 
-Not ported yet (each raises NotImplementedError naming ROADMAP Queue A):
-save/load and the integrity digests (item 9).
-Tombstones (item 6) stay None. Observability spans and fault hooks are
-left out.
+`save` / `load` write and read the JAX package's container (kind
+"ivf_flat", writer version 4; core/serialize), so a file written by
+either package loads in the other. The integrity digests, observability
+spans and fault hooks are not ported (ROADMAP Queue A item 9).
 """
 
 from __future__ import annotations
@@ -72,10 +73,6 @@ from raft_tpu_torch.random.rng import make_generator, sample_without_replacement
 QUERY_BLOCK_ELEMS = 1 << 27
 #: list-major engines' queries a call (the JAX package's macro batch)
 MACRO_BATCH = 4096
-
-
-def _not_ported(what: str, item: int) -> NotImplementedError:
-    return NotImplementedError(f"{what} is not ported yet (ROADMAP Queue A item {item})")
 
 
 @dataclasses.dataclass
@@ -121,6 +118,10 @@ class Index:
     list_sizes (n_lists,) int32; source_ids (n_rows,) int32 caller ids
     list_radii (n_lists,) f32 largest member distance to its centroid, or
                None (adaptive probing then keeps budgets only)
+    tombstones (n_lists, max_list) bool dead-slot mask of live mutation,
+               or None (all live); mut_cursor, the applied mutation-log
+               entries at the last checkpoint commit; append_slack, the
+               per-list tail slots the mutator reserves
 
     The fused engine's store is derived at its first search
     (`_pad_store_to_lanes`): resid_bf16 (n_lists, L, dim) bf16 residuals,
@@ -140,13 +141,14 @@ class Index:
         self.resid_norm = None
         self.fused_kb = None
         self.list_radii = None
-        # the dead-slot mask of live mutation (ROADMAP Queue A item 6):
-        # None (all live) on every port index
         self.tombstones = None
+        self.mut_cursor = 0
+        self.append_slack = 0
         self._id_bound = None
 
     @property
     def n_tombstones(self) -> int:
+        """Dead slots (0 when all live)."""
         if self.tombstones is None:
             return 0
         return int(torch.as_tensor(self.tombstones).bool().sum())
@@ -222,12 +224,65 @@ def index_from_arrays(arrays: Dict[str, np.ndarray], params: IndexParams,
     return index
 
 
+_SERIAL_VERSION = 4  # v2: list-major; v3: mutation; v4: digest sidecar
+
+
 def save(filename: str, index: Index) -> None:
-    raise _not_ported("ivf_flat.save", 9)
+    """Write the index as the JAX package's v4 container (no digest
+    sidecar, which the version allows). Derived stores are not saved."""
+    from raft_tpu_torch.core.serialize import serialize_arrays
+
+    arrays = {
+        "centers": index.centers,
+        "list_data": index.list_data,
+        "slot_rows": index.slot_rows,
+        "list_sizes": index.list_sizes,
+        "source_ids": index.source_ids,
+    }
+    if index.list_radii is not None:
+        arrays["list_radii"] = index.list_radii
+    if index.tombstones is not None:
+        arrays["tombstones"] = torch.as_tensor(index.tombstones).to(torch.uint8)
+    serialize_arrays(filename, arrays, {
+        "kind": "ivf_flat",
+        "version": _SERIAL_VERSION,
+        "metric": int(index.metric),
+        "metric_arg": index.params.metric_arg,
+        "n_lists": index.n_lists,
+        "adaptive_centers": index.params.adaptive_centers,
+        "mut_cursor": int(index.mut_cursor),
+        "append_slack": int(index.append_slack),
+    })
 
 
-def load(filename: str) -> Index:
-    raise _not_ported("ivf_flat.load", 9)
+def load(filename: str, device=None) -> Index:
+    """Read an "ivf_flat" container (either package's) onto
+    `resolve_device(device)`. Fields a file lacks load as the schema
+    declares: no `list_radii` -> None (budgets only; never derived here),
+    no `tombstones` -> all live, cursor and slack 0. A digest sidecar is
+    checked by its CRC and dropped."""
+    from raft_tpu_torch.core.serialize import as_device_tensor, read_ckpt
+
+    dev = resolve_device(device)
+    arrays, meta = read_ckpt(filename, "ivf_flat", to_device=False)
+    if meta.get("version", 1) < 2:
+        raise ValueError("ivf_flat index file version too old (pre-list-major)")
+    params = IndexParams(n_lists=meta["n_lists"], metric=DistanceType(meta["metric"]),
+                         metric_arg=meta.get("metric_arg", 2.0),
+                         adaptive_centers=meta.get("adaptive_centers", False))
+    f32, i32 = torch.float32, torch.int32
+    index = Index(params, as_device_tensor(arrays["centers"], dev, f32),
+                  as_device_tensor(arrays["list_data"], dev, f32),
+                  as_device_tensor(arrays["slot_rows"], dev, i32),
+                  as_device_tensor(arrays["list_sizes"], dev, i32),
+                  as_device_tensor(arrays["source_ids"], dev, i32))
+    if arrays.get("list_radii") is not None:
+        index.list_radii = as_device_tensor(arrays["list_radii"], dev, f32)
+    if arrays.get("tombstones") is not None:
+        index.tombstones = as_device_tensor(arrays["tombstones"], dev, torch.bool)
+    index.mut_cursor = int(meta.get("mut_cursor", 0))
+    index.append_slack = int(meta.get("append_slack", 0))
+    return index
 
 
 # ---------------------------------------------------------------------------
@@ -402,6 +457,8 @@ def extend(index: Index, new_vectors, new_indices=None) -> Index:
         out.list_radii = probe_budget.updated_radii(index.list_radii, labels, dists,
                                                     index.n_lists)
     out.tombstones = carry_tombstones(index.tombstones, new_max)
+    out.mut_cursor = index.mut_cursor
+    out.append_slack = index.append_slack
     return out
 
 
@@ -541,7 +598,9 @@ def _pad_store_to_lanes(index: Index, k: int) -> None:
     residuals v - center (exact zeros at pad slots; small magnitudes keep
     the bf16 product precise and halve the scanned bytes) and their f32
     squared norms. Grow the recorded candidate-buffer width `fused_kb` to
-    hold k (monotone)."""
+    hold k (monotone). A dead-slot mask widens with the table (the pad
+    slots are not dead), so a later mutation sees one geometry."""
+    from raft_tpu_torch.core.bitset import carry_tombstones
     from raft_tpu_torch.ops.fused_scan import fused_kbuf
     from raft_tpu_torch.ops.pq_list_scan import lane_padded
 
@@ -551,6 +610,7 @@ def _pad_store_to_lanes(index: Index, k: int) -> None:
         pad = torch.nn.functional.pad
         index.list_data = pad(index.list_data, (0, 0, 0, extra))
         index.slot_rows = pad(index.slot_rows, (0, extra), value=-1)
+        index.tombstones = carry_tombstones(index.tombstones, max_list + extra)
     if index.resid_bf16 is None or index.resid_bf16.shape != index.list_data.shape:
         resid = index.list_data - index.centers[:, None, :]
         resid = torch.where((index.slot_rows >= 0)[:, :, None], resid, 0.0)
@@ -640,7 +700,7 @@ def search(params: SearchParams, index: Index, queries, k: int, prefilter=None
     worst distance with id -1. Adaptive probing plans one keep mask for
     the batch over the probes the engine then scans
     (`probe_budget.search_plan`), with radius bounds for L2 metrics when
-    the index has radii and no prefilter is given."""
+    the index has radii, no tombstones and no prefilter is given."""
     from raft_tpu_torch.core.bitset import make_slot_filter
     from raft_tpu_torch.neighbors.probe_invert import macro_batched
 

@@ -66,17 +66,20 @@ recon8, approx and exact engines are tensor code on either.
 A `prefilter` (a `core.bitset.Bitset` or boolean mask over the index's
 ids) is one view of the slot table: filtered slots read -1, which every
 engine scores as the worst value, so no filtered row is ever a candidate.
+The `tombstones` of live mutation (neighbors/mutation) are applied the
+same way, before the prefilter.
 
 Adaptive probing (`adaptive`, `recall_target`, `budget_tau`;
 neighbors/probe_budget): one (nq, n_probes) keep mask from the rotated
-coarse geometry, with radius bounds for L2 metrics without a prefilter.
+coarse geometry, with radius bounds for L2 metrics without a prefilter or tombstones.
 `list_radii` are zero at build and raised by every `extend` to the
 largest rotated-space residual norm of each list's members.
 
-Not ported yet: tombstones (ROADMAP Queue A item 6), save/load (item 9).
-Integrity digests, observability spans and fault hooks are left out, and
-so is the JAX package's fence against the lut engine on a TPU
-(`_check_lut_allowed`, a guard for a TPU device fault).
+`save` / `load` write and read the JAX package's container (kind
+"ivf_pq", writer version 3; core/serialize). Integrity digests,
+observability spans and fault hooks are not ported (ROADMAP Queue A item
+9), and neither is the JAX package's fence against the lut engine on a
+TPU (`_check_lut_allowed`, a guard for a TPU device fault).
 """
 
 from __future__ import annotations
@@ -181,6 +184,8 @@ class Index:
     list_sizes (n_lists,) int32; source_ids (n_rows,) int32
     list_radii (n_lists,) f32 largest rotated-space residual norm of each
                list's members (adaptive probing's bounds), or None
+    tombstones (n_lists, max_list) bool dead-slot mask, or None (all
+               live); mut_cursor and append_slack as in ivf_flat.Index
 
     The reconstruction store is built at the first search:
     recon8 (n_lists, lpad, rot_dim) int8, recon_scale (rot_dim,) f32,
@@ -206,7 +211,17 @@ class Index:
         # later search's k outruns it
         self.fused_kb = None
         self.list_radii = None
+        self.tombstones = None
+        self.mut_cursor = 0
+        self.append_slack = 0
         self._id_bound = None
+
+    @property
+    def n_tombstones(self) -> int:
+        """Dead slots (0 when all live)."""
+        if self.tombstones is None:
+            return 0
+        return int(torch.as_tensor(self.tombstones).bool().sum())
 
     @property
     def device(self) -> torch.device:
@@ -286,6 +301,68 @@ def index_from_arrays(arrays: Dict[str, np.ndarray], params: IndexParams,
     if arrays.get("list_radii") is not None:
         index.list_radii = torch.as_tensor(np.array(arrays["list_radii"]),
                                            dtype=torch.float32, device=dev)
+    return index
+
+
+_SERIAL_VERSION = 3  # v2: mutation fields; v3: digest sidecar
+
+
+def save(filename: str, index: Index) -> None:
+    """Write the index as the JAX package's v3 container (no digest
+    sidecar, which the version allows). The reconstruction store is not
+    saved: a loaded index derives it at its first search."""
+    from raft_tpu_torch.core.serialize import serialize_arrays
+
+    arrays = {
+        "rotation": index.rotation,
+        "centers": index.centers,
+        "pq_centers": index.pq_centers,
+        "codes": index.codes,
+        "slot_rows": index.slot_rows,
+        "list_sizes": index.list_sizes,
+        "source_ids": index.source_ids,
+    }
+    if index.list_radii is not None:
+        arrays["list_radii"] = index.list_radii
+    if index.tombstones is not None:
+        arrays["tombstones"] = torch.as_tensor(index.tombstones).to(torch.uint8)
+    serialize_arrays(filename, arrays, {
+        "kind": "ivf_pq",
+        "version": _SERIAL_VERSION,
+        "metric": int(index.metric),
+        "n_lists": index.n_lists,
+        "pq_bits": index.pq_bits,
+        "codebook_kind": index.params.codebook_kind,
+        "mut_cursor": int(index.mut_cursor),
+        "append_slack": int(index.append_slack),
+    })
+
+
+def load(filename: str, device=None) -> Index:
+    """Read an "ivf_pq" container (either package's) onto
+    `resolve_device(device)`; absent fields load as the schema declares
+    (no radii -> None, no tombstones -> all live, cursor and slack 0), a
+    digest sidecar is checked by its CRC and dropped."""
+    from raft_tpu_torch.core.serialize import as_device_tensor, read_ckpt
+
+    dev = resolve_device(device)
+    arrays, meta = read_ckpt(filename, "ivf_pq", to_device=False)
+    params = IndexParams(n_lists=meta["n_lists"], metric=DistanceType(meta["metric"]),
+                         pq_bits=meta["pq_bits"], codebook_kind=meta["codebook_kind"])
+    f32, i32 = torch.float32, torch.int32
+    index = Index(params, as_device_tensor(arrays["rotation"], dev, f32),
+                  as_device_tensor(arrays["centers"], dev, f32),
+                  as_device_tensor(arrays["pq_centers"], dev, f32),
+                  as_device_tensor(arrays["codes"], dev, torch.uint8),
+                  as_device_tensor(arrays["slot_rows"], dev, i32),
+                  as_device_tensor(arrays["list_sizes"], dev, i32),
+                  as_device_tensor(arrays["source_ids"], dev, i32))
+    if arrays.get("list_radii") is not None:
+        index.list_radii = as_device_tensor(arrays["list_radii"], dev, f32)
+    if arrays.get("tombstones") is not None:
+        index.tombstones = as_device_tensor(arrays["tombstones"], dev, torch.bool)
+    index.mut_cursor = int(meta.get("mut_cursor", 0))
+    index.append_slack = int(meta.get("append_slack", 0))
     return index
 
 
@@ -409,7 +486,9 @@ def label_and_encode(vectors: torch.Tensor, rotation: torch.Tensor, centers: tor
 
 def extend(index: Index, new_vectors, new_indices=None) -> Index:
     """Label, encode and append new vectors (ivf_pq_build.cuh:1061):
-    only the new batch is encoded and placed into grown code tables."""
+    only the new batch is encoded and placed into grown code tables. The
+    mutation state carries over (new tail slots are live)."""
+    from raft_tpu_torch.core.bitset import carry_tombstones
     from raft_tpu_torch.neighbors.ivf_flat import _append_slots, _grow_and_scatter
 
     dev = index.device
@@ -436,6 +515,9 @@ def extend(index: Index, new_vectors, new_indices=None) -> Index:
                 codes_tbl, slot_rows, torch.as_tensor(new_sizes, device=dev), all_ids)
     out.list_radii = probe_budget.updated_radii(index.list_radii, labels, dists,
                                                 index.n_lists)
+    out.tombstones = carry_tombstones(index.tombstones, int(codes_tbl.shape[1]))
+    out.mut_cursor = index.mut_cursor
+    out.append_slack = index.append_slack
     return out
 
 
@@ -975,8 +1057,8 @@ def search(params: SearchParams, index: Index, queries, k: int, prefilter=None
     before any selection. Adaptive probing (`recall_target`,
     `budget_tau`, `adaptive`) plans one keep mask for the batch over the
     probes the engine then scans (`probe_budget.search_plan`), with radius
-    bounds for L2 metrics when the index has radii and no prefilter is
-    given."""
+    bounds for L2 metrics when the index has radii, no tombstones and no
+    prefilter is given."""
     from raft_tpu_torch.core.bitset import make_slot_filter
     from raft_tpu_torch.matrix.select_k import check_fused_list_request
     from raft_tpu_torch.neighbors.probe_invert import macro_batched
@@ -993,14 +1075,17 @@ def search(params: SearchParams, index: Index, queries, k: int, prefilter=None
                                      k=int(k), L=lpad, rot=index.rot_dim, kbuf=index.fused_kb)
     int8 = params.score_dtype == "int8"
     per_cluster = index.params.codebook_kind == PER_CLUSTER
-    # bounds off under a prefilter: the sizes count filtered members
+    # bounds off under a prefilter or tombstones: the sizes count the
+    # members they drop
     plan = probe_budget.search_plan(
         probe_budget.resolve_params(params, n_probes, index.device), q, index.centers,
         n_probes=n_probes, k=int(k), metric=index.metric, rotation=index.rotation,
-        radii=index.list_radii if prefilter is None else None, sizes=index.list_sizes)
-    # a filtered view of a slot table is the whole prefilter: every
-    # engine scores its -1 slots as the worst value
-    maybe_filter = make_slot_filter(prefilter, index.id_bound, index.source_ids)
+        radii=index.list_radii if prefilter is None and index.tombstones is None else None,
+        sizes=index.list_sizes)
+    # a filtered view of a slot table is the whole prefilter (and the
+    # whole tombstone mask): every engine scores its -1 slots as the worst
+    maybe_filter = make_slot_filter(prefilter, index.id_bound, index.source_ids,
+                                    tombstones=index.tombstones)
     if mode == "lut":
         vals, rows = _search_impl(q, index.rotation, index.centers, index.pq_centers,
                                   index.codes, maybe_filter(index.slot_rows), int(k), n_probes,

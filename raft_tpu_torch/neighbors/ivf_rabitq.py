@@ -48,11 +48,16 @@ A `prefilter` (a `core.bitset.Bitset` or boolean mask over the index's
 ids) is one view of each engine's slot table, filtered per call: the
 "xla" engine masks where `slot_rows` reads -1, the fused one takes +inf
 base where `slot_rows_pad` does (the derived bit-plane store stays as it
-was cached), and the rerank never sees a filtered row.
+was cached), and the rerank never sees a filtered row. The `tombstones`
+of live mutation (neighbors/mutation) are applied the same way, before
+the prefilter, and turn adaptive probing's radius bounds off.
 
-Not ported yet (each raises NotImplementedError naming ROADMAP Queue A):
-tombstones and live mutation, save/load, integrity digests,
-observability spans, fault hooks and the distributed (MNMG) index.
+`save` / `load` write and read the JAX package's container (kind
+"ivf_rabitq", writer version 3, with the quantizer's state hooks). The
+raw-row store is not saved, as in the JAX package: a loaded index
+re-ranks through `refine_dataset`. Integrity digests, observability
+spans, fault hooks and the distributed (MNMG) index are not ported
+(ROADMAP Queue A items 9 and 12).
 """
 
 from __future__ import annotations
@@ -87,13 +92,6 @@ from raft_tpu_torch.random.rng import make_generator
 _MAX_RERANK = 256
 #: default rerank depth multiplier (the JAX fallback when no tuned value exists)
 DEFAULT_RERANK_MULT = 4
-
-
-def _not_ported(what: str) -> NotImplementedError:
-    return NotImplementedError(
-        f"{what} is not ported yet (ROADMAP Queue A: the port runs ivf_rabitq "
-        "build/extend and search with scan_engine 'xla', 'fused' or 'auto')"
-    )
 
 
 @dataclasses.dataclass
@@ -173,7 +171,9 @@ class Index:
     (`build_bitplane_store`): codes_t (n_lists, W, L) word-transposed
     int32 codes, bp_meta (n_lists, 3, L) f32 [popcount, |r|, <o, x_bar>],
     slot_rows_pad (n_lists, L) int32 (-1 on pad slots), L a multiple of
-    128, and fused_kb, the candidate-buffer width, grown monotonically."""
+    128, and fused_kb, the candidate-buffer width, grown monotonically.
+    Live mutation: tombstones (n_lists, max_list) bool dead-slot mask or
+    None (all live), mut_cursor and append_slack as in ivf_flat.Index."""
 
     def __init__(self, params: IndexParams, rotation, centers, codes, aux, slot_rows,
                  list_sizes, source_ids, dataset=None):
@@ -191,7 +191,17 @@ class Index:
         self.slot_rows_pad = None
         self.fused_kb = None
         self._list_radii = None
+        self.tombstones = None
+        self.mut_cursor = 0
+        self.append_slack = 0
         self._id_bound = None
+
+    @property
+    def n_tombstones(self) -> int:
+        """Dead slots (0 when all live)."""
+        if self.tombstones is None:
+            return 0
+        return int(torch.as_tensor(self.tombstones).bool().sum())
 
     @property
     def list_radii(self):
@@ -271,12 +281,64 @@ def index_from_arrays(arrays: Dict[str, np.ndarray], params: IndexParams,
                  t["list_sizes"], t["source_ids"], dataset=t.get("dataset"))
 
 
+_SERIAL_VERSION = 3  # v2: mutation fields; v3: digest sidecar
+
+
 def save(filename: str, index: Index) -> None:
-    raise _not_ported("ivf_rabitq.save")
+    """Write the quantized index as the JAX package's v3 container (codes
+    as uint32 words; no digest sidecar, which the version allows). The
+    raw-row store is not saved: a loaded index re-ranks through
+    `refine_dataset`, or serves the estimator ranking."""
+    from raft_tpu_torch.core.serialize import serialize_arrays
+
+    quant = RabitqQuantizer(index.rot_dim)
+    arrays = {
+        "rotation": index.rotation,
+        "centers": index.centers,
+        "codes": index.codes.cpu().numpy().view(np.uint32),
+        "aux": index.aux,
+        "slot_rows": index.slot_rows,
+        "list_sizes": index.list_sizes,
+        "source_ids": index.source_ids,
+        **quant.state_arrays(),
+    }
+    if index.tombstones is not None:
+        arrays["tombstones"] = torch.as_tensor(index.tombstones).to(torch.uint8)
+    serialize_arrays(filename, arrays, {
+        "kind": "ivf_rabitq",
+        "version": _SERIAL_VERSION,
+        "metric": int(index.metric),
+        "n_lists": index.n_lists,
+        "mut_cursor": int(index.mut_cursor),
+        "append_slack": int(index.append_slack),
+        **quant.state_meta(),
+    })
 
 
-def load(filename: str) -> Index:
-    raise _not_ported("ivf_rabitq.load")
+def load(filename: str, device=None) -> Index:
+    """Read an "ivf_rabitq" container (either package's) onto
+    `resolve_device(device)`, quantized only (`store_dataset=False`).
+    Absent fields load as the schema declares (all live, cursor and slack
+    0); a digest sidecar is checked by its CRC and dropped."""
+    from raft_tpu_torch.core.serialize import as_device_tensor, read_ckpt
+
+    dev = resolve_device(device)
+    arrays, meta = read_ckpt(filename, "ivf_rabitq", to_device=False)
+    params = IndexParams(n_lists=meta["n_lists"], metric=DistanceType(meta["metric"]),
+                         store_dataset=False)
+    f32, i32 = torch.float32, torch.int32
+    index = Index(params, as_device_tensor(arrays["rotation"], dev, f32),
+                  as_device_tensor(arrays["centers"], dev, f32),
+                  as_device_tensor(arrays["codes"], dev, i32),
+                  as_device_tensor(arrays["aux"], dev, f32),
+                  as_device_tensor(arrays["slot_rows"], dev, i32),
+                  as_device_tensor(arrays["list_sizes"], dev, i32),
+                  as_device_tensor(arrays["source_ids"], dev, i32))
+    if arrays.get("tombstones") is not None:
+        index.tombstones = as_device_tensor(arrays["tombstones"], dev, torch.bool)
+    index.mut_cursor = int(meta.get("mut_cursor", 0))
+    index.append_slack = int(meta.get("append_slack", 0))
+    return index
 
 
 # ---------------------------------------------------------------------------
@@ -338,7 +400,9 @@ def build(params: IndexParams, dataset, seed: int = 0, device=None) -> Index:
 def extend(index: Index, new_vectors, new_indices=None) -> Index:
     """Label, encode and append new vectors: one placement grows both
     payload tables (ivf_flat._grow_and_scatter_multi). Returns a new
-    Index; its fused store is derived again at its first fused search."""
+    Index; its fused store is derived again at its first fused search.
+    The mutation state carries over (new tail slots are live)."""
+    from raft_tpu_torch.core.bitset import carry_tombstones
     from raft_tpu_torch.neighbors.ivf_flat import _append_slots, _grow_and_scatter_multi
 
     dev = index.device
@@ -361,8 +425,12 @@ def extend(index: Index, new_vectors, new_indices=None) -> Index:
     ds = None
     if index.params.store_dataset:
         ds = nv if index.dataset is None else torch.cat([index.dataset, nv])
-    return Index(index.params, index.rotation, index.centers, codes_tbl, aux_tbl, slot_rows,
-                 torch.as_tensor(new_sizes, device=dev), all_ids, dataset=ds)
+    out = Index(index.params, index.rotation, index.centers, codes_tbl, aux_tbl, slot_rows,
+                torch.as_tensor(new_sizes, device=dev), all_ids, dataset=ds)
+    out.tombstones = carry_tombstones(index.tombstones, int(slot_rows.shape[1]))
+    out.mut_cursor = index.mut_cursor
+    out.append_slack = index.append_slack
+    return out
 
 
 # ---------------------------------------------------------------------------
@@ -582,7 +650,8 @@ def search(params: SearchParams, index: Index, queries, k: int, prefilter=None,
     if refine_dataset is not None:
         ds = check_matrix(refine_dataset, index.device, name="refine_dataset")
     kk = rerank_depth(k, rerank_mult) if ds is not None else k
-    maybe_filter = make_slot_filter(prefilter, index.id_bound, index.source_ids)
+    maybe_filter = make_slot_filter(prefilter, index.id_bound, index.source_ids,
+                                    tombstones=index.tombstones)
 
     lpad = lane_padded(int(index.codes.shape[1]))
     if params.scan_engine == "fused":
@@ -596,11 +665,14 @@ def search(params: SearchParams, index: Index, queries, k: int, prefilter=None,
     else:
         strat = "xla"
 
-    # the plan's depth is kk: the rerank shortlist must survive the bounds
+    # the plan's depth is kk: the rerank shortlist must survive the bounds;
+    # bounds off under a prefilter or tombstones (the sizes count the
+    # members they drop)
     plan = probe_budget.search_plan(
         probe_budget.resolve_params(params, n_probes, dev), q, index.centers, n_probes=n_probes,
         k=kk, metric=index.metric, rotation=index.rotation,
-        radii=index.list_radii if prefilter is None else None, sizes=index.list_sizes)
+        radii=index.list_radii if prefilter is None and index.tombstones is None else None,
+        sizes=index.list_sizes)
     if strat == "fused_bitplane":
         build_bitplane_store(index, kk)
         kb = index.fused_kb

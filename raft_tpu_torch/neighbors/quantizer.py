@@ -377,3 +377,15 @@ class RabitqQuantizer(Quantizer):
             qsum, qnorm2 = table["qsum"], table["qnorm2"]
         est = estimate_dot(s, pop, qsum, o_dot[None, :], self.rot_dim)
         return qnorm2 + rnorm[None, :] ** 2 - 2.0 * rnorm[None, :] * est
+
+    # -- serialize hooks (the index's save writes them) --
+    def state_arrays(self) -> Dict[str, torch.Tensor]:
+        return {}
+
+    def state_meta(self) -> dict:
+        return {"quantizer": self.kind, "rot_dim": self.rot_dim,
+                "query_bits": self.query_bits}
+
+    @classmethod
+    def from_state(cls, arrays, meta) -> "RabitqQuantizer":
+        return cls(int(meta["rot_dim"]), int(meta.get("query_bits", DEFAULT_QUERY_BITS)))

@@ -67,11 +67,24 @@ def test_resolve_device_defaults_to_cuda_and_raises_without_a_card(monkeypatch):
     assert raft_tpu_torch.resolve_device is resolve_device
 
 
-def test_entry_points_never_answer_a_cuda_request_on_the_cpu(monkeypatch):
+def test_entry_points_never_answer_a_cuda_request_on_the_cpu(monkeypatch, tmp_path):
+    from raft_tpu_torch.core.serialize import deserialize_arrays
+    from raft_tpu_torch.neighbors import mutation
+
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
     rng = np.random.default_rng(0)
     x = rng.standard_normal((300, 8)).astype(np.float32)
     cand = np.tile(np.arange(20, dtype=np.int32), (4, 1))
+    # checkpoints written on the CPU: loading or resuming one without
+    # device="cpu" asks for the card
+    saved = {}
+    for mod in (ivf_flat, ivf_pq, ivf_rabitq):
+        params = (mod.IndexParams(n_lists=4, pq_dim=4) if mod is ivf_pq
+                  else mod.IndexParams(n_lists=4))
+        saved[mod] = str(tmp_path / f"{mod.__name__.rsplit('.', 1)[-1]}.ckpt")
+        mod.save(saved[mod], mod.build(params, x, device="cpu"))
+    root = str(tmp_path / "mut")
+    mutation.Mutator(root, ivf_flat.load(saved[ivf_flat], device="cpu"), ckpt_every=1).delete([1])
     calls = [
         lambda: brute_force.knn(x, x[:4], 5),
         lambda: brute_force.knn(x, x[:4], 5, engine="fused", device="cuda"),
@@ -91,6 +104,11 @@ def test_entry_points_never_answer_a_cuda_request_on_the_cpu(monkeypatch):
         lambda: kmeans.fit(x, n_clusters=4),
         lambda: kmeans.predict(x, x[:4]),
         lambda: kmeans_balanced.fit_hierarchical(x, 100),
+        lambda: ivf_flat.load(saved[ivf_flat]),
+        lambda: ivf_pq.load(saved[ivf_pq]),
+        lambda: ivf_rabitq.load(saved[ivf_rabitq], device="cuda"),
+        lambda: mutation.Mutator(root, kind="ivf_flat"),
+        lambda: deserialize_arrays(saved[ivf_pq]),
     ]
     for call in calls:
         with pytest.raises(RuntimeError, match="CUDA"):
@@ -194,10 +212,12 @@ def test_neighbors_refine_is_the_function():
 
 
 def test_new_modules_stand_alone():
-    """The tuned table and adaptive probing import neither JAX nor the
-    JAX package (checked above over every file) and read no device."""
+    """The tuned table, adaptive probing, serialization and mutation
+    import neither JAX nor the JAX package (checked above over every
+    file); the first two read no device."""
     files = {str(f.relative_to(_ROOT)) for f in _port_files()}
-    assert {"raft_tpu_torch/core/tuned.py", "raft_tpu_torch/neighbors/probe_budget.py"} <= files
+    assert {"raft_tpu_torch/core/tuned.py", "raft_tpu_torch/neighbors/probe_budget.py",
+            "raft_tpu_torch/core/serialize.py", "raft_tpu_torch/neighbors/mutation.py"} <= files
     from raft_tpu_torch.core import tuned
     from raft_tpu_torch.neighbors import probe_budget
 

@@ -21,8 +21,8 @@ port runs its plain kernel versions on the CPU.
 - the port's own build reaches recall@10 within 0.03 of the JAX build's,
   and so does a build past 1024 lists (the hierarchical trainer);
 - probes: k 257 on "pallas" raises before the residual store is built;
-  save and load raise NotImplementedError
-  naming ROADMAP Queue A; a build at 1025 lists of equal rows gives
+  save and load round-trip the index (tests/test_torch_serialize.py holds
+  them to the JAX files); a build at 1025 lists of equal rows gives
   finite centers.
 """
 
@@ -253,7 +253,7 @@ def test_build_past_1024_lists_reaches_the_jax_recall():
         assert tr >= jr - 0.03, (engine, tr, jr)
 
 
-def test_probes_raise(data, indexes):
+def test_probes_raise(tmp_path, data, indexes):
     _, q = data
     jidx, tidx = indexes["sqeuclidean"]
     fresh = _carry(jidx, "sqeuclidean")
@@ -269,10 +269,12 @@ def test_probes_raise(data, indexes):
         assert torch.equal(a, b)
     with pytest.raises(ValueError):
         tfl.search(tfl.SearchParams(recall_target="high"), tidx, qt, K)
-    with pytest.raises(NotImplementedError, match="Queue A item 9"):
-        tfl.save("x.bin", tidx)
-    with pytest.raises(NotImplementedError, match="Queue A item 9"):
-        tfl.load("x.bin")
+    tfl.save(str(tmp_path / "x.ckpt"), tidx)  # save/load are ported: a round trip
+    loaded = tfl.load(str(tmp_path / "x.ckpt"), device="cpu")
+    for a, b in zip(fixed, tfl.search(tfl.SearchParams(n_probes=N_PROBES), loaded, qt, K)):
+        assert torch.equal(a, b)
+    with pytest.raises(FileNotFoundError):
+        tfl.load(str(tmp_path / "missing.ckpt"), device="cpu")
     assert tidx.list_radii.shape == (N_LISTS,) and torch.isfinite(tidx.list_radii).all()
     # past 1024 lists the build trains hierarchically (Queue A item 5 is
     # ported): 2000 equal rows still give 1025 finite centers

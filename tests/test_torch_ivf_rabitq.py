@@ -223,7 +223,7 @@ def test_build_past_1024_lists_reaches_the_jax_recall():
     assert trec >= jrec - 0.03, (trec, jrec)
 
 
-def test_not_ported_and_bad_requests(data, indexes):
+def test_not_ported_and_bad_requests(tmp_path, data, indexes):
     _, q = data
     jidx, tidx = indexes["sqeuclidean"]
     qt = torch.tensor(q)
@@ -236,10 +236,10 @@ def test_not_ported_and_bad_requests(data, indexes):
     assert keep[ti.numpy()].all()
     with pytest.raises(ValueError):  # adaptive probing is ported; JAX raises alike
         tr.search(tr.SearchParams(recall_target="high"), tidx, qt, 10)
-    with pytest.raises(NotImplementedError, match="Queue A"):
-        tr.save("x.bin", tidx)
-    with pytest.raises(NotImplementedError, match="Queue A"):
-        tr.load("x.bin")
+    tr.save(str(tmp_path / "x.ckpt"), tidx)  # save/load are ported: a round trip
+    loaded = tr.load(str(tmp_path / "x.ckpt"), device="cpu")
+    _bitwise(tuple(t.numpy() for t in tr.search(tr.SearchParams(**sp), loaded, qt, 10)),
+             tuple(t.numpy() for t in tr.search(tr.SearchParams(**sp), tidx, qt, 10)))
     np.testing.assert_array_equal(tidx.list_radii.numpy(), np.asarray(jidx.list_radii))
     with pytest.raises(ValueError, match=r"\[1, 8\]"):
         tr.search(tr.SearchParams(query_bits=9), tidx, qt, 10)
