@@ -113,7 +113,18 @@ Phases, in order; any failure exits non-zero:
      live truth (kernel 2 with the deleted ids invalid), no deleted id,
      delete equal to the exclusion prefilter bit for bit, compact, save
      and load on the card bit for bit, and a Mutator over IVF-Flat with
-     its cold resume bit for bit. Phases 4 and 5 run under an empty tuned
+     its cold resume bit for bit. Then the integrity of the live index
+     and the fault sites (integrity_path) on the three 1M-row indexes:
+     digest compute GB/s, the build's attach, an upsert with and without
+     its digest refresh, save / load with the sidecar and check_fresh;
+     the lane pad's extended digests after IVF-Flat's fused search (a
+     clean full_scan); a seeded rot of each payload field found by
+     8-list slices; quarantine equal to delete bit for bit; point-in-time
+     restores byte for byte (Mutator retain 3) and the fallback past a
+     rotted snapshot; the watchdog's quarantine and checkpoint repair;
+     the hooks inert, fused.scan.scores NaN and ivf.probe_budget drills;
+     a mutation.log.commit SIGKILL drill in a child process; refine_host
+     over the dataset as host numpy. Phases 4 and 5 run under an empty tuned
      table: the JAX package's untuned program, each engine by name;
   4b. the tuned table (tuned_path): every tuned key the port reads, A/B
      of the untuned resolution against each candidate by name, with
@@ -160,6 +171,7 @@ import argparse
 import contextlib
 import json
 import os
+import signal
 import subprocess
 import sys
 import tempfile
@@ -1314,7 +1326,11 @@ PATH_KERNELS = {("fused", "bf16"): ("fused_topk", "fused_list_topk"),
                 # live mutation and persistence on the three indexes
                 # (mutation_path): the live truth, IVF-PQ fused (with its
                 # refine) and IVF-Flat fused, RaBitQ fused
-                ("mutation", "all"): ("fused_list_topk", "fused_topk", "fused_bitplane_topk")}
+                ("mutation", "all"): ("fused_list_topk", "fused_topk", "fused_bitplane_topk"),
+                # integrity of the live index and the fault sites
+                # (integrity_path): searches at the gate rungs, knn fused,
+                # refine_host's fused re-rank
+                ("integrity", "all"): ("fused_list_topk", "fused_topk", "fused_bitplane_topk")}
 #: IVF-Flat's engines and n_probes ladder on the main path's data
 #: (bench/bench_neighbors.py:93-118 runs n_probes 32)
 FLAT_ENGINES = ("fused", "list", "query", "auto")
@@ -1722,7 +1738,9 @@ def ivf_flat_path(g, dev, res, fs, sync):
                            seed=g.seed, device=dev)
     sync()
     build_s = time.perf_counter() - t0
-    log(f"ivf_flat build: {index} in {build_s:.3f} s, max list {int(index.list_sizes.max())}")
+    built_width = int(index.list_data.shape[1])  # before a fused search pads it
+    log(f"ivf_flat build: {index} in {build_s:.3f} s, max list {int(index.list_sizes.max())}, "
+        f"width {built_width}")
     rungs, captured = [], None
     for engine in FLAT_ENGINES:
         gw = g if engine != "query" else argparse.Namespace(
@@ -1769,7 +1787,8 @@ def ivf_flat_path(g, dev, res, fs, sync):
                                      b32["batch_s"] * 1e3, label="ivf_flat fused, n_probes 32",
                                      top=20)
     return {"build_s": build_s, "rungs": rungs, "launches": launches, "breakdown": breakdown,
-            "index": index, "max_list": int(index.list_sizes.max())}, captured
+            "index": index, "max_list": int(index.list_sizes.max()),
+            "built_width": built_width}, captured
 
 
 #: the n_probes ladder a filtered search steps up when it falls short
@@ -2361,6 +2380,529 @@ def mutation_path(g, dev, res, fl, rb, sync):
     log(f"path mutation: launches {out['launches']}, {out['wall_s']:.1f} s; the phase-4 "
         f"indexes unchanged")
     return out, calls
+
+
+class AttachClock(Spy):
+    """Times each call of `integrity.digest.attach` (the build-time digest
+    pass) by index kind, so each phase-4 build's share spent on its
+    sidecar is read from the build itself. The first call of a kind is
+    its phase-4 build's."""
+
+    def __init__(self):
+        from raft_tpu_torch.integrity import digest
+
+        super().__init__(digest, "attach")
+        self.seconds = {}
+
+    def __call__(self, index, kind=None):
+        from raft_tpu_torch.integrity import digest
+
+        kind = kind or digest.kind_of(index)
+        if index.device.type == "cuda":
+            torch.cuda.synchronize(index.device)
+        t0 = time.perf_counter()
+        self.orig(index, kind)
+        self.seconds.setdefault(kind, []).append(time.perf_counter() - t0)
+
+
+#: the kill-and-resume drill's depth: rows and lists of the IVF-PQ index
+#: it mutates, rows an upsert or delete batch, batches (ckpt_every 2), and
+#: the visit of `mutation.log.commit` that dies (4: after the third log
+#: append, the log one entry ahead of the checkpoint)
+KILL_DRILL = dict(rows=50_000, n_lists=64, batch=2000, batches=6, count=4)
+
+_KILL_CHILD = """
+import sys
+import time
+t0 = time.perf_counter()
+sys.path.insert(0, {repo!r})
+import torch
+import chip_smoke
+from raft_tpu_torch.core import faults
+from raft_tpu_torch.neighbors import ivf_pq, mutation
+print(f"imported {{time.perf_counter() - t0:.3f}}", flush=True)
+idx = ivf_pq.load({base!r}, device=torch.device({dev!r}))
+print(f"loaded {{time.perf_counter() - t0:.3f}}", flush=True)
+plan = faults.FaultPlan([faults.Fault(kind="kill_rank", site="mutation.log.commit",
+                                      count={count})], seed=0)
+with plan.install():
+    chip_smoke.kill_drill_batches(mutation.Mutator({root!r}, idx, ckpt_every=2), {rows},
+                                  {dim}, {seed})
+print("finished", flush=True)
+"""
+
+
+def kill_drill_batches(mut, rows, dim, seed):
+    """The kill drill's mutation sequence (the child's and the parent's)
+    over an index of `rows` ids: upserts of fresh rows over existing ids
+    and deletes, in turns, then a commit. Returns the committed index."""
+    rng = np.random.default_rng(seed)
+    b = KILL_DRILL["batch"]
+    for step in range(KILL_DRILL["batches"]):
+        ids = rng.choice(rows, b, replace=False).astype(np.int32)
+        if step % 2 == 0:
+            mut.upsert(rng.standard_normal((b, dim), dtype=np.float32), ids)
+        else:
+            mut.delete(ids)
+    return mut.commit()
+
+
+def integrity_path(g, dev, res, fl, rb, attach_s, sync):
+    """Integrity of the live index (raft_tpu_torch/integrity) and the fault
+    sites (core/faults) on the three 1M-row indexes of phase 4, one path
+    with its launch counts set to 0 just before it and read just after.
+    Each family searches at its phase-4 gate rung with its engine by name,
+    as in mutation_path; the phase-4 indexes are only read (rot goes to
+    clones, each a new table on the card).
+      1. Sidecars, each family: `digest.compute` timed (GB/s over the bytes
+         it hashes) against the sidecar the build attached; the build's
+         own attach time (`attach_s`, read by AttachClock); an upsert of
+         n/20 rows timed without a sidecar and with one (the refresh);
+         save and load of the upserted index, the loaded sidecar equal and
+         `check_fresh` passing.
+      2. The lane pad: IVF-Flat's phase-4 fused search widened the store
+         in place (its built width is not a lane multiple); a `full_scan`
+         (budget 8) afterwards returns []. Where the build was already
+         lane-aligned, a compacted copy at a width that is not gives the
+         same drill.
+      3. Rot: one seeded list of each payload field (IVF-PQ codes,
+         IVF-Flat list_data, RaBitQ codes and aux) rotted with `rot_list`
+         on the card; slices of 8 lists until detection (the slices and
+         the seconds), then the rest of the lap: exactly that pair.
+      4. Quarantine of that list on each family: the search equals
+         `mutation.delete(index, ids of the list)` bit for bit, with no id
+         of the list.
+      5. Point-in-time restore on IVF-PQ: `Mutator(retain=3, ckpt_every=2)`
+         over 8 batches of n/100 rows (upserts and deletes in turns) keeps
+         the snapshots at 4, 6 and 8; `restore` to 6 from base 4 and to 8
+         from base 6 (the two committed seqs above the oldest retained
+         base), each a replay, byte for byte the crash-free commit at that
+         seq (a copy of each commit taken as it happened); with the
+         snapshot at 6 rotted, it is refused when pinned, and restore to 6
+         falls back to base 4, again byte for byte the commit.
+      6. Watchdog and repair on the committed IVF-PQ index of 5: a list
+         rotted, `IntegrityWatchdog.step` until it quarantines (coverage <
+         1.0, no id of the list), then with
+         `repair=checkpoint_repairer(root)` once more: coverage 1.0, the
+         search bit for bit the one before the rot.
+      7. Faults on the card: the phase-4 searches and brute_force.knn
+         (engine="fused") bit for bit under a plan for another site (the
+         hooks inert); `fused.scan.scores` at fraction 1.0 turns every
+         value of knn fused and of IVF-Flat fused NaN, and cleared they
+         return bit for bit; `ivf.probe_budget` gives full-shape valid
+         results at a lower recall, cleared bit for bit; a
+         `mutation.log.commit` kill_rank drill in a child process on the
+         card (KILL_DRILL's depth), started after 1 and collected before
+         5, so that only the lane pad's lap and the rot drills run beside
+         it: the child dies by SIGKILL and the resume equals a crash-free
+         run (the committed file byte for byte).
+      8. refine_host: the IVF-PQ 4k shortlist re-ranked against the
+         dataset as host numpy (fused), ids and values equal to `refine`
+         over the device rows; its time and the host gather's alone.
+    Times are host seconds around work that ends in a synchronize."""
+    import shutil
+
+    import raft_tpu_torch.integrity as integrity
+    from raft_tpu_torch.core import faults
+    from raft_tpu_torch.integrity import digest, scrub, watchdog
+    from raft_tpu_torch.neighbors import (brute_force, ivf_flat, ivf_pq, ivf_rabitq, mutation,
+                                          probe_budget)
+    from raft_tpu_torch.neighbors.refine import refine, refine_host
+    from raft_tpu_torch.ops import _launch
+    from raft_tpu_torch.ops.pq_list_scan import lane_padded
+
+    dataset, queries, truth, k = res["dataset"], res["queries"], res["truth"], g.k
+    n, dim = dataset.shape
+    mods = {"ivf_pq": ivf_pq, "ivf_flat": ivf_flat, "ivf_rabitq": ivf_rabitq}
+    originals = {"ivf_pq": res["index"], "ivf_flat": fl["index"], "ivf_rabitq": rb["index"]}
+    kept = {f: (idx.slot_rows.clone(), idx.list_digests) for f, idx in originals.items()}
+    p_pq = first_cleared(res["rungs"], trim="fused", score_dtype="bf16")
+    p_fl = first_cleared(fl["rungs"], engine="fused")
+    gate = rb["gate"]
+    params = {"ivf_pq": ivf_pq.SearchParams(n_probes=p_pq, score_mode="recon8_list",
+                                            trim_engine="fused"),
+              "ivf_flat": ivf_flat.SearchParams(n_probes=p_fl, engine="fused"),
+              "ivf_rabitq": ivf_rabitq.SearchParams(n_probes=gate["n_probes"],
+                                                    rerank_mult=gate["rerank_mult"],
+                                                    scan_engine="fused")}
+    rows0 = rb["index"].dataset
+
+    def search(fam, idx, table=dataset, rows=None, prm=None):
+        prm = prm or params[fam]
+        if fam == "ivf_pq":
+            return refine(table, queries, ivf_pq.search(prm, idx, queries, 4 * k)[1], k,
+                          strategy="fused", device=dev)
+        if fam == "ivf_flat":
+            return ivf_flat.search(prm, idx, queries, k)
+        return ivf_rabitq.search(prm, idx, queries, k, refine_dataset=rows)
+
+    def timed(fn):
+        sync()
+        t0 = time.perf_counter()
+        out = fn()
+        sync()
+        return out, time.perf_counter() - t0
+
+    def nbytes(idx, kind):
+        total = 0
+        for field in digest.DIGEST_FIELDS[kind]:
+            t = getattr(idx, field, None)
+            if t is not None:
+                total += t.numel() * (1 if field == "tombstones" else t.element_size())
+        return total
+
+    out = {"attach_in_build_s": attach_s}
+    _launch.reset_launch_counts()
+    t_path = time.perf_counter()
+    tmp = tempfile.mkdtemp(prefix="raft_tpu_torch_integrity_")
+    child = None
+    try:
+        # 1. sidecars
+        up_rng = np.random.default_rng(g.seed + 22)
+        n_up = n // 20
+        up_ids = torch.from_numpy(up_rng.permutation(n)[:n_up].astype(np.int32)).to(dev)
+        up_rows = torch.from_numpy(blob_rows(g.seed, g.n_lists, dim, n_up, up_rng)).to(dev)
+        sidecar = {}
+        for fam, idx in originals.items():
+            (lists, tables), comp_s = timed(lambda: digest.compute(idx, fam))
+            size = nbytes(idx, fam)
+            same = (sorted(lists) == sorted(idx.list_digests)
+                    and all(np.array_equal(lists[f], idx.list_digests[f]) for f in lists)
+                    and tables == idx.table_digests)
+            if not same:
+                raise AssertionError(f"{fam}: compute differs from the build's sidecar")
+            bare = mutation._clone(idx)
+            bare.list_digests = bare.table_digests = None
+            # the upsert without a sidecar in turns around the one with it
+            # (the first of three warms up), the better of its two times
+            bare_s = [timed(lambda: mutation.upsert(bare, up_rows, up_ids))[1]
+                      for _ in range(2)]
+            up, up_s = timed(lambda: mutation.upsert(idx, up_rows, up_ids))
+            up_bare_s = min(bare_s[1], timed(lambda: mutation.upsert(bare, up_rows, up_ids))[1])
+            path = os.path.join(tmp, f"{fam}.ckpt")
+            _, save_s = timed(lambda: mods[fam].save(path, up))
+            loaded, load_s = timed(lambda: mods[fam].load(path, device=dev))
+            same = (sorted(loaded.list_digests) == sorted(up.list_digests)
+                    and all(np.array_equal(loaded.list_digests[f], up.list_digests[f])
+                            for f in up.list_digests)
+                    and loaded.table_digests == up.table_digests)
+            if not same:
+                raise AssertionError(f"{fam}: the loaded sidecar differs from the saved one")
+            _, fresh_s = timed(lambda: digest.check_fresh(loaded))
+            build_attach = attach_s.get(fam, [None])[0]
+            sidecar[fam] = {"compute_s": comp_s, "bytes": size, "compute_gb_s": size / comp_s / 1e9,
+                            "attach_in_build_s": build_attach, "upsert_bare_ms": up_bare_s * 1e3,
+                            "upsert_ms": up_s * 1e3, "refresh_ms": (up_s - up_bare_s) * 1e3,
+                            "save_s": save_s, "load_s": load_s, "check_fresh_s": fresh_s,
+                            "file_bytes": os.path.getsize(path)}
+            log(f"integrity sidecar {fam}: compute {comp_s:.3f} s over {size} bytes "
+                f"({size / comp_s / 1e9:.3f} GB/s), equal to the build's sidecar; attach in the "
+                f"phase-4 build {build_attach if build_attach is None else round(build_attach, 3)}"
+                f" s; upsert {n_up} rows {up_bare_s * 1e3:.1f} ms without a sidecar, "
+                f"{up_s * 1e3:.1f} ms with its refresh (+{(up_s - up_bare_s) * 1e3:.1f} ms); "
+                f"save {save_s:.3f} s, load {load_s:.3f} s ({os.path.getsize(path)} bytes), "
+                f"loaded sidecar equal, check_fresh {fresh_s:.3f} s")
+            del bare, loaded, up
+            os.remove(path)
+        out["sidecars"] = sidecar
+
+        # 7d. the kill drill's child (seconds of importing torch, then
+        # mutations on the card) runs beside the lane pad's lap and the rot
+        # drills only: every other timed section runs without it
+        kd = dict(KILL_DRILL, rows=min(KILL_DRILL["rows"], n))
+        small = ivf_pq.build(ivf_pq.IndexParams(n_lists=kd["n_lists"], pq_dim=dim // 2,
+                                                kmeans_n_iters=5),
+                             dataset[:kd["rows"]], seed=g.seed, device=dev)
+        base = os.path.join(tmp, "kill_base.ckpt")
+        ivf_pq.save(base, small)
+        kill_root = os.path.join(tmp, "kill")
+        repo = os.path.dirname(os.path.abspath(__file__))
+        code = _KILL_CHILD.format(repo=repo, base=base, dev=str(dev), count=kd["count"],
+                                  root=kill_root, rows=kd["rows"], dim=dim, seed=g.seed + 21)
+        t_child = time.perf_counter()
+        child_out = os.path.join(tmp, "kill_child.log")
+        with open(child_out, "w") as fh:
+            child = subprocess.Popen([sys.executable, "-c", code], cwd=repo, stdout=fh,
+                                     stderr=subprocess.STDOUT)
+
+        # 2. the lane pad on the card
+        flat = originals["ivf_flat"]
+        padded = flat
+        if fl["built_width"] % 128 == 0:
+            # the build came out lane-aligned: a compacted copy at a width
+            # that is not a lane multiple takes the pad instead
+            live = int(flat.list_sizes.max())
+            slack = next(s for s in (0, 32, 64, 96)
+                         if mutation._round_group(live + s) % 128)
+            padded = mutation.compact(mutation.delete(flat, [0]), slack=slack)
+            width0 = int(padded.list_data.shape[1])
+            search("ivf_flat", padded)
+        else:
+            width0 = fl["built_width"]
+        width1 = int(padded.list_data.shape[1])
+        sc = scrub.Scrubber("ivf_flat", budget_lists=8)
+        bad, lap_s = timed(lambda: sc.full_scan(padded))
+        if bad or width1 != lane_padded(width0) or width1 == width0:
+            raise AssertionError(f"lane pad: widths {width0} -> {width1}, full_scan {bad[:4]}")
+        out["lane_pad"] = {"width": [width0, width1], "full_scan_s": lap_s,
+                           "slices": -(-flat.n_lists // 8)}
+        log(f"integrity lane pad (IVF-Flat): the fused search widened the store {width0} -> "
+            f"{width1} slots in place; full_scan (budget 8, {-(-flat.n_lists // 8)} slices) "
+            f"{lap_s:.3f} s: [] (the digests extended over the pad bytes)")
+
+        # 3. rot, and 4. quarantine
+        rot, quar = {}, {}
+        pick = np.random.default_rng(g.seed + 23)
+        for fam, fields in (("ivf_pq", ("codes",)), ("ivf_flat", ("list_data",)),
+                            ("ivf_rabitq", ("codes", "aux"))):
+            idx = originals[fam]
+            for field in fields:
+                lid = int(pick.integers(idx.n_lists))
+                victim = mutation._clone(idx)
+                scrub.rot_list(victim, lid, field, frac=0.1, seed=g.seed + lid)
+                sc = scrub.Scrubber(fam, budget_lists=8)
+                sync()
+                t0 = time.perf_counter()
+                found, slices = [], 0
+                while not found:
+                    found = sc.slice_scan(victim)
+                    slices += 1
+                    if sc.cursor == 0 and not found:
+                        break
+                detect_s = time.perf_counter() - t0
+                rest = []
+                while sc.cursor != 0:
+                    rest += sc.slice_scan(victim)
+                if found + rest != [(field, lid)]:
+                    raise AssertionError(f"{fam} rot of {field} list {lid}: {found + rest}")
+                rot[f"{fam} {field}"] = {"list": lid, "slices": slices, "detect_s": detect_s}
+                log(f"integrity rot {fam} {field} list {lid} (rot_list on {dev}): found after "
+                    f"{slices} slices of 8 lists in {detect_s:.3f} s; the lap names exactly "
+                    f"({field!r}, {lid})")
+            # quarantine the last rotted list against delete of its ids
+            srows = idx.slot_rows[lid]
+            ids = idx.source_ids[srows[srows >= 0].long()]
+            q_idx, q_s = timed(lambda: watchdog.quarantine(victim, lid, fam))
+            dead = mutation.delete(idx, ids)
+            rows = rows0 if fam == "ivf_rabitq" else None
+            a = search(fam, q_idx, rows=rows)
+            b = search(fam, dead, rows=rows)
+            if not bit_equal(a, b) or bool(torch.isin(a[1], ids).any()):
+                raise AssertionError(f"{fam}: quarantine differs from delete of list {lid}")
+            quar[fam] = {"list": lid, "ids": int(ids.numel()), "quarantine_ms": q_s * 1e3}
+            log(f"integrity quarantine {fam} list {lid} ({int(ids.numel())} ids) in "
+                f"{q_s * 1e3:.2f} ms: search equal bit for bit to delete of its ids, none "
+                f"returned")
+            del victim, q_idx, dead
+        out.update({"rot": rot, "quarantine": quar})
+
+        # 7d. collect the kill drill, then its crash-free reference
+        rc = child.wait(timeout=600)
+        child_s = time.perf_counter() - t_child
+        child = None
+        with open(child_out) as fh:
+            said = fh.read()
+        if rc != -signal.SIGKILL or "finished" in said:
+            raise AssertionError(f"kill drill: child exit {rc}: {said[-2000:]}")
+        marks = dict(line.split()[:2] for line in said.splitlines()
+                     if line.startswith(("imported ", "loaded ")))
+        resumed, resume_s = timed(lambda: kill_drill_batches(
+            mutation.Mutator(kill_root, ivf_pq.load(base, device=dev), ckpt_every=2),
+            kd["rows"], dim, g.seed + 21))
+        clean_root = os.path.join(tmp, "kill_clean")
+        crash_free = kill_drill_batches(
+            mutation.Mutator(clean_root, ivf_pq.load(base, device=dev), ckpt_every=2),
+            kd["rows"], dim, g.seed + 21)
+        with open(os.path.join(kill_root, mutation.CKPT_NAME), "rb") as fa, \
+                open(os.path.join(clean_root, mutation.CKPT_NAME), "rb") as fb:
+            same_file = fa.read() == fb.read()
+        same = all(torch.equal(getattr(resumed, f), getattr(crash_free, f))
+                   for f in ("codes", "slot_rows", "list_sizes", "source_ids"))
+        if not (same_file and same):
+            raise AssertionError("kill drill: the resume differs from the crash-free run")
+        out["kill_drill"] = {**kd, "child_s": child_s, "child_marks_s": marks,
+                             "resume_s": resume_s}
+        log(f"integrity kill drill (mutation.log.commit, kill_rank count {kd['count']}): a "
+            f"child on {dev} over an IVF-PQ of {kd['rows']} rows, {kd['n_lists']} lists, "
+            f"{kd['batches']} batches of {kd['batch']} (depth cut from the 1M index), died by "
+            f"SIGKILL {child_s:.1f} s after its start, beside the lane pad's lap and the "
+            f"rot drills (imports done at {marks.get('imported')} s, index on the card at "
+            f"{marks.get('loaded')} s); the "
+            f"resume ({resume_s:.3f} s) equals the crash-free run, the committed file byte "
+            "for byte")
+
+        # 5. point-in-time restore on IVF-PQ
+        root = os.path.join(tmp, "pitr")
+        pq = originals["ivf_pq"]
+        mrng = np.random.default_rng(g.seed + 24)
+        batch = max(1, n // 100)
+        commits = {}
+        t0 = time.perf_counter()
+        mut = mutation.Mutator(root, pq, ckpt_every=2, retain=3)
+        for step in range(8):
+            ids = mrng.choice(n, batch, replace=False).astype(np.int32)
+            if step % 2 == 0:
+                mut.upsert(blob_rows(g.seed, g.n_lists, dim, batch, mrng), ids)
+            else:
+                mut.delete(ids)
+            if int(mut.index.mut_cursor) == mut.applied:  # a commit: keep its bytes
+                commits[mut.applied] = os.path.join(tmp, f"commit_{mut.applied}.ckpt")
+                shutil.copyfile(mut.ckpt_path, commits[mut.applied])
+        sync()
+        mutator_s = time.perf_counter() - t0
+        snaps = [c for c, _ in integrity.retained(root)]
+        if snaps != [4, 6, 8] or sorted(commits) != [2, 4, 6, 8]:
+            raise AssertionError(f"retain=3: snapshots {snaps}, commits {sorted(commits)}")
+        def restored(target, **kw):
+            dst = os.path.join(tmp, f"restored_{target}.ckpt")
+            _, r_s = timed(lambda: integrity.restore(root, target, out=dst, device=dev, **kw))
+            with open(dst, "rb") as fa, open(commits[target], "rb") as fb:
+                if fa.read() != fb.read():
+                    raise AssertionError(f"restore to {target} ({kw}): bytes differ from the "
+                                         "crash-free commit")
+            os.remove(dst)
+            return r_s
+
+        # the two committed seqs above the oldest retained base, each a replay
+        restores = [{"seq": t, "base": b, "replayed": t - b, "seconds": restored(t, base_cursor=b)}
+                    for t, b in ((6, 4), (8, 6))]
+        snap6 = integrity.snapshot_path(root, 6)
+        with open(snap6, "r+b") as fh:  # rot mid-file
+            fh.seek(os.path.getsize(snap6) // 2)
+            blk = fh.read(64)
+            fh.seek(-len(blk), os.SEEK_CUR)
+            fh.write(bytes(x ^ 0xFF for x in blk))
+        try:
+            integrity.restore(root, 6, base_cursor=6, device=dev)
+            raise AssertionError("a rotted base restored")
+        except digest.IntegrityError:
+            pass
+        fb_s = restored(6)  # the newest base at or below 6 is rotted: base 4 replays
+        out["pitr"] = {"batches": 8, "batch_rows": batch, "mutator_s": mutator_s,
+                       "snapshots": snaps, "restores": restores, "fallback_s": fb_s,
+                       "ckpt_bytes": os.path.getsize(mut.ckpt_path)}
+        log(f"integrity pitr (IVF-PQ, Mutator retain 3, ckpt_every 2): 8 batches of {batch} "
+            f"rows in {mutator_s:.3f} s, snapshots {snaps} ({os.path.getsize(mut.ckpt_path)} "
+            "bytes each); restore "
+            + ", ".join(f"seq {r['seq']} from base {r['base']} ({r['replayed']} replayed) "
+                        f"{r['seconds']:.3f} s" for r in restores)
+            + f", each byte for byte the crash-free commit at that seq; snapshot 6 rotted "
+            f"(refused when pinned): restore to 6 falls back to base 4 in {fb_s:.3f} s, byte "
+            "for byte the same commit")
+
+        # 6. watchdog and repair on the committed IVF-PQ index
+        served = mut.commit()
+        pre = search("ivf_pq", served)
+        lid = int(pick.integers(served.n_lists))
+        srows = served.slot_rows[lid]
+        ids = served.source_ids[srows[srows >= 0].long()]
+        rotted = mutation._clone(served)
+        scrub.rot_list(rotted, lid, "codes", frac=0.1, seed=g.seed)
+        wd = integrity.IntegrityWatchdog("ivf_pq", budget_lists=8)
+        steps = 0
+        while not wd.quarantined:
+            rotted = wd.step(rotted)
+            steps += 1
+            if steps > served.n_lists:
+                raise AssertionError("the watchdog never found the rotted list")
+        cov_before = wd.coverage()
+        mid = search("ivf_pq", rotted)
+        if wd.quarantined != {lid} or not cov_before < 1.0 or bool(torch.isin(mid[1], ids).any()):
+            raise AssertionError(f"watchdog: quarantined {wd.quarantined}, coverage {cov_before}")
+        wd.repair = integrity.checkpoint_repairer(root)
+        repaired, rep_s = timed(lambda: wd.step(rotted))
+        post = search("ivf_pq", repaired)
+        if wd.repairs != 1 or wd.coverage() != 1.0 or not bit_equal(pre, post):
+            raise AssertionError(f"repair: {wd.repairs} repairs, coverage {wd.coverage()}, "
+                                 f"search equal {bit_equal(pre, post)}")
+        out["watchdog"] = {"list": lid, "steps": steps, "coverage_before": cov_before,
+                           "coverage_after": wd.coverage(), "repair_s": rep_s}
+        log(f"integrity watchdog (IVF-PQ, budget 8): list {lid} rotted, quarantined after "
+            f"{steps} steps, coverage {cov_before:.6f}, no id of the list returned; repair "
+            f"from the checkpoint {rep_s:.3f} s (restore + check_fresh), coverage "
+            f"{wd.coverage()}, search bit for bit the one before the rot")
+        del served, rotted, repaired, mut
+
+        # 7. faults on the card
+        other = faults.FaultPlan([faults.Fault(kind="corrupt_shard", site="serve.batch")],
+                                 seed=g.seed)
+        clean = {fam: search(fam, idx, rows=rows0 if fam == "ivf_rabitq" else None)
+                 for fam, idx in originals.items()}
+        clean["knn"] = brute_force.knn(dataset, queries, k, engine="fused", device=dev)
+        with other.install():
+            inert = {fam: search(fam, idx, rows=rows0 if fam == "ivf_rabitq" else None)
+                     for fam, idx in originals.items()}
+            inert["knn"] = brute_force.knn(dataset, queries, k, engine="fused", device=dev)
+        if not all(bit_equal(clean[f], inert[f]) for f in clean):
+            raise AssertionError("a hook changed a search under a plan for another site")
+        nan_plan = faults.FaultPlan([faults.Fault(kind="corrupt_shard", site="fused.scan.scores",
+                                                  fraction=1.0)], seed=g.seed)
+        with nan_plan.install():
+            bad_knn = brute_force.knn(dataset, queries, k, engine="fused", device=dev)
+            bad_flat = search("ivf_flat", originals["ivf_flat"])
+        if not (bool(torch.isnan(bad_knn[0]).all()) and bool(torch.isnan(bad_flat[0]).all())):
+            raise AssertionError("fused.scan.scores at fraction 1.0 left finite values")
+        after = (brute_force.knn(dataset, queries, k, engine="fused", device=dev),
+                 search("ivf_flat", originals["ivf_flat"]))
+        if not (bit_equal(after[0], clean["knn"]) and bit_equal(after[1], clean["ivf_flat"])):
+            raise AssertionError("fused.scan.scores cleared: results differ")
+        budget_params = ivf_flat.SearchParams(n_probes=p_fl, engine="fused", budget_tau=1.0,
+                                              early_term=False)
+        b_clean = search("ivf_flat", originals["ivf_flat"], prm=budget_params)
+        budget_plan = faults.FaultPlan([faults.Fault(kind="corrupt_shard",
+                                                     site="ivf.probe_budget", fraction=1.0)],
+                                       seed=g.seed)
+        with budget_plan.install():
+            b_bad = search("ivf_flat", originals["ivf_flat"], prm=budget_params)
+            _, scanned = probe_budget.probe_plan(queries, originals["ivf_flat"].centers,
+                                                 n_probes=p_fl, min_probes=1, k=k,
+                                                 metric=originals["ivf_flat"].metric, tau=1.0)
+        b_again = search("ivf_flat", originals["ivf_flat"], prm=budget_params)
+        r_clean, r_bad = recall(b_clean[1], truth), recall(b_bad[1], truth)
+        if (tuple(b_bad[1].shape) != (g.nq, k) or bool((b_bad[1] < 0).any())
+                or bool((scanned != 1).any()) or bit_equal(b_bad, b_clean)
+                or not r_bad <= r_clean or not bit_equal(b_again, b_clean)):
+            raise AssertionError(f"ivf.probe_budget: recall {r_clean} -> {r_bad}")
+        out["faults"] = {"budget_recall": [r_clean, r_bad]}
+        log("integrity faults: hooks inert (the four phase-4 searches and knn fused bit for "
+            "bit under a plan for another site); fused.scan.scores at fraction 1.0: every value "
+            f"of knn fused and IVF-Flat fused NaN, cleared bit for bit; ivf.probe_budget: "
+            f"budgets shrunk to 1 list, recall@{k} {r_clean:.4f} -> {r_bad:.4f}, full-shape "
+            "valid ids, cleared bit for bit")
+
+        # 8. refine_host
+        host = dataset.cpu().numpy()
+        cand = ivf_pq.search(params["ivf_pq"], originals["ivf_pq"], queries, 4 * k)[1]
+        cand_host = cand.cpu().numpy()
+        dev_out, dev_s = timed(lambda: refine(dataset, queries, cand, k, strategy="fused",
+                                              device=dev))
+        host_out, host_s = timed(lambda: refine_host(host, queries, cand_host, k,
+                                                     strategy="fused", device=dev))
+        _, gather_s = timed(lambda: host[np.clip(cand_host, 0, host.shape[0] - 1)])
+        if not bit_equal(dev_out, host_out):
+            raise AssertionError("refine_host differs from refine over the device rows")
+        out["refine_host"] = {"ms": host_s * 1e3, "gather_ms": gather_s * 1e3,
+                              "device_refine_ms": dev_s * 1e3,
+                              "candidates": list(cand_host.shape)}
+        log(f"integrity refine_host (IVF-PQ {4 * k} shortlist, {g.nq} queries, the {n} x {dim} "
+            f"dataset as host numpy, fused): {host_s * 1e3:.3f} ms, host gather alone "
+            f"{gather_s * 1e3:.3f} ms; refine over the device rows {dev_s * 1e3:.3f} ms; ids "
+            "and values bit for bit")
+
+    finally:
+        if child is not None:
+            child.kill()
+            child.wait()
+        shutil.rmtree(tmp, ignore_errors=True)
+    for fam, idx in originals.items():
+        sr, digests = kept[fam]
+        if not torch.equal(idx.slot_rows, sr) or idx.list_digests is not digests:
+            raise AssertionError(f"{fam}: the phase-4 index changed on the integrity path")
+    out.update({"wall_s": time.perf_counter() - t_path, "launches": _launch.launch_counts()})
+    log(f"path integrity: launches {out['launches']}, {out['wall_s']:.1f} s; the phase-4 "
+        "indexes unchanged")
+    return out
+
 
 
 def device_breakdown(run, reps, batch_ms, label="n_probes 8 + refine", top=10):
@@ -3982,7 +4524,7 @@ def main(argv=None):
 
     # phases 4 and 5 run the JAX package's untuned program (the engines by
     # name); phases 4b and 4c read the tuned table
-    with table({}):
+    with table({}), AttachClock() as attach_clock:
         fs.reset_launch_counts()
         res, captured = main_path(g, dev, fs, pls, sync)
         launches = res["launches"]
@@ -4012,6 +4554,8 @@ def main(argv=None):
             log(f"path {' '.join(path)}: launches {counts}")
         mt, mt_calls = mutation_path(g, dev, res, fl, rb, sync)
         launches[("mutation", "all")] = mt["launches"]
+        it = integrity_path(g, dev, res, fl, rb, attach_clock.seconds, sync)
+        launches[("integrity", "all")] = it["launches"]
         for path, counts in launches.items():
             missing = [name for name in PATH_KERNELS[path] if counts[name] <= 0]
             if missing and dev.type == "cuda":
@@ -4097,6 +4641,7 @@ def main(argv=None):
                "prefilter": pf,
                "pq_modes": {key: v for key, v in pm.items() if key != "launches"},
                "mutation": mt,
+               "integrity": it,
                "tuned": {"winners": wins, "ab": tuned_report, "committed": committed_rows},
                "adaptive": {"policy": policy, "calibration": calibration,
                             "rows": adaptive_rows},

@@ -193,12 +193,13 @@ def _data_start(hlen: int) -> int:
 # byte b at position p), computed for many blocks at once in threads
 # (numpy's gathers release the GIL). The blocks then fold left to right
 # with the "append _BLOCK zero bytes" shift: a 32x32 bit matrix stored as
-# 4x256 byte-lookup tables (`_shift_tables(j)` shifts 2^j blocks), folded
+# 4x256 byte-lookup tables (`_shift_tables(j)` shifts 2^j bytes), folded
 # as a tree; the initial register rides the same shifts. The tail past the
 # last whole block runs bytewise.
 
 _CRC_POLY = np.uint32(0x82F63B78)
-_BLOCK = 1024
+_BLOCK_BITS = 10
+_BLOCK = 1 << _BLOCK_BITS
 #: blocks one thread's gather takes at a time
 _CHUNK_BLOCKS = 4096
 
@@ -213,8 +214,10 @@ def _crc_table() -> np.ndarray:
 
 _TBL = _crc_table()
 _POS_TBLS: Optional[np.ndarray] = None  # (_BLOCK, 256) lazy
-_SHIFT_TBLS: List[np.ndarray] = []  # level j: (4, 256), shifts 2^j blocks
+_SHIFT_TBLS: List[np.ndarray] = []  # level j: (4, 256), shifts 2^j bytes
 _POOL = None
+#: the pool's threads
+_THREADS = max(1, min(8, os.cpu_count() or 1))
 
 
 def _zero_steps(reg: np.ndarray, n: int) -> np.ndarray:
@@ -257,12 +260,12 @@ def _apply(t: np.ndarray, x: np.ndarray) -> np.ndarray:
 
 
 def _shift_tables(j: int) -> np.ndarray:
-    """The lookup tables of "append 2^j * _BLOCK zero bytes" (lazy; level
-    j + 1 squares level j)."""
+    """The lookup tables of "append 2^j zero bytes" (lazy; level j + 1
+    squares level j)."""
     bits = np.uint32(1) << np.arange(32, dtype=np.uint32)
     while len(_SHIFT_TBLS) <= j:
         if not _SHIFT_TBLS:
-            basis = _zero_steps(bits, _BLOCK)
+            basis = _zero_steps(bits, 1)
         else:
             prev = _SHIFT_TBLS[-1]
             basis = _apply(prev, _apply(prev, bits))
@@ -270,36 +273,42 @@ def _shift_tables(j: int) -> np.ndarray:
     return _SHIFT_TBLS[j]
 
 
-def _shift_blocks(x: np.ndarray, n: int) -> np.ndarray:
+def _advance(regs: np.ndarray, nbytes) -> np.ndarray:
+    """Advance CRC registers by zero bytes: one count for all, or one a
+    register (a table lookup per set bit of the count)."""
+    reg = np.array(regs, np.uint32).reshape(-1)
+    n = np.broadcast_to(np.asarray(nbytes, np.int64), reg.shape)
     j = 0
-    while n:
-        if n & 1:
-            x = _apply(_shift_tables(j), x)
-        n >>= 1
+    while (n >> j).any():
+        sel = ((n >> j) & 1).astype(bool)
+        if sel.all():
+            reg = _apply(_shift_tables(j), reg)
+        else:
+            reg[sel] = _apply(_shift_tables(j), reg[sel])
         j += 1
-    return x
+    return reg
 
 
-def _fold(regs: np.ndarray) -> np.uint32:
-    """Left-to-right fold running = shift(running) ^ regs[i] from 0, as a
-    tree: leading zero registers pad the count to a power of two (a shift
-    of 0 is 0)."""
+def _fold_rows(regs: np.ndarray) -> np.ndarray:
+    """Left-to-right fold running = shift(running) ^ regs[:, i] from 0 of
+    each row of (rows, m) block registers, as a tree: leading zero
+    registers pad the count to a power of two (a shift of 0 is 0)."""
     size = 1
-    while size < regs.size:
+    while size < regs.shape[1]:
         size *= 2
-    r = np.zeros(size, np.uint32)
-    r[size - regs.size:] = regs
-    j = 0
-    while r.size > 1:
-        r = _apply(_shift_tables(j), r[0::2]) ^ r[1::2]
+    r = np.zeros((regs.shape[0], size), np.uint32)
+    r[:, size - regs.shape[1]:] = regs
+    j = _BLOCK_BITS
+    while r.shape[1] > 1:
+        r = _apply(_shift_tables(j), r[:, 0::2]) ^ r[:, 1::2]
         j += 1
-    return r[0]
+    return r[:, 0]
 
 
 def _block_crcs(blocks: np.ndarray) -> np.ndarray:
-    """(m, _BLOCK) uint8 -> (m,) zero-init CRC registers."""
-    vals = _pos_tables()[np.arange(_BLOCK)[None, :], blocks]
-    return np.bitwise_xor.reduce(vals, axis=1)
+    """(..., _BLOCK) uint8 -> (...) zero-init CRC registers."""
+    vals = _pos_tables()[np.arange(_BLOCK), blocks]
+    return np.bitwise_xor.reduce(vals, axis=-1)
 
 
 def _pool():
@@ -307,8 +316,46 @@ def _pool():
     if _POOL is None:
         from concurrent.futures import ThreadPoolExecutor
 
-        _POOL = ThreadPoolExecutor(max(1, min(8, os.cpu_count() or 1)))
+        _POOL = ThreadPoolExecutor(_THREADS)
     return _POOL
+
+
+def crc32c_rows(rows: np.ndarray, crc=0) -> np.ndarray:
+    """(n,) uint32: the CRC-32C of each row of a C-contiguous (n, ...)
+    array's bytes, `crc32c(rows[i], crc)` for every i (`crc`: one seed or
+    one a row). The rows' blocks are hashed in the thread pool in tiles of
+    whole rows, or of parts of one row where the rows are few, so that one
+    long buffer or a handful of long rows (a scrub slice) still keeps
+    every thread busy."""
+    a = np.ascontiguousarray(rows)
+    n = a.shape[0]
+    buf = a.reshape(n, -1).view(np.uint8)
+    row_bytes = buf.shape[1]
+    n_blocks = row_bytes // _BLOCK
+    reg = ~np.broadcast_to(np.asarray(crc, np.uint32), (n,))
+    if n and n_blocks:
+        full = np.lib.stride_tricks.as_strided(
+            buf, (n, n_blocks, _BLOCK), (buf.strides[0], _BLOCK, 1), writeable=False)
+        per = max(1, min(_CHUNK_BLOCKS, -(-n * n_blocks // _THREADS)))  # blocks a task
+        if per >= n_blocks:
+            step = per // n_blocks
+            tiles = [(slice(s, s + step), slice(None)) for s in range(0, n, step)]
+        else:
+            tiles = [(r, slice(b, b + per)) for r in range(n) for b in range(0, n_blocks, per)]
+        crcs = np.empty((n, n_blocks), np.uint32)
+
+        def tile(t):
+            crcs[t] = _block_crcs(full[t])
+
+        if len(tiles) == 1:
+            tile(tiles[0])
+        else:
+            for f in [_pool().submit(tile, t) for t in tiles]:
+                f.result()
+        reg = _advance(reg, n_blocks * _BLOCK) ^ _fold_rows(crcs)
+    for j in range(n_blocks * _BLOCK, row_bytes):
+        reg = _TBL[(reg ^ buf[:, j]) & 0xFF] ^ (reg >> np.uint32(8))
+    return ~reg
 
 
 def crc32c(data, crc: int = 0) -> int:
@@ -316,17 +363,28 @@ def crc32c(data, crc: int = 0) -> int:
     previous call's result. Matches the RFC 3720 reference
     (crc32c(b"123456789") == 0xE3069283) and the JAX package's `crc32c`."""
     buf = np.frombuffer(memoryview(data).cast("B"), np.uint8)
-    reg = np.uint32(~np.uint32(crc) & np.uint32(0xFFFFFFFF))
-    n_blocks = buf.size // _BLOCK
-    if n_blocks:
-        blocks = buf[:n_blocks * _BLOCK].reshape(n_blocks, _BLOCK)
-        parts = [blocks[s:s + _CHUNK_BLOCKS] for s in range(0, n_blocks, _CHUNK_BLOCKS)]
-        crcs = (list(_pool().map(_block_crcs, parts)) if len(parts) > 1
-                else [_block_crcs(parts[0])])
-        reg = _shift_blocks(np.asarray(reg, np.uint32), n_blocks) ^ _fold(np.concatenate(crcs))
-    for b in buf[n_blocks * _BLOCK:]:
-        reg = _TBL[(reg ^ b) & 0xFF] ^ (reg >> np.uint32(8))
-    return int(~np.uint32(reg) & np.uint32(0xFFFFFFFF))
+    return int(crc32c_rows(buf[None], crc)[0])
+
+
+def crc32c_extend(crcs: np.ndarray, data) -> np.ndarray:
+    """`crc32c(data, crc=c)` for each c of a uint32 array: the checksums
+    of byte strings extended by the same `data`. CRC is affine, so this
+    is crc32c(data) XOR c advanced over len(data) zero bytes."""
+    n = len(memoryview(data).cast("B"))
+    return _advance(crcs, n) ^ np.uint32(crc32c(data))
+
+
+def crc32c_patch(crcs: np.ndarray, diff: np.ndarray, tail_bytes) -> np.ndarray:
+    """The checksums of byte strings of unchanged lengths after each
+    changed inside one range, without reading the bytes around it: row i
+    of the C-contiguous `diff` holds old XOR new over string i's changed
+    range, right-aligned (zeros before it; rows a multiple of 1024 bytes
+    long skip a bytewise tail), and `tail_bytes[i]` counts the bytes
+    after the range. For equal lengths, crc(a) ^ crc(b) is the
+    zero-init CRC of a ^ b with no final inversion, which leading zero
+    bytes leave unchanged and trailing ones advance."""
+    lin = ~crc32c_rows(diff, crc=0xFFFFFFFF)  # zero-init register, no final inversion
+    return np.asarray(crcs, np.uint32) ^ _advance(lin, tail_bytes)
 
 
 # -- atomic path writes ------------------------------------------------

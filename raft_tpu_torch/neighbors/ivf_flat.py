@@ -48,8 +48,12 @@ mutation (neighbors/mutation), applied before the prefilter.
 
 `save` / `load` write and read the JAX package's container (kind
 "ivf_flat", writer version 4; core/serialize), so a file written by
-either package loads in the other. The integrity digests, observability
-spans and fault hooks are not ported (ROADMAP Queue A item 9).
+either package loads in the other. The integrity sidecar
+(`list_digests`, `table_digests`; raft_tpu_torch/integrity) is attached
+at build, refreshed by `extend` and every mutation, saved and loaded with
+the index; the lane pad of the fused engine extends the stored digests
+over the pad bytes (`_pad_store_to_lanes`). Observability spans wait for
+the port's `obs` (ROADMAP Queue A item 12).
 """
 
 from __future__ import annotations
@@ -122,6 +126,9 @@ class Index:
                or None (all live); mut_cursor, the applied mutation-log
                entries at the last checkpoint commit; append_slack, the
                per-list tail slots the mutator reserves
+    list_digests, table_digests  the integrity sidecar (integrity/digest):
+               {list field: (n_lists,) uint32}, {table field: int}, or
+               None (no sidecar)
 
     The fused engine's store is derived at its first search
     (`_pad_store_to_lanes`): resid_bf16 (n_lists, L, dim) bf16 residuals,
@@ -144,6 +151,8 @@ class Index:
         self.tombstones = None
         self.mut_cursor = 0
         self.append_slack = 0
+        self.list_digests = None
+        self.table_digests = None
         self._id_bound = None
 
     @property
@@ -228,9 +237,11 @@ _SERIAL_VERSION = 4  # v2: list-major; v3: mutation; v4: digest sidecar
 
 
 def save(filename: str, index: Index) -> None:
-    """Write the index as the JAX package's v4 container (no digest
-    sidecar, which the version allows). Derived stores are not saved."""
+    """Write the index as the JAX package's v4 container, with its digest
+    sidecar where it has one (`list_digests` packed as one uint32 array,
+    `table_digests` in the meta). Derived stores are not saved."""
     from raft_tpu_torch.core.serialize import serialize_arrays
+    from raft_tpu_torch.integrity.digest import pack_lists
 
     arrays = {
         "centers": index.centers,
@@ -243,7 +254,7 @@ def save(filename: str, index: Index) -> None:
         arrays["list_radii"] = index.list_radii
     if index.tombstones is not None:
         arrays["tombstones"] = torch.as_tensor(index.tombstones).to(torch.uint8)
-    serialize_arrays(filename, arrays, {
+    meta = {
         "kind": "ivf_flat",
         "version": _SERIAL_VERSION,
         "metric": int(index.metric),
@@ -252,16 +263,22 @@ def save(filename: str, index: Index) -> None:
         "adaptive_centers": index.params.adaptive_centers,
         "mut_cursor": int(index.mut_cursor),
         "append_slack": int(index.append_slack),
-    })
+    }
+    packed = pack_lists(index, "ivf_flat")
+    if packed is not None:
+        arrays["list_digests"] = packed
+        meta["table_digests"] = {k: int(v) for k, v in (index.table_digests or {}).items()}
+    serialize_arrays(filename, arrays, meta)
 
 
 def load(filename: str, device=None) -> Index:
     """Read an "ivf_flat" container (either package's) onto
     `resolve_device(device)`. Fields a file lacks load as the schema
     declares: no `list_radii` -> None (budgets only; never derived here),
-    no `tombstones` -> all live, cursor and slack 0. A digest sidecar is
-    checked by its CRC and dropped."""
+    no `tombstones` -> all live, cursor and slack 0, no sidecar (or a
+    corrupt one) -> `list_digests` None."""
     from raft_tpu_torch.core.serialize import as_device_tensor, read_ckpt
+    from raft_tpu_torch.integrity.digest import unpack_lists
 
     dev = resolve_device(device)
     arrays, meta = read_ckpt(filename, "ivf_flat", to_device=False)
@@ -282,6 +299,7 @@ def load(filename: str, device=None) -> Index:
         index.tombstones = as_device_tensor(arrays["tombstones"], dev, torch.bool)
     index.mut_cursor = int(meta.get("mut_cursor", 0))
     index.append_slack = int(meta.get("append_slack", 0))
+    unpack_lists(index, "ivf_flat", arrays.get("list_digests"), meta.get("table_digests"))
     return index
 
 
@@ -409,6 +427,11 @@ def build(params: IndexParams, dataset, seed: int = 0, device=None) -> Index:
     index.list_radii = torch.zeros((params.n_lists,), dtype=torch.float32, device=dev)
     if params.add_data_on_build:
         index = extend(index, x, torch.arange(n, dtype=torch.int32, device=dev))
+    # the integrity sidecar: one full digest pass here, then every
+    # mutation keeps it fresh
+    from raft_tpu_torch.integrity.digest import attach
+
+    attach(index, "ivf_flat")
     return index
 
 
@@ -417,8 +440,10 @@ def extend(index: Index, new_vectors, new_indices=None) -> Index:
     rows, grow the list tables, place the batch in its slots. A store
     padded for the fused engine never shrinks. With `adaptive_centers`
     each center moves to the running mean of its old and new members, and
-    the list radii, taken against the old centers, become None."""
+    the list radii, taken against the old centers, become None. The
+    digest sidecar hashes again only the lists the batch touched."""
     from raft_tpu_torch.core.bitset import carry_tombstones
+    from raft_tpu_torch.integrity.digest import refresh
 
     dev = index.device
     nv = check_matrix(new_vectors, dev, name="new_vectors").float()
@@ -459,6 +484,7 @@ def extend(index: Index, new_vectors, new_indices=None) -> Index:
     out.tombstones = carry_tombstones(index.tombstones, new_max)
     out.mut_cursor = index.mut_cursor
     out.append_slack = index.append_slack
+    refresh(out, index, "ivf_flat")
     return out
 
 
@@ -599,8 +625,17 @@ def _pad_store_to_lanes(index: Index, k: int) -> None:
     the bf16 product precise and halve the scanned bytes) and their f32
     squared norms. Grow the recorded candidate-buffer width `fused_kb` to
     hold k (monotone). A dead-slot mask widens with the table (the pad
-    slots are not dead), so a later mutation sees one geometry."""
+    slots are not dead), so a later mutation sees one geometry.
+
+    The digest sidecar follows the widening without reading the store:
+    each widened list field's row digests are extended by the CRC of the
+    pad bytes (zeros for `list_data`, 0xFF bytes, int32 -1, for
+    `slot_rows`, u8 zeros for `tombstones`). A hash of the widened table
+    would bless rot from before the pad; the extension keeps it
+    detectable (the JAX reference leaves its sidecar at the old width, so
+    every list mismatches after its first fused search)."""
     from raft_tpu_torch.core.bitset import carry_tombstones
+    from raft_tpu_torch.integrity.digest import extend_rows
     from raft_tpu_torch.ops.fused_scan import fused_kbuf
     from raft_tpu_torch.ops.pq_list_scan import lane_padded
 
@@ -610,7 +645,13 @@ def _pad_store_to_lanes(index: Index, k: int) -> None:
         pad = torch.nn.functional.pad
         index.list_data = pad(index.list_data, (0, 0, 0, extra))
         index.slot_rows = pad(index.slot_rows, (0, extra), value=-1)
+        t_width = None if index.tombstones is None else int(index.tombstones.shape[1])
         index.tombstones = carry_tombstones(index.tombstones, max_list + extra)
+        extend_rows(index, "list_data",
+                    bytes(extra * index.dim * index.list_data.element_size()))
+        extend_rows(index, "slot_rows", b"\xff" * (extra * index.slot_rows.element_size()))
+        if t_width is not None:
+            extend_rows(index, "tombstones", bytes(int(index.tombstones.shape[1]) - t_width))
     if index.resid_bf16 is None or index.resid_bf16.shape != index.list_data.shape:
         resid = index.list_data - index.centers[:, None, :]
         resid = torch.where((index.slot_rows >= 0)[:, :, None], resid, 0.0)

@@ -76,10 +76,12 @@ coarse geometry, with radius bounds for L2 metrics without a prefilter or tombst
 largest rotated-space residual norm of each list's members.
 
 `save` / `load` write and read the JAX package's container (kind
-"ivf_pq", writer version 3; core/serialize). Integrity digests,
-observability spans and fault hooks are not ported (ROADMAP Queue A item
-9), and neither is the JAX package's fence against the lut engine on a
-TPU (`_check_lut_allowed`, a guard for a TPU device fault).
+"ivf_pq", writer version 3; core/serialize). The integrity sidecar
+(`list_digests`, `table_digests`; raft_tpu_torch/integrity) is attached
+at build, refreshed by `extend` and every mutation, and saved and loaded
+with the index. Observability spans wait for the port's `obs` (ROADMAP
+Queue A item 12). Not ported: the JAX package's fence against the lut
+engine on a TPU (`_check_lut_allowed`, a guard for a TPU device fault).
 """
 
 from __future__ import annotations
@@ -186,6 +188,8 @@ class Index:
                list's members (adaptive probing's bounds), or None
     tombstones (n_lists, max_list) bool dead-slot mask, or None (all
                live); mut_cursor and append_slack as in ivf_flat.Index
+    list_digests, table_digests  the integrity sidecar, as in
+               ivf_flat.Index
 
     The reconstruction store is built at the first search:
     recon8 (n_lists, lpad, rot_dim) int8, recon_scale (rot_dim,) f32,
@@ -214,6 +218,8 @@ class Index:
         self.tombstones = None
         self.mut_cursor = 0
         self.append_slack = 0
+        self.list_digests = None
+        self.table_digests = None
         self._id_bound = None
 
     @property
@@ -308,10 +314,11 @@ _SERIAL_VERSION = 3  # v2: mutation fields; v3: digest sidecar
 
 
 def save(filename: str, index: Index) -> None:
-    """Write the index as the JAX package's v3 container (no digest
-    sidecar, which the version allows). The reconstruction store is not
-    saved: a loaded index derives it at its first search."""
+    """Write the index as the JAX package's v3 container, with its digest
+    sidecar where it has one. The reconstruction store is not saved: a
+    loaded index derives it at its first search."""
     from raft_tpu_torch.core.serialize import serialize_arrays
+    from raft_tpu_torch.integrity.digest import pack_lists
 
     arrays = {
         "rotation": index.rotation,
@@ -326,7 +333,7 @@ def save(filename: str, index: Index) -> None:
         arrays["list_radii"] = index.list_radii
     if index.tombstones is not None:
         arrays["tombstones"] = torch.as_tensor(index.tombstones).to(torch.uint8)
-    serialize_arrays(filename, arrays, {
+    meta = {
         "kind": "ivf_pq",
         "version": _SERIAL_VERSION,
         "metric": int(index.metric),
@@ -335,15 +342,21 @@ def save(filename: str, index: Index) -> None:
         "codebook_kind": index.params.codebook_kind,
         "mut_cursor": int(index.mut_cursor),
         "append_slack": int(index.append_slack),
-    })
+    }
+    packed = pack_lists(index, "ivf_pq")
+    if packed is not None:
+        arrays["list_digests"] = packed
+        meta["table_digests"] = {k: int(v) for k, v in (index.table_digests or {}).items()}
+    serialize_arrays(filename, arrays, meta)
 
 
 def load(filename: str, device=None) -> Index:
     """Read an "ivf_pq" container (either package's) onto
     `resolve_device(device)`; absent fields load as the schema declares
-    (no radii -> None, no tombstones -> all live, cursor and slack 0), a
-    digest sidecar is checked by its CRC and dropped."""
+    (no radii -> None, no tombstones -> all live, cursor and slack 0, no
+    sidecar -> `list_digests` None)."""
     from raft_tpu_torch.core.serialize import as_device_tensor, read_ckpt
+    from raft_tpu_torch.integrity.digest import unpack_lists
 
     dev = resolve_device(device)
     arrays, meta = read_ckpt(filename, "ivf_pq", to_device=False)
@@ -363,6 +376,7 @@ def load(filename: str, device=None) -> Index:
         index.tombstones = as_device_tensor(arrays["tombstones"], dev, torch.bool)
     index.mut_cursor = int(meta.get("mut_cursor", 0))
     index.append_slack = int(meta.get("append_slack", 0))
+    unpack_lists(index, "ivf_pq", arrays.get("list_digests"), meta.get("table_digests"))
     return index
 
 
@@ -462,6 +476,9 @@ def build(params: IndexParams, dataset, seed: int = 0, device=None) -> Index:
     index.list_radii = torch.zeros((params.n_lists,), dtype=torch.float32, device=dev)
     if params.add_data_on_build:
         index = extend(index, x, torch.arange(n, dtype=torch.int32, device=dev))
+    from raft_tpu_torch.integrity.digest import attach
+
+    attach(index, "ivf_pq")  # the integrity sidecar, kept fresh from here on
     return index
 
 
@@ -487,8 +504,10 @@ def label_and_encode(vectors: torch.Tensor, rotation: torch.Tensor, centers: tor
 def extend(index: Index, new_vectors, new_indices=None) -> Index:
     """Label, encode and append new vectors (ivf_pq_build.cuh:1061):
     only the new batch is encoded and placed into grown code tables. The
-    mutation state carries over (new tail slots are live)."""
+    mutation state carries over (new tail slots are live); the digest
+    sidecar hashes again only the lists the batch touched."""
     from raft_tpu_torch.core.bitset import carry_tombstones
+    from raft_tpu_torch.integrity.digest import refresh
     from raft_tpu_torch.neighbors.ivf_flat import _append_slots, _grow_and_scatter
 
     dev = index.device
@@ -518,6 +537,7 @@ def extend(index: Index, new_vectors, new_indices=None) -> Index:
     out.tombstones = carry_tombstones(index.tombstones, int(codes_tbl.shape[1]))
     out.mut_cursor = index.mut_cursor
     out.append_slack = index.append_slack
+    refresh(out, index, "ivf_pq")
     return out
 
 

@@ -55,9 +55,13 @@ the prefilter, and turn adaptive probing's radius bounds off.
 `save` / `load` write and read the JAX package's container (kind
 "ivf_rabitq", writer version 3, with the quantizer's state hooks). The
 raw-row store is not saved, as in the JAX package: a loaded index
-re-ranks through `refine_dataset`. Integrity digests, observability
-spans, fault hooks and the distributed (MNMG) index are not ported
-(ROADMAP Queue A items 9 and 12).
+re-ranks through `refine_dataset`. The integrity sidecar (`list_digests`,
+`table_digests`; raft_tpu_torch/integrity) is attached at build,
+refreshed by `extend` and every mutation, and saved and loaded with the
+index, over the bytes `save` writes (codes as uint32 words). The encode
+stage of `extend` (and so of build) is the `ivf_rabitq.build.encode`
+fault site (core/faults). Observability spans and the distributed (MNMG)
+index are not ported (ROADMAP Queue A item 12).
 """
 
 from __future__ import annotations
@@ -173,7 +177,8 @@ class Index:
     slot_rows_pad (n_lists, L) int32 (-1 on pad slots), L a multiple of
     128, and fused_kb, the candidate-buffer width, grown monotonically.
     Live mutation: tombstones (n_lists, max_list) bool dead-slot mask or
-    None (all live), mut_cursor and append_slack as in ivf_flat.Index."""
+    None (all live), mut_cursor and append_slack as in ivf_flat.Index;
+    list_digests and table_digests, the integrity sidecar."""
 
     def __init__(self, params: IndexParams, rotation, centers, codes, aux, slot_rows,
                  list_sizes, source_ids, dataset=None):
@@ -194,6 +199,8 @@ class Index:
         self.tombstones = None
         self.mut_cursor = 0
         self.append_slack = 0
+        self.list_digests = None
+        self.table_digests = None
         self._id_bound = None
 
     @property
@@ -286,10 +293,11 @@ _SERIAL_VERSION = 3  # v2: mutation fields; v3: digest sidecar
 
 def save(filename: str, index: Index) -> None:
     """Write the quantized index as the JAX package's v3 container (codes
-    as uint32 words; no digest sidecar, which the version allows). The
+    as uint32 words), with its digest sidecar where it has one. The
     raw-row store is not saved: a loaded index re-ranks through
     `refine_dataset`, or serves the estimator ranking."""
     from raft_tpu_torch.core.serialize import serialize_arrays
+    from raft_tpu_torch.integrity.digest import pack_lists
 
     quant = RabitqQuantizer(index.rot_dim)
     arrays = {
@@ -304,7 +312,7 @@ def save(filename: str, index: Index) -> None:
     }
     if index.tombstones is not None:
         arrays["tombstones"] = torch.as_tensor(index.tombstones).to(torch.uint8)
-    serialize_arrays(filename, arrays, {
+    meta = {
         "kind": "ivf_rabitq",
         "version": _SERIAL_VERSION,
         "metric": int(index.metric),
@@ -312,15 +320,21 @@ def save(filename: str, index: Index) -> None:
         "mut_cursor": int(index.mut_cursor),
         "append_slack": int(index.append_slack),
         **quant.state_meta(),
-    })
+    }
+    packed = pack_lists(index, "ivf_rabitq")
+    if packed is not None:
+        arrays["list_digests"] = packed
+        meta["table_digests"] = {k: int(v) for k, v in (index.table_digests or {}).items()}
+    serialize_arrays(filename, arrays, meta)
 
 
 def load(filename: str, device=None) -> Index:
     """Read an "ivf_rabitq" container (either package's) onto
     `resolve_device(device)`, quantized only (`store_dataset=False`).
     Absent fields load as the schema declares (all live, cursor and slack
-    0); a digest sidecar is checked by its CRC and dropped."""
+    0, no sidecar -> `list_digests` None)."""
     from raft_tpu_torch.core.serialize import as_device_tensor, read_ckpt
+    from raft_tpu_torch.integrity.digest import unpack_lists
 
     dev = resolve_device(device)
     arrays, meta = read_ckpt(filename, "ivf_rabitq", to_device=False)
@@ -338,12 +352,17 @@ def load(filename: str, device=None) -> Index:
         index.tombstones = as_device_tensor(arrays["tombstones"], dev, torch.bool)
     index.mut_cursor = int(meta.get("mut_cursor", 0))
     index.append_slack = int(meta.get("append_slack", 0))
+    unpack_lists(index, "ivf_rabitq", arrays.get("list_digests"), meta.get("table_digests"))
     return index
 
 
 # ---------------------------------------------------------------------------
 # build / extend
 # ---------------------------------------------------------------------------
+
+
+#: fault site (core/faults): the encode stage of build and extend
+ENCODE_SITE = "ivf_rabitq.build.encode"
 
 
 def rabitq_rot_dim(dim: int) -> int:
@@ -394,6 +413,9 @@ def build(params: IndexParams, dataset, seed: int = 0, device=None) -> Index:
     )
     if params.add_data_on_build:
         index = extend(index, x, torch.arange(n, dtype=torch.int32, device=dev))
+    from raft_tpu_torch.integrity.digest import attach
+
+    attach(index, "ivf_rabitq")  # the integrity sidecar, kept fresh from here on
     return index
 
 
@@ -401,8 +423,11 @@ def extend(index: Index, new_vectors, new_indices=None) -> Index:
     """Label, encode and append new vectors: one placement grows both
     payload tables (ivf_flat._grow_and_scatter_multi). Returns a new
     Index; its fused store is derived again at its first fused search.
-    The mutation state carries over (new tail slots are live)."""
+    The mutation state carries over (new tail slots are live); the digest
+    sidecar hashes again only the lists the batch touched."""
+    from raft_tpu_torch.core import faults
     from raft_tpu_torch.core.bitset import carry_tombstones
+    from raft_tpu_torch.integrity.digest import refresh
     from raft_tpu_torch.neighbors.ivf_flat import _append_slots, _grow_and_scatter_multi
 
     dev = index.device
@@ -412,6 +437,9 @@ def extend(index: Index, new_vectors, new_indices=None) -> Index:
         new_indices = torch.arange(old_n, old_n + nv.shape[0], dtype=torch.int32, device=dev)
     else:
         new_indices = torch.as_tensor(new_indices, device=dev).to(torch.int32)
+    # fault site (host-side, every call): slow_rank a slow encode pass,
+    # flaky_bootstrap a transient failure before anything changes
+    faults.fault_point(ENCODE_SITE)
     labels, new_codes, new_aux = label_and_encode(nv, index.rotation, index.centers,
                                                   index.metric)
     old_sizes = index.list_sizes.cpu().numpy().astype(np.int64)
@@ -430,6 +458,7 @@ def extend(index: Index, new_vectors, new_indices=None) -> Index:
     out.tombstones = carry_tombstones(index.tombstones, int(slot_rows.shape[1]))
     out.mut_cursor = index.mut_cursor
     out.append_slack = index.append_slack
+    refresh(out, index, "ivf_rabitq")
     return out
 
 

@@ -25,17 +25,25 @@ payload gathers run on the index's device (`torch.isin`,
 bit. Derived stores (`_DERIVED_ATTRS`) are dropped on any change of slot
 geometry and rebuild at their next search; `fused_kb` survives.
 
+Every operation refreshes the index's integrity sidecar
+(integrity/digest): the digests of the lists whose slot table or mask it
+changed are patched over the changed slots, and a change of geometry
+hashes everything.
+
 Crash atomicity (`Mutator`): each batch's payload is a CRC'd container
 (`_save_batch`, written atomically) written BEFORE its line is appended
 to the CRC'd `mutlog.jsonl` (torn-line-terminating appends); checkpoint
 commits save the whole index with `mut_cursor` = applied entries. A
 resume loads the checkpoint, replays the log's valid dense prefix past
 the cursor, dedupes a re-issued sequence by sequence number and refuses
-a log shorter than the checkpoint's cursor.
+a log shorter than the checkpoint's cursor. `Mutator(retain=K)` keeps the
+K newest commits as point-in-time snapshots (integrity/restore).
 
-Not ported (ROADMAP Queue A item 9): the fault sites, the integrity
-digest refresh and attach calls, the observability counters and events,
-and `Mutator(retain=)` point-in-time snapshots.
+Fault sites (core/faults): `mutation.log.commit` (`crash_point` after
+each log append and after each checkpoint commit: the two SIGKILL
+windows), `mutation.tombstone` and `mutation.rebalance` (`fault_point`
+before any state changes). The observability counters and events wait
+for the port's `obs` (ROADMAP Queue A item 12).
 """
 
 from __future__ import annotations
@@ -48,7 +56,13 @@ from typing import Optional, Tuple
 import numpy as np
 import torch
 
+from raft_tpu_torch.core import faults
 from raft_tpu_torch.core.serialize import crc32c
+
+#: fault sites (core/faults)
+LOG_COMMIT_SITE = "mutation.log.commit"
+TOMBSTONE_SITE = "mutation.tombstone"
+REBALANCE_SITE = "mutation.rebalance"
 
 #: index kinds the mutation protocol understands
 KINDS = ("ivf_flat", "ivf_pq", "ivf_rabitq")
@@ -151,7 +165,11 @@ def tombstone(index, ids):
     n_dead). Ids absent from the index (or already dead) are ignored, so
     delete is idempotent; with nothing to mark the index itself comes
     back. The slot table is untouched (placement survives for
-    compaction); only the mask grows, as a new tensor."""
+    compaction); only the mask grows, as a new tensor, and only the
+    flipped mask rows' digests change in the sidecar."""
+    from raft_tpu_torch.integrity.digest import refresh
+
+    faults.fault_point(TOMBSTONE_SITE)
     sr = index.slot_rows
     sid = index.source_ids
     if index.size == 0:
@@ -167,6 +185,7 @@ def tombstone(index, ids):
         return index, 0
     out = _clone(index)
     out.tombstones = t | dead_new
+    refresh(out, index)
     return out, n
 
 
@@ -201,6 +220,7 @@ def ensure_append_slack(index, slack: int):
     stores rebuild at the wider geometry. Returns the new index (the
     input when it is already wide enough and records this slack)."""
     from raft_tpu_torch.core.bitset import carry_tombstones
+    from raft_tpu_torch.integrity.digest import refresh
 
     slack = int(slack)
     if slack < 0:
@@ -224,6 +244,7 @@ def ensure_append_slack(index, slack: int):
     out.tombstones = carry_tombstones(index.tombstones, need)
     out.append_slack = slack
     _drop_derived(out)
+    refresh(out, index)  # the geometry grew: a full digest pass
     return out
 
 
@@ -236,6 +257,8 @@ def compact(index, *, slack: Optional[int] = None):
     must not shift); `list_radii` stay (a max over former members still
     bounds the survivors). Slots past each list's live rows read -1 and
     keep the payload the gather put there, as in the JAX package."""
+    from raft_tpu_torch.integrity.digest import refresh
+
     kind = kind_of(index)
     slack = index.append_slack if slack is None else int(slack)
     sr = index.slot_rows
@@ -267,6 +290,7 @@ def compact(index, *, slack: Optional[int] = None):
     out.tombstones = None
     out.append_slack = slack
     _drop_derived(out)
+    refresh(out, index)  # the repack moved slots: their lists hash again
     return out
 
 
@@ -274,6 +298,7 @@ def rebalance(index, *, min_dead_frac: float = 0.0, slack: Optional[int] = None)
     """Compact when the store is tombstone-heavy enough to pay for it:
     dead slots / occupied slots >= `min_dead_frac` (0.0 = whenever a slot
     is dead). Returns (index, compacted)."""
+    faults.fault_point(REBALANCE_SITE)
     sr = index.slot_rows
     occupied = int((sr >= 0).sum())
     dead = int((_tomb_mask(index) & (sr >= 0)).sum())
@@ -386,6 +411,24 @@ class MutationLog:
         return entry
 
 
+def _apply_entry(index, log: MutationLog, entry: dict, slack: int = 0):
+    """Apply one logged entry to `index` and return the result: its
+    payload is read back from `log`'s disk. The one apply of the live
+    path, the resume and point-in-time restore (integrity/restore), so a
+    replay is what the Mutator committed."""
+    op = entry["op"]
+    if op == "rebalance":
+        return rebalance(index, slack=slack or None)[0]
+    op2, _, ids, vectors = _load_batch(log.payload_path(entry["seq"]))
+    if op2 != op:
+        raise MutationLogError(f"payload op {op2!r} != log op {op!r} at seq {entry['seq']}")
+    if op == "upsert":
+        return upsert(index, vectors, ids)
+    if op == "delete":
+        return delete(index, ids)
+    raise MutationLogError(f"unknown logged op {op!r}")
+
+
 class Mutator:
     """Crash-atomic online mutation of one index (module docstring).
 
@@ -397,17 +440,16 @@ class Mutator:
     tail past the cursor replays. A caller that runs again re-issues its
     sequence from the top; calls whose seq the log already holds are skipped.
     `ckpt_every` batches between commits bounds replay; `slack` is the
-    per-list append reserve (`ensure_append_slack`)."""
+    per-list append reserve (`ensure_append_slack`); `retain` keeps the
+    newest `retain` commits as point-in-time snapshots (`commit`;
+    integrity/restore), 0 none."""
 
     def __init__(self, root: str, index=None, *, kind: Optional[str] = None,
                  ckpt_every: int = 8, slack: int = 0, retain: int = 0, device=None):
-        if int(retain) > 0:
-            raise NotImplementedError(
-                "Mutator(retain=...) point-in-time snapshots are not ported yet "
-                "(ROADMAP Queue A item 9)")
         self.log = MutationLog(root)
         self.ckpt_every = max(1, int(ckpt_every))
         self.slack = int(slack)
+        self.retain = max(0, int(retain))
         if os.path.exists(self.ckpt_path):
             if kind is None:
                 kind = kind_of(index) if index is not None else None
@@ -440,19 +482,7 @@ class Mutator:
     def _apply(self, entry: dict) -> None:
         """Apply one logged entry to the in-memory index (the replay path
         and the live path share it: the payload is read back from disk)."""
-        op = entry["op"]
-        if op == "rebalance":
-            self.index, _ = rebalance(self.index, slack=self.slack or None)
-            return
-        op2, _, ids, vectors = _load_batch(self.log.payload_path(entry["seq"]))
-        if op2 != op:
-            raise MutationLogError(f"payload op {op2!r} != log op {op!r} at seq {entry['seq']}")
-        if op == "upsert":
-            self.index = upsert(self.index, vectors, ids)
-        elif op == "delete":
-            self.index = delete(self.index, ids)
-        else:
-            raise MutationLogError(f"unknown logged op {op!r}")
+        self.index = _apply_entry(self.index, self.log, entry, self.slack)
 
     def _submit(self, op: str, ids, vectors=None):
         seq = self._issued
@@ -465,6 +495,9 @@ class Mutator:
                         else os.path.basename(self.log.payload_path(seq)))
         self._apply({"op": op, "seq": seq})
         self.applied += 1
+        # SIGKILL window 1: the log is ahead of the checkpoint, so the
+        # resume must replay this entry
+        faults.crash_point(LOG_COMMIT_SITE)
         if self.applied - int(self.index.mut_cursor) >= self.ckpt_every:
             self.commit()
         return self.index
@@ -487,20 +520,40 @@ class Mutator:
 
     def commit(self):
         """Checkpoint the index with `mut_cursor` = applied entries (one
-        atomic file), then remove the payload containers it supersedes."""
+        atomic file), then remove the payload containers it supersedes.
+        An index without a digest sidecar gains one here, so every
+        committed checkpoint can be scrubbed. With `retain`, a
+        byte-for-byte copy of the checkpoint becomes the snapshot
+        `pitr_<cursor>.ckpt`, the newest `retain` snapshots are kept, and
+        payloads are removed only below the oldest kept cursor."""
         if int(self.index.mut_cursor) != self.applied:
+            from raft_tpu_torch.integrity.digest import attach
+
             idx = _clone(self.index)
             idx.mut_cursor = self.applied
             idx.append_slack = self.slack
+            if getattr(idx, "list_digests", None) is None:
+                attach(idx, self.kind)
             _index_module(self.kind).save(self.ckpt_path, idx)
             self.index = idx
-            for seq in range(self.applied):
+            sweep_below = self.applied
+            if self.retain:
+                import shutil
+
+                from raft_tpu_torch.integrity.restore import prune, snapshot_path
+
+                shutil.copyfile(self.ckpt_path, snapshot_path(self.log.root, self.applied))
+                kept = prune(self.log.root, keep=self.retain)
+                sweep_below = min(kept) if kept else self.applied
+            for seq in range(sweep_below):
                 p = self.log.payload_path(seq)
                 if os.path.exists(p):
                     try:
                         os.remove(p)
                     except OSError:
                         pass  # an orphan payload is ignored garbage
+        # SIGKILL window 2: after the commit, so the resume must not replay
+        faults.crash_point(LOG_COMMIT_SITE)
         return self.index
 
 

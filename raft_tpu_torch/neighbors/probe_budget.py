@@ -26,10 +26,11 @@ A `recall_target` resolves to tau through the tuned
 `DEFAULT_POLICY`; `recall_target >= 1.0` resolves to the saturated plan,
 which `search_plan` does not compute: the engines run the fixed search.
 
-Not ported yet: the fault hook on the budgets (`BUDGET_SITE`,
-`_maybe_corrupt_budgets`) and the observability counters of `account`,
-and `resolve` / `policy_token`, which serve only the distributed drivers
-and the server.
+The budgets pass the `ivf.probe_budget` fault hook (`BUDGET_SITE`,
+`_maybe_corrupt_budgets`): a corrupted budget shrinks to `min_probes`.
+Not ported yet: the observability counters of `account`, and `resolve` /
+`policy_token`, which serve only the distributed (MNMG) searches and the
+server.
 
 This module is imported by the three index engines and imports none of
 them.
@@ -58,6 +59,9 @@ DEFAULT_POLICY = {
 }
 
 _EPS = 1e-12
+
+#: chaos site (core/faults): the per-query budget vector of the plan
+BUDGET_SITE = "ivf.probe_budget"
 
 
 @dataclasses.dataclass(frozen=True)
@@ -163,6 +167,19 @@ def assign_budgets(cvals: torch.Tensor, select_min: bool, tau, min_probes) -> to
     return torch.clamp(budgets, int(min_probes), int(cvals.shape[1]))
 
 
+def _maybe_corrupt_budgets(budgets: torch.Tensor, min_probes) -> torch.Tensor:
+    """The `BUDGET_SITE` chaos hook: corrupt_shard NaNs a seeded fraction
+    of the (float-viewed) budget vector and the corrupted entries shrink
+    to the floor, so recall degrades visibly and the plan never crashes.
+    `budgets` itself without an installed plan."""
+    from raft_tpu_torch.core.faults import active_for, corrupt_in_trace
+
+    if not active_for(BUDGET_SITE):
+        return budgets
+    bf = corrupt_in_trace(BUDGET_SITE, budgets.float(), 0)
+    return torch.where(torch.isnan(bf), torch.full_like(budgets, int(min_probes)), budgets)
+
+
 def early_term_keep(cvals: torch.Tensor, pradii: torch.Tensor, psizes: torch.Tensor, k: int,
                     base_keep: torch.Tensor) -> torch.Tensor:
     """The sound bound-based keep mask over the budget-kept probed lists
@@ -203,7 +220,8 @@ def keep_mask(cvals: torch.Tensor, probes: torch.Tensor, qn_shift, select_min: b
     scanned-list counts); `radii` and `sizes` engage the bound pass (the
     caller keeps them for L2 metrics only)."""
     n_probes = int(cvals.shape[1])
-    budgets = assign_budgets(cvals, select_min, tau, min_probes)
+    budgets = _maybe_corrupt_budgets(assign_budgets(cvals, select_min, tau, min_probes),
+                                     min_probes)
     pos = torch.arange(n_probes, device=cvals.device)[None, :]
     keep = pos < budgets[:, None]
     if radii is not None and sizes is not None:
@@ -266,12 +284,14 @@ def search_plan(ap: Optional[AdaptiveResolved], queries: torch.Tensor, centers: 
     slices into the engines' macro-batches with its probes. No adaptive
     fields, or tau >= 1 without the bounds, is the fixed search: every
     gap-profile value is at most 1, so that plan keeps every probe and
-    is skipped."""
+    is skipped, unless a fault plan targets the budgets (`BUDGET_SITE`)."""
+    from raft_tpu_torch.core.faults import active_for
+
     if ap is None:
         return None
     use_bounds = (ap.early_term and radii is not None and sizes is not None
                   and metric != DistanceType.InnerProduct)
-    if ap.tau >= 1.0 and not use_bounds:
+    if ap.tau >= 1.0 and not use_bounds and not active_for(BUDGET_SITE):
         return None
     cvals, probes, qn_shift, select_min = coarse_select(
         _coarse_space(queries, rotation), centers, metric, n_probes, pq_style=rotation is not None)

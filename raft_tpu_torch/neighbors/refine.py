@@ -10,12 +10,18 @@ distances against the original dataset and keep the best k.
                `fused_list_topk` kernel as one "list" (chunk = 1), so the
                (nq, n_cand) scores never reach device memory; exact over
                the bf16-rounded rows (`_fused_rerank_gathered`).
+
+`refine_host` serves the dataset that stays in host memory (a numpy
+array or memmap, 10M+ rows): only the (nq, n_cand, dim) candidate rows
+are gathered on the host and sent to the device, then re-ranked as
+above.
 """
 
 from __future__ import annotations
 
 from typing import Optional, Tuple
 
+import numpy as np
 import torch
 
 from raft_tpu_torch.core.config import strict_f32_matmul
@@ -26,17 +32,24 @@ from raft_tpu_torch.matrix.select_k import _select_k_impl
 _LANES = 128
 
 
-def _refine_impl(dataset, queries, candidates, k: int, metric: DistanceType):
+def _refine_impl(dataset, queries, candidates, k: int, metric: DistanceType,
+                 gathered: bool = False):
+    """The two-phase re-rank by query blocks. `gathered`: `dataset` is
+    the candidate rows already gathered (nq, nc, dim), aligned with
+    `candidates`."""
     nq, nc = candidates.shape
     select_min = metric != DistanceType.InnerProduct
     worst = float("inf") if select_min else float("-inf")
     strict_f32_matmul()
-    qb = min(max(1, (1 << 22) // max(1, nc * dataset.shape[1])), max(1, nq))
+    qb = min(max(1, (1 << 22) // max(1, nc * dataset.shape[-1])), max(1, nq))
     vals, ids = [], []
     for s in range(0, nq, qb):
         qs = queries[s:s + qb].float()
         cand = candidates[s:s + qb]
-        cdata = dataset[torch.clamp(cand, min=0).long()].float()  # (qb, nc, dim)
+        if gathered:
+            cdata = dataset[s:s + qb].float()
+        else:
+            cdata = dataset[torch.clamp(cand, min=0).long()].float()  # (qb, nc, dim)
         dots = torch.bmm(cdata, qs[:, :, None])[:, :, 0]
         if metric == DistanceType.InnerProduct:
             score = dots
@@ -98,6 +111,27 @@ def _refine_fused_impl(dataset, queries, candidates, k: int, metric: DistanceTyp
     return _fused_rerank_gathered(cdata, queries, candidates, k, metric)
 
 
+def _check_strategy(strategy, m: DistanceType, nc: int, dim: int, k: int) -> bool:
+    """True for the fused rerank, False for the two-phase one; raises for
+    an unknown strategy or a fused request outside the kernel's reach."""
+    from raft_tpu_torch.matrix.select_k import _fused_metric_kind
+    from raft_tpu_torch.ops.fused_scan import fits_fused_list
+
+    if strategy in (None, "auto", "two_phase"):
+        return False
+    if strategy != "fused":
+        raise ValueError(f"unknown refine strategy {strategy!r}")
+    if _fused_metric_kind(m) is None:
+        raise ValueError(f"strategy='fused' supports L2/inner_product metrics, got {m}")
+    ncp = -(-nc // _LANES) * _LANES
+    if not fits_fused_list(ncp, dim, k):
+        raise ValueError(
+            f"strategy='fused': candidate block ({ncp} x dim {dim}, k={k}) "
+            "exceeds the fused kernel's shared-memory budget; use strategy='two_phase'"
+        )
+    return True
+
+
 def refine(dataset, queries, candidates, k: int, metric="sqeuclidean",
            strategy: Optional[str] = "two_phase", device=None
            ) -> Tuple[torch.Tensor, torch.Tensor]:
@@ -105,9 +139,6 @@ def refine(dataset, queries, candidates, k: int, metric="sqeuclidean",
     best (distances, int32 ids), each (nq, k). Ids of -1 are skipped.
     `strategy`: "two_phase" (full float32) or "fused" (the fused kernel,
     exact over bf16-rounded rows; L2/inner product, k <= 256)."""
-    from raft_tpu_torch.matrix.select_k import _fused_metric_kind
-    from raft_tpu_torch.ops.fused_scan import fits_fused_list
-
     q = check_matrix(queries, device, name="queries")
     ds = check_matrix(dataset, q.device, name="dataset")
     cand = as_tensor(candidates, q.device).to(torch.int32)
@@ -117,16 +148,37 @@ def refine(dataset, queries, candidates, k: int, metric="sqeuclidean",
     nc = int(cand.shape[1])
     if k > nc:
         raise ValueError(f"k={k} > n_candidates={nc}")
-    if strategy in (None, "auto", "two_phase"):
-        return _refine_impl(ds, q, cand, int(k), m)
-    if strategy != "fused":
-        raise ValueError(f"unknown refine strategy {strategy!r}")
-    if _fused_metric_kind(m) is None:
-        raise ValueError(f"strategy='fused' supports L2/inner_product metrics, got {m}")
-    ncp = -(-nc // _LANES) * _LANES
-    if not fits_fused_list(ncp, int(ds.shape[1]), int(k)):
-        raise ValueError(
-            f"strategy='fused': candidate block ({ncp} x dim {ds.shape[1]}, k={k}) "
-            "exceeds the fused kernel's shared-memory budget; use strategy='two_phase'"
-        )
-    return _refine_fused_impl(ds, q, cand, int(k), m)
+    if _check_strategy(strategy, m, nc, int(ds.shape[1]), int(k)):
+        return _refine_fused_impl(ds, q, cand, int(k), m)
+    return _refine_impl(ds, q, cand, int(k), m)
+
+
+def refine_host(dataset, queries, candidates, k: int, metric="sqeuclidean",
+                strategy: Optional[str] = "two_phase", device=None
+                ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """`refine` over a dataset held in host memory (a numpy array or
+    memmap): the full table never reaches the device. Only the candidate
+    rows are gathered on the host (ids of -1 clipped into range, then
+    masked by id) and sent to `resolve_device(device)` as one (nq,
+    n_cand, dim) f32 block, which the chosen `strategy` re-ranks as
+    `refine` does. Returns the best (distances, int32 ids), each (nq, k),
+    on that device."""
+    q = check_matrix(queries, device, name="queries")
+    cand = candidates.cpu().numpy() if isinstance(candidates, torch.Tensor) else candidates
+    cand = np.asarray(cand)
+    if cand.ndim != 2 or cand.shape[0] != q.shape[0]:
+        raise ValueError("candidates must be (n_queries, n_candidates)")
+    m = resolve_metric(metric)
+    host = np.asarray(dataset)
+    if host.ndim != 2 or host.shape[1] != q.shape[1]:
+        raise ValueError(f"dataset must be (n, {q.shape[1]}), got {host.shape}")
+    nc = int(cand.shape[1])
+    if k > nc:
+        raise ValueError(f"k={k} > n_candidates={nc}")
+    fused = _check_strategy(strategy, m, nc, int(host.shape[1]), int(k))
+    cdata = torch.from_numpy(np.ascontiguousarray(
+        host[np.clip(cand, 0, host.shape[0] - 1)], dtype=np.float32)).to(q.device)
+    cand_t = torch.from_numpy(cand.astype(np.int32)).to(q.device)
+    if fused:
+        return _fused_rerank_gathered(cdata, q, cand_t, int(k), m)
+    return _refine_impl(cdata, q, cand_t, int(k), m, gathered=True)

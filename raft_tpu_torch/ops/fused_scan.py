@@ -45,10 +45,12 @@ Contracts (the JAX package's):
     a prefix, and most rows of a sparsely probed list's chunk are pad).
 
 A wrapper takes its plain version only for tensors on the CPU. For a
-CUDA tensor it launches the kernel or raises. Each wrapper adds one to
-its kernel's entry of `launch_counts()` where it launches the kernel,
-and nowhere else; `launch_counts()` and `reset_launch_counts()` (from
-`ops._launch`) cover every kernel of the port.
+CUDA tensor it launches the kernel or raises. Either way its values pass
+the `fused.scan.scores` fault hook (core/faults) before they return.
+Each wrapper adds one to its kernel's entry of `launch_counts()` where
+it launches the kernel, and nowhere else; `launch_counts()` and
+`reset_launch_counts()` (from `ops._launch`) cover every kernel of the
+port.
 """
 
 from __future__ import annotations
@@ -78,6 +80,8 @@ _LANES = 128
 #: hard cap on k for every fused engine (the JAX package's cap)
 FUSED_MAX_K = 256
 _ID_SENTINEL = 2**31 - 1
+#: injection site: corrupt_in_trace on each wrapper's candidate values
+FUSED_SCORES_SITE = "fused.scan.scores"
 
 # kernel geometry: must match csrc/fused_common.cuh
 _TILE_SLOTS = 128      # store rows staged per tile
@@ -92,6 +96,15 @@ _TC_TILE = 128         # dataset rows per staged tile (kBN)
 _TC_MAX_RANGES = 128   # kMaxRanges: lists a row's merge takes
 _TC_STAGES = 3        # dataset tiles in shared memory (kStages)
 _TC_QUEUE = 128       # a warp's queue of flagged pairs (kQueue)
+
+
+def _maybe_corrupt(vals, idx):
+    """The chaos hook on a wrapper's candidate values (site
+    `FUSED_SCORES_SITE`), on the kernel and the plain path alike, before
+    any caller merges them: `vals` itself without an installed plan."""
+    from raft_tpu_torch.core.faults import corrupt_in_trace
+
+    return corrupt_in_trace(FUSED_SCORES_SITE, vals, 0), idx
 
 
 def fused_kbuf(k: int) -> int:
@@ -357,7 +370,8 @@ def fused_topk(x: torch.Tensor, y: torch.Tensor, k: int, *,
         _check(valid.shape[0] == n, f"valid has {valid.shape[0]} entries for {n} rows")
         base = torch.where(valid, base, float("inf"))
     if dev.type == "cpu":
-        return fused_topk_plain(_bf16(x), yb, base, int(k), kbuf, bool(inner_product))
+        return _maybe_corrupt(*fused_topk_plain(_bf16(x), yb, base, int(k), kbuf,
+                                                bool(inner_product)))
     _check(dev.type == "cuda", f"fused_topk runs on cpu or cuda, got {dev}")
     _check(fits_fused(m, n, d, int(k)),
            f"fused_topk: d={d}, k={k} exceed the kernel's shared-memory budget")
@@ -387,7 +401,7 @@ def fused_topk(x: torch.Tensor, y: torch.Tensor, k: int, *,
                      plan.range_len, stream)
     _raise_on(err, "fused_topk")
     _launches["fused_topk"] += 1
-    return vals, idx
+    return _maybe_corrupt(vals, idx)
 
 
 # ---------------------------------------------------------------------------
@@ -490,8 +504,9 @@ def fused_list_topk(lof, qres, store, base, k: int, *, kbuf: Optional[int] = Non
     kb = fused_kbuf(k) if kbuf is None else int(kbuf)
     _check(kb >= fused_kbuf(k), f"candidate buffer width {kb} cannot hold k={k}")
     if dev.type == "cpu":
-        return fused_list_topk_plain(lof, qres, store, base, int(k), kb,
-                                     bool(inner_product), chunk_valid, chunk_rows)
+        return _maybe_corrupt(*fused_list_topk_plain(lof, qres, store, base, int(k), kb,
+                                                     bool(inner_product), chunk_valid,
+                                                     chunk_rows))
     _check(dev.type == "cuda", f"fused_list_topk runs on cpu or cuda, got {dev}")
     _check(fits_fused_list(L, rot, int(k), kb),
            f"fused_list_topk: L={L}, rot={rot} exceed the kernel's shared-memory budget")
@@ -509,7 +524,7 @@ def fused_list_topk(lof, qres, store, base, k: int, *, kbuf: Optional[int] = Non
                  int(bool(inner_product)), stream)
     _raise_on(err, "fused_list_topk")
     _launches["fused_list_topk"] += 1
-    return vals, idx
+    return _maybe_corrupt(vals, idx)
 
 
 # ---------------------------------------------------------------------------
@@ -615,8 +630,9 @@ def fused_list_topk_int8(lof, q8, store, base, q_scale, k: int, *, kbuf: Optiona
     kb = fused_kbuf(k) if kbuf is None else int(kbuf)
     _check(kb >= fused_kbuf(k), f"candidate buffer width {kb} cannot hold k={k}")
     if dev.type == "cpu":
-        return fused_list_topk_int8_plain(lof, q8, store, base, q_scale, int(k), kb,
-                                          bool(inner_product), chunk_valid, chunk_rows)
+        return _maybe_corrupt(*fused_list_topk_int8_plain(lof, q8, store, base, q_scale,
+                                                          int(k), kb, bool(inner_product),
+                                                          chunk_valid, chunk_rows))
     _check(dev.type == "cuda", f"fused_list_topk_int8 runs on cpu or cuda, got {dev}")
     _check(fits_fused_list(L, rot, int(k), kb, q_int8=True),
            f"fused_list_topk_int8: L={L}, rot={rot} exceed the kernel's shared-memory budget")
@@ -633,7 +649,7 @@ def fused_list_topk_int8(lof, q8, store, base, q_scale, k: int, *, kbuf: Optiona
                  int(bool(inner_product)), stream)
     _raise_on(err, "fused_list_topk_int8")
     _launches["fused_list_topk_int8"] += 1
-    return vals, idx
+    return _maybe_corrupt(vals, idx)
 
 
 # ---------------------------------------------------------------------------
@@ -798,9 +814,10 @@ def fused_bitplane_topk(lof, planes, codes_t, meta, base, qmeta, k: int, *, rot_
     kb = fused_kbuf(k) if kbuf is None else int(kbuf)
     _check(kb >= fused_kbuf(k), f"candidate buffer width {kb} cannot hold k={k}")
     if dev.type == "cpu":
-        return fused_bitplane_topk_plain(lof, planes, codes_t, meta, base, qmeta, int(k), kb,
-                                         int(rot_dim), int(bits), bool(inner_product),
-                                         chunk_valid, chunk_rows)
+        return _maybe_corrupt(*fused_bitplane_topk_plain(lof, planes, codes_t, meta, base,
+                                                         qmeta, int(k), kb, int(rot_dim),
+                                                         int(bits), bool(inner_product),
+                                                         chunk_valid, chunk_rows))
     _check(dev.type == "cuda", f"fused_bitplane_topk runs on cpu or cuda, got {dev}")
     _check(fits_fused_bitplane(L, W, int(bits), int(k), kb),
            f"fused_bitplane_topk: words={W}, bits={bits} exceed the kernel's shared-memory budget")
@@ -818,4 +835,4 @@ def fused_bitplane_topk(lof, planes, codes_t, meta, base, qmeta, k: int, *, rot_
                  rsqrt_dim(int(rot_dim)), int(bool(inner_product)), stream)
     _raise_on(err, "fused_bitplane_topk")
     _launches["fused_bitplane_topk"] += 1
-    return vals, idx
+    return _maybe_corrupt(vals, idx)

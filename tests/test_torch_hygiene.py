@@ -68,8 +68,10 @@ def test_resolve_device_defaults_to_cuda_and_raises_without_a_card(monkeypatch):
 
 
 def test_entry_points_never_answer_a_cuda_request_on_the_cpu(monkeypatch, tmp_path):
+    import raft_tpu_torch.integrity as integrity
     from raft_tpu_torch.core.serialize import deserialize_arrays
     from raft_tpu_torch.neighbors import mutation
+    from raft_tpu_torch.neighbors.refine import refine_host
 
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
     rng = np.random.default_rng(0)
@@ -109,6 +111,8 @@ def test_entry_points_never_answer_a_cuda_request_on_the_cpu(monkeypatch, tmp_pa
         lambda: ivf_rabitq.load(saved[ivf_rabitq], device="cuda"),
         lambda: mutation.Mutator(root, kind="ivf_flat"),
         lambda: deserialize_arrays(saved[ivf_pq]),
+        lambda: integrity.restore(root),
+        lambda: refine_host(x, x[:4], cand, 5),
     ]
     for call in calls:
         with pytest.raises(RuntimeError, match="CUDA"):
@@ -163,7 +167,7 @@ def test_launch_counts_cover_every_kernel():
     assert set(fused_scan.launch_counts().values()) == {0}
 
 
-_SUBPACKAGES = ("cluster", "core", "distance", "matrix", "neighbors", "random")
+_SUBPACKAGES = ("cluster", "core", "distance", "integrity", "matrix", "neighbors", "random")
 
 
 def _port_names(pkg: str) -> set:
@@ -212,12 +216,17 @@ def test_neighbors_refine_is_the_function():
 
 
 def test_new_modules_stand_alone():
-    """The tuned table, adaptive probing, serialization and mutation
-    import neither JAX nor the JAX package (checked above over every
-    file); the first two read no device."""
+    """The tuned table, adaptive probing, serialization, mutation, the
+    fault hooks and the integrity modules import neither JAX nor the JAX
+    package (checked above over every file); the first two read no
+    device."""
     files = {str(f.relative_to(_ROOT)) for f in _port_files()}
     assert {"raft_tpu_torch/core/tuned.py", "raft_tpu_torch/neighbors/probe_budget.py",
-            "raft_tpu_torch/core/serialize.py", "raft_tpu_torch/neighbors/mutation.py"} <= files
+            "raft_tpu_torch/core/serialize.py", "raft_tpu_torch/neighbors/mutation.py",
+            "raft_tpu_torch/core/faults.py", "raft_tpu_torch/integrity/__init__.py",
+            "raft_tpu_torch/integrity/digest.py", "raft_tpu_torch/integrity/scrub.py",
+            "raft_tpu_torch/integrity/watchdog.py",
+            "raft_tpu_torch/integrity/restore.py"} <= files
     from raft_tpu_torch.core import tuned
     from raft_tpu_torch.neighbors import probe_budget
 

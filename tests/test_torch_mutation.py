@@ -30,9 +30,10 @@ agree bit for bit. The JAX side runs as its own tests run it on the CPU.
 - MutationLog: round trip and torn tail, CRC rot, a sequence gap, and a
   log written by either package reads in the other. Mutator: cold
   resume, a re-issued sequence deduped, an externally truncated log
-  refused, index or checkpoint required, `retain` refused; a directory
-  written by the JAX Mutator (its checkpoint carries a digest sidecar)
-  resumes in the port to the JAX tables. MutationFeed and apply_batch.
+  refused, index or checkpoint required, `retain` keeps snapshots; a
+  directory written by the JAX Mutator (its checkpoint carries a digest
+  sidecar) resumes in the port to the JAX tables and the JAX sidecar.
+  MutationFeed and apply_batch.
 """
 
 import os
@@ -457,16 +458,20 @@ def test_mutator_refuses_externally_truncated_log(tmp_path, jax_indexes):
 def test_mutator_requires_index_or_checkpoint(tmp_path, jax_indexes):
     with pytest.raises(ValueError, match="checkpoint"):
         tm.Mutator(str(tmp_path / "m"), kind="ivf_flat")
-    with pytest.raises(NotImplementedError, match="item 9"):
-        tm.Mutator(str(tmp_path / "r"), _port(jax_indexes, "ivf_flat"), retain=2)
+    # retain= keeps point-in-time snapshots (tests/test_torch_integrity.py)
+    mut = tm.Mutator(str(tmp_path / "r"), _port(jax_indexes, "ivf_flat"), retain=2)
+    mut.delete(np.array([1]))
+    mut.commit()
+    assert mut.retain == 2 and os.path.exists(str(tmp_path / "r" / "pitr_000001.ckpt"))
 
 
 @pytest.mark.parametrize("kind", KINDS)
 def test_jax_mutator_directory_resumes_in_the_port(tmp_path, jax_indexes, kind):
     """The JAX Mutator's directory (its commits carry a digest sidecar)
-    resumes in the port: the checkpoint loads, the sidecar is dropped and
-    the log's tail replays to the JAX tables."""
+    resumes in the port: the checkpoint loads with its sidecar, and the
+    log's tail replays to the JAX tables and the JAX sidecar."""
     from raft_tpu.core.serialize import deserialize_arrays
+    from raft_tpu_torch.integrity import digest
 
     root = str(tmp_path / "m")
     jmut = jm.Mutator(root, jax_indexes[kind], ckpt_every=3, slack=8)
@@ -475,7 +480,11 @@ def test_jax_mutator_directory_resumes_in_the_port(tmp_path, jax_indexes, kind):
     assert "list_digests" in arrays
     tmut = tm.Mutator(root, kind=kind, slack=8, device="cpu")
     assert tmut.applied == jmut.applied == 5 and tmut.index.mut_cursor == 3  # 2 replayed
-    assert not hasattr(tmut.index, "list_digests")
+    assert sorted(tmut.index.list_digests) == sorted(jmut.index.list_digests)
+    for f, d in jmut.index.list_digests.items():
+        np.testing.assert_array_equal(tmut.index.list_digests[f], np.asarray(d), f)
+    assert tmut.index.table_digests == {f: int(v) for f, v in jmut.index.table_digests.items()}
+    digest.check_fresh(tmut.index)
     _same_state(kind, jmut.index, tmut.index)
 
 

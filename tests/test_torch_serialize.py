@@ -23,8 +23,9 @@ the JAX package.
   index loads in JAX with every array equal bit for bit, tombstones,
   list_radii, mut_cursor and append_slack included, and the file is
   byte-identical to the JAX save of the same arrays.
-- A JAX file with a digest sidecar loads in the port; the sidecar is
-  dropped.
+- A JAX file with a digest sidecar loads in the port with that sidecar;
+  a rotted sidecar field is dropped (the index still loads), and the
+  port writes the sidecar it holds.
 - `atomic_write` leaves the old file whole when the write raises.
 """
 
@@ -329,14 +330,18 @@ def test_digest_sidecar_is_checked_and_dropped(tmp_path, data, jax_indexes):
     arrays, meta = js.deserialize_arrays(path, to_device=False)
     assert "list_digests" in arrays and meta.get("table_digests")
     tidx = tfl.load(path, device="cpu")
-    assert not hasattr(tidx, "list_digests") and not hasattr(tidx, "table_digests")
+    assert sorted(tidx.list_digests) == sorted(jidx.list_digests)
+    for f, d in jidx.list_digests.items():
+        np.testing.assert_array_equal(tidx.list_digests[f], np.asarray(d), f)
+    assert tidx.table_digests == {f: int(v) for f, v in jidx.table_digests.items()}
     (_, ji), (_, ti) = _searches("ivf_flat", jidx, tidx, q)
     np.testing.assert_array_equal(ti, ji)
+    tfl.save(str(tmp_path / "t.ckpt"), tidx)  # the port writes the sidecar it holds
+    got = ts.deserialize_arrays(str(tmp_path / "t.ckpt"), to_device=False)[0]
+    np.testing.assert_array_equal(got["list_digests"], arrays["list_digests"])
     _flip(path, *js.field_byte_range(path, "list_digests"))  # optional: rot is dropped
-    assert tfl.load(path, device="cpu").size == N
-    tfl.save(str(tmp_path / "t.ckpt"), tidx)  # the port writes no sidecar
-    assert "list_digests" not in ts.deserialize_arrays(str(tmp_path / "t.ckpt"),
-                                                       to_device=False)[0]
+    rotted = tfl.load(path, device="cpu")
+    assert rotted.size == N and rotted.list_digests is None and rotted.table_digests is None
 
 
 def test_atomic_write_keeps_the_old_file_whole(tmp_path):
