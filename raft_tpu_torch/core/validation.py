@@ -17,7 +17,10 @@ def as_tensor(x, device=None, dtype=None) -> torch.Tensor:
     """`x` as a tensor on `device` (resolved: CUDA unless told otherwise)."""
     dev = resolve_device(device)
     if not isinstance(x, torch.Tensor):
-        x = torch.as_tensor(np.asarray(x))
+        a = np.asarray(x)
+        # a read-only array (a JAX array's host view) is copied: torch
+        # cannot share memory it may not write
+        x = torch.as_tensor(a if a.flags.writeable else a.copy())
     return x.to(device=dev, dtype=dtype)
 
 

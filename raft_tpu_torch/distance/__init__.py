@@ -1,4 +1,4 @@
-"""Pairwise distances and fused 1-NN (counterpart of raft_tpu/distance):
+"""Pairwise distances, fused 1-NN and masked NN (counterpart of raft_tpu/distance):
 the ported names of the JAX package's `__all__`, in its order."""
 
 from raft_tpu_torch.distance.distance_types import (
@@ -8,6 +8,7 @@ from raft_tpu_torch.distance.distance_types import (
 )
 from raft_tpu_torch.distance.pairwise import pairwise_distance, distance
 from raft_tpu_torch.distance.fused_l2_nn import fused_l2_nn, fused_l2_nn_argmin
+from raft_tpu_torch.distance.masked_nn import masked_l2_nn
 
 __all__ = [
     "DistanceType",
@@ -17,4 +18,5 @@ __all__ = [
     "distance",
     "fused_l2_nn",
     "fused_l2_nn_argmin",
+    "masked_l2_nn",
 ]

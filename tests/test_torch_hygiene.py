@@ -69,9 +69,15 @@ def test_resolve_device_defaults_to_cuda_and_raises_without_a_card(monkeypatch):
 
 def test_entry_points_never_answer_a_cuda_request_on_the_cpu(monkeypatch, tmp_path):
     import raft_tpu_torch.integrity as integrity
+    from raft_tpu_torch import sparse, spectral
+    from raft_tpu_torch.cluster import single_linkage
     from raft_tpu_torch.core.serialize import deserialize_arrays
+    from raft_tpu_torch.distance import masked_l2_nn
+    from raft_tpu_torch.label import make_monotonic
     from raft_tpu_torch.neighbors import mutation
     from raft_tpu_torch.neighbors.refine import refine_host
+    from raft_tpu_torch.random import make_blobs, rmat
+    from raft_tpu_torch.solver import linear_assignment
 
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
     rng = np.random.default_rng(0)
@@ -87,6 +93,9 @@ def test_entry_points_never_answer_a_cuda_request_on_the_cpu(monkeypatch, tmp_pa
         mod.save(saved[mod], mod.build(params, x, device="cpu"))
     root = str(tmp_path / "mut")
     mutation.Mutator(root, ivf_flat.load(saved[ivf_flat], device="cpu"), ckpt_every=1).delete([1])
+    # a graph container given host (numpy) fields puts them on the card
+    edges = (np.arange(299, dtype=np.int32), np.arange(1, 300, dtype=np.int32),
+             np.ones(299, np.float32))
     calls = [
         lambda: brute_force.knn(x, x[:4], 5),
         lambda: brute_force.knn(x, x[:4], 5, engine="fused", device="cuda"),
@@ -113,6 +122,20 @@ def test_entry_points_never_answer_a_cuda_request_on_the_cpu(monkeypatch, tmp_pa
         lambda: deserialize_arrays(saved[ivf_pq]),
         lambda: integrity.restore(root),
         lambda: refine_host(x, x[:4], cand, 5),
+        lambda: single_linkage(x, n_clusters=3),
+        lambda: single_linkage(x, n_clusters=3, connectivity="pairwise", device="cuda"),
+        lambda: spectral.partition(sparse.CooMatrix(*edges, (300, 300)), 2),
+        lambda: sparse.neighbors.knn_graph(x, 5, device="cuda"),
+        lambda: sparse.distance.pairwise_distance(sparse.dense_to_csr(x), sparse.dense_to_csr(x)),
+        lambda: sparse.dense_to_csr(x, device="cuda"),
+        lambda: masked_l2_nn(x, x, np.ones((300, 2), bool), np.zeros(300, np.int32)),
+        lambda: masked_l2_nn(x, x, np.ones((300, 2), bool), np.zeros(300, np.int32),
+                             device="cuda"),
+        lambda: sparse.neighbors.knn_graph(x, 5),
+        lambda: linear_assignment(x[:8, :8]),
+        lambda: make_blobs(100, 4),
+        lambda: rmat(4, 4, 100),
+        lambda: make_monotonic(np.array([3, 1, 3])),
     ]
     for call in calls:
         with pytest.raises(RuntimeError, match="CUDA"):
@@ -167,23 +190,41 @@ def test_launch_counts_cover_every_kernel():
     assert set(fused_scan.launch_counts().values()) == {0}
 
 
-_SUBPACKAGES = ("cluster", "core", "distance", "integrity", "matrix", "neighbors", "random")
+_SUBPACKAGES = ("cluster", "core", "distance", "integrity", "matrix", "neighbors", "random",
+                "sparse", "label", "spectral", "solver")
+
+
+def _defined_names(path: Path) -> list:
+    """The public top-level functions, classes and assignments of a file,
+    in their order."""
+    names = []
+    for node in ast.parse(path.read_text()).body:
+        if isinstance(node, (ast.FunctionDef, ast.ClassDef)):
+            names.append(node.name)
+        elif isinstance(node, ast.Assign):
+            names.extend(t.id for t in node.targets if isinstance(t, ast.Name))
+    return [n for n in names if not n.startswith("_")]
 
 
 def _port_names(pkg: str) -> set:
     """The names the port's subpackage defines: its module files and the
-    public top-level functions, classes and assignments in them."""
+    public top-level functions, classes and assignments in them (its
+    `__init__` included: `label`, `spectral` and `solver` keep their code
+    there, as the JAX package does)."""
     names = set()
     for path in (_ROOT / "raft_tpu_torch" / pkg).glob("*.py"):
-        if path.name == "__init__.py":
-            continue
-        names.add(path.stem)
-        for node in ast.parse(path.read_text()).body:
-            if isinstance(node, (ast.FunctionDef, ast.ClassDef)):
-                names.add(node.name)
-            elif isinstance(node, ast.Assign):
-                names.update(t.id for t in node.targets if isinstance(t, ast.Name))
-    return {n for n in names if not n.startswith("_")}
+        if path.name != "__init__.py":
+            names.add(path.stem)
+        names.update(_defined_names(path))
+    return names
+
+
+def _jax_public(jax_pkg) -> list:
+    """The JAX package's `__all__`; for a package without one (`label`,
+    `spectral`, `solver`), the public names its `__init__` defines."""
+    if hasattr(jax_pkg, "__all__"):
+        return list(jax_pkg.__all__)
+    return _defined_names(Path(jax_pkg.__file__))
 
 
 @pytest.mark.parametrize("pkg", _SUBPACKAGES)
@@ -193,7 +234,8 @@ def test_namespaces_export_the_ported_part_of_the_jax_all(pkg):
 
     jax_pkg = importlib.import_module(f"raft_tpu.{pkg}")
     port_pkg = importlib.import_module(f"raft_tpu_torch.{pkg}")
-    want = [n for n in jax_pkg.__all__ if n in _port_names(pkg)]
+    want = [n for n in _jax_public(jax_pkg) if n in _port_names(pkg)]
+    assert want, pkg
     assert port_pkg.__all__ == want, (pkg, port_pkg.__all__, want)
     for name in want:
         j, t = getattr(jax_pkg, name), getattr(port_pkg, name)
@@ -227,6 +269,15 @@ def test_new_modules_stand_alone():
             "raft_tpu_torch/integrity/digest.py", "raft_tpu_torch/integrity/scrub.py",
             "raft_tpu_torch/integrity/watchdog.py",
             "raft_tpu_torch/integrity/restore.py"} <= files
+    # the graph path: every module of the JAX files it ports
+    graph = {f"raft_tpu_torch/sparse/{m}.py" for m in (
+        "__init__", "formats", "ops", "linalg", "solver", "neighbors", "distance", "hierarchy",
+        "selection")}
+    graph |= {f"raft_tpu_torch/{m}.py" for m in (
+        "native/__init__", "label/__init__", "spectral/__init__", "solver/__init__",
+        "cluster/single_linkage", "distance/masked_nn", "random/generators",
+        "random/make_blobs")}
+    assert graph <= files
     from raft_tpu_torch.core import tuned
     from raft_tpu_torch.neighbors import probe_budget
 
