@@ -7,6 +7,8 @@
                                        # ptxas lines, adversarial checks); exits 4
     python3 chip_smoke.py --graph      # the build and the graph path only (phase
                                        # 4d and its kernel rows); exits 5
+    python3 chip_smoke.py --primitives # the build and the primitives path only
+                                       # (phase 4e and its kernel rows); exits 6
     python3 chip_smoke.py --apply      # as the first, and writes the tuned A/B
                                        # winners and the adaptive policy as
                                        # raft_tpu_torch/tuned_defaults.json
@@ -169,6 +171,26 @@ Phases, in order; any failure exits non-zero:
      library (raft_tpu_torch/native) must load; kernel 6 must launch in
      the k-NN graphs and the sparse k-NN, kernel 8 in the L1 graph and
      the sparse metrics;
+  4e. the rest of the single-device primitives (primitives_path), under the
+     committed table: two .fbin files written to a temporary directory,
+     2^20 (lat, lon) points (64 gaussian cities, 10% uniform background)
+     read through io.FileBatchLoader's C++ ring reader (it must load) and
+     2^20 3-D points in a centred unit cube through BatchLoadIterator,
+     equal byte for byte; ball_cover on the (lat, lon) rows (haversine, L
+     1024, all_knn_query k 16; 4,096 rows against brute_force.knn's exact
+     haversine: distances within 1e-5 at each rank, ids equal outside
+     ties) and on the 3-D rows (sqeuclidean, 65,536 queries at k 16,
+     tie-aware recall 1.0 against float64; eps_nn_query of 2,048 of them
+     at a mean degree near 32, the adjacency equal to float64 but within
+     1e-3 of eps); on the graph path's 262,144 x 96 blobs (8 clusters)
+     the silhouette of the true labels, ARI and v-measure of a Lloyd fit,
+     the RBF gram of 4,096 rows against all, a 2-D PCA (mean_center,
+     rsvd) of 32,768 rows and its trustworthiness (k 5), each against its
+     float64 twin on the card (scores 1e-4 absolute, gram 1e-5 relative);
+     an IVF-Flat index (512 lists) streamed from host memory in 8
+     extend_batched batches answering as the one-shot build at n_probes
+     512; interruptible.cancel ending a synchronize on a sleep kernel.
+     Kernel 6 must launch in both ball covers, kernel 8 in the 3-D one;
   5. each kernel against its plain version on the inputs the main path gave
      it, with kernel, plain and library times (CUDA events) and the bound;
      kernel 1 also at IVF-Flat's own shape (bf16 residual store, n_probes
@@ -186,7 +208,8 @@ Phases, in order; any failure exits non-zero:
      beside the counting select, descending rows of the tile's shape (its
      one-pass variant's worst case); kernels 6 and 8 on the graph path's
      own tiles (the k-NN graph's, the L1 graph's, the sparse k-NN block
-     and the sparse query block);
+     and the sparse query block), and at the ball cover's (the ball and
+     candidate selects of both covers, the 3-D landmark bounds);
   6. a JSON line of kernels, the card's line, then the device line last.
 """
 
@@ -4315,6 +4338,671 @@ def graph_path(g, dev, sync):
 
 
 # ---------------------------------------------------------------------------
+# phase 4e: the rest of the single-device primitives
+# ---------------------------------------------------------------------------
+
+#: phase 4e's sizes: 2^20 (lat, lon) points in 64 gaussian cities (std
+#: CITY_STD rad) plus 10% uniform background; 2^20 uniform 3-D points
+#: centred at the origin (the expanded L2's f32 error scales with |x|^2)
+#: and 65,536 queries; 2,048 range queries at a mean degree near 32; the
+#: graph path's 262,144 x 96 blobs in 8 clusters for the evaluation and
+#: the streamed build (n_lists 512, 8 batches); far_q queries at far_r
+#: (10 to 40) from the cube's centre, where the bound's relative slack
+#: lets many balls survive pass 1 (pass 2); the load's rate is read on a
+#: file of the blobs' shape (about 100 MB), load_reads times by each reader
+PRIM = dict(hav_n=1 << 20, cities=64, city_std=0.02, background=0.1, k=16, hav_truth=4096,
+            l2_n=1 << 20, l2_q=65_536, far_q=1024, far_r=(10.0, 40.0), eps_q=2048,
+            degree=32, eval_n=262_144, eval_dim=96, eval_blobs=8, gram_m=4096, gamma=1e-3,
+            pca_n=32_768, tw_k=5, stream_lists=512, stream_batches=8, stream_q=4096,
+            load_batch=131_072, rate_batch=32_768, load_reads=3, sleep_s=2.0, cancel_s=0.2)
+PRIM_REHEARSE = dict(PRIM, hav_n=20_000, cities=16, hav_truth=512, l2_n=20_000, l2_q=2048,
+                     far_q=256, eps_q=256, eval_n=8192, eval_dim=16, gram_m=256, pca_n=2048,
+                     stream_lists=32, stream_q=256, load_batch=4096, rate_batch=1024)
+#: the gates: distances at each rank (haversine, against float64), the
+#: tie-aware recall slack of the 3-D queries and of the far ones (their
+#: squared distances are large beside the expanded form's f32 error), eps
+#: slack, scores (absolute) and gram entries (relative)
+HAV_RTOL, L2_SLACK, FAR_SLACK, EPS_SLACK, SCORE_ATOL, GRAM_RTOL = (1e-5, 2e-3, 1e-5, 1e-3, 1e-4,
+                                                                   1e-5)
+
+
+class ProbeTally(Spy):
+    """Counts the ball cover's probe passes (`ball_cover._probe_exact`): a
+    call over more balls than p1 is a pass-2 block. `pass_no` is the pass
+    of the call under way, for `KCalls`."""
+
+    def __init__(self, module):
+        super().__init__(module, "_probe_exact")
+        self.blocks, self.queries, self.p2, self.pass_no = [0, 0], [0, 0], set(), 1
+
+    def __call__(self, index, rows, q, lb, p, k):
+        self.pass_no = 2 if p > min(index.n_landmarks, max(32, k)) else 1
+        self.blocks[self.pass_no - 1] += 1
+        self.queries[self.pass_no - 1] += q.shape[0]
+        if self.pass_no == 2:
+            self.p2.add(p)
+        return self.orig(index, rows, q, lb, p, k)
+
+    def record(self):
+        return {"pass1_blocks": self.blocks[0], "pass2_blocks": self.blocks[1],
+                "pass2_queries": self.queries[1], "p2": sorted(self.p2)}
+
+
+class KCalls(Spy):
+    """Keeps the first call of a kernel wrapper for each (pass, k) of the
+    ball cover, the pass read from `tally`: each pass's ball select (k =
+    its ball count) and candidate select."""
+
+    def __init__(self, module, name, tally):
+        super().__init__(module, name)
+        self.tally = tally
+
+    def __call__(self, *args, **kwargs):
+        key = (self.tally.pass_no, args[1])
+        if all(c[0] != key for c in self.calls):
+            self.calls.append((key, args))
+        return self.orig(*args, **kwargs)
+
+
+def city_points(P, rng):
+    """(n, 2) f32 (lat, lon) in radians: `cities` gaussian clusters (std
+    `city_std`, the longitude spread widened by 1 / cos(lat)) and a
+    `background` share uniform on the sphere, shuffled."""
+    n = P["hav_n"]
+    n_bg = int(n * P["background"])
+    c_lat = np.arcsin(rng.uniform(-0.9, 0.9, P["cities"]))
+    c_lon = rng.uniform(-np.pi, np.pi, P["cities"])
+    who = rng.integers(0, P["cities"], n - n_bg)
+    lat = c_lat[who] + P["city_std"] * rng.standard_normal(n - n_bg)
+    lon = c_lon[who] + P["city_std"] * rng.standard_normal(n - n_bg) / np.cos(c_lat[who])
+    lat = np.concatenate([lat, np.arcsin(rng.uniform(-1, 1, n_bg))])
+    lon = np.concatenate([lon, rng.uniform(-np.pi, np.pi, n_bg)])
+    pts = np.stack([np.clip(lat, -np.pi / 2, np.pi / 2), (lon + np.pi) % (2 * np.pi) - np.pi], 1)
+    return pts[rng.permutation(n)].astype(np.float32)
+
+
+def write_fbin(path, arr):
+    with open(path, "wb") as f:
+        np.asarray(arr.shape, np.uint32).tofile(f)
+        arr.tofile(f)
+
+
+def ring_read(path, shape, batch_rows, dev):
+    """The rows of an .fbin file through the ring reader
+    (`io.FileBatchLoader(native=True)`), copied into one tensor on `dev`."""
+    from raft_tpu_torch import io
+
+    dst = torch.empty(shape, dtype=torch.float32, device=dev)
+    s = 0
+    for batch, valid in io.FileBatchLoader(path, batch_rows, native=True, copy=False):
+        # a copy from pageable memory returns once the host rows are read,
+        # before the next step releases the ring slot
+        dst[s:s + valid].copy_(torch.from_numpy(batch[:valid]))
+        s += valid
+    return dst
+
+
+def iterator_read(path, shape, batch_rows, dev):
+    """The rows of an .fbin file through `BatchLoadIterator` over its
+    memmap, copied into one tensor on `dev`."""
+    from raft_tpu_torch.neighbors import BatchLoadIterator
+
+    mm = np.memmap(path, dtype=np.float32, mode="r", offset=8, shape=shape)
+    dst = torch.empty(shape, dtype=torch.float32, device=dev)
+    s = 0
+    for b, v in BatchLoadIterator(mm, batch_rows, device=dev):
+        dst[s:s + v].copy_(b[:v])
+        s += v
+    return dst
+
+
+def prim_load(P, g, dev, sync, tmp, rng):
+    """Write the two datasets as .fbin; read the (lat, lon) file through
+    the ring reader and the 3-D file through `BatchLoadIterator`, onto the
+    card; each equal to the written rows byte for byte. The rate: a file
+    of the blobs' shape (eval_n x eval_dim f32), read load_reads times by
+    each reader in batches of rate_batch rows, each read byte for byte
+    (page cache warm: the file was just written)."""
+    from raft_tpu_torch import native
+
+    if native.loader_lib() is None:
+        raise AssertionError(f"ring reader library did not load: {native.loader_error()}")
+    hav = city_points(P, rng)
+    pts3 = (rng.random((P["l2_n"], 3), dtype=np.float32) - np.float32(0.5))
+    big = np.random.default_rng(g.seed + 11).random((P["eval_n"], P["eval_dim"]),
+                                                    dtype=np.float32)
+    paths = {"hav": os.path.join(tmp, "cities.fbin"), "l2": os.path.join(tmp, "cube.fbin"),
+             "big": os.path.join(tmp, "rows.fbin")}
+    t0 = time.perf_counter()
+    for name, arr in (("hav", hav), ("l2", pts3), ("big", big)):
+        write_fbin(paths[name], arr)
+    rec = {"write_s": time.perf_counter() - t0, "rate_bytes": big.nbytes}
+    hav_t = ring_read(paths["hav"], hav.shape, P["load_batch"], dev)
+    pts3_t = iterator_read(paths["l2"], pts3.shape, P["load_batch"], dev)
+    big_t = torch.from_numpy(big).to(dev)
+    for name, got, want in (("ring", hav_t, torch.from_numpy(hav).to(dev)),
+                            ("iterator", pts3_t, torch.from_numpy(pts3).to(dev))):
+        if not torch.equal(got, want):
+            raise AssertionError(f"load {name}: the rows on the card differ from the file")
+    for name, read in (("ring", ring_read), ("iterator", iterator_read)):
+        rates = []
+        for _ in range(P["load_reads"]):
+            sync()
+            t0 = time.perf_counter()
+            got = read(paths["big"], big.shape, P["rate_batch"], dev)
+            sync()
+            rates.append(big.nbytes / (time.perf_counter() - t0) / 1e9)
+            if not torch.equal(got, big_t):
+                raise AssertionError(f"load {name}: the rows on the card differ from the file")
+            del got
+        rec[f"{name}_gb_s"] = rates
+    log(f"prim load: wrote {hav.nbytes + pts3.nbytes + big.nbytes} bytes in "
+        f"{rec['write_s']:.3f} s; the two datasets bytes equal; {big.nbytes} bytes in batches "
+        f"of {P['rate_batch']} rows, GB/s a read (warm): ring reader "
+        + ", ".join(f"{r:.3f}" for r in rec["ring_gb_s"]) + "; BatchLoadIterator "
+        + ", ".join(f"{r:.3f}" for r in rec["iterator_gb_s"]) + "; bytes equal")
+    return hav_t, pts3_t, rec
+
+
+def prim_haversine(P, hav, dev, sync):
+    """build_index(haversine) and the exact all-k-NN: (index, d, i, build
+    seconds, query seconds)."""
+    from raft_tpu_torch.neighbors import ball_cover
+
+    sync()
+    t0 = time.perf_counter()
+    index = ball_cover.build_index(hav, metric="haversine", device=dev)
+    sync()
+    build_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    d, i = ball_cover.all_knn_query(index, P["k"])
+    sync()
+    return index, d, i, build_s, time.perf_counter() - t0
+
+
+def hav_truth(x, q, k):
+    """The exact top-k of the queries q among the rows x by a float64
+    haversine (torch.topk, nearest first)."""
+    x64 = x.double()
+    lat2, lon2 = x64[:, 0][None, :], x64[:, 1][None, :]
+    cos2 = torch.cos(lat2)
+    vals, ids = [], []
+    for s in range(0, q.shape[0], 64):
+        q64 = q[s:s + 64].double()
+        lat1, lon1 = q64[:, 0:1], q64[:, 1:2]
+        h = (torch.sin(0.5 * (lat2 - lat1)) ** 2
+             + torch.cos(lat1) * cos2 * torch.sin(0.5 * (lon2 - lon1)) ** 2)
+        v, i = torch.topk(2.0 * torch.arcsin(torch.sqrt(torch.clamp(h, 0.0, 1.0))), k, dim=1,
+                          largest=False)
+        vals.append(v)
+        ids.append(i)
+    return torch.cat(vals), torch.cat(ids)
+
+
+def check_haversine(P, hav, run, tally, rng):
+    """Gates of the haversine all-k-NN on `hav_truth` sampled rows: the
+    distances at each rank within HAV_RTOL of the float64 truth, ids equal
+    outside groups of equal distance."""
+    index, d, i, build_s, query_s = run
+    sample = torch.as_tensor(rng.choice(hav.shape[0], P["hav_truth"], replace=False),
+                             device=hav.device)
+    td, ti = hav_truth(hav, hav[sample], P["k"])
+    got_d, got_i = d[sample].double(), i[sample]
+    err = (got_d - td).abs()
+    rel = float(torch.where(td > 0, err / td.clamp(min=1e-300), err).max())
+    if rel > HAV_RTOL or not tie_equal(td, ti, got_d, got_i, HAV_RTOL):
+        raise AssertionError(f"ball cover haversine: {rel} from the float64 truth, or ids differ "
+                             f"outside ties")
+    sizes = (index.row_ids >= 0).sum(1)
+    rec = {"rows": hav.shape[0], "landmarks": index.n_landmarks, "max_ball": int(sizes.max()),
+           "mean_ball": float(sizes.float().mean()), "build_s": build_s, "query_s": query_s,
+           "max_rel_err": rel, **tally.record()}
+    log(f"prim haversine: n {hav.shape[0]}, L {index.n_landmarks} (balls mean "
+        f"{rec['mean_ball']:.1f}, max {rec['max_ball']}), build {build_s:.3f} s, all_knn_query "
+        f"k {P['k']} {query_s:.3f} s ({rec['pass1_blocks']} blocks, pass 2 "
+        f"{rec['pass2_blocks']} blocks of {rec['pass2_queries']} queries); {P['hav_truth']} rows "
+        f"against the float64 truth: distances within {rel:.2e}, ids equal outside ties")
+    return rec
+
+
+def l2_truth_check(pts3, q, ids, k, slack=L2_SLACK):
+    """Tie-aware recall against float64: each returned id's float64
+    squared distance is at most the true k-th x (1 + slack); ids
+    distinct. Returns the recall (1.0 to pass)."""
+    x64 = pts3.double()
+    xn = (x64 * x64).sum(1)
+    ok = 0
+    for s in range(0, q.shape[0], 256):
+        q64 = q[s:s + 256].double()
+        d = (q64 * q64).sum(1, keepdim=True) + xn[None, :] - 2.0 * q64 @ x64.T
+        kth = torch.topk(d, k, dim=1, largest=False).values[:, -1]
+        got = ((q64[:, None, :] - x64[ids[s:s + 256].long()]) ** 2).sum(-1)
+        ok += int((got <= kth[:, None] * (1 + slack) + 1e-12).sum())
+    distinct = all(len(set(r)) == k for r in ids.cpu().numpy().tolist())
+    return ok / ids.numel() if distinct else 0.0
+
+
+def prim_l2(P, pts3, q, dev, sync):
+    """build_index(sqeuclidean) on the 3-D rows and knn_query of the
+    queries q: (index, i, build seconds, query seconds)."""
+    from raft_tpu_torch.neighbors import ball_cover
+
+    sync()
+    t0 = time.perf_counter()
+    index = ball_cover.build_index(pts3, metric="sqeuclidean", device=dev)
+    sync()
+    build_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    _, i = ball_cover.knn_query(index, q, P["k"])
+    sync()
+    return index, i, build_s, time.perf_counter() - t0
+
+
+def check_l2(P, pts3, q, run, tally, what, slack):
+    """Gate of a 3-D k-NN: tie-aware recall 1.0 against float64."""
+    i, query_s = run
+    rec_k = l2_truth_check(pts3, q, i, P["k"], slack)
+    if rec_k < 1.0:
+        raise AssertionError(f"ball cover sqeuclidean ({what}): tie-aware recall {rec_k} < 1.0")
+    rec = {"queries": q.shape[0], "query_s": query_s, "recall": rec_k, **tally.record()}
+    log(f"prim sqeuclidean ({what}): knn_query {q.shape[0]} x k {P['k']} {query_s:.3f} s "
+        f"({rec['pass1_blocks']} blocks; pass 2 {rec['pass2_blocks']} blocks of "
+        f"{rec['pass2_queries']} queries at p2 {rec['p2']}), tie-aware recall {rec_k:.6f} "
+        f"against float64 (slack {slack})")
+    return rec
+
+
+def far_queries(P, rng, dev):
+    """far_q queries at a distance in far_r from the cube's centre, in
+    uniform directions."""
+    v = rng.standard_normal((P["far_q"], 3))
+    v /= np.linalg.norm(v, axis=1, keepdims=True)
+    r = rng.uniform(P["far_r"][0], P["far_r"][1], (P["far_q"], 1))
+    return torch.as_tensor((v * r).astype(np.float32), device=dev)
+
+
+def prim_far(P, index, q, sync):
+    """knn_query of the far queries on the 3-D index: (i, seconds)."""
+    from raft_tpu_torch.neighbors import ball_cover
+
+    sync()
+    t0 = time.perf_counter()
+    _, i = ball_cover.knn_query(index, q, P["k"])
+    sync()
+    return i, time.perf_counter() - t0
+
+
+def prim_eps(P, index, q, sync):
+    """eps_nn_query of the first eps_q queries, eps for a mean degree near
+    `degree` (a ball of radius r around a uniform point holds n 4/3 pi r^3
+    rows): (queries, eps, adj, deg, seconds)."""
+    from raft_tpu_torch.neighbors import ball_cover
+
+    eps = float((P["degree"] * 3 / (4 * np.pi * P["l2_n"])) ** (2 / 3))
+    qe = q[:P["eps_q"]]
+    sync()
+    t0 = time.perf_counter()
+    adj, deg = ball_cover.eps_nn_query(index, qe, eps)
+    sync()
+    return qe, eps, adj, deg, time.perf_counter() - t0
+
+
+def check_eps(pts3, run):
+    """Gate: the adjacency equals the float64 one but for pairs within
+    EPS_SLACK of eps, and the degrees are its row sums."""
+    qe, eps, adj, deg, eps_s = run
+    x64 = pts3.double()
+    bad = 0
+    for s in range(0, qe.shape[0], 256):
+        d64 = ((qe[s:s + 256].double()[:, None, :] - x64[None]) ** 2).sum(-1)
+        near = (d64 - eps).abs() <= EPS_SLACK * eps
+        bad += int(((d64 <= eps) != adj[s:s + 256])[~near].sum())
+    if bad or not torch.equal(deg, adj.sum(1, dtype=torch.int32)):
+        raise AssertionError(f"eps_nn_query: {bad} pairs differ from float64 outside the slack")
+    rec = {"queries": qe.shape[0], "eps": eps, "eps_s": eps_s,
+           "mean_degree": float(deg.float().mean())}
+    log(f"prim eps: eps_nn_query {qe.shape[0]} queries eps {eps:.4e} {eps_s * 1e3:.3f} ms, "
+        f"mean degree {rec['mean_degree']:.2f}, equal to float64 outside {EPS_SLACK} of eps")
+    return rec
+
+
+def f64_silhouette(x, labels, k):
+    x64 = x.double()
+    n = x.shape[0]
+    onehot = torch.nn.functional.one_hot(labels.long(), k).double()
+    counts = onehot.sum(0)
+    xn = (x64 * x64).sum(1)
+    sums = torch.empty((n, k), dtype=torch.float64, device=x.device)
+    for s in range(0, n, 2048):
+        d = torch.sqrt(torch.clamp(xn[s:s + 2048, None] + xn[None, :] - 2.0 * x64[s:s + 2048]
+                                   @ x64.T, min=0.0))
+        sums[s:s + 2048] = d @ onehot
+    lab = labels.long()
+    own = counts[lab]
+    a = torch.where(own > 1, sums.gather(1, lab[:, None])[:, 0] / (own - 1).clamp(min=1), 0.0)
+    other = (sums / counts.clamp(min=1)).masked_fill(onehot.bool(), float("inf"))
+    b = other.min(1).values
+    return float(torch.where(own > 1, (b - a) / torch.maximum(a, b).clamp(min=1e-30), 0.0).mean())
+
+
+def f64_trustworthiness(x, emb, k):
+    x64, e64 = x.double(), emb.double()
+    n = x.shape[0]
+    xn, en = (x64 * x64).sum(1), (e64 * e64).sum(1)
+    col = torch.arange(n, device=x.device)
+    penalty = 0.0
+    for s in range(0, n, 2048):
+        de = en[s:s + 2048, None] + en[None, :] - 2.0 * e64[s:s + 2048] @ e64.T
+        nbrs = torch.topk(de, k + 1, dim=1, largest=False).indices[:, 1:]
+        dx = xn[s:s + 2048, None] + xn[None, :] - 2.0 * x64[s:s + 2048] @ x64.T
+        for t in range(k):
+            j = nbrs[:, t:t + 1]
+            dj = dx.gather(1, j)
+            rank = ((dx < dj) | ((dx == dj) & (col[None, :] < j))).sum(1)
+            penalty += float(torch.clamp(rank - k, min=0).double().sum())
+    return 1.0 - 2.0 / (n * k * (2.0 * n - 3.0 * k - 1.0)) * penalty
+
+
+def v_measure64(a, b):
+    """sklearn's v-measure of two labelings in float64 (numpy only)."""
+    _, ai = np.unique(np.asarray(a), return_inverse=True)
+    _, bi = np.unique(np.asarray(b), return_inverse=True)
+    cont = np.zeros((ai.max() + 1, bi.max() + 1), np.float64)
+    np.add.at(cont, (ai, bi), 1.0)
+    p = cont / cont.sum()
+
+    def ent(v):
+        v = v[v > 0]
+        return float(-(v * np.log(v)).sum())
+
+    pi, pj = p.sum(1), p.sum(0)
+    nz = p > 0
+    mi = float((p[nz] * np.log(p[nz] / np.outer(pi, pj)[nz])).sum())
+    h = mi / ent(pi) if ent(pi) > 0 else 1.0
+    c = mi / ent(pj) if ent(pj) > 0 else 1.0
+    return 2 * h * c / (h + c) if h + c > 0 else 0.0
+
+
+def prim_eval(P, g, dev, sync):
+    """Evaluation on the graph path's blobs: silhouette of the true labels,
+    ARI and v-measure of a Lloyd fit, the RBF gram of (gram_m, n), and on
+    a pca_n subsample a 2-D PCA (mean_center, rsvd); each against the same
+    formula in float64 on the card. Returns (record, x, the subsample, its
+    embedding) for the streamed build and the trustworthiness."""
+    from raft_tpu_torch import linalg, stats
+    from raft_tpu_torch.cluster import kmeans
+    from raft_tpu_torch.distance import KernelParams, KernelType, gram_matrix
+    from raft_tpu_torch.random import make_blobs
+
+    x, truth = make_blobs(P["eval_n"], P["eval_dim"], n_clusters=P["eval_blobs"],
+                          center_box=(-5.0, 5.0), seed=g.seed, device=dev)
+    rec, times = {}, {}
+
+    def timed(name, fn):
+        sync()
+        t0 = time.perf_counter()
+        out = fn()
+        sync()
+        times[name] = time.perf_counter() - t0
+        return out
+
+    sil = float(timed("silhouette", lambda: stats.silhouette_score(x, truth, device=dev)))
+    sil64 = f64_silhouette(x, truth, P["eval_blobs"])
+    centers, _, _ = timed("kmeans", lambda: kmeans.fit(x, n_clusters=P["eval_blobs"],
+                                                       max_iter=20, seed=g.seed, device=dev))
+    labels = kmeans.predict(x, centers, device=dev)
+    ari_v = float(timed("ari", lambda: stats.adjusted_rand_index(truth, labels, device=dev)))
+    vm = float(timed("v_measure", lambda: stats.v_measure(truth, labels, device=dev)))
+    t_np, l_np = truth.cpu().numpy(), labels.cpu().numpy()
+    ari64, vm64 = ari(t_np, l_np), v_measure64(t_np, l_np)
+    params = KernelParams(KernelType.RBF, gamma=P["gamma"])
+    gm = timed("gram", lambda: gram_matrix(x[:P["gram_m"]], x, params, device=dev))
+    x64 = x.double()
+    gram_err = 0.0
+    for s in range(0, gm.shape[0], 512):
+        a = x64[s:min(s + 512, gm.shape[0])]
+        sq = (a * a).sum(1)[:, None] + (x64 * x64).sum(1)[None, :] - 2.0 * a @ x64.T
+        want = torch.exp(-P["gamma"] * sq.clamp(min=0.0))
+        gram_err = max(gram_err, float(((gm[s:s + 512].double() - want).abs() / want).max()))
+    del gm
+    sub = x[torch.as_tensor(np.random.default_rng(g.seed + 5).choice(P["eval_n"], P["pca_n"],
+                                                                     replace=False),
+                            device=dev)]
+    u, s_, _ = timed("pca", lambda: linalg.rsvd(stats.mean_center(sub, device=dev), 2,
+                                                device=dev))
+    scores = {"silhouette": (sil, sil64), "ari": (ari_v, ari64), "v_measure": (vm, vm64)}
+    for name, (got, want) in scores.items():
+        if not abs(got - want) <= SCORE_ATOL:
+            raise AssertionError(f"stats {name}: {got} against float64 {want}")
+    if gram_err > GRAM_RTOL:
+        raise AssertionError(f"gram_matrix rbf: relative error {gram_err} > {GRAM_RTOL}")
+    rec = {"rows": P["eval_n"], "dim": P["eval_dim"], "scores": scores,
+           "gram_rel_err": gram_err, "s": times}
+    log(f"prim eval: n {P['eval_n']} x {P['eval_dim']}, " + ", ".join(
+        f"{name} {got:.6f} (float64 {want:.6f})" for name, (got, want) in scores.items())
+        + f"; gram rbf ({P['gram_m']}, {P['eval_n']}) within {gram_err:.2e} of float64; seconds "
+        + ", ".join(f"{k_} {v:.3f}" for k_, v in times.items()))
+    return rec, x, sub, u * s_
+
+
+def prim_tw(P, sub, emb, dev, sync):
+    """trustworthiness_score of the PCA embedding: (score, seconds)."""
+    from raft_tpu_torch import stats
+
+    sync()
+    t0 = time.perf_counter()
+    tw = float(stats.trustworthiness_score(sub, emb, n_neighbors=P["tw_k"], device=dev))
+    return tw, time.perf_counter() - t0
+
+
+def check_tw(P, sub, emb, run):
+    """Gate: the trustworthiness within SCORE_ATOL of float64."""
+    tw, tw_s = run
+    tw64 = f64_trustworthiness(sub, emb, P["tw_k"])
+    if not abs(tw - tw64) <= SCORE_ATOL:
+        raise AssertionError(f"stats trustworthiness: {tw} against float64 {tw64}")
+    log(f"prim trustworthiness: {P['pca_n']} rows, 2-D PCA, n_neighbors {P['tw_k']}: {tw:.6f} "
+        f"(float64 {tw64:.6f}) in {tw_s:.3f} s")
+    return {"rows": P["pca_n"], "score": (tw, tw64), "s": tw_s}
+
+
+def prim_stream(P, x, dev, sync):
+    """extend_batched(ivf_flat.extend) of the blobs from host memory in
+    stream_batches batches into an empty IVF-Flat index (n_lists
+    stream_lists), against the one-shot build at n_probes = n_lists: a
+    tie-aware recall of 1.0 (bit for bit reported)."""
+    from raft_tpu_torch.neighbors import batch_loader, ivf_flat
+
+    n_lists = P["stream_lists"]
+    host = x.cpu().numpy()
+    sync()
+    t0 = time.perf_counter()
+    one = ivf_flat.build(ivf_flat.IndexParams(n_lists=n_lists), x, device=dev)
+    sync()
+    one_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    empty = ivf_flat.build(ivf_flat.IndexParams(n_lists=n_lists, add_data_on_build=False), x,
+                           device=dev)
+    sync()
+    train_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    streamed = batch_loader.extend_batched(ivf_flat.extend, empty, host,
+                                           -(-host.shape[0] // P["stream_batches"]))
+    sync()
+    stream_s = time.perf_counter() - t0
+    q = x[:P["stream_q"]] + 0.01
+    sp = ivf_flat.SearchParams(n_probes=n_lists)
+    d1, i1 = ivf_flat.search(sp, one, q, 10)
+    d2, i2 = ivf_flat.search(sp, streamed, q, 10)
+    same = bool(torch.equal(d1, d2) and torch.equal(i1, i2))
+    if not tie_equal(d1, i1, d2, i2, 0.0):
+        raise AssertionError("streamed IVF-Flat: answers differ from the one-shot build")
+    rec = {"rows": host.shape[0], "n_lists": n_lists, "batches": P["stream_batches"],
+           "one_shot_s": one_s, "train_s": train_s, "stream_s": stream_s, "bit_equal": same}
+    log(f"prim stream: IVF-Flat {n_lists} lists, one-shot build {one_s:.3f} s; train "
+        f"{train_s:.3f} s + {P['stream_batches']} extend_batched batches {stream_s:.3f} s; "
+        f"{P['stream_q']} queries at n_probes {n_lists}: tie-aware recall 1.0"
+        + (", bit for bit" if same else ""))
+    return rec
+
+
+class _Pending:
+    """A waitable that is never ready (the CPU rehearsal's stand-in for a
+    long kernel)."""
+
+    def query(self):
+        return False
+
+
+def prim_interrupt(P, dev):
+    """interruptible.cancel from another thread stops a synchronize that
+    waits on a sleep kernel (`torch.cuda._sleep`), with
+    InterruptedException; the kernel then drains."""
+    import threading
+
+    from raft_tpu_torch.core import interruptible
+
+    if dev.type == "cuda":
+        # the sleep kernel counts clock cycles: calibrate cycles a second
+        start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+        start.record()
+        torch.cuda._sleep(10_000_000)
+        end.record()
+        end.synchronize()
+        per_s = 10_000_000 / (start.elapsed_time(end) / 1e3)
+        for _ in range(8):
+            torch.cuda._sleep(int(P["sleep_s"] / 8 * per_s))
+        waitable = torch.cuda.Event()
+        waitable.record()
+    else:
+        waitable = _Pending()
+    timer = threading.Timer(P["cancel_s"], interruptible.cancel, args=(threading.get_ident(),))
+    t0 = time.perf_counter()
+    timer.start()
+    try:
+        interruptible.synchronize(waitable, timeout_s=30)
+        raise AssertionError("interruptible.synchronize returned instead of raising")
+    except interruptible.InterruptedException:
+        waited = time.perf_counter() - t0
+    finally:
+        timer.join()
+    pending = dev.type == "cuda" and not waitable.query()
+    if dev.type == "cuda":
+        torch.cuda.synchronize()
+    drained = time.perf_counter() - t0
+    if waited > P["cancel_s"] + 0.5 or (dev.type == "cuda" and not pending):
+        raise AssertionError(f"cancel: the wait ended after {waited:.3f} s, kernel pending "
+                             f"{pending}")
+    log(f"prim interrupt: cancel at {P['cancel_s']} s ended the wait on a {P['sleep_s']} s "
+        f"sleep kernel after {waited:.3f} s (InterruptedException; kernel still running: "
+        f"{pending}), drained at {drained:.3f} s")
+    return {"waited_s": waited, "drained_s": drained, "kernel_pending": pending}
+
+
+def primitives_path(g, dev, sync):
+    """Phase 4e: load, the haversine and 3-D ball covers (uniform and far
+    queries) with the range query, the evaluation stats, the
+    trustworthiness, the streamed build and the interrupt, under the
+    committed tuned table. Each part's launch counts are set to 0 just
+    before it and read just after its drive; its checks run after that.
+    Gates: each part's own; kernels 6 and 8 launched by the 3-D ball
+    cover, its far queries and the trustworthiness, kernel 6 by the
+    haversine ball cover; pass 2 ran for the far queries. Returns
+    (summary, kernel rows)."""
+    from raft_tpu_torch.neighbors import ball_cover as bc
+    from raft_tpu_torch.ops import _launch
+    from raft_tpu_torch.ops import pairwise_tiled as pt
+    from raft_tpu_torch.ops import select_counting as sc
+
+    P = PRIM_REHEARSE if g.rehearse else PRIM
+    rng = np.random.default_rng(g.seed + 7)
+    t_all = time.perf_counter()
+    out = {"sizes": P, "launches": {}, "wall_s": {}, "check_s": {}}
+    both = ("counting_select_min", "pairwise_tiled")
+
+    def part(name, drive, check=None, need=()):
+        _launch.reset_launch_counts()
+        t0 = time.perf_counter()
+        res = drive()
+        sync()
+        out["wall_s"][name] = time.perf_counter() - t0
+        counts = _launch.launch_counts()
+        out["launches"][name] = counts
+        log(f"path primitives {name}: {out['wall_s'][name]:.3f} s, launches {counts}")
+        missing = [k for k in need if counts[k] <= 0]
+        if missing and dev.type == "cuda":
+            raise AssertionError(f"primitives {name}: kernels never launched: {missing}")
+        if check is None:
+            return res
+        t0 = time.perf_counter()
+        rec = check(res)
+        out["check_s"][name] = time.perf_counter() - t0
+        return rec
+
+    with tempfile.TemporaryDirectory(prefix="prim_") as tmp, committed(dev):
+        hav, pts3, out["load"] = part("load", lambda: prim_load(P, g, dev, sync, tmp, rng))
+        with ProbeTally(bc) as hav_t, KCalls(sc, "counting_select_min", hav_t) as hav_sel:
+            out["haversine"] = part("haversine", lambda: prim_haversine(P, hav, dev, sync),
+                                    lambda r: check_haversine(P, hav, r, hav_t, rng),
+                                    ("counting_select_min",))
+        del hav
+        q = torch.as_tensor(rng.random((P["l2_q"], 3), dtype=np.float32) - np.float32(0.5),
+                            device=dev)
+        with (ProbeTally(bc) as l2_t, KCalls(sc, "counting_select_min", l2_t) as l2_sel,
+              FirstCall(pt, "pairwise_tiled") as l2_lb):
+            index, i, build_s, query_s = part("sqeuclidean", lambda: prim_l2(P, pts3, q, dev, sync),
+                                              need=both)
+            out["sqeuclidean"] = dict(check_l2(P, pts3, q, (i, query_s), l2_t, "uniform",
+                                               L2_SLACK), rows=pts3.shape[0],
+                                      landmarks=index.n_landmarks, build_s=build_s)
+        qf = far_queries(P, rng, dev)
+        with (ProbeTally(bc) as far_t, KCalls(sc, "counting_select_min", far_t) as far_sel,
+              FirstCall(pt, "pairwise_tiled") as far_lb):
+            out["far"] = part("far", lambda: prim_far(P, index, qf, sync),
+                              lambda r: check_l2(P, pts3, qf, r, far_t, "far", FAR_SLACK), both)
+        if out["far"]["pass2_blocks"] == 0:
+            raise AssertionError("ball cover far queries: pass 2 never ran")
+        out["eps"] = part("eps", lambda: prim_eps(P, index, q, sync),
+                          lambda r: check_eps(pts3, r))
+        del pts3, index, q, qf, i
+        out["eval"], x, sub, emb = part("eval", lambda: prim_eval(P, g, dev, sync))
+        with (FirstCall(pt, "pairwise_tiled") as tw_pt,
+              FirstCall(sc, "counting_select_min") as tw_sel):
+            out["trustworthiness"] = part("trustworthiness",
+                                          lambda: prim_tw(P, sub, emb, dev, sync),
+                                          lambda r: check_tw(P, sub, emb, r), both)
+        del sub, emb
+        out["stream"] = part("stream", lambda: prim_stream(P, x, dev, sync))
+        del x
+        out["interrupt"] = part("interrupt", lambda: prim_interrupt(P, dev))
+    counts = out["launches"]
+    rows = []
+    for spy, part_name, what, passes in ((l2_sel, "sqeuclidean", "3-D", (1, 2)),
+                                         (far_sel, "far", "3-D far queries", (2,)),
+                                         (hav_sel, "haversine", "haversine", (1, 2))):
+        for (pass_no, k), (tile, _) in spy.calls:
+            if pass_no in passes:
+                label = (f"ball cover {what}, pass {pass_no} "
+                         + ("candidate select" if k == P["k"] else "ball select"))
+                rows.append(counting_tile_row(tile, k, counts[part_name]["counting_select_min"],
+                                              g.reps, label))
+    for (tile, k), _ in tw_sel.calls:
+        rows.append(counting_tile_row(tile, k, counts["trustworthiness"]["counting_select_min"],
+                                      g.reps, "trustworthiness, the embedding's k-NN"))
+    for spy, part_name, label in ((l2_lb, "sqeuclidean", "ball cover 3-D landmark bounds"),
+                                  (far_lb, "far", "ball cover 3-D far queries' landmark bounds"),
+                                  (tw_pt, "trustworthiness",
+                                   "trustworthiness, the embedding's k-NN")):
+        for (a, b, metric), _ in spy.calls:
+            rows.append(pairwise_row(a, b, metric, counts[part_name]["pairwise_tiled"], g.reps,
+                                     label))
+    del l2_sel, far_sel, hav_sel, tw_sel, l2_lb, far_lb, tw_pt
+    out["wall_s"]["phase"] = time.perf_counter() - t_all
+    log("primitives summary " + json.dumps(out))
+    return out, rows
+
+
+# ---------------------------------------------------------------------------
 # phase 5: kernels on the main path's inputs
 # ---------------------------------------------------------------------------
 
@@ -4977,6 +5665,9 @@ def main(argv=None):
     ap.add_argument("--graph", action="store_true",
                     help="the build and the graph path only (phase 4d and its kernel rows); "
                          "prints no result and exits 5")
+    ap.add_argument("--primitives", action="store_true",
+                    help="the build and the primitives path only (phase 4e and its kernel "
+                         "rows); prints no result and exits 6")
     ap.add_argument("--apply", action="store_true",
                     help="write the tuned A/B winners of this run as "
                          "raft_tpu_torch/tuned_defaults.json, and merge the adaptive policy "
@@ -5030,6 +5721,11 @@ def main(argv=None):
         log(f"graph path complete in {time.perf_counter() - t_all:.1f} s, {len(graph_rows)} "
             "kernel rows; no result printed")
         return 5
+    if g.primitives:
+        _, prim_rows = primitives_path(g, dev, sync)
+        log(f"primitives path complete in {time.perf_counter() - t_all:.1f} s, "
+            f"{len(prim_rows)} kernel rows; no result printed")
+        return 6
     adversarial_checks(fs, pls, dev, np.random.default_rng(g.seed + 1))
     slice_checks(dev, np.random.default_rng(g.seed + 2))
     bitplane_checks(fs, dev, np.random.default_rng(g.seed + 3))
@@ -5147,6 +5843,8 @@ def main(argv=None):
     adaptive_rows, _ = adaptive_path(g, dev, res, fams, sync)
     graph, graph_rows = graph_path(g, dev, sync)
     rows += graph_rows
+    prim, prim_rows = primitives_path(g, dev, sync)
+    rows += prim_rows
     summary = {"build_s": res["build_s"], "truth_s": res["truth_s"], "rungs": res["rungs"],
                "breakdown": res["breakdown"], "pallas_breakdown": res["pallas_breakdown"],
                "refine_kernel": refine_row,
@@ -5163,6 +5861,7 @@ def main(argv=None):
                "adaptive": {"policy": policy, "calibration": calibration,
                             "rows": adaptive_rows},
                "graph": graph,
+               "primitives": prim,
                "wall_s": time.perf_counter() - t_all}
     log("summary " + json.dumps(summary))
     if dev.type != "cuda":

@@ -27,6 +27,7 @@ from raft_tpu_torch.cluster.kmeans_common import (
     cluster_cost_impl,
     predict_labels,
 )
+from raft_tpu_torch.core.config import auto_convert_output
 from raft_tpu_torch.core.validation import as_tensor, check_matrix
 from raft_tpu_torch.random.rng import make_generator, sample_without_replacement
 
@@ -103,6 +104,7 @@ def _lloyd(x: torch.Tensor, centers0: torch.Tensor, weights: Optional[torch.Tens
     return centers, inertia, n_iter
 
 
+@auto_convert_output
 def fit(X, params: Optional[KMeansParams] = None, sample_weights=None, centroids=None,
         device=None, **kwargs) -> Tuple[torch.Tensor, float, int]:
     """Fit k-means; returns (centroids (k, d) f32, inertia, n_iter)
@@ -132,12 +134,14 @@ def fit(X, params: Optional[KMeansParams] = None, sample_weights=None, centroids
     return centers, float(inertia), int(n_iter)
 
 
+@auto_convert_output
 def predict(X, centroids, device=None) -> torch.Tensor:
     """Nearest-centroid labels, int32 (cluster/kmeans.cuh:151)."""
     x = check_matrix(X, device, name="X").float()
     return predict_labels(x, as_tensor(centroids, x.device).float()).to(torch.int32)
 
 
+@auto_convert_output
 def fit_predict(X, params: Optional[KMeansParams] = None, device=None, **kwargs):
     """(labels, centroids, inertia, n_iter) of a `fit` and its `predict`."""
     x = check_matrix(X, device, name="X").float()
@@ -145,6 +149,7 @@ def fit_predict(X, params: Optional[KMeansParams] = None, device=None, **kwargs)
     return predict(x, centers, device=x.device), centers, inertia, n_iter
 
 
+@auto_convert_output
 def transform(X, centroids, device=None) -> torch.Tensor:
     """Squared L2 distances of every row to every centroid
     (cluster/kmeans.cuh:306)."""

@@ -1,13 +1,23 @@
-"""Device resolution for the PyTorch port.
+"""Device resolution and output types for the PyTorch port (counterpart
+of raft_tpu/core/config.py).
 
 Every entry point takes an explicit `device`. The default is the CUDA
 card: a caller that wants the CPU says so (`device="cpu"`, as the CPU
 parity tests do). Without a card, a default request raises instead of
 carrying on quietly on the CPU, so a measurement can never be a CPU
 number under a device's name.
+
+Output types (pylibraft's `set_output_as`, applied by
+`auto_convert_output`): entry points return tensors; `set_output_as`
+may ask for "numpy" (host copies) or any callable taking a tensor.
+Conversion happens once, at the outermost decorated call.
 """
 
 from __future__ import annotations
+
+import functools
+import threading
+from typing import Any, Callable, Union
 
 import torch
 
@@ -31,3 +41,66 @@ def strict_f32_matmul() -> None:
     `Precision.HIGHEST` (raft_tpu/distance/pairwise.py); TF32 would keep
     only ~3 decimal digits and flip near-tie rankings."""
     torch.backends.cuda.matmul.allow_tf32 = False
+
+
+_TLS = threading.local()
+_OUTPUT_AS: Union[str, Callable[[torch.Tensor], Any]] = "torch"
+_VALID = ("torch", "numpy")
+
+
+def set_output_as(output) -> None:
+    """Set the output type of the API's returns: "torch" (the default),
+    "numpy", or a callable tensor -> Any."""
+    global _OUTPUT_AS
+    if not callable(output) and output not in _VALID:
+        raise ValueError(f"output must be one of {_VALID} or a callable, got {output!r}")
+    _OUTPUT_AS = output
+
+
+def get_output_as():
+    return _OUTPUT_AS
+
+
+def _convert_one(x: Any) -> Any:
+    if not isinstance(x, torch.Tensor):
+        return x
+    out = _OUTPUT_AS
+    if callable(out):
+        return out(x)
+    if out == "numpy":
+        x = x.detach().cpu()
+        return (x.float() if x.dtype == torch.bfloat16 else x).numpy()
+    return x
+
+
+def convert_output(value: Any) -> Any:
+    """A return value (tensor, or tuple / list / dict of them) converted
+    to the configured output type; other leaves pass through."""
+    if isinstance(value, tuple):
+        converted = [convert_output(v) for v in value]
+        if hasattr(value, "_fields"):  # namedtuple: positional construction
+            return type(value)(*converted)
+        return type(value)(converted)
+    if isinstance(value, list):
+        return [convert_output(v) for v in value]
+    if isinstance(value, dict):
+        return {k: convert_output(v) for k, v in value.items()}
+    return _convert_one(value)
+
+
+def auto_convert_output(fn: Callable) -> Callable:
+    """Decorator applying `convert_output` to a function's return value,
+    at the OUTERMOST decorated call only: library code that chains public
+    calls sees tensors, and the caller gets one conversion."""
+
+    @functools.wraps(fn)
+    def wrapper(*args, **kwargs):
+        if getattr(_TLS, "depth", 0):
+            return fn(*args, **kwargs)
+        _TLS.depth = 1
+        try:
+            return convert_output(fn(*args, **kwargs))
+        finally:
+            _TLS.depth = 0
+
+    return wrapper

@@ -62,6 +62,9 @@ ENV_SEED = "RAFT_TPU_FAULT_SEED"
 # descriptions are the JAX package's, one line each; the module
 # docstring renders from this dict)
 FAULT_SITES = {
+    "batch_loader.load": (
+        "host loader block fetch (slow_rank latency, flaky reads, "
+        "corrupt_host NaNs in a streamed block)"),
     "fused.scan.scores": (
         "fused scan+select-k kernel's candidate buffer (corrupt_shard "
         "NaNs the selected candidate values in-trace, before callers "

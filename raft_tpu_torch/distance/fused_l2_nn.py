@@ -14,6 +14,7 @@ from typing import Tuple
 
 import torch
 
+from raft_tpu_torch.core.config import auto_convert_output
 from raft_tpu_torch.core.validation import check_matrix, check_same_cols
 
 
@@ -32,6 +33,7 @@ def _operands(X, Y, device):
     return x, y
 
 
+@auto_convert_output
 def fused_l2_nn_argmin(X, Y, sqrt: bool = False, device=None) -> torch.Tensor:
     """(m,) int32 index of the nearest row of Y (L2) for each row of X
     (pylibraft's `fused_l2_nn_argmin`)."""

@@ -11,7 +11,9 @@ Every metric of the pylibraft enum, as the JAX package computes it:
     Pallas engine; its plain version for a CPU tensor); Lp, Jensen-Shannon
     and Bray-Curtis stay PyTorch tensor code, row-blocked by
     `_tiled_rowwise` so the (bm, n, k) broadcast stays near 2^22 elements;
-  - haversine on (lat, lon) rows.
+  - haversine on (lat, lon) rows, with the rounding of the longitude
+    difference added back (the JAX program's f32 formula loses up to
+    1.5e-4 of a short distance across the antimeridian).
 """
 
 from __future__ import annotations
@@ -20,16 +22,45 @@ from typing import Callable
 
 import torch
 
-from raft_tpu_torch.core.config import strict_f32_matmul
+from raft_tpu_torch.core.config import auto_convert_output, strict_f32_matmul
 from raft_tpu_torch.core.validation import check_matrix, check_same_cols
 from raft_tpu_torch.distance.distance_types import DistanceType, resolve_metric
 
 _TINY = torch.finfo(torch.float32).tiny
 
 
+#: precision of the expanded-distance dots (`set_matmul_precision`):
+#: "highest", full float32 with TF32 off (the default: the JAX package's
+#: Precision.HIGHEST, f32 parity with the reference's cuBLAS path), or
+#: "default", TF32 on the tensor cores (the JAX DEFAULT's one-pass trade,
+#: ~1e-3 relative error)
+_MATMUL_PRECISION = "highest"
+_PRECISIONS = {"highest": "highest", "high": "highest", "default": "default"}
+
+
+def set_matmul_precision(precision) -> None:
+    """Set the precision of the f32 distance matmuls: "highest" (the
+    default; "high" reads the same) or "default" (TF32). A
+    `jax.lax.Precision` member is read by its name."""
+    global _MATMUL_PRECISION
+    name = str(getattr(precision, "name", precision)).lower()
+    if name not in _PRECISIONS:
+        raise ValueError(f"unknown matmul precision {precision!r}; use 'highest' or 'default'")
+    _MATMUL_PRECISION = _PRECISIONS[name]
+
+
 def _dot(x: torch.Tensor, y: torch.Tensor) -> torch.Tensor:
-    """x (m, k) @ y.T (k, n) in full float32 (no TF32: the reference runs
-    these dots at Precision.HIGHEST)."""
+    """x (m, k) @ y.T (k, n) in float32 at the module's precision: full
+    float32 (TF32 off) unless `set_matmul_precision("default")` asked for
+    TF32, which this call then enables and restores."""
+    if _MATMUL_PRECISION == "default":
+        matmul = torch.backends.cuda.matmul
+        prev = matmul.allow_tf32
+        matmul.allow_tf32 = True
+        try:
+            return x.float() @ y.float().T
+        finally:
+            matmul.allow_tf32 = prev
     strict_f32_matmul()
     return x.float() @ y.float().T
 
@@ -152,13 +183,27 @@ def _braycurtis_row(xb, y):
     return torch.where(den > 0, num / torch.where(den > 0, den, 1.0), 0.0)
 
 
+def _sin_half_dlon(lon1, lon2):
+    """sin((lon2 - lon1) / 2) with the f32 difference's rounding added
+    back. Across the antimeridian lon2 - lon1 is near +-2 pi while the
+    angle is small, so its rounding (up to 2.4e-7) is a large share of a
+    short distance (1.5e-4 of one near 1e-3 rad). The rounding e is exact
+    (TwoSum); the correction is e / 2 cos(s / 2), and where it matters (s
+    near +-2 pi) cos(s / 2) is -1 to f32 precision, while elsewhere the
+    term stays within two ulps of the result."""
+    s = lon2 - lon1
+    b = s - lon2
+    e = (lon2 - (s - b)) - (lon1 + b)
+    return torch.sin(0.5 * s) - 0.5 * e
+
+
 def _haversine(x, y):
     # 2-d (lat, lon) in radians (spatial/knn haversine semantics)
     xf, yf = x.float(), y.float()
     lat1, lon1 = xf[:, 0][:, None], xf[:, 1][:, None]
     lat2, lon2 = yf[:, 0][None, :], yf[:, 1][None, :]
     sdlat = torch.sin(0.5 * (lat2 - lat1))
-    sdlon = torch.sin(0.5 * (lon2 - lon1))
+    sdlon = _sin_half_dlon(lon1, lon2)
     h = sdlat ** 2 + torch.cos(lat1) * torch.cos(lat2) * sdlon ** 2
     return 2.0 * torch.arcsin(torch.sqrt(torch.clamp(h, 0.0, 1.0)))
 
@@ -219,6 +264,7 @@ def _pairwise_impl(x: torch.Tensor, y: torch.Tensor, metric: DistanceType, *,
     raise ValueError(f"metric {metric} not implemented")
 
 
+@auto_convert_output
 def pairwise_distance(X, Y, out=None, metric="euclidean", p: float = 2.0, device=None):
     """The full (m, n) f32 pairwise distance matrix (pylibraft's
     `pairwise_distance`). `metric` is a DistanceType, its value or a

@@ -12,6 +12,12 @@ not available, and its caller then takes the Python twin, as the JAX
 package does (`sparse/formats.dense_to_csr`, `label.make_monotonic`,
 `cluster/single_linkage._mst_linkage` and `_cut_tree`). `available()`
 says which one ran; `load_error()` why the library did not load.
+
+`csrc/loader_host.cc` is a second library of the same kind: the
+prefetching ring reader of `io.FileBatchLoader` (`rt_loader_open /
+acquire / release / close`, the JAX package's native reader), built the
+same way at first use; `loader_lib()` returns it or None, and
+`loader_error()` says why not.
 """
 
 from __future__ import annotations
@@ -29,20 +35,11 @@ import numpy as np
 
 _PKG = Path(__file__).resolve().parent.parent
 SOURCE = _PKG / "csrc" / "graph_host.cc"
+LOADER_SOURCE = _PKG / "csrc" / "loader_host.cc"
 BUILD_DIR = _PKG / "_build"
-
-_lock = threading.Lock()
-_lib: Optional[ctypes.CDLL] = None
-_tried = False
-_error: Optional[str] = None
 
 _i32p = ctypes.POINTER(ctypes.c_int32)
 _i64p = ctypes.POINTER(ctypes.c_int64)
-
-
-def _target() -> Path:
-    digest = hashlib.sha256(SOURCE.read_bytes()).hexdigest()[:12]
-    return BUILD_DIR / f"graph_host_{digest}.so"
 
 
 def _compiler() -> str:
@@ -53,17 +50,50 @@ def _compiler() -> str:
     raise RuntimeError("no C++ compiler found (set CXX)")
 
 
-def build() -> Path:
-    """Compile the library if it is missing; returns its path. Concurrent
-    builds each write their own temporary file and rename it."""
-    out = _target()
-    if not out.exists():
-        BUILD_DIR.mkdir(parents=True, exist_ok=True)
-        tmp = out.with_name(f"{out.name}.{os.getpid()}.tmp")
-        subprocess.run([_compiler(), "-O3", "-std=c++17", "-shared", "-fPIC", str(SOURCE),
-                        "-o", str(tmp)], check=True, capture_output=True, timeout=300)
-        os.replace(tmp, out)
-    return out
+class _Library:
+    """One host library: its source, built at first use into `_build/`
+    under a name that carries the source's hash, loaded and bound once."""
+
+    def __init__(self, source: Path, bind):
+        self.source = source
+        self.bind = bind
+        self.lock = threading.Lock()
+        self.lib: Optional[ctypes.CDLL] = None
+        self.tried = False
+        self.error: Optional[str] = None
+
+    def target(self) -> Path:
+        digest = hashlib.sha256(self.source.read_bytes()).hexdigest()[:12]
+        return BUILD_DIR / f"{self.source.stem}_{digest}.so"
+
+    def build(self) -> Path:
+        """Compile the library if it is missing; returns its path.
+        Concurrent builds each write their own temporary file and rename
+        it."""
+        out = self.target()
+        if not out.exists():
+            BUILD_DIR.mkdir(parents=True, exist_ok=True)
+            tmp = out.with_name(f"{out.name}.{os.getpid()}.tmp")
+            subprocess.run([_compiler(), "-O3", "-std=c++17", "-shared", "-fPIC", "-pthread",
+                            str(self.source), "-o", str(tmp)],
+                           check=True, capture_output=True, timeout=300)
+            os.replace(tmp, out)
+        return out
+
+    def get(self) -> Optional[ctypes.CDLL]:
+        with self.lock:
+            if self.lib is None and not self.tried:
+                self.tried = True
+                try:
+                    lib = ctypes.CDLL(str(self.build()))
+                    self.bind(lib)
+                    self.lib = lib
+                except (OSError, RuntimeError, AttributeError,
+                        subprocess.SubprocessError) as exc:
+                    detail = getattr(exc, "stderr", None) or b""
+                    self.error = (f"{type(exc).__name__}: {exc} "
+                                  f"{detail.decode(errors='replace')}")
+            return self.lib
 
 
 def _bind(lib: ctypes.CDLL) -> None:
@@ -80,22 +110,46 @@ def _bind(lib: ctypes.CDLL) -> None:
     lib.gh_cut_tree.argtypes = [_i64p, ctypes.c_int64, ctypes.c_int64, ctypes.c_int64, _i32p]
 
 
+def _bind_loader(lib: ctypes.CDLL) -> None:
+    lib.rt_loader_open.restype = ctypes.c_void_p
+    lib.rt_loader_open.argtypes = [ctypes.c_char_p, ctypes.c_int64, ctypes.c_int64,
+                                   ctypes.c_int64, ctypes.c_int64, ctypes.c_int64]
+    lib.rt_loader_acquire.restype = ctypes.c_int64
+    lib.rt_loader_acquire.argtypes = [ctypes.c_void_p,
+                                      ctypes.POINTER(ctypes.POINTER(ctypes.c_uint8))]
+    lib.rt_loader_release.restype = ctypes.c_int32
+    lib.rt_loader_release.argtypes = [ctypes.c_void_p]
+    lib.rt_loader_close.restype = None
+    lib.rt_loader_close.argtypes = [ctypes.c_void_p]
+
+
+_GRAPH = _Library(SOURCE, _bind)
+_LOADER = _Library(LOADER_SOURCE, _bind_loader)
+
+
+def _target() -> Path:
+    return _GRAPH.target()
+
+
+def build() -> Path:
+    """Compile the graph library if it is missing; returns its path."""
+    return _GRAPH.build()
+
+
 def get_lib() -> Optional[ctypes.CDLL]:
-    """The loaded library, building it on first use; None if it cannot be
-    built or loaded (the reason in `load_error()`)."""
-    global _lib, _tried, _error
-    with _lock:
-        if _lib is None and not _tried:
-            _tried = True
-            try:
-                lib = ctypes.CDLL(str(build()))
-                _bind(lib)
-                _lib = lib
-            except (OSError, RuntimeError, AttributeError,
-                    subprocess.SubprocessError) as exc:
-                detail = getattr(exc, "stderr", None) or b""
-                _error = f"{type(exc).__name__}: {exc} {detail.decode(errors='replace')}"
-        return _lib
+    """The loaded graph library, building it on first use; None if it
+    cannot be built or loaded (the reason in `load_error()`)."""
+    return _GRAPH.get()
+
+
+def loader_lib() -> Optional[ctypes.CDLL]:
+    """The loaded ring-reader library, building it on first use; None if
+    it cannot be built or loaded (the reason in `loader_error()`)."""
+    return _LOADER.get()
+
+
+def loader_error() -> Optional[str]:
+    return _LOADER.error
 
 
 def available() -> bool:
@@ -103,7 +157,7 @@ def available() -> bool:
 
 
 def load_error() -> Optional[str]:
-    return _error
+    return _GRAPH.error
 
 
 def _p64(a: np.ndarray):

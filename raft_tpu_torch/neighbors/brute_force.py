@@ -35,6 +35,7 @@ from typing import Tuple
 
 import torch
 
+from raft_tpu_torch.core.config import auto_convert_output
 from raft_tpu_torch.core.validation import as_tensor, check_matrix, check_same_cols
 from raft_tpu_torch.distance.distance_types import (
     DistanceType,
@@ -81,6 +82,7 @@ def _bf_knn_impl(dataset: torch.Tensor, queries: torch.Tensor, k: int,
     return best_v, best_i.to(torch.int32)
 
 
+@auto_convert_output
 def knn(dataset, queries, k: int, metric="sqeuclidean", metric_arg: float = 2.0,
         engine: str = "tiled", prefilter=None, compute_dtype=None,
         device=None) -> Tuple[torch.Tensor, torch.Tensor]:

@@ -94,7 +94,7 @@ import torch
 
 from raft_tpu_torch.cluster import kmeans_balanced
 from raft_tpu_torch.core import tuned
-from raft_tpu_torch.core.config import resolve_device, strict_f32_matmul
+from raft_tpu_torch.core.config import auto_convert_output, resolve_device, strict_f32_matmul
 from raft_tpu_torch.core.validation import check_matrix
 from raft_tpu_torch.distance.distance_types import DistanceType, resolve_metric
 from raft_tpu_torch.matrix.select_k import _select_k_impl
@@ -1064,6 +1064,7 @@ def resolve_search(params: SearchParams, nq: int, n_probes: int, n_lists: int, d
     return mode, trim, idd
 
 
+@auto_convert_output
 def search(params: SearchParams, index: Index, queries, k: int, prefilter=None
            ) -> Tuple[torch.Tensor, torch.Tensor]:
     """ANN search; returns (distances (nq, k) f32, neighbor source ids

@@ -74,7 +74,7 @@ import torch
 
 from raft_tpu_torch.cluster import kmeans_balanced
 from raft_tpu_torch.core import tuned
-from raft_tpu_torch.core.config import resolve_device, strict_f32_matmul
+from raft_tpu_torch.core.config import auto_convert_output, resolve_device, strict_f32_matmul
 from raft_tpu_torch.core.validation import check_matrix
 from raft_tpu_torch.distance.distance_types import DistanceType, resolve_metric
 from raft_tpu_torch.matrix.select_k import _select_k_impl
@@ -640,6 +640,7 @@ def _search_impl_rabitq_fused(queries, rotation, centers, codes_t, bp_meta, slot
     return v, rows_out.to(torch.int32)
 
 
+@auto_convert_output
 def search(params: SearchParams, index: Index, queries, k: int, prefilter=None,
            refine_dataset=None) -> Tuple[torch.Tensor, torch.Tensor]:
     """ANN search; returns (distances (nq, k) f32, neighbor source ids

@@ -24,7 +24,7 @@ from typing import Optional, Tuple
 import numpy as np
 import torch
 
-from raft_tpu_torch.core.config import strict_f32_matmul
+from raft_tpu_torch.core.config import auto_convert_output, strict_f32_matmul
 from raft_tpu_torch.core.validation import as_tensor, check_matrix
 from raft_tpu_torch.distance.distance_types import DistanceType, resolve_metric
 from raft_tpu_torch.matrix.select_k import _select_k_impl
@@ -132,6 +132,7 @@ def _check_strategy(strategy, m: DistanceType, nc: int, dim: int, k: int) -> boo
     return True
 
 
+@auto_convert_output
 def refine(dataset, queries, candidates, k: int, metric="sqeuclidean",
            strategy: Optional[str] = "two_phase", device=None
            ) -> Tuple[torch.Tensor, torch.Tensor]:
@@ -153,6 +154,7 @@ def refine(dataset, queries, candidates, k: int, metric="sqeuclidean",
     return _refine_impl(ds, q, cand, int(k), m)
 
 
+@auto_convert_output
 def refine_host(dataset, queries, candidates, k: int, metric="sqeuclidean",
                 strategy: Optional[str] = "two_phase", device=None
                 ) -> Tuple[torch.Tensor, torch.Tensor]:

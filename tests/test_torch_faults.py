@@ -17,7 +17,8 @@ the chaos drills of the port's fault sites.
 - `crash_point` SIGKILLs a child process (`python -c`) on the count-th
   visit.
 - `FAULT_SITES` is a subset of the JAX registry with equal descriptions,
-  and every registered site has a live hook in the port's source.
+  and every registered site has a live hook in the port's source; the
+  eighth, `batch_loader.load`, sits in `neighbors/batch_loader`.
 - Chaos drills (the JAX drills of tests/test_resilience.py on the port):
   `fused.scan.scores` NaNs every value of brute_force.knn(engine="fused")
   and of IVF-Flat's fused search, then bit for bit the clean results once
@@ -289,6 +290,16 @@ def test_fault_sites_are_jax_sites_with_live_hooks():
     hooks = {"fault_point", "crash_point", "corrupt_in_trace", "active_plan"}
     for site in tf.FAULT_SITES:
         assert any(hooks & _called_names(p) for p in literals[site]), site
+
+
+def test_batch_loader_load_is_the_eighth_site():
+    """`batch_loader.load` joined with `neighbors/batch_loader`: eight
+    sites, the JAX description, hooked by `fault_point` and
+    `corrupt_host` in that module."""
+    assert len(tf.FAULT_SITES) == 8
+    assert tf.FAULT_SITES["batch_loader.load"] == jf.FAULT_SITES["batch_loader.load"]
+    path = _ROOT / "raft_tpu_torch" / "neighbors" / "batch_loader.py"
+    assert {"fault_point", "corrupt_host"} <= _called_names(path)
 
 
 def _called_names(path):

@@ -11,6 +11,7 @@ the CPU behind the caller's back.
 """
 
 import ast
+import importlib
 from pathlib import Path
 
 import numpy as np
@@ -137,6 +138,30 @@ def test_entry_points_never_answer_a_cuda_request_on_the_cpu(monkeypatch, tmp_pa
         lambda: rmat(4, 4, 100),
         lambda: make_monotonic(np.array([3, 1, 3])),
     ]
+    # the rest of item 10: the ball cover, eps neighbourhoods, stats,
+    # linalg, the matrix helpers, gram kernels, the RNG, the core surface
+    from raft_tpu_torch import core, linalg, matrix, random as trandom, stats
+    from raft_tpu_torch.distance import gram_matrix
+    from raft_tpu_torch.neighbors import BatchLoadIterator, ball_cover, eps_neighbors
+
+    calls += [
+        lambda: ball_cover.build_index(x[:, :2], metric="haversine"),
+        lambda: ball_cover.build_index(x, metric="sqeuclidean", device="cuda"),
+        lambda: eps_neighbors(x, x[:4], 1.0),
+        lambda: stats.mean(x),
+        lambda: stats.silhouette_score(x, np.zeros(300, np.int32)),
+        lambda: stats.adjusted_rand_index(np.zeros(300, np.int32), np.zeros(300, np.int32)),
+        lambda: linalg.gemm(x, x.T),
+        lambda: linalg.rsvd(x, 2),
+        lambda: matrix.eye(3),
+        lambda: matrix.argmax(x),
+        lambda: gram_matrix(x, x[:4]),
+        lambda: trandom.RngState(0),
+        lambda: core.Resources().device,
+        lambda: core.device_ndarray(x),
+        lambda: core.make_device_matrix(2, 2),
+        lambda: BatchLoadIterator(x, 100),
+    ]
     for call in calls:
         with pytest.raises(RuntimeError, match="CUDA"):
             call()
@@ -191,7 +216,12 @@ def test_launch_counts_cover_every_kernel():
 
 
 _SUBPACKAGES = ("cluster", "core", "distance", "integrity", "matrix", "neighbors", "random",
-                "sparse", "label", "spectral", "solver")
+                "sparse", "label", "spectral", "solver", "linalg", "stats", "spatial", "util",
+                "io")
+
+#: top-level names of the JAX package that come with the distributed and
+#: serving layer (ROADMAP item 12)
+_ITEM12_TOP_LEVEL = ("DegradedSearchResult", "RankHealth", "comms", "jobs", "obs", "serve")
 
 
 def _defined_names(path: Path) -> list:
@@ -206,16 +236,32 @@ def _defined_names(path: Path) -> list:
     return [n for n in names if not n.startswith("_")]
 
 
+def _lazy_names(path: Path) -> list:
+    """The names a module's PEP 562 `__getattr__` resolves (`if name ==
+    "lanczos"`)."""
+    names = []
+    for node in ast.parse(path.read_text()).body:
+        if isinstance(node, ast.FunctionDef) and node.name == "__getattr__":
+            for cmp in ast.walk(node):
+                if isinstance(cmp, ast.Compare):
+                    names += [c.value for c in cmp.comparators
+                              if isinstance(c, ast.Constant) and isinstance(c.value, str)]
+    return names
+
+
 def _port_names(pkg: str) -> set:
-    """The names the port's subpackage defines: its module files and the
-    public top-level functions, classes and assignments in them (its
-    `__init__` included: `label`, `spectral` and `solver` keep their code
-    there, as the JAX package does)."""
-    names = set()
-    for path in (_ROOT / "raft_tpu_torch" / pkg).glob("*.py"):
+    """The names the port's subpackage defines: its module files and
+    subpackages, the public top-level functions, classes and assignments
+    in them (its `__init__` included: `label`, `spectral` and `solver`
+    keep their code there, as the JAX package does), and the names its
+    `__init__` resolves lazily."""
+    root = _ROOT / "raft_tpu_torch" / pkg
+    names = {d.name for d in root.iterdir() if (d / "__init__.py").exists()}
+    for path in root.glob("*.py"):
         if path.name != "__init__.py":
             names.add(path.stem)
         names.update(_defined_names(path))
+    names.update(_lazy_names(root / "__init__.py"))
     return names
 
 
@@ -245,6 +291,26 @@ def test_namespaces_export_the_ported_part_of_the_jax_all(pkg):
     namespace = {}
     exec(f"from raft_tpu_torch.{pkg} import *", namespace)  # no import cycle, every name bound
     assert set(want) <= set(namespace)
+
+
+def test_top_level_exports_the_jax_all_but_the_distributed_layer():
+    import raft_tpu
+
+    want = [n for n in raft_tpu.__all__ if n not in _ITEM12_TOP_LEVEL]
+    assert raft_tpu_torch.__all__ == want
+    assert raft_tpu_torch.__version__ == raft_tpu.__version__
+    for name in want:
+        if name == "__version__":
+            continue
+        j, t = getattr(raft_tpu, name), getattr(raft_tpu_torch, name)
+        assert type(j).__name__ == type(t).__name__, name
+    assert raft_tpu_torch.ivf_rabitq_search is ivf_rabitq.search
+    assert raft_tpu_torch.ivf_rabitq_build is ivf_rabitq.build
+    assert raft_tpu_torch.stats is importlib.import_module("raft_tpu_torch.stats")
+    assert raft_tpu_torch.resolve_device is resolve_device
+    for name in _ITEM12_TOP_LEVEL:
+        with pytest.raises(AttributeError):
+            getattr(raft_tpu_torch, name)
 
 
 def test_neighbors_refine_is_the_function():
@@ -278,6 +344,16 @@ def test_new_modules_stand_alone():
         "cluster/single_linkage", "distance/masked_nn", "random/generators",
         "random/make_blobs")}
     assert graph <= files
+    # the rest of item 10
+    rest = {f"raft_tpu_torch/{m}.py" for m in (
+        "neighbors/ann_types", "neighbors/epsilon_neighborhood", "neighbors/ball_cover",
+        "neighbors/batch_loader", "spatial/__init__", "spatial/knn/__init__", "io/__init__",
+        "stats/__init__", "stats/descriptive", "stats/metrics", "linalg/__init__", "linalg/blas",
+        "linalg/elementwise", "linalg/reductions", "linalg/solvers", "matrix/__init__",
+        "distance/kernels", "random/rng", "util/__init__", "core/operators", "core/resources",
+        "core/device_ndarray", "core/mdarray", "core/interruptible", "core/logger",
+        "core/tracing", "core/validation", "core/config")}
+    assert rest <= files
     from raft_tpu_torch.core import tuned
     from raft_tpu_torch.neighbors import probe_budget
 
