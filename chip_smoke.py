@@ -9,6 +9,8 @@
                                        # 4d and its kernel rows); exits 5
     python3 chip_smoke.py --primitives # the build and the primitives path only
                                        # (phase 4e and its kernel rows); exits 6
+    python3 chip_smoke.py --obs        # the build and the observability path only
+                                       # (phase 4f on indexes it builds); exits 7
     python3 chip_smoke.py --apply      # as the first, and writes the tuned A/B
                                        # winners and the adaptive policy as
                                        # raft_tpu_torch/tuned_defaults.json
@@ -191,6 +193,19 @@ Phases, in order; any failure exits non-zero:
      extend_batched batches answering as the one-shot build at n_probes
      512; interruptible.cancel ending a synchronize on a sleep kernel.
      Kernel 6 must launch in both ball covers, kernel 8 in the 3-D one;
+  4f. the observability layer (obs_path) on phase 4's indexes and data:
+     obs disabled, the default and fused IVF-PQ batches cost what phase 4
+     measured; obs enabled, every fenced call of the main path (IVF-PQ
+     default, fused bf16 / int8 and pallas searches, each refine, the
+     exact fused k-NN, IVF-Flat fused, RaBitQ at its gate rung) answers
+     bit for bit as with obs disabled, its spans charge their analytic
+     cost and no MFU against the "h100" row reads above 1.05; kernels 1,
+     2, 3, 4, 6 and 7 launch; the adaptive, mutation and scrub counters
+     equal the operations; the report renders in a subprocess, the
+     Prometheus buckets are monotone, a trace_session's Chrome trace
+     names kernels 1 and 2; a child SIGKILLed at a crash_point leaves its
+     flight dump, and a child that indexes a CUDA tensor out of range
+     sees `is_device_fault` errors on that op and the next;
   5. each kernel against its plain version on the inputs the main path gave
      it, with kernel, plain and library times (CUDA events) and the bound;
      kernel 1 also at IVF-Flat's own shape (bf16 residual store, n_probes
@@ -3238,6 +3253,94 @@ def strip_ab(res_by_cell):
                     for r in rows] for label, rows in res_by_cell.items()}
 
 
+def _timed(fn, sync, reps=3):
+    """(the last result, the best of `reps` synchronized calls in ms)."""
+    best, out = None, None
+    for _ in range(reps):
+        sync()
+        t0 = time.perf_counter()
+        out = fn()
+        sync()
+        ms = (time.perf_counter() - t0) * 1e3
+        best = ms if best is None else min(best, ms)
+    return out, best
+
+
+def _bits(t):
+    return t.contiguous().view(torch.int32)
+
+
+def invert_checks(g, dev, res, sync):
+    """Item 8 on the card: the counting chunk tables equal the sorted ones
+    table for table and bit for bit (values and dtypes) at the main path's
+    probes (nq g.nq at n_probes 8 and 20 on the index's lists), at
+    g.wide_lists lists (the queries' 8 nearest of as many dataset rows)
+    and under an adaptive keep mask (budget_tau 0.3 at n_probes 20); and
+    the one-hot query rows at the main path's n_probes-8 tables:
+    "onehot_f32h" equal to the gather bit for bit, "onehot_bf16" equal to
+    the gathered rows rounded to bf16 (the sums start from +0.0, so both
+    are held to the gather + 0.0). Each construction and impl timed
+    (best of three synchronized calls). Raises on any difference."""
+    from raft_tpu_torch.neighbors import ivf_pq, probe_budget
+    from raft_tpu_torch.neighbors import probe_invert as pi
+
+    index, queries, dataset = res["index"], res["queries"], res["dataset"]
+    chunk = 128
+    cases = []
+    for n_probes in (8, 20):
+        q_rot, probes, _ = ivf_pq._coarse_select(queries, index.rotation, index.centers,
+                                                 n_probes, index.metric)
+        cases.append((f"{n_probes} probes of {index.n_lists} lists", probes, index.n_lists,
+                      None, q_rot))
+    gen = torch.Generator(device=dev).manual_seed(g.seed + 16)
+    cent = dataset[torch.randperm(dataset.shape[0], generator=gen, device=dev)[:g.wide_lists]]
+    wide_probes = torch.topk(torch.cdist(queries, cent), 8, largest=False).indices
+    cases.append((f"8 probes of {g.wide_lists} lists", wide_probes, g.wide_lists, None, None))
+    params = ivf_pq.SearchParams(n_probes=20, budget_tau=0.3)
+    plan = probe_budget.search_plan(probe_budget.resolve_params(params, 20, dev), queries,
+                                    index.centers, n_probes=20, k=4 * g.k, metric=index.metric,
+                                    rotation=index.rotation, radii=index.list_radii,
+                                    sizes=index.list_sizes)
+    cases.append((f"adaptive, budget_tau 0.3, 20 probes of {index.n_lists} lists", plan[1],
+                  index.n_lists, plan[0], None))
+    out = []
+    for label, probes, n_lists, pvalid, q_rot in cases:
+        ts, sort_ms = _timed(lambda: pi.invert_probes_sort(probes, n_lists, chunk, pvalid), sync)
+        tc, count_ms = _timed(lambda: pi.invert_probes_count(probes, n_lists, chunk, pvalid),
+                              sync)
+        for name, a, b in zip(pi.ChunkTables._fields, ts, tc):
+            if (a is None) != (b is None) or (a is not None and (
+                    a.dtype != b.dtype or not torch.equal(a, b))):
+                raise AssertionError(f"invert_probes_count != invert_probes_sort, {label}: "
+                                     f"table {name}")
+        kept = int((ts.qid_tbl != queries.shape[0]).sum())
+        row = {"case": label, "sort_ms": sort_ms, "count_ms": count_ms, "pairs_kept": kept,
+               "chunks": int(ts.lof.shape[0])}
+        log(f"item 8 invert, {label}: count == sort bit for bit ({row['chunks']} chunks, "
+            f"{kept} pairs kept); sort {sort_ms:.4f} ms, count {count_ms:.4f} ms")
+        if q_rot is not None and label.startswith("8 probes"):
+            q_pad = torch.cat([q_rot, q_rot.new_zeros((1, q_rot.shape[1]))])
+            gathered, gather_ms = _timed(lambda: pi.gather_query_rows(q_pad, ts.qid_tbl,
+                                                                      "gather"), sync)
+            f32h, f32h_ms = _timed(lambda: pi.gather_query_rows(q_pad, ts.qid_tbl,
+                                                                "onehot_f32h"), sync)
+            bf16, bf16_ms = _timed(lambda: pi.gather_query_rows(q_pad, ts.qid_tbl,
+                                                                "onehot_bf16"), sync)
+            want = gathered + 0.0
+            if not torch.equal(_bits(f32h), _bits(want)):
+                raise AssertionError(f"onehot_f32h rows != gathered rows, {label}")
+            if not torch.equal(_bits(bf16), _bits(want.to(torch.bfloat16).float() + 0.0)):
+                raise AssertionError(f"onehot_bf16 rows != bf16-rounded gathered rows, {label}")
+            row.update(gather_ms=gather_ms, onehot_f32h_ms=f32h_ms, onehot_bf16_ms=bf16_ms,
+                       rows=int(gathered.shape[0] * gathered.shape[1]))
+            log(f"item 8 query rows, {label}: onehot_f32h == gather bit for bit, onehot_bf16 "
+                f"== gather rounded to bf16 bit for bit ({row['rows']} rows of "
+                f"{q_rot.shape[1]}); gather {gather_ms:.4f} ms, onehot_f32h {f32h_ms:.4f} ms, "
+                f"onehot_bf16 {bf16_ms:.4f} ms")
+        out.append(row)
+    return out
+
+
 def tuned_path(g, dev, res, pm, fl, rb, sync, card, apply):
     """Phase 4b: the A/B of every tuned key on the main path's data, then
     the committed table's default calls. Each key's candidates run under
@@ -3260,7 +3363,13 @@ def tuned_path(g, dev, res, pm, fl, rb, sync, card, apply):
                                never committed);
       rabitq_rerank_mult, rabitq_query_bits  IVF-RaBitQ defaults at its
                                gate n_probes, the fastest depth that clears
-                               the gate.
+                               the gate;
+      invert_impl              the default IVF-PQ batch and IVF-Flat's
+                               "list" engine at its gate n_probes, after
+                               `invert_checks` (count == sort bit for bit,
+                               the one-hot rows against the gather);
+      listmajor_qs_impl        the default IVF-PQ batch;
+      listmajor_qs_impl_flat   IVF-Flat's "list" engine.
     With `apply`, the winners and hints.measured_on (the card) are written
     as raft_tpu_torch/tuned_defaults.json (`apply_table`). Then, under the
     committed table (read afresh; a file that does not load fails),
@@ -3381,6 +3490,20 @@ def tuned_path(g, dev, res, pm, fl, rb, sync, card, apply):
     w = ab_winner("listmajor_chunk", r, admissible={str(c) for c in chunks})
     if w:
         wins["listmajor_chunk"] = int(w)
+    # 5. item 8: the chunk-table construction and the list-major query rows
+    report["invert_checks"] = invert_checks(g, dev, res, sync)
+    flat_list = (f"ivf_flat list n_probes {np_flat}",
+                 flat_run(ivf_flat.SearchParams(n_probes=np_flat, engine="list")), truth, fast)
+    pq_default = ("ivf_pq default", pq_run(default_pq), truth, fast)
+    for key, cells, cands in (
+            ("invert_impl", [pq_default, flat_list], ("count",)),
+            ("listmajor_qs_impl", [pq_default], ("onehot_bf16", "onehot_f32h")),
+            ("listmajor_qs_impl_flat", [flat_list], ("onehot_f32h", "onehot_bf16"))):
+        r = ab_cells(key, cells, [("untuned", None)] + [(c, c) for c in cands], wins, g, sync)
+        report[key] = strip_ab(r)
+        w = ab_winner(key, r)
+        if w:
+            wins[key] = w
     # 4. IVF-RaBitQ's depths at its gate n_probes, the fastest that clears the gate
     for key, cands in (("rabitq_rerank_mult", (8, 16, 25)), ("rabitq_query_bits", (4, 6))):
         r = ab_cells(key, [("rabitq default", rb_run(ivf_rabitq.SearchParams(n_probes=np_rb)),
@@ -3532,6 +3655,22 @@ def committed_checks(g, dev, res, pm, fl, rb, sync):
         p = ivf_pq.SearchParams(n_probes=np_pq)
         check(f"listmajor_chunk={record['listmajor_chunk']}, ivf_pq default", lambda: pq(p),
               lambda: pq(p), truth, ("fused_list_topk",), explicit_table={})
+    # item 8: the default calls under each committed impl against the
+    # same calls under the table without the item-8 keys
+    without = {key: v for key, v in record.items()
+               if key not in ("invert_impl", "listmajor_qs_impl", "listmajor_qs_impl_flat")}
+    if any(key in record for key in ("invert_impl", "listmajor_qs_impl")):
+        p = ivf_pq.SearchParams(n_probes=np_pq)
+        check(f"invert_impl={record.get('invert_impl')}, listmajor_qs_impl="
+              f"{record.get('listmajor_qs_impl')}, ivf_pq default", lambda: pq(p), lambda: pq(p),
+              truth, (), explicit_table=without)
+    if any(key in record for key in ("invert_impl", "listmajor_qs_impl_flat")):
+        p = ivf_flat.SearchParams(n_probes=np_flat, engine="list")
+        check(f"invert_impl={record.get('invert_impl')}, listmajor_qs_impl_flat="
+              f"{record.get('listmajor_qs_impl_flat')}, ivf_flat list",
+              lambda: ivf_flat.search(p, flat_index, queries, k),
+              lambda: ivf_flat.search(p, flat_index, queries, k), truth, (),
+              explicit_table=without)
     depth = {"rerank_mult": record.get("rabitq_rerank_mult"),
              "query_bits": record.get("rabitq_query_bits")}
     if any(v is not None for v in depth.values()):
@@ -3717,7 +3856,7 @@ def masked_checks(g, dev, res, fams, fam, label, p, ids, sync):
 
 def adaptive_rung(g, dev, res, fams, fam, label, p, sync):
     """One adaptive rung: recall@k, the mean of the lists a query scanned
-    (probe_budget.account over the plan the search made), ms a batch over
+    (the kept pairs of the plan the search made over nq), ms a batch over
     back-to-back batches. Returns (row, values, ids)."""
     from raft_tpu_torch.neighbors import probe_budget
 
@@ -3738,7 +3877,7 @@ def adaptive_rung(g, dev, res, fams, fam, label, p, sync):
             queries, idx.centers, n_probes=P, min_probes=ap.min_probes, k=plan_k,
             metric=idx.metric, tau=ap.tau, rotation=rot,
             radii=idx.list_radii if ap.early_term else None, sizes=idx.list_sizes)
-        lists = probe_budget.account(fam, counts, queries.shape[0], P)
+        lists = float(counts.sum()) / queries.shape[0]
     row = {"family": fam, "rung": label, "recall": recall(ids, res["truth"]), "scanned": lists,
            "ms": ms}
     log(f"adaptive {fam}, n_probes {P}, {label}: recall@{g.k} {row['recall']:.4f}, "
@@ -3808,7 +3947,7 @@ def calibrate_policy(g, dev, sync):
                     sizes=idx.list_sizes)
                 row = {"family": fam, "tau": tau, "recall": recall(ids, truth),
                        "fixed_recall": fixed,
-                       "scanned": probe_budget.account(fam, counts, q.shape[0], P)}
+                       "scanned": float(counts.sum()) / q.shape[0]}
                 rows.append(row)
                 by_tau[tau] = min(by_tau.get(tau, 1.0), row["recall"])
                 log(f"calibration {fam} ({c['rows']} x {c['dim']} overlapping blobs, n_lists "
@@ -3834,7 +3973,7 @@ def adaptive_path(g, dev, res, fams, sync):
     the fixed search, the recall_target ladder ADAPTIVE_TARGETS and the
     budget_tau rungs ADAPTIVE_TAUS, each with early termination on (L2,
     radii) and off: recall@k, the mean of the lists a query scanned
-    (probe_budget.account over the search's own plan), ms a batch. Each
+    (the kept pairs of the search's own plan over nq), ms a batch. Each
     family is a path of its own. recall_target 1.0 must equal the fixed
     search bit for bit (values and ids); every other rung, after the
     path's launch counts are read, passes `masked_checks` (its ids in the
@@ -5003,6 +5142,425 @@ def primitives_path(g, dev, sync):
 
 
 # ---------------------------------------------------------------------------
+# phase 4f: the observability layer on the main path
+# ---------------------------------------------------------------------------
+
+#: a span's MFU share (charged flops over its fenced time, against the
+#: "h100" peaks) above this means a formula or a peak is wrong
+OBS_SHARE_CAP = 1.05
+#: how far a host-bound batch's time may drift over a whole run with the
+#: program unchanged: the fused IVF-PQ batch (~3 ms, a tenth of it host
+#: gaps) read 12.6% slower at phase 4f than at phase 4 in one run, obs
+#: disabled both times (PERF.md §6); phase 4f's disabled batches
+#: are held to phase 4's window range widened by this share of its mean,
+#: or by the range itself where that is wider
+HOST_DRIFT = 0.15
+#: the CUDA kernels of kernels 1 and 2 as the profiler names them
+TRACE_SYMBOLS = {"fused_list_topk": ("rtt::list_kernel<",),
+                 "fused_topk": ("rtt::tc_range_kernel", "rtt::flat_kernel")}
+#: the kernels the enabled drive must launch (1, 2, 3, 4, 6, 7)
+OBS_KERNELS = ("fused_list_topk", "fused_topk", "fused_list_topk_int8", "pq_list_scan",
+               "counting_select_min", "fused_bitplane_topk")
+
+_FLIGHT_CHILD = """
+import sys
+sys.path.insert(0, {root!r})
+from raft_tpu_torch import obs
+from raft_tpu_torch.core import faults
+assert obs.enabled() and obs.flight.installed() is not None
+for i in range(3):
+    obs.event("drill", step=i)
+plan = faults.FaultPlan([faults.Fault("kill_rank", site="mutation.log.commit", count=1)],
+                        seed=0)
+with plan.install():
+    faults.crash_point("mutation.log.commit")
+print("survived")
+"""
+
+_FAULT_CHILD = """
+import json, sys
+sys.path.insert(0, {root!r})
+import torch
+from raft_tpu_torch.core.config import is_device_fault
+out = {{}}
+x = torch.zeros(16, device="cuda")
+for step, fn in (("first", lambda: x[torch.tensor([1 << 20], device="cuda")]),
+                 ("later", lambda: torch.ones(4, device="cuda") * 2)):
+    try:
+        fn()
+        torch.cuda.synchronize()
+        out[step] = None
+    except Exception as e:
+        out[step] = str(e)[:300]
+        out[step + "_fault"] = is_device_fault(e)
+print(json.dumps(out))
+"""
+
+
+def obs_setup(g, dev, sync):
+    """The data, indexes, gates and reference windows phase 4f reuses,
+    made here when it runs alone (`--obs`): the main path's data, truth
+    and IVF-PQ index, the fused bf16 n_probes-8 rung's windows, the
+    default ladder's gate rung and its windows (both under the untuned
+    table, as phase 4 times them), and the IVF-Flat and RaBitQ indexes
+    with their fused engines' first rungs that clear the gate."""
+    from raft_tpu_torch.neighbors import brute_force, ivf_flat, ivf_pq, ivf_rabitq
+    from raft_tpu_torch.neighbors.refine import refine
+
+    data_np, queries_np = make_blobs(g.seed, g.n, g.dim, g.nq, g.n_lists)
+    dataset = torch.from_numpy(data_np).to(dev)
+    queries = torch.from_numpy(queries_np).to(dev)
+    t0 = time.perf_counter()
+    index = ivf_pq.build(ivf_pq.IndexParams(n_lists=g.n_lists, pq_dim=g.dim // 2,
+                                            kmeans_n_iters=10), dataset, seed=g.seed, device=dev)
+    flat_index = ivf_flat.build(ivf_flat.IndexParams(n_lists=g.n_lists, kmeans_n_iters=10),
+                                dataset, seed=g.seed, device=dev)
+    rb_index = ivf_rabitq.build(ivf_rabitq.IndexParams(n_lists=g.n_lists, kmeans_n_iters=10),
+                                dataset, seed=g.seed, device=dev)
+    _, truth = brute_force.knn(dataset, queries, g.k, engine="fused", device=dev)
+    sync()
+    log(f"obs setup: data, three builds and the truth in {time.perf_counter() - t0:.3f} s")
+
+    def pq_run(params):
+        return lambda: refine(dataset, queries, ivf_pq.search(params, index, queries,
+                                                              4 * g.k)[1],
+                              g.k, strategy="fused", device=dev)
+
+    ref = {}
+    with table({}):
+        fused8 = ivf_pq.SearchParams(n_probes=8, score_mode="recon8_list", trim_engine="fused")
+        pq_run(fused8)()  # the first call, as phase 4's rung makes it before its windows
+        ref["ivf_pq fused"] = timed_windows(g, pq_run(fused8), sync)[1]
+        for np_pq in PROBE_LADDER:
+            run = pq_run(ivf_pq.SearchParams(n_probes=np_pq))
+            if recall(run()[1], truth) >= RECALL_GATE:
+                break
+        ref["ivf_pq default"] = timed_windows(g, run, sync)[1]
+        np_flat = next(p for p in FLAT_PROBES if recall(ivf_flat.search(
+            ivf_flat.SearchParams(n_probes=p, engine="fused"), flat_index, queries, g.k)[1],
+            truth) >= RECALL_GATE)
+        rb_gate = next({"n_probes": p, "rerank_mult": m} for p in PROBE_LADDER
+                       for m in (4, 8, 16, 25) if recall(ivf_rabitq.search(
+                           ivf_rabitq.SearchParams(n_probes=p, rerank_mult=m,
+                                                   scan_engine="fused"),
+                           rb_index, queries, g.k)[1], truth) >= RECALL_GATE)
+    return {"dataset": dataset, "queries": queries, "truth": truth, "index": index,
+            "flat_index": flat_index, "rb_index": rb_index, "np_pq": np_pq,
+            "np_flat": np_flat, "rb_gate": rb_gate, "ref_windows": ref}
+
+
+def obs_inputs(res, pm, fl, rb):
+    """Phase 4f's inputs from phases 4's results."""
+    gate = pm["default"]["rungs"][-1]
+    return {"dataset": res["dataset"], "queries": res["queries"], "truth": res["truth"],
+            "index": res["index"], "flat_index": fl["index"], "rb_index": rb["index"],
+            "np_pq": gate["n_probes"],
+            "np_flat": next(x["n_probes"] for x in fl["rungs"]
+                            if x["engine"] == "fused" and x["recall"] >= RECALL_GATE),
+            "rb_gate": rb["gate"],
+            "ref_windows": {"ivf_pq default": gate["window_qps"],
+                            "ivf_pq fused": res["rungs"][0]["window_qps"]}}
+
+
+def _hist_buckets(text):
+    """{histogram family: [(le, count), ...]} from Prometheus text."""
+    fams = {}
+    for line in text.strip().splitlines():
+        name, _, value = line.rpartition(" ")
+        if '_bucket{le="' in name:
+            fam, le = name.split('_bucket{le="')
+            fams.setdefault(fam, []).append((le[:-2], float(value)))
+    return fams
+
+
+def obs_path(g, dev, inp, sync):
+    """Phase 4f: the observability layer (raft_tpu_torch.obs) on the main
+    path, reusing phase 4's 1M-row indexes and data (`obs_setup` makes
+    them when the phase runs alone, `--obs`).
+      1. obs disabled: the default IVF-PQ batch (its gate rung) and the
+         fused bf16 n_probes-8 batch, each + refine, timed as phase 4
+         times them (windows, the untuned table): the mean ms a batch must
+         lie within phase 4's windows' range widened on each side by that
+         range or HOST_DRIFT of its mean, whichever is wider; then the
+         same windows with obs enabled (not fenced), the hooks' cost;
+      2. under the committed table, each call fenced (synchronized before
+         and after), first with obs disabled and then enabled: the default
+         IVF-PQ search, the fused bf16, fused int8 and pallas bf16
+         searches at n_probes 8, each refine, brute_force.knn(engine=
+         "fused"), IVF-Flat's fused search and RaBitQ's at its gate rung.
+         The answers must equal the disabled ones bit for bit; each
+         call's spans, host ms, fenced ms, charged flops and bytes, FLOP/s,
+         B/s and MFU against the "h100" row are logged, and an MFU above
+         OBS_SHARE_CAP fails. The enabled drive is a path of its own:
+         kernels 1, 2, 3, 4, 6 and 7 must launch;
+      3. counters: an adaptive IVF-PQ rung's `ivf.scanned_lists` equals
+         its plan's kept pairs; a delete of 1,000 ids and an insert of 500
+         rows on the IVF-Flat index count 1,000 tombstones and 500
+         upserts; a scrub slice over a list rotted on a clone counts one
+         mismatch;
+      4. exports: a saved snapshot rendered by `python -m
+         raft_tpu_torch.obs.report` in a subprocess (exit 0), every
+         histogram's Prometheus buckets monotone up to `_count`, and one
+         fused batch plus an exact fused k-NN under `trace_session`, whose
+         Chrome trace must name kernels 1 and 2;
+      5. child processes: one with RAFT_TPU_OBS=1 and RAFT_TPU_FLIGHT_DIR
+         SIGKILLed at an armed crash_point must leave a flight dump
+         holding its events before the crash; one that indexes a CUDA
+         tensor out of range must see errors that `is_device_fault`
+         classifies as device faults, on that op and on a later one (the
+         context is poisoned).
+    Returns a summary dict; raises on any failed check."""
+    from raft_tpu_torch import integrity, obs
+    from raft_tpu_torch.neighbors import (brute_force, ivf_flat, ivf_pq, ivf_rabitq, mutation,
+                                          probe_budget)
+    from raft_tpu_torch.neighbors.refine import refine
+    from raft_tpu_torch.ops import _launch
+
+    t_phase = time.perf_counter()
+    dataset, queries, truth, index = inp["dataset"], inp["queries"], inp["truth"], inp["index"]
+    flat_index, rb_index, k = inp["flat_index"], inp["rb_index"], g.k
+    out = {"windows": {}, "calls": [], "counters": {}, "exports": {}, "children": {}}
+    obs.disable()
+    obs.reset()
+
+    def pq_run(params):
+        return lambda: refine(dataset, queries, ivf_pq.search(params, index, queries,
+                                                              4 * k)[1],
+                              k, strategy="fused", device=dev)
+
+    fused8 = ivf_pq.SearchParams(n_probes=8, score_mode="recon8_list", trim_engine="fused")
+    default = ivf_pq.SearchParams(n_probes=inp["np_pq"])
+
+    # 1. the disabled cost
+    with table({}):
+        for label, run in (("ivf_pq default", pq_run(default)), ("ivf_pq fused", pq_run(fused8))):
+            ref_ms = [g.nq / q * 1e3 for q in inp["ref_windows"][label]]
+            sec, w_qps = timed_windows(g, run, sync)
+            ms = [g.nq / q * 1e3 for q in w_qps]
+            lo, hi = min(ref_ms), max(ref_ms)
+            widen = max(hi - lo, HOST_DRIFT * sum(ref_ms) / len(ref_ms))
+            ok = lo - widen <= sec * 1e3 <= hi + widen
+            obs.enable()
+            try:
+                sec_on, w_on = timed_windows(g, run, sync)
+            finally:
+                obs.disable()
+                obs.reset()
+            out["windows"][label] = {"phase4_window_ms": ref_ms, "window_ms": ms,
+                                     "batch_ms": sec * 1e3, "within": ok,
+                                     "enabled_batch_ms": sec_on * 1e3,
+                                     "enabled_window_ms": [g.nq / q * 1e3 for q in w_on]}
+            log(f"obs disabled, {label} + refine: {sec * 1e3:.4f} ms a batch (windows "
+                f"{', '.join(f'{m:.4f}' for m in ms)}) against phase 4's windows "
+                f"{', '.join(f'{m:.4f}' for m in ref_ms)}: within [{lo - widen:.4f}, "
+                f"{hi + widen:.4f}] {ok}; obs enabled, not fenced: {sec_on * 1e3:.4f} ms a "
+                f"batch (windows {', '.join(f'{g.nq / q * 1e3:.4f}' for q in w_on)})")
+            if not ok and dev.type == "cuda":
+                raise AssertionError(f"obs disabled, {label}: {sec * 1e3:.4f} ms a batch "
+                                     f"outside [{lo - widen:.4f}, {hi + widen:.4f}]")
+
+    # 2. fenced calls, disabled then enabled, under the committed table
+    rb_gate = inp["rb_gate"]
+    cand = {}
+
+    def search(label, params):
+        def run():
+            cand[label] = ivf_pq.search(params, index, queries, 4 * k)[1]
+            return cand[label]
+        return run
+
+    calls = []
+    for label, params in (("default", default), ("fused bf16", fused8),
+                          ("fused int8", ivf_pq.SearchParams(
+                              n_probes=8, score_mode="recon8_list", trim_engine="fused",
+                              score_dtype="int8")),
+                          ("pallas bf16", ivf_pq.SearchParams(
+                              n_probes=8, score_mode="recon8_list", trim_engine="pallas"))):
+        calls.append((f"ivf_pq.search {label}", search(label, params)))
+        calls.append((f"refine ({label} candidates)",
+                       lambda label=label: refine(dataset, queries, cand[label], k,
+                                                  strategy="fused", device=dev)))
+    calls += [("brute_force.knn fused",
+               lambda: brute_force.knn(dataset, queries, k, engine="fused", device=dev)),
+              (f"ivf_flat.search fused n_probes {inp['np_flat']}",
+               lambda: ivf_flat.search(ivf_flat.SearchParams(n_probes=inp["np_flat"],
+                                                             engine="fused"),
+                                       flat_index, queries, k)),
+              (f"ivf_rabitq.search fused n_probes {rb_gate['n_probes']} rerank_mult "
+               f"{rb_gate['rerank_mult']}",
+               lambda: ivf_rabitq.search(ivf_rabitq.SearchParams(
+                   n_probes=rb_gate["n_probes"], rerank_mult=rb_gate["rerank_mult"],
+                   scan_engine="fused"), rb_index, queries, k))]
+    info = obs.perf.platform_info()
+    with committed(dev):
+        off = {}
+        for label, fn in calls:
+            sync()
+            off[label] = fn()
+            sync()
+        obs.reset()
+        obs.enable()
+        _launch.reset_launch_counts()
+        try:
+            for label, fn in calls:
+                with obs.capture_spans() as cap:
+                    sync()
+                    t0 = time.perf_counter()
+                    got = fn()
+                    sync()
+                    secs = time.perf_counter() - t0
+                same = all(torch.equal(a, b) for a, b in zip(
+                    got if isinstance(got, tuple) else (got,),
+                    off[label] if isinstance(off[label], tuple) else (off[label],)))
+                cost, spans = cap.cost_totals(), cap.totals()
+                mfu = obs.perf.mfu(cost["by_dtype"], secs, info) if cost["flops"] else None
+                row = {"call": label, "fenced_ms": secs * 1e3, "equal_to_disabled": same,
+                       "spans": {n: {"calls": s["calls"], "host_ms": s["total_ms"]}
+                                 for n, s in spans.items()},
+                       "cost_flops": cost["flops"], "flops_by_dtype": cost["by_dtype"],
+                       "cost_bytes": cost["bytes"], "flop_per_s": cost["flops"] / secs,
+                       "bytes_per_s": cost["bytes"] / secs, "mfu": mfu}
+                out["calls"].append(row)
+                log(f"obs span {label}: fenced {secs * 1e3:.4f} ms, spans "
+                    f"{json.dumps(row['spans'])}, cost_flops {cost['flops']} "
+                    f"{json.dumps(cost['by_dtype'])}, cost_bytes {cost['bytes']}, "
+                    f"{row['flop_per_s'] / 1e12:.4f} TFLOP/s, {row['bytes_per_s'] / 1e9:.4f} "
+                    f"GB/s modeled, MFU {mfu if mfu is None else f'{mfu:.6f}'} "
+                    f"({info['platform']} peaks, {info['device_kind']}); answers equal to obs "
+                    f"disabled bit for bit {same}")
+                if not same:
+                    raise AssertionError(f"obs enabled changed the answer of {label}")
+                if mfu is not None and mfu > OBS_SHARE_CAP:
+                    raise AssertionError(f"{label}: MFU {mfu} > {OBS_SHARE_CAP}: a formula or a "
+                                         "peak is wrong")
+        finally:
+            counts = _launch.launch_counts()
+    out["launches"] = counts
+    log(f"path obs enabled: launches {counts}")
+    missing = [n for n in OBS_KERNELS if counts[n] <= 0]
+    if missing and dev.type == "cuda":
+        raise AssertionError(f"path obs: kernels never launched: {missing}")
+    if dev.type == "cuda" and info["platform"] != "h100":
+        raise AssertionError(f"obs platform_info on the card: {info}")
+
+    # 3. counters
+    obs.reset()
+    ap_params = ivf_pq.SearchParams(n_probes=20, score_mode="recon8_list", trim_engine="fused",
+                                    budget_tau=0.3)
+    with table({}):
+        ivf_pq.search(ap_params, index, queries, 4 * k)
+        plan = probe_budget.search_plan(
+            probe_budget.resolve_params(ap_params, 20, dev), queries, index.centers,
+            n_probes=20, k=4 * k, metric=index.metric, rotation=index.rotation,
+            radii=index.list_radii if index.tombstones is None else None,
+            sizes=index.list_sizes)
+    kept = int(plan[0].sum())
+    scanned = obs.registry().snapshot()["counters"]["ivf.scanned_lists"]
+    out["counters"]["adaptive"] = {"scanned_lists": scanned, "kept_pairs": kept,
+                                   "worst_case": g.nq * 20}
+    log(f"obs counters, adaptive ivf_pq fused n_probes 20 budget_tau 0.3: ivf.scanned_lists "
+        f"{scanned}, the plan's kept pairs {kept} (of {g.nq * 20})")
+    if scanned != kept:
+        raise AssertionError(f"ivf.scanned_lists {scanned} != the plan's kept pairs {kept}")
+    rng = np.random.default_rng(g.seed + 17)
+    victims = torch.as_tensor(rng.choice(g.n, 1000, replace=False).astype(np.int32), device=dev)
+    t0 = time.perf_counter()
+    live = mutation.delete(flat_index, victims)
+    live = mutation.upsert(live, dataset[:500] + 0.25)
+    sync()
+    mut_s = time.perf_counter() - t0
+    ctr = obs.registry().snapshot()["counters"]
+    out["counters"]["mutation"] = {"tombstones": ctr["mutation.tombstones"],
+                                   "upserts": ctr["mutation.upserts"], "seconds": mut_s}
+    log(f"obs counters, IVF-Flat delete 1000 + insert 500 ({mut_s:.3f} s): mutation.tombstones "
+        f"{ctr['mutation.tombstones']}, mutation.upserts {ctr['mutation.upserts']}")
+    if ctr["mutation.tombstones"] != 1000 or ctr["mutation.upserts"] != 500:
+        raise AssertionError(f"mutation counters {ctr}")
+    del live
+    rot = mutation._clone(flat_index)
+    integrity.rot_list(rot, 3, "list_data", frac=0.2, seed=g.seed)
+    bad = integrity.Scrubber(budget_lists=8).slice_scan(rot)
+    ctr = obs.registry().snapshot()["counters"]
+    out["counters"]["scrub"] = {"found": bad, "mismatches": ctr["integrity.mismatches"],
+                                "rot_injected": ctr["integrity.rot_injected"]}
+    log(f"obs counters, scrub slice over lists 0-7 with list 3 rotted: found {bad}, "
+        f"integrity.mismatches {ctr['integrity.mismatches']}, integrity.rot_injected "
+        f"{ctr['integrity.rot_injected']}")
+    if bad != [("list_data", 3)] or ctr["integrity.mismatches"] != 1:
+        raise AssertionError(f"scrub of one rotted list: {bad}, counters {ctr}")
+    del rot
+
+    # 4. exports
+    root = os.path.dirname(os.path.abspath(__file__))
+    env = dict(os.environ, PYTHONPATH=root)
+    with tempfile.TemporaryDirectory(prefix="obs_") as tmp:
+        snap_path = os.path.join(tmp, "snap.json")
+        obs.save_snapshot(snap_path, label="chip_smoke obs_path")
+        r = subprocess.run([sys.executable, "-m", "raft_tpu_torch.obs.report", snap_path],
+                           capture_output=True, text=True, env=env, timeout=300, cwd=root)
+        out["exports"]["report_rc"] = r.returncode
+        log(f"obs report subprocess: exit {r.returncode}, {len(r.stdout.splitlines())} lines; "
+            f"head: {' | '.join(r.stdout.splitlines()[:3])}")
+        if r.returncode != 0:
+            raise AssertionError(f"python -m raft_tpu_torch.obs.report failed: {r.stderr[-2000:]}")
+        fams = _hist_buckets(obs.render_registry_prometheus())
+        counts_ok = all(all(a[1] <= b[1] for a, b in zip(v, v[1:])) and v[-1][0] == "+Inf"
+                        for v in fams.values())
+        out["exports"]["prometheus_histograms"] = len(fams)
+        log(f"obs prometheus: {len(fams)} histogram families, buckets monotone {counts_ok}")
+        if not fams or not counts_ok:
+            raise AssertionError("prometheus histogram buckets are not monotone")
+        t0 = time.perf_counter()
+        with committed(dev), obs.trace_session(os.path.join(tmp, "trace")) as d:
+            pq_run(fused8)()
+            brute_force.knn(dataset, queries[:256], k, engine="fused", device=dev)
+            sync()
+        trace_s = time.perf_counter() - t0
+        files = os.listdir(d)
+        with open(os.path.join(d, files[0])) as f:
+            names = {str(e.get("name", "")) for e in json.load(f)["traceEvents"]}
+        named = {kern: sorted({n for n in names if any(sym in n for sym in syms)})[:2]
+                 for kern, syms in TRACE_SYMBOLS.items()}
+        out["exports"]["trace"] = {"seconds": trace_s, "kernels": named, "events": len(names)}
+        log(f"obs trace_session: one fused batch + an exact fused k-NN of 256 queries in "
+            f"{trace_s:.3f} s, {len(names)} event names; kernel 1 as {named['fused_list_topk']}, "
+            f"kernel 2 as {named['fused_topk']}")
+        if dev.type == "cuda" and not all(named.values()):
+            raise AssertionError(f"the Chrome trace does not name kernels 1 and 2: {named}")
+
+        # 5. child processes
+        fdir = os.path.join(tmp, "flight")
+        os.makedirs(fdir)
+        r = subprocess.run([sys.executable, "-c", _FLIGHT_CHILD.format(root=root)],
+                           capture_output=True, text=True, timeout=300, cwd=root,
+                           env=dict(env, RAFT_TPU_OBS="1", RAFT_TPU_FLIGHT_DIR=fdir))
+        dumps = [p for p in os.listdir(fdir) if p.startswith("flight-")]
+        events = []
+        if dumps:
+            with open(os.path.join(fdir, dumps[0])) as f:
+                events = [(e["kind"], e.get("step", e.get("action"))) for e in json.load(f)["events"]]
+        out["children"]["flight"] = {"rc": r.returncode, "dumps": len(dumps), "events": events}
+        log(f"obs flight child: exit {r.returncode}, dumps {len(dumps)}, events {events}")
+        if (r.returncode != -signal.SIGKILL or len(dumps) != 1
+                or events[:3] != [("drill", 0), ("drill", 1), ("drill", 2)]):
+            raise AssertionError(f"flight drill: rc {r.returncode}, dumps {dumps}, events "
+                                 f"{events}; {r.stderr[-1000:]}")
+    if dev.type == "cuda":
+        r = subprocess.run([sys.executable, "-c", _FAULT_CHILD.format(root=root)],
+                           capture_output=True, text=True, timeout=300, cwd=root, env=env)
+        rep = json.loads(r.stdout.strip().splitlines()[-1]) if r.stdout.strip() else {}
+        out["children"]["device_fault"] = dict(rep, rc=r.returncode)
+        log(f"obs device-fault child: exit {r.returncode}, {json.dumps(rep)}")
+        if not (rep.get("first_fault") and rep.get("later_fault")):
+            raise AssertionError(f"device-fault child: {rep}; {r.stderr[-1000:]}")
+    obs.disable()
+    obs.reset()
+    out["wall_s"] = time.perf_counter() - t_phase
+    log(f"obs path complete in {out['wall_s']:.3f} s")
+    return out
+
+
+# ---------------------------------------------------------------------------
 # phase 5: kernels on the main path's inputs
 # ---------------------------------------------------------------------------
 
@@ -5668,6 +6226,9 @@ def main(argv=None):
     ap.add_argument("--primitives", action="store_true",
                     help="the build and the primitives path only (phase 4e and its kernel "
                          "rows); prints no result and exits 6")
+    ap.add_argument("--obs", action="store_true",
+                    help="the build and the observability path only (phase 4f on indexes it "
+                         "builds itself); prints no result and exits 7")
     ap.add_argument("--apply", action="store_true",
                     help="write the tuned A/B winners of this run as "
                          "raft_tpu_torch/tuned_defaults.json, and merge the adaptive policy "
@@ -5726,6 +6287,10 @@ def main(argv=None):
         log(f"primitives path complete in {time.perf_counter() - t_all:.1f} s, "
             f"{len(prim_rows)} kernel rows; no result printed")
         return 6
+    if g.obs:
+        obs_path(g, dev, obs_setup(g, dev, sync), sync)
+        log(f"obs path complete in {time.perf_counter() - t_all:.1f} s; no result printed")
+        return 7
     adversarial_checks(fs, pls, dev, np.random.default_rng(g.seed + 1))
     slice_checks(dev, np.random.default_rng(g.seed + 2))
     bitplane_checks(fs, dev, np.random.default_rng(g.seed + 3))
@@ -5845,6 +6410,7 @@ def main(argv=None):
     rows += graph_rows
     prim, prim_rows = primitives_path(g, dev, sync)
     rows += prim_rows
+    obs_summary = obs_path(g, dev, obs_inputs(res, pm, fl, rb), sync)
     summary = {"build_s": res["build_s"], "truth_s": res["truth_s"], "rungs": res["rungs"],
                "breakdown": res["breakdown"], "pallas_breakdown": res["pallas_breakdown"],
                "refine_kernel": refine_row,
@@ -5862,6 +6428,7 @@ def main(argv=None):
                             "rows": adaptive_rows},
                "graph": graph,
                "primitives": prim,
+               "obs": obs_summary,
                "wall_s": time.perf_counter() - t_all}
     log("summary " + json.dumps(summary))
     if dev.type != "cuda":

@@ -11,7 +11,7 @@ first use.
 The top level follows the JAX package's: `__version__`, `Resources`,
 `device_ndarray`, the IVF-RaBitQ entry points and the subpackages, which
 resolve lazily (PEP 562) so `import raft_tpu_torch` stays light. The
-distributed and serving names (`comms`, `jobs`, `obs`, `serve`,
+distributed and serving names (`comms`, `jobs`, `serve`,
 `DegradedSearchResult`, `RankHealth`) come with the distributed layer.
 """
 
@@ -32,6 +32,7 @@ _SUBPACKAGES = (
     "matrix",
     "native",
     "neighbors",
+    "obs",
     "ops",
     "random",
     "solver",

@@ -43,6 +43,32 @@ def strict_f32_matmul() -> None:
     torch.backends.cuda.matmul.allow_tf32 = False
 
 
+#: CUDA errors after which the raising process's context is poisoned:
+#: every later operation on the card fails, and only a fresh process
+#: recovers it
+_CUDA_FAULTS = (
+    "device-side assert triggered",
+    "an illegal memory access was encountered",
+    "unspecified launch failure",
+    "misaligned address",
+    "illegal instruction",
+    "uncorrectable ECC error",
+)
+
+
+def is_device_fault(e: BaseException) -> bool:
+    """True when an exception reports a device fault that poisons the
+    raising process: the CUDA errors above (a kernel's illegal access,
+    a device-side assert, an uncorrectable ECC error), and the JAX
+    package's TPU strings ("UNAVAILABLE", "device error"), so a message
+    both packages see is classified the same way. Long sessions use it
+    to decide between "keep the partial results and stop" and "a
+    configuration failed, go on"."""
+    msg = str(e)
+    return ("UNAVAILABLE" in msg or "device error" in msg
+            or any(s in msg for s in _CUDA_FAULTS))
+
+
 _TLS = threading.local()
 _OUTPUT_AS: Union[str, Callable[[torch.Tensor], Any]] = "torch"
 _VALID = ("torch", "numpy")

@@ -100,6 +100,16 @@ FAULT_SITES = {
         "delete/upsert tombstoning entry (flaky_bootstrap a transient "
         "mutation failure surfaced BEFORE any state changes — the index "
         "and log are untouched when it raises; neighbors/mutation)"),
+    "obs.flight.dump": (
+        "flight-recorder dump entry (flaky_bootstrap a failing dump — "
+        "maybe_dump swallows it, so a broken recorder never takes down "
+        "the worker loop / watchdog / crash path it observes; slow_rank "
+        "models slow crash-time IO; raft_tpu/obs/flight)"),
+    "serve.trace.stamp": (
+        "request-trace stage stamp (flaky_bootstrap corrupts the stamp: "
+        "the TraceCtx goes dead and the request degrades to UNTRACED — "
+        "served results stay bit-identical, tracing only observes; "
+        "raft_tpu/obs/trace)"),
 }
 
 
@@ -209,6 +219,15 @@ class FaultPlan:
 _STACK: list = []  # innermost-active-last plan stack
 
 
+def _obs_event(**fields) -> None:
+    """One kind="fault" event on the obs bus (a no-op while obs is
+    disabled), so a chaos run leaves its timeline. Imported on the fired
+    paths only: the no-plan path never touches obs."""
+    from raft_tpu_torch import obs
+
+    obs.event("fault", **fields)
+
+
 def active_plan() -> Optional[FaultPlan]:
     return _STACK[-1] if _STACK else None
 
@@ -244,9 +263,12 @@ def fault_point(site: str, rank: Optional[int] = None) -> None:
         return
     for f in plan.matching(site, "slow_rank"):
         if f.latency_s > 0 and _host_rank_matches(f, rank):
+            _obs_event(site=site, action="slow", rank=f.rank, latency_s=f.latency_s)
             time.sleep(f.latency_s)
     for f in plan.matching(site, "flaky_bootstrap"):
         if _host_rank_matches(f, rank) and plan._arm(site, f):
+            _obs_event(site=site, action="flaky", rank=f.rank,
+                       fired=plan.fire_count(site, f), count=f.count)
             raise FaultInjected(f"injected flaky failure at {site!r} "
                                 f"({plan.fire_count(site, f)}/{f.count})")
 
@@ -255,7 +277,8 @@ def crash_point(site: str, rank: Optional[int] = None) -> None:
     """Host-side hard-crash site: for each matching kill_rank fault, the
     `count`-th visit SIGKILLs this process (no handlers, no flushing).
     Called right after a commit, so a kill-and-resume drill proves the
-    artifact on disk carries the resume."""
+    artifact on disk carries the resume. An armed flight recorder
+    (obs/flight) dumps the timeline before the kill."""
     plan = active_plan()
     if plan is None:
         return
@@ -269,6 +292,13 @@ def crash_point(site: str, rank: Optional[int] = None) -> None:
             n = plan._fired.get(k, 0) + 1
             plan._fired[k] = n
         if n == max(1, f.count):
+            _obs_event(site=site, action="crash", rank=f.rank, visit=n)
+            try:
+                from raft_tpu_torch.obs import flight
+
+                flight.maybe_dump("crash_point", site=site, visit=n)
+            except Exception:
+                pass  # the crash must not depend on the recorder's health
             os.kill(os.getpid(), signal.SIGKILL)
 
 
@@ -286,6 +316,7 @@ def stall_point(site: str, cancelled=None, poll_s: float = 0.01,
             continue
         if not plan._arm(site, f):
             continue
+        _obs_event(site=site, action="stall", rank=f.rank, latency_s=f.latency_s)
         stalled = True
         deadline = time.monotonic() + f.latency_s
         while time.monotonic() < deadline:
@@ -311,6 +342,7 @@ def corrupt_host(site: str, block: np.ndarray, rank: Optional[int] = None) -> np
         if mask.any():
             out = np.array(out, copy=True)
             out[mask] = np.nan
+            _obs_event(site=site, action="corrupt_host", rank=f.rank, cells=int(mask.sum()))
     return out
 
 
@@ -342,6 +374,8 @@ def corrupt_file(site: str, path: str, start: int = 0, rank: Optional[int] = Non
             fh.seek(off)
             fh.write(bytes(b ^ 0xFF for b in blk))
         flipped = True
+        _obs_event(site=site, action="corrupt_file", rank=f.rank,
+                   path=os.path.basename(path), offset=off, bytes=run)
     return flipped
 
 
@@ -358,6 +392,7 @@ def corrupt_in_trace(site: str, x, rank):
     if not faults_ or not torch.is_floating_point(x):
         return x
     for i, f in enumerate(faults_):
+        _obs_event(site=site, action="corrupt_trace", rank=f.rank, fraction=f.fraction)
         gen = torch.Generator(device=x.device)
         gen.manual_seed(plan.site_seed(site) * 1024 + i)
         hit = torch.rand(x.shape, generator=gen, device=x.device) < f.fraction
@@ -374,6 +409,7 @@ def drop_contribution(site: str, x, rank, identity):
     if plan is None:
         return x
     for f in plan.matching(site, "drop_collective"):
+        _obs_event(site=site, action="drop", rank=f.rank)
         dead = torch.as_tensor(True if f.rank < 0 else rank == f.rank, device=x.device)
         x = torch.where(dead, torch.full_like(x, identity), x)
     return x

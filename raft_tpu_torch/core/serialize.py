@@ -657,6 +657,10 @@ def read_ckpt(
             cat_spec = fields.get(fname)
             if cat_spec is not None and cat_spec[3] in ("default", "derive"):
                 arrays.pop(fname, None)
+                from raft_tpu_torch import obs
+
+                obs.event("ckpt.degrade", file=name, field=fname, action="dropped",
+                          absent=cat_spec[3])
             else:
                 required_bad.append(fname)
         if required_bad:

@@ -44,8 +44,16 @@ TUNED_KEYS = {
         "bench": "chip_smoke.py"},
     "hints": {
         "kind": "hints", "choices": None, "bench": None},
+    "invert_impl": {
+        "kind": "choice", "choices": ("sort", "count"), "bench": "chip_smoke.py"},
     "listmajor_chunk": {
         "kind": "int", "choices": None, "bench": "chip_smoke.py"},
+    "listmajor_qs_impl": {
+        "kind": "choice", "choices": ("gather", "onehot_bf16", "onehot_f32h"),
+        "bench": "chip_smoke.py"},
+    "listmajor_qs_impl_flat": {
+        "kind": "choice", "choices": ("gather", "onehot_bf16", "onehot_f32h"),
+        "bench": "chip_smoke.py"},
     "pallas_fold": {
         "kind": "choice", "choices": ("exact", "packed"), "bench": "chip_smoke.py"},
     "pq_auto_engine": {

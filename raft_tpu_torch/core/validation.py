@@ -40,6 +40,14 @@ def check_matrix(x, device=None, dtype=None, name: str = "matrix") -> torch.Tens
     return t
 
 
+def check_same_rows(a, b, name_a="a", name_b="b") -> None:
+    if a.shape[0] != b.shape[0]:
+        raise ValueError(
+            f"{name_a} and {name_b} must have the same number of rows "
+            f"({a.shape[0]} vs {b.shape[0]})"
+        )
+
+
 def check_same_cols(a, b, name_a="a", name_b="b") -> None:
     if a.shape[1] != b.shape[1]:
         raise ValueError(

@@ -20,6 +20,7 @@ import os
 import re
 from typing import List, Optional, Tuple
 
+from raft_tpu_torch import obs
 from raft_tpu_torch.integrity import digest
 
 #: cursor-stamped commit snapshots under the mutation root
@@ -106,6 +107,8 @@ def restore(root: str, seq: Optional[int] = None, *, out: Optional[str] = None,
                 digest.check_fresh(idx, kind)
         except Exception as e:  # noqa: BLE001 -- a rotted or torn base: try an older one
             last_err = e
+            if obs.enabled():
+                obs.event("integrity.restore", base=cursor, ok=False, error=str(e)[:200])
             continue
         index = _replay(mutation, idx, log, entries, seq)
         if getattr(index, "list_digests", None) is None:
@@ -116,6 +119,9 @@ def restore(root: str, seq: Optional[int] = None, *, out: Optional[str] = None,
         if out is not None:
             out_path = os.fspath(out)
             mutation._index_module(kind).save(out_path, index)
+        if obs.enabled():
+            obs.counter("integrity.restores").inc()
+            obs.event("integrity.restore", base=cursor, seq=seq, ok=True)
         return index, out_path
     raise digest.IntegrityError(
         f"every base checkpoint at or below seq {seq} failed to load/verify: {last_err!r}")

@@ -25,6 +25,7 @@ from typing import List, Optional, Tuple
 import numpy as np
 import torch
 
+from raft_tpu_torch import obs
 from raft_tpu_torch.core import faults
 from raft_tpu_torch.integrity import digest
 
@@ -71,6 +72,9 @@ def rot_list(index, list_id: int, field: str, *, frac: float = 1.0, seed: int = 
     rotted[lid] = torch.from_numpy(_flip_low_bytes(row, frac, rng)).to(arr.device)
     setattr(index, field, rotted)
     mutation._drop_derived(index)
+    if obs.enabled():
+        obs.counter("integrity.rot_injected").inc()
+        obs.event("integrity.rot", field=field, list=lid)
 
 
 def maybe_rot(index, kind: Optional[str] = None, *, salt: int = 0) -> List[Tuple[str, int]]:
@@ -123,6 +127,8 @@ class Scrubber:
         kind = self.kind or digest.kind_of(index)
         if getattr(index, "list_digests", None) is None:
             digest.attach(index, kind)
+            if obs.enabled():
+                obs.event("integrity.scan", lists=0, cursor=0, attached=True)
             return []
         n_lists = int(index.n_lists)
         start = self.cursor if self.cursor < n_lists else 0
@@ -138,6 +144,13 @@ class Scrubber:
             self.cursor = end
         self.lists_scanned += len(ids)
         self.mismatches += len(bad)
+        if obs.enabled():
+            obs.counter("integrity.scans").inc()
+            obs.counter("integrity.lists_scanned").inc(len(ids))
+            obs.event("integrity.scan", lists=len(ids), cursor=self.cursor)
+            for field, lid in bad:
+                obs.counter("integrity.mismatches").inc()
+                obs.event("integrity.mismatch", field=field, list=lid)
         return bad
 
     def full_scan(self, index, skip=()) -> List[Tuple[str, int]]:

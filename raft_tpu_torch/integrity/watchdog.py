@@ -20,6 +20,7 @@ from __future__ import annotations
 
 from typing import Callable, Optional, Set
 
+from raft_tpu_torch import obs
 from raft_tpu_torch.integrity import digest
 from raft_tpu_torch.integrity.scrub import Scrubber
 
@@ -39,6 +40,9 @@ def quarantine(index, list_id: int, kind: Optional[str] = None):
     out.tombstones = mask
     mutation._drop_derived(out)
     digest.refresh(out, index, kind)
+    if obs.enabled():
+        obs.counter("integrity.quarantines").inc()
+        obs.event("integrity.quarantine", list=int(list_id))
     return out
 
 
@@ -104,10 +108,17 @@ class IntegrityWatchdog:
             if repaired is None:
                 return index
             digest.check_fresh(repaired, kind)
-        except Exception:  # noqa: BLE001 -- the quarantine outlives a failed repair
+        except Exception as e:  # noqa: BLE001 -- the quarantine outlives a failed repair
             self.failed_repairs += 1
+            if obs.enabled():
+                obs.counter("integrity.failed_repairs").inc()
+                obs.event("integrity.repair", ok=False, error=str(e)[:200])
             return index
         self.repairs += 1
+        if obs.enabled():
+            obs.counter("integrity.repairs").inc()
+            obs.event("integrity.repair", ok=True, lists=sorted(self.quarantined),
+                      tables=sorted(self.table_alarms))
         self.quarantined.clear()
         self.table_alarms.clear()
         self._n_lists = int(repaired.n_lists)

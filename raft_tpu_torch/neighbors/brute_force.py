@@ -35,6 +35,7 @@ from typing import Tuple
 
 import torch
 
+from raft_tpu_torch import obs
 from raft_tpu_torch.core.config import auto_convert_output
 from raft_tpu_torch.core.validation import as_tensor, check_matrix, check_same_cols
 from raft_tpu_torch.distance.distance_types import (
@@ -82,6 +83,7 @@ def _bf_knn_impl(dataset: torch.Tensor, queries: torch.Tensor, k: int,
     return best_v, best_i.to(torch.int32)
 
 
+@obs.spanned("neighbors.brute_force.knn")
 @auto_convert_output
 def knn(dataset, queries, k: int, metric="sqeuclidean", metric_arg: float = 2.0,
         engine: str = "tiled", prefilter=None, compute_dtype=None,
@@ -122,6 +124,14 @@ def knn(dataset, queries, k: int, metric="sqeuclidean", metric_arg: float = 2.0,
         engine = "fused" if strat == "fused" else "tiled"
     if engine not in ("tiled", "fused"):
         raise ValueError(f"unknown engine {engine!r}")
+    if obs.enabled():
+        # the fused engine never materializes the score matrix: charge
+        # the fused geometry
+        obs.span_cost(**obs.perf.cost_for(
+            "neighbors.brute_force.knn", n=int(ds.shape[0]), nq=int(q.shape[0]),
+            d=int(ds.shape[1]), k=int(k),
+            dtype=torch.bfloat16 if engine == "fused" else ds.dtype,
+            fused=engine == "fused"))
     pf = None
     if prefilter is not None:
         from raft_tpu_torch.core.bitset import as_bitset
@@ -144,6 +154,7 @@ def knn(dataset, queries, k: int, metric="sqeuclidean", metric_arg: float = 2.0,
     return vals, idx
 
 
+@obs.spanned("neighbors.brute_force.knn_merge_parts")
 def knn_merge_parts(distances, indices, k=None, select_min: bool = True,
                     device=None) -> Tuple[torch.Tensor, torch.Tensor]:
     """Merge per-part top-k results into a global top-k (the JAX

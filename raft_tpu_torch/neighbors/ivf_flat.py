@@ -52,8 +52,10 @@ either package loads in the other. The integrity sidecar
 (`list_digests`, `table_digests`; raft_tpu_torch/integrity) is attached
 at build, refreshed by `extend` and every mutation, saved and loaded with
 the index; the lane pad of the fused engine extends the stored digests
-over the pad bytes (`_pad_store_to_lanes`). Observability spans wait for
-the port's `obs` (ROADMAP Queue A item 12).
+over the pad bytes (`_pad_store_to_lanes`). With obs enabled, build,
+extend and search each land a span, the search charging its analytic
+cost (`obs.perf.ivf_flat_scan`; the fused engine at the bf16 rate) and
+an adaptive batch its scanned lists (`probe_budget.account`).
 """
 
 from __future__ import annotations
@@ -64,6 +66,7 @@ from typing import Dict, Optional, Tuple
 import numpy as np
 import torch
 
+from raft_tpu_torch import obs
 from raft_tpu_torch.cluster import kmeans_balanced
 from raft_tpu_torch.core import tuned
 from raft_tpu_torch.core.config import auto_convert_output, resolve_device, strict_f32_matmul
@@ -399,6 +402,7 @@ def _metric_name(metric: DistanceType) -> str:
     return "inner_product" if metric == DistanceType.InnerProduct else "sqeuclidean"
 
 
+@obs.spanned("neighbors.ivf_flat.build")
 def build(params: IndexParams, dataset, seed: int = 0, device=None) -> Index:
     """Train coarse centers (balanced k-means on a trainset fraction drawn
     without replacement from a generator seeded by `seed`) and populate
@@ -435,6 +439,7 @@ def build(params: IndexParams, dataset, seed: int = 0, device=None) -> Index:
     return index
 
 
+@obs.spanned("neighbors.ivf_flat.extend")
 def extend(index: Index, new_vectors, new_indices=None) -> Index:
     """Append vectors (ivf_flat build.cuh `extend`): label only the new
     rows, grow the list tables, place the batch in its slots. A store
@@ -575,14 +580,16 @@ def _search_impl(queries, centers, list_data, slot_rows, k: int, n_probes: int,
 
 
 def _search_impl_listmajor(queries, centers, list_data, slot_rows, k: int, n_probes: int,
-                           metric: DistanceType, chunk: int = 128, plan=None):
+                           metric: DistanceType, chunk: int = 128, plan=None,
+                           setup_impls=("sort", "gather")):
     """The "list" engine: probe pairs (those an adaptive `plan`'s mask
     keeps) invert to per-list chunks, each chunk's queries score against
     its list's vectors (one batched f32 product a superblock), then the
-    exact trim and merge of `probe_invert.score_and_select`."""
+    exact trim and merge of `probe_invert.score_and_select`.
+    `setup_impls`: the (invert_impl, qs_impl) pair."""
     from raft_tpu_torch.neighbors.probe_invert import (
         gather_query_rows,
-        invert_probes_sort,
+        invert_probes_with,
         score_and_select,
     )
 
@@ -592,14 +599,15 @@ def _search_impl_listmajor(queries, centers, list_data, slot_rows, k: int, n_pro
     ip = metric == DistanceType.InnerProduct
     worst = float("-inf") if ip else float("inf")
     probes, pvalid = _planned_probes(queries, centers, n_probes, metric, plan)
-    tables = invert_probes_sort(probes, n_lists, chunk, pvalid)
+    invert_impl, qs_impl = setup_impls
+    tables = invert_probes_with(invert_impl, probes, n_lists, chunk, pvalid)
     qf = queries.float()
     q_pad = torch.cat([qf, qf.new_zeros((1, dim))])
 
     def block(lofb, qids):
         lb = lofb.long()
         v = list_data[lb]  # (b, max_list, dim): this batch's only read of these vectors
-        qs = gather_query_rows(q_pad, qids)  # (b, chunk, dim)
+        qs = gather_query_rows(q_pad, qids, qs_impl)  # (b, chunk, dim)
         dots = torch.bmm(qs, v.transpose(1, 2))
         if ip:
             score = dots
@@ -664,7 +672,8 @@ def _pad_store_to_lanes(index: Index, k: int) -> None:
 
 def _search_impl_listmajor_pallas(queries, centers, resid_bf16, resid_norm, slot_rows, k: int,
                                   n_probes: int, metric: DistanceType, chunk: int = 128,
-                                  kb: Optional[int] = None, plan=None):
+                                  kb: Optional[int] = None, plan=None,
+                                  setup_impls=("sort", "gather")):
     """The "fused" engine: list-major, scored by `fused_list_topk` over
     the bf16 residual store. |q - v|^2 = |q - c|^2 - 2 (q - c).(v - c) +
     |v - c|^2, so the kernel scores residual rows against base |v - c|^2
@@ -672,12 +681,13 @@ def _search_impl_listmajor_pallas(queries, centers, resid_bf16, resid_norm, slot
     wherever the slot table reads -1 (pad, or filtered). The query
     constant (|q - c|^2, or q.c for inner product) is added back before
     the exact merge. Pairs outside an adaptive `plan`'s mask are dropped
-    before the inversion."""
+    before the inversion; `setup_impls` is the (invert_impl, qs_impl)
+    pair."""
     from raft_tpu_torch.matrix.select_k import list_scan_select_k
     from raft_tpu_torch.neighbors.probe_invert import (
         chunk_live_rows,
         gather_query_rows,
-        invert_probes_sort,
+        invert_probes_with,
         regroup_merge,
     )
 
@@ -686,11 +696,12 @@ def _search_impl_listmajor_pallas(queries, centers, resid_bf16, resid_norm, slot
     n_lists = resid_bf16.shape[0]
     ip = metric == DistanceType.InnerProduct
     probes, pvalid = _planned_probes(queries, centers, n_probes, metric, plan)
-    tables = invert_probes_sort(probes, n_lists, chunk, pvalid)
+    invert_impl, qs_impl = setup_impls
+    tables = invert_probes_with(invert_impl, probes, n_lists, chunk, pvalid)
     lof = tables.lof
     live = chunk_live_rows(tables.qid_tbl, nq)  # pad rows and empty chunks skip in-kernel
     qf = queries.float()
-    qs = gather_query_rows(torch.cat([qf, qf.new_zeros((1, dim))]), tables.qid_tbl)
+    qs = gather_query_rows(torch.cat([qf, qf.new_zeros((1, dim))]), tables.qid_tbl, qs_impl)
     cent = centers[lof.long()]  # (ncb, dim)
     qres = (qs if ip else qs - cent[:, None, :]).contiguous()
     valid = slot_rows >= 0
@@ -729,6 +740,7 @@ def _pallas_fits(index: Index, k: int) -> bool:
                            kbuf=kb)
 
 
+@obs.spanned("neighbors.ivf_flat.search")
 @auto_convert_output
 def search(params: SearchParams, index: Index, queries, k: int, prefilter=None
            ) -> Tuple[torch.Tensor, torch.Tensor]:
@@ -744,7 +756,7 @@ def search(params: SearchParams, index: Index, queries, k: int, prefilter=None
     (`probe_budget.search_plan`), with radius bounds for L2 metrics when
     the index has radii, no tombstones and no prefilter is given."""
     from raft_tpu_torch.core.bitset import make_slot_filter
-    from raft_tpu_torch.neighbors.probe_invert import macro_batched
+    from raft_tpu_torch.neighbors.probe_invert import macro_batched, resolve_setup_impls
 
     q = check_matrix(queries, index.device, name="queries").float()
     if q.shape[1] != index.dim:
@@ -774,11 +786,31 @@ def search(params: SearchParams, index: Index, queries, k: int, prefilter=None
     # bounds off under a prefilter or tombstones: the sizes count the
     # members a filter drops, so a k-covering prefix could be all filtered
     # and a list with eligible neighbours skipped
+    ap = probe_budget.resolve_params(params, n_probes, index.device)
     plan = probe_budget.search_plan(
-        probe_budget.resolve_params(params, n_probes, index.device), q, index.centers,
+        ap, q, index.centers,
         n_probes=n_probes, k=k, metric=index.metric,
         radii=index.list_radii if prefilter is None and index.tombstones is None else None,
         sizes=index.list_sizes)
+    if obs.enabled():
+        scanned_mean = (probe_budget.account_plan("ivf_flat", plan, q.shape[0], n_probes)
+                        if ap is not None else None)
+        # the JAX charge ("list" as a scan of every padded list, the other
+        # engines the probed lists; tombstoned slots bill nothing), but the
+        # fused engine at the bf16 rate it runs at: the JAX package charges
+        # it as f32, which on a TPU is the bf16 peak, and on the card would
+        # be the CUDA cores' f32 peak
+        obs.span_cost(**obs.perf.cost_for(
+            "neighbors.ivf_flat.search", nq=int(q.shape[0]), n_probes=n_probes,
+            n_lists=int(index.n_lists),
+            n_rows=int(index.list_data.shape[0] * index.list_data.shape[1])
+            - index.n_tombstones,
+            dim=int(index.dim), k=k, dtype="bf16" if engine == "fused" else "f32",
+            scanned_lists=(int(index.n_lists) if engine == "list"
+                           else (scanned_mean if scanned_mean is not None else n_probes)),
+            fused=engine == "fused"))
+    # the list-major engines' (invert_impl, qs_impl), resolved once a search
+    setup = resolve_setup_impls(index.n_lists, "flat", index.device)
     if engine == "fused":
         from raft_tpu_torch.matrix.select_k import check_fused_list_request
         from raft_tpu_torch.ops.pq_list_scan import lane_padded
@@ -793,13 +825,14 @@ def search(params: SearchParams, index: Index, queries, k: int, prefilter=None
         vals, rows = macro_batched(
             lambda sl, pl=None: _search_impl_listmajor_pallas(
                 sl, index.centers, index.resid_bf16, index.resid_norm, srows, k, n_probes,
-                index.metric, kb=kb, plan=pl),
+                index.metric, kb=kb, plan=pl, setup_impls=setup),
             q, k, MACRO_BATCH, extra=plan)
     elif engine == "list":
         srows = maybe_filter(index.slot_rows)
         vals, rows = macro_batched(
-            lambda sl, pl=None: _search_impl_listmajor(sl, index.centers, index.list_data, srows,
-                                                       k, n_probes, index.metric, plan=pl),
+            lambda sl, pl=None: _search_impl_listmajor(
+                sl, index.centers, index.list_data, srows, k, n_probes, index.metric, plan=pl,
+                setup_impls=setup),
             q, k, MACRO_BATCH, extra=plan)
     else:
         vals, rows = _search_impl(q, index.centers, index.list_data,

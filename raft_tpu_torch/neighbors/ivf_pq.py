@@ -79,9 +79,11 @@ largest rotated-space residual norm of each list's members.
 "ivf_pq", writer version 3; core/serialize). The integrity sidecar
 (`list_digests`, `table_digests`; raft_tpu_torch/integrity) is attached
 at build, refreshed by `extend` and every mutation, and saved and loaded
-with the index. Observability spans wait for the port's `obs` (ROADMAP
-Queue A item 12). Not ported: the JAX package's fence against the lut
-engine on a TPU (`_check_lut_allowed`, a guard for a TPU device fault).
+with the index. With obs enabled, build, extend and search each land a
+span, the search charging its analytic cost (`obs.perf.ivf_pq_scan`)
+and an adaptive batch its scanned lists (`probe_budget.account`). Not
+ported: the JAX package's fence against the lut engine on a TPU
+(`_check_lut_allowed`, a guard for a TPU device fault).
 """
 
 from __future__ import annotations
@@ -92,6 +94,7 @@ from typing import Dict, NamedTuple, Optional, Tuple
 import numpy as np
 import torch
 
+from raft_tpu_torch import obs
 from raft_tpu_torch.cluster import kmeans_balanced
 from raft_tpu_torch.core import tuned
 from raft_tpu_torch.core.config import auto_convert_output, resolve_device, strict_f32_matmul
@@ -431,6 +434,7 @@ def _coarse_fit(params: IndexParams, x: torch.Tensor, rotation: torch.Tensor,
     return centers, x_train_rot
 
 
+@obs.spanned("neighbors.ivf_pq.build")
 def build(params: IndexParams, dataset, seed: int = 0, device=None) -> Index:
     """Train rotation, coarse centers and codebooks; encode and pack the
     dataset (detail/ivf_pq_build.cuh:1074)."""
@@ -501,6 +505,7 @@ def label_and_encode(vectors: torch.Tensor, rotation: torch.Tensor, centers: tor
     return labels, codes
 
 
+@obs.spanned("neighbors.ivf_pq.extend")
 def extend(index: Index, new_vectors, new_indices=None) -> Index:
     """Label, encode and append new vectors (ivf_pq_build.cuh:1061):
     only the new batch is encoded and placed into grown code tables. The
@@ -653,24 +658,26 @@ class _ListMajorBatch(NamedTuple):
 
 def _listmajor_batch(queries, rotation, centers, recon_scale, recon_norm, slot_rows_pad,
                      n_probes: int, metric: DistanceType, chunk: int,
-                     plan=None) -> _ListMajorBatch:
+                     plan=None, setup_impls=("sort", "gather")) -> _ListMajorBatch:
     """Coarse select, probe inversion (pairs outside an adaptive `plan`'s
-    mask dropped), query-row gather, residuals and the additive
-    per-slot base (L2: recon norm; IP: 0; +inf invalid)."""
+    mask dropped), query rows, residuals and the additive per-slot base
+    (L2: recon norm; IP: 0; +inf invalid). `setup_impls`: the
+    (invert_impl, qs_impl) of `probe_invert.resolve_setup_impls`."""
     from raft_tpu_torch.neighbors.probe_invert import (
         chunk_live_rows,
         gather_query_rows,
-        invert_probes_sort,
+        invert_probes_with,
     )
 
     nq = queries.shape[0]
     n_lists, rot_dim = centers.shape
     ip = metric == DistanceType.InnerProduct
     q_rot, probes, pvalid = _coarse_select(queries, rotation, centers, n_probes, metric, plan)
-    tables = invert_probes_sort(probes, n_lists, chunk, pvalid)
+    invert_impl, qs_impl = setup_impls
+    tables = invert_probes_with(invert_impl, probes, n_lists, chunk, pvalid)
     live = chunk_live_rows(tables.qid_tbl, nq)  # pad rows and empty chunks skip in-kernel
     q_pad = torch.cat([q_rot, q_rot.new_zeros((1, rot_dim))])
-    qs = gather_query_rows(q_pad, tables.qid_tbl)  # (ncb, chunk, rot)
+    qs = gather_query_rows(q_pad, tables.qid_tbl, qs_impl)  # (ncb, chunk, rot)
     cent = centers[tables.lof.long()]
     qres = qs if ip else qs - cent[:, None, :]
     qres_s = (qres * recon_scale[None, None, :]).contiguous()
@@ -711,20 +718,21 @@ def _search_impl_recon8_listmajor_fused(queries, rotation, centers, recon8, reco
                                         recon_norm, slot_rows_pad, k: int, n_probes: int,
                                         metric: DistanceType, chunk: int = 128,
                                         kb: Optional[int] = None, int8_queries: bool = False,
-                                        plan=None):
+                                        plan=None, setup_impls=("sort", "gather")):
     """List-major search with the fused distance + exact select-k trim:
     one kernel launch scores every chunk's list straight out of the int8
     store and keeps each row's exact top-k (ties to the smaller slot);
     the (chunk, L) scores never reach device memory. With `int8_queries`
     the rows quantize through `_quantize_query_rows`, as the pallas
     trim's do, and score int8 x int8 -> int32 ("fused_int8"). `plan`: an
-    adaptive plan (keep mask, probes), or None. Returns (values,
-    slot-row positions) (nq, k)."""
+    adaptive plan (keep mask, probes), or None; `setup_impls`: the
+    (invert_impl, qs_impl) pair. Returns (values, slot-row positions)
+    (nq, k)."""
     from raft_tpu_torch.matrix.select_k import list_scan_select_k
 
     ip = metric == DistanceType.InnerProduct
     b = _listmajor_batch(queries, rotation, centers, recon_scale, recon_norm, slot_rows_pad,
-                         n_probes, metric, chunk, plan)
+                         n_probes, metric, chunk, plan, setup_impls)
     lof = b.tables.lof
     if int8_queries:
         q8, row_scale = _quantize_query_rows(b.qres_s)
@@ -742,7 +750,7 @@ def _search_impl_recon8_listmajor_pallas(queries, rotation, centers, recon8, rec
                                          recon_norm, slot_rows_pad, k: int, n_probes: int,
                                          metric: DistanceType, chunk: int = 128,
                                          int8_queries: bool = False, fold: str = "exact",
-                                         plan=None):
+                                         plan=None, setup_impls=("sort", "gather")):
     """List-major search with the bin-fold trim (ops/pq_list_scan.py):
     per chunk, one kernel launch scores the list and folds each row's
     scores into 256 bins, best and second best each, so only (chunk, 512)
@@ -750,13 +758,14 @@ def _search_impl_recon8_listmajor_pallas(queries, rotation, centers, recon8, rec
     row and the shared exact merge finish. With `int8_queries` the rows
     quantize through `_quantize_query_rows` and score int8 x int8 ->
     int32, the same f32 values as the fused int8 trim's. `plan`: an
-    adaptive plan (keep mask, probes), or None. Returns (values, slot-row
-    positions) (nq, k)."""
+    adaptive plan (keep mask, probes), or None; `setup_impls`: the
+    (invert_impl, qs_impl) pair. Returns (values, slot-row positions)
+    (nq, k)."""
     from raft_tpu_torch.ops.pq_list_scan import _BINS, pq_list_scan
 
     ip = metric == DistanceType.InnerProduct
     b = _listmajor_batch(queries, rotation, centers, recon_scale, recon_norm, slot_rows_pad,
-                         n_probes, metric, chunk, plan)
+                         n_probes, metric, chunk, plan, setup_impls)
     lof = b.tables.lof
     if int8_queries:
         q8, row_scale = _quantize_query_rows(b.qres_s)
@@ -922,7 +931,8 @@ def _search_impl_recon8(queries, rotation, centers, recon8, recon_scale, recon_n
 def _search_impl_recon8_listmajor(queries, rotation, centers, recon8, recon_scale, recon_norm,
                                   slot_rows_pad, k: int, n_probes: int, metric: DistanceType,
                                   chunk: int = 128, int8_queries: bool = False,
-                                  trim_bf16: bool = False, plan=None):
+                                  trim_bf16: bool = False, plan=None,
+                                  setup_impls=("sort", "gather")):
     """List-major search with the "approx" and "exact" trims: each chunk
     scores its list once for all its query rows (bf16 rows: the residuals
     and the dequantized store rounded to bf16, f32 accumulation; int8
@@ -931,11 +941,12 @@ def _search_impl_recon8_listmajor(queries, rotation, centers, recon8, recon_scal
     materialized (bf16 with `trim_bf16`), each chunk row is trimmed to its
     exact best k and the candidates merge
     (`probe_invert.score_and_select`); pairs outside an adaptive `plan`'s
-    mask are dropped before the inversion. Returns (values, slot-row
-    positions) (nq, k)."""
+    mask are dropped before the inversion; `setup_impls` is the
+    (invert_impl, qs_impl) pair. Returns (values, slot-row positions)
+    (nq, k)."""
     from raft_tpu_torch.neighbors.probe_invert import (
         gather_query_rows,
-        invert_probes_sort,
+        invert_probes_with,
         score_and_select,
     )
 
@@ -945,13 +956,14 @@ def _search_impl_recon8_listmajor(queries, rotation, centers, recon8, recon_scal
     ip = metric == DistanceType.InnerProduct
     worst = float("-inf") if ip else float("inf")
     q_rot, probes, pvalid = _coarse_select(queries, rotation, centers, n_probes, metric, plan)
-    tables = invert_probes_sort(probes, n_lists, chunk, pvalid)
+    invert_impl, qs_impl = setup_impls
+    tables = invert_probes_with(invert_impl, probes, n_lists, chunk, pvalid)
     q_pad = torch.cat([q_rot, q_rot.new_zeros((1, rot_dim))])
 
     def block(lofb, qids):
         lb = lofb.long()
         cent = centers[lb]
-        qs = gather_query_rows(q_pad, qids)  # (b, chunk, rot)
+        qs = gather_query_rows(q_pad, qids, qs_impl)  # (b, chunk, rot)
         qres = qs if ip else qs - cent[:, None, :]
         if int8_queries:
             # int8 x int8 dots are exact in f32: |sum| < 2^24 to rot_dim 1040
@@ -1064,6 +1076,7 @@ def resolve_search(params: SearchParams, nq: int, n_probes: int, n_lists: int, d
     return mode, trim, idd
 
 
+@obs.spanned("neighbors.ivf_pq.search")
 @auto_convert_output
 def search(params: SearchParams, index: Index, queries, k: int, prefilter=None
            ) -> Tuple[torch.Tensor, torch.Tensor]:
@@ -1082,7 +1095,7 @@ def search(params: SearchParams, index: Index, queries, k: int, prefilter=None
     prefilter is given."""
     from raft_tpu_torch.core.bitset import make_slot_filter
     from raft_tpu_torch.matrix.select_k import check_fused_list_request
-    from raft_tpu_torch.neighbors.probe_invert import macro_batched
+    from raft_tpu_torch.neighbors.probe_invert import macro_batched, resolve_setup_impls
     from raft_tpu_torch.ops.pq_list_scan import _BINS, fits_pq_list_scan, fold_variant, lane_padded
 
     q = check_matrix(queries, index.device, name="queries").float()
@@ -1098,15 +1111,33 @@ def search(params: SearchParams, index: Index, queries, k: int, prefilter=None
     per_cluster = index.params.codebook_kind == PER_CLUSTER
     # bounds off under a prefilter or tombstones: the sizes count the
     # members they drop
+    ap = probe_budget.resolve_params(params, n_probes, index.device)
     plan = probe_budget.search_plan(
-        probe_budget.resolve_params(params, n_probes, index.device), q, index.centers,
+        ap, q, index.centers,
         n_probes=n_probes, k=int(k), metric=index.metric, rotation=index.rotation,
         radii=index.list_radii if prefilter is None and index.tombstones is None else None,
         sizes=index.list_sizes)
+    if obs.enabled():
+        scanned_mean = (probe_budget.account_plan("ivf_pq", plan, q.shape[0], n_probes)
+                        if ap is not None else None)
+        # the JAX charge: list-major modes but the fused trim as a scan of
+        # every padded list, query-major modes and the fused trim the
+        # probed lists (the adaptive mean where budgets are on); the fused
+        # and pallas trims never materialize the score tile
+        obs.span_cost(**obs.perf.cost_for(
+            "neighbors.ivf_pq.search", nq=int(q.shape[0]), n_probes=n_probes,
+            n_lists=int(index.n_lists),
+            n_rows=int(index.codes.shape[0] * index.codes.shape[1]) - index.n_tombstones,
+            dim=int(index.dim), pq_dim=int(index.pq_dim), k=int(k), dtype=params.score_dtype,
+            scanned_lists=(int(index.n_lists) if (mode.endswith("_list") and trim != "fused")
+                           else (scanned_mean if scanned_mean is not None else n_probes)),
+            fused=mode == "recon8_list" and trim in ("pallas", "fused")))
     # a filtered view of a slot table is the whole prefilter (and the
     # whole tombstone mask): every engine scores its -1 slots as the worst
     maybe_filter = make_slot_filter(prefilter, index.id_bound, index.source_ids,
                                     tombstones=index.tombstones)
+    # the list-major engines' (invert_impl, qs_impl), resolved once a search
+    setup = resolve_setup_impls(index.n_lists, device=index.device)
     if mode == "lut":
         vals, rows = _search_impl(q, index.rotation, index.centers, index.pq_centers,
                                   index.codes, maybe_filter(index.slot_rows), int(k), n_probes,
@@ -1126,8 +1157,8 @@ def search(params: SearchParams, index: Index, queries, k: int, prefilter=None
             lambda sl, pl=None: _search_impl_recon8_listmajor(
                 sl, index.rotation, index.centers, index.recon8, index.recon_scale,
                 index.recon_norm, srows_pad, int(k), n_probes, index.metric, chunk=chunk,
-                int8_queries=int8, trim_bf16=idd != "float32", plan=pl), q, int(k),
-            extra=plan)
+                int8_queries=int8, trim_bf16=idd != "float32", plan=pl,
+                setup_impls=setup), q, int(k), extra=plan)
     elif trim == "fused":
         # at the buffer width the kernel will run with
         kb = check_fused_list_request("trim_engine='fused'", lpad, index.rot_dim, int(k),
@@ -1139,7 +1170,7 @@ def search(params: SearchParams, index: Index, queries, k: int, prefilter=None
             lambda sl, pl=None: _search_impl_recon8_listmajor_fused(
                 sl, index.rotation, index.centers, index.recon8, index.recon_scale,
                 index.recon_norm, srows_pad, int(k), n_probes, index.metric, kb=kb,
-                int8_queries=int8, plan=pl), q, int(k), extra=plan)
+                int8_queries=int8, plan=pl, setup_impls=setup), q, int(k), extra=plan)
     else:
         if int(k) > _BINS:
             raise ValueError(f"trim_engine='pallas' caps per-list candidates at {_BINS}; k={k}")
@@ -1154,6 +1185,7 @@ def search(params: SearchParams, index: Index, queries, k: int, prefilter=None
             lambda sl, pl=None: _search_impl_recon8_listmajor_pallas(
                 sl, index.rotation, index.centers, index.recon8, index.recon_scale,
                 index.recon_norm, srows_pad, int(k), n_probes, index.metric,
-                int8_queries=int8, fold=fold, plan=pl), q, int(k), extra=plan)
+                int8_queries=int8, fold=fold, plan=pl, setup_impls=setup), q, int(k),
+            extra=plan)
     ids = torch.where(rows >= 0, index.source_ids[torch.clamp(rows, min=0).long()], -1)
     return vals, ids.to(torch.int32)

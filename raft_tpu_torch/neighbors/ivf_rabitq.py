@@ -60,8 +60,10 @@ re-ranks through `refine_dataset`. The integrity sidecar (`list_digests`,
 refreshed by `extend` and every mutation, and saved and loaded with the
 index, over the bytes `save` writes (codes as uint32 words). The encode
 stage of `extend` (and so of build) is the `ivf_rabitq.build.encode`
-fault site (core/faults). Observability spans and the distributed (MNMG)
-index are not ported (ROADMAP Queue A item 12).
+fault site (core/faults). With obs enabled, build, extend and search
+each land a span, the search charging its analytic cost
+(`obs.perf.rabitq_scan`) and an adaptive batch its scanned lists. The
+distributed (MNMG) index is not ported (ROADMAP Queue A item 12).
 """
 
 from __future__ import annotations
@@ -72,6 +74,7 @@ from typing import Dict, Optional, Tuple
 import numpy as np
 import torch
 
+from raft_tpu_torch import obs
 from raft_tpu_torch.cluster import kmeans_balanced
 from raft_tpu_torch.core import tuned
 from raft_tpu_torch.core.config import auto_convert_output, resolve_device, strict_f32_matmul
@@ -389,6 +392,7 @@ def label_and_encode(vectors: torch.Tensor, rotation: torch.Tensor, centers: tor
     return labels, codes, aux
 
 
+@obs.spanned("neighbors.ivf_rabitq.build")
 def build(params: IndexParams, dataset, seed: int = 0, device=None) -> Index:
     """Train the rotation and coarse centers, then encode and pack the
     lists. No codebook stage: the build is the coarse k-means and one
@@ -419,6 +423,7 @@ def build(params: IndexParams, dataset, seed: int = 0, device=None) -> Index:
     return index
 
 
+@obs.spanned("neighbors.ivf_rabitq.extend")
 def extend(index: Index, new_vectors, new_indices=None) -> Index:
     """Label, encode and append new vectors: one placement grows both
     payload tables (ivf_flat._grow_and_scatter_multi). Returns a new
@@ -589,19 +594,20 @@ def build_bitplane_store(index: Index, k: int) -> None:
 def _search_impl_rabitq_fused(queries, rotation, centers, codes_t, bp_meta, slot_rows_pad,
                               k: int, n_probes: int, metric: DistanceType,
                               query_bits: int = DEFAULT_QUERY_BITS, chunk: int = 128,
-                              kb: Optional[int] = None, plan=None):
+                              kb: Optional[int] = None, plan=None,
+                              setup_impls=("sort", "gather")):
     """List-major bit-plane search: the probe pairs invert to per-list
     chunks, each chunk's residual rows quantize to bit planes through the
     same `quantize_queries` the "xla" engine uses, and one kernel launch
     scores every chunk and keeps each row's exact top-k (the estimator
     in-kernel, ties to the smaller slot); the candidates regroup to query
     order and merge exactly; pairs outside an adaptive `plan`'s mask are
-    dropped before the inversion. Returns the `_search_impl_rabitq`
-    contract."""
+    dropped before the inversion; `setup_impls` is the (invert_impl,
+    qs_impl) pair. Returns the `_search_impl_rabitq` contract."""
     from raft_tpu_torch.neighbors.probe_invert import (
         chunk_live_rows,
         gather_query_rows,
-        invert_probes_sort,
+        invert_probes_with,
         regroup_merge,
     )
     from raft_tpu_torch.ops.fused_scan import fused_bitplane_topk
@@ -611,10 +617,11 @@ def _search_impl_rabitq_fused(queries, rotation, centers, codes_t, bp_meta, slot
     rot_dim = rotation.shape[0]
     ip = metric == DistanceType.InnerProduct
     q_rot, probes, pvalid = _coarse_select(queries, rotation, centers, n_probes, metric, plan)
-    tables = invert_probes_sort(probes, n_lists, chunk, pvalid)
+    invert_impl, qs_impl = setup_impls
+    tables = invert_probes_with(invert_impl, probes, n_lists, chunk, pvalid)
     live = chunk_live_rows(tables.qid_tbl, nq)  # pad rows and empty chunks skip in-kernel
     q_pad = torch.cat([q_rot, q_rot.new_zeros((1, rot_dim))])
-    qs = gather_query_rows(q_pad, tables.qid_tbl)  # (ncb, chunk, rot)
+    qs = gather_query_rows(q_pad, tables.qid_tbl, qs_impl)  # (ncb, chunk, rot)
     lof = tables.lof
     cent = centers[lof.long()][:, None, :]
     qres = qs if ip else qs - cent
@@ -640,6 +647,7 @@ def _search_impl_rabitq_fused(queries, rotation, centers, codes_t, bp_meta, slot
     return v, rows_out.to(torch.int32)
 
 
+@obs.spanned("neighbors.ivf_rabitq.search")
 @auto_convert_output
 def search(params: SearchParams, index: Index, queries, k: int, prefilter=None,
            refine_dataset=None) -> Tuple[torch.Tensor, torch.Tensor]:
@@ -658,7 +666,7 @@ def search(params: SearchParams, index: Index, queries, k: int, prefilter=None,
     samples whose bit is clear are excluded before the scan's selection."""
     from raft_tpu_torch.core.bitset import make_slot_filter
     from raft_tpu_torch.matrix.select_k import check_bitplane_request, resolve_bitplane_strategy
-    from raft_tpu_torch.neighbors.probe_invert import macro_batched
+    from raft_tpu_torch.neighbors.probe_invert import macro_batched, resolve_setup_impls
     from raft_tpu_torch.ops.fused_scan import FUSED_MAX_K, fused_kbuf
     from raft_tpu_torch.ops.pq_list_scan import lane_padded
 
@@ -698,20 +706,36 @@ def search(params: SearchParams, index: Index, queries, k: int, prefilter=None,
     # the plan's depth is kk: the rerank shortlist must survive the bounds;
     # bounds off under a prefilter or tombstones (the sizes count the
     # members they drop)
+    ap = probe_budget.resolve_params(params, n_probes, dev)
     plan = probe_budget.search_plan(
-        probe_budget.resolve_params(params, n_probes, dev), q, index.centers, n_probes=n_probes,
+        ap, q, index.centers, n_probes=n_probes,
         k=kk, metric=index.metric, rotation=index.rotation,
         radii=index.list_radii if prefilter is None and index.tombstones is None else None,
         sizes=index.list_sizes)
+    if obs.enabled():
+        scanned_mean = (probe_budget.account_plan("ivf_rabitq", plan, q.shape[0], n_probes)
+                        if ap is not None else None)
+        # padded slots of each probed list are scanned too; the fused
+        # engine charges popcounts at the integer rate and no score bytes
+        obs.span_cost(**obs.perf.cost_for(
+            "neighbors.ivf_rabitq.search", nq=int(q.shape[0]),
+            n_probes=scanned_mean if scanned_mean is not None else n_probes,
+            n_lists=int(index.n_lists),
+            n_rows=int(index.codes.shape[0] * index.codes.shape[1]) - index.n_tombstones,
+            dim=int(index.dim), k=k, query_bits=int(query_bits),
+            rerank_mult=int(rerank_mult) if ds is not None else 0,
+            fused=strat == "fused_bitplane"))
     if strat == "fused_bitplane":
         build_bitplane_store(index, kk)
         kb = index.fused_kb
         srows_pad = maybe_filter(index.slot_rows_pad)
+        # the flat engines' query-row gate: the planes quantize exact rows
+        setup = resolve_setup_impls(index.n_lists, "flat", dev)
         vals, rows = macro_batched(
             lambda sl, pl=None: _search_impl_rabitq_fused(
                 sl, index.rotation, index.centers, index.codes_t, index.bp_meta,
                 srows_pad, kk, n_probes, index.metric, query_bits=query_bits, kb=kb,
-                plan=pl),
+                plan=pl, setup_impls=setup),
             q, kk, extra=plan)
     else:
         vals, rows = _search_impl_rabitq(q, index.rotation, index.centers, index.codes,

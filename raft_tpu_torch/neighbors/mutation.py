@@ -42,8 +42,10 @@ K newest commits as point-in-time snapshots (integrity/restore).
 Fault sites (core/faults): `mutation.log.commit` (`crash_point` after
 each log append and after each checkpoint commit: the two SIGKILL
 windows), `mutation.tombstone` and `mutation.rebalance` (`fault_point`
-before any state changes). The observability counters and events wait
-for the port's `obs` (ROADMAP Queue A item 12).
+before any state changes). With obs enabled, delete, upsert and compact
+count `mutation.tombstones`, `mutation.upserts` and
+`mutation.rebalances` and publish a "mutation" event each, as does each
+`Mutator` checkpoint commit.
 """
 
 from __future__ import annotations
@@ -56,6 +58,7 @@ from typing import Optional, Tuple
 import numpy as np
 import torch
 
+from raft_tpu_torch import obs
 from raft_tpu_torch.core import faults
 from raft_tpu_torch.core.serialize import crc32c
 
@@ -186,6 +189,9 @@ def tombstone(index, ids):
     out = _clone(index)
     out.tombstones = t | dead_new
     refresh(out, index)
+    if obs.enabled():
+        obs.counter("mutation.tombstones").inc(n)
+        obs.event("mutation", op="delete", index_kind=kind_of(index), n=n)
     return out, n
 
 
@@ -201,7 +207,8 @@ def upsert(index, vectors, ids=None):
     the tail slots). `ids=None` assigns fresh ids from `index.id_bound`
     on (a pure insert). Returns the new index; the old object keeps
     serving unchanged."""
-    mod = _index_module(kind_of(index))
+    kind = kind_of(index)
+    mod = _index_module(kind)
     n = int(vectors.shape[0]) if hasattr(vectors, "shape") else len(vectors)
     if ids is None:
         base = index.id_bound
@@ -210,7 +217,11 @@ def upsert(index, vectors, ids=None):
     if ids.shape[0] != n:
         raise ValueError(f"{n} vectors but {ids.shape[0]} ids")
     out, _ = tombstone(index, ids)
-    return mod.extend(out, vectors, new_indices=ids)
+    out = mod.extend(out, vectors, new_indices=ids)
+    if obs.enabled():
+        obs.counter("mutation.upserts").inc(int(ids.shape[0]))
+        obs.event("mutation", op="upsert", index_kind=kind, n=int(ids.shape[0]))
+    return out
 
 
 def ensure_append_slack(index, slack: int):
@@ -263,7 +274,8 @@ def compact(index, *, slack: Optional[int] = None):
     slack = index.append_slack if slack is None else int(slack)
     sr = index.slot_rows
     n_lists, width = int(sr.shape[0]), int(sr.shape[1])
-    live = (sr >= 0) & ~_tomb_mask(index)
+    t = _tomb_mask(index)
+    live = (sr >= 0) & ~t
     live_sizes = live.sum(dim=1).to(torch.int32)
     new_max = _round_group((int(live_sizes.max()) if live_sizes.numel() else 0) + slack)
     # stable left-pack: sorting "dead" puts live slots first in their
@@ -291,6 +303,9 @@ def compact(index, *, slack: Optional[int] = None):
     out.append_slack = slack
     _drop_derived(out)
     refresh(out, index)  # the repack moved slots: their lists hash again
+    if obs.enabled():
+        obs.counter("mutation.rebalances").inc()
+        obs.event("mutation", op="rebalance", index_kind=kind, n=int(t.sum()), width=new_max)
     return out
 
 
@@ -552,6 +567,8 @@ class Mutator:
                         os.remove(p)
                     except OSError:
                         pass  # an orphan payload is ignored garbage
+            if obs.enabled():
+                obs.event("mutation", op="commit", index_kind=self.kind, cursor=self.applied)
         # SIGKILL window 2: after the commit, so the resume must not replay
         faults.crash_point(LOG_COMMIT_SITE)
         return self.index

@@ -19,7 +19,10 @@
                the slot gather, list-major engines drop masked pairs
                before the inversion (probe_invert), and the list kernels
                skip the rows and chunks that empty out.
-  accounting   `account` returns the mean of the lists a query scanned.
+  accounting   with obs enabled, `account` lands the lists the queries
+               scanned in the obs registry (`ivf.scanned_lists`,
+               `ivf.budget_hist`) and returns their mean for the span's
+               cost; disabled, it returns None and reads nothing.
 
 A `recall_target` resolves to tau through the tuned
 `adaptive_probe_policy` (core/tuned.py; CUDA only), else
@@ -28,9 +31,8 @@ which `search_plan` does not compute: the engines run the fixed search.
 
 The budgets pass the `ivf.probe_budget` fault hook (`BUDGET_SITE`,
 `_maybe_corrupt_budgets`): a corrupted budget shrinks to `min_probes`.
-Not ported yet: the observability counters of `account`, and `resolve` /
-`policy_token`, which serve only the distributed (MNMG) searches and the
-server.
+Not ported yet: `resolve` / `policy_token`, which serve only the
+distributed (MNMG) searches and the server.
 
 This module is imported by the three index engines and imports none of
 them.
@@ -41,6 +43,7 @@ from __future__ import annotations
 import dataclasses
 from typing import Optional, Tuple
 
+import numpy as np
 import torch
 
 from raft_tpu_torch.core import tuned
@@ -336,10 +339,40 @@ def updated_radii(old_radii, labels, dists, n_lists: int):
     return old_radii.float().scatter_reduce(0, labels, dists, reduce="amax", include_self=True)
 
 
-def account(engine: str, scanned: torch.Tensor, nq: int, n_probes: int) -> float:
-    """The mean of the lists a query of the batch scanned (what a cost
-    model should charge instead of n_probes). Reads the counts back to
-    the host. `engine` names the caller for the observability counters,
-    which are not ported yet."""
-    del engine, n_probes
-    return float(scanned.sum().item()) / max(1, int(nq))
+def account(engine: str, scanned: torch.Tensor, nq: int, n_probes: int) -> Optional[float]:
+    """Land one batch's scanned-list totals in the obs registry
+    (`ivf.scanned_lists`, with the worst case `ivf.scanned_lists_worst_case`
+    beside it, the per-query counts in the `ivf.budget_hist` histogram
+    and one "probe_budget" event) and return the per-query mean a cost
+    model should charge instead of n_probes.
+
+    With obs disabled this is a no-op returning None: the mean's only
+    consumer is the span-cost charge, and reading the counts would stall
+    the host on the device for nothing."""
+    from raft_tpu_torch import obs
+
+    if not obs.enabled():
+        return None
+    counts = torch.as_tensor(scanned).cpu().numpy()
+    total = int(counts.sum())
+    mean = float(total) / max(1, int(nq))
+    obs.counter("ivf.scanned_lists").inc(total)
+    obs.counter("ivf.scanned_lists_worst_case").inc(int(nq) * int(n_probes))
+    hist = obs.histogram("ivf.budget_hist")
+    vals, reps = np.unique(counts, return_counts=True)
+    for v, r in zip(vals, reps):
+        hist.observe_n(float(v), int(r))  # one locked update per value
+    obs.event("probe_budget", engine=engine, queries=int(nq),
+              scanned_lists=total, worst_case=int(nq) * int(n_probes))
+    return mean
+
+
+def account_plan(engine: str, plan, nq: int, n_probes: int) -> Optional[float]:
+    """`account` of an adaptive search's `plan` (`search_plan`): each
+    query's kept probes, or all n_probes where the plan was skipped
+    (None, a saturated plan)."""
+    if plan is None:
+        scanned = torch.full((int(nq),), int(n_probes), dtype=torch.int64)
+    else:
+        scanned = plan[0].sum(dim=1)
+    return account(engine, scanned, nq, n_probes)

@@ -12,10 +12,16 @@ The chunk count is the same static bound the JAX package uses
 (sum(ceil(c_i / chunk)) <= P // chunk + n_lists). A chunk's live pairs
 are its leading slots; `chunk_live_rows` counts them, so the fused kernel
 skips pad rows and the empty chunks past the populated ones
-(`chunk_validity` is the JAX package's per-chunk flag). The sort-based
-construction is ported; the counting one and the one-hot query-row impls
-are still to be ported. `score_and_select` is the back half of the
-engines that materialize their scores (IVF-Flat's "list" engine).
+(`chunk_validity` is the JAX package's per-chunk flag). Two
+constructions give the same tables bit for bit: "sort" (a stable sort and
+its inverse permutation) and "count" (one stable sort for the query ids,
+in-bucket ranks from blocked one-hot cumsums). Query rows come from a
+gather or from one-hot matmuls ("onehot_bf16", "onehot_f32h"). The
+`invert_impl`, `listmajor_qs_impl` and `listmajor_qs_impl_flat` tuned keys
+choose among them (`resolve_setup_impls`; the table governs CUDA tensors
+only), and a default call runs ("sort", "gather"). `score_and_select` is
+the back half of the engines that materialize their scores (IVF-Flat's
+"list" engine).
 
 Adaptive probing (neighbors/probe_budget) hands the inversion a
 (nq, n_probes) keep mask, `pvalid`: masked pairs move to the sentinel
@@ -29,6 +35,8 @@ from __future__ import annotations
 from typing import NamedTuple, Optional
 
 import torch
+
+from raft_tpu_torch.core import tuned
 
 
 class ChunkTables(NamedTuple):
@@ -111,11 +119,181 @@ def invert_probes_sort(probes: torch.Tensor, n_lists: int, chunk: int,
     return ChunkTables(lof.to(torch.int32), qid_tbl, g0, s0, pv)
 
 
-def gather_query_rows(q_pad: torch.Tensor, qids: torch.Tensor) -> torch.Tensor:
+def invert_probes(probes: torch.Tensor, n_lists: int, chunk: int,
+                  pvalid: Optional[torch.Tensor] = None) -> ChunkTables:
+    """Chunk tables from a (nq, n_probes) probe matrix by the tuned
+    construction (`resolve_invert_impl`); both give the same tables bit
+    for bit. Engines resolve the impl once per search
+    (`resolve_setup_impls`) and call the construction directly."""
+    return invert_probes_with(resolve_invert_impl(n_lists, probes.device), probes, n_lists,
+                              chunk, pvalid)
+
+
+def invert_probes_with(impl: str, probes: torch.Tensor, n_lists: int, chunk: int,
+                       pvalid: Optional[torch.Tensor] = None) -> ChunkTables:
+    """Chunk tables by the named construction ("count", else "sort"): the
+    engines call it with the `invert_impl` their search resolved."""
+    if impl == "count":
+        return invert_probes_count(probes, n_lists, chunk, pvalid)
+    return invert_probes_sort(probes, n_lists, chunk, pvalid)
+
+
+INVERT_IMPLS = ("sort", "count")
+
+#: past this many lists the counting construction's (block, n_lists + 1)
+#: planes stop being bounded by its block floor: "count" falls back to
+#: "sort" whatever the table says
+_COUNT_MAX_LISTS = 8192
+
+
+def resolve_invert_impl(n_lists: int = 0, device=None) -> str:
+    """The tuned chunk-table construction ("sort" unless the table, which
+    governs CUDA tensors only, says "count" and n_lists <= 8192)."""
+    impl = "sort"
+    if tuned.applies(device):
+        impl = tuned.get_choice("invert_impl", INVERT_IMPLS, "sort")
+    if impl == "count" and n_lists > _COUNT_MAX_LISTS:
+        return "sort"
+    return impl
+
+
+def resolve_setup_impls(n_lists: int, engine: str = "pq", device=None) -> tuple:
+    """(invert_impl, qs_impl) of a list-major search, resolved once at the
+    call site and passed down. `engine` ("pq" | "flat") keys the query-row
+    impl: see `resolve_qs_impl` for the flat engines' bf16 gate."""
+    return resolve_invert_impl(n_lists, device), resolve_qs_impl(engine, device)
+
+
+def _blocked_bucket_ranks(flat: torch.Tensor, n_lists: int):
+    """(stable rank of each pair within its list bucket, per-list counts)
+    without a sort: blocks of pairs build their one-hot list membership,
+    a cumsum down the block gives in-block ranks, and per-list totals
+    carry across blocks. The block is the JAX package's,
+    min(8192, max(256, 2^24 // (n_lists + 1))) pairs; the sentinel list
+    `n_lists` (masked pairs and the pad) is the planes' last column."""
+    p_total = flat.shape[0]
+    dev = flat.device
+    block = min(8192, max(256, (1 << 24) // (n_lists + 1)))
+    cols = torch.arange(n_lists + 1, device=dev)
+    carry = torch.zeros(n_lists + 1, dtype=torch.int64, device=dev)
+    ranks = []
+    for s in range(0, p_total, block):
+        lb = flat[s:s + block]
+        cs = torch.cumsum((lb[:, None] == cols[None, :]).to(torch.int32), dim=0)
+        ranks.append(cs.gather(1, lb[:, None])[:, 0].long() - 1 + carry[lb])
+        carry = carry + cs[-1]
+    rank = torch.cat(ranks) if ranks else flat.new_zeros(0)
+    return rank, carry[:n_lists]
+
+
+def invert_probes_count(probes: torch.Tensor, n_lists: int, chunk: int,
+                        pvalid: Optional[torch.Tensor] = None) -> ChunkTables:
+    """Counting construction: the in-bucket ranks and per-list counts from
+    `_blocked_bucket_ranks` replace the inverse permutation and the two
+    searchsorted passes of `invert_probes_sort`; one stable sort of the
+    pair lists carries the query ids, and each chunk reads its contiguous
+    window of them. Stability makes each rank equal the sort's
+    inv - starts[list], so the tables equal the sort's bit for bit,
+    masked pairs (`pvalid` False, the sentinel list) included."""
+    nq, n_probes = probes.shape
+    p_total = nq * n_probes
+    dev = probes.device
+    flat = probes.reshape(-1).long()
+    pv = None
+    if pvalid is not None:
+        pv = pvalid.reshape(-1).to(device=dev, dtype=torch.bool)
+        flat = torch.where(pv, flat, n_lists)
+    rank, counts = _blocked_bucket_ranks(flat, n_lists)
+    starts = torch.cumsum(counts, 0) - counts
+    base, lof, cl, _, valid = _chunk_geometry(counts, nq, n_probes, n_lists, chunk)
+
+    _, order = torch.sort(flat, stable=True)
+    sq_pad = torch.cat([order // n_probes, torch.full((chunk,), nq, device=dev,
+                                                      dtype=order.dtype)])
+    off = torch.clamp(starts[lof] + cl * chunk, 0, p_total)
+    rows = sq_pad[off[:, None] + torch.arange(chunk, device=dev)[None, :]]
+    qid_tbl = torch.where(valid, rows, nq)
+
+    lst = torch.clamp(flat, max=n_lists - 1)
+    g0 = base[lst] + rank // chunk
+    s0 = rank % chunk
+    if pv is not None:
+        g0 = torch.where(pv, g0, 0)
+        s0 = torch.where(pv, s0, 0)
+    return ChunkTables(lof.to(torch.int32), qid_tbl, g0, s0, pv)
+
+
+#: query-row materializations: "gather" (an index), "onehot_bf16" (a
+#: one-hot matmul over bf16-rounded rows, f32 accumulation) and
+#: "onehot_f32h" (the same in full f32, TF32 off: equal to the gather but
+#: for -0.0, which reads +0.0, and rows holding a non-finite value, which
+#: read NaN where 0 x inf enters the sum)
+QS_IMPLS = ("gather", "onehot_bf16", "onehot_f32h")
+
+#: bytes of the (rows, chunk, nq + 1) one-hot plane a sub-block may hold
+_ONEHOT_PLANE_BYTES = 1 << 25
+
+
+def gather_query_rows(q_pad: torch.Tensor, qids: torch.Tensor,
+                      impl: str = "gather") -> torch.Tensor:
     """(..., chunk, dim) query rows from a (..., chunk) id table over the
-    sentinel-padded (nq+1, dim) query matrix (the JAX package's "gather"
-    impl; its one-hot impls are still to be ported)."""
-    return q_pad[qids]
+    sentinel-padded (nq+1, dim) query matrix, by `impl` (`QS_IMPLS`).
+
+    The one-hot impls bound the materialized one-hot plane to about 32 MB
+    by taking sub-blocks of the leading rows, the JAX package's sub-block
+    size; the rows come back in `q_pad`'s dtype."""
+    if impl == "gather":
+        return q_pad[qids]
+    if impl == "onehot_bf16":
+        dt = torch.bfloat16
+    elif impl == "onehot_f32h":
+        dt = torch.float32
+    else:
+        raise ValueError(f"unknown query-row impl {impl!r}")
+    nq1, dim = q_pad.shape
+    qp = q_pad.to(dt)
+    cols = torch.arange(nq1, device=q_pad.device)
+    prev = torch.backends.cuda.matmul.allow_tf32
+    torch.backends.cuda.matmul.allow_tf32 = False
+    try:
+        def onehot_rows(ids):
+            oh = (ids[..., None] == cols).to(dt)
+            # + 0.0: the sum starts from +0.0, as the JAX dot's does
+            return torch.matmul(oh, qp).float() + 0.0
+
+        lead = qids.shape[:-1]
+        chunk = qids.shape[-1]
+        rows_total = 1
+        for s in lead:
+            rows_total *= int(s)
+        qb = max(1, _ONEHOT_PLANE_BYTES // max(1, chunk * nq1 * qp.element_size()))
+        if not lead or rows_total <= qb:
+            return onehot_rows(qids).to(q_pad.dtype)
+        flat_ids = qids.reshape(rows_total, chunk)
+        out = torch.cat([onehot_rows(flat_ids[s:s + qb]) for s in range(0, rows_total, qb)])
+        return out.reshape(*lead, chunk, dim).to(q_pad.dtype)
+    finally:
+        torch.backends.cuda.matmul.allow_tf32 = prev
+
+
+def resolve_qs_impl(engine: str = "pq", device=None) -> str:
+    """The tuned query-row impl of a list-major engine ("gather" where the
+    table, which governs CUDA tensors only, has no value).
+
+    `listmajor_qs_impl` is the PQ engines' key: bf16-rounded rows cost
+    those nothing beside their int8 or bf16 scoring. The IVF-Flat and
+    RaBitQ list-major engines take exact f32 rows, so for engine="flat" a
+    shared "onehot_bf16" is gated back to "gather" unless the flat key
+    `listmajor_qs_impl_flat` names an impl itself."""
+    if not tuned.applies(device):
+        return "gather"
+    if engine == "flat":
+        own = tuned.get_choice("listmajor_qs_impl_flat", QS_IMPLS, None)
+        if own is not None:
+            return own
+        shared = tuned.get_choice("listmajor_qs_impl", QS_IMPLS, "gather")
+        return "gather" if shared == "onehot_bf16" else shared
+    return tuned.get_choice("listmajor_qs_impl", QS_IMPLS, "gather")
 
 
 def chunk_validity(qid_tbl: torch.Tensor, nq: int) -> torch.Tensor:

@@ -24,6 +24,7 @@ from typing import Optional, Tuple
 import numpy as np
 import torch
 
+from raft_tpu_torch import obs
 from raft_tpu_torch.core.config import auto_convert_output, strict_f32_matmul
 from raft_tpu_torch.core.validation import as_tensor, check_matrix
 from raft_tpu_torch.distance.distance_types import DistanceType, resolve_metric
@@ -132,6 +133,14 @@ def _check_strategy(strategy, m: DistanceType, nc: int, dim: int, k: int) -> boo
     return True
 
 
+def _charge_refine_cost(nq: int, nc: int, dim: int, k: int, fused: bool) -> None:
+    if obs.enabled():
+        obs.span_cost(**obs.perf.cost_for(
+            "neighbors.refine", nq=nq, n_cand=nc, dim=dim, k=k,
+            dtype="bf16" if fused else "f32", fused=fused))
+
+
+@obs.spanned("neighbors.refine")
 @auto_convert_output
 def refine(dataset, queries, candidates, k: int, metric="sqeuclidean",
            strategy: Optional[str] = "two_phase", device=None
@@ -149,11 +158,14 @@ def refine(dataset, queries, candidates, k: int, metric="sqeuclidean",
     nc = int(cand.shape[1])
     if k > nc:
         raise ValueError(f"k={k} > n_candidates={nc}")
-    if _check_strategy(strategy, m, nc, int(ds.shape[1]), int(k)):
+    fused = _check_strategy(strategy, m, nc, int(ds.shape[1]), int(k))
+    _charge_refine_cost(int(q.shape[0]), nc, int(ds.shape[1]), int(k), fused)
+    if fused:
         return _refine_fused_impl(ds, q, cand, int(k), m)
     return _refine_impl(ds, q, cand, int(k), m)
 
 
+@obs.spanned("neighbors.refine")
 @auto_convert_output
 def refine_host(dataset, queries, candidates, k: int, metric="sqeuclidean",
                 strategy: Optional[str] = "two_phase", device=None
@@ -178,6 +190,7 @@ def refine_host(dataset, queries, candidates, k: int, metric="sqeuclidean",
     if k > nc:
         raise ValueError(f"k={k} > n_candidates={nc}")
     fused = _check_strategy(strategy, m, nc, int(host.shape[1]), int(k))
+    _charge_refine_cost(int(q.shape[0]), nc, int(host.shape[1]), int(k), fused)
     cdata = torch.from_numpy(np.ascontiguousarray(
         host[np.clip(cand, 0, host.shape[0] - 1)], dtype=np.float32)).to(q.device)
     cand_t = torch.from_numpy(cand.astype(np.int32)).to(q.device)

@@ -177,7 +177,8 @@ def shuffle_rows(state, matrix) -> Tuple[torch.Tensor, torch.Tensor]:
 def sample_without_replacement(state, n_population: int, n_samples: int,
                                weights: Optional[torch.Tensor] = None) -> torch.Tensor:
     """k-of-n sampling without replacement (rng.cuh:sampleWithoutReplacement),
-    int64 indices on the generator's device. Uniform: the first `n_samples`
+    int32 indices on the generator's device, as the JAX function returns.
+    Uniform: the first `n_samples`
     of a random permutation. Weighted: the Gumbel-top-k race (the
     order-statistics method the reference implements with per-item keys),
     keys log(w) + Gumbel noise."""
@@ -185,10 +186,11 @@ def sample_without_replacement(state, n_population: int, n_samples: int,
     if not 0 <= n_samples <= n_population:
         raise ValueError(f"cannot draw {n_samples} of {n_population} without replacement")
     if weights is None:
-        return torch.randperm(n_population, generator=g, device=g.device)[:n_samples]
+        perm = torch.randperm(n_population, generator=g, device=g.device)
+        return perm[:n_samples].to(torch.int32)
     w = torch.as_tensor(weights, dtype=torch.float32, device=g.device)
     keys = gumbel(g, (n_population,)) + torch.log(torch.clamp(w, min=1e-30))
-    return torch.topk(keys, n_samples).indices
+    return torch.topk(keys, n_samples).indices.to(torch.int32)
 
 
 def multi_variable_gaussian(state, mean, cov, n_samples: int) -> torch.Tensor:

@@ -293,10 +293,11 @@ def test_fault_sites_are_jax_sites_with_live_hooks():
 
 
 def test_batch_loader_load_is_the_eighth_site():
-    """`batch_loader.load` joined with `neighbors/batch_loader`: eight
-    sites, the JAX description, hooked by `fault_point` and
-    `corrupt_host` in that module."""
-    assert len(tf.FAULT_SITES) == 8
+    """`batch_loader.load` joined with `neighbors/batch_loader` as the
+    eighth site (the obs sites `obs.flight.dump` and `serve.trace.stamp`
+    came after it: ten in all), the JAX description, hooked by
+    `fault_point` and `corrupt_host` in that module."""
+    assert len(tf.FAULT_SITES) == 10
     assert tf.FAULT_SITES["batch_loader.load"] == jf.FAULT_SITES["batch_loader.load"]
     path = _ROOT / "raft_tpu_torch" / "neighbors" / "batch_loader.py"
     assert {"fault_point", "corrupt_host"} <= _called_names(path)

@@ -221,7 +221,7 @@ _SUBPACKAGES = ("cluster", "core", "distance", "integrity", "matrix", "neighbors
 
 #: top-level names of the JAX package that come with the distributed and
 #: serving layer (ROADMAP item 12)
-_ITEM12_TOP_LEVEL = ("DegradedSearchResult", "RankHealth", "comms", "jobs", "obs", "serve")
+_ITEM12_TOP_LEVEL = ("DegradedSearchResult", "RankHealth", "comms", "jobs", "serve")
 
 
 def _defined_names(path: Path) -> list:
@@ -311,6 +311,23 @@ def test_top_level_exports_the_jax_all_but_the_distributed_layer():
     for name in _ITEM12_TOP_LEVEL:
         with pytest.raises(AttributeError):
             getattr(raft_tpu_torch, name)
+
+
+def test_obs_is_on_the_top_level_with_the_jax_all():
+    """`raft_tpu_torch.obs` sits at the JAX position of the top level, has
+    all ten modules of the JAX `obs` and its `__all__`, in its order."""
+    import raft_tpu
+    import raft_tpu.obs as jobs
+
+    from raft_tpu_torch import obs
+
+    assert raft_tpu_torch.obs is obs
+    assert raft_tpu_torch.__all__.index("obs") == [
+        n for n in raft_tpu.__all__ if n not in _ITEM12_TOP_LEVEL].index("obs")
+    assert obs.__all__ == jobs.__all__
+    mods = {p.stem for p in (_ROOT / "raft_tpu" / "obs").glob("*.py")}
+    assert mods == {p.stem for p in (_ROOT / "raft_tpu_torch" / "obs").glob("*.py")}
+    assert len(mods - {"__init__"}) == 10
 
 
 def test_neighbors_refine_is_the_function():

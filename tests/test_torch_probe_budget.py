@@ -225,9 +225,22 @@ def test_search_plan_skips_only_the_plans_that_keep_every_probe():
 
 
 def test_account_is_the_mean_of_scanned_lists():
+    """With obs enabled `account` returns the mean of the scanned lists
+    (and lands them in the registry); disabled it returns None and reads
+    nothing, as the JAX function does."""
+    from raft_tpu_torch import obs
+
     counts = torch.tensor([3, 5, 8, 0], dtype=torch.int32)
-    assert tpb.account("ivf_pq", counts, 4, 8) == 4.0
-    assert tpb.account("ivf_pq", counts[:0], 0, 8) == 0.0
+    assert tpb.account("ivf_pq", counts, 4, 8) is None
+    obs.reset()
+    obs.enable()
+    try:
+        assert tpb.account("ivf_pq", counts, 4, 8) == 4.0
+        assert tpb.account("ivf_pq", counts[:0], 0, 8) == 0.0
+        assert obs.registry().snapshot()["counters"]["ivf.scanned_lists"] == 16
+    finally:
+        obs.disable()
+        obs.reset()
 
 
 # ---------------------------------------------------------------------------

@@ -113,6 +113,21 @@ def test_sample_without_replacement_uniform_and_weighted():
         trnd.sample_without_replacement(g, 5, 6)
 
 
+@pytest.mark.parametrize("n_population,n_samples,weighted", [
+    (500, 64, False),    # the JAX permutation branch
+    (4096, 64, False),   # the JAX top-k-of-bits branch
+    (1000, 20, True),
+])
+def test_sample_without_replacement_dtype_matches_jax(n_population, n_samples, weighted):
+    w = np.linspace(0.5, 2.0, n_population).astype(np.float32) if weighted else None
+    jx = jrnd.sample_without_replacement(jrnd.RngState(4), n_population, n_samples,
+                                         weights=w)
+    got = trnd.sample_without_replacement(_state(4), n_population, n_samples, weights=w)
+    assert got.dtype == torch.int32
+    assert str(got.dtype).split(".")[-1] == np.asarray(jx).dtype.name
+    assert got.shape == tuple(jx.shape)
+
+
 def test_multi_variable_gaussian_covariance():
     cov = np.array([[2.0, 0.8], [0.8, 1.0]], np.float32)
     x = trnd.multi_variable_gaussian(_state(12), np.array([1.0, -1.0], np.float32), cov, 40_000)
