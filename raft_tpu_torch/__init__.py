@@ -9,10 +9,11 @@ hand-written CUDA C++ for `sm_90a` under `raft_tpu_torch/csrc/`, built at
 first use.
 
 The top level follows the JAX package's: `__version__`, `Resources`,
-`device_ndarray`, the IVF-RaBitQ entry points and the subpackages, which
-resolve lazily (PEP 562) so `import raft_tpu_torch` stays light. The
-distributed and serving names (`comms`, `jobs`, `serve`,
-`DegradedSearchResult`, `RankHealth`) come with the distributed layer.
+`device_ndarray`, the degraded-search types of the distributed layer
+(`DegradedSearchResult`, `RankHealth`), the IVF-RaBitQ entry points and
+the subpackages, which resolve lazily (PEP 562) so `import raft_tpu_torch`
+stays light. The serving and jobs layers (`serve`, `jobs`) are still to
+come.
 """
 
 __version__ = "0.1.0"
@@ -23,6 +24,7 @@ from raft_tpu_torch.core.device_ndarray import device_ndarray  # noqa: E402
 
 _SUBPACKAGES = (
     "cluster",
+    "comms",
     "core",
     "distance",
     "integrity",
@@ -45,6 +47,8 @@ _SUBPACKAGES = (
 
 # (module, attribute) of the renamed lazy aliases
 _LAZY_ATTRS = {
+    "DegradedSearchResult": ("raft_tpu_torch.comms.resilience", "DegradedSearchResult"),
+    "RankHealth": ("raft_tpu_torch.comms.resilience", "RankHealth"),
     "ivf_rabitq_build": ("raft_tpu_torch.neighbors.ivf_rabitq", "build"),
     "ivf_rabitq_search": ("raft_tpu_torch.neighbors.ivf_rabitq", "search"),
 }

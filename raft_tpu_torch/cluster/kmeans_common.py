@@ -28,7 +28,7 @@ def _block_rows(m: int, k: int, d: int, batch: int = 1,
 
 def assign_and_reduce(x: torch.Tensor, centers: torch.Tensor,
                       weights: Optional[torch.Tensor] = None,
-                      needs_sums: bool = True
+                      needs_sums: bool = True, budget_elems: int = 1 << 23
                       ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor, torch.Tensor]:
     """Stream x once; return (labels, sums, counts, inertia).
 
@@ -36,7 +36,9 @@ def assign_and_reduce(x: torch.Tensor, centers: torch.Tensor,
     (B, n). labels int64 nearest-center ids; sums (k, d) weighted
     per-center coordinate sums (zeros if not `needs_sums`); counts (k,)
     weighted member counts; inertia the weighted sum of min squared L2
-    distances (per batch entry when batched)."""
+    distances (per batch entry when batched). Rows go in blocks of about
+    `budget_elems` / (k + d) (the distributed k-means passes a larger
+    budget: fewer, larger launches)."""
     strict_f32_matmul()
     batched = x.ndim == 3
     xb3 = x.float() if batched else x.float()[None]
@@ -52,7 +54,7 @@ def assign_and_reduce(x: torch.Tensor, centers: torch.Tensor,
     sums = torch.zeros((B, k, d), dtype=torch.float32, device=dev)
     counts = torch.zeros((B, k), dtype=torch.float32, device=dev)
     inertia = torch.zeros((B,), dtype=torch.float32, device=dev)
-    bm = _block_rows(n, k, d, B)
+    bm = _block_rows(n, k, d, B, budget_elems)
     for s in range(0, n, bm):
         xs = xb3[:, s:s + bm]
         xn = torch.sum(xs * xs, dim=2, keepdim=True)

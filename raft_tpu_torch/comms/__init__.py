@@ -1,0 +1,52 @@
+"""Distributed comms and the MNMG algorithms (counterpart of
+raft_tpu/comms; `cpp/include/raft/comms/` + `python/raft-dask/`, SURVEY
+§2.8, §2.15, §3.5, §5.8): the ported names of the JAX package's
+`__all__`, in its order. Recovery, checkpoint rehydration and the replica
+mirrors of the distributed IVF indexes come with the distributed IVF
+drivers."""
+
+from raft_tpu_torch.comms.comms import (
+    Comms,
+    AxisComms,
+    op_t,
+    datatype_t,
+    init_comms,
+    local_handle,
+    bootstrap_multihost,
+)
+from raft_tpu_torch.comms import quantized
+from raft_tpu_torch.comms import resilience
+from raft_tpu_torch.comms.resilience import (
+    DegradedSearchResult,
+    HealthCheckTimeout,
+    RankHealth,
+    RetryExhausted,
+    health_barrier,
+    probe_health,
+    retry_with_backoff,
+)
+from raft_tpu_torch.comms import mnmg
+from raft_tpu_torch.comms import replication
+from raft_tpu_torch.comms.replication import ReplicaPlacement
+
+__all__ = [
+    "Comms",
+    "AxisComms",
+    "op_t",
+    "datatype_t",
+    "init_comms",
+    "local_handle",
+    "bootstrap_multihost",
+    "quantized",
+    "mnmg",
+    "resilience",
+    "replication",
+    "DegradedSearchResult",
+    "HealthCheckTimeout",
+    "RankHealth",
+    "ReplicaPlacement",
+    "RetryExhausted",
+    "health_barrier",
+    "probe_health",
+    "retry_with_backoff",
+]

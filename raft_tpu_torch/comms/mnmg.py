@@ -1,0 +1,62 @@
+"""Multi-node multi-device (MNMG) algorithms over the comms layer
+(counterpart of raft_tpu/comms/mnmg.py).
+
+Reference parity: RAFT's MNMG story (SURVEY §2.15 / §3.4 / §5.7-5.8):
+algorithms written against `handle.get_comms()`; the dataset sharded over
+the workers; k-means wraps each iteration in an allreduce of partial
+sums; search does a shard-local top-k, then merges (knn_merge_parts).
+Every function takes a `Comms` session; host arrays or tensors are
+sharded row-wise (equal shards, padded) across the ranks.
+
+This module is the stable public surface re-exporting the entry points
+of the modules split by concern, in the JAX package's order:
+
+  mnmg_common      sharding layouts, prefilter bits, the body cache
+  mnmg_merge       top-k merge schedules + query-mode resolution
+  mnmg_kmeans      distributed k-means (driver-sharded + *_local)
+  mnmg_knn         distributed brute-force kNN
+  replication      ring placement of shard replicas
+
+Not yet here: the distributed IVF indexes (builds, extends, searches,
+checkpoints, the RaBitQ driver), the replica mirrors of those indexes
+and recovery, which come with the distributed IVF drivers.
+"""
+
+from raft_tpu_torch.comms.mnmg_common import (  # noqa: F401
+    _cached_wrapper,
+    _distributed_id_bound,
+    _knn_prefilter_words,
+    _local_layout,
+    _metric_name,
+    _pack_local,
+    _pad_queries,
+    _ranks_by_proc,
+    _replicated_filter_bits,
+    _shard_filtered,
+    _shard_rows,
+)
+from raft_tpu_torch.comms.mnmg_merge import (  # noqa: F401
+    _merge_local_topk,
+    _merge_local_topk_allgather,
+    _merge_local_topk_scatter,
+    _merge_local_topk_tournament,
+    _pack_vi,
+    _replicated_merge_schedule,
+    _resolve_query_mode,
+)
+from raft_tpu_torch.comms.mnmg_kmeans import (  # noqa: F401
+    _kmeans_fit_sharded,
+    _spmd_predict,
+    kmeans_fit,
+    kmeans_fit_local,
+    kmeans_predict,
+    kmeans_predict_local,
+)
+from raft_tpu_torch.comms.mnmg_knn import (  # noqa: F401
+    _knn_sharded,
+    knn,
+    knn_local,
+)
+from raft_tpu_torch.comms.replication import (  # noqa: F401
+    ReplicaPlacement,
+)

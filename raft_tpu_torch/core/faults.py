@@ -65,6 +65,25 @@ FAULT_SITES = {
     "batch_loader.load": (
         "host loader block fetch (slow_rank latency, flaky reads, "
         "corrupt_host NaNs in a streamed block)"),
+    "comms.allgather": (
+        "traced allgather contribution (corrupt_shard NaNs / "
+        "drop_collective identity on the faulted rank)"),
+    "comms.allreduce": (
+        "traced allreduce contribution (corrupt_shard NaNs / "
+        "drop_collective identity on the faulted rank)"),
+    "comms.bootstrap": (
+        "multihost init entry (flaky_bootstrap exercises "
+        "retry_with_backoff; slow_rank models a straggling controller)"),
+    "comms.quant.decode": (
+        "quantized-collective scale sidecar AFTER transport, before "
+        "decode (corrupt_shard NaNs the faulted rank's received scales "
+        "— its decoded contributions degrade visibly, never a crash; "
+        "comms/quantized)"),
+    "comms.quant.encode": (
+        "quantized-collective scale sidecar AFTER encode, before "
+        "transport (corrupt_shard NaNs the faulted rank's outgoing "
+        "scales — downstream decodes degrade visibly, never a crash; "
+        "comms/quantized)"),
     "fused.scan.scores": (
         "fused scan+select-k kernel's candidate buffer (corrupt_shard "
         "NaNs the selected candidate values in-trace, before callers "
@@ -86,6 +105,16 @@ FAULT_SITES = {
         "host-side RaBitQ encode stage of build/extend (slow_rank "
         "models a slow encode pass — latency only, results untouched; "
         "flaky_bootstrap a transient dispatch failure)"),
+    "mnmg.kmeans.partials": (
+        "per-rank partial EM sums inside the traced k-means step "
+        "(corrupt_shard poisons a shard's contribution before the "
+        "allreduce)"),
+    "mnmg.kmeans.step": (
+        "host-side per-iteration k-means driver step (slow_rank models "
+        "a straggling rank between collectives)"),
+    "mnmg.knn.scores": (
+        "per-rank brute-force scores inside the traced distributed knn "
+        "(corrupt_shard poisons a shard's contribution pre-merge)"),
     "mutation.log.commit": (
         "mutation-log batch boundary, visited AFTER each log append and "
         "AFTER each checkpoint commit (kill_rank SIGKILLs this process "
@@ -105,6 +134,13 @@ FAULT_SITES = {
         "maybe_dump swallows it, so a broken recorder never takes down "
         "the worker loop / watchdog / crash path it observes; slow_rank "
         "models slow crash-time IO; raft_tpu/obs/flight)"),
+    "replica.stale": (
+        "kill_rank here declares a rank's HOSTED replica copies "
+        "unusable without killing the rank — failover elections skip "
+        "stale holders (comms/replication)"),
+    "resilience.barrier": (
+        "health-barrier entry (slow_rank past the deadline marks the "
+        "rank unhealthy instead of sleeping it out)"),
     "serve.trace.stamp": (
         "request-trace stage stamp (flaky_bootstrap corrupts the stamp: "
         "the TraceCtx goes dead and the request degrades to UNTRACED — "

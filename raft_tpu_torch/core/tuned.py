@@ -35,13 +35,24 @@ _PATH = os.path.join(
 #: (the JAX registry's shape). Only keys whose reader is ported are
 #: registered; `tests/test_torch_tuned.py` holds every `get` /
 #: `get_choice` literal of the package to this dict and every key here
-#: to a reader. "bench" names the writer of the key's measured value.
+#: to a reader. "bench" names the writer of the key's measured value;
+#: None for the comms keys, which no run on one card can measure (an
+#: in-process world moves no bytes over a wire), so the table holds no
+#: value for them and their readers keep the JAX package's defaults.
 TUNED_KEYS = {
     "adaptive_probe_policy": {
         "kind": "dict", "choices": None, "bench": "chip_smoke.py"},
+    "comms_quant_block": {
+        "kind": "choice", "choices": (16, 32, 64, 128), "bench": None},
+    "comms_quant_mode": {
+        "kind": "choice", "choices": ("off", "int8", "bf16"), "bench": None},
     "flat_auto_engine": {
         "kind": "choice", "choices": ("query", "list", "pallas", "fused"),
         "bench": "chip_smoke.py"},
+    "grouped_reduce_crossover": {
+        "kind": "float", "choices": None, "bench": None},
+    "grouped_reduce_schedule": {
+        "kind": "choice", "choices": ("ring", "planes"), "bench": None},
     "hints": {
         "kind": "hints", "choices": None, "bench": None},
     "invert_impl": {
@@ -54,6 +65,12 @@ TUNED_KEYS = {
     "listmajor_qs_impl_flat": {
         "kind": "choice", "choices": ("gather", "onehot_bf16", "onehot_f32h"),
         "bench": "chip_smoke.py"},
+    "mnmg_query_sharded_min_nq": {
+        "kind": "int", "choices": None, "bench": None},
+    "mnmg_query_sharded_min_nq_per_k": {
+        "kind": "float", "choices": None, "bench": None},
+    "mnmg_replicated_merge_schedule": {
+        "kind": "choice", "choices": ("tournament", "allgather"), "bench": None},
     "pallas_fold": {
         "kind": "choice", "choices": ("exact", "packed"), "bench": "chip_smoke.py"},
     "pq_auto_engine": {

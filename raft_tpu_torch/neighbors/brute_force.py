@@ -52,14 +52,18 @@ _TILE = 1 << 15
 
 def _bf_knn_impl(dataset: torch.Tensor, queries: torch.Tensor, k: int,
                  metric: DistanceType, *, metric_arg: float = 2.0, tile: int = _TILE,
-                 prefilter=None):
-    """`prefilter` (a Bitset over the dataset row ids) masks the rows
-    whose bit is clear to the worst value before selection."""
+                 n_valid=None, prefilter=None):
+    """`n_valid` (an int): rows at or past it are masked to the worst
+    value before selection (a shard's pad rows must not displace true
+    neighbors). `prefilter` (a Bitset over the dataset row ids) masks the
+    rows whose bit is clear the same way."""
     n = dataset.shape[0]
     select_min = metric not in SIMILARITY_METRICS
     worst = float("inf") if select_min else float("-inf")
     if n <= max(2 * tile, 4 * k):
         d = _pairwise_impl(queries, dataset, metric, metric_arg=metric_arg)
+        if n_valid is not None and n_valid < n:
+            d = torch.where(torch.arange(n, device=d.device)[None, :] < n_valid, d, worst)
         if prefilter is not None:
             d = torch.where(prefilter.test(torch.arange(n, device=d.device))[None, :], d, worst)
         vals, idx = _select_k_impl(d, k, select_min)
@@ -69,6 +73,9 @@ def _bf_knn_impl(dataset: torch.Tensor, queries: torch.Tensor, k: int,
     best_i = torch.full((q, k), -1, dtype=torch.int64, device=queries.device)
     for base in range(0, n, tile):
         d = _pairwise_impl(queries, dataset[base:base + tile], metric, metric_arg=metric_arg)
+        if n_valid is not None and base + d.shape[1] > n_valid:
+            col = torch.arange(base, base + d.shape[1], device=d.device)
+            d = torch.where((col < n_valid)[None, :], d, worst)
         if prefilter is not None:
             col = torch.arange(base, base + d.shape[1], device=d.device)
             d = torch.where(prefilter.test(col)[None, :], d, worst)

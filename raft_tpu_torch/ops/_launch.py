@@ -7,14 +7,18 @@
   `_raise_on`              a launcher's `cudaError_t`, as an exception;
   `_launches`              one launch count per kernel. A wrapper adds one
                            to its kernel's entry where it launches the
-                           kernel, and nowhere else; `launch_counts()` and
-                           `reset_launch_counts()` read and clear all of
-                           them (`fused_scan` re-exports both).
+                           kernel, and nowhere else (`_count_launch`,
+                           under a lock: the ranks of an in-process comms
+                           world launch from several threads at once);
+                           `launch_counts()` and `reset_launch_counts()`
+                           read and clear all of them (`fused_scan`
+                           re-exports both).
 """
 
 from __future__ import annotations
 
 import ctypes
+import threading
 
 import torch
 
@@ -25,6 +29,7 @@ _I = ctypes.c_int
 _launches = {"fused_topk": 0, "fused_list_topk": 0, "fused_list_topk_int8": 0,
              "pq_list_scan": 0, "pairwise_tiled": 0, "fused_l2_argmin": 0,
              "counting_select_min": 0, "fused_bitplane_topk": 0}
+_launches_lock = threading.Lock()
 _fns: dict = {}
 
 
@@ -59,11 +64,19 @@ def _raise_on(err: int, name: str) -> None:
         raise RuntimeError(f"{name} launch failed: CUDA error {err}")
 
 
+def _count_launch(name: str) -> None:
+    """Add one launch of kernel `name` (a read-modify-write, so locked)."""
+    with _launches_lock:
+        _launches[name] += 1
+
+
 def reset_launch_counts() -> None:
-    for name in _launches:
-        _launches[name] = 0
+    with _launches_lock:
+        for name in _launches:
+            _launches[name] = 0
 
 
 def launch_counts() -> dict:
     """{kernel name: launches since the last reset}, all eight kernels."""
-    return dict(_launches)
+    with _launches_lock:
+        return dict(_launches)

@@ -32,7 +32,8 @@ from __future__ import annotations
 import torch
 
 from raft_tpu_torch.core.config import strict_f32_matmul
-from raft_tpu_torch.ops._launch import _I, _P, _check, _kernel_fn, _launches, _raise_on, _tensor_arg
+from raft_tpu_torch.ops._launch import (_I, _P, _check, _count_launch, _kernel_fn,
+                                         _raise_on, _tensor_arg)
 
 
 def _norms(x: torch.Tensor, y: torch.Tensor):
@@ -131,5 +132,5 @@ def fused_l2_argmin(x: torch.Tensor, y: torch.Tensor, *, sqrt: bool = False):
         err = fn(x.data_ptr(), None if xp is None else xp.data_ptr(), yp.data_ptr(),
                  yn.data_ptr(), dist.data_ptr(), idx.data_ptr(), m, n, k, int(bool(sqrt)), stream)
     _raise_on(err, "fused_l2_argmin")
-    _launches["fused_l2_argmin"] += 1
+    _count_launch("fused_l2_argmin")
     return dist, idx

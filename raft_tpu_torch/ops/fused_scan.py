@@ -68,6 +68,7 @@ from raft_tpu_torch.ops._launch import (  # noqa: F401  (the counters are re-exp
     _I,
     _P,
     _check,
+    _count_launch,
     _kernel_fn,
     _launches,
     _raise_on,
@@ -400,7 +401,7 @@ def fused_topk(x: torch.Tensor, y: torch.Tensor, k: int, *,
                      int(k), kbuf, int(bool(inner_product)), plan.rows, plan.n_ranges,
                      plan.range_len, stream)
     _raise_on(err, "fused_topk")
-    _launches["fused_topk"] += 1
+    _count_launch("fused_topk")
     return _maybe_corrupt(vals, idx)
 
 
@@ -523,7 +524,7 @@ def fused_list_topk(lof, qres, store, base, k: int, *, kbuf: Optional[int] = Non
                  idx.data_ptr(), ncb, chunk, rot, L, int(k), kb,
                  int(bool(inner_product)), stream)
     _raise_on(err, "fused_list_topk")
-    _launches["fused_list_topk"] += 1
+    _count_launch("fused_list_topk")
     return _maybe_corrupt(vals, idx)
 
 
@@ -648,7 +649,7 @@ def fused_list_topk_int8(lof, q8, store, base, q_scale, k: int, *, kbuf: Optiona
                  vals.data_ptr(), idx.data_ptr(), ncb, chunk, rot, L, n_lists, int(k), kb,
                  int(bool(inner_product)), stream)
     _raise_on(err, "fused_list_topk_int8")
-    _launches["fused_list_topk_int8"] += 1
+    _count_launch("fused_list_topk_int8")
     return _maybe_corrupt(vals, idx)
 
 
@@ -834,5 +835,5 @@ def fused_bitplane_topk(lof, planes, codes_t, meta, base, qmeta, k: int, *, rot_
                  vals.data_ptr(), idx.data_ptr(), ncb, chunk, W, int(bits), L, int(k), kb,
                  rsqrt_dim(int(rot_dim)), int(bool(inner_product)), stream)
     _raise_on(err, "fused_bitplane_topk")
-    _launches["fused_bitplane_topk"] += 1
+    _count_launch("fused_bitplane_topk")
     return _maybe_corrupt(vals, idx)

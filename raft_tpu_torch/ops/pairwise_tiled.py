@@ -25,7 +25,8 @@ from typing import Callable, NamedTuple, Optional
 import torch
 
 from raft_tpu_torch.distance.pairwise import _canberra_term, _kl_term, _tiled_rowwise
-from raft_tpu_torch.ops._launch import _I, _P, _check, _kernel_fn, _launches, _raise_on, _tensor_arg
+from raft_tpu_torch.ops._launch import (_I, _P, _check, _count_launch, _kernel_fn,
+                                         _raise_on, _tensor_arg)
 
 
 class MetricOp(NamedTuple):
@@ -98,5 +99,5 @@ def pairwise_tiled(x: torch.Tensor, y: torch.Tensor, metric: str) -> torch.Tenso
         err = fn(xf.data_ptr(), yf.data_ptr(), out.data_ptr(), m, n, k,
                  _METRIC_IDS[metric], stream)
     _raise_on(err, "pairwise_tiled")
-    _launches["pairwise_tiled"] += 1
+    _count_launch("pairwise_tiled")
     return out

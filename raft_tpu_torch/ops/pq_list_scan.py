@@ -45,7 +45,8 @@ from __future__ import annotations
 import torch
 
 from raft_tpu_torch.core.config import strict_f32_matmul
-from raft_tpu_torch.ops._launch import _I, _P, _check, _kernel_fn, _launches, _raise_on, _tensor_arg
+from raft_tpu_torch.ops._launch import (_I, _P, _check, _count_launch, _kernel_fn,
+                                         _raise_on, _tensor_arg)
 from raft_tpu_torch.ops.fused_scan import (
     _LANES,
     _STORE_KINDS,
@@ -255,5 +256,5 @@ def pq_list_scan(lof, qres_s, store, base, *, inner_product: bool, q_scale=None,
                  idx.data_ptr(), ncb, chunk, rot, L, n_lists, int(bool(inner_product)),
                  int(fold == "packed"), stream)
     _raise_on(err, "pq_list_scan")
-    _launches["pq_list_scan"] += 1
+    _count_launch("pq_list_scan")
     return vals, idx

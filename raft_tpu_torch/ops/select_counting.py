@@ -35,7 +35,8 @@ from __future__ import annotations
 
 import torch
 
-from raft_tpu_torch.ops._launch import _I, _P, _check, _kernel_fn, _launches, _raise_on, _tensor_arg
+from raft_tpu_torch.ops._launch import (_I, _P, _check, _count_launch, _kernel_fn,
+                                         _raise_on, _tensor_arg)
 
 _LANES = 128
 #: the largest k of the CUDA kernel's one-pass variant (kSmallK)
@@ -103,5 +104,5 @@ def counting_select_min(vals: torch.Tensor, k: int):
         stream = torch.cuda.current_stream(dev).cuda_stream
         err = fn(vals.data_ptr(), out_v.data_ptr(), out_i.data_ptr(), B, L, int(k), stream)
     _raise_on(err, "counting_select_min")
-    _launches["counting_select_min"] += 1
+    _count_launch("counting_select_min")
     return out_v, out_i

@@ -295,12 +295,29 @@ def test_fault_sites_are_jax_sites_with_live_hooks():
 def test_batch_loader_load_is_the_eighth_site():
     """`batch_loader.load` joined with `neighbors/batch_loader` as the
     eighth site (the obs sites `obs.flight.dump` and `serve.trace.stamp`
-    came after it: ten in all), the JAX description, hooked by
-    `fault_point` and `corrupt_host` in that module."""
-    assert len(tf.FAULT_SITES) == 10
+    came after it, then the ten sites of the comms layer: twenty in all),
+    the JAX description, hooked by `fault_point` and `corrupt_host` in
+    that module."""
+    assert len(tf.FAULT_SITES) == 20
     assert tf.FAULT_SITES["batch_loader.load"] == jf.FAULT_SITES["batch_loader.load"]
     path = _ROOT / "raft_tpu_torch" / "neighbors" / "batch_loader.py"
     assert {"fault_point", "corrupt_host"} <= _called_names(path)
+
+
+def test_the_comms_layer_hosts_its_ten_sites():
+    """The ten sites of the comms layer, each with the JAX description
+    and a live hook in the module that hosts it."""
+    hosts = {"comms.allgather": "comms", "comms.allreduce": "comms",
+             "comms.bootstrap": "comms", "comms.quant.decode": "quantized",
+             "comms.quant.encode": "quantized", "mnmg.kmeans.partials": "mnmg_kmeans",
+             "mnmg.kmeans.step": "mnmg_kmeans", "mnmg.knn.scores": "mnmg_knn",
+             "resilience.barrier": "resilience", "replica.stale": "replication"}
+    hooks = {"fault_point", "corrupt_in_trace", "active_plan", "drop_contribution"}
+    for site, mod in hosts.items():
+        assert tf.FAULT_SITES[site] == jf.FAULT_SITES[site], site
+        path = _ROOT / "raft_tpu_torch" / "comms" / f"{mod}.py"
+        assert site in path.read_text(), site
+        assert hooks & _called_names(path), site
 
 
 def _called_names(path):

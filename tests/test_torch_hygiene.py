@@ -204,6 +204,35 @@ def test_bitplane_wrapper_refuses_devices_without_a_kernel():
                                        bits=8)
 
 
+def test_launch_counter_loses_no_count_across_threads():
+    """The ranks of an in-process comms world launch from several threads
+    at once: the counter's read-modify-write is locked."""
+    import sys
+    import threading
+
+    fused_scan.reset_launch_counts()
+    start = threading.Barrier(8)
+
+    def bump():
+        start.wait(timeout=30)
+        for _ in range(5000):
+            _launch._count_launch("counting_select_min")
+
+    interval = sys.getswitchinterval()
+    sys.setswitchinterval(1e-6)  # switch threads as often as the interpreter can
+    try:
+        threads = [threading.Thread(target=bump) for _ in range(8)]
+        for t in threads:
+            t.start()
+        for t in threads:
+            t.join(timeout=60)
+    finally:
+        sys.setswitchinterval(interval)
+    assert not any(t.is_alive() for t in threads)
+    assert fused_scan.launch_counts()["counting_select_min"] == 8 * 5000
+    fused_scan.reset_launch_counts()
+
+
 def test_launch_counts_cover_every_kernel():
     names = {"fused_topk", "fused_list_topk", "fused_list_topk_int8", "pq_list_scan",
              "pairwise_tiled", "fused_l2_argmin", "counting_select_min", "fused_bitplane_topk"}
@@ -217,11 +246,11 @@ def test_launch_counts_cover_every_kernel():
 
 _SUBPACKAGES = ("cluster", "core", "distance", "integrity", "matrix", "neighbors", "random",
                 "sparse", "label", "spectral", "solver", "linalg", "stats", "spatial", "util",
-                "io")
+                "io", "comms")
 
-#: top-level names of the JAX package that come with the distributed and
-#: serving layer (ROADMAP item 12)
-_ITEM12_TOP_LEVEL = ("DegradedSearchResult", "RankHealth", "comms", "jobs", "serve")
+#: top-level names of the JAX package that come with the serving and jobs
+#: layers (ROADMAP items 12d-12e)
+_ITEM12_TOP_LEVEL = ("jobs", "serve")
 
 
 def _defined_names(path: Path) -> list:
@@ -311,6 +340,51 @@ def test_top_level_exports_the_jax_all_but_the_distributed_layer():
     for name in _ITEM12_TOP_LEVEL:
         with pytest.raises(AttributeError):
             getattr(raft_tpu_torch, name)
+
+
+#: names of the JAX comms layer that come with the distributed IVF drivers
+#: (ROADMAP item 12c): the indexes, their builds, searches, checkpoints,
+#: replica mirrors and recovery
+_ITEM12C_COMMS = ("recovery", "RecoveryError", "heal", "rank_rejoin", "rehydrate", "repair",
+                  "replicate_index")
+_ITEM12C_MNMG = (
+    "DistributedIvfFlat", "DistributedIvfPq", "_place_rank_major", "_spmd_label_encode",
+    "distribute_index", "ivf_flat_build", "ivf_flat_build_local", "ivf_flat_extend",
+    "ivf_flat_extend_local", "ivf_pq_build", "ivf_pq_build_local", "ivf_pq_extend",
+    "ivf_pq_extend_local", "ivf_flat_load", "ivf_flat_save", "ivf_flat_save_local",
+    "ivf_pq_load", "ivf_pq_save", "ivf_pq_save_local", "ivf_rabitq_load", "ivf_rabitq_save",
+    "DistributedIvfRabitq", "ivf_rabitq_build", "ivf_rabitq_search",
+    "_build_distributed_recon", "_refine_layout", "ivf_flat_search", "ivf_pq_search",
+    "ShardReplicas", "failover_view", "replicate_index", "RecoveryError", "heal",
+    "rank_rejoin", "repair")
+
+
+def _import_from_names(path: Path) -> list:
+    """The names a facade module imports, in order."""
+    names = []
+    for node in ast.parse(path.read_text()).body:
+        if isinstance(node, ast.ImportFrom):
+            names += [a.asname or a.name for a in node.names]
+    return names
+
+
+def test_comms_facades_reexport_the_jax_names_less_item_12c():
+    """`raft_tpu_torch.comms.__all__` is the JAX `__all__` and `comms.mnmg`
+    re-exports the JAX facade's names, in order, less the names of the
+    distributed IVF drivers; each name resolves."""
+    import raft_tpu.comms as jcomms
+
+    import raft_tpu_torch.comms as tcomms
+    from raft_tpu_torch.comms import mnmg
+
+    assert tcomms.__all__ == [n for n in jcomms.__all__ if n not in _ITEM12C_COMMS]
+    want = [n for n in _import_from_names(_ROOT / "raft_tpu" / "comms" / "mnmg.py")
+            if n not in _ITEM12C_MNMG]
+    assert _import_from_names(_ROOT / "raft_tpu_torch" / "comms" / "mnmg.py") == want
+    assert all(hasattr(mnmg, n) for n in want)
+    assert raft_tpu_torch.comms is tcomms
+    assert raft_tpu_torch.RankHealth is tcomms.RankHealth
+    assert raft_tpu_torch.DegradedSearchResult is tcomms.DegradedSearchResult
 
 
 def test_obs_is_on_the_top_level_with_the_jax_all():
