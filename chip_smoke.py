@@ -13,6 +13,8 @@
                                        # (phase 4f on indexes it builds); exits 7
     python3 chip_smoke.py --comms      # the build and the comms path only (phase
                                        # 4g and its kernel rows); exits 8
+    python3 chip_smoke.py --mnmg-ivf   # the build and the distributed IVF path only
+                                       # (phase 4h and its kernel rows); exits 9
     python3 chip_smoke.py --apply      # as the first, and writes the tuned A/B
                                        # winners and the adaptive policy as
                                        # raft_tpu_torch/tuned_defaults.json
@@ -223,7 +225,23 @@ Phases, in order; any failure exits non-zero:
      4 ranks at bench/bench_comms.py's (64, 256) block against its
      one-tensor reference and the health barrier; the process worlds as
      children under a deadline (NCCL at world 1 on the card, 1M rows, and
-     gloo at world 2 on the CPU, each bit for bit its in-process world);
+     gloo at world 2 on the CPU, each bit for bit its in-process world; the
+     children also run 4h's IVF-PQ lifecycle);
+  4h. the distributed IVF drivers (mnmg_ivf_path), under the committed
+     table, on 4g's data, queries and exact truth, 4 ranks of the card:
+     IVF-PQ (1,024 lists, pq_dim 48) "recon8_list", "lut" (64 queries),
+     the bin, fused bf16 and fused int8 trims at n_probes 32 and the
+     refined pipeline at 8
+     (gate recall@10 >= 0.95), seconds a call, QPS, recall and the kernels
+     each launches (6 / 4 / 1 / 3), padded and real bytes of every store;
+     its sharded checkpoint, the fold-merge load onto one rank answering
+     as four (GB/s both ways), extend_local of 1M rows there and the driver
+     extend with the post-merge refine against the truth over 11M rows;
+     IVF-Flat "auto" and "pallas" (kernel 1), IVF-RaBitQ up
+     bench/bench_ivf_rabitq.py's ladder (kernel 7); replication 2:
+     failover, repair + rank_rejoin, rot_rank -> verify_mnmg ->
+     repair_ranks and a corrupt checkpoint healed on load, each bit or
+     byte for bit; delete 1% of the ids and upsert 10,000 rows;
   5. each kernel against its plain version on the inputs the main path gave
      it, with kernel, plain and library times (CUDA events) and the bound;
      kernel 1 also at IVF-Flat's own shape (bf16 residual store, n_probes
@@ -243,7 +261,8 @@ Phases, in order; any failure exits non-zero:
      own tiles (the k-NN graph's, the L1 graph's, the sparse k-NN block
      and the sparse query block), and at the ball cover's (the ball and
      candidate selects of both covers, the 3-D landmark bounds), and
-     kernel 6 at the comms path's tile and merge selects;
+     kernel 6 at the comms path's tile and merge selects; kernels 1, 3, 4,
+     6 and 7 at the distributed IVF path's per-rank shapes;
   6. a JSON line of kernels, the card's line, then the device line last.
 """
 
@@ -5855,10 +5874,16 @@ def comms_child(g):
             lv, li = mnmg.knn(local, x, q, C["k"])
             torch.cuda.synchronize()
             rep["in_process_s"] = time.perf_counter() - t0
+            # the distributed IVF-PQ lifecycle's first steps at world 1:
+            # ivf_pq_build_local and a refined search, in the process world
+            # and in the in-process world
+            rep.update(mnmg_ivf_child(comms, local, x, q, C["k"], torch.cuda.synchronize,
+                                      MNMG_IVF_REHEARSE if g.rehearse else MNMG_IVF, g.seed))
         rep.update(world=comms.get_size(), backend="nccl", rows=C["child_n"],
                    process_world=comms.process_world,
                    equal=bool(torch.equal(pv, lv) and torch.equal(pi, li)))
-        rep["ok"] = rep["equal"] and rep["process_world"] and rep["launches"] > 0
+        rep["ok"] = (rep["equal"] and rep["process_world"] and rep["launches"] > 0
+                     and rep["ivf_equal"])
     else:
         world, rank = 2, g.child_rank
         bootstrap_multihost(f"localhost:{g.child_port}", num_processes=world, process_id=rank,
@@ -5877,7 +5902,9 @@ def comms_child(g):
         rep.update(world=world, backend="gloo", rows=C["gloo_n"],
                    knn_equal=bool(torch.equal(pv, lv) and torch.equal(pi, li)),
                    kmeans_equal=bool(torch.equal(pc, lc) and pin == lin and pit == lit))
-        rep["ok"] = rep["knn_equal"] and rep["kmeans_equal"] and comms.spans_processes()
+        rep.update(mnmg_ivf_gloo(g, comms, local, part, q, C["k"]))
+        rep["ok"] = (rep["knn_equal"] and rep["kmeans_equal"] and rep["ivf_equal"]
+                     and comms.spans_processes())
         import torch.distributed as dist
 
         dist.barrier()
@@ -5892,7 +5919,8 @@ def comms_knn_part(g, dev, C, x, q, sync):
     """The distributed k-NN at worlds 1 and 4 on `dev`: seconds a call,
     QPS and kernel 6's launches a world (counts set to 0 just before each
     world's timed calls and read just after); then the world-4 variants
-    and their gates. Returns (summary, the select spy)."""
+    and their gates. Returns (summary, the select spy, world 4's (values,
+    ids): the exact truth phase 4h reads)."""
     from raft_tpu_torch.comms import Comms, RankHealth, mnmg
     from raft_tpu_torch.comms import mnmg_merge
     from raft_tpu_torch.neighbors import brute_force
@@ -6023,7 +6051,7 @@ def comms_knn_part(g, dev, C, x, q, sync):
     out["variants"] = variants
     for w in (1, 4):
         knn[w][2].destroy()
-    return out, spy
+    return out, spy, (v4, i4)
 
 
 def comms_kmeans_part(g, dev, C, x, sync):
@@ -6125,7 +6153,9 @@ def comms_path(g, dev, sync):
          NCCL at world 1 on the card (1M rows, bit for bit the in-process
          world 1) and gloo at world 2 on the CPU (bit for bit the in-process
          2-rank CPU world).
-    Returns (summary, kernel 6's rows at this path's shapes)."""
+    Returns (summary, kernel 6's rows at this path's shapes, (the data, the
+    queries, and world 4's exact values and ids: phase 4h's data and
+    truth))."""
     C = COMMS_REHEARSE if g.rehearse else COMMS
     t_phase = time.perf_counter()
     out = {"sizes": C}
@@ -6135,12 +6165,11 @@ def comms_path(g, dev, sync):
     log(f"comms data: {C['n']} x {C['dim']} rows and {C['nq']} queries made on {dev} in "
         f"{out['data_s']:.3f} s")
     with committed(dev):
-        out["knn"], spy = comms_knn_part(g, dev, C, x, q, sync)
+        out["knn"], spy, (tv, ti) = comms_knn_part(g, dev, C, x, q, sync)
         out["kmeans"] = comms_kmeans_part(g, dev, C, x, sync)
         kids, deadline = comms_children(g, dev, C)
         out["collectives"] = comms_collectives(g, dev, C, sync)
         out["children"] = comms_join(kids, deadline)
-    del x, q
     rows = []
     launches = out["knn"]["launches_one_call"]
     tile = spy.first.get((C["nq"], 1 << 15))
@@ -6156,6 +6185,577 @@ def comms_path(g, dev, sync):
                              f"({list(spy.first)})")
     out["wall_s"] = time.perf_counter() - t_phase
     log(f"comms path complete in {out['wall_s']:.3f} s")
+    return out, rows, (x, q, tv, ti)
+
+
+# ---------------------------------------------------------------------------
+# phase 4h: the distributed IVF drivers (IVF-PQ, IVF-Flat, IVF-RaBitQ)
+# ---------------------------------------------------------------------------
+
+#: bench/bench_mnmg.py:56-124's IVF configuration on 4g's data: IVF-PQ at
+#: 1,024 lists, pq_dim 48, 10 k-means iterations, searched at n_probes 32
+#: and refined at 8, 1M rows extended; IVF-Flat and RaBitQ at 1,024 lists;
+#: the mutation drill's 1% deletes and 10,000 upserts; the NCCL child's
+#: IVF-PQ on its 1M rows, the gloo children's small index (`gloo_rows` of
+#: each process's rows); `timed_s`: the
+#: seconds a search's timed window aims at (1 to 5 calls); `lut_nq`: the
+#: queries of the "lut" engine, a cut of depth (at 4,096 queries and 10M
+#: rows it took 119.4 s a call on the H100, 34 QPS; at 256, 6.4–8.7 s:
+#: PERF.md §6)
+MNMG_IVF = dict(n_lists=1024, pq_dim=48, iters=10, probes=32, refine_probes=8,
+                n_extend=1_000_000, delete_frac=0.01, n_upsert=10_000, gloo_lists=32,
+                gloo_pq_dim=16, gloo_rows=2_000, timed_s=3.0, lut_nq=64)
+MNMG_IVF_REHEARSE = dict(MNMG_IVF, n_lists=16, pq_dim=16, n_extend=2_000, n_upsert=200,
+                         gloo_lists=16, gloo_pq_dim=8, timed_s=0.0, lut_nq=32)
+#: bench/bench_ivf_rabitq.py's ladder: n_probes x rerank_mult
+RABITQ_LADDER = ((8, 4), (8, 8), (16, 4), (16, 8), (16, 16), (32, 8), (32, 16), (32, 25),
+                 (64, 16), (64, 25))
+#: the bin trim's recall may differ from the exact trims' (ROADMAP Queue C)
+BIN_TRIM_RECALL = 0.005
+
+
+def mnmg_timed(run, sync, nq, budget_s, first_s):
+    """(seconds a call, QPS, calls): one window of back-to-back calls sized
+    to about `budget_s` from a first call's `first_s` (1 to 5 calls), one
+    synchronize at its end."""
+    reps = max(1, min(5, int(budget_s / max(first_s, 1e-3))))
+    sync()
+    t0 = time.perf_counter()
+    for _ in range(reps):
+        run()
+    sync()
+    s = (time.perf_counter() - t0) / reps
+    return s, nq / s, reps
+
+
+def mnmg_search(run, names, spy, sync, nq, budget_s):
+    """A first call with the launch counts set to 0 just before it and read
+    just after (under `spy`, which keeps the kernels' inputs), then a timed
+    window (`mnmg_timed`). Returns (result, {kernel: launches}, seconds a
+    call, QPS, calls)."""
+    from raft_tpu_torch.ops import _launch
+
+    with spy if spy is not None else contextlib.nullcontext():
+        sync()
+        _launch.reset_launch_counts()
+        t0 = time.perf_counter()
+        res = run()
+        sync()
+        first = time.perf_counter() - t0
+        counts = _launch.launch_counts()
+    return (res, {n: counts[n] for n in names}) + mnmg_timed(run, sync, nq, budget_s, first)
+
+
+def store_bytes(name, arr, rows, row_bytes):
+    """A sharded store's padded bytes beside the bytes its real rows hold."""
+    padded = int(np.prod(arr.shape)) * arr.blocks[0].element_size()
+    real = int(rows) * int(row_bytes)
+    log(f"mnmg ivf store {name}: {tuple(arr.shape)} {arr.dtype}, padded {padded / 1e9:.4f} GB, "
+        f"real rows {real / 1e9:.4f} GB ({padded / max(real, 1):.3f}x)")
+    return {"shape": list(arr.shape), "padded_gb": padded / 1e9, "real_gb": real / 1e9}
+
+
+def mnmg_ivf_child(comms, local, x, q, k, sync, M, seed):
+    """The NCCL child's IVF-PQ at world 1: `ivf_pq_build_local` and a
+    refined search in the process world and in the in-process world of
+    one rank, bit for bit."""
+    from raft_tpu_torch.comms import mnmg
+    from raft_tpu_torch.neighbors import ivf_pq
+
+    params = ivf_pq.IndexParams(n_lists=M["n_lists"], pq_dim=M["pq_dim"],
+                                kmeans_n_iters=M["iters"])
+    t0 = time.perf_counter()
+    pidx = mnmg.ivf_pq_build_local(comms, params, x, seed=seed)
+    pres = mnmg.ivf_pq_search(pidx, q, k, n_probes=M["refine_probes"], refine_dataset=x)
+    sync()
+    out = {"ivf_process_s": time.perf_counter() - t0}
+    lidx = mnmg.ivf_pq_build_local(local, params, x, seed=seed)
+    lres = mnmg.ivf_pq_search(lidx, q, k, n_probes=M["refine_probes"], refine_dataset=x)
+    out["ivf_equal"] = bit_equal(pres, lres) and torch.equal(pidx.codes.full(),
+                                                             lidx.codes.full())
+    return out
+
+
+def mnmg_ivf_gloo(g, comms, local, part, q, k):
+    """The gloo children's IVF-PQ lifecycle at world 2 on the CPU:
+    `ivf_pq_build_local` of each process's rows, `ivf_pq_save_local` (a
+    part file each and the manifest), then `ivf_pq_load` into the
+    in-process 2-rank CPU world and back into the process world; every
+    search bit for bit the process world's own index."""
+    import shutil
+
+    from raft_tpu_torch.comms import mnmg
+    from raft_tpu_torch.neighbors import ivf_pq
+    import torch.distributed as dist
+
+    M = MNMG_IVF_REHEARSE if g.rehearse else MNMG_IVF
+    params = ivf_pq.IndexParams(n_lists=M["gloo_lists"], pq_dim=M["gloo_pq_dim"],
+                                kmeans_n_iters=5)
+    ckdir = os.path.join(tempfile.gettempdir(), f"chip_smoke_gloo_{g.child_port}")
+    os.makedirs(ckdir, exist_ok=True)
+    path = os.path.join(ckdir, "pq.ckpt")
+    t0 = time.perf_counter()
+    pidx = mnmg.ivf_pq_build_local(comms, params, part[:M["gloo_rows"]], seed=g.seed)
+    pres = mnmg.ivf_pq_search(pidx, q, k, n_probes=4, engine="lut")
+    mnmg.ivf_pq_save_local(path, pidx)
+    out = {"ivf_process_s": time.perf_counter() - t0}
+    lres = mnmg.ivf_pq_search(mnmg.ivf_pq_load(local, path), q, k, n_probes=4, engine="lut")
+    rres = mnmg.ivf_pq_search(mnmg.ivf_pq_load(comms, path), q, k, n_probes=4, engine="lut")
+    out["ivf_equal"] = bit_equal(pres, lres) and bit_equal(pres, rres)
+    dist.barrier()
+    if g.child_rank == 0:
+        shutil.rmtree(ckdir, ignore_errors=True)
+    return out
+
+
+def mnmg_pq_runs(M, x):
+    """{search: (arguments, kernels it must launch)} of phase 4h's IVF-PQ
+    searches (the "approx" trim and the merges select with kernel 6)."""
+    P_, R_ = M["probes"], M["refine_probes"]
+    return {
+        "recon8_list": (dict(n_probes=P_, engine="recon8_list"), ("counting_select_min",)),
+        "lut": (dict(n_probes=P_, engine="lut"), ("counting_select_min",)),
+        "refined": (dict(n_probes=R_, refine_dataset=x), ("counting_select_min",)),
+        "pallas": (dict(n_probes=P_, trim_engine="pallas"), ("pq_list_scan",)),
+        "fused_bf16": (dict(n_probes=P_, trim_engine="fused"), ("fused_list_topk",)),
+        "fused_int8": (dict(n_probes=P_, trim_engine="fused", score_dtype="int8"),
+                       ("fused_list_topk_int8",)),
+    }
+
+
+def mnmg_pq_part(g, dev, M, C, c4, x, q, truth, sync, spies):
+    """Step 1: the IVF-PQ build and searches at 4 ranks. Returns (summary,
+    index, {search: result})."""
+    from raft_tpu_torch.comms import mnmg
+    from raft_tpu_torch.neighbors import ivf_pq
+
+    k, nq = C["k"], C["nq"]
+    out = {}
+    params = ivf_pq.IndexParams(n_lists=M["n_lists"], pq_dim=M["pq_dim"],
+                                kmeans_n_iters=M["iters"])
+    sync()
+    t0 = time.perf_counter()
+    idx = mnmg.ivf_pq_build(c4, params, x, seed=g.seed)
+    sync()
+    out["build_s"] = time.perf_counter() - t0
+    log(f"path mnmg ivf_pq build: {C['n']} x {C['dim']} rows, {M['n_lists']} lists, pq_dim "
+        f"{M['pq_dim']}, 4 ranks in {out['build_s']:.3f} s, padded list {idx.codes.shape[2]}")
+    out["codes"] = store_bytes("ivf_pq codes", idx.codes, idx.n, M["pq_dim"])
+    results = {}
+    for name, (kw, kernels) in mnmg_pq_runs(M, x).items():
+        nq_run = M["lut_nq"] if name == "lut" else nq
+        res, launches, s, qps, reps = mnmg_search(
+            lambda: mnmg.ivf_pq_search(idx, q[:nq_run], k, **kw), kernels, spies.get(name),
+            sync, nq_run, M["timed_s"])
+        r = recall(res[1], truth[:nq_run])
+        results[name] = res
+        out[name] = {"n_probes": kw["n_probes"], "queries": nq_run, "recall": r,
+                     "s_per_call": s, "qps": qps, "calls": reps, "launches": launches}
+        log(f"path mnmg ivf_pq {name} n_probes {kw['n_probes']}, {nq_run} queries: recall@{k} "
+            f"{r:.4f}, {s:.4f} s a call ({reps} timed), {qps:.1f} QPS, launches {launches}")
+        if dev.type == "cuda" and min(launches.values()) <= 0:
+            raise AssertionError(f"mnmg ivf_pq {name}: kernels never launched: {launches}")
+    if out["refined"]["recall"] < RECALL_GATE:
+        raise AssertionError(f"mnmg ivf_pq refined: recall@{k} {out['refined']['recall']} < "
+                             f"{RECALL_GATE}")
+    recon = idx.recon8
+    out["recon8"] = store_bytes("ivf_pq recon8", recon, idx.n, recon.shape[-1])
+    return out, idx, results
+
+
+def mnmg_ckpt_part(g, dev, M, C, c4, idx, x, q, truth, results, tmp, sync):
+    """Step 2: the sharded checkpoint of the 4-rank index, its fold-merge
+    load onto one rank (the world-4 ids of the engines exact within the
+    probes, the bin trim within BIN_TRIM_RECALL), then `ivf_pq_extend_local` of 1M rows on the world-1
+    index and the driver extend with the post-merge refine against the
+    truth over all the rows."""
+    from raft_tpu_torch.comms import Comms, mnmg
+
+    k, nq = C["k"], C["nq"]
+    out = {}
+    path = os.path.join(tmp, "pq_sharded.ckpt")
+    sync()
+    t0 = time.perf_counter()
+    mnmg.ivf_pq_save_local(path, idx)
+    save_s = time.perf_counter() - t0
+    nbytes = sum(os.path.getsize(os.path.join(tmp, f)) for f in os.listdir(tmp)
+                 if f.startswith("pq_sharded.ckpt"))
+    c1 = Comms(n_devices=1, device=dev)
+    t0 = time.perf_counter()
+    idx1 = mnmg.ivf_pq_load(c1, path)
+    sync()
+    load_s = time.perf_counter() - t0
+    out.update(save_s=save_s, load_s=load_s, bytes=nbytes, save_gbps=nbytes / save_s / 1e9,
+               load_gbps=nbytes / load_s / 1e9)
+    log(f"mnmg ivf_pq save_local {nbytes / 1e9:.4f} GB in {save_s:.3f} s "
+        f"({out['save_gbps']:.3f} GB/s); load onto 1 rank (fold-merge) in {load_s:.3f} s "
+        f"({out['load_gbps']:.3f} GB/s); padded list {idx1.codes.shape[2]}")
+    R_ = M["refine_probes"]
+    out["world1"] = {}
+    for name, (kw, _) in mnmg_pq_runs(M, x).items():
+        nq_run = M["lut_nq"] if name == "lut" else nq
+        v1, i1 = mnmg.ivf_pq_search(idx1, q[:nq_run], k, **kw)
+        v4, i4 = results[name]
+        if name == "pallas":
+            d = abs(recall(i1, truth) - recall(i4, truth))
+            ok = d <= BIN_TRIM_RECALL
+            out["world1"][name] = {"recall_diff": d}
+        elif name == "refined":
+            # not exact within the probes: each rank re-ranks its own
+            # shortlist, so four ranks re-rank four times the candidates
+            ok = True
+            out["world1"][name] = {"recall": recall(i1, truth),
+                                   "recall_world4": recall(i4, truth)}
+        else:
+            ok = tie_equal(v4, i4, v1, i1, rtol=VAL_RTOL)
+            out["world1"][name] = {"ids_equal_outside_ties": ok,
+                                   "bit_equal": bit_equal((v1, i1), (v4, i4))}
+        if not ok:
+            raise AssertionError(f"mnmg ivf_pq world 1 {name}: not the world-4 answer")
+    log("mnmg ivf_pq world 1 (fold-merged) against world 4: " + json.dumps(out["world1"]))
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(g.seed + 61)
+    centers = x[torch.randint(0, x.shape[0], (M["n_extend"],), generator=gen, device=dev)]
+    extra = centers + 0.5 * torch.randn(centers.shape, generator=gen, device=dev)
+    sync()
+    t0 = time.perf_counter()
+    ext1 = mnmg.ivf_pq_extend_local(idx1, extra)
+    sync()
+    s = time.perf_counter() - t0
+    out["extend_local"] = {"rows": M["n_extend"], "s": s, "rows_per_s": M["n_extend"] / s,
+                           "n": ext1.n}
+    log(f"mnmg ivf_pq_extend_local of {M['n_extend']} rows on 1 rank: {s:.3f} s "
+        f"({M['n_extend'] / s:.1f} rows/s), n {ext1.n}")
+    del ext1, idx1
+    c1.destroy()
+    sync()
+    t0 = time.perf_counter()
+    ext4 = mnmg.ivf_pq_extend(idx, extra)
+    sync()
+    s = time.perf_counter() - t0
+    full = torch.cat([x, extra])
+    tv, ti = mnmg.knn(c4, full, q, k, query_mode="replicated")
+    res, _, sc_, qps, _ = mnmg_search(
+        lambda: mnmg.ivf_pq_search(ext4, q, k, n_probes=R_, refine_dataset=full), (), None,
+        sync, nq, M["timed_s"])
+    r = recall(res[1], ti)
+    out["extend"] = {"rows": M["n_extend"], "s": s, "rows_per_s": M["n_extend"] / s,
+                     "refined_recall": r, "refined_s": sc_, "refined_qps": qps}
+    log(f"mnmg ivf_pq_extend of {M['n_extend']} rows on 4 ranks: {s:.3f} s "
+        f"({M['n_extend'] / s:.1f} rows/s); the post-merge refined search at n_probes {R_}: "
+        f"recall@{k} {r:.4f} against the truth over all {full.shape[0]} rows, {sc_:.4f} s a "
+        f"call, {qps:.1f} QPS")
+    if r < RECALL_GATE:
+        raise AssertionError(f"mnmg ivf_pq extended refined: recall@{k} {r} < {RECALL_GATE}")
+    del ext4, full, tv, ti, extra, centers
+    return out
+
+
+def mnmg_flat_rabitq_part(g, dev, M, C, c4, x, q, truth, sync, spies):
+    """Step 3: IVF-Flat at 4 ranks, "auto" (= "list") and "pallas"
+    (kernel 1) at n_probes 32; IVF-RaBitQ at 4 ranks up bench_ivf_rabitq's
+    ladder (scan_engine "fused", the exact rerank) to the first rung at
+    recall >= RECALL_GATE (kernel 7)."""
+    from raft_tpu_torch.comms import mnmg
+    from raft_tpu_torch.neighbors import ivf_flat, ivf_rabitq
+
+    k, nq = C["k"], C["nq"]
+    out = {"flat": {}, "rabitq": {}}
+    sync()
+    t0 = time.perf_counter()
+    fl = mnmg.ivf_flat_build(c4, ivf_flat.IndexParams(n_lists=M["n_lists"],
+                                                      kmeans_n_iters=M["iters"]), x, seed=g.seed)
+    sync()
+    out["flat"]["build_s"] = time.perf_counter() - t0
+    out["flat"]["list_data"] = store_bytes("ivf_flat list_data", fl.list_data, fl.n,
+                                           C["dim"] * 4)
+    log(f"path mnmg ivf_flat build: {M['n_lists']} lists, 4 ranks in "
+        f"{out['flat']['build_s']:.3f} s")
+    for engine in ("auto", "pallas"):
+        res, launches, s, qps, reps = mnmg_search(
+            lambda: mnmg.ivf_flat_search(fl, q, k, n_probes=M["probes"], engine=engine),
+            ("fused_list_topk",), spies["flat"] if engine == "pallas" else None, sync, nq,
+            M["timed_s"])
+        r = recall(res[1], truth)
+        out["flat"][engine] = {"recall": r, "s_per_call": s, "qps": qps, "calls": reps,
+                               "launches": launches}
+        log(f"path mnmg ivf_flat {engine} n_probes {M['probes']}: recall@{k} {r:.4f}, "
+            f"{s:.4f} s a call, {qps:.1f} QPS, launches {launches}")
+        if engine == "pallas" and dev.type == "cuda" and launches["fused_list_topk"] <= 0:
+            raise AssertionError("mnmg ivf_flat pallas: kernel 1 never launched")
+    out["flat"]["resid_bf16"] = store_bytes("ivf_flat resid_bf16", fl.resid_bf16, fl.n,
+                                            C["dim"] * 2)
+    del fl
+    if dev.type == "cuda":
+        torch.cuda.empty_cache()
+    sync()
+    t0 = time.perf_counter()
+    rb = mnmg.ivf_rabitq_build(c4, ivf_rabitq.IndexParams(n_lists=M["n_lists"],
+                                                          kmeans_n_iters=M["iters"]),
+                               x, seed=g.seed)
+    sync()
+    out["rabitq"]["build_s"] = time.perf_counter() - t0
+    out["rabitq"]["codes"] = store_bytes("ivf_rabitq codes", rb.codes, rb.n,
+                                         rb.codes.shape[-1] * 4)
+    log(f"path mnmg ivf_rabitq build: {M['n_lists']} lists, 4 ranks in "
+        f"{out['rabitq']['build_s']:.3f} s")
+    rungs = []
+    for p, mult in RABITQ_LADDER:
+        ids = mnmg.ivf_rabitq_search(rb, q, k, n_probes=p, refine_dataset=x, refine_mult=mult,
+                                     scan_engine="fused")[1]
+        r = recall(ids, truth)
+        rungs.append({"n_probes": p, "refine_mult": mult, "recall": r})
+        log(f"mnmg ivf_rabitq rung n_probes {p}, refine_mult {mult}: recall@{k} {r:.4f}")
+        if r >= RECALL_GATE:
+            break
+    gate = rungs[-1]
+    _, launches, s, qps, reps = mnmg_search(
+        lambda: mnmg.ivf_rabitq_search(rb, q, k, n_probes=gate["n_probes"], refine_dataset=x,
+                                       refine_mult=gate["refine_mult"], scan_engine="fused"),
+        ("fused_bitplane_topk",), spies["rabitq"], sync, nq, M["timed_s"])
+    gate.update(s_per_call=s, qps=qps, calls=reps, launches=launches)
+    out["rabitq"]["rungs"] = rungs
+    log(f"path mnmg ivf_rabitq gate rung n_probes {gate['n_probes']}, refine_mult "
+        f"{gate['refine_mult']}: recall@{k} {gate['recall']:.4f}, {s:.4f} s a call, "
+        f"{qps:.1f} QPS, launches {launches}")
+    if gate["recall"] < RECALL_GATE:
+        raise AssertionError(f"mnmg ivf_rabitq: no rung reached recall@{k} >= {RECALL_GATE}")
+    if dev.type == "cuda" and launches["fused_bitplane_topk"] <= 0:
+        raise AssertionError("mnmg ivf_rabitq: kernel 7 never launched")
+    return out
+
+
+def mnmg_resilience_part(g, M, C, c4, idx, x, q, tmp, sync):
+    """Step 4: failover, repair and rejoin, the watchdog's rot and mirror
+    repair, and a corrupt replicated checkpoint healed on load, all on the
+    4-rank IVF-PQ index (replication 2), each bit / byte for bit."""
+    from raft_tpu_torch.comms import RankHealth, mnmg, recovery
+    from raft_tpu_torch.core import faults
+    from raft_tpu_torch.core.serialize import deserialize_arrays_checked
+    from raft_tpu_torch.integrity import watchdog
+
+    k = C["k"]
+    out = {}
+    t0 = time.perf_counter()
+    mnmg.replicate_index(idx, 2)
+    sync()
+    out["mirror_s"] = time.perf_counter() - t0
+
+    def refined(health=None):
+        return mnmg.ivf_pq_search(idx, q, k, n_probes=M["refine_probes"], refine_dataset=x,
+                                  health=health)
+
+    healthy = refined()
+    health = RankHealth.all_healthy(4).mark_unhealthy(1)
+    t0 = time.perf_counter()
+    res = refined(health)
+    sync()
+    out["failover_s"] = time.perf_counter() - t0
+    if not (bit_equal(res, healthy) and res.coverage == 1.0 and res.repaired_ranks == (1,)):
+        raise AssertionError(f"mnmg failover: coverage {res.coverage}, repaired "
+                             f"{res.repaired_ranks}, or not the healthy answer bit for bit")
+    t0 = time.perf_counter()
+    recovery.repair(c4, health, idx)
+    health = recovery.rank_rejoin(c4, health, 1)
+    sync()
+    out["repair_rejoin_s"] = time.perf_counter() - t0
+    if health.degraded or not bit_equal(refined(health)[:2], healthy):
+        raise AssertionError("mnmg repair + rank_rejoin: not healthy bit for bit")
+    # one replicated checkpoint, rotted by the fault site as it is saved:
+    # healed on load, and the repair's fallback below
+    plan = faults.FaultPlan([faults.Fault(kind="corrupt_shard", site="ckpt.corrupt_file",
+                                          fraction=1e-4)], seed=g.seed + 7)
+    drill = os.path.join(tmp, "pq_drill.ckpt")
+    with plan.install():
+        mnmg.ivf_pq_save(drill, idx)
+    bad = deserialize_arrays_checked(drill, to_device=False)[2]
+    t0 = time.perf_counter()
+    healed = mnmg.ivf_pq_load(c4, drill)
+    sync()
+    out["heal_load_s"] = time.perf_counter() - t0
+    if not bad or not all(torch.equal(getattr(healed, n).full(), getattr(idx, n).full())
+                          for n in ("codes", "slot_gids")):
+        raise AssertionError(f"mnmg ckpt heal: corrupt fields {bad}, or the load is not the "
+                             "saved tables")
+    out["corrupt_fields"] = bad
+    del healed
+    t0 = time.perf_counter()
+    base = watchdog.mnmg_digests(idx)
+    out["digest_s"] = time.perf_counter() - t0
+    watchdog.rot_rank(idx, 2, seed=g.seed)
+    named = watchdog.verify_mnmg(idx, base)
+    t0 = time.perf_counter()
+    idx = watchdog.repair_ranks(idx, named, checkpoint=drill)
+    sync()
+    out["rot_repair_s"] = time.perf_counter() - t0
+    if named != [2] or watchdog.verify_mnmg(idx, base) != []:
+        raise AssertionError(f"mnmg watchdog: named {named}, or the repair left a mismatch")
+    log(f"mnmg resilience on ivf_pq (replication 2): mirror {out['mirror_s']:.3f} s; rank 1 "
+        f"down: the healthy refined answer bit for bit, coverage 1.0, repaired (1,) in "
+        f"{out['failover_s']:.3f} s; repair + rank_rejoin {out['repair_rejoin_s']:.3f} s, bit "
+        f"for bit; digests {out['digest_s']:.3f} s, rot_rank(2) named {named}, repair_ranks "
+        f"{out['rot_repair_s']:.3f} s byte for byte; ckpt.corrupt_file hit {bad}, healed on "
+        f"load in {out['heal_load_s']:.3f} s")
+    return out, idx
+
+
+def mnmg_mutation_part(g, dev, M, C, c4, idx, x, q, sync):
+    """Step 5: delete 1% of the ids (none comes back; recall against the
+    live truth), then upsert new rows, each found first by the post-merge
+    refine."""
+    from raft_tpu_torch.comms import mnmg, mnmg_mutation
+
+    k = C["k"]
+    n = x.shape[0]
+    out = {}
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(g.seed + 67)
+    victims = torch.randperm(n, generator=gen, device=dev)[:int(n * M["delete_frac"])]
+    t0 = time.perf_counter()
+    dl = mnmg_mutation.delete(idx, victims.cpu().numpy())
+    sync()
+    out["delete_s"] = time.perf_counter() - t0
+    alive = torch.ones(n, dtype=torch.bool, device=dev)
+    alive[victims] = False
+    _, live_truth = mnmg.knn(c4, x, q, k, prefilter=alive.cpu().numpy(), query_mode="replicated")
+    _, ids = mnmg.ivf_pq_search(dl, q, k, n_probes=M["refine_probes"], refine_dataset=x)
+    back = int((~alive[ids.long().clamp(min=0)] & (ids >= 0)).sum())
+    r = recall(ids, live_truth)
+    out.update(deleted=int(victims.numel()), deleted_back=back, live_recall=r)
+    if back or r < RECALL_GATE:
+        raise AssertionError(f"mnmg delete: {back} deleted ids came back, or recall {r}")
+    rows = x[:M["n_upsert"]] + 0.25 * torch.randn((M["n_upsert"], x.shape[1]), generator=gen,
+                                                  device=dev)
+    t0 = time.perf_counter()
+    up = mnmg_mutation.upsert(dl, "ivf_pq", rows)
+    sync()
+    out["upsert_s"] = time.perf_counter() - t0
+    full = torch.cat([x, rows])
+    _, ids = mnmg.ivf_pq_search(up, rows, k, n_probes=M["refine_probes"], refine_dataset=full)
+    found = float((ids[:, 0].cpu() == torch.arange(n, n + M["n_upsert"])).float().mean())
+    out.update(upserted=M["n_upsert"], self_first=found)
+    log(f"mnmg mutation on ivf_pq: delete {victims.numel()} ids in {out['delete_s']:.3f} s, "
+        f"{back} back, recall@{k} {r:.4f} against the live truth; upsert {M['n_upsert']} rows "
+        f"in {out['upsert_s']:.3f} s, each first for itself: {found:.4f}")
+    if found < 1.0:
+        raise AssertionError(f"mnmg upsert: {found} of the rows find themselves first")
+    return out
+
+
+def mnmg_ivf_path(g, dev, sync, data=None):
+    """Phase 4h: the distributed IVF drivers (raft_tpu_torch.comms
+    mnmg_ivf_build / mnmg_ivf_search / mnmg_rabitq / mnmg_ckpt /
+    mnmg_mutation / replication / recovery) under the committed table, on
+    4g's 10M x 96 rows and 4,096 queries (or their rehearsal size) at k
+    10, the exact truth 4g's world-4 `mnmg.knn`, on `Comms(n_devices=4)`
+    of the card (MNMG_IVF: bench/bench_mnmg.py's configuration):
+      1. `ivf_pq_build` (1,024 lists, pq_dim 48); "recon8_list", "lut" (on
+         the first `lut_nq` queries) and the trims "pallas", "fused" bf16
+         and int8 at n_probes 32, the
+         refined pipeline at 8 (gate: recall@10 >= RECALL_GATE): seconds a
+         call, QPS, recall, kernels 6 / 4 / 1 / 3 launched; padded and
+         real bytes of each store;
+      2. `ivf_pq_save_local`, `ivf_pq_load` onto one rank (the
+         fold-merge): save and load GB/s; the world-1 index answers every
+         search of step 1 as world 4 does (outside ties; the bin trim
+         within BIN_TRIM_RECALL; the refined pipeline's recall beside world
+         4's: each rank re-ranks its own shortlist, so it is not exact
+         within the probes); `ivf_pq_extend_local` of 1M rows on it
+         (rows/s), `ivf_pq_extend` on world 4 and the post-merge refined
+         search against the truth over all the rows;
+      3. `ivf_flat_build` with "auto" and "pallas" (kernel 1), and
+         `ivf_rabitq_build` up bench_ivf_rabitq's ladder (kernel 7);
+      4. replication 2: failover, repair + rank_rejoin, the watchdog's rot
+         and mirror repair, a corrupt checkpoint healed on load;
+      5. delete 1% of the ids and upsert 10,000 rows;
+      6. the process worlds run as 4g's children (ivf_pq_build_local at
+         world 1 on NCCL, build_local / save_local / load at world 2 on
+         gloo).
+    Returns (summary, rows of kernels 1, 3, 4, 6 and 7 at this path's
+    per-rank shapes)."""
+    import shutil
+
+    from raft_tpu_torch.comms import Comms, mnmg
+    from raft_tpu_torch.ops import fused_scan as fs
+    from raft_tpu_torch.ops import pq_list_scan as pls
+    from raft_tpu_torch.ops import select_counting as sc
+
+    C = COMMS_REHEARSE if g.rehearse else COMMS
+    M = MNMG_IVF_REHEARSE if g.rehearse else MNMG_IVF
+    t_phase = time.perf_counter()
+    out = {"sizes": M}
+    c4 = Comms(n_devices=4, device=dev)
+    if data is None:
+        x, q = comms_blobs(g.seed, C["n"], C["dim"], C["nq"], C["blobs"], dev)
+        with committed(dev):
+            _, truth = mnmg.knn(c4, x, q, C["k"], query_mode="replicated")
+    else:
+        x, q, _, truth = data
+    spies = {"recon8_list": SelectCalls(sc, "counting_select_min"),
+             "pallas": Spy(pls, "pq_list_scan"), "fused_bf16": Spy(fs, "fused_list_topk"),
+             "fused_int8": Spy(fs, "fused_list_topk_int8"), "flat": Spy(fs, "fused_list_topk"),
+             "rabitq": Spy(fs, "fused_bitplane_topk")}
+    tmp = tempfile.mkdtemp(prefix="chip_smoke_mnmg_ivf_")
+    try:
+        with committed(dev):
+            out["ivf_pq"], idx, results = mnmg_pq_part(g, dev, M, C, c4, x, q, truth, sync, spies)
+            out["ckpt"] = mnmg_ckpt_part(g, dev, M, C, c4, idx, x, q, truth, results, tmp, sync)
+            out["resilience"], idx = mnmg_resilience_part(g, M, C, c4, idx, x, q, tmp, sync)
+            out["mutation"] = mnmg_mutation_part(g, dev, M, C, c4, idx, x, q, sync)
+            del idx, results
+            if dev.type == "cuda":
+                torch.cuda.empty_cache()
+            out.update(mnmg_flat_rabitq_part(g, dev, M, C, c4, x, q, truth, sync, spies))
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+    c4.destroy()
+    rows = []
+    launch = {name: rec["launches"] for name, rec in out["ivf_pq"].items()
+              if isinstance(rec, dict) and "launches" in rec}
+    sel = spies["recon8_list"]
+    tile = next(iter(sel.first.values()), None)
+    if tile is not None:
+        rows.append(counting_tile_row(tile[0], tile[1], launch["recon8_list"]
+                                      ["counting_select_min"], g.reps,
+                                      "mnmg ivf_pq approx trim, a rank's chunk select"))
+    if sel.last is not None:
+        rows.append(counting_tile_row(sel.last[0], sel.last[1],
+                                      launch["recon8_list"]["counting_select_min"], g.reps,
+                                      "mnmg ivf_pq, the merge select"))
+    for name, label, row_fn in (
+            ("fused_bf16", "mnmg ivf_pq trim, a rank, n_probes 32", "list"),
+            ("fused_int8", "mnmg ivf_pq int8 trim, a rank, n_probes 32", "int8"),
+            ("pallas", "mnmg ivf_pq bin trim, exact fold, a rank, n_probes 32", "fold")):
+        calls = spies[name].calls
+        if not calls:
+            continue
+        n_l = launch[name][next(iter(launch[name]))]
+        if row_fn == "list":
+            rows.append(list_kernel_row(fs, calls[0], n_l, g.reps, label))
+        elif row_fn == "int8":
+            rows.append(int8_list_row(fs, calls[0], n_l, g.reps, label))
+        else:
+            rows.append(fold_kernel_row(pls, calls[0], n_l, g.reps, label, "exact"))
+    if spies["flat"].calls:
+        rows.append(list_kernel_row(fs, spies["flat"].calls[0],
+                                    out["flat"]["pallas"]["launches"]["fused_list_topk"], g.reps,
+                                    "mnmg ivf_flat pallas, a rank, n_probes 32",
+                                    term_scale=True))
+    if spies["rabitq"].calls:
+        gate = out["rabitq"]["rungs"][-1]
+        rows.append(bitplane_row(fs, spies["rabitq"].calls[0],
+                                 gate["launches"]["fused_bitplane_topk"], g.reps,
+                                 f"mnmg ivf_rabitq, a rank, n_probes {gate['n_probes']}, "
+                                 f"refine_mult {gate['refine_mult']}"))
+    if dev.type == "cuda" and len(rows) != 7:
+        raise AssertionError(f"mnmg ivf path: {len(rows)} kernel rows, not 7")
+    for s_ in spies.values():
+        if isinstance(s_, SelectCalls):
+            s_.first, s_.last = {}, None
+        else:
+            s_.calls = []
+    out["wall_s"] = time.perf_counter() - t_phase
+    log(f"mnmg ivf path complete in {out['wall_s']:.3f} s")
     return out, rows
 
 
@@ -6831,6 +7431,9 @@ def main(argv=None):
     ap.add_argument("--comms", action="store_true",
                     help="the build and the comms path only (phase 4g and its kernel rows); "
                          "prints no result and exits 8")
+    ap.add_argument("--mnmg-ivf", action="store_true",
+                    help="the build and the distributed IVF path only (phase 4h on its own "
+                         "data and truth, and its kernel rows); prints no result and exits 9")
     ap.add_argument("--comms-child", choices=("nccl", "gloo"), help=argparse.SUPPRESS)
     ap.add_argument("--child-port", type=int, default=0, help=argparse.SUPPRESS)
     ap.add_argument("--child-rank", type=int, default=0, help=argparse.SUPPRESS)
@@ -6899,10 +7502,15 @@ def main(argv=None):
         log(f"obs path complete in {time.perf_counter() - t_all:.1f} s; no result printed")
         return 7
     if g.comms:
-        _, comms_rows = comms_path(g, dev, sync)
+        _, comms_rows, _ = comms_path(g, dev, sync)
         log(f"comms path complete in {time.perf_counter() - t_all:.1f} s, {len(comms_rows)} "
             "kernel rows; no result printed")
         return 8
+    if g.mnmg_ivf:
+        _, ivf_rows = mnmg_ivf_path(g, dev, sync)
+        log(f"mnmg ivf path complete in {time.perf_counter() - t_all:.1f} s, {len(ivf_rows)} "
+            "kernel rows; no result printed")
+        return 9
     adversarial_checks(fs, pls, dev, np.random.default_rng(g.seed + 1))
     slice_checks(dev, np.random.default_rng(g.seed + 2))
     bitplane_checks(fs, dev, np.random.default_rng(g.seed + 3))
@@ -7023,8 +7631,11 @@ def main(argv=None):
     prim, prim_rows = primitives_path(g, dev, sync)
     rows += prim_rows
     obs_summary = obs_path(g, dev, obs_inputs(res, pm, fl, rb), sync)
-    comms_summary, comms_rows = comms_path(g, dev, sync)
+    comms_summary, comms_rows, comms_data = comms_path(g, dev, sync)
     rows += comms_rows
+    mnmg_ivf_summary, mnmg_ivf_rows = mnmg_ivf_path(g, dev, sync, comms_data)
+    del comms_data
+    rows += mnmg_ivf_rows
     summary = {"build_s": res["build_s"], "truth_s": res["truth_s"], "rungs": res["rungs"],
                "breakdown": res["breakdown"], "pallas_breakdown": res["pallas_breakdown"],
                "refine_kernel": refine_row,
@@ -7044,6 +7655,7 @@ def main(argv=None):
                "primitives": prim,
                "obs": obs_summary,
                "comms": comms_summary,
+               "mnmg_ivf": mnmg_ivf_summary,
                "wall_s": time.perf_counter() - t_all}
     log("summary " + json.dumps(summary))
     if dev.type != "cuda":

@@ -1085,8 +1085,10 @@ class Comms:
         per = t.shape[dim] // self._size
         return t.narrow(dim, rank * per, per)
 
-    def _assemble(self, outs, specs):
-        """Per-rank outputs -> the global results (out_specs)."""
+    def _assemble(self, outs, specs, keep_blocks: bool = False):
+        """Per-rank outputs -> the global results (out_specs); with
+        `keep_blocks`, split results stay per-rank blocks (a
+        `ShardedArray`, each block on its rank's device)."""
         single = isinstance(specs, PartitionSpec)
         spec_list = [specs] if single else list(specs)
         per_rank = [[o] if single else list(o) for o in outs]
@@ -1096,6 +1098,9 @@ class Comms:
             dim = spec.split_dim(self.axis)
             if dim is None or not isinstance(vals[0], torch.Tensor):
                 results.append(vals[0])
+                continue
+            if keep_blocks:
+                results.append(ShardedArray(vals, dim, self._size))
                 continue
             if self.process_world:
                 ctx = _ProcessRank(self.rank, self._size, self.device)
@@ -1112,15 +1117,18 @@ class Comms:
             return self._pool
 
     def run(self, fn: Callable, *args, in_specs=None, out_specs=None,
-            timeout_s: Optional[float] = None):
+            timeout_s: Optional[float] = None, keep_blocks: bool = False):
         """Run `fn(rank_view, *blocks)` SPMD over the ranks: each rank
         gets its block of every sharded argument (`in_specs`, one
         PartitionSpec for all arguments or one per argument), its copy of
         every replicated one, and host values as they are. Results follow
         `out_specs`: split dims concatenate the ranks' outputs in rank
         order (on rank 0's device; in a process world, gathered from every
-        process), replicated ones are rank 0's. `timeout_s` (default
-        `self.timeout_s`) bounds every collective wait."""
+        process), replicated ones are rank 0's; with `keep_blocks` split
+        results stay per-rank blocks (a `ShardedArray`, no concatenation:
+        how the distributed indexes keep their per-rank tables).
+        `timeout_s` (default `self.timeout_s`) bounds every collective
+        wait."""
         in_specs = in_specs if in_specs is not None else P(self.axis)
         out_specs = out_specs if out_specs is not None else P(self.axis)
         specs = ([in_specs] * len(args) if isinstance(in_specs, PartitionSpec)
@@ -1134,11 +1142,13 @@ class Comms:
         if self.process_world:
             ctx = _ProcessRank(self.rank, self._size, self.device)
             out = fn(AxisComms(self.axis, self._size, None, _ctx=ctx), *blocks[self.rank])
-            return self._assemble([out], out_specs)
+            return self._assemble([out], out_specs, keep_blocks)
         ex = _ThreadExchange(self._size, timeout)
 
         def rank_main(r):
             ctx = _ThreadRank(ex, r, self.devices[r])
+            if ctx.device.type == "cuda":
+                torch.cuda.set_device(ctx.device)  # the thread's current device, for cuBLAS
             try:
                 return fn(AxisComms(self.axis, self._size, None, _ctx=ctx), *blocks[r])
             except BaseException as e:
@@ -1155,7 +1165,7 @@ class Comms:
                 first = ex.error or next(e for e in errs if e is not None)
                 raise first
             outs = [f.result() for f in futs]
-        return self._assemble(outs, out_specs)
+        return self._assemble(outs, out_specs, keep_blocks)
 
     def destroy(self):
         """API parity with raft-dask Comms.destroy (comms.py:218): stops

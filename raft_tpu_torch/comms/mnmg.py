@@ -15,11 +15,12 @@ of the modules split by concern, in the JAX package's order:
   mnmg_merge       top-k merge schedules + query-mode resolution
   mnmg_kmeans      distributed k-means (driver-sharded + *_local)
   mnmg_knn         distributed brute-force kNN
-  replication      ring placement of shard replicas
-
-Not yet here: the distributed IVF indexes (builds, extends, searches,
-checkpoints, the RaBitQ driver), the replica mirrors of those indexes
-and recovery, which come with the distributed IVF drivers.
+  mnmg_ivf_build   the distributed IVF index types, builds, extends, bridge
+  mnmg_ckpt        sharded and single-file checkpoints
+  mnmg_rabitq      the distributed IVF-RaBitQ driver
+  mnmg_ivf_search  the distributed searches (engines, refine, prefilters)
+  replication      ring placement of shard replicas, mirrors, failover
+  recovery         repair, rejoin and heal
 """
 
 from raft_tpu_torch.comms.mnmg_common import (  # noqa: F401
@@ -57,6 +58,51 @@ from raft_tpu_torch.comms.mnmg_knn import (  # noqa: F401
     knn,
     knn_local,
 )
+from raft_tpu_torch.comms.mnmg_ivf_build import (  # noqa: F401
+    DistributedIvfFlat,
+    DistributedIvfPq,
+    _place_rank_major,
+    _spmd_label_encode,
+    distribute_index,
+    ivf_flat_build,
+    ivf_flat_build_local,
+    ivf_flat_extend,
+    ivf_flat_extend_local,
+    ivf_pq_build,
+    ivf_pq_build_local,
+    ivf_pq_extend,
+    ivf_pq_extend_local,
+)
+from raft_tpu_torch.comms.mnmg_ckpt import (  # noqa: F401
+    ivf_flat_load,
+    ivf_flat_save,
+    ivf_flat_save_local,
+    ivf_pq_load,
+    ivf_pq_save,
+    ivf_pq_save_local,
+    ivf_rabitq_load,
+    ivf_rabitq_save,
+)
+from raft_tpu_torch.comms.mnmg_rabitq import (  # noqa: F401
+    DistributedIvfRabitq,
+    ivf_rabitq_build,
+    ivf_rabitq_search,
+)
+from raft_tpu_torch.comms.mnmg_ivf_search import (  # noqa: F401
+    _build_distributed_recon,
+    _refine_layout,
+    ivf_flat_search,
+    ivf_pq_search,
+)
 from raft_tpu_torch.comms.replication import (  # noqa: F401
     ReplicaPlacement,
+    ShardReplicas,
+    failover_view,
+    replicate_index,
+)
+from raft_tpu_torch.comms.recovery import (  # noqa: F401
+    RecoveryError,
+    heal,
+    rank_rejoin,
+    repair,
 )

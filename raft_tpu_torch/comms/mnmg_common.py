@@ -85,14 +85,14 @@ def _pq_geometry(params, d: int):
 
 def _rotate_fn(comms: Comms):
     """The sharded rotation a @ R.T over a row-sharded `a` and a
-    replicated R."""
+    replicated R; the result stays row-sharded (per-rank blocks)."""
 
     def body(ac, a, R):
         return a @ R.T
 
     def run(a, R):
         return comms.run(body, a, R, in_specs=(P(comms.axis, None), P(None, None)),
-                         out_specs=P(comms.axis, None))
+                         out_specs=P(comms.axis, None), keep_blocks=True)
 
     return run
 
@@ -446,3 +446,29 @@ def _shard_filtered(gid_tbl, bits, n: int, use_pf: bool):
     from raft_tpu_torch.core.bitset import Bitset, filter_slot_table
 
     return filter_slot_table(gid_tbl, None, Bitset(bits, n))
+
+
+def _host_np(arr) -> np.ndarray:
+    """A sharded, replicated or plain array as host numpy (a sharded
+    array's blocks concatenated; in a process world this process's part)."""
+    if isinstance(arr, (ShardedArray, ReplicatedArray)):
+        arr = arr.full()
+    if isinstance(arr, torch.Tensor):
+        return arr.detach().cpu().numpy()
+    return np.asarray(arr)
+
+
+def _map_blocks(fn, *arrs):
+    """Apply `fn` to each rank's blocks of the `ShardedArray`s `arrs` (in
+    the calling thread, each block on its rank's device) and return the
+    results as `ShardedArray`s of the same layout: one, or a tuple where
+    `fn` returns a tuple. The derived stores of the distributed indexes
+    are built this way, outside any rank's body, so no two rank threads
+    ever race to fill one."""
+    first = arrs[0]
+    outs = [fn(*bs) for bs in zip(*(a.blocks for a in arrs))]
+    world = first.shape[first.dim] // first.blocks[0].shape[first.dim]
+    if isinstance(outs[0], tuple):
+        return tuple(ShardedArray([o[i] for o in outs], first.dim, world)
+                     for i in range(len(outs[0])))
+    return ShardedArray(outs, first.dim, world)

@@ -18,8 +18,9 @@ covers the larger class of soft failures (stragglers past a deadline,
 poisoned shards, drained hosts) where a rank still answers collectives
 but must not shape results.
 
-Not yet here: `rehydrate`, which reloads a distributed index checkpoint
-and comes with the distributed IVF drivers (`mnmg_ckpt`).
+`rehydrate` reloads a distributed index checkpoint onto the recovered
+world (`mnmg_ckpt`), retrying flaky reads; `comms.recovery` falls back to
+it when a lost shard has no surviving replica.
 """
 
 from __future__ import annotations
@@ -243,3 +244,43 @@ def probe_health(comms: Comms, timeout_s: float = 30.0,
     else:
         health_barrier(comms, timeout_s=timeout_s)
     return health
+
+
+REHYDRATE_SITE = "mnmg_ckpt.load"
+
+
+def rehydrate(comms: Comms, filename: str, max_retries: int = 3):
+    """Checkpoint-based rank re-hydration: load a distributed index
+    checkpoint (`ivf_flat_save[_local]` / `ivf_pq_save[_local]` /
+    `ivf_rabitq_save`) onto the recovered world and return `(index,
+    RankHealth.all_healthy)`; the serving loop swaps the degraded index for
+    the fresh one and resumes at full coverage. Flaky reads (injected
+    faults, transient I/O errors, a header torn by a concurrent writer:
+    `SerializationError`, raw struct / JSON decode failures) retry with
+    backoff and surface as `RetryExhausted` (chaining the last cause) once
+    the window is spent; a well-formed checkpoint of another kind raises
+    ValueError at once."""
+    import json
+    import struct
+
+    from raft_tpu_torch.comms import mnmg_ckpt
+    from raft_tpu_torch.core.serialize import SerializationError, peek_meta
+
+    def load_once():
+        # the kind probe reads the header only, and sits inside the retry
+        # so a transient failure of the probe itself gets the backoff too
+        kind = str(peek_meta(filename).get("kind", ""))
+        if kind.startswith("mnmg_ivf_flat"):
+            return mnmg_ckpt.ivf_flat_load(comms, filename)
+        if kind.startswith("mnmg_ivf_pq"):
+            return mnmg_ckpt.ivf_pq_load(comms, filename)
+        if kind.startswith("mnmg_ivf_rabitq"):
+            return mnmg_ckpt.ivf_rabitq_load(comms, filename)
+        raise ValueError(f"not a distributed index checkpoint: kind={kind!r}")
+
+    index = retry_with_backoff(
+        load_once, max_retries=max_retries,
+        retry_on=(faults.FaultInjected, OSError, SerializationError, struct.error,
+                  json.JSONDecodeError),
+        describe=f"rehydrate({filename!r})")
+    return index, RankHealth.all_healthy(comms.get_size())

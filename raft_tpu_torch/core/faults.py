@@ -65,6 +65,10 @@ FAULT_SITES = {
     "batch_loader.load": (
         "host loader block fetch (slow_rank latency, flaky reads, "
         "corrupt_host NaNs in a streamed block)"),
+    "ckpt.corrupt_file": (
+        "post-commit checkpoint sector rot: corrupt_shard flips seeded "
+        "bytes of a just-written file's data region (CRC loads heal from "
+        "peer mirror slices, comms/mnmg_ckpt)"),
     "comms.allgather": (
         "traced allgather contribution (corrupt_shard NaNs / "
         "drop_collective identity on the faulted rank)"),
@@ -105,6 +109,15 @@ FAULT_SITES = {
         "host-side RaBitQ encode stage of build/extend (slow_rank "
         "models a slow encode pass — latency only, results untouched; "
         "flaky_bootstrap a transient dispatch failure)"),
+    "mnmg.ivf_flat.scores": (
+        "per-rank IVF-Flat candidate scores inside the traced search "
+        "(corrupt_shard poisons a shard's contribution pre-merge)"),
+    "mnmg.ivf_pq.scores": (
+        "per-rank IVF-PQ candidate scores inside the traced search "
+        "(corrupt_shard poisons a shard's contribution pre-merge)"),
+    "mnmg.ivf_rabitq.scores": (
+        "per-rank IVF-RaBitQ estimator scores inside the traced search "
+        "(corrupt_shard poisons a shard's contribution pre-merge)"),
     "mnmg.kmeans.partials": (
         "per-rank partial EM sums inside the traced k-means step "
         "(corrupt_shard poisons a shard's contribution before the "
@@ -115,6 +128,9 @@ FAULT_SITES = {
     "mnmg.knn.scores": (
         "per-rank brute-force scores inside the traced distributed knn "
         "(corrupt_shard poisons a shard's contribution pre-merge)"),
+    "mnmg_ckpt.load": (
+        "host checkpoint load entry (flaky_bootstrap torn reads retried "
+        "by resilience.rehydrate; slow_rank models cold storage)"),
     "mutation.log.commit": (
         "mutation-log batch boundary, visited AFTER each log append and "
         "AFTER each checkpoint commit (kill_rank SIGKILLs this process "

@@ -144,6 +144,131 @@ CKPT_SCHEMA = {
             "bp_meta": ("runtime", None, 1, "default"),
         },
     },
+    "mnmg_ivf_flat": {
+        "version": 1,
+        "fields": {
+            "centers": ("array", "f32", 1, "refuse"),
+            "list_data": ("array", "f32", 1, "refuse"),
+            "host_gids": ("array", "i32", 1, "refuse"),
+            "list_sizes": ("array", "i32", 1, "refuse"),
+            "replica_store": ("array", "f32", 1, "derive"),
+            "replica_gids": ("array", "i32", 1, "derive"),
+            "replica_sizes": ("array", "i32", 1, "derive"),
+            # written only when the index carries a correction-table
+            # mirror (the shared _replica_arrays helper); registered for
+            # every mnmg kind so the shared writer has one contract
+            "replica_aux": ("array", "f32", 1, "derive"),
+            "kind": ("meta", "str", 1, "refuse"),
+            "version": ("meta", "int", 1, "default"),
+            "n": ("meta", "int", 1, "refuse"),
+            "n_ranks": ("meta", "int", 1, "refuse"),
+            "metric": ("meta", "int", 1, "refuse"),
+            "n_lists": ("meta", "int", 1, "refuse"),
+            "bridged": ("meta", "bool", 1, "default"),
+            "replication": ("meta", "int", 1, "default"),
+        },
+    },
+    "mnmg_ivf_pq": {
+        "version": 1,
+        "fields": {
+            "rotation": ("array", "f32", 1, "refuse"),
+            "centers": ("array", "f32", 1, "refuse"),
+            "pq_centers": ("array", "f32", 1, "refuse"),
+            "codes": ("array", "i32", 1, "refuse"),
+            "host_gids": ("array", "i32", 1, "refuse"),
+            "list_sizes": ("array", "i32", 1, "refuse"),
+            "replica_store": ("array", "i32", 1, "derive"),
+            "replica_gids": ("array", "i32", 1, "derive"),
+            "replica_sizes": ("array", "i32", 1, "derive"),
+            "replica_aux": ("array", "f32", 1, "derive"),  # see mnmg_ivf_flat
+            "kind": ("meta", "str", 1, "refuse"),
+            "version": ("meta", "int", 1, "default"),
+            "n": ("meta", "int", 1, "refuse"),
+            "n_ranks": ("meta", "int", 1, "refuse"),
+            "metric": ("meta", "int", 1, "refuse"),
+            "n_lists": ("meta", "int", 1, "refuse"),
+            "pq_dim": ("meta", "int", 1, "refuse"),
+            "pq_bits": ("meta", "int", 1, "refuse"),
+            "per_cluster": ("meta", "bool", 1, "default"),
+            "extended": ("meta", "bool", 1, "default"),
+            "bridged": ("meta", "bool", 1, "default"),
+            "replication": ("meta", "int", 1, "default"),
+        },
+    },
+    "mnmg_ivf_rabitq": {
+        "version": 1,
+        "fields": {
+            "rotation": ("array", "f32", 1, "refuse"),
+            "centers": ("array", "f32", 1, "refuse"),
+            "codes": ("array", "u32", 1, "refuse"),
+            "aux": ("array", "f32", 1, "refuse"),
+            "host_gids": ("array", "i32", 1, "refuse"),
+            "list_sizes": ("array", "i32", 1, "refuse"),
+            "replica_store": ("array", "u32", 1, "derive"),
+            "replica_gids": ("array", "i32", 1, "derive"),
+            "replica_sizes": ("array", "i32", 1, "derive"),
+            "replica_aux": ("array", "f32", 1, "derive"),
+            "kind": ("meta", "str", 1, "refuse"),
+            "version": ("meta", "int", 1, "default"),
+            "n": ("meta", "int", 1, "refuse"),
+            "n_ranks": ("meta", "int", 1, "refuse"),
+            "metric": ("meta", "int", 1, "refuse"),
+            "n_lists": ("meta", "int", 1, "refuse"),
+            "bridged": ("meta", "bool", 1, "default"),
+            "replication": ("meta", "int", 1, "default"),
+        },
+    },
+    "mnmg_ivf_flat_sharded": {
+        "version": 1,
+        "fields": {
+            "centers": ("array", "f32", 1, "refuse"),
+            "kind": ("meta", "str", 1, "refuse"),
+            "version": ("meta", "int", 1, "default"),
+            "n": ("meta", "int", 1, "refuse"),
+            "n_ranks": ("meta", "int", 1, "refuse"),
+            "n_parts": ("meta", "int", 1, "derive"),
+            "parts": ("meta", "json", 1, "refuse"),
+            "metric": ("meta", "int", 1, "refuse"),
+            "n_lists": ("meta", "int", 1, "refuse"),
+            "replication": ("meta", "int", 1, "default"),
+        },
+    },
+    "mnmg_ivf_pq_sharded": {
+        "version": 1,
+        "fields": {
+            "rotation": ("array", "f32", 1, "refuse"),
+            "centers": ("array", "f32", 1, "refuse"),
+            "pq_centers": ("array", "f32", 1, "refuse"),
+            "kind": ("meta", "str", 1, "refuse"),
+            "version": ("meta", "int", 1, "default"),
+            "n": ("meta", "int", 1, "refuse"),
+            "n_ranks": ("meta", "int", 1, "refuse"),
+            "n_parts": ("meta", "int", 1, "derive"),
+            "parts": ("meta", "json", 1, "refuse"),
+            "metric": ("meta", "int", 1, "refuse"),
+            "n_lists": ("meta", "int", 1, "refuse"),
+            "pq_dim": ("meta", "int", 1, "refuse"),
+            "pq_bits": ("meta", "int", 1, "refuse"),
+            "per_cluster": ("meta", "bool", 1, "default"),
+            "extended": ("meta", "bool", 1, "default"),
+            "replication": ("meta", "int", 1, "default"),
+        },
+    },
+    # one shared schema for every `{kind}_part` per-process part file;
+    # reads are the shared `_load_local_tables` assembly
+    # (comms/mnmg_ckpt), not per-kind load code
+    "mnmg_sharded_part": {
+        "version": 1,
+        "fields": {
+            "store": ("array", "f32", 1, "refuse"),
+            "gids": ("array", "i32", 1, "refuse"),
+            "sizes": ("array", "i32", 1, "derive"),
+            "mirror_store": ("array", "f32", 1, "derive"),
+            "mirror_gids": ("array", "i32", 1, "derive"),
+            "kind": ("meta", "str", 1, "refuse"),
+            "ranks": ("meta", "json", 1, "refuse"),
+        },
+    },
     # one mutation batch's payload container (neighbors/mutation), written
     # before its log line is appended
     "mutation_batch": {

@@ -8,7 +8,9 @@ the ported names of the JAX package's `__all__`, in its order.
   batches, and the seeded rot injector (`integrity.table.rot`);
 - quarantine and repair (`integrity.watchdog`): a bad list masked through
   the tombstones (`coverage()` < 1.0), then repaired from the mutation
-  root's checkpoint, verified before it is swapped in;
+  root's checkpoint, verified before it is swapped in; a distributed
+  index's rotted ranks named by their shard digests and repaired from
+  their ring mirrors;
 - point-in-time recovery (`integrity.restore`): `restore(root, seq)`, the
   newest verifiable retained snapshot plus a bounded log replay, byte for
   byte the checkpoint a crash-free run committed at that seq.
@@ -42,7 +44,12 @@ from raft_tpu_torch.integrity.scrub import (  # noqa: F401
 from raft_tpu_torch.integrity.watchdog import (  # noqa: F401
     IntegrityWatchdog,
     checkpoint_repairer,
+    maybe_rot_mnmg,
+    mnmg_digests,
     quarantine,
+    repair_ranks,
+    rot_rank,
+    verify_mnmg,
 )
 
 __all__ = [
@@ -57,12 +64,17 @@ __all__ = [
     "checkpoint_repairer",
     "compute",
     "maybe_rot",
+    "maybe_rot_mnmg",
+    "mnmg_digests",
     "prune",
     "quarantine",
     "refresh",
+    "repair_ranks",
     "restore",
     "retained",
     "rot_list",
+    "rot_rank",
     "snapshot_path",
     "verify",
+    "verify_mnmg",
 ]

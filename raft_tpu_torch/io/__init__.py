@@ -23,8 +23,8 @@ from the view would need its stream synchronised first (copy into pinned
 memory, or synchronise, before the next iteration step). `copy=True`
 (the default) hands out owned arrays.
 
-`extend_from_file_local` (the multi-controller ingestion) comes with the
-distributed layer.
+`extend_from_file_local` is the multi-process ingestion: every process
+streams its own partition through the collective `*_extend_local`.
 """
 
 from __future__ import annotations
@@ -40,6 +40,7 @@ __all__ = [
     "FileBatchLoader",
     "NativeLoaderUnavailable",
     "extend_from_file",
+    "extend_from_file_local",
 ]
 
 
@@ -255,4 +256,36 @@ def extend_from_file(extend_fn, index, path: str, batch_rows: int,
         ids = np.arange(offset, offset + valid, dtype=np.int32)
         index = extend_fn(index, batch[:valid], ids)
         offset += valid
+    return index
+
+
+def extend_from_file_local(extend_local_fn, index, path: str, batch_rows: int, depth: int = 3):
+    """Collective file-backed ingestion of the multi-process API: every
+    process streams its own on-disk partition through repeated
+    `extend_local_fn` (comms.mnmg.ivf_flat_extend_local /
+    ivf_pq_extend_local). Files may hold different row counts, but every
+    process must make the same number of `extend_local` calls (they are
+    collective): the batch count is agreed first (one allreduce of
+    ceil(rows / batch_rows)), and a process whose file runs out early goes
+    on with empty batches. The collective extend assigns the ids (the
+    process-order continuation of the id space)."""
+    loader = FileBatchLoader(path, batch_rows, depth=depth, copy=False)
+    total_batches = loader.n_batches
+    comms = getattr(index, "comms", None)
+    if comms is not None and comms.spans_processes():
+        import torch
+        import torch.distributed as dist
+
+        t = torch.tensor([total_batches], dtype=torch.int64, device=comms.device)
+        dist.all_reduce(t, op=dist.ReduceOp.MAX)
+        total_batches = int(t.item())
+    empty = np.zeros((0,) + tuple(loader.shape[1:]), loader.dtype)
+    it = iter(loader)
+    for _ in range(total_batches):
+        try:
+            batch, valid = next(it)
+            rows = batch[:valid]
+        except StopIteration:
+            rows = empty
+        index = extend_local_fn(index, rows)
     return index

@@ -131,6 +131,31 @@ def resolve_params(params, n_probes: int, device=None) -> Optional[AdaptiveResol
     return AdaptiveResolved(tau=tau, min_probes=mp, early_term=early)
 
 
+def resolve(n_probes: int, adaptive: bool = False, recall_target=None, budget_tau=None,
+            min_probes: int = 1, early_term: bool = True,
+            device=None) -> Optional[AdaptiveResolved]:
+    """Keyword spelling of `resolve_params` for callers without a
+    SearchParams object (the distributed drivers, the serve adapters)."""
+    import types
+
+    return resolve_params(
+        types.SimpleNamespace(adaptive=adaptive, recall_target=recall_target,
+                              budget_tau=budget_tau, min_probes=min_probes,
+                              early_term=early_term),
+        n_probes, device)
+
+
+def policy_token(params, n_probes: int, device=None):
+    """A hashable token of how the adaptive fields shape a search: None for
+    the fixed search, else ("adaptive", early_term). `tau` and
+    `min_probes` are operands of one search program, so they stay out of
+    it (the JAX package's serve compile-cache key component)."""
+    ap = resolve_params(params, n_probes, device)
+    if ap is None:
+        return None
+    return ("adaptive", bool(ap.early_term))
+
+
 # ---------------------------------------------------------------------------
 # the plan
 # ---------------------------------------------------------------------------

@@ -4,10 +4,12 @@
 
 Bootstraps the port's process world (`bootstrap_multihost` over
 torch.distributed, gloo on the CPU), runs the collectives, `knn_local`,
-`kmeans_fit_local`, `kmeans_predict_local` and a health barrier on this
-process's partition of seeded data, and writes its results to
-OUT_DIR/rank<RANK>.pt. Every collective wait is bounded by the process
-group's timeout.
+`kmeans_fit_local`, `kmeans_predict_local`, a health barrier and the
+distributed IVF-PQ lifecycle (`ivf_pq_build_local` -> `ivf_pq_save_local`
+-> `ivf_pq_extend_local` -> `ivf_pq_save_local` -> `ivf_pq_load`, a
+search after each step; the checkpoints under OUT_DIR) on this process's
+partition of seeded data, and writes its results to OUT_DIR/rank<RANK>.pt.
+Every collective wait is bounded by the process group's timeout.
 """
 
 import os
@@ -22,6 +24,24 @@ from raft_tpu_torch.comms import Comms, bootstrap_multihost, mnmg, op_t, resilie
 from raft_tpu_torch.comms.comms import P  # noqa: E402
 
 N, D, NQ, K = 1003, 16, 37, 10
+#: the IVF-PQ lifecycle: lists, PQ width, probes, and the new rows of the
+#: extend (an even count: each process appends half)
+PQ_LISTS, PQ_DIM, PQ_PROBES, N_NEW = 8, 8, 4, 200
+
+
+def new_rows():
+    """The seeded rows the extend appends."""
+    return np.random.default_rng(12).standard_normal((N_NEW, D)).astype(np.float32)
+
+
+def pq_params():
+    from raft_tpu_torch.neighbors import ivf_pq
+
+    return ivf_pq.IndexParams(n_lists=PQ_LISTS, pq_dim=PQ_DIM, kmeans_n_iters=5)
+
+
+def pq_search(index, q):
+    return mnmg.ivf_pq_search(index, q, K, n_probes=PQ_PROBES, engine="lut")
 
 
 def dataset():
@@ -82,6 +102,16 @@ def main():
     res["kmeans"] = (centers, inertia, n_iter)
     res["labels"] = torch.from_numpy(mnmg.kmeans_predict_local(comms, local, centers))
     res["barrier_s"] = resilience.health_barrier(comms, timeout_s=30)
+    idx = mnmg.ivf_pq_build_local(comms, pq_params(), local, seed=0)
+    res["pq_built"] = pq_search(idx, q)
+    mnmg.ivf_pq_save_local(os.path.join(out_dir, "pq_built.ckpt"), idx)
+    idx = mnmg.ivf_pq_extend_local(idx, partition(new_rows(), world, rank))
+    res["pq_extended"] = pq_search(idx, q)
+    res["pq_n"] = idx.n
+    mnmg.ivf_pq_save_local(os.path.join(out_dir, "pq_extended.ckpt"), idx)
+    res["out_dir"] = out_dir
+    res["pq_loaded"] = pq_search(mnmg.ivf_pq_load(comms, os.path.join(out_dir,
+                                                                     "pq_extended.ckpt")), q)
     torch.save(res, os.path.join(out_dir, f"rank{rank}.pt"))
     import torch.distributed as dist
 

@@ -11,6 +11,13 @@ CPU world on the same seeded inputs.
 - `knn_local` (replicated, sharded, prefiltered), `kmeans_fit_local`,
   `kmeans_predict_local` and the health barrier equal the in-process
   `knn` / `kmeans_fit` / `kmeans_predict` on the concatenated rows.
+- The distributed IVF-PQ lifecycle `ivf_pq_build_local` ->
+  `ivf_pq_save_local` -> `ivf_pq_extend_local` -> `ivf_pq_save_local` ->
+  `ivf_pq_load`: the in-process 2-rank world loads the built checkpoint,
+  extends it with the concatenated new rows, and answers as the process
+  world did at every step, bit for bit; both load the extended checkpoint
+  to the same tables; the process world's own load answers as its
+  extended index did.
 - It cannot hang: the process group's collectives time out at 60 s, each
   child has its own join deadline and is killed past it.
 """
@@ -121,3 +128,24 @@ def test_kmeans_local_equals_the_in_process_fit(ranks, local_world):
         part = worker.partition(labels, WORLD, r)
         np.testing.assert_array_equal(res["labels"].numpy(), part)
         assert 0 <= res["barrier_s"] < 30
+
+
+def test_ivf_pq_local_lifecycle_equals_the_in_process_world(ranks, local_world):
+    _, q, _, _ = worker.dataset()
+    out = Path(ranks[0]["out_dir"])
+    built = mnmg.ivf_pq_load(local_world, str(out / "pq_built.ckpt"))
+    extended = mnmg.ivf_pq_extend_local(built, worker.new_rows())
+    assert extended.n == worker.N + worker.N_NEW
+    want = {"pq_built": worker.pq_search(built, q),
+            "pq_extended": worker.pq_search(extended, q)}
+    for res in ranks:
+        assert res["pq_n"] == extended.n
+        for name, (wv, wi) in want.items():
+            v, i = res[name]
+            assert torch.equal(v, wv) and torch.equal(i, wi), name
+        v, i = res["pq_loaded"]
+        assert torch.equal(v, want["pq_extended"][0]) and torch.equal(i, want["pq_extended"][1])
+    loaded = mnmg.ivf_pq_load(local_world, str(out / "pq_extended.ckpt"))
+    assert torch.equal(loaded.codes.full(), extended.codes.full())
+    assert torch.equal(loaded.slot_gids.full(), extended.slot_gids.full())
+    assert loaded.extended and loaded.n == extended.n

@@ -295,10 +295,10 @@ def test_fault_sites_are_jax_sites_with_live_hooks():
 def test_batch_loader_load_is_the_eighth_site():
     """`batch_loader.load` joined with `neighbors/batch_loader` as the
     eighth site (the obs sites `obs.flight.dump` and `serve.trace.stamp`
-    came after it, then the ten sites of the comms layer: twenty in all),
-    the JAX description, hooked by `fault_point` and `corrupt_host` in
-    that module."""
-    assert len(tf.FAULT_SITES) == 20
+    came after it, then the ten sites of the comms layer and the five of
+    the distributed IVF drivers: twenty-five in all), the JAX description,
+    hooked by `fault_point` and `corrupt_host` in that module."""
+    assert len(tf.FAULT_SITES) == 25
     assert tf.FAULT_SITES["batch_loader.load"] == jf.FAULT_SITES["batch_loader.load"]
     path = _ROOT / "raft_tpu_torch" / "neighbors" / "batch_loader.py"
     assert {"fault_point", "corrupt_host"} <= _called_names(path)
@@ -318,6 +318,25 @@ def test_the_comms_layer_hosts_its_ten_sites():
         path = _ROOT / "raft_tpu_torch" / "comms" / f"{mod}.py"
         assert site in path.read_text(), site
         assert hooks & _called_names(path), site
+
+
+def test_the_distributed_ivf_drivers_host_their_five_sites():
+    """The five sites of the distributed IVF drivers, each with the JAX
+    description and a live hook in the module that hosts it: the three
+    per-rank score sites of the searches (`corrupt_in_trace`), the
+    checkpoint load entry (`fault_point`, which `resilience.rehydrate`
+    retries) and the post-commit file rot of the checkpoint writer
+    (`corrupt_file`)."""
+    hosts = {"mnmg.ivf_pq.scores": ("mnmg_ivf_search", "corrupt_in_trace"),
+             "mnmg.ivf_flat.scores": ("mnmg_ivf_search", "corrupt_in_trace"),
+             "mnmg.ivf_rabitq.scores": ("mnmg_rabitq", "corrupt_in_trace"),
+             "mnmg_ckpt.load": ("mnmg_ckpt", "fault_point"),
+             "ckpt.corrupt_file": ("mnmg_ckpt", "corrupt_file")}
+    for site, (mod, hook) in hosts.items():
+        assert tf.FAULT_SITES[site] == jf.FAULT_SITES[site], site
+        path = _ROOT / "raft_tpu_torch" / "comms" / f"{mod}.py"
+        assert site in path.read_text(), site
+        assert hook in _called_names(path), site
 
 
 def _called_names(path):

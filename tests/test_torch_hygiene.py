@@ -342,21 +342,10 @@ def test_top_level_exports_the_jax_all_but_the_distributed_layer():
             getattr(raft_tpu_torch, name)
 
 
-#: names of the JAX comms layer that come with the distributed IVF drivers
-#: (ROADMAP item 12c): the indexes, their builds, searches, checkpoints,
-#: replica mirrors and recovery
-_ITEM12C_COMMS = ("recovery", "RecoveryError", "heal", "rank_rejoin", "rehydrate", "repair",
-                  "replicate_index")
-_ITEM12C_MNMG = (
-    "DistributedIvfFlat", "DistributedIvfPq", "_place_rank_major", "_spmd_label_encode",
-    "distribute_index", "ivf_flat_build", "ivf_flat_build_local", "ivf_flat_extend",
-    "ivf_flat_extend_local", "ivf_pq_build", "ivf_pq_build_local", "ivf_pq_extend",
-    "ivf_pq_extend_local", "ivf_flat_load", "ivf_flat_save", "ivf_flat_save_local",
-    "ivf_pq_load", "ivf_pq_save", "ivf_pq_save_local", "ivf_rabitq_load", "ivf_rabitq_save",
-    "DistributedIvfRabitq", "ivf_rabitq_build", "ivf_rabitq_search",
-    "_build_distributed_recon", "_refine_layout", "ivf_flat_search", "ivf_pq_search",
-    "ShardReplicas", "failover_view", "replicate_index", "RecoveryError", "heal",
-    "rank_rejoin", "repair")
+#: names of the JAX comms layer still to come with the distributed IVF
+#: drivers (ROADMAP item 12c): none, since the drivers are ported
+_ITEM12C_COMMS = ()
+_ITEM12C_MNMG = ()
 
 
 def _import_from_names(path: Path) -> list:

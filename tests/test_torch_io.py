@@ -133,7 +133,7 @@ def test_native_true_without_the_library_raises(tmp_path, monkeypatch):
     # native=None takes the memmap twin
     assert tio.FileBatchLoader(p, 2)._lib is None
     assert issubclass(tio.NativeLoaderUnavailable, RuntimeError)
-    assert tio.__all__ == [n for n in jio.__all__ if n != "extend_from_file_local"]
+    assert tio.__all__ == jio.__all__
 
 
 # -- BatchLoadIterator -------------------------------------------------------
