@@ -15,6 +15,10 @@
                                        # 4g and its kernel rows); exits 8
     python3 chip_smoke.py --mnmg-ivf   # the build and the distributed IVF path only
                                        # (phase 4h and its kernel rows); exits 9
+    python3 chip_smoke.py --serve      # the build and the serving path only (phase
+                                       # 4i on indexes it builds); exits 10
+    python3 chip_smoke.py --jobs       # the build and the jobs path only (phase 4j
+                                       # on its own data and truth); exits 11
     python3 chip_smoke.py --apply      # as the first, and writes the tuned A/B
                                        # winners and the adaptive policy as
                                        # raft_tpu_torch/tuned_defaults.json
@@ -211,7 +215,7 @@ Phases, in order; any failure exits non-zero:
      flight dump, and a child that indexes a CUDA tensor out of range
      sees `is_device_fault` errors on that op and the next;
   4g. the comms layer (comms_path), under the committed table: on
-     bench/bench_mnmg.py's 10M x 96 rows (1,024 blobs, made on the card
+     bench/bench_mnmg.py's rows cut to 5M x 96 (1,024 blobs, made on the card
      from --seed) and 4,096 queries, `comms.mnmg.knn` (k 10) on
      in-process worlds of 1 and 4 ranks of the card (s a call, QPS,
      kernel 6's launches, one profiled call each), world 4 against world
@@ -236,12 +240,46 @@ Phases, in order; any failure exits non-zero:
      each launches (6 / 4 / 1 / 3), padded and real bytes of every store;
      its sharded checkpoint, the fold-merge load onto one rank answering
      as four (GB/s both ways), extend_local of 1M rows there and the driver
-     extend with the post-merge refine against the truth over 11M rows;
+     extend with the post-merge refine against the truth over 6M rows;
      IVF-Flat "auto" and "pallas" (kernel 1), IVF-RaBitQ up
      bench/bench_ivf_rabitq.py's ladder (kernel 7); replication 2:
      failover, repair + rank_rejoin, rot_rank -> verify_mnmg ->
      repair_ranks and a corrupt checkpoint healed on load, each bit or
      byte for bit; delete 1% of the ids and upsert 10,000 rows;
+  4i. the serving layer (serve_path), under the committed table, on phase
+     4's 1M x 96 indexes with bench/bench_serve.py's traffic (256 probe
+     queries, data rows + 0.01 noise; 8 client threads x 250 requests of
+     1-8 rows; buckets 16 / 64 / 256, a 1 ms linger): IVF-Flat pinned to
+     "pallas" (kernel 1) at the first n_probes of 1..32 with recall@10 >=
+     0.95, the server's snapshot, wall req/s, the unbatched baseline (200
+     requests one call at a time), the speedup, the SLO verdict and the
+     device's idle share; every searcher under 2 x 100 requests (brute
+     force fused, IVF-PQ recon8_list with the fused bf16 / int8 and pallas
+     trims, RaBitQ fused: kernels 2, 1, 3, 4, 7 and 6), each batch-mate
+     independent bit for bit (a request in a mixed batch against itself
+     alone in the same bucket) and against the plain search of its own
+     rows (bit for bit, else values within 1e-6 of the squared norms and
+     ids equal outside ties, the steps whose rows change with the row
+     count named); a 4x burst against a
+     shedding admission; a live index (a 1% delete and a 10,000-row
+     upsert through a MutationFeed during traffic, untouched queries bit
+     for bit, no deleted id back), p99 with and without an
+     IntegrityWatchdog's slice, a rotted list quarantined then repaired
+     bit for bit; MnmgSearcher over a replicated 1M-row distributed
+     IVF-PQ on 4 ranks (failover bit for bit at coverage 1.0, the heal
+     between batches); request traces and the Prometheus section;
+  4j. the jobs layer (jobs_path) in a temporary directory: a Job of
+     make_data (the rows in 8 fsynced chunks), train and stream (8
+     batches) for IVF-PQ, IVF-Flat and RaBitQ: stage seconds, extend
+     rows/s, checkpoint GB/s, the streamed IVF-PQ's recall at phase 4's
+     rung; five children at once through run_supervised (`--jobs-child`):
+     a stream, make_data, a scrub and a checkpointed distributed build
+     SIGKILLed at their crash sites and resumed here (the index and the
+     .npy byte for byte the uninterrupted run's, the scrub from its
+     cursor, the distributed build through rehydrate equal to an
+     uninterrupted one), and a job preempted by its SIGTERM whose rerun
+     skips the committed stages; a stalled stage killed as StageTimeout
+     and retried (detection seconds, device memory around the kill);
   5. each kernel against its plain version on the inputs the main path gave
      it, with kernel, plain and library times (CUDA events) and the bound;
      kernel 1 also at IVF-Flat's own shape (bf16 residual store, n_probes
@@ -262,7 +300,8 @@ Phases, in order; any failure exits non-zero:
      and the sparse query block), and at the ball cover's (the ball and
      candidate selects of both covers, the 3-D landmark bounds), and
      kernel 6 at the comms path's tile and merge selects; kernels 1, 3, 4,
-     6 and 7 at the distributed IVF path's per-rank shapes;
+     6 and 7 at the distributed IVF path's per-rank shapes; kernels 1, 2,
+     3, 4, 6 and 7 at the serving path's served batches;
   6. a JSON line of kernels, the card's line, then the device line last.
 """
 
@@ -277,6 +316,7 @@ import signal
 import subprocess
 import sys
 import tempfile
+import threading
 import time
 
 import numpy as np
@@ -5625,11 +5665,13 @@ def obs_path(g, dev, inp, sync):
 # phase 4g: the comms layer (distributed brute-force k-NN and k-means)
 # ---------------------------------------------------------------------------
 
-#: bench/bench_mnmg.py:35's full configuration: 10M x 96 rows from 1,024
-#: blob centres U(-5, 5) plus unit noise, 4,096 queries at k 10, k-means at
-#: 1,024 clusters for 10 iterations; the NCCL child's 1M rows; the gloo
-#: children's small CPU world; bench/bench_comms.py's (rows, 256) f32 block
-COMMS = dict(n=10_000_000, dim=96, nq=4096, k=10, blobs=1024, clusters=1024, max_iter=10,
+#: bench/bench_mnmg.py:35's configuration: its 10M x 96 rows from 1,024
+#: blob centres U(-5, 5) plus unit noise cut to 5M (a cut of depth that
+#: keeps the whole run inside its time limit beside phases 4i and 4j),
+#: 4,096 queries at k 10, k-means at 1,024 clusters for 10 iterations; the
+#: NCCL child's 1M rows; the gloo children's small CPU world;
+#: bench/bench_comms.py's (rows, 256) f32 block
+COMMS = dict(n=5_000_000, dim=96, nq=4096, k=10, blobs=1024, clusters=1024, max_iter=10,
              f64_queries=16, child_n=1_000_000, gloo_n=20_000, gloo_nq=256, coll_rows=64,
              coll_d=256, child_timeout_s=300.0)
 COMMS_REHEARSE = dict(COMMS, n=20_000, dim=32, nq=256, blobs=64, clusters=64, max_iter=3,
@@ -6132,7 +6174,7 @@ def comms_kmeans_part(g, dev, C, x, sync):
 def comms_path(g, dev, sync):
     """Phase 4g: the comms layer (raft_tpu_torch.comms) under the committed
     tuned table, on in-process worlds of 1 and 4 ranks on `dev`
-    (COMMS: bench/bench_mnmg.py's 10M x 96 rows):
+    (COMMS: bench/bench_mnmg.py's rows cut to 5M x 96):
       1. `mnmg.knn` (sqeuclidean, k 10) at worlds 1 and 4: seconds a call,
          QPS, kernel 6's launches (> 0); world 4 equal to world 1 (ties
          aside), to single-device brute_force.knn(engine="tiled") outside
@@ -6646,7 +6688,7 @@ def mnmg_ivf_path(g, dev, sync, data=None):
     """Phase 4h: the distributed IVF drivers (raft_tpu_torch.comms
     mnmg_ivf_build / mnmg_ivf_search / mnmg_rabitq / mnmg_ckpt /
     mnmg_mutation / replication / recovery) under the committed table, on
-    4g's 10M x 96 rows and 4,096 queries (or their rehearsal size) at k
+    4g's 5M x 96 rows and 4,096 queries (or their rehearsal size) at k
     10, the exact truth 4g's world-4 `mnmg.knn`, on `Comms(n_devices=4)`
     of the card (MNMG_IVF: bench/bench_mnmg.py's configuration):
       1. `ivf_pq_build` (1,024 lists, pq_dim 48); "recon8_list", "lut" (on
@@ -6757,6 +6799,1349 @@ def mnmg_ivf_path(g, dev, sync, data=None):
     out["wall_s"] = time.perf_counter() - t_phase
     log(f"mnmg ivf path complete in {out['wall_s']:.3f} s")
     return out, rows
+
+
+# ---------------------------------------------------------------------------
+# phase 4i: the serving layer
+# ---------------------------------------------------------------------------
+
+#: phase 4i's traffic, bench/bench_serve.py's protocol (:94-151): 256 probe
+#: queries (data rows plus 0.01 noise), 8 client threads x 250 requests of
+#: 1-8 rows, buckets (16, 64, 256), a 1 ms linger; the unbatched baseline's
+#: 200 requests; the brief stream of every other searcher (2 x 100); the
+#: IVF-Flat n_probes ladder; the overload's 4x burst against a shedding
+#: admission (a 256-row queue, a 250 ms deadline); the live index's 1%
+#: delete and 10,000-row upsert; the scrub's slice; the distributed
+#: searcher's rows and probes; the batch-mate requests
+SERVE = dict(probe_q=256, noise=0.01, clients=8, requests=250, baseline=200, brief_clients=2,
+             brief_requests=100, buckets=(16, 64, 256), max_wait_ms=1.0,
+             flat_ladder=(1, 2, 4, 8, 16, 32), pq_probes=16, burst=4, burst_requests=60,
+             burst_size=6, overload_probes=8, queue_rows=256, deadline_s=0.25, delete_frac=0.01, upsert_rows=10_000,
+             scrub_budget=8, mnmg_rows=1_000_000, mnmg_probes=32, mates=(3, 5, 7, 16),
+             obs_requests=64)
+SERVE_REHEARSE = dict(SERVE, clients=2, requests=30, baseline=20, brief_requests=20,
+                      burst_requests=15, queue_rows=64, deadline_s=2.0, upsert_rows=200,
+                      scrub_budget=4, mnmg_rows=20_000, obs_requests=16)
+
+
+def serve_setup(g, dev, sync):
+    """Phase 4i's indexes when it runs alone (`--serve`): the main path's
+    data, its IVF-PQ, IVF-Flat and RaBitQ builds (phase 4's settings) and
+    the RaBitQ gate rung on the main path's queries (phase 4's ladder)."""
+    from raft_tpu_torch.neighbors import brute_force, ivf_flat, ivf_pq, ivf_rabitq
+
+    data_np, queries_np = make_blobs(g.seed, g.n, g.dim, g.nq, g.n_lists)
+    dataset = torch.from_numpy(data_np).to(dev)
+    queries = torch.from_numpy(queries_np).to(dev)
+    t0 = time.perf_counter()
+    index = ivf_pq.build(ivf_pq.IndexParams(n_lists=g.n_lists, pq_dim=g.dim // 2,
+                                            kmeans_n_iters=10), dataset, seed=g.seed, device=dev)
+    flat_index = ivf_flat.build(ivf_flat.IndexParams(n_lists=g.n_lists, kmeans_n_iters=10),
+                                dataset, seed=g.seed, device=dev)
+    rb_index = ivf_rabitq.build(ivf_rabitq.IndexParams(n_lists=g.n_lists, kmeans_n_iters=10),
+                                dataset, seed=g.seed, device=dev)
+    _, truth = brute_force.knn(dataset, queries, g.k, engine="fused", device=dev)
+    sync()
+    log(f"serve setup: data, three builds and the truth in {time.perf_counter() - t0:.3f} s")
+    with table({}):
+        rb_gate = next({"n_probes": p, "rerank_mult": m} for p in PROBE_LADDER
+                       for m in (4, 8, 16, 25) if recall(ivf_rabitq.search(
+                           ivf_rabitq.SearchParams(n_probes=p, rerank_mult=m,
+                                                   scan_engine="fused"),
+                           rb_index, queries, g.k)[1], truth) >= RECALL_GATE)
+    return {"data_np": data_np, "dataset": dataset, "index": index, "flat_index": flat_index,
+            "rb_index": rb_index, "rb_gate": rb_gate}
+
+
+def serve_inputs(res, fl, rb):
+    """Phase 4i's inputs from phase 4's results."""
+    return {"data_np": res["dataset"].cpu().numpy(), "dataset": res["dataset"],
+            "index": res["index"], "flat_index": fl["index"], "rb_index": rb["index"],
+            "rb_gate": {key: rb["gate"][key] for key in ("n_probes", "rerank_mult")}}
+
+
+def serve_stream(rng, n_probe, total):
+    """bench_serve's request stream: `total` requests of 1-8 probe rows,
+    uniform; returns [probe row indices of each request]."""
+    sizes = rng.integers(1, 9, total)
+    return [rng.integers(0, n_probe, int(n)) for n in sizes]
+
+
+def drive(server, probe_q, stream, clients, k, timeout_s=300.0):
+    """`clients` threads, each submitting its share of `stream` one request
+    at a time and waiting for the reply (bench_serve's client). Returns
+    (wall seconds, [reply of each request], [client-side latency s])."""
+    replies, lats = [None] * len(stream), [0.0] * len(stream)
+    errors = []
+    per = -(-len(stream) // clients)
+
+    def client(lo):
+        try:
+            for i in range(lo, min(lo + per, len(stream))):
+                t1 = time.perf_counter()
+                replies[i] = server.submit(probe_q[stream[i]], k).result(timeout=timeout_s)
+                lats[i] = time.perf_counter() - t1
+        except Exception as e:  # noqa: BLE001 — re-raised by the caller below
+            errors.append(e)
+
+    threads = [threading.Thread(target=client, args=(c * per,)) for c in range(clients)]
+    t0 = time.perf_counter()
+    for t in threads:
+        t.start()
+    for t in threads:
+        t.join(timeout_s)
+    wall = time.perf_counter() - t0
+    if errors or any(t.is_alive() for t in threads) or any(r is None for r in replies):
+        raise AssertionError(f"serve clients failed: {errors[:3]}")
+    return wall, replies, lats
+
+
+def served_recall(stream, replies, truth_np):
+    """recall@k of every served row against the probe queries' truth."""
+    hits = tot = 0
+    for rows, rep in zip(stream, replies):
+        for r, ids in zip(rows, rep.ids):
+            t = truth_np[r]
+            hits += len(set(ids.tolist()) & set(t.tolist()))
+            tot += len(t)
+    return hits / tot
+
+
+def busy_share(run):
+    """(wall s, device busy s, device activities) of one `run()` under
+    torch.profiler: the union of the device's own activities (kernels,
+    copies, sets) over the profiled wall."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        run()
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+    spans = sorted((e.time_range.start, e.time_range.end) for e in prof.events()
+                   if e.device_type == DeviceType.CUDA
+                   and not getattr(e, "is_user_annotation", False))
+    busy_us, reach = 0.0, float("-inf")
+    for start, end in spans:
+        busy_us += max(0.0, end - max(start, reach))
+        reach = max(reach, end)
+    return wall, busy_us / 1e6, len(spans)
+
+
+def snap_line(snap):
+    return (f"QPS {snap['qps']:.1f}, p50 {snap['latency_ms_p50']:.3f} ms, p99 "
+            f"{snap['latency_ms_p99']:.3f} ms, occupancy {snap['batch_occupancy']:.4f}, "
+            f"{snap['requests_per_batch']:.2f} requests a batch, {snap['batches']} batches")
+
+
+def serve_flat_part(g, dev, S, inp, sync, spies):
+    """Step 1: IVF-Flat pinned to engine "pallas" (kernel 1) at the smallest
+    n_probes of the ladder whose recall@k on the probe queries reaches the
+    gate; the unbatched baseline (every shape warmed), the server under
+    the full stream (its snapshot, the wall req/s, the speedup), the SLO
+    verdict and the device's idle share over the brief stream."""
+    from raft_tpu_torch import serve
+    from raft_tpu_torch.core.interruptible import synchronize
+    from raft_tpu_torch.neighbors import ivf_flat
+    from raft_tpu_torch.obs import slo
+    from raft_tpu_torch.ops import _launch
+
+    idx, pq, truth = inp["flat_index"], inp["probe_q"], inp["probe_truth"]
+    n_probes = None
+    for p in S["flat_ladder"]:
+        r = recall(ivf_flat.search(ivf_flat.SearchParams(n_probes=p, engine="pallas"), idx, pq,
+                                   g.k)[1], truth)
+        log(f"serve ivf_flat ladder: n_probes {p}, recall@{g.k} {r:.4f}")
+        if r >= RECALL_GATE:
+            n_probes = p
+            break
+    if n_probes is None:
+        raise AssertionError(f"serve ivf_flat: no n_probes of {S['flat_ladder']} reaches "
+                             f"recall@{g.k} >= {RECALL_GATE}")
+    sp = ivf_flat.SearchParams(n_probes=n_probes, engine="pallas")
+    out = {"n_probes": n_probes, "recall": r}
+    rng = np.random.default_rng(g.seed + 71)
+    stream = serve_stream(rng, S["probe_q"], S["clients"] * S["requests"])
+    # the unbatched baseline: every request shape warmed, then one call at a time
+    for n in sorted({len(rows) for rows in stream}):
+        synchronize(*ivf_flat.search(sp, idx, pq[:n], g.k))
+    lats = []
+    t0 = time.perf_counter()
+    for rows in stream[:S["baseline"]]:
+        t1 = time.perf_counter()
+        v, i = ivf_flat.search(sp, idx, pq[torch.as_tensor(rows, device=dev)], g.k)
+        v.cpu(), i.cpu()
+        lats.append(time.perf_counter() - t1)
+    base_wall = time.perf_counter() - t0
+    out["baseline"] = {"requests": S["baseline"], "req_s": S["baseline"] / base_wall,
+                       "p50_ms": float(np.percentile(lats, 50)) * 1e3,
+                       "p99_ms": float(np.percentile(lats, 99)) * 1e3}
+    log(f"serve ivf_flat unbatched baseline: {S['baseline']} requests one call at a time, "
+        f"{out['baseline']['req_s']:.1f} req/s, p50 {out['baseline']['p50_ms']:.3f} ms, p99 "
+        f"{out['baseline']['p99_ms']:.3f} ms")
+    pq_np = pq.cpu().numpy()
+    cfg = serve.ServerConfig(buckets=S["buckets"], max_wait_ms=S["max_wait_ms"], warmup_k=g.k)
+    with serve.SearchServer(idx, cfg, search_params=sp) as server:
+        _launch.reset_launch_counts()
+        with spies["flat"]:
+            wall, replies, _ = drive(server, pq_np, stream, S["clients"], g.k)
+        launches = _launch.launch_counts()
+        snap = server.metrics.snapshot()
+    out.update(server=snap, wall_req_s=len(stream) / wall,
+               speedup=(len(stream) / wall) / out["baseline"]["req_s"], launches=launches,
+               served_recall=served_recall(stream, replies, truth.cpu().numpy()),
+               slo=slo.judge_serve(snap))
+    log(f"serve ivf_flat pallas n_probes {n_probes}: {S['clients']} clients x "
+        f"{S['requests']} requests, {snap_line(snap)}; wall {out['wall_req_s']:.1f} req/s, "
+        f"{out['speedup']:.2f}x the unbatched baseline; served recall@{g.k} "
+        f"{out['served_recall']:.4f}; slo {out['slo']}; launches {launches}")
+    if min(rep.coverage for rep in replies) != 1.0 or snap["completed"] != len(stream):
+        raise AssertionError("serve ivf_flat: a reply below coverage 1.0 or a lost request")
+    if dev.type == "cuda" and launches["fused_list_topk"] <= 0:
+        raise AssertionError(f"serve ivf_flat: kernel 1 never launched: {launches}")
+    if dev.type == "cuda":
+        brief = stream[:S["brief_clients"] * S["brief_requests"]]
+        with serve.SearchServer(idx, cfg, search_params=sp) as server:
+            wall_p, busy_s, n_act = busy_share(
+                lambda: drive(server, pq_np, brief, S["brief_clients"], g.k))
+        out["idle"] = {"wall_s": wall_p, "busy_s": busy_s, "activities": n_act,
+                       "idle_share": 1.0 - busy_s / wall_p}
+        log(f"serve ivf_flat idle share: {len(brief)} requests of {S['brief_clients']} clients "
+            f"under torch.profiler: wall {wall_p:.4f} s, device busy {busy_s:.4f} s over "
+            f"{n_act} device activities, idle share {out['idle']['idle_share']:.4f}")
+    return out, sp
+
+
+def pad_rows(q, bucket):
+    return np.concatenate([q, np.zeros((bucket - q.shape[0], q.shape[1]), np.float32)])
+
+
+def alone_in_bucket(server, q, bucket, k):
+    """A request's reply alone in a batch of `bucket` rows, through the
+    server's own path (host merge, one copy to the device, the search, the
+    fence, one copy back)."""
+    from raft_tpu_torch.serve import engine
+
+    vals, ids, _ = server.searcher.search(server._to_device(pad_rows(q, bucket)), k)
+    engine._fence(vals, ids)
+    v, i = engine._to_host(vals, ids)
+    return v[:q.shape[0]], i[:q.shape[0]]
+
+
+def stage_diffs(index, q, bucket, n_probes):
+    """Which query-side steps of an IVF-PQ / RaBitQ search change with the
+    row count, the request's own M against its bucket's: the queries'
+    squared norms, the rotation GEMM's rows, and the coarse select's
+    probes (each from its own M's rotated rows)."""
+    from raft_tpu_torch.neighbors import probe_budget
+
+    dev = index.rotation.device
+    qa = torch.as_tensor(q, device=dev)
+    qb = torch.as_tensor(pad_rows(q, bucket), device=dev)
+    ra, rb = qa @ index.rotation.T, (qb @ index.rotation.T)[:q.shape[0]]
+    pa = probe_budget.coarse_select(ra, index.centers, index.metric, n_probes, pq_style=True)[1]
+    pb = probe_budget.coarse_select(qb @ index.rotation.T, index.centers, index.metric,
+                                    n_probes, pq_style=True)[1][:q.shape[0]]
+    out = query_norms_differ(q, bucket, dev)
+    out.update(rotation_rows_differ=not torch.equal(ra, rb), probes_differ=not torch.equal(pa, pb))
+    return out
+
+
+def query_norms_differ(q, bucket, dev):
+    """Whether the queries' squared norms (a row sum an expanded L2 adds
+    back) change with the row count: the request's own M against its
+    bucket's."""
+    qa = torch.as_tensor(q, device=dev)
+    qb = torch.as_tensor(pad_rows(q, bucket), device=dev)
+    return {"query_norms_differ": not torch.equal(torch.sum(qa * qa, dim=1),
+                                                  torch.sum(qb * qb, dim=1)[:q.shape[0]])}
+
+
+def within_ties(pv, pi, av, ai, tol):
+    """Values within `tol` of each other, and ids equal but for their order
+    within a group of values within `tol` (a group that reaches the row's
+    end may hold other ids of that value)."""
+    va, vb = pv.astype(np.float64), av.astype(np.float64)
+    fin = np.isfinite(va)
+    if not np.array_equal(fin, np.isfinite(vb)) or not np.array_equal(va[~fin], vb[~fin]):
+        return False
+    if (np.where(fin, np.abs(va - vb), 0) > tol).any():
+        return False
+    for r in np.nonzero((pi != ai).any(axis=1))[0]:
+        for c in np.nonzero(pi[r] != ai[r])[0]:
+            group = np.abs(va[r] - va[r, c]) <= tol
+            if not group[-1] and set(pi[r][group]) != set(ai[r][group]):
+                return False
+    return True
+
+
+def batch_mate_checks(g, server, S, pq_np, plain, diag, scale):
+    """(a) each of the requests of S["mates"] rows in one mixed batch is
+    bit for bit its reply alone in a batch of the same bucket; (b) that
+    reply against the plain search of the request's own rows: bit for bit,
+    else values within 1e-6 of `scale` (the squared norms an expanded L2
+    cancels from) and ids equal outside ties at that tolerance, with the
+    steps whose rows change with the row count (`diag`) named."""
+    from raft_tpu_torch.serve import bucket_for
+
+    rng = np.random.default_rng(g.seed + 73)
+    reqs = [pq_np[rng.integers(0, len(pq_np), n)] for n in S["mates"]]
+    futs = [server.submit(q, g.k) for q in reqs]
+    while not all(f.done() for f in futs):
+        if server.step() == 0:
+            break
+    mixed = [f.result(timeout=60.0) for f in futs]
+    bucket = bucket_for(sum(S["mates"]), S["buckets"])
+    tol = 1e-6 * scale
+    out = {"bucket": bucket, "a": True, "b": [], "b_within": True, "tol": tol}
+    for q, m in zip(reqs, mixed):
+        av, ai = alone_in_bucket(server, q, bucket, g.k)
+        if not (np.array_equal(m.values.view(np.int32), av.view(np.int32))
+                and np.array_equal(m.ids, ai)):
+            out["a"] = False
+        pv, pi = plain(q)
+        bit = bool(np.array_equal(pv.view(np.int32), av.view(np.int32))
+                   and np.array_equal(pi, ai))
+        fin = np.isfinite(pv) & np.isfinite(av)
+        rec = {"rows": len(q), "bit": bit, "within": bit or within_ties(pv, pi, av, ai, tol),
+               "max_abs": float(np.abs(pv[fin] - av[fin]).max()) if fin.any() else 0.0,
+               "ids_differ": int((pi != ai).sum())}
+        if not bit and diag is not None:
+            rec.update(diag(q, bucket))
+        out["b"].append(rec)
+        out["b_within"] &= rec["within"]
+    return out
+
+
+def serve_searchers_part(g, dev, S, inp, sync, spies):
+    """Step 2: every searcher under the brief stream — brute force (kernel
+    2), IVF-PQ recon8_list with the trims fused bf16 (kernel 1), fused int8
+    (3) and pallas (4), IVF-RaBitQ (7): QPS, p99, recall@k, launches, and
+    the batch-mate checks (a) and (b)."""
+    from raft_tpu_torch import serve
+    from raft_tpu_torch.neighbors import brute_force, ivf_pq, ivf_rabitq
+    from raft_tpu_torch.ops import _launch
+
+    pq, truth = inp["probe_q"], inp["probe_truth"]
+    pq_np, truth_np = pq.cpu().numpy(), truth.cpu().numpy()
+    gate = inp["rb_gate"]
+
+    def pq_params(trim, dtype):
+        return ivf_pq.SearchParams(n_probes=S["pq_probes"], score_mode="recon8_list",
+                                   trim_engine=trim, score_dtype=dtype)
+
+    def host(vi):
+        return vi[0].cpu().numpy(), vi[1].cpu().numpy()
+
+    rb_sp = ivf_rabitq.SearchParams(n_probes=gate["n_probes"], rerank_mult=gate["rerank_mult"],
+                                    scan_engine="fused")
+    scale = float((inp["dataset"] ** 2).sum(1).max() + (pq ** 2).sum(1).max())
+
+    def pq_diag(q, bucket):
+        return stage_diffs(inp["index"], q, bucket, S["pq_probes"])
+
+    cases = {
+        "brute_force fused": (lambda: serve.BruteForceSearcher(inp["dataset"], engine="fused"),
+                              ("fused_topk",), "bf",
+                              lambda q: host(brute_force.knn(inp["dataset"], q, g.k,
+                                                             engine="fused", device=dev)),
+                              lambda q, b: query_norms_differ(q, b, dev)),
+        "ivf_pq fused bf16": (lambda: serve.IvfPqSearcher(inp["index"], pq_params("fused", "bf16")),
+                              ("fused_list_topk",), "pq_bf16",
+                              lambda q: host(ivf_pq.search(pq_params("fused", "bf16"),
+                                                           inp["index"], q, g.k)),
+                              pq_diag),
+        "ivf_pq fused int8": (lambda: serve.IvfPqSearcher(inp["index"], pq_params("fused", "int8")),
+                              ("fused_list_topk_int8",), "pq_int8",
+                              lambda q: host(ivf_pq.search(pq_params("fused", "int8"),
+                                                           inp["index"], q, g.k)),
+                              pq_diag),
+        "ivf_pq pallas bf16": (lambda: serve.IvfPqSearcher(inp["index"],
+                                                            pq_params("pallas", "bf16")),
+                               ("pq_list_scan",), "pq_pallas",
+                               lambda q: host(ivf_pq.search(pq_params("pallas", "bf16"),
+                                                            inp["index"], q, g.k)),
+                               pq_diag),
+        "ivf_rabitq fused": (lambda: serve.IvfRabitqSearcher(inp["rb_index"], rb_sp),
+                             ("fused_bitplane_topk",), "rabitq",
+                             lambda q: host(ivf_rabitq.search(rb_sp, inp["rb_index"], q, g.k)),
+                             lambda q, b: stage_diffs(inp["rb_index"], q, b, gate["n_probes"])),
+    }
+    rng = np.random.default_rng(g.seed + 72)
+    stream = serve_stream(rng, S["probe_q"], S["brief_clients"] * S["brief_requests"])
+    cfg = serve.ServerConfig(buckets=S["buckets"], max_wait_ms=S["max_wait_ms"], warmup_k=g.k)
+    out, select_total = {}, 0
+    for name, (make, kernels, spy, plain, diag) in cases.items():
+        searcher = make()
+        with serve.SearchServer(searcher, cfg) as server:
+            _launch.reset_launch_counts()
+            with spies[spy], spies["select"]:
+                wall, replies, _ = drive(server, pq_np, stream, S["brief_clients"], g.k)
+            launches = _launch.launch_counts()
+            snap = server.metrics.snapshot()
+        mates = batch_mate_checks(g, serve.SearchServer(searcher, serve.ServerConfig(
+            buckets=S["buckets"], max_wait_ms=S["max_wait_ms"])), S, pq_np, plain, diag, scale)
+        rec = served_recall(stream, replies, truth_np)
+        select_total += launches["counting_select_min"]
+        out[name] = {"server": snap, "recall": rec, "launches": launches, "mates": mates}
+        log(f"serve {name}: {len(stream)} requests of {S['brief_clients']} clients, "
+            f"{snap_line(snap)}, recall@{g.k} {rec:.4f}, launches "
+            f"{ {kk: launches[kk] for kk in kernels + ('counting_select_min',)} }")
+        log(f"serve {name} batch mates: (a) mixed == alone in bucket {mates['bucket']}: "
+            f"{mates['a']}; (b) alone against the plain search of the request's rows "
+            f"(tolerance {mates['tol']:.6g}): " + "; ".join(
+                f"{b['rows']} rows bit {b['bit']} within {b['within']} max_abs "
+                f"{b['max_abs']:.6g} ids_differ {b['ids_differ']}"
+                + "".join(f" {key} {b[key]}" for key in (
+                    "query_norms_differ", "rotation_rows_differ", "probes_differ") if key in b)
+                for b in mates["b"]))
+        if not mates["a"]:
+            raise AssertionError(f"serve {name}: a batch-mate changed a reply")
+        if not mates["b_within"]:
+            raise AssertionError(f"serve {name}: a reply differs from the plain search beyond "
+                                 f"ties and {mates['tol']}")
+        if dev.type == "cuda" and min(launches[kk] for kk in kernels) <= 0:
+            raise AssertionError(f"serve {name}: kernels never launched: {launches}")
+    out["counting_select_min"] = select_total
+    if dev.type == "cuda" and select_total <= 0:
+        raise AssertionError("serve searchers: kernel 6 never launched")
+    return out
+
+
+def serve_overload_part(g, dev, S, inp, sp, sync):
+    """Step 3: a 4x burst of clients, each submitting its requests in
+    bursts of S["burst_size"] without waiting, then waiting for the burst,
+    against an admission that sheds (a S["queue_rows"]-row queue, policy
+    "reject", a S["deadline_s"] default deadline, degrading past half
+    full), on IVF-Flat "pallas" at S["overload_probes"] probes (so a
+    degraded batch scans fewer): rejects, expiries, degraded batches, the
+    smallest probe_scale, p99 against the deadline, and the recall at
+    that scale."""
+    import dataclasses
+
+    from raft_tpu_torch import serve
+
+    pq, truth = inp["probe_q"], inp["probe_truth"]
+    pq_np = pq.cpu().numpy()
+    scales = []
+
+    class ScaleSpy(serve.IvfFlatSearcher):
+        def search(self, queries, k, probe_scale=1.0, recall_target=None):
+            scales.append(float(probe_scale))
+            return super().search(queries, k, probe_scale, recall_target)
+
+    sp = dataclasses.replace(sp, n_probes=max(sp.n_probes, S["overload_probes"]))
+    searcher = ScaleSpy(inp["flat_index"], sp)
+    adm = serve.AdmissionConfig(max_pending_rows=S["queue_rows"], policy="reject",
+                                default_deadline_s=S["deadline_s"], degrade_at=0.5,
+                                min_probe_scale=0.25)
+    cfg = serve.ServerConfig(buckets=S["buckets"], max_wait_ms=S["max_wait_ms"], admission=adm,
+                             warmup_k=g.k)
+    clients = S["burst"] * S["clients"]
+    rng = np.random.default_rng(g.seed + 74)
+    stream = serve_stream(rng, S["probe_q"], clients * S["burst_requests"])
+    counts = {"rejected": 0, "expired": 0, "served": 0}
+    lock = threading.Lock()
+
+    def client(lo):
+        rej = exp = ok = 0
+        for b0 in range(lo, lo + S["burst_requests"], S["burst_size"]):
+            futs = []
+            for i in range(b0, min(b0 + S["burst_size"], lo + S["burst_requests"])):
+                try:
+                    futs.append(server.submit(pq_np[stream[i]], g.k))
+                except serve.RejectedError:
+                    rej += 1
+            for f in futs:
+                try:
+                    rep = f.result(timeout=120.0)
+                    ok += rep.coverage == 1.0
+                except serve.DeadlineExceeded:
+                    exp += 1
+        with lock:
+            counts["rejected"] += rej
+            counts["expired"] += exp
+            counts["served"] += ok
+
+    with serve.SearchServer(searcher, cfg) as server:
+        scales.clear()  # the warmup's searches run at full scale
+        threads = [threading.Thread(target=client, args=(c * S["burst_requests"],))
+                   for c in range(clients)]
+        for t in threads:
+            t.start()
+        for t in threads:
+            t.join(300.0)
+        snap = server.metrics.snapshot()
+    if any(t.is_alive() for t in threads):
+        raise AssertionError("serve overload: a client never finished")
+    min_scale = min(scales) if scales else 1.0
+    deg = sum(s < 1.0 for s in scales)
+    dv = searcher.search(pq, g.k, probe_scale=min_scale)
+    deg_recall = recall(dv[1], truth)
+    out = {"clients": clients, "requests": len(stream), **counts, "server": snap,
+           "degraded_batches": deg, "batches": len(scales), "min_probe_scale": min_scale,
+           "degraded_n_probes": max(1, int(sp.n_probes * min_scale)),
+           "degraded_recall": deg_recall}
+    log(f"serve overload: {clients} clients x {S['burst_requests']} requests in bursts of "
+        f"{S['burst_size']}, IVF-Flat n_probes {sp.n_probes}, queue "
+        f"{S['queue_rows']} rows, deadline {S['deadline_s']} s: rejected {counts['rejected']}, "
+        f"expired {counts['expired']}, served {counts['served']}; degraded {deg} of "
+        f"{len(scales)} batches, smallest probe_scale {min_scale:.4f} (n_probes "
+        f"{out['degraded_n_probes']} of {sp.n_probes}, recall@{g.k} {deg_recall:.4f}); "
+        f"{snap_line(snap)}")
+    if counts["rejected"] + counts["expired"] + counts["served"] != len(stream):
+        raise AssertionError(f"serve overload: requests unaccounted for: {counts}")
+    if snap["completed"] and snap["latency_ms_p99"] > S["deadline_s"] * 1e3:
+        raise AssertionError(f"serve overload: p99 {snap['latency_ms_p99']} ms past the "
+                             f"{S['deadline_s']} s deadline")
+    if counts["rejected"] == 0 and deg == 0:
+        raise AssertionError("serve overload: the burst neither shed nor degraded")
+    return out
+
+
+def serve_live_part(g, dev, S, inp, sp, sync):
+    """Step 4: IVF-Flat served with a MutationFeed; a delete of
+    S["delete_frac"] of the ids and an upsert of S["upsert_rows"] rows
+    published during traffic: coverage 1.0, the queries the mutation does
+    not touch bit for bit before and after the swap, no deleted id back.
+    Then an IntegrityWatchdog over a checkpointed copy: p99 with and
+    without the scrub, a rotted list quarantined (degraded coverage) and
+    repaired from the checkpoint (answers bit for bit the pre-rot ones)."""
+    import shutil
+
+    from raft_tpu_torch import integrity, serve
+    from raft_tpu_torch.integrity import scrub
+    from raft_tpu_torch.neighbors import mutation
+
+    idx, pq = inp["flat_index"], inp["probe_q"]
+    pq_np = pq.cpu().numpy()
+    n = idx.size
+    rng = np.random.default_rng(g.seed + 75)
+    deleted = rng.choice(n, int(n * S["delete_frac"]), replace=False).astype(np.int64)
+    src = inp["data_np"][rng.integers(0, n, S["upsert_rows"])]
+    new_rows = (src + 0.5 * rng.standard_normal(src.shape)).astype(np.float32)
+    new_ids = np.arange(idx.id_bound, idx.id_bound + S["upsert_rows"])
+    cfg = serve.ServerConfig(buckets=S["buckets"], max_wait_ms=S["max_wait_ms"], warmup_k=g.k)
+    server = serve.SearchServer(idx, cfg, search_params=sp)
+    feed = mutation.MutationFeed()
+    server.attach_mutations(feed)
+    pre = server.search(pq_np, g.k, timeout=60.0)  # step mode, before the worker starts
+    own = inp["data_np"][deleted[:S["probe_q"]]]
+    pre_own = server.search(own, 1, timeout=60.0)
+    stream = serve_stream(np.random.default_rng(g.seed + 76), S["probe_q"],
+                          S["brief_clients"] * S["brief_requests"])
+    server.start()
+    try:
+        done = threading.Event()
+
+        def publish():
+            time.sleep(0.05)
+            feed.publish(("delete", deleted))
+            feed.publish(("upsert", new_rows, new_ids))
+            done.set()
+
+        pub = threading.Thread(target=publish)
+        t0 = time.perf_counter()
+        pub.start()
+        _, replies, _ = drive(server, pq_np, stream, S["brief_clients"], g.k)
+        pub.join(60.0)
+        deadline = time.monotonic() + 120.0
+        while server.searcher.index is idx and time.monotonic() < deadline:
+            server.search(pq_np[:1], g.k, timeout=60.0)  # a batch: the drain runs after it
+        swap_s = time.perf_counter() - t0
+        post = server.search(pq_np, g.k, timeout=60.0)
+        post_own = server.search(own, 1, timeout=60.0)
+        snap = server.metrics.snapshot()
+    finally:
+        server.stop()
+    if not done.is_set() or server.searcher.index is idx:
+        raise AssertionError("serve live: the mutation batches never swapped in")
+    touched = np.concatenate([deleted, new_ids])
+    untouched = ~np.isin(pre.ids, touched).any(1) & ~np.isin(post.ids, new_ids).any(1)
+    same = bool(np.array_equal(pre.values[untouched].view(np.int32),
+                               post.values[untouched].view(np.int32))
+                and np.array_equal(pre.ids[untouched], post.ids[untouched]))
+    back = int(np.isin(post.ids, deleted).sum() + np.isin(post_own.ids, deleted).sum())
+    cov = min([r.coverage for r in replies] + [pre.coverage, post.coverage])
+    out = {"deleted": int(len(deleted)), "upserted": int(len(new_ids)), "swap_s": swap_s,
+           "coverage_min": cov, "untouched": int(untouched.sum()), "untouched_equal": same,
+           "deleted_back": back,
+           "pre_own_self": float(np.mean(pre_own.ids[:, 0] == deleted[:len(own)])),
+           "server": snap}
+    log(f"serve live: delete {len(deleted)} ids + upsert {len(new_ids)} rows published during "
+        f"{len(stream)} requests; swapped in {swap_s:.3f} s after publishing; coverage min "
+        f"{cov}; {int(untouched.sum())} of {len(pq_np)} probe queries untouched, bit for bit "
+        f"before and after: {same}; deleted ids back: {back} (before the delete "
+        f"{out['pre_own_self']:.4f} of the deleted rows found themselves); {snap_line(snap)}")
+    if cov != 1.0 or not same or back or untouched.sum() < len(pq_np) // 2:
+        raise AssertionError(f"serve live: {out}")
+    live = server.searcher.index
+    tmp = tempfile.mkdtemp(prefix="chip_smoke_serve_")
+    try:
+        t0 = time.perf_counter()
+        mut = mutation.Mutator(tmp, live, kind="ivf_flat")
+        mut.delete(np.asarray([int(new_ids[0])]))  # a commit to restore from
+        served = mut.commit()
+        ckpt_s = time.perf_counter() - t0
+        p99 = {}
+        for label, wd in (("without scrub", None),
+                          ("with scrub", integrity.IntegrityWatchdog(
+                              "ivf_flat", budget_lists=S["scrub_budget"]))):
+            s = serve.SearchServer(served, cfg, search_params=sp)
+            if wd is not None:
+                s.attach_integrity(wd)
+            with s:
+                drive(s, pq_np, stream, S["brief_clients"], g.k)
+                p99[label] = s.metrics.snapshot()["latency_ms_p99"]
+        log(f"serve scrub: p99 {p99['without scrub']:.3f} ms without the watchdog, "
+            f"{p99['with scrub']:.3f} ms with one {S['scrub_budget']}-list slice between "
+            f"batches (the checkpoint of the live index: {ckpt_s:.3f} s)")
+        wd = integrity.IntegrityWatchdog("ivf_flat", budget_lists=S["scrub_budget"])
+        s = serve.SearchServer(served, cfg, search_params=sp)
+        s.attach_integrity(wd)
+        before = s.search(pq_np, g.k, timeout=60.0)
+        lid = (wd.scrubber.cursor + S["scrub_budget"]) % served.n_lists
+        scrub.rot_list(served, lid, "list_data", frac=1.0, seed=g.seed)
+        ticks = 0
+        while not wd.quarantined and ticks < served.n_lists // S["scrub_budget"] + 4:
+            s.search(pq_np[:1], g.k, timeout=60.0)
+            ticks += 1
+        mid = s.search(pq_np, g.k, timeout=60.0)
+        quarantined = sorted(wd.quarantined)
+        wd.repair = integrity.checkpoint_repairer(tmp)
+        t0 = time.perf_counter()
+        s.search(pq_np[:1], g.k, timeout=60.0)  # the tick that repairs
+        repair_s = time.perf_counter() - t0
+        after = s.search(pq_np, g.k, timeout=60.0)
+        s.stop()
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+    healed = bool(np.array_equal(before.values.view(np.int32), after.values.view(np.int32))
+                  and np.array_equal(before.ids, after.ids))
+    out["integrity"] = {"p99_ms": p99, "rotted_list": int(lid), "ticks": ticks,
+                        "quarantined": quarantined, "mid_coverage": mid.coverage,
+                        "repairs": wd.repairs, "repair_batch_s": repair_s,
+                        "after_coverage": after.coverage, "healed_equal": healed}
+    log(f"serve integrity: list {lid} rotted, quarantined after {ticks} batches "
+        f"({quarantined}), coverage {mid.coverage:.6f} then {after.coverage} after "
+        f"{wd.repairs} repair ({repair_s:.3f} s batch + repair); answers after the repair bit "
+        f"for bit the pre-rot ones: {healed}")
+    if (quarantined != [lid] or mid.coverage >= 1.0 or after.coverage != 1.0 or not healed
+            or wd.repairs != 1 or wd.quarantined):
+        raise AssertionError(f"serve integrity: {out['integrity']}")
+    return out
+
+
+def serve_mnmg_part(g, dev, S, inp, sync):
+    """Step 5: MnmgSearcher over a distributed IVF-PQ (replication 2) built
+    on S["mnmg_rows"] rows on 4 ranks of the card: a degraded mask answers
+    bit for bit the healthy answer at coverage 1.0; rank 1 marked down
+    during traffic keeps every reply at 1.0, and the heal runs between
+    batches (its seconds)."""
+    from raft_tpu_torch import serve
+    from raft_tpu_torch.comms import Comms, mnmg
+    from raft_tpu_torch.comms.resilience import RankHealth
+    from raft_tpu_torch.neighbors import ivf_pq
+
+    pq_np = inp["probe_q"].cpu().numpy()
+    c4 = Comms(n_devices=4, device=dev)
+    try:
+        t0 = time.perf_counter()
+        dindex = mnmg.ivf_pq_build(c4, ivf_pq.IndexParams(
+            n_lists=g.n_lists, pq_dim=g.dim // 2, kmeans_n_iters=10),
+            inp["dataset"][:S["mnmg_rows"]], seed=g.seed, replication=2)
+        sync()
+        build_s = time.perf_counter() - t0
+        cfg = serve.ServerConfig(buckets=S["buckets"], max_wait_ms=S["max_wait_ms"],
+                                 warmup_k=g.k)
+        healthy = serve.SearchServer(dindex, cfg, n_probes=S["mnmg_probes"])
+        want = healthy.search(pq_np, g.k, timeout=120.0)
+        degraded = serve.SearchServer(dindex, cfg, n_probes=S["mnmg_probes"],
+                                      health=RankHealth.all_healthy(4).mark_unhealthy(1),
+                                      auto_heal=False)
+        got = degraded.search(pq_np, g.k, timeout=120.0)
+        failover_equal = bool(got.coverage == 1.0 and np.array_equal(
+            got.values.view(np.int32), want.values.view(np.int32))
+            and np.array_equal(got.ids, want.ids))
+        server = serve.SearchServer(dindex, cfg, n_probes=S["mnmg_probes"])
+        heals = []
+        inner = server.searcher.maybe_heal
+
+        def timed_heal():
+            t1 = time.perf_counter()
+            ran = inner()
+            if ran:
+                heals.append(time.perf_counter() - t1)
+            return ran
+
+        server.searcher.maybe_heal = timed_heal
+        stream = serve_stream(np.random.default_rng(g.seed + 77), S["probe_q"],
+                              S["brief_clients"] * S["brief_requests"])
+
+        def mark_down():
+            time.sleep(0.05)
+            server.set_health(RankHealth.all_healthy(4).mark_unhealthy(1))
+
+        with server:
+            marker = threading.Thread(target=mark_down)
+            marker.start()
+            wall, replies, _ = drive(server, pq_np, stream, S["brief_clients"], g.k)
+            marker.join(60.0)
+            deadline = time.monotonic() + 120.0
+            while not heals and time.monotonic() < deadline:
+                server.search(pq_np[:1], g.k, timeout=120.0)
+            after = server.search(pq_np, g.k, timeout=120.0)
+            snap = server.metrics.snapshot()
+        cov = min(r.coverage for r in replies)
+        after_equal = bool(np.array_equal(after.ids, want.ids) and np.array_equal(
+            after.values.view(np.int32), want.values.view(np.int32)))
+        out = {"rows": S["mnmg_rows"], "build_s": build_s, "failover_equal": failover_equal,
+               "coverage_min": cov, "heal_s": heals, "healthy_after": after_equal,
+               "health_after": server.searcher.health.coverage(), "server": snap}
+        log(f"serve mnmg ivf_pq: {S['mnmg_rows']} rows, replication 2, 4 ranks, built in "
+            f"{build_s:.3f} s; degraded mask (rank 1 down) bit for bit the healthy answer at "
+            f"coverage 1.0: {failover_equal}; rank 1 down during {len(stream)} requests: "
+            f"coverage min {cov}, heal between batches in "
+            f"{', '.join(f'{h:.3f}' for h in heals)} s, mask coverage after "
+            f"{out['health_after']}, answers after the heal bit for bit: {after_equal}; "
+            f"{snap_line(snap)}")
+        if not failover_equal or cov != 1.0 or not heals or not after_equal:
+            raise AssertionError(f"serve mnmg: {out}")
+    finally:
+        c4.destroy()
+    return out
+
+
+def serve_obs_part(g, dev, S, inp, sp, sync):
+    """Step 6: obs on, one client's sequential requests with request traces
+    (mint order is request order): each trace's stages sum to within its
+    measured latency; the Prometheus text has the server's serve# section."""
+    from raft_tpu_torch import obs, serve
+    from raft_tpu_torch.obs.export import prom_name
+
+    pq_np = inp["probe_q"].cpu().numpy()
+    stream = serve_stream(np.random.default_rng(g.seed + 78), S["probe_q"], S["obs_requests"])
+    obs.reset()
+    obs.trace.reset(seed=0)
+    obs.enable()
+    try:
+        cfg = serve.ServerConfig(buckets=S["buckets"], max_wait_ms=S["max_wait_ms"],
+                                 warmup_k=g.k)
+        with serve.SearchServer(inp["flat_index"], cfg, search_params=sp) as server:
+            _, _, lats = drive(server, pq_np, stream, 1, g.k)
+            text = obs.render_registry_prometheus()
+            name = next((k for k in obs.snapshot()["metrics"].get("collectors", {})
+                         if k.startswith("serve#")), None)
+        traces = [e for e in obs.snapshot()["events"] if e["kind"] == "trace"]
+    finally:
+        obs.disable()
+        obs.reset()
+    sums = [sum(e["marks"][b] - e["marks"][a]
+                for a, b in zip(obs.trace.STAGES, obs.trace.STAGES[1:])) for e in traces]
+    within = len(traces) == len(stream) and all(s <= lat for s, lat in zip(sums, lats))
+    prom = name is not None and prom_name(f"{name}.completed") in text
+    out = {"traces": len(traces), "within": within,
+           "stage_share": float(np.mean([s / lat for s, lat in zip(sums, lats)])),
+           "prometheus_section": prom}
+    log(f"serve obs: {len(traces)} traces of {len(stream)} sequential requests, every stage "
+        f"sum within its measured latency: {within} (mean share {out['stage_share']:.4f}); "
+        f"the Prometheus text carries the {name} section: {prom}")
+    if not within or not prom:
+        raise AssertionError(f"serve obs: {out}")
+    return out
+
+
+def serve_path(g, dev, sync, inp):
+    """Phase 4i: the serving layer (raft_tpu_torch.serve) under the
+    committed table at k 10 on phase 4's 1M x 96 indexes (or its rehearsal
+    size), with bench/bench_serve.py's traffic (SERVE):
+      1. IVF-Flat pinned to engine "pallas" (kernel 1) at the smallest
+         n_probes whose recall@k on the probe queries clears the gate:
+         the server's snapshot, wall req/s, the unbatched baseline, the
+         speedup, the SLO verdict, the device's idle share;
+      2. every searcher under the brief stream (brute force fused, IVF-PQ
+         recon8_list fused bf16 / fused int8 / pallas, IVF-RaBitQ fused):
+         QPS, p99, recall, kernels 2, 1, 3, 4, 7 and 6 launched, and the
+         batch-mate checks (a) bit for bit and (b);
+      3. an overload burst against a shedding admission;
+      4. a live index (MutationFeed) and an IntegrityWatchdog's
+         quarantine and repair, p99 with and without the scrub;
+      5. MnmgSearcher failover and heal on 4 ranks;
+      6. request traces and the Prometheus section with obs on.
+    Returns (summary, kernel rows at this path's shapes)."""
+    from raft_tpu_torch.neighbors import brute_force
+    from raft_tpu_torch.ops import fused_scan as fs
+    from raft_tpu_torch.ops import pq_list_scan as pls
+    from raft_tpu_torch.ops import select_counting as sc
+
+    S = SERVE_REHEARSE if g.rehearse else SERVE
+    t_phase = time.perf_counter()
+    rng = np.random.default_rng(g.seed + 70)
+    rows = rng.integers(0, inp["data_np"].shape[0], S["probe_q"])
+    probe_np = (inp["data_np"][rows] + S["noise"] * rng.standard_normal(
+        (S["probe_q"], inp["data_np"].shape[1]))).astype(np.float32)
+    inp = dict(inp, probe_q=torch.from_numpy(probe_np).to(dev))
+    with committed(dev):
+        inp["probe_truth"] = brute_force.knn(inp["dataset"], inp["probe_q"], g.k,
+                                             engine="fused", device=dev)[1]
+        spies = {"flat": FirstCall(fs, "fused_list_topk"), "pq_bf16": FirstCall(fs, "fused_list_topk"),
+                 "pq_int8": FirstCall(fs, "fused_list_topk_int8"),
+                 "pq_pallas": FirstCall(pls, "pq_list_scan"), "rabitq": FirstCall(fs, "fused_bitplane_topk"),
+                 "bf": FirstCall(fs, "fused_topk"), "select": SelectCalls(sc, "counting_select_min")}
+        out = {}
+        out["ivf_flat"], sp = serve_flat_part(g, dev, S, inp, sync, spies)
+        out["searchers"] = serve_searchers_part(g, dev, S, inp, sync, spies)
+        out["overload"] = serve_overload_part(g, dev, S, inp, sp, sync)
+        out["live"] = serve_live_part(g, dev, S, inp, sp, sync)
+        out["mnmg"] = serve_mnmg_part(g, dev, S, inp, sync)
+        out["obs"] = serve_obs_part(g, dev, S, inp, sp, sync)
+    krows = []
+    if dev.type == "cuda":
+        fl, se = out["ivf_flat"], out["searchers"]
+        krows.append(list_kernel_row(fs, spies["flat"].calls[0], fl["launches"]["fused_list_topk"],
+                                     g.reps, f"serve IVF-Flat pallas, n_probes {fl['n_probes']}, "
+                                     "a served batch", term_scale=True))
+        krows.append(flat_kernel_row(fs, spies["bf"].calls[0],
+                                     se["brute_force fused"]["launches"]["fused_topk"], g.reps,
+                                     label="serve brute force fused, a served batch"))
+        krows.append(list_kernel_row(fs, spies["pq_bf16"].calls[0],
+                                     se["ivf_pq fused bf16"]["launches"]["fused_list_topk"],
+                                     g.reps, f"serve IVF-PQ trim, n_probes {S['pq_probes']}, a "
+                                     "served batch"))
+        krows.append(int8_list_row(fs, spies["pq_int8"].calls[0],
+                                   se["ivf_pq fused int8"]["launches"]["fused_list_topk_int8"],
+                                   g.reps, f"serve IVF-PQ int8 trim, n_probes {S['pq_probes']}, a "
+                                   "served batch"))
+        krows.append(fold_kernel_row(pls, spies["pq_pallas"].calls[0],
+                                     se["ivf_pq pallas bf16"]["launches"]["pq_list_scan"], g.reps,
+                                     f"serve IVF-PQ bin trim, exact fold, n_probes "
+                                     f"{S['pq_probes']}, a served batch", "exact"))
+        krows.append(bitplane_row(fs, spies["rabitq"].calls[0],
+                                  se["ivf_rabitq fused"]["launches"]["fused_bitplane_topk"], g.reps,
+                                  "serve rabitq, a served batch"))
+        sel = spies["select"]
+        if sel.last is not None:
+            krows.append(counting_tile_row(sel.last[0], sel.last[1], se["counting_select_min"],
+                                           g.reps, "serve, a searcher's last select"))
+    out["wall_s"] = time.perf_counter() - t_phase
+    log(f"serve path complete in {out['wall_s']:.3f} s, {len(krows)} kernel rows")
+    return out, krows
+
+
+# ---------------------------------------------------------------------------
+# phase 4j: the jobs layer
+# ---------------------------------------------------------------------------
+
+#: phase 4j: the dataset written in 8 chunks and streamed in 8 batches (1M
+#: rows: 125,000 each); the SIGKILL lands after the third commit of a
+#: stream, of make_data and of a scrub (slices of 128 lists); the watchdog
+#: drill's stall timeout and injected stall; the children's deadline
+JOBS = dict(chunks=8, batches=8, kill_at=3, scrub_budget=128, stall_timeout_s=1.0,
+            stall_s=4.0, child_deadline_s=600.0, preempt_rc=75)
+JOBS_REHEARSE = dict(JOBS, scrub_budget=8)
+#: the streamed families and their trained-seed (empty table) params
+JOB_KINDS = ("ivf_pq", "ivf_flat", "ivf_rabitq")
+
+
+def job_params(g, kind):
+    from raft_tpu_torch.neighbors import ivf_flat, ivf_pq, ivf_rabitq
+
+    if kind == "ivf_pq":
+        return ivf_pq.IndexParams(n_lists=g.n_lists, pq_dim=g.dim // 2, kmeans_n_iters=10,
+                                  add_data_on_build=False)
+    if kind == "ivf_flat":
+        return ivf_flat.IndexParams(n_lists=g.n_lists, kmeans_n_iters=10,
+                                    add_data_on_build=False)
+    return ivf_rabitq.IndexParams(n_lists=g.n_lists, kmeans_n_iters=10, add_data_on_build=False)
+
+
+def job_module(kind):
+    return importlib.import_module(f"raft_tpu_torch.neighbors.{kind}")
+
+
+class SaveClock:
+    """Times every `save` of an index module (the streams' checkpoints):
+    seconds and bytes of each."""
+
+    def __init__(self, mod):
+        self.mod, self.orig = mod, mod.save
+        self.seconds, self.nbytes = [], []
+
+    def __call__(self, filename, index):
+        t0 = time.perf_counter()
+        self.orig(filename, index)
+        self.seconds.append(time.perf_counter() - t0)
+        self.nbytes.append(os.path.getsize(filename))
+
+    def __enter__(self):
+        self.mod.save = self
+        return self
+
+    def __exit__(self, *exc):
+        self.mod.save = self.orig
+
+
+def build_job(g, dev, root, kinds=JOB_KINDS, timings=None):
+    """The build job of phase 4j over JobDir `root`: `make_data` (the main
+    path's rows written by `resumable_write_npy` in J["chunks"] chunks),
+    then for each kind its `train` (the trained empty index; IVF-PQ's stage
+    is named `train`, the others `train_<kind>`) and `stream`
+    (`resumable_extend_from_file` in J["batches"] batches, the index saved
+    as the stage's artifact). The same declaration in the parent and in
+    its children gives the same fingerprints (`kinds=()`: make_data
+    alone). `timings` collects each stage's seconds and stream stats."""
+    from raft_tpu_torch import jobs
+
+    J = JOBS_REHEARSE if g.rehearse else JOBS
+    job = jobs.Job("chip_smoke_build", root)
+    timings = {} if timings is None else timings
+    chunk = -(-g.n // J["chunks"])
+    geometry = {"rows": g.n, "dim": g.dim, "seed": g.seed, "blobs": g.n_lists}
+
+    def timed(name, fn):
+        def stage(ctx):
+            t0 = time.perf_counter()
+            meta = fn(ctx)
+            timings.setdefault(name, {})["s"] = time.perf_counter() - t0
+            return meta
+        return stage
+
+    def make_data(ctx):
+        data = make_blobs(g.seed, g.n, g.dim, g.nq, g.n_lists)[0]
+        path = ctx.artifact_path("data.npy")
+        jobs.resumable_write_npy(path, g.n, g.dim, chunk, lambda lo, hi: data[lo:hi], ctx=ctx)
+        return {"_artifacts": {"data": path}, "rows": g.n}
+
+    def data_path(ctx):
+        return ctx.dep_artifact("make_data", "data.npy")
+
+    def train(kind):
+        def fn(ctx):
+            x = torch.from_numpy(np.load(data_path(ctx))).to(dev)
+            idx = job_module(kind).build(job_params(g, kind), x, seed=g.seed, device=dev)
+            job_module(kind).save(ctx.artifact_path(), idx)
+            return {"n_lists": int(idx.n_lists)}
+        return fn
+
+    def stream(kind, train_stage):
+        def fn(ctx):
+            mod = job_module(kind)
+            seed_index = mod.load(ctx.dep_artifact(train_stage), device=dev)
+            ext = []
+            with SaveClock(mod) as clock:
+                index, stats = jobs.resumable_extend_from_file(
+                    kind, seed_index, data_path(ctx), chunk, ctx=ctx, checkpoint_every=1,
+                    on_batch=lambda b, rows, s: ext.append((rows, s)))
+            mod.save(ctx.artifact_path(), index)
+            timings.setdefault(f"stream {kind}", {}).update(
+                extend_rows=sum(r for r, _ in ext), extend_s=sum(s for _, s in ext),
+                ckpt_s=sum(clock.seconds), ckpt_bytes=sum(clock.nbytes), stats=stats)
+            return stats
+        return fn
+
+    job.add_stage("make_data", timed("make_data", make_data), inputs=geometry)
+    for kind in kinds:
+        tname = "train" if kind == "ivf_pq" else f"train_{kind}"
+        sname = "stream" if kind == "ivf_pq" else f"stream_{kind}"
+        job.add_stage(tname, timed(tname, train(kind)), deps=("make_data",),
+                      inputs={"kind": kind, "n_lists": g.n_lists})
+        job.add_stage(sname, timed(sname, stream(kind, tname)), deps=(tname,),
+                      inputs={"kind": kind, "batches": J["batches"]})
+    return job
+
+
+def preempt_job(root, dev, notice):
+    """Three stages of device work; with `notice` the second sends this
+    process a SIGTERM (the preemption notice) before its work."""
+    from raft_tpu_torch import jobs
+
+    job = jobs.Job("chip_smoke_preempt", root)
+
+    def work(ctx):
+        x = torch.randn((512, 512), device=dev)
+        return {"sum": float((x @ x).sum().item())}
+
+    def noticed(ctx):
+        if notice:
+            os.kill(os.getpid(), signal.SIGTERM)
+        return work(ctx)
+
+    job.add_stage("s1", work)
+    job.add_stage("s2", noticed, deps=("s1",))
+    job.add_stage("s3", work, deps=("s2",))
+    return job
+
+
+def mnmg_build_fn(g, dev, c4, rows):
+    from raft_tpu_torch.comms import mnmg
+    from raft_tpu_torch.neighbors import ivf_pq
+
+    def build():
+        x = torch.from_numpy(make_blobs(g.seed, g.n, g.dim, g.nq, g.n_lists)[0][:rows]).to(dev)
+        return mnmg.ivf_pq_build(c4, ivf_pq.IndexParams(n_lists=g.n_lists, pq_dim=g.dim // 2,
+                                                        kmeans_n_iters=10), x, seed=g.seed)
+    return build
+
+
+def jobs_child(g):
+    """A child of phase 4j (`--jobs-child MODE --child-dir D`): under a
+    kill_rank plan at the J["kill_at"]-th visit of the mode's crash site
+    (`--child-kill`), runs the stream stage of the build job (`stream`:
+    make_data and train skip, their commits linked in), the make_data
+    stage alone (`data`), a scrub of the parent's streamed IVF-PQ index
+    (`scrub`) or a checkpointed distributed build (`mnmg`); or the
+    preemption job, which suspends at its own SIGTERM (`preempt`, exit
+    J["preempt_rc"]). A SIGKILL at the crash site is the expected end of
+    the killed modes."""
+    from raft_tpu_torch import jobs
+    from raft_tpu_torch.core import faults
+
+    J = JOBS_REHEARSE if g.rehearse else JOBS
+    dev = torch.device("cpu") if g.rehearse else torch.device("cuda", 0)
+    mode, d = g.jobs_child, g.child_dir
+    site = "integrity.scrub.crash" if mode == "scrub" else "job.stage.crash"
+    plan = faults.FaultPlan([faults.Fault(kind="kill_rank", site=site, count=g.child_kill)],
+                            seed=g.seed) if g.child_kill else None
+    cm = plan.install() if plan is not None else contextlib.nullcontext()
+    log(f"jobs child {mode}: pid {os.getpid()}, kill at visit {g.child_kill} of {site}")
+    with committed(dev), cm:
+        if mode == "stream":
+            build_job(g, dev, d, kinds=("ivf_pq",)).run()
+        elif mode == "data":
+            build_job(g, dev, d, kinds=()).run()
+        elif mode == "scrub":
+            index = job_module("ivf_pq").load(os.path.join(d, "index.ckpt"), device=dev)
+            jobs.resumable_scrub("ivf_pq", index, scratch=os.path.join(d, "scratch"),
+                                 budget_lists=J["scrub_budget"], laps=1)
+        elif mode == "mnmg":
+            from raft_tpu_torch.comms import Comms
+
+            c4 = Comms(n_devices=4, device=dev)
+            jobs.checkpointed_mnmg_build(c4, "ivf_pq", mnmg_build_fn(g, dev, c4, g.n),
+                                         os.path.join(d, "mnmg.ckpt"))
+            c4.destroy()
+        else:
+            try:
+                preempt_job(d, dev, notice=True).run()
+            except jobs.JobPreempted:
+                log("jobs child preempt: suspended as JobPreempted")
+                return J["preempt_rc"]
+    log(f"jobs child {mode}: ran to its end")
+    return 0
+
+
+def link_commits(src, dst, stages):
+    """A JobDir at `dst` holding `src`'s commits of `stages`: their manifest
+    lines and hard links of their artifacts (same bytes, size and mtime, so
+    the child's runner skips them without reading them)."""
+    from raft_tpu_torch.jobs import JobDir
+
+    s, t = JobDir(src), JobDir(dst)
+    with open(t.manifest_path, "w") as fh:
+        for e in s.read_manifest():
+            if e.get("stage") in stages:
+                fh.write(json.dumps(e, sort_keys=True) + "\n")
+                for art in e["artifacts"].values():
+                    os.link(os.path.join(src, art["path"]), os.path.join(dst, art["path"]))
+
+
+def jobs_children(g, tmp, dirs):
+    """The five drills' children, started together through `run_supervised`
+    (one thread each); returns {mode: exit code}."""
+    from raft_tpu_torch import jobs
+
+    J = JOBS_REHEARSE if g.rehearse else JOBS
+    script = os.path.abspath(__file__)
+    rcs, errors = {}, []
+
+    def run(mode, kill):
+        cmd = [sys.executable, script, "--jobs-child", mode, "--child-dir", dirs[mode],
+               "--child-kill", str(kill), "--seed", str(g.seed)] + (
+                   ["--rehearse"] if g.rehearse else [])
+        try:
+            rcs[mode] = jobs.run_supervised(cmd, describe=f"jobs child {mode}",
+                                            deadline_s=J["child_deadline_s"], echo=True,
+                                            cwd=os.path.dirname(script))
+        except Exception as e:  # noqa: BLE001 — reported by the caller
+            errors.append((mode, repr(e)))
+
+    kills = {"stream": J["kill_at"], "data": J["kill_at"], "scrub": J["kill_at"], "mnmg": 1,
+             "preempt": 0}
+    threads = [threading.Thread(target=run, args=(m, kills[m])) for m in dirs]
+    t0 = time.perf_counter()
+    for t in threads:
+        t.start()
+    for t in threads:
+        t.join(J["child_deadline_s"] + 60)
+    if errors or any(t.is_alive() for t in threads):
+        raise AssertionError(f"jobs children failed: {errors}")
+    log(f"jobs children: {rcs} in {time.perf_counter() - t0:.3f} s together")
+    return rcs
+
+
+def same_file(a, b):
+    with open(a, "rb") as fa, open(b, "rb") as fb:
+        while True:
+            x, y = fa.read(1 << 24), fb.read(1 << 24)
+            if x != y:
+                return False
+            if not x:
+                return True
+
+
+def jobs_path(g, dev, sync, inp):
+    """Phase 4j: the jobs layer (raft_tpu_torch.jobs) in a temporary
+    directory, under the committed table, at the main path's 1M x 96 rows
+    (or the rehearsal's):
+      1. the build job (`build_job`: make_data, then train + stream for
+         IVF-PQ, IVF-Flat and RaBitQ): each stage's seconds, the extends'
+         rows/s, the checkpoints' GB/s; the streamed IVF-PQ index at the
+         main path's fused bf16 gate rung + refine clears the gate;
+      2. five children at once (`--jobs-child`, through `run_supervised`):
+         the stream SIGKILLed after its third checkpoint, make_data after
+         its third chunk, a scrub after its third cursor commit, a
+         checkpointed distributed build after its checkpoint, and the
+         preemption job at its own SIGTERM; each resumed here: the index
+         and the .npy byte for byte the uninterrupted run's, the scrub on
+         from its cursor, the distributed build through `rehydrate` equal
+         to an uninterrupted build, the preempted job's rerun skipping its
+         committed stages;
+      3. a stage stalled at `job.heartbeat.stall`, killed as StageTimeout
+         and retried to its end: the detection seconds against
+         stall_timeout_s and the device memory around the kill.
+    Returns the summary."""
+    import shutil
+
+    from raft_tpu_torch import jobs
+    from raft_tpu_torch.comms import Comms, mnmg
+    from raft_tpu_torch.jobs import JobDir
+    from raft_tpu_torch.neighbors import ivf_pq
+    from raft_tpu_torch.neighbors.refine import refine
+
+    J = JOBS_REHEARSE if g.rehearse else JOBS
+    t_phase = time.perf_counter()
+    tmp = tempfile.mkdtemp(prefix="chip_smoke_jobs_")
+    out = {}
+    try:
+        with committed(dev):
+            root = os.path.join(tmp, "build")
+            timings = {}
+            t0 = time.perf_counter()
+            statuses = build_job(g, dev, root, timings=timings).run()
+            out["job_s"] = time.perf_counter() - t0
+            if set(statuses.values()) != {"ran"}:
+                raise AssertionError(f"jobs build: {statuses}")
+            out["stages"] = {k: v["s"] for k, v in timings.items() if "s" in v}
+            out["streams"] = {}
+            for kind in JOB_KINDS:
+                t = timings[f"stream {kind}"]
+                out["streams"][kind] = {
+                    "rows_s": t["extend_rows"] / t["extend_s"], "extend_s": t["extend_s"],
+                    "ckpt_gb_s": t["ckpt_bytes"] / t["ckpt_s"] / 1e9,
+                    "ckpt_bytes": t["ckpt_bytes"], "ckpt_s": t["ckpt_s"],
+                    "batches": t["stats"]["batches"]}
+            log("jobs build: " + ", ".join(f"{k} {v:.3f} s" for k, v in out["stages"].items())
+                + f"; {out['job_s']:.3f} s in all")
+            for kind, s in out["streams"].items():
+                log(f"jobs stream {kind}: {s['batches']} batches, extend {s['rows_s']:.1f} "
+                    f"rows/s ({s['extend_s']:.3f} s fenced), checkpoints {s['ckpt_bytes']} "
+                    f"bytes in {s['ckpt_s']:.3f} s, {s['ckpt_gb_s']:.4f} GB/s")
+            jd = JobDir(root)
+            pq_art = jd.artifact_path("stream")
+            index = ivf_pq.load(pq_art, device=dev)
+            for np_pq in ([inp["np_pq"]] if inp["np_pq"] else PROBE_LADDER):
+                params = ivf_pq.SearchParams(n_probes=np_pq, score_mode="recon8_list",
+                                             trim_engine="fused")
+                _, cand = ivf_pq.search(params, index, inp["queries"], 4 * g.k)
+                _, ids = refine(inp["dataset"], inp["queries"], cand, g.k, strategy="fused",
+                                device=dev)
+                out["recall"], out["n_probes"] = recall(ids, inp["truth"]), np_pq
+                if out["recall"] >= RECALL_GATE:
+                    break
+            log(f"jobs stream ivf_pq: the job's index at n_probes {out['n_probes']} fused bf16 "
+                f"+ refine, recall@{g.k} {out['recall']:.4f} (phase 4's index at that rung: "
+                f"{inp['recall_pq']})")
+            if out["recall"] < RECALL_GATE:
+                raise AssertionError(f"jobs stream ivf_pq: recall {out['recall']} below the gate")
+            del index
+            # -- the children ------------------------------------------------
+            dirs = {m: os.path.join(tmp, m) for m in ("stream", "data", "scrub", "mnmg",
+                                                       "preempt")}
+            for d in dirs.values():
+                os.makedirs(d)
+            link_commits(root, dirs["stream"], ("make_data", "train"))
+            os.link(pq_art, os.path.join(dirs["scrub"], "index.ckpt"))
+            rcs = jobs_children(g, tmp, dirs)
+            kill = -signal.SIGKILL
+            want = {"stream": kill, "data": kill, "scrub": kill, "mnmg": kill,
+                    "preempt": J["preempt_rc"]}
+            if rcs != want:
+                raise AssertionError(f"jobs children: exit codes {rcs}, not {want}")
+            # the stream: resumed from its cursor to the uninterrupted bytes
+            t0 = time.perf_counter()
+            timings2 = {}
+            st = build_job(g, dev, dirs["stream"], kinds=("ivf_pq",), timings=timings2).run()
+            resumed = timings2["stream ivf_pq"]["stats"]
+            same = same_file(pq_art, JobDir(dirs["stream"]).artifact_path("stream"))
+            out["kill_stream"] = {"statuses": st, "resumed_from_batch":
+                                  resumed["resumed_from_batch"], "resume_s":
+                                  time.perf_counter() - t0, "byte_equal": same}
+            log(f"jobs kill stream: SIGKILL after checkpoint {J['kill_at']}; the rerun "
+                f"{st} resumed from batch {resumed['resumed_from_batch']} in "
+                f"{out['kill_stream']['resume_s']:.3f} s; saved index byte for byte the "
+                f"uninterrupted run's: {same}")
+            if (not same or resumed["resumed_from_batch"] != J["kill_at"]
+                    or st != {"make_data": "skipped", "train": "skipped", "stream": "ran"}):
+                raise AssertionError(f"jobs kill stream: {out['kill_stream']}")
+            # make_data: resumed from its marker to the uninterrupted bytes
+            marker = JobDir.read_json(os.path.join(dirs["data"], "scratch", "make_data",
+                                                   "datagen_progress.json"))
+            st = build_job(g, dev, dirs["data"], kinds=()).run()
+            same = same_file(jd.artifact_path("make_data", "data.npy"),
+                             JobDir(dirs["data"]).artifact_path("make_data", "data.npy"))
+            out["kill_data"] = {"rows_done_at_kill": marker["rows_done"], "byte_equal": same}
+            log(f"jobs kill make_data: SIGKILL after {marker['rows_done']} of {g.n} rows; the "
+                f"rerun {st}; the .npy byte for byte the uninterrupted one: {same}")
+            if not same or not 0 < marker["rows_done"] < g.n:
+                raise AssertionError(f"jobs kill make_data: {out['kill_data']}")
+            # the scrub: on from its committed cursor
+            cur = JobDir.read_json(os.path.join(dirs["scrub"], "scratch", "scrub_cursor.json"))
+            sindex = ivf_pq.load(pq_art, device=dev)
+            bad, sst = jobs.resumable_scrub("ivf_pq", sindex,
+                                            scratch=os.path.join(dirs["scrub"], "scratch"),
+                                            budget_lists=J["scrub_budget"], laps=1)
+            at = cur["lap"] * sindex.n_lists + cur["cursor"]
+            out["kill_scrub"] = {"cursor": cur, "stats": sst, "mismatches": bad}
+            log(f"jobs kill scrub: SIGKILL after cursor {cur['cursor']} (lap {cur['lap']}); the "
+                f"rerun resumed at {sst['resumed_at']} and scanned {sst['lists_scanned']} of "
+                f"{sindex.n_lists} lists, {len(bad)} mismatches")
+            if (sst["resumed_at"] != at or at == 0
+                    or sst["lists_scanned"] != sindex.n_lists - at or bad):
+                raise AssertionError(f"jobs kill scrub: {out['kill_scrub']}")
+            del sindex
+            # the distributed build: through rehydrate, equal to an uninterrupted one
+            c4 = Comms(n_devices=4, device=dev)
+            try:
+                ckpt = os.path.join(dirs["mnmg"], "mnmg.ckpt")
+
+                def must_not_build():
+                    raise AssertionError("the resume rebuilt the index")
+
+                t0 = time.perf_counter()
+                got, health, was_resumed = jobs.checkpointed_mnmg_build(
+                    c4, "ivf_pq", must_not_build, ckpt)
+                rehydrate_s = time.perf_counter() - t0
+                ref = mnmg_build_fn(g, dev, c4, g.n)()
+                q = inp["queries"][:256]
+                gv, gi = mnmg.ivf_pq_search(got, q, g.k, n_probes=32)
+                rv, ri = mnmg.ivf_pq_search(ref, q, g.k, n_probes=32)
+                parts = {"ids": torch.equal(gi, ri), "values": torch.equal(gv, rv),
+                         "codes": torch.equal(got.codes.full(), ref.codes.full()),
+                         "centers": torch.equal(got.centers.full(), ref.centers.full())}
+                equal = all(parts.values())
+            finally:
+                c4.destroy()
+            out["kill_mnmg"] = {"resumed": was_resumed, "rehydrate_s": rehydrate_s,
+                                "coverage": health.coverage(), "equal": equal, "parts": parts}
+            log(f"jobs kill mnmg: SIGKILL after the checkpoint; checkpointed_mnmg_build "
+                f"resumed through rehydrate in {rehydrate_s:.3f} s (coverage "
+                f"{health.coverage()}), tables and answers equal to an uninterrupted build: "
+                f"{equal}")
+            if not (was_resumed and equal and health.coverage() == 1.0):
+                raise AssertionError(f"jobs kill mnmg: {out['kill_mnmg']}")
+            # the preempted job: the rerun skips the committed stages
+            st = preempt_job(dirs["preempt"], dev, notice=False).run()
+            out["preempt"] = st
+            log(f"jobs preempt: the child ended as JobPreempted after its SIGTERM; the rerun "
+                f"{st}")
+            if st != {"s1": "skipped", "s2": "skipped", "s3": "ran"}:
+                raise AssertionError(f"jobs preempt: {st}")
+            # -- the watchdog: a stalled stage killed and retried ---------------
+            out["watchdog"] = jobs_watchdog_part(g, dev, tmp, J)
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+    out["wall_s"] = time.perf_counter() - t_phase
+    log(f"jobs path complete in {out['wall_s']:.3f} s")
+    return out
+
+
+def jobs_watchdog_part(g, dev, tmp, J):
+    """A stage of device work that beats its heartbeat, armed with
+    slow_rank at `job.heartbeat.stall` (the first beat stalls J["stall_s"]):
+    the watchdog kills it as StageTimeout, the retry passes. Logs the
+    detection seconds against stall_timeout_s and the device memory before
+    the kill, after it and after the retry."""
+    from raft_tpu_torch import jobs, obs
+    from raft_tpu_torch.core import faults
+
+    mem = {}
+
+    def allocated():
+        return torch.cuda.memory_allocated(dev) if dev.type == "cuda" else 0
+
+    attempts = []
+
+    def work(ctx):
+        attempts.append(1)
+        key = "before_kill" if len(attempts) == 1 else "after_kill"
+        x = torch.randn((4096, 4096), device=dev)
+        mem[key] = allocated()
+        ctx.heartbeat()  # the first attempt's beat stalls here
+        y = x @ x
+        ctx.heartbeat()
+        return {"norm": float(y.norm().item())}
+
+    job = jobs.Job("chip_smoke_watchdog", os.path.join(tmp, "watchdog"))
+    job.add_stage("stall", work, retries=2, stall_timeout_s=J["stall_timeout_s"])
+    plan = faults.FaultPlan([faults.Fault(kind="slow_rank", site="job.heartbeat.stall",
+                                          latency_s=J["stall_s"], count=1)], seed=g.seed)
+    obs.reset()
+    obs.enable()
+    try:
+        t0 = time.perf_counter()
+        with plan.install():
+            st = job.run()
+        wall = time.perf_counter() - t0
+        kills = [e for e in obs.snapshot()["events"]
+                 if e["kind"] == "fault" and e.get("action") == "watchdog_kill"]
+    finally:
+        obs.disable()
+        obs.reset()
+    mem["after_retry"] = allocated()
+    out = {"statuses": st, "attempts": len(attempts), "kills": len(kills),
+           "detect_s": kills[0]["elapsed_s"] if kills else None,
+           "stall_timeout_s": J["stall_timeout_s"], "wall_s": wall, "memory": mem}
+    log(f"jobs watchdog: stage {st} after {len(attempts)} attempts; the stall killed after "
+        f"{out['detect_s']} s (stall_timeout_s {J['stall_timeout_s']}); device memory "
+        f"allocated before the kill {mem.get('before_kill')}, in the retry "
+        f"{mem.get('after_kill')}, after it {mem['after_retry']} bytes; {wall:.3f} s in all")
+    if st != {"stall": "ran"} or len(attempts) != 2 or len(kills) != 1:
+        raise AssertionError(f"jobs watchdog: {out}")
+    return out
+
+
+def jobs_setup(g, dev, sync):
+    """Phase 4j's inputs when it runs alone (`--jobs`): the main path's data,
+    queries and truth; the IVF-PQ rung is found on the job's own index."""
+    from raft_tpu_torch.neighbors import brute_force
+
+    data_np, queries_np = make_blobs(g.seed, g.n, g.dim, g.nq, g.n_lists)
+    dataset = torch.from_numpy(data_np).to(dev)
+    queries = torch.from_numpy(queries_np).to(dev)
+    _, truth = brute_force.knn(dataset, queries, g.k, engine="fused", device=dev)
+    sync()
+    return {"dataset": dataset, "queries": queries, "truth": truth, "np_pq": None,
+            "recall_pq": "not measured"}
+
+
+def jobs_inputs(res):
+    """Phase 4j's inputs from phase 4's results: the fused bf16 + refine
+    rung that first cleared the gate, and its recall."""
+    gate = next(r for r in res["rungs"] if (r["trim"], r["score_dtype"]) == ("fused", "bf16")
+                and r["recall"] >= RECALL_GATE)
+    return {"dataset": res["dataset"], "queries": res["queries"], "truth": res["truth"],
+            "np_pq": gate["n_probes"], "recall_pq": f"{gate['recall']:.4f}"}
 
 
 # ---------------------------------------------------------------------------
@@ -7434,6 +8819,16 @@ def main(argv=None):
     ap.add_argument("--mnmg-ivf", action="store_true",
                     help="the build and the distributed IVF path only (phase 4h on its own "
                          "data and truth, and its kernel rows); prints no result and exits 9")
+    ap.add_argument("--serve", action="store_true",
+                    help="the build and the serving path only (phase 4i on indexes it builds "
+                         "itself, and its kernel rows); prints no result and exits 10")
+    ap.add_argument("--jobs", action="store_true",
+                    help="the build and the jobs path only (phase 4j on its own data and "
+                         "truth); prints no result and exits 11")
+    ap.add_argument("--jobs-child", choices=("stream", "data", "scrub", "mnmg", "preempt"),
+                    help=argparse.SUPPRESS)
+    ap.add_argument("--child-dir", help=argparse.SUPPRESS)
+    ap.add_argument("--child-kill", type=int, default=0, help=argparse.SUPPRESS)
     ap.add_argument("--comms-child", choices=("nccl", "gloo"), help=argparse.SUPPRESS)
     ap.add_argument("--child-port", type=int, default=0, help=argparse.SUPPRESS)
     ap.add_argument("--child-rank", type=int, default=0, help=argparse.SUPPRESS)
@@ -7464,6 +8859,8 @@ def main(argv=None):
         # bench/bench_10m_build.py:250-252 builds at 4096 lists
         g.small_nq, g.wide_lists = 128, 4096
         dev = torch.device("cuda", 0)
+    if g.jobs_child:
+        return jobs_child(g)
     from raft_tpu_torch.ops import _build
     from raft_tpu_torch.ops import fused_scan as fs
     from raft_tpu_torch.ops import pq_list_scan as pls
@@ -7511,6 +8908,15 @@ def main(argv=None):
         log(f"mnmg ivf path complete in {time.perf_counter() - t_all:.1f} s, {len(ivf_rows)} "
             "kernel rows; no result printed")
         return 9
+    if g.serve:
+        _, serve_rows = serve_path(g, dev, sync, serve_setup(g, dev, sync))
+        log(f"serve path complete in {time.perf_counter() - t_all:.1f} s, {len(serve_rows)} "
+            "kernel rows; no result printed")
+        return 10
+    if g.jobs:
+        jobs_path(g, dev, sync, jobs_setup(g, dev, sync))
+        log(f"jobs path complete in {time.perf_counter() - t_all:.1f} s; no result printed")
+        return 11
     adversarial_checks(fs, pls, dev, np.random.default_rng(g.seed + 1))
     slice_checks(dev, np.random.default_rng(g.seed + 2))
     bitplane_checks(fs, dev, np.random.default_rng(g.seed + 3))
@@ -7636,6 +9042,9 @@ def main(argv=None):
     mnmg_ivf_summary, mnmg_ivf_rows = mnmg_ivf_path(g, dev, sync, comms_data)
     del comms_data
     rows += mnmg_ivf_rows
+    serve_summary, serve_rows = serve_path(g, dev, sync, serve_inputs(res, fl, rb))
+    rows += serve_rows
+    jobs_summary = jobs_path(g, dev, sync, jobs_inputs(res))
     summary = {"build_s": res["build_s"], "truth_s": res["truth_s"], "rungs": res["rungs"],
                "breakdown": res["breakdown"], "pallas_breakdown": res["pallas_breakdown"],
                "refine_kernel": refine_row,
@@ -7656,6 +9065,8 @@ def main(argv=None):
                "obs": obs_summary,
                "comms": comms_summary,
                "mnmg_ivf": mnmg_ivf_summary,
+               "serve": serve_summary,
+               "jobs": jobs_summary,
                "wall_s": time.perf_counter() - t_all}
     log("summary " + json.dumps(summary))
     if dev.type != "cuda":

@@ -12,8 +12,7 @@ The top level follows the JAX package's: `__version__`, `Resources`,
 `device_ndarray`, the degraded-search types of the distributed layer
 (`DegradedSearchResult`, `RankHealth`), the IVF-RaBitQ entry points and
 the subpackages, which resolve lazily (PEP 562) so `import raft_tpu_torch`
-stays light. The serving and jobs layers (`serve`, `jobs`) are still to
-come.
+stays light.
 """
 
 __version__ = "0.1.0"
@@ -29,6 +28,7 @@ _SUBPACKAGES = (
     "distance",
     "integrity",
     "io",
+    "jobs",
     "label",
     "linalg",
     "matrix",
@@ -37,6 +37,7 @@ _SUBPACKAGES = (
     "obs",
     "ops",
     "random",
+    "serve",
     "solver",
     "sparse",
     "spatial",

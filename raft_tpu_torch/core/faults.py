@@ -22,8 +22,8 @@ Fault kinds (the JAX package's vocabulary):
                   `FaultInjected`.
 
 `FAULT_SITES` holds the sites that have a live hook in this package,
-each with the JAX package's description word for word; the other sites
-of the JAX registry join with the modules that host them.
+each with the JAX package's description word for word: all 31 of the
+JAX registry.
 
 Determinism: every host draw is a numpy generator seeded from
 (`site_seed`, fault position, draw count), so masks, byte offsets and
@@ -93,6 +93,12 @@ FAULT_SITES = {
         "NaNs the selected candidate values in-trace, before callers "
         "merge/finalize — every fused engine flows through it; "
         "ops/fused_scan)"),
+    "integrity.scrub.crash": (
+        "online-scrub cursor boundary AFTER the scrub-cursor JSON "
+        "commits (kill_rank SIGKILLs this process on its count-th visit "
+        "— the mid-scrub kill-and-resume drill: the resumed walk "
+        "continues from the cursor instead of restarting; "
+        "raft_tpu/jobs/streaming resumable_scrub)"),
     "integrity.table.rot": (
         "seeded in-memory rot of a live index table — the HBM/host "
         "analogue of ckpt.corrupt_file (corrupt_shard low-byte-flips a "
@@ -109,6 +115,22 @@ FAULT_SITES = {
         "host-side RaBitQ encode stage of build/extend (slow_rank "
         "models a slow encode pass — latency only, results untouched; "
         "flaky_bootstrap a transient dispatch failure)"),
+    "job.heartbeat.stall": (
+        "watchdog heartbeat write inside a supervised stage (slow_rank "
+        "here STALLS the first `count` beats for latency_s without "
+        "beating — the stall the watchdog must kill + retry; "
+        "raft_tpu/jobs/watchdog)"),
+    "job.preempt": (
+        "job-runner preemption check between stages and at streaming "
+        "batch boundaries (flaky_bootstrap simulates a SIGTERM-style "
+        "preempt: the runner checkpoints then suspends as JobPreempted; "
+        "raft_tpu/jobs/runner)"),
+    "job.stage.crash": (
+        "streaming-build batch boundary AFTER the checkpoint commits "
+        "(kill_rank SIGKILLs this process on its count-th visit — the "
+        "kill-and-resume bit-identity drill; flaky_bootstrap a "
+        "transient stage failure retried by the supervised runner; "
+        "raft_tpu/jobs/streaming)"),
     "mnmg.ivf_flat.scores": (
         "per-rank IVF-Flat candidate scores inside the traced search "
         "(corrupt_shard poisons a shard's contribution pre-merge)"),
@@ -157,6 +179,12 @@ FAULT_SITES = {
     "resilience.barrier": (
         "health-barrier entry (slow_rank past the deadline marks the "
         "rank unhealthy instead of sleeping it out)"),
+    "serve.batch": (
+        "serving batch dispatch (slow_rank models slow device work — "
+        "the serving analogue of a straggling rank)"),
+    "serve.submit": (
+        "serving ingress (slow_rank/flaky_bootstrap model slow or flaky "
+        "request admission)"),
     "serve.trace.stamp": (
         "request-trace stage stamp (flaky_bootstrap corrupts the stamp: "
         "the TraceCtx goes dead and the request degrades to UNTRACED — "

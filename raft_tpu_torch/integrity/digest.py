@@ -128,6 +128,8 @@ def _table_digest(field: str, arr) -> int:
 
 
 def _bytes(t: torch.Tensor) -> torch.Tensor:
+    if t.numel() == 0:  # an empty table may carry a stride of 0, which `view` refuses
+        return torch.empty(0, dtype=torch.uint8, device=t.device)
     return t.contiguous().reshape(-1).view(torch.uint8)
 
 

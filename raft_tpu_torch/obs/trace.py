@@ -15,8 +15,8 @@ Consecutive-mark deltas aggregate into per-stage histograms
 (`serve.stage.queue_wait_s`, `.linger_s`, `.device_s`, `.scatter_s`);
 the deltas telescope, so their sum is the end-to-end latency. Each
 completed request lands one "trace" event on the bus with its stage
-attrs. The serving engine that stamps requests is a later layer of the
-port; the ids, the context and the byte-stable export are here.
+attrs. The serving engine (`serve/batcher`, `serve/engine`) stamps
+the requests; the ids, the context and the byte-stable export are here.
 
 Determinism: trace ids are 64-bit values from a seeded counter run
 through a splitmix64 finalizer (no wall-clock, no randomness), so a

@@ -8,7 +8,10 @@ torch.distributed, gloo on the CPU), runs the collectives, `knn_local`,
 distributed IVF-PQ lifecycle (`ivf_pq_build_local` -> `ivf_pq_save_local`
 -> `ivf_pq_extend_local` -> `ivf_pq_save_local` -> `ivf_pq_load`, a
 search after each step; the checkpoints under OUT_DIR) on this process's
-partition of seeded data, and writes its results to OUT_DIR/rank<RANK>.pt.
+partition of seeded data, then `jobs.resumable_extend_local_from_file`
+of this process's half of the new rows from a file (uninterrupted, and
+preempted at its second checkpoint then resumed), and writes its results
+to OUT_DIR/rank<RANK>.pt.
 Every collective wait is bounded by the process group's timeout.
 """
 
@@ -27,6 +30,12 @@ N, D, NQ, K = 1003, 16, 37, 10
 #: the IVF-PQ lifecycle: lists, PQ width, probes, and the new rows of the
 #: extend (an even count: each process appends half)
 PQ_LISTS, PQ_DIM, PQ_PROBES, N_NEW = 8, 8, 4, 200
+#: rows a batch of the resumable stream (each process streams N_NEW / 2)
+STREAM_BATCH = 16
+
+
+class Preempted(RuntimeError):
+    """The stream's injected preemption at a checkpoint."""
 
 
 def new_rows():
@@ -80,6 +89,42 @@ def collectives(ac, xf, xi):
     return tuple(o[None] for o in outs)
 
 
+def stream(comms, local, q, rank, world, out_dir):
+    """`jobs.resumable_extend_local_from_file` over this process's half of
+    the new rows: an uninterrupted run; a run preempted after its second
+    checkpoint commit (every process at the same batch boundary); its
+    resume from the agreed cursor. Returns their searches and stats."""
+    from raft_tpu_torch import jobs
+
+    part = os.path.join(out_dir, f"stream{rank}.npy")
+    np.save(part, partition(new_rows(), world, rank))
+
+    def run(tag, **kw):
+        return jobs.resumable_extend_local_from_file(
+            comms, "ivf_pq", mnmg.ivf_pq_build_local(comms, pq_params(), local, seed=0),
+            mnmg.ivf_pq_extend_local, part, STREAM_BATCH,
+            scratch=os.path.join(out_dir, f"{tag}_scratch{rank}"),
+            ckpt_path=os.path.join(out_dir, f"{tag}.ckpt"), checkpoint_every=1, **kw)
+
+    ref, ref_stats = run("stream_ref")
+    commits = []
+
+    def preempt():
+        commits.append(1)
+        if len(commits) == 2:
+            raise Preempted("preempted at a batch boundary")
+
+    try:
+        run("stream_cut", preempt=preempt)
+        raise AssertionError("the preempt did not land")
+    except Preempted:
+        pass
+    got, got_stats = run("stream_cut")
+    return {"stream_ref": pq_search(ref, q), "stream_ref_stats": ref_stats,
+            "stream_resumed": pq_search(got, q), "stream_resumed_stats": got_stats,
+            "stream_n": (ref.n, got.n)}
+
+
 def main():
     rank, world, port, out_dir = (int(sys.argv[1]), int(sys.argv[2]), int(sys.argv[3]),
                                   sys.argv[4])
@@ -112,6 +157,7 @@ def main():
     res["out_dir"] = out_dir
     res["pq_loaded"] = pq_search(mnmg.ivf_pq_load(comms, os.path.join(out_dir,
                                                                      "pq_extended.ckpt")), q)
+    res.update(stream(comms, local, q, rank, world, out_dir))
     torch.save(res, os.path.join(out_dir, f"rank{rank}.pt"))
     import torch.distributed as dist
 

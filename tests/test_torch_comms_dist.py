@@ -18,6 +18,10 @@ CPU world on the same seeded inputs.
   world did at every step, bit for bit; both load the extended checkpoint
   to the same tables; the process world's own load answers as its
   extended index did.
+- `jobs.resumable_extend_local_from_file` on the process world: a stream
+  preempted after its second checkpoint resumes from the agreed cursor
+  (a MIN all-reduce over the process group) through `rehydrate` and
+  answers as the uninterrupted 2-process run, bit for bit.
 - It cannot hang: the process group's collectives time out at 60 s, each
   child has its own join deadline and is killed past it.
 """
@@ -149,3 +153,15 @@ def test_ivf_pq_local_lifecycle_equals_the_in_process_world(ranks, local_world):
     assert torch.equal(loaded.codes.full(), extended.codes.full())
     assert torch.equal(loaded.slot_gids.full(), extended.slot_gids.full())
     assert loaded.extended and loaded.n == extended.n
+
+
+def test_resumable_extend_local_resumes_after_a_preempt(ranks):
+    n_batches = -(-worker.N_NEW // WORLD // worker.STREAM_BATCH)
+    for res in ranks:
+        ref, got = res["stream_ref_stats"], res["stream_resumed_stats"]
+        assert ref["resumed_from_batch"] == 0 and ref["batches"] == n_batches
+        assert got["resumed_from_batch"] == 2 and got["batches"] == n_batches - 2
+        assert res["stream_n"][0] == res["stream_n"][1] == worker.N + worker.N_NEW
+        (rv, ri), (gv, gi) = res["stream_ref"], res["stream_resumed"]
+        assert torch.equal(gv, rv) and torch.equal(gi, ri)
+    assert torch.equal(ranks[0]["stream_resumed"][1], ranks[1]["stream_resumed"][1])

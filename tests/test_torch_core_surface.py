@@ -310,5 +310,7 @@ def test_top_level_surface():
     from raft_tpu_torch.neighbors import ivf_rabitq
 
     assert raft_tpu_torch.ivf_rabitq_build is ivf_rabitq.build
+    # the serving and jobs layers resolve on the top level like the rest
+    assert "serve" in raft_tpu_torch._SUBPACKAGES and "jobs" in raft_tpu_torch._SUBPACKAGES
     with pytest.raises(AttributeError):
-        raft_tpu_torch.serve  # noqa: B018
+        raft_tpu_torch.no_such_layer  # noqa: B018

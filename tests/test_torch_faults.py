@@ -287,7 +287,7 @@ def test_fault_sites_are_jax_sites_with_live_hooks():
     missing = [s for s in tf.FAULT_SITES if s not in literals]
     assert not missing, missing
     # and the module holding the site calls a hook of core/faults
-    hooks = {"fault_point", "crash_point", "corrupt_in_trace", "active_plan"}
+    hooks = {"fault_point", "crash_point", "stall_point", "corrupt_in_trace", "active_plan"}
     for site in tf.FAULT_SITES:
         assert any(hooks & _called_names(p) for p in literals[site]), site
 
@@ -295,10 +295,13 @@ def test_fault_sites_are_jax_sites_with_live_hooks():
 def test_batch_loader_load_is_the_eighth_site():
     """`batch_loader.load` joined with `neighbors/batch_loader` as the
     eighth site (the obs sites `obs.flight.dump` and `serve.trace.stamp`
-    came after it, then the ten sites of the comms layer and the five of
-    the distributed IVF drivers: twenty-five in all), the JAX description,
-    hooked by `fault_point` and `corrupt_host` in that module."""
-    assert len(tf.FAULT_SITES) == 25
+    came after it, then the ten sites of the comms layer, the five of the
+    distributed IVF drivers and the six of the serving and jobs layers:
+    thirty-one in all, the JAX registry's every site), the JAX
+    description, hooked by `fault_point` and `corrupt_host` in that
+    module."""
+    assert len(tf.FAULT_SITES) == 31
+    assert set(tf.FAULT_SITES) == set(jf.FAULT_SITES)
     assert tf.FAULT_SITES["batch_loader.load"] == jf.FAULT_SITES["batch_loader.load"]
     path = _ROOT / "raft_tpu_torch" / "neighbors" / "batch_loader.py"
     assert {"fault_point", "corrupt_host"} <= _called_names(path)
@@ -337,6 +340,28 @@ def test_the_distributed_ivf_drivers_host_their_five_sites():
         path = _ROOT / "raft_tpu_torch" / "comms" / f"{mod}.py"
         assert site in path.read_text(), site
         assert hook in _called_names(path), site
+
+
+def test_the_serving_and_jobs_layers_host_their_six_sites():
+    """The six sites of the serving and jobs layers, each with the JAX
+    description and a live hook in the module that hosts it: the serving
+    ingress and batch dispatch (`fault_point`), the watchdog's heartbeat
+    (`stall_point`), the runner's preemption check (`fault_point`), the
+    streaming batch boundary and the scrub cursor boundary (`crash_point`
+    after each commit, `fault_point` for the transient flavour)."""
+    hosts = {"serve.submit": ("serve/batcher.py", {"fault_point"}),
+             "serve.batch": ("serve/engine.py", {"fault_point"}),
+             "job.heartbeat.stall": ("jobs/watchdog.py", {"stall_point"}),
+             "job.preempt": ("jobs/runner.py", {"fault_point"}),
+             "job.stage.crash": ("jobs/streaming.py", {"crash_point", "fault_point"}),
+             "integrity.scrub.crash": ("jobs/streaming.py", {"crash_point", "fault_point"})}
+    for site, (mod, hooks) in hosts.items():
+        assert tf.FAULT_SITES[site] == jf.FAULT_SITES[site], site
+        path = _ROOT / "raft_tpu_torch" / mod
+        text = path.read_text()
+        const = {"integrity.scrub.crash": "SCRUB_CRASH_SITE"}.get(site)
+        assert site in text or const in text, site
+        assert hooks <= _called_names(path), site
 
 
 def _called_names(path):

@@ -246,11 +246,11 @@ def test_launch_counts_cover_every_kernel():
 
 _SUBPACKAGES = ("cluster", "core", "distance", "integrity", "matrix", "neighbors", "random",
                 "sparse", "label", "spectral", "solver", "linalg", "stats", "spatial", "util",
-                "io", "comms")
+                "io", "comms", "serve", "jobs")
 
-#: top-level names of the JAX package that come with the serving and jobs
-#: layers (ROADMAP items 12d-12e)
-_ITEM12_TOP_LEVEL = ("jobs", "serve")
+#: top-level names of the JAX package still to come: none, since the
+#: serving and jobs layers (ROADMAP items 12d-12e) are ported
+_ITEM12_TOP_LEVEL = ()
 
 
 def _defined_names(path: Path) -> list:
@@ -337,6 +337,8 @@ def test_top_level_exports_the_jax_all_but_the_distributed_layer():
     assert raft_tpu_torch.ivf_rabitq_build is ivf_rabitq.build
     assert raft_tpu_torch.stats is importlib.import_module("raft_tpu_torch.stats")
     assert raft_tpu_torch.resolve_device is resolve_device
+    assert raft_tpu_torch.serve is importlib.import_module("raft_tpu_torch.serve")
+    assert raft_tpu_torch.jobs is importlib.import_module("raft_tpu_torch.jobs")
     for name in _ITEM12_TOP_LEVEL:
         with pytest.raises(AttributeError):
             getattr(raft_tpu_torch, name)
@@ -434,6 +436,12 @@ def test_new_modules_stand_alone():
         "core/device_ndarray", "core/mdarray", "core/interruptible", "core/logger",
         "core/tracing", "core/validation", "core/config")}
     assert rest <= files
+    # the serving and jobs layers
+    layers = {f"raft_tpu_torch/{m}.py" for m in (
+        "serve/__init__", "serve/admission", "serve/metrics", "serve/batcher", "serve/engine",
+        "jobs/__init__", "jobs/jobdir", "jobs/watchdog", "jobs/runner", "jobs/streaming",
+        "core/threads")}
+    assert layers <= files
     from raft_tpu_torch.core import tuned
     from raft_tpu_torch.neighbors import probe_budget
 
