@@ -19,6 +19,10 @@
                                        # 4i on indexes it builds); exits 10
     python3 chip_smoke.py --jobs       # the build and the jobs path only (phase 4j
                                        # on its own data and truth); exits 11
+    python3 chip_smoke.py --parent DIR # as the first, and times the kernels of
+                                       # DIR/raft_tpu_torch/csrc (an earlier
+                                       # commit's) beside this one's in turns on
+                                       # the phase-5 rows of kernels 1, 3, 4, 7
     python3 chip_smoke.py --apply      # as the first, and writes the tuned A/B
                                        # winners and the adaptive policy as
                                        # raft_tpu_torch/tuned_defaults.json
@@ -318,6 +322,7 @@ import sys
 import tempfile
 import threading
 import time
+from pathlib import Path
 
 import numpy as np
 import torch
@@ -365,10 +370,11 @@ RECALL_GATE = 0.95
 #: earlier times, for the log lines only (figures quoted from PERF.md
 #: section 6, H100 80GB HBM3, 700.00 W; not measured by this run): the f32
 #: CUDA-core fused_l2_argmin the split-TF32 design replaced, at the
-#: labelling shape, and fused_bitplane_topk with register lists only, at
-#: the RaBitQ gate rung (k 250) and at k 40
+#: labelling shape, and the CUDA-core (AND + popcount) fused_bitplane_topk
+#: that the tensor-core scan replaced, on phase 4's RaBitQ rows (k 250 at
+#: the gate rung, k 40 at n_probes 8)
 EARLIER_ARGMIN_MS = 7.1835
-EARLIER_BITPLANE_MS = {250: 32.7113, 40: 2.0828}
+EARLIER_BITPLANE_MS = {250: 2.7891, 40: 1.4774}
 #: values agree to this relative tolerance, scaled by the row's largest
 #: finite magnitude (the f32 sums run in another order in kernel and plain)
 VAL_RTOL = 1e-5
@@ -503,6 +509,86 @@ def time_ms(fn, reps, warmup=1):
     end.record()
     torch.cuda.synchronize()
     return start.elapsed_time(end) / reps
+
+
+#: {source: ctypes library} of an earlier commit's kernels (`--parent
+#: DIR`), timed beside this checkout's by `parent_ab`; empty without it
+PARENT_LIBS = {}
+
+
+def build_parent(root):
+    """Build the kernels of the checkout at `root` (its
+    raft_tpu_torch/csrc, one nvcc per source, all started together) into
+    root/_parent_build, with this checkout's compiler command
+    (`_build._command`), and load each library whose source exists there
+    into PARENT_LIBS."""
+    import ctypes
+    from raft_tpu_torch.ops import _build
+
+    csrc = Path(root).resolve() / "raft_tpu_torch" / "csrc"
+    out_dir = Path(root).resolve() / "_parent_build"
+    out_dir.mkdir(parents=True, exist_ok=True)
+    procs = {}
+    for src in _build.KERNEL_SOURCES:
+        if (csrc / src).exists():
+            out = out_dir / (Path(src).stem + ".so")
+            procs[src] = (out, subprocess.Popen(_build._command(src, out, csrc),
+                                                stdout=subprocess.PIPE,
+                                                stderr=subprocess.STDOUT, text=True))
+    for src, (out, p) in procs.items():
+        rep, _ = p.communicate()
+        if p.returncode != 0:
+            raise RuntimeError(f"parent {src}: nvcc failed:\n{rep}")
+        os.replace(str(out) + ".tmp", out)
+        for line in rep.splitlines():
+            if "registers" in line or "spill" in line:
+                log(f"  parent {src}: {line.strip()}")
+        PARENT_LIBS[src] = ctypes.CDLL(str(out))
+    log(f"parent kernels from {csrc}: {sorted(PARENT_LIBS)}")
+
+
+def same_bits(a, b):
+    """Tensors (or tuples of them) equal bit for bit."""
+    if isinstance(a, torch.Tensor):
+        return a.shape == b.shape and a.dtype == b.dtype and bool(
+            (a.contiguous().view(torch.uint8) == b.contiguous().view(torch.uint8)).all())
+    return len(a) == len(b) and all(same_bits(x, y) for x, y in zip(a, b))
+
+
+def parent_ab(fn, source, reps, name):
+    """The parent's kernel of `source` (PARENT_LIBS) on the call `fn`
+    makes: the wrapper's cached launchers of that source are swapped for
+    the parent library's (same C entries and arguments) while it runs.
+    Its output must equal this checkout's bit for bit; then parent,
+    change, change, parent, `reps` calls each by CUDA events. {} without
+    a parent."""
+    lib = PARENT_LIBS.get(source)
+    if lib is None:
+        return {}
+    from raft_tpu_torch.ops import _launch
+
+    out = fn()  # fills the launcher cache
+    mine = {key: f for key, f in _launch._fns.items() if key[0] == source}
+    theirs = {}
+    for key, f in mine.items():
+        t = getattr(lib, key[1])
+        t.argtypes, t.restype = f.argtypes, f.restype
+        theirs[key] = t
+
+    def parent():
+        _launch._fns.update(theirs)
+        try:
+            return fn()
+        finally:
+            _launch._fns.update(mine)
+
+    if not same_bits(out, parent()):
+        raise AssertionError(f"{name}: the parent's kernel gives other bits on the same call")
+    p1, c1, c2, p2 = (time_ms(parent, reps), time_ms(fn, reps), time_ms(fn, reps),
+                      time_ms(parent, reps))
+    log(f"  {name} against the parent's kernel (bitwise equal): parent {p1:.4f} / {p2:.4f} "
+        f"ms, change {c1:.4f} / {c2:.4f} ms")
+    return {"parent_ms": [p1, p2], "change_ms": [c1, c2]}
 
 
 # ---------------------------------------------------------------------------
@@ -1233,7 +1319,9 @@ def slice_checks(dev, rng):
 def bitplane_checks(fs, dev, rng):
     """Kernel 7 against its plain version, bit for bit (values and slots:
     both round the estimator with the same explicit operations): 1, 4
-    and 8 query bits; 1, 3 and 4 words; duplicate codes (ties to the
+    and 8 query bits; 1 to 32 words (the K-block edges 4, 5, 8, 9), both
+    sides of the resident / streamed switch and the widest envelope;
+    all-ones planes and codes; duplicate codes (ties to the
     smaller slot); +inf tails and whole +inf tiles; empty chunks and
     live-row prefixes; k 1, 40 and 256 (kbuf 256) and k past the finite
     slots; L 128 to 3840; L2 and inner product. Two cases make the
@@ -1243,8 +1331,10 @@ def bitplane_checks(fs, dev, rng):
     from raft_tpu_torch.neighbors import quantizer as tq
 
     def operands(ncb, chunk, L, W, bits, n_lists, ties=False, inf_frac=0.1, inf_tiles=(),
-                 integer=False, equal=False, falling=False):
+                 integer=False, equal=False, falling=False, ones=False):
         words = rng.integers(0, 2**32, (n_lists, L, W), dtype=np.uint64).astype(np.uint32)
+        if ones:
+            words[:] = 0xFFFFFFFF  # every code bit set, bit 31 too
         if ties:
             words[:, 1::2] = words[:, 0::2]  # every code twice
         if equal:
@@ -1273,6 +1363,8 @@ def bitplane_checks(fs, dev, rng):
         qres = torch.tensor((rng.standard_normal((ncb, chunk, 32 * W))
                              * np.exp(rng.uniform(-3, 3, (ncb, chunk, 1)))).astype(np.float32))
         planes, lo, delta = tq.quantize_queries(qres, bits)
+        if ones:
+            planes = torch.full_like(planes, -1)  # every level 2^bits - 1
         qmeta = torch.stack([lo[..., 0], delta[..., 0], qres.sum(-1), (qres * qres).sum(-1)], 1)
         if integer:
             qmeta = torch.zeros_like(qmeta)
@@ -1352,8 +1444,35 @@ def bitplane_checks(fs, dev, rng):
                  3, 8, k, 4, ip=ip, rows=True, inf_frac=0.5)
         case(f"bitplane filtered slots and +inf tail L 4992 k {k}", 12, 128, 4992, 3, 8, k, 4,
              rows=True, inf_frac=0.5, inf_tiles=tuple(range(20, 39)))
-    for k in (40, 100, 250):
-        words = max(w for w in range(1, 1024) if fs.fits_fused_bitplane(256, w, 8, k))
+    # the tensor-core scan (4 code words a K-block): word counts at the
+    # K-block edges, a wide rotation, all-ones planes (level 255, which an
+    # s8 operand cannot hold) against all-ones codes (S_u = 255 x 32 W,
+    # read back exactly), phase 4h's list length at the gate rung's k
+    for W in (4, 5, 8, 9):
+        case(f"bitplane K-block edge: {W} words, 8 bits, k 40", 12, 128, 384, W, 8, 40, 4,
+             rows=True)
+    for W in (2, 5):  # 2-word K-blocks, with the 256-pair lists
+        case(f"bitplane K-block edge: {W} words, 8 bits, k 250", 12, 128, 640, W, 8, 250, 4,
+             rows=True)
+    case("bitplane wide: 32 words (rot 1024), 8 bits, k 100, ip", 10, 64, 640, 32, 8, 100, 3,
+         ip=True, rows=True)
+    for W in (3, 9):
+        case(f"bitplane all-ones planes and codes, {W} words, integer S_u", 6, 32, 256, W, 8, 40,
+             2, integer=True, ones=True, inf_frac=0.0)
+    case("bitplane 4h geometry: L 9984, k 250", 16, 128, 9984, 3, 8, 250, 4, rows=True)
+    # both sides of the launcher's switch by shape: the widest rotation
+    # whose levels stay resident in shared memory, and one word past it
+    # (each warpgroup rebuilds a K-block's slice of them)
+    for k in (32, 33, 250):
+        edge = max(w for w in range(1, 1024) if fs.bitplane_resident(w, k))
+        for W in (edge, edge + 1):
+            side = "resident" if fs.bitplane_resident(W, k) else "streamed"
+            case(f"bitplane {side} levels: {W} words, 8 bits, k {k}", 3, 16, 256, W, 8, k, 2,
+                 rows=True)
+    # the widest rotations the envelope admits at 8 query bits (S_u below
+    # 2^24), either side of the selection switch and past it
+    for k in (32, 33, 40, 100, 250):
+        words = max(w for w in range(1, 4096) if fs.fits_fused_bitplane(256, w, 8, k))
         case(f"bitplane widest envelope: {words} words, 8 bits, k {k}", 3, 16, 256, words, 8, k,
              2, rows=True)
 
@@ -8238,6 +8357,7 @@ def list_kernel_row(fs, call, launches, reps, label, sweep=False, term_scale=Fal
     else:
         err, agree = compare(f"fused_list_topk ({label})", kernel(), ref, k)
     ms = time_ms(kernel, reps)
+    terms.update(parent_ab(kernel, "fused_list_topk.cu", reps, f"fused_list_topk ({label})"))
     plain_ms = time_ms(plain, max(1, reps // 4))
     coef = 1.0 if ip else 2.0
 
@@ -8443,6 +8563,8 @@ def int8_list_row(fs, call, launches, reps, label, sweep=False):
 
     require_equal(f"fused_list_topk_int8 ({label})", kernel(), plain())
     ms = time_ms(kernel, reps)
+    terms.update(parent_ab(kernel, "fused_list_topk_int8.cu", reps,
+                           f"fused_list_topk_int8 ({label})"))
     plain_ms = time_ms(plain, max(1, reps // 4))
     coef = 1.0 if ip else 2.0
 
@@ -8516,6 +8638,7 @@ def fold_kernel_row(pls, call, launches, reps, label, fold):
     else:
         err, agree = fold_compare(name, kernel(), plain(), bf16_rescore(lof, q, store, base, ip))
     ms = time_ms(kernel, reps)
+    terms.update(parent_ab(kernel, "pq_list_scan.cu", reps, name))
     plain_ms = time_ms(plain, max(1, reps // 4))
     coef = 1.0 if ip else 2.0
 
@@ -8729,9 +8852,12 @@ def bitplane_row(fs, call, launches, reps, label, sweep=False):
     theirs, against the bytes at 3.35 TB/s (live rows' planes and qmeta,
     the real slots' codes and meta and the base rows of the lists touched,
     the chunk tables, the (chunk, kbuf) outputs). The popcounts of the
-    kernel's own algorithm (pairs x bits x words at PEAK_POPC) stand
-    beside them in bound_terms. No one PyTorch call computes the
-    function: library "-"."""
+    CUDA-core scan the kernel replaced (pairs x bits x words at PEAK_POPC)
+    stand beside them in bound_terms. Library, by rows 1, 3 and 4's
+    convention: the levels and the code bits as bf16 (exact), prepared
+    once outside the timing, the chunks' lists gathered, one bf16 `bmm`
+    with f32 sums (exact below 2^24), the estimator, then `torch.topk`;
+    the port never calls it."""
     (lof, planes, codes_t, meta, base, qmeta, k), kw = call
     rot, bits, kb = kw["rot_dim"], kw["bits"], kw.get("kbuf") or fs.fused_kbuf(k)
     ip, cv, cr = bool(kw.get("inner_product", False)), kw.get("chunk_valid"), kw.get("chunk_rows")
@@ -8747,6 +8873,7 @@ def bitplane_row(fs, call, launches, reps, label, sweep=False):
               + n_lists * L * 4 + ncb * chunk * kb * 8)
     b_ms, b_by, terms = bound_ms(ops, nbytes, PEAK_INT8_OPS)
     terms["popc_ms"] = n_popc / PEAK_POPC * 1e3
+    terms["resident_levels"] = fs.bitplane_resident(W, k)
 
     def kernel():
         return fs.fused_bitplane_topk(lof, planes, codes_t, meta, base, qmeta, k, rot_dim=rot,
@@ -8759,7 +8886,30 @@ def bitplane_row(fs, call, launches, reps, label, sweep=False):
 
     require_equal(f"fused_bitplane_topk ({label})", kernel(), plain())
     ms = time_ms(kernel, reps)
+    terms.update(parent_ab(kernel, "fused_bitplane_topk.cu", reps,
+                           f"fused_bitplane_topk ({label})"))
     plain_ms = time_ms(plain, 1, warmup=0)
+    levels = fs.bitplane_levels(planes, bits).to(torch.bfloat16)   # (ncb, chunk, 32 W)
+    cbits = fs.expand_code_bits(codes_t).to(torch.bfloat16)       # (n_lists, 32 W, L)
+    rsq = fs.rsqrt_dim(rot)
+
+    def library():
+        lids = lof.long()
+        su = bf16_bmm(levels, cbits[lids])
+        m = meta[lids]
+        s = su.mul_(qmeta[:, 1, :, None]).add_(qmeta[:, 0, :, None] * m[:, 0:1])
+        est = s.mul_(2.0).sub_(qmeta[:, 2, :, None]).mul_(rsq).div_(m[:, 2:3].clamp(min=1e-12))
+        if ip:
+            sc = est.mul_(m[:, 1:2]).add_(qmeta[:, 3, :, None]).neg_()
+        else:
+            sc = est.mul_(-2.0 * m[:, 1:2]).add_(m[:, 1:2] * m[:, 1:2] + qmeta[:, 3, :, None])
+        return torch.topk(sc.add_(base[lids]), k, dim=-1, largest=False)
+
+    lib_ms = time_ms(library, reps)
+    del levels, cbits
+    if planes.is_cuda:  # the device time of each launch
+        terms.update(launch_ms(kernel, reps))
+    terms["tiles"] = tiles = scan_tiles(lof, base, live)
     if sweep:
         # the kernel over k on these inputs, across its selection switch
         # (register lists to MAX_REGISTER_K, the batch past it)
@@ -8773,16 +8923,18 @@ def bitplane_row(fs, call, launches, reps, label, sweep=False):
                 f"k {ks} {v:.4f} ms" for ks, v in terms["k_sweep_ms"].items()))
     log(f"kernel fused_bitplane_topk ({label}): ncb {ncb} ({int((live > 0).sum())} "
         f"live, {int(live.sum())} live rows), chunk {chunk}, L {L}, words {W}, bits {bits}, "
-        f"k {k}, kbuf {kb}: {ms:.4f} ms, plain {plain_ms:.4f} ms, library -, bound "
-        f"{b_ms:.4f} ms ({b_by}; {pairs:.4g} row-slot pairs, {ops:.4g} int8 ops "
-        f"{terms['ops_ms']:.4f}, {nbytes} bytes {terms['bytes_ms']:.4f}; the kernel's "
-        f"{n_popc:.4g} popcounts {terms['popc_ms']:.4f}), bitwise equal to plain (PERF.md's "
-        f"figure with register lists only: {EARLIER_BITPLANE_MS.get(k, '-')} ms)")
+        f"k {k}, kbuf {kb}: {ms:.4f} ms, plain {plain_ms:.4f} ms, library {lib_ms:.4f} ms, "
+        f"bound {b_ms:.4f} ms ({b_by}; {pairs:.4g} row-slot pairs, {ops:.4g} int8 ops "
+        f"{terms['ops_ms']:.4f}, {nbytes} bytes {terms['bytes_ms']:.4f}; the CUDA-core scan's "
+        f"{n_popc:.4g} popcounts {terms['popc_ms']:.4f}), bitwise equal to plain; levels "
+        f"{'resident' if terms['resident_levels'] else 'streamed'}; device ms a launch "
+        f"{terms.get('launch_ms', float('nan')):.4f}; tiles a live block {tiles} (PERF.md's "
+        f"figure for the CUDA-core scan: {EARLIER_BITPLANE_MS.get(k, '-')} ms)")
     return {"name": "fused_bitplane_topk", "route": "cuda",
             "source": "raft_tpu_torch/csrc/fused_bitplane_topk.cu",
             "replaces": "raft_tpu/ops/fused_scan.py:781", "launches": launches,
             "max_abs_err": 0.0, "ms": ms, "plain_ms": plain_ms, "bound_ms": b_ms,
-            "bound_by": b_by, "library_ms": None, "bound_terms": terms,
+            "bound_by": b_by, "library_ms": lib_ms, "bound_terms": terms,
             "shape": f"{label}: ncb={ncb} chunk={chunk} L={L} words={W} bits={bits} k={k} "
                      f"kbuf={kb}"}
 
@@ -8837,6 +8989,9 @@ def main(argv=None):
                          "raft_tpu_torch/tuned_defaults.json, and merge the adaptive policy "
                          "where its calibration tells taus apart, before the committed-table "
                          "checks")
+    ap.add_argument("--parent", metavar="DIR",
+                    help="an earlier commit's checkout: build its kernels and time them beside "
+                         "this checkout's on the phase-5 rows of kernels 1, 3, 4 and 7")
     ap.add_argument("--seed", type=int, default=0)
     g = ap.parse_args(argv)
     if g.comms_child:
@@ -8884,6 +9039,8 @@ def main(argv=None):
                     log(f"  {src}: {line.strip().split('for ')[-1]}")
                 elif "registers" in line or "spill" in line:
                     log(f"  {src}: {line.strip()}")
+        if g.parent:
+            build_parent(g.parent)
     if g.graph:
         _, graph_rows = graph_path(g, dev, sync)
         log(f"graph path complete in {time.perf_counter() - t_all:.1f} s, {len(graph_rows)} "

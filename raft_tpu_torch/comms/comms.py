@@ -1215,9 +1215,10 @@ def bootstrap_multihost(coordinator_address: Optional[str] = None,
     `num_processes` and `process_id` are the world size and this rank.
     Where they are None, torch's environment variables (MASTER_ADDR /
     MASTER_PORT / WORLD_SIZE / RANK) rule. `device` is this process's
-    rank device (default: cuda:LOCAL_RANK with a card, else the CPU);
-    CUDA ranks use NCCL, CPU ranks gloo. Idempotent: repeat calls (and an
-    already-initialized process group) return False.
+    rank device (default: cuda:LOCAL_RANK; without a card that raises,
+    as `core.config.resolve_device` does: a CPU world is asked for with
+    device="cpu"); CUDA ranks use NCCL, CPU ranks gloo. Idempotent: repeat
+    calls (and an already-initialized process group) return False.
 
     Flaky init (a coordinator racing its listeners up, injected chaos at
     site "comms.bootstrap") retries up to `max_retries` times with
@@ -1231,12 +1232,10 @@ def bootstrap_multihost(coordinator_address: Optional[str] = None,
     if _process_world_active():
         _MULTIHOST_INITIALIZED = True
         return False
-    if device is None:
-        if torch.cuda.is_available():
-            device = torch.device("cuda", int(os.environ.get("LOCAL_RANK", "0")))
-        else:
-            device = torch.device("cpu")
-    device = torch.device(device)
+    from raft_tpu_torch.core.config import resolve_device
+
+    device = resolve_device(f"cuda:{int(os.environ.get('LOCAL_RANK', '0'))}"
+                            if device is None else device)
     if device.type == "cuda":
         torch.cuda.set_device(device)
     kwargs = {"backend": "nccl" if device.type == "cuda" else "gloo"}

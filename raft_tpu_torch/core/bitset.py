@@ -66,8 +66,13 @@ class Bitset:
 
     # -- constructors --
     @classmethod
-    def full(cls, n: int, value: bool = True, device="cpu") -> "Bitset":
-        """All-set (default) or all-clear bitset of `n` bits."""
+    def full(cls, n: int, value: bool = True, device=None) -> "Bitset":
+        """All-set (default) or all-clear bitset of `n` bits, on `device`
+        (default: the card, `core.config.resolve_device`; raises without
+        one unless device="cpu" is passed)."""
+        from raft_tpu_torch.core.config import resolve_device
+
+        device = resolve_device(device)
         bits = torch.full((_words(n),), _FULL_WORD if value else 0, dtype=torch.int32,
                           device=device)
         if value and bits.numel():
@@ -89,8 +94,9 @@ class Bitset:
         return cls(_to_int32_bits(words), n)
 
     @classmethod
-    def excluding(cls, n: int, ids, device="cpu") -> "Bitset":
-        """All bits set except `ids` (the deleted-samples filter shape)."""
+    def excluding(cls, n: int, ids, device=None) -> "Bitset":
+        """All bits set except `ids` (the deleted-samples filter shape), on
+        `device` as for `full`."""
         return cls.full(n, True, device).set(ids, False)
 
     # -- queries --

@@ -1,6 +1,6 @@
 // Batched exact top-k selection with the lists in shared memory, for the
-// list-scan kernels (fused_bitplane_topk.cu, and fused_list_topk.cu and
-// fused_list_topk_int8.cu through list_scan_tc.cuh).
+// list-scan kernels (fused_list_topk.cu, fused_list_topk_int8.cu and
+// fused_bitplane_topk.cu, through list_scan_tc.cuh's TopKEpi).
 //
 // fused_common.cuh's WarpTopK keeps a row's sorted list in its warp's
 // registers and inserts each pair that beats the row's k-th one by a
@@ -262,45 +262,5 @@ struct SharedTopK {
     }
   }
 };
-
-// scan_topk_dots (fused_common.cuh) with SharedTopK selection: the same
-// scores, tiles and output contract, for any k <= CAP. `lists` holds
-// block_lists_bytes(CAP). Every thread of the block must call it.
-template <int CAP, class Dots>
-__device__ void scan_topk_shared(float* sc, void* lists, Dots& dots, int nrows,
-                                 const typename Dots::Store* __restrict__ y,
-                                 const float* __restrict__ base, int n, int k, int kbuf,
-                                 float* __restrict__ vals, int* __restrict__ idx) {
-  const int s = threadIdx.x % kTileSlots, half = threadIdx.x / kTileSlots;
-  const int w = threadIdx.x / 32, lane = threadIdx.x % 32;
-  SharedTopK<CAP> top[kRowsPerWarp];
-#pragma unroll
-  for (int rr = 0; rr < kRowsPerWarp; ++rr) top[rr].init(lists, w * kRowsPerWarp + rr, lane);
-
-  for (int t0 = 0; t0 < n; t0 += kTileSlots) {
-    const int col = t0 + s;
-    const float b = col < n ? base[col] : CUDART_INF_F;
-    typename Dots::Acc acc[kRowsHalf];
-#pragma unroll
-    for (int r = 0; r < kRowsHalf; ++r) acc[r] = 0;
-    // block-uniform, and a barrier: the last tile's merges are done
-    if (__syncthreads_or(b != CUDART_INF_F)) dots.tile(acc, y, n, t0);
-#pragma unroll
-    for (int r = 0; r < kRowsHalf; ++r)
-      sc[(half * kRowsHalf + r) * kTileSlots + s] = dots.score(b, acc[r], half * kRowsHalf + r);
-    __syncthreads();
-#pragma unroll
-    for (int rr = 0; rr < kRowsPerWarp; ++rr) {
-      const int r = w * kRowsPerWarp + rr;  // warp-uniform
-      if (r < nrows) top[rr].merge(sc + r * kTileSlots, t0, n, k, lane);
-    }
-  }
-
-#pragma unroll
-  for (int rr = 0; rr < kRowsPerWarp; ++rr) {
-    const int r = w * kRowsPerWarp + rr;
-    if (r < nrows) top[rr].write(vals + (size_t)r * kbuf, idx + (size_t)r * kbuf, k, kbuf, lane);
-  }
-}
 
 }  // namespace rtt

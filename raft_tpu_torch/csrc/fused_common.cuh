@@ -1,12 +1,11 @@
-// Shared core of the CUDA-core scans: fused_topk.cu's CUDA-core variant and
-// the bit-plane scan (fused_bitplane_topk.cu); the tensor-core list kernels
-// (list_scan_tc.cuh) use its row lists, int8 score and element loads. A
+// Shared core of the CUDA-core scan (fused_topk.cu's CUDA-core variant);
+// the tensor-core list kernels (list_scan_tc.cuh) use its row lists, int8
+// score and element loads. A
 // block scores kRows query rows against a run of store rows, 128 slots
 // (one tile) at a time, and no score ever reaches device memory.
 //
 // Scoring is a policy with one interface (`tile` accumulates the dots of
-// one tile, `score` turns a dot into the minimized score; the bit-plane
-// scan brings its own):
+// one tile, `score` turns a dot into the minimized score):
 //   Bf16Dots<T>  the block stages its query rows, rounded to bf16 (round
 //                to nearest even) and held as float, in shared memory
 //                once, then streams store rows in tiles of kTileSlots rows

@@ -4,7 +4,10 @@
 // chunk's list, 128 slots (one tile) at a time, and hands each tile's
 // scores to an epilogue policy: TopKEpi keeps each row's exact top k
 // (kernels 1 and 3), pq_list_scan.cu's FoldEpi folds them into bins
-// (kernel 4). No score reaches device memory.
+// (kernel 4). No score reaches device memory. fused_bitplane_topk.cu
+// (kernel 7) runs its own loop over the same pieces (the extent, the
+// fragment layout, TopKEpi) with u8 operands staged in K-blocks
+// (wgmma_step_u8).
 //
 //  - Only a list's real tiles. The store is padded to its largest list,
 //    so most tiles of a typical list are +inf pad. The block first reduces
@@ -86,6 +89,9 @@ struct TcLayout {
   uint64_t* bars;     // stages
   void* lists;
 
+  // a layout placed by its kernel (fused_bitplane_topk.cu); no barriers
+  __device__ TcLayout(unsigned char* st_, unsigned char* q_, float* sc_, float* rs_, void* lists_)
+      : st(st_), q(q_), sc(sc_), rs(rs_), bars(nullptr), lists(lists_) {}
   __device__ TcLayout(unsigned char* raw, int nkc, int stages) {
     st = raw + ((1024u - (smem_u32(raw) & 1023u)) & 1023u);
     q = st + (size_t)stages * kTileSlots * nkc * 128;
@@ -152,6 +158,20 @@ __device__ __forceinline__ void wgmma_step(int (&d)[8], uint64_t da, uint64_t db
       ".reg .pred p;\n"
       "setp.ne.b32 p, %10, 0;\n"
       "wgmma.mma_async.sync.aligned.m64n16k32.s32.s8.s8 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7}, %8, %9, p;\n"
+      "}\n"
+      : "+r"(d[0]), "+r"(d[1]), "+r"(d[2]), "+r"(d[3]), "+r"(d[4]), "+r"(d[5]), "+r"(d[6]),
+        "+r"(d[7])
+      : "l"(da), "l"(db), "r"(acc));
+}
+// Unsigned bytes (fused_bitplane_topk.cu: query levels up to 255, which
+// s8 cannot hold, against code bits), exact in any order.
+__device__ __forceinline__ void wgmma_step_u8(int (&d)[8], uint64_t da, uint64_t db, int acc) {
+  asm volatile(
+      "{\n"
+      ".reg .pred p;\n"
+      "setp.ne.b32 p, %10, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n16k32.s32.u8.u8 "
       "{%0, %1, %2, %3, %4, %5, %6, %7}, %8, %9, p;\n"
       "}\n"
       : "+r"(d[0]), "+r"(d[1]), "+r"(d[2]), "+r"(d[3]), "+r"(d[4]), "+r"(d[5]), "+r"(d[6]),

@@ -441,7 +441,7 @@ def resolve_bitplane_strategy(L: int, words: int, bits: int, k: int,
 def check_bitplane_request(label: str, L: int, words: int, bits: int, k: int,
                            kbuf: Optional[int], fallback: str) -> int:
     """`check_fused_list_request` for the bit-plane geometry: raises past
-    the kernel's caps or shared-memory budget; returns the candidate-buffer
+    the kernel's caps or envelope; returns the candidate-buffer
     width the kernel must run with (>= the caller's recorded `kbuf`)."""
     from raft_tpu_torch.ops.fused_scan import FUSED_MAX_K, fits_fused_bitplane, fused_kbuf
 
@@ -450,8 +450,8 @@ def check_bitplane_request(label: str, L: int, words: int, bits: int, k: int,
     kb = max(fused_kbuf(int(k)), kbuf or 0)
     if not fits_fused_bitplane(L, words, int(bits), int(k), kbuf=kb):
         raise ValueError(
-            f"{label}: list length {L} x {words} words x {bits} query bits exceeds the "
-            f"kernel's shared-memory budget; use {fallback}"
+            f"{label}: list length {L} x {words} words x {bits} query bits is outside the "
+            f"kernel's envelope; use {fallback}"
         )
     return kb
 

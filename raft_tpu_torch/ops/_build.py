@@ -50,11 +50,12 @@ def _target(source: str) -> Path:
     return BUILD_DIR / f"{Path(source).stem}_{h.hexdigest()[:12]}.so"
 
 
-def _command(source: str, out: Path) -> list:
+def _command(source: str, out: Path, csrc: Path = CSRC) -> list:
+    """nvcc for `source` under `csrc` into `out`.tmp (renamed once built)."""
     return [
         _nvcc(), "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
         "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v",
-        "-I", str(CSRC), "-o", str(out) + ".tmp", str(CSRC / source),
+        "-I", str(csrc), "-o", str(out) + ".tmp", str(csrc / source),
     ]
 
 

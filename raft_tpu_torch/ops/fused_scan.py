@@ -703,30 +703,80 @@ def bitplane_scores(s_u, pop, rn, o_dot, lo, delta, qsum, qconst, rot_dim: int,
     return _fma_f32(-(2.0 * rn), est, _fma_f32(rn, rn, qconst))
 
 
-def _bitplane_smem_bytes(words: int, bits: int, k: int = 1) -> int:
-    """Shared memory of one bit-plane block at this k (topk_smem_bytes<
-    BitplaneDots> in csrc/fused_bitplane_topk.cu): the tile's scores, the
-    block's plane words and its four qmeta rows; past k 32, 16-byte
-    aligned, then the rows' lists and buffers (block_lists_bytes in
-    csrc/block_topk.cuh: 16 rows x (list width + 128) pairs, the list
-    width the smallest of 64, 128 and 256 that holds k)."""
-    b = 4 * _ROWS * _TILE_SLOTS + 4 * _ROWS * (bits * words + 4)
-    if _list_cap(k):
-        b = -(-b // 16) * 16 + _lists_bytes(k)
-    return b
+def _bitplane_kb_words(k: int) -> int:
+    """Code words a K-block of the bit-plane kernel's scan at this k
+    (bp_kb_words in csrc/fused_bitplane_topk.cu): 4 (128-byte rows of
+    expanded bits a slot), or 2 (64-byte rows) with the 256-pair lists,
+    where 4 would leave room for only two blocks an SM."""
+    return 2 if _list_cap(k) == FUSED_MAX_K else 4
+
+
+def _bitplane_smem_bytes(words: int, k: int = 1, resident: Optional[bool] = None) -> int:
+    """Shared memory of one bit-plane block at this k (KBlock::smem_bytes
+    in csrc/fused_bitplane_topk.cu): 1024 bytes of alignment slack, one
+    K-block of the tile's expanded codes (128 slots x 32 bytes a word of
+    the K-block), the query levels (16 rows x the same bytes a K-block:
+    every K-block where `resident`, else one slice a warpgroup), the
+    score tile (16 x 132 floats, whose pads hold the rows' qmeta), then,
+    16-byte aligned, the rows' lists and buffers at this k
+    (block_lists_bytes in csrc/block_topk.cuh). `resident` None: the
+    launcher's own choice, resident where that fits SMEM_LIMIT
+    (`bitplane_resident`)."""
+    if resident is None:
+        resident = bitplane_resident(words, k)
+    kbw = _bitplane_kb_words(k)
+    kblocks = -(-int(words) // kbw)
+    b = (_TILE_SLOTS * 32 * kbw + _ROWS * 32 * kbw * (kblocks if resident else 2)
+         + 4 * _ROWS * _SC_STRIDE)
+    return 1024 + -(-b // 16) * 16 + _lists_bytes(k)
+
+
+def bitplane_resident(words: int, k: int) -> bool:
+    """Whether the bit-plane kernel holds every K-block of its query
+    levels in shared memory at this width and k (built once a block), or
+    streams them (each warpgroup rebuilds a K-block's slice beside its
+    codes): chosen by shape alone, as the launcher chooses."""
+    return _bitplane_smem_bytes(words, k, resident=True) <= SMEM_LIMIT
 
 
 def fits_fused_bitplane(L: int, words: int, bits: int, k: int,
                         kbuf: Optional[int] = None) -> bool:
-    """Shared-memory budget of one `fused_bitplane_topk` block on the card
-    (the list streams through in tiles, so any L that is a multiple of 128
-    fits); k <= 256, 1 <= bits <= BITPLANE_MAX_BITS, and `kbuf` (the width
-    the kernel will run with) must hold k."""
+    """Whether one `fused_bitplane_topk` launch takes this geometry: k <=
+    256, 1 <= bits <= BITPLANE_MAX_BITS, L a multiple of 128, `kbuf` (the
+    width the kernel will run with) holding k, and S_u = sum of the levels
+    over 32 x words positions below 2^24, so its f32 is exact. The list
+    streams through in tiles and the codes in K-blocks, so shared memory
+    bounds no width (`_bitplane_smem_bytes` streamed)."""
     if not (0 < k <= FUSED_MAX_K and 1 <= bits <= BITPLANE_MAX_BITS and words >= 1):
         return False
     if kbuf is not None and int(kbuf) < fused_kbuf(k):
         return False
-    return L % _LANES == 0 and _bitplane_smem_bytes(words, bits, int(k)) <= SMEM_LIMIT
+    if ((1 << int(bits)) - 1) * 32 * int(words) >= 1 << 24:
+        return False
+    return L % _LANES == 0 and _bitplane_smem_bytes(words, int(k), resident=False) <= SMEM_LIMIT
+
+
+def bitplane_levels(planes: torch.Tensor, bits: int) -> torch.Tensor:
+    """(..., 32 W) uint8 query levels of bit planes (..., bits * W) (int32
+    words): u[32 w + b] = sum_j ((planes[..., j * W + w] >> b) & 1) << j.
+    S_u is the integer dot product of these with `expand_code_bits`; the
+    kernel builds the same levels in another byte order (both sides
+    alike). For tests and yardsticks: the card path never calls it."""
+    W = planes.shape[-1] // int(bits)
+    shifts = torch.arange(32, dtype=torch.int32, device=planes.device)
+    u = torch.zeros(planes.shape[:-1] + (W, 32), dtype=torch.int32, device=planes.device)
+    for j in range(int(bits)):  # bit b of an int32 word is bit b of its uint32 reading
+        u += ((planes[..., j * W:(j + 1) * W, None] >> shifts) & 1) << j
+    return u.reshape(planes.shape[:-1] + (32 * W,)).to(torch.uint8)
+
+
+def expand_code_bits(codes_t: torch.Tensor) -> torch.Tensor:
+    """(..., 32 W, L) uint8 code bits (0 or 1) of word-transposed codes
+    (..., W, L) (int32 words): row 32 w + b is bit b of word w. For tests
+    and yardsticks: the card path never calls it."""
+    shifts = torch.arange(32, dtype=torch.int32, device=codes_t.device)[:, None]
+    bits = ((codes_t[..., None, :] >> shifts) & 1).to(torch.uint8)  # (..., W, 32, L)
+    return bits.reshape(codes_t.shape[:-2] + (32 * codes_t.shape[-2], codes_t.shape[-1]))
 
 
 def bitplane_su(planes, codes, bits: int) -> torch.Tensor:
@@ -781,9 +831,11 @@ def fused_bitplane_topk(lof, planes, codes_t, meta, base, qmeta, k: int, *, rot_
     scores, (ncb, chunk, kbuf) int32 in-list slots), best-first per row.
     L2 scores are the full estimated distance (qconst = |q - center|^2);
     inner-product scores are the negated estimated similarity (qconst =
-    q . center): negate back at the call site. The kernel selects with
-    register lists up to k = MAX_REGISTER_K and with shared-memory
-    lists merged in batches past it; both are exact."""
+    q . center): negate back at the call site. The kernel computes S_u
+    as a u8 x u8 product on the tensor cores (the query levels against
+    the code bits, `bitplane_levels` / `expand_code_bits`) and selects
+    with register lists up to k = MAX_REGISTER_K and with shared-memory
+    lists merged in batches past it; all of it is exact."""
     _check(isinstance(planes, torch.Tensor), "planes must be a tensor")
     dev = planes.device
     _tensor_arg("lof", lof, (torch.int32,), 1, dev)
@@ -821,7 +873,8 @@ def fused_bitplane_topk(lof, planes, codes_t, meta, base, qmeta, k: int, *, rot_
                                                          chunk_valid, chunk_rows))
     _check(dev.type == "cuda", f"fused_bitplane_topk runs on cpu or cuda, got {dev}")
     _check(fits_fused_bitplane(L, W, int(bits), int(k), kb),
-           f"fused_bitplane_topk: words={W}, bits={bits} exceed the kernel's shared-memory budget")
+           f"fused_bitplane_topk: words={W}, bits={bits}, k={k} are outside the kernel's "
+           f"envelope (S_u past 2^24)")
     vals = torch.empty((ncb, chunk, kb), dtype=torch.float32, device=dev)
     idx = torch.empty((ncb, chunk, kb), dtype=torch.int32, device=dev)
     fn = _kernel_fn("fused_bitplane_topk.cu", "fused_bitplane_topk_launch",

@@ -39,11 +39,12 @@ def test_masks_pack_to_the_same_words(rng, n):
 @pytest.mark.parametrize("n", [1, 45, 300])
 def test_constructors_and_mutators_match_jax(rng, n):
     for value in (True, False):
-        np.testing.assert_array_equal(tbs.Bitset.full(n, value).bits.numpy(),
+        np.testing.assert_array_equal(tbs.Bitset.full(n, value, device="cpu").bits.numpy(),
                                       _words(jbs.Bitset.full(n, value)))
     ids = rng.integers(-5, n + 5, 20)  # duplicates and ids out of range
-    np.testing.assert_array_equal(tbs.Bitset.excluding(n, torch.tensor(ids)).bits.numpy(),
-                                  _words(jbs.Bitset.excluding(n, jnp.asarray(ids))))
+    np.testing.assert_array_equal(
+        tbs.Bitset.excluding(n, torch.tensor(ids), device="cpu").bits.numpy(),
+        _words(jbs.Bitset.excluding(n, jnp.asarray(ids))))
     a, b = rng.random(n) < 0.3, rng.random(n) < 0.6
     ja, jb = jbs.Bitset.from_mask(a), jbs.Bitset.from_mask(b)
     ta, tb = tbs.Bitset.from_mask(a), tbs.Bitset.from_mask(b)
@@ -56,7 +57,20 @@ def test_constructors_and_mutators_match_jax(rng, n):
     np.testing.assert_array_equal((ta | tb).bits.numpy(), _words(ja | jb))
     assert int(ta.flip().count()) == int(ja.flip().count()) == n - int(a.sum())
     with pytest.raises(ValueError, match="length mismatch"):
-        ta & tbs.Bitset.full(n + 1)
+        ta & tbs.Bitset.full(n + 1, device="cpu")
+
+
+def test_constructors_default_to_the_card():
+    """`full` and `excluding` land on the card by default, as JAX's
+    `Bitset.full` lands on the default device; without a card the
+    default raises (`core.config.resolve_device`), never quietly the CPU."""
+    if torch.cuda.is_available():
+        pytest.skip("a card is present: the default lands there")
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        tbs.Bitset.full(45)
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        tbs.Bitset.excluding(45, torch.tensor([1, 2]))
+    assert tbs.Bitset.excluding(45, torch.tensor([1, 2]), device="cpu").device.type == "cpu"
 
 
 def test_as_bitset_checks_what_it_is_given(rng):

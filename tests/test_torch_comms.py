@@ -428,6 +428,23 @@ def test_bootstrap_is_idempotent_and_retries(monkeypatch):
     assert comms_mod.bootstrap_multihost() is False
 
 
+def test_bootstrap_multihost_defaults_to_the_card(monkeypatch):
+    """With no device, a fresh bootstrap asks for cuda:LOCAL_RANK; without
+    a card that raises before any process group starts (a CPU world is
+    asked for with device="cpu"), as `core.config.resolve_device` does."""
+    if torch.cuda.is_available():
+        pytest.skip("a card is present: the default lands there")
+    calls = {"n": 0}
+    monkeypatch.setattr(comms_mod, "_init_process_group",
+                        lambda **kw: calls.__setitem__("n", calls["n"] + 1))
+    monkeypatch.setattr(comms_mod, "_MULTIHOST_INITIALIZED", False)
+    monkeypatch.setattr(comms_mod, "_PROCESS_STATE", {})
+    monkeypatch.setattr(comms_mod, "_process_world_active", lambda: False)
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        comms_mod.bootstrap_multihost(backoff_s=0.01)
+    assert calls["n"] == 0
+
+
 def test_exchange_under_fast_thread_switching(tc):
     """200 allreduces and ring shifts on 8 rank threads while the
     interpreter switches threads as often as it can: every result holds,

@@ -188,7 +188,12 @@ def test_envelope_and_argument_checks(rng):
     assert not tfs.fits_fused_bitplane(3840, 3, 8, 257)
     assert not tfs.fits_fused_bitplane(300, 3, 8, 10)  # not a multiple of 128
     assert not tfs.fits_fused_bitplane(3840, 3, 8, 200, kbuf=128)
-    assert not tfs.fits_fused_bitplane(3840, 2000, 8, 10)  # planes past shared memory
+    # no width is past shared memory now (the codes stream in K-blocks);
+    # 8-bit levels over 32 x 2057 positions would take S_u past 2^24
+    assert tfs.fits_fused_bitplane(3840, 2000, 8, 10)
+    assert tfs.fits_fused_bitplane(3840, 2056, 8, 10)
+    assert not tfs.fits_fused_bitplane(3840, 2057, 8, 10)
+    assert tfs.fits_fused_bitplane(3840, 2057, 7, 10)
     lof, planes, codes_t, meta, base, qmeta = _torch_args(_case(rng, rot=96))
     with pytest.raises(ValueError, match="bits"):
         tfs.fused_bitplane_topk(lof, planes, codes_t, meta, base, qmeta, 10, rot_dim=96, bits=9)
@@ -209,17 +214,105 @@ def test_selection_by_k_and_its_shared_memory_budget(rng):
     """The kernel's selection is picked by k alone: register lists up to
     k = 32, shared-memory lists past it, which add 16 rows x (list width +
     128) pairs to the block's shared memory, the list width the smallest
-    of 64, 128 and 256 that holds k. The plain version answers for both
-    sides of the switch, bit for bit as the JAX kernel does."""
+    of 64, 128 and 256 that holds k. The rest of the block is one K-block
+    of expanded codes (128 slots x 32 bytes a word of the K-block: 4
+    words, or 2 with the 256-pair lists), the query levels (16 rows x the
+    same bytes a K-block when resident, else a slice a warpgroup) and the
+    score tile, whose pads hold the qmeta. The plain version answers for
+    both sides of the switch, bit for bit as the JAX kernel does."""
     assert tfs.MAX_REGISTER_K == 32
-    regs = tfs._bitplane_smem_bytes(3, 8, 32)
-    assert regs == tfs._bitplane_smem_bytes(3, 8)
-    for k, width in ((33, 64), (64, 64), (65, 128), (128, 128), (129, 256), (256, 256)):
-        assert tfs._bitplane_smem_bytes(3, 8, k) == (
-            -(-regs // 16) * 16 + 16 * (width + 128) * 8)
+    regs = tfs._bitplane_smem_bytes(3, 32)
+    assert regs == tfs._bitplane_smem_bytes(3) == 1024 + 128 * 128 + 16 * 128 + 4 * 16 * 132
+    for k, width in ((33, 64), (64, 64), (65, 128), (128, 128)):
+        assert tfs._bitplane_smem_bytes(3, k) == regs + 16 * (width + 128) * 8
+    narrow = 1024 + 128 * 64 + 2 * 16 * 64 + 4 * 16 * 132  # 2-word K-blocks
+    for k in (129, 250, 256):
+        assert tfs._bitplane_smem_bytes(3, k) == narrow + 16 * (256 + 128) * 8
+    # a K-block of levels a 4 words, resident; two slices streamed
+    assert tfs._bitplane_smem_bytes(9, 10) == regs + 2 * 16 * 128
+    assert tfs._bitplane_smem_bytes(9, 10, resident=False) == regs + 16 * 128
+    # the main path's width leaves room for the blocks an SM the kernel is
+    # built for: four with register lists and 64-pair lists, three past them
+    for k in (10, 40, 64):
+        assert 4 * (tfs._bitplane_smem_bytes(3, k) + 1024) <= 228 * 1024
+    for k in (65, 128, 250):
+        assert 3 * (tfs._bitplane_smem_bytes(3, k) + 1024) <= 228 * 1024
     assert tfs.fits_fused_bitplane(4992, 3, 8, 250)
     assert tfs.fits_fused_bitplane(3840, 400, 8, 32)
-    assert not tfs.fits_fused_bitplane(3840, 400, 8, 33)  # the lists no longer fit
+    assert tfs.fits_fused_bitplane(3840, 400, 8, 33)  # past the resident levels: streamed
+    assert tfs.bitplane_resident(400, 32) and not tfs.bitplane_resident(400, 33)
     args = _case(rng, rot=96)
     for k in (32, 33):
         _bitwise(_port(args, k, 96, 8, False), _jax(args, k, 96, 8, False))
+
+
+def _old_fits(L, words, bits, k, kbuf=None):
+    """The envelope of the CUDA-core bit-plane scan this kernel replaced:
+    the tile's scores, the block's plane words and qmeta, past k 32 the
+    lists, within SMEM_LIMIT."""
+    if not (0 < k <= 256 and 1 <= bits <= 8 and words >= 1):
+        return False
+    if kbuf is not None and kbuf < tfs.fused_kbuf(k):
+        return False
+    b = 4 * 16 * 128 + 4 * 16 * (bits * words + 4)
+    cap = 0 if k <= 32 else 64 if k <= 64 else 128 if k <= 128 else 256
+    if cap:
+        b = -(-b // 16) * 16 + 8 * 16 * (cap + 128)
+    return L % 128 == 0 and b <= tfs.SMEM_LIMIT
+
+
+def test_envelope_admits_every_shape_the_popcount_scan_did():
+    """Every (L, words, bits, k, kbuf) the earlier envelope admitted, the
+    K-blocked tensor-core scan admits too (it streams codes and, past the
+    resident edge, query levels, so shared memory bounds no width)."""
+    widths = list(range(1, 48)) + list(range(48, 3600, 29)) + [400, 437, 438, 3500, 3501]
+    admitted = 0
+    for L in (128, 300, 3840, 4992):
+        for bits in range(1, 9):
+            for words in widths:
+                for k in (1, 10, 32, 33, 64, 65, 128, 129, 250, 256):
+                    for kbuf in (None, 128, 256):
+                        if _old_fits(L, words, bits, k, kbuf):
+                            admitted += 1
+                            assert tfs.fits_fused_bitplane(L, words, bits, k, kbuf), (
+                                L, words, bits, k, kbuf)
+    assert admitted > 10_000
+    assert _old_fits(3840, 437, 8, 10) and not _old_fits(3840, 438, 8, 10)
+    assert _old_fits(3840, 3500, 1, 10) and tfs.fits_fused_bitplane(3840, 3500, 1, 10)
+
+
+_IDENTITY_WORDS = (1, 3, 4, 5, 8, 9, 32)
+
+
+@pytest.mark.parametrize("words", _IDENTITY_WORDS)
+def test_levels_times_code_bits_is_the_bitplane_sum(rng, words):
+    """The identity the kernel rests on: S_u = sum_d u[d] b[d], the u8
+    query levels (`bitplane_levels`) against the {0, 1} code bits
+    (`expand_code_bits`), equals `bitplane_su` and JAX's `binary_dot` bit
+    for bit, for 1 to 8 query bits, on random words, all-ones planes
+    (level 2^bits - 1), all-ones codes (bit 31 set) and zero words."""
+    ncb, chunk, L = 2, 4, 128
+    for bits in range(1, 9):
+        planes = rng.integers(0, 2**32, (ncb, chunk, bits * words), dtype=np.uint64).astype(
+            np.uint32)
+        codes_t = rng.integers(0, 2**32, (ncb, words, L), dtype=np.uint64).astype(np.uint32)
+        planes[0, 0] = 0xFFFFFFFF  # every level 2^bits - 1
+        planes[0, 1] = 0
+        planes[1, 0, ::2] = 0x80000000
+        codes_t[0, :, 0] = 0xFFFFFFFF  # every bit set, bit 31 too
+        codes_t[0, :, 1] = 0
+        codes_t[1, words // 2, 2:] = 0x80000001
+        tp, tc = torch.tensor(planes.view(np.int32)), torch.tensor(codes_t.view(np.int32))
+        levels = tfs.bitplane_levels(tp, bits)
+        cbits = tfs.expand_code_bits(tc)
+        assert levels.dtype == cbits.dtype == torch.uint8
+        assert levels.shape == (ncb, chunk, 32 * words) and cbits.shape == (ncb, 32 * words, L)
+        assert int(levels.max()) <= (1 << bits) - 1 and int(cbits.max()) <= 1
+        assert int(levels[0, 0].min()) == (1 << bits) - 1 and int(cbits[0, :, 0].min()) == 1
+        prod = torch.bmm(levels.to(torch.int64), cbits.to(torch.int64)).to(torch.int32)
+        su = tfs.bitplane_su(tp, tc, bits)
+        np.testing.assert_array_equal(prod.numpy(), su.numpy())
+        assert int(su[0, 0, 0]) == ((1 << bits) - 1) * 32 * words
+        want = np.asarray(binary_dot(jnp.asarray(np.transpose(codes_t, (0, 2, 1)))[:, None],
+                                     jnp.asarray(planes).reshape(ncb, chunk, 1, bits, words)))
+        np.testing.assert_array_equal(prod.numpy(), want.astype(np.int32))

@@ -349,9 +349,16 @@ def test_list_kernel_shared_memory_at_the_main_path_shapes():
 
 @pytest.mark.parametrize("k,words", [(40, 389), (100, 373), (250, 341)])
 def test_bitplane_envelope_follows_the_list_width(k, words):
-    """At 8 query bits the widest rotation a bit-plane block holds grows
-    as the list narrows with k (64, 128, 256 pairs): 389, 373 and 341 code
-    words, from 341 at every k when the lists were 256 pairs wide."""
+    """At 8 query bits the widest rotation the CUDA-core bit-plane scan
+    held grew as the list narrowed with k (64, 128, 256 pairs): 389, 373
+    and 341 code words. The K-blocked tensor-core scan admits those and
+    past them; what follows the list width now is the widest rotation
+    whose query levels stay resident in shared memory (352, 336 and 322
+    words: 88 and 84 K-blocks of 4 words, then 161 of 2 with the 256-pair
+    lists), past which they stream."""
     assert tfs.fits_fused_bitplane(256, words, 8, k)
-    assert not tfs.fits_fused_bitplane(256, words + 1, 8, k)
+    assert tfs.fits_fused_bitplane(256, words + 1, 8, k)
     assert tfs.fits_fused_bitplane(4992, 3, 8, k)
+    edge = {40: 352, 100: 336, 250: 322}[k]
+    assert tfs.bitplane_resident(edge, k) and not tfs.bitplane_resident(edge + 1, k)
+    assert tfs.bitplane_resident(3, k)

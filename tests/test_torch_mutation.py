@@ -226,7 +226,7 @@ def test_delete_equals_exclusion_prefilter(data, jax_indexes, kind, engine):
     assert out is not idx and idx.tombstones is None
     assert out.n_tombstones == 150 and tm.live_rows(out) == N - 150
     params = dict(n_probes=N_PROBES, **engine)
-    want = _tsearch(kind, idx, q, prefilter=Bitset.excluding(idx.id_bound, victims),
+    want = _tsearch(kind, idx, q, prefilter=Bitset.excluding(idx.id_bound, victims, device="cpu"),
                     params=params)
     got = _tsearch(kind, out, q, params=params)
     np.testing.assert_array_equal(got[1], want[1])
