@@ -78,6 +78,11 @@ Phases, in order; any failure exits non-zero:
      fused_list_topk_int8 with and without its TMA staging (bit for bit);
      and the same lists with half their real slots filtered at k 10 and
      40 (L 640 and 3840, IVF-Flat's bf16 store);
+  3b. the JAX package's call shapes (call_shape_path): the twenty entry
+     points that take `resources=`, and kmeans.fit / fit_predict, each
+     called positionally as the JAX package is, with `Resources()` at its
+     position, on 20,000 x 32 blobs: each result bit for bit the call
+     without it, and `sync()` returns;
   4. the main path at full size: 1M x 96 clustered vectors (1024 blob
      centers U(-5, 5) plus unit gaussian noise, made from --seed), IVF-PQ
      build (n_lists 1024, pq_dim 48, kmeans_n_iters 10), exact truth with
@@ -104,7 +109,12 @@ Phases, in order; any failure exits non-zero:
      8/16/32/64 x rerank_mult 4/8/16/25, up to the first rung at recall@10
      >= 0.95) with scan_engine="fused" and the exact rerank, QPS over
      windows; once at n_probes 8, rerank_mult 4, the "xla" engine against
-     the fused one on the estimator-ranked candidates. Then IVF-Flat on
+     the fused one on the estimator-ranked candidates; at the gate rung,
+     under the committed table, the search's default exact rerank (refine's
+     default dispatch: kernel 1's fused rerank where the table's
+     select_k_strategy is "fused") beside an explicit two-phase rerank,
+     recall@10 within 0.01 of each other and each fenced batch timed in
+     turns (`rabitq rerank` line, with the card). Then IVF-Flat on
      the same data and truth (ivf_flat_path): build (n_lists 1024,
      kmeans_n_iters 10), the engines "fused" (kernel 1 over the bf16
      residual store), "list", "query" and "auto" over n_probes 8/16/32 up
@@ -259,7 +269,9 @@ Phases, in order; any failure exits non-zero:
      requests one call at a time), the speedup, the SLO verdict and the
      device's idle share; every searcher under 2 x 100 requests (brute
      force fused, IVF-PQ recon8_list with the fused bf16 / int8 and pallas
-     trims, RaBitQ fused: kernels 2, 1, 3, 4, 7 and 6), each batch-mate
+     trims, RaBitQ fused with its default rerank: kernels 2, 1, 3, 4, 7
+     and 6, and 1 again in RaBitQ's rerank where the table's
+     select_k_strategy is "fused"), each batch-mate
      independent bit for bit (a request in a mixed batch against itself
      alone in the same bucket) and against the plain search of its own
      rows (bit for bit, else values within 1e-6 of the squared norms and
@@ -367,6 +379,10 @@ TERM_OPS = {"l1": 2, "linf": 2, "l2_unexpanded": 2, "l2_sqrt_unexpanded": 2, "ca
 TERM_MUFU = {"canberra": 0.5}
 Y_ELEM_MUFU = {"kl_divergence": 1}
 RECALL_GATE = 0.95
+#: a tuned winner may lose at most this much recall@k against the untuned
+#: choice (the JAX package's rule); held by the default rerank against
+#: the two-phase one
+RERANK_RECALL_SLACK = 0.01
 #: earlier times, for the log lines only (figures quoted from PERF.md
 #: section 6, H100 80GB HBM3, 700.00 W; not measured by this run): the f32
 #: CUDA-core fused_l2_argmin the split-TF32 design replaced, at the
@@ -1478,6 +1494,120 @@ def bitplane_checks(fs, dev, rng):
 
 
 # ---------------------------------------------------------------------------
+# phase 3b: the JAX package's call shapes on the card
+# ---------------------------------------------------------------------------
+
+
+def shape_equal(a, b) -> bool:
+    """Results equal bit for bit: tensors, tuples of them, an index's
+    tensor fields, numbers."""
+    if isinstance(a, torch.Tensor):
+        return same_bits(a, b)
+    if isinstance(a, (tuple, list)):
+        return len(a) == len(b) and all(shape_equal(u, v) for u, v in zip(a, b))
+    if hasattr(a, "__dict__"):
+        fa, fb = vars(a), vars(b)
+        return fa.keys() == fb.keys() and all(
+            same_bits(v, fb[n]) for n, v in fa.items() if isinstance(v, torch.Tensor))
+    return a == b
+
+
+def call_shape_path(g, dev, sync):
+    """The twenty entry points that take the JAX package's `resources=`,
+    and `kmeans.fit` / `fit_predict`, each called once as the JAX package
+    is called, positionally with a `Resources()` handle at JAX's position
+    (its device: the card; `Resources(device="cpu")` in the rehearsal),
+    on 20,000 x 32 blobs: each result must equal the call without the
+    handle (on the default device) bit for bit, and `sync()` must return."""
+    from raft_tpu_torch import Resources
+    from raft_tpu_torch.cluster import kmeans, kmeans_balanced
+    from raft_tpu_torch.distance import distance, fused_l2_nn, fused_l2_nn_argmin
+    from raft_tpu_torch.distance.pairwise import pairwise_distance
+    from raft_tpu_torch.matrix import scan_select_k, select_k
+    from raft_tpu_torch.neighbors import brute_force, ivf_flat, ivf_pq, ivf_rabitq
+    from raft_tpu_torch.neighbors.quantizer import RabitqQuantizer
+    from raft_tpu_torch.neighbors.refine import refine, refine_host
+
+    t0 = time.perf_counter()
+    x_np, _ = make_blobs(g.seed + 90, 20_000, 32, 0, 64)[:2]
+    x = torch.from_numpy(x_np).to(dev)
+    q = x[:64] + 0.01
+    rng = np.random.default_rng(g.seed + 91)
+    cand_np = np.stack([rng.choice(x.shape[0], 64, replace=False) for _ in range(64)]
+                       ).astype(np.int32)
+    cand = torch.from_numpy(cand_np).to(dev)
+    on = {} if dev.type == "cuda" else {"device": dev}  # the rehearsal asks for the CPU
+    dists = pairwise_distance(q, x, metric="sqeuclidean", **on)
+    centers = x[:16].clone()
+    params = {ivf_flat: ivf_flat.IndexParams(n_lists=16, kmeans_n_iters=5),
+              ivf_pq: ivf_pq.IndexParams(n_lists=16, pq_dim=16, kmeans_n_iters=5),
+              ivf_rabitq: ivf_rabitq.IndexParams(n_lists=16, kmeans_n_iters=5)}
+    index = {m: m.build(p, x, **on) for m, p in params.items()}
+    sp = {ivf_flat: ivf_flat.SearchParams(n_probes=4), ivf_pq: ivf_pq.SearchParams(n_probes=4),
+          ivf_rabitq: ivf_rabitq.SearchParams(n_probes=4)}
+    km = kmeans.KMeansParams(n_clusters=8, max_iter=5)
+    calls = {
+        "pairwise_distance": (lambda r: pairwise_distance(x, q, None, "euclidean", 2.0, r),
+                              lambda: pairwise_distance(x, q, metric="euclidean", **on)),
+        "distance": (lambda r: distance(x, q, None, "sqeuclidean", 2.0, r),
+                     lambda: distance(x, q, metric="sqeuclidean", **on)),
+        "fused_l2_nn": (lambda r: fused_l2_nn(q, x, False, r), lambda: fused_l2_nn(q, x, **on)),
+        "fused_l2_nn_argmin": (lambda r: fused_l2_nn_argmin(q, x, False, r),
+                               lambda: fused_l2_nn_argmin(q, x, **on)),
+        "select_k": (lambda r: select_k(dists, 10, True, None, r, None),
+                     lambda: select_k(dists, 10, **on)),
+        "scan_select_k": (lambda r: scan_select_k(q, x, 10, "sqeuclidean", None, None, r),
+                          lambda: scan_select_k(q, x, 10, **on)),
+        "knn": (lambda r: brute_force.knn(x, q, 10, "sqeuclidean", 2.0, r, "tiled"),
+                lambda: brute_force.knn(x, q, 10, **on)),
+        "refine": (lambda r: refine(x, q, cand, 10, "sqeuclidean", r, None),
+                   lambda: refine(x, q, cand, 10, **on)),
+        "refine_host": (lambda r: refine_host(x_np, q, cand_np, 10, "sqeuclidean", r, None),
+                        lambda: refine_host(x_np, q, cand_np, 10, **on)),
+        "Quantizer.rerank_candidates": (
+            lambda r: RabitqQuantizer(32).rerank_candidates(x, q, cand, 10, "sqeuclidean", r),
+            lambda: RabitqQuantizer(32).rerank_candidates(x, q, cand, 10)),
+        "kmeans.predict": (lambda r: kmeans.predict(x, centers, r),
+                           lambda: kmeans.predict(x, centers, **on)),
+        "kmeans.cluster_cost": (lambda r: kmeans.cluster_cost(x, centers, r),
+                                lambda: kmeans.cluster_cost(x, centers, **on)),
+        "kmeans_balanced.fit": (lambda r: kmeans_balanced.fit(x, 16, 5, "sqeuclidean", 0, None, r),
+                                lambda: kmeans_balanced.fit(x, 16, 5, **on)),
+        "kmeans_balanced.predict": (
+            lambda r: kmeans_balanced.predict(x, centers, "sqeuclidean", r),
+            lambda: kmeans_balanced.predict(x, centers, **on)),
+        "kmeans.fit": (lambda r: kmeans.fit(x, km, None, None, r),
+                       lambda: kmeans.fit(x, km, **on)),
+        "kmeans.fit_predict": (lambda r: kmeans.fit_predict(x, km, r),
+                               lambda: kmeans.fit_predict(x, km, **on)),
+    }
+    for m in (ivf_flat, ivf_pq, ivf_rabitq):
+        name = m.__name__.rsplit(".", 1)[-1]
+        calls[f"{name}.build"] = (lambda r, m=m: m.build(params[m], x, r, 0),
+                                  lambda m=m: m.build(params[m], x, seed=0, **on))
+        extra = {"refine_dataset": x} if m is ivf_rabitq else {}
+        calls[f"{name}.search"] = (
+            lambda r, m=m, e=extra: m.search(sp[m], index[m], q, 10, r, None, *e.values()),
+            lambda m=m, e=extra: m.search(sp[m], index[m], q, 10, **e))
+    bad = []
+    for name, (jax_style, plain) in calls.items():
+        res = Resources() if dev.type == "cuda" else Resources(device=dev)
+        out = jax_style(res)
+        res.sync()
+        ref = plain()
+        sync()
+        if not shape_equal(out, ref):
+            bad.append(name)
+    log(f"call shapes: {len(calls)} entry points called with resources=Resources() at the JAX "
+        f"position on {dev}, each against the call without it: "
+        f"{'all bit for bit' if not bad else f'differ: {bad}'}; sync() returned; "
+        f"{time.perf_counter() - t0:.1f} s")
+    if bad:
+        raise AssertionError(f"call shapes: results differ with resources= for {bad}")
+    return {"entry_points": len(calls), "differ": bad}
+
+
+# ---------------------------------------------------------------------------
 # phase 4: the main path
 # ---------------------------------------------------------------------------
 
@@ -1949,6 +2079,8 @@ def rabitq_path(g, dev, res, fs, sync):
             label=f"rabitq gate rung n_probes {gate['n_probes']} rerank_mult "
                   f"{gate['rerank_mult']}")
     qconsts = query_consts_cost(ivf_rabitq, gate_run, g.reps, gate["batch_s"] * 1e3, dev, sync)
+    rerank, rerank_call = rabitq_rerank_ab(g, dev, gate_params, index, dataset, queries, truth,
+                                           fs, sync)
 
     # the two scan engines on the estimator ranking (no rerank)
     kk = ivf_rabitq.rerank_depth(g.k, 4)
@@ -1971,9 +2103,96 @@ def rabitq_path(g, dev, res, fs, sync):
         f"{queries.shape[0]} queries: equal ids {same:.6f}, bitwise-equal values {bitwise:.6f}, "
         f"largest value gap {gap}; xla engine {xla_s:.3f} s for the batch")
     return {"build_s": build_s, "rungs": rungs, "gate": gate, "launches": launches,
-            "breakdown": breakdown, "query_consts": qconsts, "index": index,
+            "breakdown": breakdown, "query_consts": qconsts, "rerank_ab": rerank, "index": index,
             "xla_vs_fused": {"equal_ids": same, "equal_value_bits": bitwise, "max_gap": gap,
-                             "xla_s": xla_s}}, (captured, gate_call)
+                             "xla_s": xla_s}}, (captured, gate_call, rerank_call)
+
+
+@contextlib.contextmanager
+def rerank_strategy(strategy):
+    """RaBitQ's exact rerank (`Quantizer.rerank_candidates`) with an
+    explicit refine `strategy` in place of refine's default dispatch."""
+    from raft_tpu_torch.neighbors import quantizer
+    from raft_tpu_torch.neighbors.refine import refine
+
+    default = quantizer.Quantizer.rerank_candidates
+
+    def rerank(self, dataset, queries, candidates, k, metric="sqeuclidean", resources=None):
+        return refine(dataset, queries, candidates, k, metric=metric, resources=resources,
+                      strategy=strategy, device=torch.as_tensor(candidates).device)
+
+    quantizer.Quantizer.rerank_candidates = rerank
+    try:
+        yield
+    finally:
+        quantizer.Quantizer.rerank_candidates = default
+
+
+def rabitq_rerank_ab(g, dev, params, index, dataset, queries, truth, fs, sync):
+    """The gate rung's search under the committed table, once with its
+    default exact rerank (refine's default dispatch: the tuned
+    `select_k_strategy`, so kernel 1's fused rerank where the table names
+    "fused" and the candidates fit) and once with an explicit two-phase
+    rerank: recall@k of each against the phase's truth (the fused, bf16
+    k-NN) and an f32 one (the tiled k-NN), the default losing at most
+    RERANK_RECALL_SLACK against two-phase on either (the tuned-winner
+    rule), kernel 1's launches in one call of each, and
+    in turns each arm's batch over windows (`timed_windows`) and g.reps
+    single batches, each fenced. Returns (summary, the default's first
+    kernel 1 call, for its phase-5 row; None where it made none)."""
+    from raft_tpu_torch.core import tuned
+    from raft_tpu_torch.neighbors import brute_force, ivf_rabitq
+    from raft_tpu_torch.ops import _launch
+
+    def run():
+        return ivf_rabitq.search(params, index, queries, g.k)
+
+    truth32 = brute_force.knn(dataset, queries, g.k, engine="tiled", device=dev)[1]
+
+    arms = {"default": contextlib.nullcontext, "two_phase": lambda: rerank_strategy("two_phase")}
+    out = {name: {"batch_s": [], "fenced_s": []} for name in arms}
+    with open(tuned.path()) as f:
+        record = json.load(f)
+    with table(record):  # the committed file's values, inside phase 4's empty table
+        strategy = tuned.get("select_k_strategy") if tuned.applies(dev) else None
+        for name, arm in arms.items():
+            with arm(), Spy(fs, "fused_list_topk") as spy:
+                before = _launch.launch_counts()["fused_list_topk"]
+                _, ids = run()
+                sync()
+            out[name].update(recall=recall(ids, truth), recall_f32=recall(ids, truth32),
+                             fused_list_topk=_launch.launch_counts()["fused_list_topk"] - before)
+            if name == "default":
+                rerank_call = spy.calls[0] if spy.calls else None
+        for _ in range(2):  # in turns: default, two-phase, default, two-phase
+            for name, arm in arms.items():
+                with arm():
+                    out[name]["batch_s"].append(timed_windows(g, run, sync)[0])
+                    for _ in range(g.reps):  # one batch, fenced
+                        sync()
+                        t0 = time.perf_counter()
+                        run()
+                        sync()
+                        out[name]["fenced_s"].append(time.perf_counter() - t0)
+    # what the default loses against two-phase (negative: it gains)
+    loss = {t: out["two_phase"][t] - out["default"][t] for t in ("recall", "recall_f32")}
+    card = device_header() if dev.type == "cuda" else "cpu rehearsal"
+    log(f"rabitq rerank at the gate rung n_probes {params.n_probes} rerank_mult "
+        f"{params.rerank_mult}, committed select_k_strategy {strategy!r}, on {card}: "
+        + "; ".join(f"{name} recall@{g.k} {r['recall']:.4f} (f32 truth {r['recall_f32']:.4f}), "
+                    f"fused_list_topk launches a call "
+                    f"{r['fused_list_topk']}, ms a {g.nq}-query batch over windows "
+                    + " / ".join(f"{b * 1e3:.4f}" for b in r["batch_s"])
+                    + ", one batch fenced " + " / ".join(f"{b * 1e3:.4f}" for b in r["fenced_s"])
+                    for name, r in out.items())
+        + f"; the default loses {loss['recall']:.4f} (f32 truth {loss['recall_f32']:.4f})")
+    if max(loss.values()) > RERANK_RECALL_SLACK:
+        raise AssertionError(f"rabitq default rerank: recall@{g.k} loses {loss} against "
+                             f"two-phase, past {RERANK_RECALL_SLACK}")
+    if dev.type == "cuda" and strategy == "fused" and out["default"]["fused_list_topk"] <= 0:
+        raise AssertionError("rabitq default rerank: the tuned table names 'fused' and kernel "
+                             "1 never launched")
+    return dict(out, select_k_strategy=strategy, recall_loss=loss), rerank_call
 
 
 def ivf_flat_path(g, dev, res, fs, sync):
@@ -7239,10 +7458,14 @@ def serve_searchers_part(g, dev, S, inp, sync, spies):
     (3) and pallas (4), IVF-RaBitQ (7): QPS, p99, recall@k, launches, and
     the batch-mate checks (a) and (b)."""
     from raft_tpu_torch import serve
+    from raft_tpu_torch.core import tuned
     from raft_tpu_torch.neighbors import brute_force, ivf_pq, ivf_rabitq
     from raft_tpu_torch.ops import _launch
 
     pq, truth = inp["probe_q"], inp["probe_truth"]
+    # RaBitQ's default exact rerank: kernel 1 where the table names "fused"
+    rerank = (("fused_list_topk",) if tuned.applies(dev)
+              and tuned.get("select_k_strategy") == "fused" else ())
     pq_np, truth_np = pq.cpu().numpy(), truth.cpu().numpy()
     gate = inp["rb_gate"]
 
@@ -7283,7 +7506,7 @@ def serve_searchers_part(g, dev, S, inp, sync, spies):
                                                             inp["index"], q, g.k)),
                                pq_diag),
         "ivf_rabitq fused": (lambda: serve.IvfRabitqSearcher(inp["rb_index"], rb_sp),
-                             ("fused_bitplane_topk",), "rabitq",
+                             ("fused_bitplane_topk",) + rerank, "rabitq",
                              lambda q: host(ivf_rabitq.search(rb_sp, inp["rb_index"], q, g.k)),
                              lambda q, b: stage_diffs(inp["rb_index"], q, b, gate["n_probes"])),
     }
@@ -9080,6 +9303,7 @@ def main(argv=None):
     if g.checks:
         log(f"checks complete in {time.perf_counter() - t_all:.1f} s; no result printed")
         return 4
+    call_shapes = call_shape_path(g, dev, sync)
 
     # phases 4 and 5 run the JAX package's untuned program (the engines by
     # name); phases 4b and 4c read the tuned table
@@ -9148,6 +9372,11 @@ def main(argv=None):
         rows.append(bitplane_row(fs, rb_call[1], n(("rabitq", "fused"), "fused_bitplane_topk"), g.reps,
                                  f"rabitq gate rung n_probes {gate['n_probes']}, rerank_mult "
                                  f"{gate['rerank_mult']}"))
+        if rb_call[2] is not None:  # RaBitQ's default rerank under the committed table
+            rows.append(list_kernel_row(fs, rb_call[2],
+                                        rb["rerank_ab"]["default"]["fused_list_topk"], g.reps,
+                                        "RaBitQ default rerank at the gate rung (committed "
+                                        "table), chunk 1"))
         refine_row = list_kernel_row(fs, captured["refine"], res["list_launches"]["refine"], g.reps,
                                      "refine, chunk 1")
         rows.append(list_kernel_row(fs, fl_call, n(("ivf_flat", "fused"), "fused_list_topk"), g.reps,
@@ -9202,7 +9431,8 @@ def main(argv=None):
     serve_summary, serve_rows = serve_path(g, dev, sync, serve_inputs(res, fl, rb))
     rows += serve_rows
     jobs_summary = jobs_path(g, dev, sync, jobs_inputs(res))
-    summary = {"build_s": res["build_s"], "truth_s": res["truth_s"], "rungs": res["rungs"],
+    summary = {"call_shapes": call_shapes,
+               "build_s": res["build_s"], "truth_s": res["truth_s"], "rungs": res["rungs"],
                "breakdown": res["breakdown"], "pallas_breakdown": res["pallas_breakdown"],
                "refine_kernel": refine_row,
                "sorted_top_ab": res["sorted_top_ab"], "knn_l1": sl["knn_l1"],

@@ -28,6 +28,7 @@ from raft_tpu_torch.cluster.kmeans_common import (
     predict_labels,
 )
 from raft_tpu_torch.core.config import auto_convert_output
+from raft_tpu_torch.core.resources import accepts_resources
 from raft_tpu_torch.core.validation import as_tensor, check_matrix
 from raft_tpu_torch.random.rng import make_generator, sample_without_replacement
 
@@ -105,8 +106,9 @@ def _lloyd(x: torch.Tensor, centers0: torch.Tensor, weights: Optional[torch.Tens
 
 
 @auto_convert_output
+@accepts_resources
 def fit(X, params: Optional[KMeansParams] = None, sample_weights=None, centroids=None,
-        device=None, **kwargs) -> Tuple[torch.Tensor, float, int]:
+        resources=None, device=None, **kwargs) -> Tuple[torch.Tensor, float, int]:
     """Fit k-means; returns (centroids (k, d) f32, inertia, n_iter)
     (pylibraft cluster/kmeans.pyx:54). Extra keyword arguments build a
     KMeansParams (fit(X, n_clusters=8)). `init`: "k-means++", "random",
@@ -114,7 +116,7 @@ def fit(X, params: Optional[KMeansParams] = None, sample_weights=None, centroids
     of `n_init` trials by inertia is returned."""
     if params is None:
         params = KMeansParams(**kwargs)
-    x = check_matrix(X, device, name="X").float()
+    x = check_matrix(X, device=device, name="X").float()
     w = None if sample_weights is None else as_tensor(sample_weights, x.device).float()
     gen = make_generator(params.seed, x.device)
     best = None
@@ -135,16 +137,19 @@ def fit(X, params: Optional[KMeansParams] = None, sample_weights=None, centroids
 
 
 @auto_convert_output
-def predict(X, centroids, device=None) -> torch.Tensor:
+@accepts_resources
+def predict(X, centroids, resources=None, device=None) -> torch.Tensor:
     """Nearest-centroid labels, int32 (cluster/kmeans.cuh:151)."""
-    x = check_matrix(X, device, name="X").float()
+    x = check_matrix(X, device=device, name="X").float()
     return predict_labels(x, as_tensor(centroids, x.device).float()).to(torch.int32)
 
 
 @auto_convert_output
-def fit_predict(X, params: Optional[KMeansParams] = None, device=None, **kwargs):
+@accepts_resources
+def fit_predict(X, params: Optional[KMeansParams] = None, resources=None, device=None,
+                **kwargs):
     """(labels, centroids, inertia, n_iter) of a `fit` and its `predict`."""
-    x = check_matrix(X, device, name="X").float()
+    x = check_matrix(X, device=device, name="X").float()
     centers, inertia, n_iter = fit(x, params, device=x.device, **kwargs)
     return predict(x, centers, device=x.device), centers, inertia, n_iter
 
@@ -155,15 +160,16 @@ def transform(X, centroids, device=None) -> torch.Tensor:
     (cluster/kmeans.cuh:306)."""
     from raft_tpu_torch.distance.pairwise import pairwise_distance
 
-    x = check_matrix(X, device, name="X")
+    x = check_matrix(X, device=device, name="X")
     return pairwise_distance(x, as_tensor(centroids, x.device), metric="sqeuclidean",
                              device=x.device)
 
 
-def cluster_cost(X, centroids, device=None) -> float:
+@accepts_resources
+def cluster_cost(X, centroids, resources=None, device=None) -> float:
     """Total inertia against the given centroids (pylibraft cluster_cost,
     kmeans.pyx:289)."""
-    x = check_matrix(X, device, name="X").float()
+    x = check_matrix(X, device=device, name="X").float()
     return float(cluster_cost_impl(x, as_tensor(centroids, x.device).float()))
 
 
@@ -173,7 +179,7 @@ def compute_new_centroids(X, centroids, labels=None, sample_weights=None,
     each centroid moves to the (weighted) mean of the rows nearest to it.
     `labels` is accepted and unused, as in the JAX package: the rows are
     assigned afresh."""
-    x = check_matrix(X, device, name="X").float()
+    x = check_matrix(X, device=device, name="X").float()
     c = as_tensor(centroids, x.device).float()
     w = None if sample_weights is None else as_tensor(sample_weights, x.device).float()
     _, sums, counts, _ = assign_and_reduce(x, c, w)
@@ -184,7 +190,7 @@ def find_k(X, kmax: int = 20, kmin: int = 1, max_iter: int = 100, tol: float = 1
            seed: int = 0, device=None) -> Tuple[int, float, int]:
     """Pick k by a binary search on the inertia elbow
     (detail/kmeans_auto_find_k.cuh:231); returns (best_k, inertia, n_iter)."""
-    x = check_matrix(X, device, name="X").float()
+    x = check_matrix(X, device=device, name="X").float()
 
     def cost_of(k: int):
         _, inertia, n_iter = fit(x, KMeansParams(n_clusters=k, max_iter=max_iter, seed=seed),

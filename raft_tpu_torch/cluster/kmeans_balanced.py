@@ -24,6 +24,7 @@ import torch
 
 from raft_tpu_torch.cluster.kmeans_common import assign_and_reduce, predict_labels
 from raft_tpu_torch.core.config import strict_f32_matmul
+from raft_tpu_torch.core.resources import accepts_resources
 from raft_tpu_torch.core.validation import check_matrix
 from raft_tpu_torch.random.rng import make_generator, sample_without_replacement
 
@@ -86,13 +87,18 @@ def _balanced_em(gen: torch.Generator, x: torch.Tensor, centers0: torch.Tensor,
     return centers
 
 
+@accepts_resources
 def fit(X, n_clusters: int, n_iters: int = 20, metric: str = "sqeuclidean",
-        seed: int = 0, max_train_points=None, device=None) -> torch.Tensor:
+        seed: int = 0, max_train_points=None, resources=None, train_precision=None,
+        device=None) -> torch.Tensor:
     """Train balanced cluster centers; returns (n_clusters, dim) f32.
     k-means++ seeding up to 512 clusters, a uniform draw of distinct rows
     above (kmeans_balanced.py:fit). With `max_train_points`, a larger
-    dataset trains on that many rows drawn without replacement."""
-    x = check_matrix(X, device, name="X").float()
+    dataset trains on that many rows drawn without replacement.
+    `train_precision` (the JAX package's MXU precision of the assignment
+    matmul) is accepted and ignored, as `KMeansParams.precision` is: the
+    port trains in f32 with TF32 off."""
+    x = check_matrix(X, device=device, name="X").float()
     n = x.shape[0]
     if n_clusters > n:
         raise ValueError(f"n_clusters={n_clusters} > n_samples={n}")
@@ -112,7 +118,7 @@ def fit(X, n_clusters: int, n_iters: int = 20, metric: str = "sqeuclidean",
 
 def _predict_long(X, centers, metric: str = "sqeuclidean", device=None) -> torch.Tensor:
     """`predict`'s labels as int64, the index type the builds gather with."""
-    x = check_matrix(X, device, name="X").float()
+    x = check_matrix(X, device=device, name="X").float()
     c = torch.as_tensor(centers, device=x.device).float()
     if metric in ("inner_product", "cosine"):
         strict_f32_matmul()
@@ -120,7 +126,9 @@ def _predict_long(X, centers, metric: str = "sqeuclidean", device=None) -> torch
     return predict_labels(x, c).long()
 
 
-def predict(X, centers, metric: str = "sqeuclidean", device=None) -> torch.Tensor:
+@accepts_resources
+def predict(X, centers, metric: str = "sqeuclidean", resources=None, device=None
+            ) -> torch.Tensor:
     """Nearest-center labels (int32, as the JAX package returns them)
     under the training metric (cluster/kmeans_balanced.cuh:133)."""
     return _predict_long(X, centers, metric=metric, device=device).to(torch.int32)
@@ -129,7 +137,7 @@ def predict(X, centers, metric: str = "sqeuclidean", device=None) -> torch.Tenso
 def fit_predict(X, n_clusters: int, n_iters: int = 20, metric: str = "sqeuclidean",
                 seed: int = 0, device=None):
     """(centers, labels) of a `fit` on X and its `predict`."""
-    x = check_matrix(X, device, name="X").float()
+    x = check_matrix(X, device=device, name="X").float()
     centers = fit(x, n_clusters, n_iters=n_iters, metric=metric, seed=seed, device=x.device)
     return centers, predict(x, centers, metric=metric, device=x.device)
 
@@ -169,7 +177,7 @@ def fit_hierarchical(X, n_clusters: int, n_iters: int = 20, metric: str = "sqeuc
     Returns (n_clusters, dim) f32."""
     from raft_tpu_torch.neighbors.ivf_flat import _pack_lists
 
-    x = check_matrix(X, device, name="X").float()
+    x = check_matrix(X, device=device, name="X").float()
     dev = x.device
     n, d = x.shape
     if n_clusters <= 64:

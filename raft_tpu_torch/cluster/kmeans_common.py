@@ -28,7 +28,7 @@ def _block_rows(m: int, k: int, d: int, batch: int = 1,
 
 def assign_and_reduce(x: torch.Tensor, centers: torch.Tensor,
                       weights: Optional[torch.Tensor] = None,
-                      needs_sums: bool = True, budget_elems: int = 1 << 23
+                      needs_sums: bool = True, precision=None, budget_elems: int = 1 << 23
                       ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor, torch.Tensor]:
     """Stream x once; return (labels, sums, counts, inertia).
 
@@ -38,7 +38,9 @@ def assign_and_reduce(x: torch.Tensor, centers: torch.Tensor,
     weighted member counts; inertia the weighted sum of min squared L2
     distances (per batch entry when batched). Rows go in blocks of about
     `budget_elems` / (k + d) (the distributed k-means passes a larger
-    budget: fewer, larger launches)."""
+    budget: fewer, larger launches). `precision` (the JAX package's MXU
+    precision of the distance matmul) is accepted and ignored, as
+    `KMeansParams.precision` is: f32 with TF32 off."""
     strict_f32_matmul()
     batched = x.ndim == 3
     xb3 = x.float() if batched else x.float()[None]

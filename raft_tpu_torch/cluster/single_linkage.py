@@ -165,7 +165,7 @@ def single_linkage(X, n_clusters: int = 2, metric: str = "sqeuclidean",
     from raft_tpu_torch.sparse.formats import CooMatrix
     from raft_tpu_torch.sparse.solver import _mst_impl
 
-    x = check_matrix(X, device, name="X").float()
+    x = check_matrix(X, device=device, name="X").float()
     n = x.shape[0]
     if n_clusters < 1 or n_clusters > n:
         raise ValueError(f"n_clusters={n_clusters} out of range")

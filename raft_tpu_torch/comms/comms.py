@@ -934,16 +934,22 @@ class Comms:
     rank (repeats allowed); or `n_devices` ranks on `device` (default:
     every visible CUDA device, one rank each, `n_devices` of them; without
     a card this raises, as `core.config.resolve_device` does). Process
-    world: `Comms()` with no arguments after `bootstrap_multihost`."""
+    world: `Comms()` with no arguments after `bootstrap_multihost`.
+    `timeout_s`: the deadline of every wait of a run (`run`'s default;
+    `DEFAULT_TIMEOUT_S` where None)."""
 
     def __init__(self, mesh=None, axis: str = "data", n_devices: Optional[int] = None,
-                 device=None):
+                 device=None, timeout_s: Optional[float] = None):
         self.axis = axis
-        self.timeout_s = DEFAULT_TIMEOUT_S
+        self.timeout_s = DEFAULT_TIMEOUT_S if timeout_s is None else float(timeout_s)
         self.nccl_initialized = True  # API parity flag (raft-dask .init())
         self.ucx_initialized = False
         self._pool: Optional[concurrent.futures.ThreadPoolExecutor] = None
         self._pool_lock = threading.Lock()
+        # one run at a time in the in-process world: two concurrent runs
+        # would share the pool's R threads, each holding some ranks at a
+        # barrier while its other ranks queue behind the other run's
+        self._run_lock = threading.RLock()
         if mesh is None and n_devices is None and device is None and _process_world_active():
             import torch.distributed as dist
 
@@ -1128,7 +1134,9 @@ class Comms:
         results stay per-rank blocks (a `ShardedArray`, no concatenation:
         how the distributed indexes keep their per-rank tables).
         `timeout_s` (default `self.timeout_s`) bounds every collective
-        wait."""
+        wait, and in the in-process world the wait for a run of the same
+        world that another thread started first (runs of one world take
+        turns, as programs on one set of devices do)."""
         in_specs = in_specs if in_specs is not None else P(self.axis)
         out_specs = out_specs if out_specs is not None else P(self.axis)
         specs = ([in_specs] * len(args) if isinstance(in_specs, PartitionSpec)
@@ -1143,6 +1151,19 @@ class Comms:
             ctx = _ProcessRank(self.rank, self._size, self.device)
             out = fn(AxisComms(self.axis, self._size, None, _ctx=ctx), *blocks[self.rank])
             return self._assemble([out], out_specs, keep_blocks)
+        if not self._run_lock.acquire(timeout=timeout):
+            from raft_tpu_torch.comms.resilience import HealthCheckTimeout
+
+            raise HealthCheckTimeout(
+                f"another run of this world held its ranks past the {timeout}s deadline")
+        try:
+            return self._run_ranks(fn, blocks, out_specs, keep_blocks, timeout)
+        finally:
+            self._run_lock.release()
+
+    def _run_ranks(self, fn, blocks, out_specs, keep_blocks, timeout):
+        """One in-process run: each rank's body on a thread of the pool,
+        meeting in one exchange."""
         ex = _ThreadExchange(self._size, timeout)
 
         def rank_main(r):

@@ -16,6 +16,7 @@ Like the reference's shallow copies, `with_mesh` shares the registry.
 from __future__ import annotations
 
 import functools
+import inspect
 import threading
 from typing import Any, Callable, Optional
 
@@ -153,6 +154,61 @@ def auto_sync_resources(f: Callable) -> Callable:
         out = f(*args, resources=resources, **kwargs)
         if sync:
             resources.sync()
+        return out
+
+    return wrapper
+
+
+def _same_device(a: torch.device, b: torch.device) -> bool:
+    """`a` and `b` name one device (a CUDA device without an index is the
+    current one)."""
+    if a.type != b.type:
+        return False
+    if a.type != "cuda":
+        return True
+    cur = torch.cuda.current_device
+    return (cur() if a.index is None else a.index) == (cur() if b.index is None else b.index)
+
+
+def _outputs(out) -> tuple:
+    """The tensors of an entry point's result: the result itself, the
+    items of a tuple or list, or the tensor fields of an index object."""
+    if isinstance(out, torch.Tensor):
+        return (out,)
+    if isinstance(out, (tuple, list)):
+        return tuple(t for o in out for t in _outputs(o))
+    if hasattr(out, "__dict__"):
+        return tuple(v for v in vars(out).values() if isinstance(v, torch.Tensor))
+    return ()
+
+
+def accepts_resources(f: Callable) -> Callable:
+    """JAX's `resources=` on an entry point whose signature names it at
+    the JAX package's position. Given a handle, the call runs on its
+    device where `device=` is not given (a `device=` naming another
+    device raises ValueError; an entry point without `device=` runs on
+    its index's device), and the result's tensors are `track`ed, so
+    `resources.sync()` waits for them. Without one, `f` runs as it is."""
+    sig = inspect.signature(f)
+    params = list(sig.parameters)
+    pos = params.index("resources")
+    has_device = "device" in params
+
+    @functools.wraps(f)
+    def wrapper(*args, **kwargs):
+        res = args[pos] if len(args) > pos else kwargs.get("resources")
+        if res is None:
+            return f(*args, **kwargs)
+        if has_device:
+            bound = sig.bind(*args, **kwargs)
+            dev = bound.arguments.get("device")
+            if dev is not None and not _same_device(resolve_device(dev), res.device):
+                raise ValueError(
+                    f"device={dev!r} differs from resources.device={res.device}")
+            bound.arguments["device"] = res.device
+            args, kwargs = bound.args, bound.kwargs
+        out = f(*args, **kwargs)
+        res.track(*_outputs(out))
         return out
 
     return wrapper

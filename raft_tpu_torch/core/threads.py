@@ -16,7 +16,7 @@ nested defs dot-joined (``Watchdog.run.worker`` is the ``worker`` def
 inside ``Watchdog.run``). The JAX package's roots each have their
 counterpart here under the port's path. The port adds two pools the
 JAX package does not have: the in-process comms world runs each rank on
-a thread of its session's pool (``Comms.run.rank_main``), and the
+a thread of its session's pool (``Comms._run_ranks.rank_main``), and the
 CRC-32C row hasher spreads its tiles over a module pool
 (``crc32c_rows.tile``). The JAX registry's
 ``bench/bench_serve.py::main.client`` (the serving benchmark's client
@@ -63,7 +63,7 @@ THREAD_ROOTS: Dict[str, str] = {
     "raft_tpu_torch/obs/registry.py::Registry.remove_collector":
         "weakref.finalize callback: detaches a dead collector on the "
         "GC/finalizer context",
-    "raft_tpu_torch/comms/comms.py::Comms.run.rank_main":
+    "raft_tpu_torch/comms/comms.py::Comms._run_ranks.rank_main":
         "in-process comms rank: one rank's SPMD body on a thread of the "
         "session's rank pool (sets its CUDA device first)",
     "raft_tpu_torch/core/serialize.py::crc32c_rows.tile":

@@ -33,11 +33,16 @@ def as_input(x, device=None, dtype=None) -> torch.Tensor:
     return as_tensor(x, device, dtype)
 
 
-def check_matrix(x, device=None, dtype=None, name: str = "matrix") -> torch.Tensor:
-    t = as_tensor(x, device, dtype)
+def check_matrix(x, dtypes=None, name: str = "matrix", device=None, dtype=None
+                 ) -> torch.Tensor:
+    """`x` as a 2-d tensor on `device` (resolved: the card unless told
+    otherwise). `dtypes`, as in the JAX package, are the input's allowed
+    dtypes (numpy or torch); `dtype` casts the checked tensor."""
+    t = as_tensor(x, device)
     if t.ndim != 2:
         raise ValueError(f"{name}: expected 2-d array, got {t.ndim}-d")
-    return t
+    _check_dtypes(t, dtypes, name)
+    return t if dtype is None else t.to(dtype)
 
 
 def check_same_rows(a, b, name_a="a", name_b="b") -> None:
@@ -68,12 +73,16 @@ def check_array(x, dtypes=None, ndim=None, name: str = "array", device=None) -> 
     t = as_input(x, device)
     if ndim is not None and t.ndim != ndim:
         raise ValueError(f"{name}: expected {ndim}-d array, got {t.ndim}-d")
+    _check_dtypes(t, dtypes, name)
+    return t
+
+
+def _check_dtypes(t: torch.Tensor, dtypes, name: str) -> None:
     if dtypes is not None:
         allowed = tuple(_np_dtype(d) for d in dtypes)
         if _np_dtype(t.dtype) not in allowed:
             names = ", ".join(d.name for d in allowed)
             raise ValueError(f"{name}: dtype {_np_dtype(t.dtype).name} not in ({names})")
-    return t
 
 
 def check_vector(x, dtypes=None, name: str = "vector", device=None) -> torch.Tensor:

@@ -15,6 +15,7 @@ from typing import Tuple
 import torch
 
 from raft_tpu_torch.core.config import auto_convert_output
+from raft_tpu_torch.core.resources import accepts_resources
 from raft_tpu_torch.core.validation import check_matrix, check_same_cols
 
 
@@ -25,8 +26,8 @@ def _fused_l2_nn(x: torch.Tensor, y: torch.Tensor, *, sqrt: bool = False):
 
 
 def _operands(X, Y, device):
-    x = check_matrix(X, device, name="X")
-    y = check_matrix(Y, x.device, name="Y")
+    x = check_matrix(X, device=device, name="X")
+    y = check_matrix(Y, device=x.device, name="Y")
     check_same_cols(x, y, "X", "Y")
     if y.shape[0] < 1:
         raise ValueError("Y must have at least one row")
@@ -34,14 +35,17 @@ def _operands(X, Y, device):
 
 
 @auto_convert_output
-def fused_l2_nn_argmin(X, Y, sqrt: bool = False, device=None) -> torch.Tensor:
+@accepts_resources
+def fused_l2_nn_argmin(X, Y, sqrt: bool = False, resources=None, device=None) -> torch.Tensor:
     """(m,) int32 index of the nearest row of Y (L2) for each row of X
     (pylibraft's `fused_l2_nn_argmin`)."""
     x, y = _operands(X, Y, device)
     return _fused_l2_nn(x, y, sqrt=sqrt)[1]
 
 
-def fused_l2_nn(X, Y, sqrt: bool = False, device=None) -> Tuple[torch.Tensor, torch.Tensor]:
+@accepts_resources
+def fused_l2_nn(X, Y, sqrt: bool = False, resources=None, device=None
+                ) -> Tuple[torch.Tensor, torch.Tensor]:
     """((m,) f32 min distance, (m,) int32 argmin) pairs: the KeyValuePair
     variant (`MinAndDistanceReduceOp`); squared L2 unless `sqrt`."""
     x, y = _operands(X, Y, device)

@@ -49,8 +49,8 @@ def masked_l2_nn(X, Y, adj, group_ids, sqrt: bool = False,
     """For each row of X, the nearest row of Y whose group `adj[i]` allows:
     (f32 squared distances, or distances with `sqrt`; int32 indices); a
     row with no allowed group gets (inf, -1)."""
-    x = check_matrix(X, device, name="X").float()
-    y = check_matrix(Y, x.device, name="Y").float()
+    x = check_matrix(X, device=device, name="X").float()
+    y = check_matrix(Y, device=x.device, name="Y").float()
     check_same_cols(x, y, "X", "Y")
     a = as_tensor(adj, x.device).bool()
     g = as_tensor(group_ids, x.device).to(torch.int32)

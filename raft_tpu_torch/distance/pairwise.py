@@ -23,6 +23,7 @@ from typing import Callable
 import torch
 
 from raft_tpu_torch.core.config import auto_convert_output, strict_f32_matmul
+from raft_tpu_torch.core.resources import accepts_resources
 from raft_tpu_torch.core.validation import check_matrix, check_same_cols
 from raft_tpu_torch.distance.distance_types import DistanceType, resolve_metric
 
@@ -265,14 +266,16 @@ def _pairwise_impl(x: torch.Tensor, y: torch.Tensor, metric: DistanceType, *,
 
 
 @auto_convert_output
-def pairwise_distance(X, Y, out=None, metric="euclidean", p: float = 2.0, device=None):
+@accepts_resources
+def pairwise_distance(X, Y, out=None, metric="euclidean", p: float = 2.0, resources=None,
+                      device=None):
     """The full (m, n) f32 pairwise distance matrix (pylibraft's
     `pairwise_distance`). `metric` is a DistanceType, its value or a
     pylibraft name; `p` is the Lp exponent. DistanceType.Precomputed
     returns X as it is. `out` is accepted for API parity and checked for
     shape (m, n); a new tensor is returned."""
-    x = check_matrix(X, device, name="X")
-    y = check_matrix(Y, x.device, name="Y")
+    x = check_matrix(X, device=device, name="X")
+    y = check_matrix(Y, device=x.device, name="Y")
     m = resolve_metric(metric)
     if m == DistanceType.Precomputed:
         return x

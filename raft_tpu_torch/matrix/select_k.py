@@ -42,6 +42,7 @@ from typing import Optional, Tuple
 import torch
 
 from raft_tpu_torch.core import tuned
+from raft_tpu_torch.core.resources import accepts_resources
 from raft_tpu_torch.core.tuned import BITPLANE_SCAN_KEY, INT8_SCAN_KEY
 from raft_tpu_torch.core.validation import as_tensor, check_matrix, check_same_cols
 from raft_tpu_torch.distance.distance_types import (
@@ -191,7 +192,8 @@ def _select_k_counting(vals: torch.Tensor, k: int, select_min: bool):
     return out.to(vals.dtype).reshape(*lead, k), idx.reshape(*lead, k)
 
 
-def select_k(values, k: int, select_min: bool = True, indices=None,
+@accepts_resources
+def select_k(values, k: int, select_min: bool = True, indices=None, resources=None,
              strategy: Optional[str] = None, device=None):
     """Select the k smallest (default) or largest values per row.
 
@@ -300,8 +302,9 @@ def resolve_scan_strategy(n_rows: int, dim: int, k: int, strategy=None,
     return "two_phase"
 
 
+@accepts_resources
 def scan_select_k(queries, dataset, k: int, metric="sqeuclidean",
-                  strategy: Optional[str] = None, valid=None, device=None):
+                  strategy: Optional[str] = None, valid=None, resources=None, device=None):
     """Top-k nearest dataset rows per query over OPERANDS; returns
     ((nq, k) values, (nq, k) int32 ids), best-first, ties to the smaller
     row id. "fused": the fused distance+select-k kernel (L2/IP, exact
@@ -310,8 +313,8 @@ def scan_select_k(queries, dataset, k: int, metric="sqeuclidean",
     `valid`: optional (n_rows,) bool mask; False rows are excluded before
     selection, and where fewer than k rows survive the tail holds the
     worst value with id -1 on both strategies."""
-    q = check_matrix(queries, device, name="queries")
-    ds = check_matrix(dataset, q.device, name="dataset")
+    q = check_matrix(queries, device=device, name="queries")
+    ds = check_matrix(dataset, device=q.device, name="dataset")
     check_same_cols(ds, q, "dataset", "queries")
     if not (0 < k <= ds.shape[0]):
         raise ValueError(f"k={k} out of range for dataset with {ds.shape[0]} rows")
@@ -456,10 +459,16 @@ def check_bitplane_request(label: str, L: int, words: int, bits: int, k: int,
     return kb
 
 
-def bitplane_scan_select_k(*operands, **kw) -> Tuple[torch.Tensor, torch.Tensor]:
+def bitplane_scan_select_k(lof, planes, codes_t, meta, base, qmeta, k: int, rot_dim: int,
+                           bits: int, kbuf: Optional[int] = None, inner_product: bool = False,
+                           chunk_valid=None, chunk_rows=None
+                           ) -> Tuple[torch.Tensor, torch.Tensor]:
     """The RaBitQ bit-plane fused scan+select (strategy "fused_bitplane")
-    at the select_k level: `ops.fused_scan.fused_bitplane_topk`, its
-    operands and keywords unchanged."""
+    at the select_k level: `ops.fused_scan.fused_bitplane_topk` on the
+    same operands."""
     from raft_tpu_torch.ops.fused_scan import fused_bitplane_topk
 
-    return fused_bitplane_topk(*operands, **kw)
+    return fused_bitplane_topk(lof, planes, codes_t, meta, base, qmeta, int(k),
+                               rot_dim=int(rot_dim), bits=int(bits), kbuf=kbuf,
+                               inner_product=inner_product, chunk_valid=chunk_valid,
+                               chunk_rows=chunk_rows)

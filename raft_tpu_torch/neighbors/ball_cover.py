@@ -88,7 +88,7 @@ def build_index(dataset, metric="haversine", n_landmarks: int = 0, seed: int = 0
     (ball_cover.cuh build_index)."""
     from raft_tpu_torch.neighbors.ivf_flat import _pack_lists
 
-    x = check_matrix(dataset, device, torch.float32, name="dataset").contiguous()
+    x = check_matrix(dataset, device=device, dtype=torch.float32, name="dataset").contiguous()
     n = x.shape[0]
     m = resolve_metric(metric)
     k = n_landmarks or max(1, int(np.sqrt(n)))

@@ -37,6 +37,7 @@ import torch
 
 from raft_tpu_torch import obs
 from raft_tpu_torch.core.config import auto_convert_output
+from raft_tpu_torch.core.resources import accepts_resources
 from raft_tpu_torch.core.validation import as_tensor, check_matrix, check_same_cols
 from raft_tpu_torch.distance.distance_types import (
     DistanceType,
@@ -92,8 +93,9 @@ def _bf_knn_impl(dataset: torch.Tensor, queries: torch.Tensor, k: int,
 
 @obs.spanned("neighbors.brute_force.knn")
 @auto_convert_output
+@accepts_resources
 def knn(dataset, queries, k: int, metric="sqeuclidean", metric_arg: float = 2.0,
-        engine: str = "tiled", prefilter=None, compute_dtype=None,
+        resources=None, engine: str = "tiled", prefilter=None, compute_dtype=None,
         device=None) -> Tuple[torch.Tensor, torch.Tensor]:
     """Exact k-NN: (distances, int32 indices), each (n_queries, k),
     best-first. `metric` is any pylibraft metric; `metric_arg` is the Lp
@@ -106,8 +108,8 @@ def knn(dataset, queries, k: int, metric="sqeuclidean", metric_arg: float = 2.0,
     dataset rows; rows whose bit is clear are excluded before selection,
     and where fewer than k pass, the tail holds the worst distance with
     id -1."""
-    q = check_matrix(queries, device, name="queries")
-    ds = check_matrix(dataset, q.device, name="dataset")
+    q = check_matrix(queries, device=device, name="queries")
+    ds = check_matrix(dataset, device=q.device, name="dataset")
     check_same_cols(ds, q, "dataset", "queries")
     if engine == "pallas":
         engine = "fused"  # one fused engine, two spellings

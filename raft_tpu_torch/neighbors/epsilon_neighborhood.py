@@ -35,8 +35,8 @@ def eps_neighbors(X, Y, eps: float, metric="sqeuclidean", device=None
     """Returns (adj (m, n) bool, vertex_degrees (m,) int32): adj[i, j] iff
     dist(x_i, y_j) <= eps. eps is in the metric's units (squared L2 for
     the default, matching epsUnexpL2SqNeighborhood)."""
-    x = check_matrix(X, device, torch.float32, name="X")
-    y = check_matrix(Y, x.device, torch.float32, name="Y")
+    x = check_matrix(X, device=device, dtype=torch.float32, name="X")
+    y = check_matrix(Y, device=x.device, dtype=torch.float32, name="Y")
     check_same_cols(x, y, "X", "Y")
     adj = _eps_impl(x, y, float(eps), resolve_metric(metric))
     return adj, torch.sum(adj, dim=1, dtype=torch.int32)

@@ -70,6 +70,7 @@ from raft_tpu_torch import obs
 from raft_tpu_torch.cluster import kmeans_balanced
 from raft_tpu_torch.core import tuned
 from raft_tpu_torch.core.config import auto_convert_output, resolve_device, strict_f32_matmul
+from raft_tpu_torch.core.resources import accepts_resources
 from raft_tpu_torch.core.validation import check_matrix
 from raft_tpu_torch.distance.distance_types import DistanceType, resolve_metric
 from raft_tpu_torch.matrix.select_k import _select_k_impl
@@ -403,11 +404,12 @@ def _metric_name(metric: DistanceType) -> str:
 
 
 @obs.spanned("neighbors.ivf_flat.build")
-def build(params: IndexParams, dataset, seed: int = 0, device=None) -> Index:
+@accepts_resources
+def build(params: IndexParams, dataset, resources=None, seed: int = 0, device=None) -> Index:
     """Train coarse centers (balanced k-means on a trainset fraction drawn
     without replacement from a generator seeded by `seed`) and populate
     the lists (detail/ivf_flat_build.cuh `build`)."""
-    x = check_matrix(dataset, device, name="dataset").float()
+    x = check_matrix(dataset, device=device, name="dataset").float()
     dev = x.device
     n = x.shape[0]
     if params.n_lists > n:
@@ -451,7 +453,7 @@ def extend(index: Index, new_vectors, new_indices=None) -> Index:
     from raft_tpu_torch.integrity.digest import refresh
 
     dev = index.device
-    nv = check_matrix(new_vectors, dev, name="new_vectors").float()
+    nv = check_matrix(new_vectors, device=dev, name="new_vectors").float()
     old_n = index.size
     if new_indices is None:
         new_indices = torch.arange(old_n, old_n + nv.shape[0], dtype=torch.int32, device=dev)
@@ -742,7 +744,8 @@ def _pallas_fits(index: Index, k: int) -> bool:
 
 @obs.spanned("neighbors.ivf_flat.search")
 @auto_convert_output
-def search(params: SearchParams, index: Index, queries, k: int, prefilter=None
+@accepts_resources
+def search(params: SearchParams, index: Index, queries, k: int, resources=None, prefilter=None
            ) -> Tuple[torch.Tensor, torch.Tensor]:
     """ANN search; returns (distances (nq, k) f32, neighbor source ids
     (nq, k) int32), best-first, on the index's device.
@@ -758,7 +761,7 @@ def search(params: SearchParams, index: Index, queries, k: int, prefilter=None
     from raft_tpu_torch.core.bitset import make_slot_filter
     from raft_tpu_torch.neighbors.probe_invert import macro_batched, resolve_setup_impls
 
-    q = check_matrix(queries, index.device, name="queries").float()
+    q = check_matrix(queries, device=index.device, name="queries").float()
     if q.shape[1] != index.dim:
         raise ValueError(f"query dim {q.shape[1]} != index dim {index.dim}")
     if index.size == 0:

@@ -98,6 +98,7 @@ from raft_tpu_torch import obs
 from raft_tpu_torch.cluster import kmeans_balanced
 from raft_tpu_torch.core import tuned
 from raft_tpu_torch.core.config import auto_convert_output, resolve_device, strict_f32_matmul
+from raft_tpu_torch.core.resources import accepts_resources
 from raft_tpu_torch.core.validation import check_matrix
 from raft_tpu_torch.distance.distance_types import DistanceType, resolve_metric
 from raft_tpu_torch.matrix.select_k import _select_k_impl
@@ -435,10 +436,11 @@ def _coarse_fit(params: IndexParams, x: torch.Tensor, rotation: torch.Tensor,
 
 
 @obs.spanned("neighbors.ivf_pq.build")
-def build(params: IndexParams, dataset, seed: int = 0, device=None) -> Index:
+@accepts_resources
+def build(params: IndexParams, dataset, resources=None, seed: int = 0, device=None) -> Index:
     """Train rotation, coarse centers and codebooks; encode and pack the
     dataset (detail/ivf_pq_build.cuh:1074)."""
-    x = check_matrix(dataset, device, name="dataset").float()
+    x = check_matrix(dataset, device=device, name="dataset").float()
     dev = x.device
     n, dim = x.shape
     if params.n_lists > n:
@@ -516,7 +518,7 @@ def extend(index: Index, new_vectors, new_indices=None) -> Index:
     from raft_tpu_torch.neighbors.ivf_flat import _append_slots, _grow_and_scatter
 
     dev = index.device
-    nv = check_matrix(new_vectors, dev, name="new_vectors").float()
+    nv = check_matrix(new_vectors, device=dev, name="new_vectors").float()
     old_n = index.size
     if new_indices is None:
         new_indices = torch.arange(old_n, old_n + nv.shape[0], dtype=torch.int32, device=dev)
@@ -1078,7 +1080,8 @@ def resolve_search(params: SearchParams, nq: int, n_probes: int, n_lists: int, d
 
 @obs.spanned("neighbors.ivf_pq.search")
 @auto_convert_output
-def search(params: SearchParams, index: Index, queries, k: int, prefilter=None
+@accepts_resources
+def search(params: SearchParams, index: Index, queries, k: int, resources=None, prefilter=None
            ) -> Tuple[torch.Tensor, torch.Tensor]:
     """ANN search; returns (distances (nq, k) f32, neighbor source ids
     (nq, k) int32, -1 where fewer than k candidates exist), on the
@@ -1098,7 +1101,7 @@ def search(params: SearchParams, index: Index, queries, k: int, prefilter=None
     from raft_tpu_torch.neighbors.probe_invert import macro_batched, resolve_setup_impls
     from raft_tpu_torch.ops.pq_list_scan import _BINS, fits_pq_list_scan, fold_variant, lane_padded
 
-    q = check_matrix(queries, index.device, name="queries").float()
+    q = check_matrix(queries, device=index.device, name="queries").float()
     if q.shape[1] != index.dim:
         raise ValueError(f"query dim {q.shape[1]} != index dim {index.dim}")
     if index.size == 0:

@@ -78,6 +78,7 @@ from raft_tpu_torch import obs
 from raft_tpu_torch.cluster import kmeans_balanced
 from raft_tpu_torch.core import tuned
 from raft_tpu_torch.core.config import auto_convert_output, resolve_device, strict_f32_matmul
+from raft_tpu_torch.core.resources import accepts_resources
 from raft_tpu_torch.core.validation import check_matrix
 from raft_tpu_torch.distance.distance_types import DistanceType, resolve_metric
 from raft_tpu_torch.matrix.select_k import _select_k_impl
@@ -393,11 +394,12 @@ def label_and_encode(vectors: torch.Tensor, rotation: torch.Tensor, centers: tor
 
 
 @obs.spanned("neighbors.ivf_rabitq.build")
-def build(params: IndexParams, dataset, seed: int = 0, device=None) -> Index:
+@accepts_resources
+def build(params: IndexParams, dataset, resources=None, seed: int = 0, device=None) -> Index:
     """Train the rotation and coarse centers, then encode and pack the
     lists. No codebook stage: the build is the coarse k-means and one
     encode pass."""
-    x = check_matrix(dataset, device, name="dataset").float()
+    x = check_matrix(dataset, device=device, name="dataset").float()
     dev = x.device
     n, dim = x.shape
     if params.n_lists > n:
@@ -436,7 +438,7 @@ def extend(index: Index, new_vectors, new_indices=None) -> Index:
     from raft_tpu_torch.neighbors.ivf_flat import _append_slots, _grow_and_scatter_multi
 
     dev = index.device
-    nv = check_matrix(new_vectors, dev, name="new_vectors").float()
+    nv = check_matrix(new_vectors, device=dev, name="new_vectors").float()
     old_n = index.size
     if new_indices is None:
         new_indices = torch.arange(old_n, old_n + nv.shape[0], dtype=torch.int32, device=dev)
@@ -649,7 +651,8 @@ def _search_impl_rabitq_fused(queries, rotation, centers, codes_t, bp_meta, slot
 
 @obs.spanned("neighbors.ivf_rabitq.search")
 @auto_convert_output
-def search(params: SearchParams, index: Index, queries, k: int, prefilter=None,
+@accepts_resources
+def search(params: SearchParams, index: Index, queries, k: int, resources=None, prefilter=None,
            refine_dataset=None) -> Tuple[torch.Tensor, torch.Tensor]:
     """ANN search; returns (distances (nq, k) f32, neighbor source ids
     (nq, k) int32, -1 where fewer than k candidates exist), on the index's
@@ -672,7 +675,7 @@ def search(params: SearchParams, index: Index, queries, k: int, prefilter=None,
 
     if params.scan_engine not in ("auto", "xla", "fused"):
         raise ValueError(f"unknown scan_engine {params.scan_engine!r}")
-    q = check_matrix(queries, index.device, name="queries").float()
+    q = check_matrix(queries, device=index.device, name="queries").float()
     if q.shape[1] != index.dim:
         raise ValueError(f"query dim {q.shape[1]} != index dim {index.dim}")
     if index.size == 0:
@@ -686,7 +689,7 @@ def search(params: SearchParams, index: Index, queries, k: int, prefilter=None,
     rerank_mult = resolve_rerank_mult(params.rerank_mult, dev)
     ds = index.dataset
     if refine_dataset is not None:
-        ds = check_matrix(refine_dataset, index.device, name="refine_dataset")
+        ds = check_matrix(refine_dataset, device=index.device, name="refine_dataset")
     kk = rerank_depth(k, rerank_mult) if ds is not None else k
     maybe_filter = make_slot_filter(prefilter, index.id_bound, index.source_ids,
                                     tombstones=index.tombstones)

@@ -335,7 +335,7 @@ SCORE_BUDGET = 1 << 27
 
 def score_and_select(tables: ChunkTables, block_fn, slot_rows: torch.Tensor, select_k_fn,
                      nq: int, n_probes: int, k: int, select_min: bool, chunk: int,
-                     max_list: int):
+                     max_list: int, exact_trim: bool = False):
     """The back half of a list-major search: score superblocks of chunks
     (at most SCORE_BUDGET scores each, whatever the list length), trim each
     chunk row to its best min(k, max_list) with `select_k_fn`, gather
@@ -343,8 +343,9 @@ def score_and_select(tables: ChunkTables, block_fn, slot_rows: torch.Tensor, sel
 
     `block_fn(lof_block, qid_block) -> (b, chunk, max_list)` scores a
     block of chunks with invalid slots already at the worst value. The
-    trim is exact: the JAX package trims with `lax.approx_min_k` at
-    recall_target 0.99, which its CPU backend computes exactly. The JAX
+    trim is exact whatever `exact_trim` says: the JAX package trims with
+    `lax.approx_min_k` at recall_target 0.99 unless `exact_trim`, and its
+    CPU backend computes that exactly. The JAX
     package's `chunk_block` knob (a tuned key) is left out: one batched
     call scores a whole superblock, its untuned default."""
     lof, qid_tbl = tables.lof, tables.qid_tbl

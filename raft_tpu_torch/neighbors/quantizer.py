@@ -132,10 +132,14 @@ class Quantizer:
 
     kind = "?"
 
-    def rerank_candidates(self, dataset, queries, candidates, k: int, metric="sqeuclidean"):
+    def rerank_candidates(self, dataset, queries, candidates, k: int, metric="sqeuclidean",
+                          resources=None):
+        """Exact re-rank of candidate rows through the shared refine stage
+        (`neighbors.refine`, its default dispatch), on the candidates'
+        device; `resources` is passed on."""
         from raft_tpu_torch.neighbors.refine import refine
 
-        return refine(dataset, queries, candidates, k, metric=metric,
+        return refine(dataset, queries, candidates, k, metric=metric, resources=resources,
                       device=torch.as_tensor(candidates).device)
 
 
@@ -171,16 +175,17 @@ class PqQuantizer(Quantizer):
         q.pq_centers = pq_centers
         return q
 
-    def train(self, gen: torch.Generator, residuals: torch.Tensor, labels=None) -> "PqQuantizer":
-        """Fit the codebooks to a residual sample; per-cluster training
-        needs the residuals' lists (`labels`)."""
+    def train(self, key: torch.Generator, residuals: torch.Tensor, labels=None) -> "PqQuantizer":
+        """Fit the codebooks to a residual sample, drawing from `key` (a
+        `torch.Generator` where the JAX package takes a PRNG key);
+        per-cluster training needs the residuals' lists (`labels`)."""
         nb = 1 << self.pq_bits
         if self.per_cluster:
             self.pq_centers = _train_codebooks_per_cluster(
-                gen, residuals, labels, self.n_lists, self.pq_len, nb, self.n_iters)
+                key, residuals, labels, self.n_lists, self.pq_len, nb, self.n_iters)
         else:
             self.pq_centers = _train_codebooks_per_subspace(
-                gen, residuals, self.pq_dim, nb, self.n_iters)
+                key, residuals, self.pq_dim, nb, self.n_iters)
         return self
 
     def encode(self, residuals: torch.Tensor, labels=None) -> Dict[str, torch.Tensor]:
@@ -327,7 +332,7 @@ class RabitqQuantizer(Quantizer):
             raise ValueError(f"query_bits must be in [1, 8], got {query_bits}")
         self.query_bits = int(query_bits)
 
-    def train(self, gen, residuals, labels=None) -> "RabitqQuantizer":
+    def train(self, key, residuals, labels=None) -> "RabitqQuantizer":
         return self
 
     def encode(self, residuals: torch.Tensor, labels=None) -> Dict[str, torch.Tensor]:

@@ -11,6 +11,11 @@ distances against the original dataset and keep the best k.
                (nq, n_cand) scores never reach device memory; exact over
                the bf16-rounded rows (`_fused_rerank_gathered`).
 
+The default (None / "auto") resolves as the JAX package's does
+(`_resolve_refine_strategy`): two-phase, unless the tuned
+`select_k_strategy` governs the queries' device (`core.tuned.applies`:
+CUDA only) and names "fused", and the candidate block fits the kernel.
+
 `refine_host` serves the dataset that stays in host memory (a numpy
 array or memmap, 10M+ rows): only the (nq, n_cand, dim) candidate rows
 are gathered on the host and sent to the device, then re-ranked as
@@ -26,6 +31,7 @@ import torch
 
 from raft_tpu_torch import obs
 from raft_tpu_torch.core.config import auto_convert_output, strict_f32_matmul
+from raft_tpu_torch.core.resources import accepts_resources
 from raft_tpu_torch.core.validation import as_tensor, check_matrix
 from raft_tpu_torch.distance.distance_types import DistanceType, resolve_metric
 from raft_tpu_torch.matrix.select_k import _select_k_impl
@@ -112,25 +118,31 @@ def _refine_fused_impl(dataset, queries, candidates, k: int, metric: DistanceTyp
     return _fused_rerank_gathered(cdata, queries, candidates, k, metric)
 
 
-def _check_strategy(strategy, m: DistanceType, nc: int, dim: int, k: int) -> bool:
-    """True for the fused rerank, False for the two-phase one; raises for
-    an unknown strategy or a fused request outside the kernel's reach."""
-    from raft_tpu_torch.matrix.select_k import _fused_metric_kind
+def _resolve_refine_strategy(strategy, metric: DistanceType, nc: int, dim: int, k: int,
+                             device=None) -> str:
+    """Refine's select dispatch, the JAX package's: an explicit strategy
+    wins ("fused" raises outside the fused list kernel's metrics or
+    envelope); None/"auto" is `select_k.resolve_scan_strategy`'s (the
+    tuned `select_k_strategy` where it governs `device`, see
+    `core.tuned.applies`), gated on the candidate block fitting the list
+    kernel: one lane-padded "list" a query (`fits_fused_list`)."""
+    from raft_tpu_torch.matrix.select_k import _fused_metric_kind, resolve_scan_strategy
     from raft_tpu_torch.ops.fused_scan import fits_fused_list
 
-    if strategy in (None, "auto", "two_phase"):
-        return False
-    if strategy != "fused":
-        raise ValueError(f"unknown refine strategy {strategy!r}")
-    if _fused_metric_kind(m) is None:
-        raise ValueError(f"strategy='fused' supports L2/inner_product metrics, got {m}")
     ncp = -(-nc // _LANES) * _LANES
-    if not fits_fused_list(ncp, dim, k):
-        raise ValueError(
-            f"strategy='fused': candidate block ({ncp} x dim {dim}, k={k}) "
-            "exceeds the fused kernel's shared-memory budget; use strategy='two_phase'"
-        )
-    return True
+    fits = 0 < k <= ncp and fits_fused_list(ncp, dim, k)
+    if strategy == "fused":
+        if _fused_metric_kind(metric) is None:
+            raise ValueError(f"strategy='fused' supports L2/inner_product metrics, got {metric}")
+        if not fits:
+            raise ValueError(
+                f"strategy='fused': candidate block ({ncp} x dim {dim}, k={k}) "
+                "exceeds the fused kernel's shared-memory budget; use strategy='two_phase'"
+            )
+        return "fused"
+    return resolve_scan_strategy(nc, dim, k, strategy,
+                                 fused_ok=_fused_metric_kind(metric) is not None and fits,
+                                 device=device)
 
 
 def _charge_refine_cost(nq: int, nc: int, dim: int, k: int, fused: bool) -> None:
@@ -142,15 +154,18 @@ def _charge_refine_cost(nq: int, nc: int, dim: int, k: int, fused: bool) -> None
 
 @obs.spanned("neighbors.refine")
 @auto_convert_output
-def refine(dataset, queries, candidates, k: int, metric="sqeuclidean",
-           strategy: Optional[str] = "two_phase", device=None
+@accepts_resources
+def refine(dataset, queries, candidates, k: int, metric="sqeuclidean", resources=None,
+           strategy: Optional[str] = None, device=None
            ) -> Tuple[torch.Tensor, torch.Tensor]:
     """Re-rank `candidates` (nq, n_cand) with exact distances; return the
     best (distances, int32 ids), each (nq, k). Ids of -1 are skipped.
-    `strategy`: "two_phase" (full float32) or "fused" (the fused kernel,
-    exact over bf16-rounded rows; L2/inner product, k <= 256)."""
-    q = check_matrix(queries, device, name="queries")
-    ds = check_matrix(dataset, q.device, name="dataset")
+    `strategy`: "two_phase" (full float32), "fused" (the fused kernel,
+    exact over bf16-rounded rows; L2/inner product, k <= 256), or
+    None/"auto": `_resolve_refine_strategy` (two-phase on the CPU; on the
+    card the tuned `select_k_strategy` may promote "fused")."""
+    q = check_matrix(queries, device=device, name="queries")
+    ds = check_matrix(dataset, device=q.device, name="dataset")
     cand = as_tensor(candidates, q.device).to(torch.int32)
     if cand.ndim != 2 or cand.shape[0] != q.shape[0]:
         raise ValueError("candidates must be (n_queries, n_candidates)")
@@ -158,7 +173,8 @@ def refine(dataset, queries, candidates, k: int, metric="sqeuclidean",
     nc = int(cand.shape[1])
     if k > nc:
         raise ValueError(f"k={k} > n_candidates={nc}")
-    fused = _check_strategy(strategy, m, nc, int(ds.shape[1]), int(k))
+    fused = _resolve_refine_strategy(strategy, m, nc, int(ds.shape[1]), int(k),
+                                     q.device) == "fused"
     _charge_refine_cost(int(q.shape[0]), nc, int(ds.shape[1]), int(k), fused)
     if fused:
         return _refine_fused_impl(ds, q, cand, int(k), m)
@@ -167,8 +183,9 @@ def refine(dataset, queries, candidates, k: int, metric="sqeuclidean",
 
 @obs.spanned("neighbors.refine")
 @auto_convert_output
-def refine_host(dataset, queries, candidates, k: int, metric="sqeuclidean",
-                strategy: Optional[str] = "two_phase", device=None
+@accepts_resources
+def refine_host(dataset, queries, candidates, k: int, metric="sqeuclidean", resources=None,
+                strategy: Optional[str] = None, device=None
                 ) -> Tuple[torch.Tensor, torch.Tensor]:
     """`refine` over a dataset held in host memory (a numpy array or
     memmap): the full table never reaches the device. Only the candidate
@@ -177,7 +194,7 @@ def refine_host(dataset, queries, candidates, k: int, metric="sqeuclidean",
     n_cand, dim) f32 block, which the chosen `strategy` re-ranks as
     `refine` does. Returns the best (distances, int32 ids), each (nq, k),
     on that device."""
-    q = check_matrix(queries, device, name="queries")
+    q = check_matrix(queries, device=device, name="queries")
     cand = candidates.cpu().numpy() if isinstance(candidates, torch.Tensor) else candidates
     cand = np.asarray(cand)
     if cand.ndim != 2 or cand.shape[0] != q.shape[0]:
@@ -189,7 +206,8 @@ def refine_host(dataset, queries, candidates, k: int, metric="sqeuclidean",
     nc = int(cand.shape[1])
     if k > nc:
         raise ValueError(f"k={k} > n_candidates={nc}")
-    fused = _check_strategy(strategy, m, nc, int(host.shape[1]), int(k))
+    fused = _resolve_refine_strategy(strategy, m, nc, int(host.shape[1]), int(k),
+                                     q.device) == "fused"
     _charge_refine_cost(int(q.shape[0]), nc, int(host.shape[1]), int(k), fused)
     cdata = torch.from_numpy(np.ascontiguousarray(
         host[np.clip(cand, 0, host.shape[0] - 1)], dtype=np.float32)).to(q.device)

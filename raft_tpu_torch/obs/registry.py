@@ -21,6 +21,7 @@ Design notes:
 from __future__ import annotations
 
 import bisect
+import collections
 import threading
 from typing import Callable, Dict, List, Optional, Tuple
 
@@ -200,6 +201,8 @@ class Registry:
         self._gauges: Dict[str, Gauge] = {}
         self._histograms: Dict[str, Histogram] = {}
         self._collectors: Dict[str, Callable[[], dict]] = {}
+        # names whose removal waits for the lock (see remove_collector)
+        self._removed: collections.deque = collections.deque()
 
     def _get(self, table: dict, name: str, cls):
         with self._lock:
@@ -234,17 +237,34 @@ class Registry:
         """Register a callable contributing a named dict section to
         `snapshot()["collectors"]` (e.g. one per live server)."""
         with self._lock:
+            self._drain_removed()
             self._collectors[str(name)] = fn
 
     def remove_collector(self, name: str) -> None:
-        with self._lock:
-            self._collectors.pop(str(name), None)
+        """Drop a collector. A finalizer calls this (a dropped server's
+        section), and a garbage collection runs finalizers in whatever
+        thread allocates, possibly one that holds this registry's lock:
+        so the name is queued without the lock, and removed here if the
+        lock is free, else by the next locked access (`add_collector`,
+        `snapshot`), which drains the queue first."""
+        self._removed.append(str(name))
+        if self._lock.acquire(blocking=False):
+            try:
+                self._drain_removed()
+            finally:
+                self._lock.release()
+
+    def _drain_removed(self) -> None:
+        """Apply the queued removals (the caller holds the lock)."""
+        while self._removed:
+            self._collectors.pop(self._removed.popleft(), None)
 
     def snapshot(self) -> dict:
         """Deterministically ordered view: sorted names, plain scalars.
         Collector failures surface as an "error" entry, never an
         exception — a broken component must not take down the scrape."""
         with self._lock:
+            self._drain_removed()
             counters = sorted(self._counters.items())
             gauges = sorted(self._gauges.items())
             hists = sorted(self._histograms.items())

@@ -533,12 +533,12 @@ def fused_list_topk(lof, qres, store, base, k: int, *, kbuf: Optional[int] = Non
 # ---------------------------------------------------------------------------
 
 
-def _fma_f32(a, b, c):
+def _fma_f32_round_to_odd(a, b, c):
     """f32 `a * b + c` rounded once, as a fused multiply-add rounds it,
     where the product a * b is exact in float64 (here an integer below
-    2^24 times an f32). The f64 sum is rounded to odd (its error, exact by
-    TwoSum, sets the last bit) before the cast to f32, so the two
-    roundings give the correctly rounded f32 result."""
+    2^24 times an f32, or two f32s). The f64 sum is rounded to odd (its
+    error, exact by TwoSum, sets the last bit) before the cast to f32, so
+    the two roundings give the correctly rounded f32 result."""
     p = a.double() * b.double()
     c = c.double()
     s = c + p
@@ -549,6 +549,31 @@ def _fma_f32(a, b, c):
     # away from zero where the exact sum lies beyond s, else towards it
     step = torch.where((err > 0) == (s > 0), 1, -1)
     return torch.where(to_odd, bits + step, bits).view(torch.float64).float()
+
+
+def _fma_f32(a, b, c):
+    """`_fma_f32_round_to_odd`'s result. On the CPU, cheaper: the f64 sum
+    rounded again to f32 is the correctly rounded result unless that sum
+    fell on an f32 rounding midpoint (the only place two roundings can
+    differ, since the midpoints are f64 values), or outside the f32
+    normal range, where the midpoint's bit pattern differs; those few
+    elements take the round-to-odd path. A CUDA tensor takes that path
+    whole, which needs no host sync."""
+    if a.device.type != "cpu":
+        return _fma_f32_round_to_odd(a, b, c)
+    s = a.double() * b.double() + c.double()  # the product exact, the sum rounded once
+    r = s.float()
+    bits = s.view(torch.int64)
+    mag = bits & 0x7FFFFFFFFFFFFFFF
+    # the low 29 of the 52 stored bits hold exactly half an f32 ulp, or
+    # |s| below 2^-125 or from 2^127 on (NaN and inf included)
+    slow = (((bits & 0x1FFFFFFF) == 0x10000000) | (mag < 0x3820000000000000)
+            | (mag >= 0x47E0000000000000))
+    idx = slow.nonzero(as_tuple=True)
+    if idx[0].numel():
+        a, b, c = torch.broadcast_tensors(a, b, c)
+        r[idx] = _fma_f32_round_to_odd(a[idx], b[idx], c[idx])
+    return r
 
 
 def int8_scores(idot, rs, base, inner_product: bool):
@@ -669,12 +694,16 @@ def _as_uint_values(words: torch.Tensor) -> torch.Tensor:
 
 def popcount32(words: torch.Tensor) -> torch.Tensor:
     """Set bits of each 32-bit word of an int32 tensor, as int32: torch has
-    no popcount, so the SWAR count runs on int64."""
-    v = _as_uint_values(words)
+    no popcount, so a SWAR count runs on the low 31 bits in int32 (no step
+    overflows), and the sign bit is added apart."""
+    sign = (words < 0).to(torch.int32)
+    v = words & 0x7FFFFFFF
     v = v - ((v >> 1) & 0x55555555)
     v = (v & 0x33333333) + ((v >> 2) & 0x33333333)
     v = (v + (v >> 4)) & 0x0F0F0F0F
-    return (((v * 0x01010101) & 0xFFFFFFFF) >> 24).to(torch.int32)
+    v = v + (v >> 8)
+    v = v + (v >> 16)
+    return (v & 0x3F) + sign
 
 
 def rsqrt_dim(rot_dim: int) -> float:
@@ -783,15 +812,15 @@ def bitplane_su(planes, codes, bits: int) -> torch.Tensor:
     """(b, chunk, L) int32 integer scores S_u = sum_j 2^j sum_w
     popc(planes[:, c, j*W + w] & codes[:, w, s]) of chunk rows' planes
     (b, chunk, bits*W) against their lists' word-transposed codes
-    (b, W, L). Integer sums: exact in any order."""
+    (b, W, L): the product of the rows' query levels (`bitplane_levels`)
+    with the lists' code bits (`expand_code_bits`), as the kernel takes
+    it. Integer sums, exact in any order: in f32 where no sum can reach
+    2^24, else in f64."""
     W = codes.shape[1]
-    acc = torch.zeros((planes.shape[0], planes.shape[1], codes.shape[2]), dtype=torch.int32,
-                      device=planes.device)
-    for j in range(bits):
-        for w in range(W):
-            inter = planes[:, :, j * W + w, None] & codes[:, None, w, :]
-            acc += popcount32(inter) << j
-    return acc
+    dt = torch.float32 if 32 * W * ((1 << int(bits)) - 1) < (1 << 24) else torch.float64
+    strict_f32_matmul()
+    levels = bitplane_levels(planes, bits).to(dt)  # (b, chunk, 32 W)
+    return torch.bmm(levels, expand_code_bits(codes).to(dt)).to(torch.int32)
 
 
 def fused_bitplane_topk_plain(lof, planes, codes_t, meta, base, qmeta, k: int, kbuf: int,

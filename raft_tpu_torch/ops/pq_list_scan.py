@@ -197,20 +197,21 @@ def pq_list_scan_plain(lof, qres_s, store, base, inner_product: bool, q_scale=No
     return _mask_dead_rows(torch.cat(outs_v), torch.cat(outs_i), chunk_rows, 0)
 
 
-def pq_list_scan(lof, qres_s, store, base, *, inner_product: bool, q_scale=None,
-                 fold: str = "exact", chunk_rows=None):
+def pq_list_scan(lof, qres_s, recon8, base, inner_product: bool = False, q_scale=None,
+                 fold: str = "exact", *, chunk_rows=None):
     """Scan each chunk's list and fold the scores into 256 bins, best and
     second best each.
 
     lof (ncb,) int32 chunk -> list id; qres_s (ncb, chunk, rot) f32 query
     residuals with the store's scale folded in, or int8 rows when
     `q_scale` (ncb, chunk, 1) f32 is given (then the store must be int8);
-    store (n_lists, L, rot) int8/bf16/f32, L a multiple of 128 and >= 256;
-    base (n_lists, 1, L) f32, +inf on invalid slots; chunk_rows (ncb,)
-    int32 or None (each chunk's live leading rows). Returns
+    recon8 the store (n_lists, L, rot) int8/bf16/f32, L a multiple of 128
+    and >= 256; base (n_lists, 1, L) f32, +inf on invalid slots;
+    chunk_rows (ncb,) int32 or None (each chunk's live leading rows). Returns
     ((ncb, chunk, 512) f32 scores, (ncb, chunk, 512) int32 in-list
     slots), minimizing; callers add per-query constants and finish with an
     exact top-k over the candidates."""
+    store = recon8
     _check(isinstance(qres_s, torch.Tensor), "qres_s must be a tensor")
     dev = qres_s.device
     q_int8 = q_scale is not None

@@ -2,7 +2,8 @@
 raft_tpu/random/generators.py; random/make_regression.cuh and
 random/rmat_rectangular_generator.cuh, pylibraft `rmat`).
 
-Draws come from a `torch.Generator` on the target device (`generator`,
+Draws come from a `torch.Generator` on the target device (`state`, an
+`RngState` as in the JAX package, or `generator`,
 or one seeded with `seed`): the same distributions as the JAX package's,
 other numbers.
 """
@@ -14,10 +15,11 @@ from typing import Optional, Tuple
 import torch
 
 from raft_tpu_torch.core.config import resolve_device
-from raft_tpu_torch.random.rng import make_generator
+from raft_tpu_torch.random.rng import generator_of, make_generator
 
 
-def _gen_and_device(seed: int, generator, device):
+def _gen_and_device(seed: int, state, generator, device):
+    generator = generator_of(state, generator)
     dev = resolve_device(device if generator is None or device is not None
                          else generator.device)
     return (make_generator(seed, dev) if generator is None else generator), dev
@@ -26,12 +28,12 @@ def _gen_and_device(seed: int, generator, device):
 def make_regression(n_samples: int, n_features: int, n_informative: int = 10,
                     n_targets: int = 1, bias: float = 0.0, noise: float = 0.0,
                     effective_rank: Optional[int] = None, tail_strength: float = 0.5,
-                    shuffle: bool = True, seed: int = 0, dtype=torch.float32,
+                    shuffle: bool = True, seed: int = 0, dtype=torch.float32, state=None,
                     generator: Optional[torch.Generator] = None, device=None
                     ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
     """Linear-model dataset (make_regression.cuh): (X, y, coef); the
     first `n_informative` coefficients U(0, 100), the others 0."""
-    gen, dev = _gen_and_device(seed, generator, device)
+    gen, dev = _gen_and_device(seed, state, generator, device)
     n_informative = min(n_informative, n_features)
     X = torch.randn((n_samples, n_features), generator=gen, device=dev)
     if effective_rank is not None:
@@ -54,14 +56,14 @@ def make_regression(n_samples: int, n_features: int, n_informative: int = 10,
 
 
 def rmat(r_scale: int, c_scale: int, n_edges: int, theta=None, a: float = 0.57,
-         b: float = 0.19, c: float = 0.19, seed: int = 0,
+         b: float = 0.19, c: float = 0.19, seed: int = 0, state=None,
          generator: Optional[torch.Generator] = None, device=None) -> torch.Tensor:
     """RMAT rectangular graph (rmat_rectangular_generator.cuh): (n_edges,
     2) int32 [src, dst]. Each edge picks a quadrant at every level (0 top
     left, 1 top right, 2 bottom left, 3 bottom right) with the level's
     shares of `theta` (or a, b, c, 1 - a - b - c); a level adds its bit to
     the row below r_scale and to the column below c_scale."""
-    gen, dev = _gen_and_device(seed, generator, device)
+    gen, dev = _gen_and_device(seed, state, generator, device)
     max_scale = max(r_scale, c_scale)
     if theta is not None:
         th = torch.as_tensor(theta, dtype=torch.float32, device=dev).reshape(-1, 4)

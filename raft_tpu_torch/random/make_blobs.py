@@ -13,15 +13,18 @@ from typing import Optional, Tuple
 import torch
 
 from raft_tpu_torch.core.config import resolve_device
-from raft_tpu_torch.random.rng import make_generator
+from raft_tpu_torch.random.rng import generator_of, make_generator
 
 
 def make_blobs(n_samples: int, n_features: int, centers=None, n_clusters: int = 5,
                cluster_std: float = 1.0, shuffle: bool = True,
                center_box: Tuple[float, float] = (-10.0, 10.0), seed: int = 0,
-               dtype=torch.float32, generator: Optional[torch.Generator] = None,
+               dtype=torch.float32, state=None, generator: Optional[torch.Generator] = None,
                device=None) -> Tuple[torch.Tensor, torch.Tensor]:
-    """(data (n_samples, n_features), labels (n_samples,) int32)."""
+    """(data (n_samples, n_features), labels (n_samples,) int32). The
+    draws come from `state` (an `RngState`, as in the JAX package) or
+    `generator`, else from a generator seeded with `seed`."""
+    generator = generator_of(state, generator)
     dev = resolve_device(device if generator is None or device is not None
                          else generator.device)
     gen = make_generator(seed, dev) if generator is None else generator

@@ -59,6 +59,17 @@ class RngState:
 State = Union[RngState, torch.Generator]
 
 
+def generator_of(state, generator: Optional[torch.Generator]) -> Optional[torch.Generator]:
+    """A generator function's draws: the JAX package's `state=` (an
+    `RngState` or a generator) or the port's `generator=`, at most one of
+    them; None where neither is given (the function seeds its own)."""
+    if state is None:
+        return generator
+    if generator is not None:
+        raise ValueError("pass state= or generator=, not both")
+    return _gen_of(state)
+
+
 def _gen_of(state: State) -> torch.Generator:
     if isinstance(state, RngState):
         return state.advance()

@@ -64,7 +64,7 @@ def knn_graph(X, k: int, metric="sqeuclidean", device=None) -> CooMatrix:
     with the transpose by max."""
     from raft_tpu_torch.sparse.linalg import symmetrize
 
-    x = check_matrix(X, device, name="X").float()
+    x = check_matrix(X, device=device, name="X").float()
     return symmetrize(_directed_knn_coo(x, k, metric), op="max")
 
 
@@ -75,7 +75,7 @@ def cross_component_nn(X, labels, metric="sqeuclidean", device=None
     idx (n,) int32); a row alone in the data gets (inf, 0)."""
     from raft_tpu_torch.distance.pairwise import _dot
 
-    x = check_matrix(X, device, name="X").float()
+    x = check_matrix(X, device=device, name="X").float()
     lab = as_tensor(labels, x.device).to(torch.int32)
     n = x.shape[0]
     bm = _rows_per_block(n, n)
@@ -109,7 +109,7 @@ def connect_components(X, labels, metric="sqeuclidean", device=None) -> CooMatri
     connect_components.cuh): for each component in label order, the
     shortest cross-component edge from any of its rows (the lowest row on
     a tie), both directions. Labels are 0..C-1."""
-    x = check_matrix(X, device, name="X").float()
+    x = check_matrix(X, device=device, name="X").float()
     lab = as_tensor(labels, x.device).long()
     n = lab.shape[0]
     n_comp = int(lab.max()) + 1 if n else 0

@@ -55,7 +55,7 @@ def jc():
 
 @pytest.fixture(scope="module")
 def tc():
-    c = Comms(n_devices=WORLD, device="cpu")
+    c = Comms(n_devices=WORLD, device="cpu", timeout_s=60)
     yield c
     c.destroy()
 
@@ -381,7 +381,7 @@ def test_dropped_allreduce_contribution_equals_jax(jc, tc):
 
 
 def test_host_p2p_stubs_point_at_device_sendrecv():
-    ac = Comms(n_devices=2, device="cpu").comms
+    ac = Comms(n_devices=2, device="cpu", timeout_s=60).comms
     for name in ("isend", "irecv", "waitall", "group_start", "group_end"):
         with pytest.raises(NotImplementedError, match="Comms.run"):
             getattr(ac, name)()
@@ -478,3 +478,66 @@ def test_threads_share_one_pool_per_session(tc):
     second = tc.run(names, in_specs=(), out_specs=P())
     assert first.startswith("raft-comms-rank") and second.startswith("raft-comms-rank")
     assert tc._pool is not None and tc._pool._max_workers == WORLD
+
+
+def test_runs_from_several_threads_take_turns(tc):
+    """Four threads run collectives on one in-process world at once: the
+    runs take turns (each answers within seconds, where runs that shared
+    the pool's R threads would each hold some ranks at a barrier while
+    their other ranks queued, until the deadline), and the world's
+    `timeout_s` is the default deadline of its runs."""
+    def body(ac):
+        time.sleep(0.02)
+        return ac.allreduce(torch.ones(()) * (ac.get_rank() + 1))
+
+    out, errors = [], []
+    start = threading.Barrier(4)
+
+    def go():
+        start.wait(timeout=30.0)  # all four runs begin together
+        try:
+            out.append(float(tc.run(body, in_specs=(), out_specs=P(), timeout_s=30.0)))
+        except Exception as e:  # the thread's boundary: reported by the assert below
+            errors.append(e)
+
+    import sys
+
+    threads = [threading.Thread(target=go) for _ in range(4)]
+    interval = sys.getswitchinterval()
+    sys.setswitchinterval(1e-6)  # the runs' submits interleave in the pool's queue
+    try:
+        t0 = time.monotonic()
+        for t in threads:
+            t.start()
+        for t in threads:
+            t.join(timeout=60.0)
+    finally:
+        sys.setswitchinterval(interval)
+    assert not any(t.is_alive() for t in threads)
+    assert not errors and out == [WORLD * (WORLD + 1) / 2] * 4
+    assert time.monotonic() - t0 < 20.0
+    assert tc.timeout_s == 60.0
+
+
+def test_a_run_waiting_past_its_deadline_for_another_raises(tc):
+    """A run that waits for another thread's run of the same world longer
+    than its own deadline raises HealthCheckTimeout instead of waiting on."""
+    started = threading.Event()
+
+    def slow(ac):
+        started.set()
+        time.sleep(1.0)
+        return ac.allreduce(torch.ones(()))
+
+    t = threading.Thread(target=lambda: tc.run(slow, in_specs=(), out_specs=P()))
+    t.start()
+    try:
+        assert started.wait(timeout=30.0)
+        with pytest.raises(HealthCheckTimeout, match="another run"):
+            tc.run(lambda ac: ac.allreduce(torch.ones(())), in_specs=(), out_specs=P(),
+                   timeout_s=0.2)
+    finally:
+        t.join(timeout=60.0)
+    assert not t.is_alive()
+    assert float(tc.run(lambda ac: ac.allreduce(torch.ones(())), in_specs=(),
+                        out_specs=P())) == WORLD

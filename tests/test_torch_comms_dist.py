@@ -47,7 +47,7 @@ from raft_tpu_torch.comms.comms import P  # noqa: E402
 _ROOT = Path(__file__).resolve().parent.parent
 WORLD = 2
 #: seconds both children have to finish, together
-JOIN_S = 180.0
+JOIN_S = 120.0
 
 
 def _free_port() -> int:
@@ -95,7 +95,7 @@ def ranks(tmp_path_factory):
 
 @pytest.fixture(scope="module")
 def local_world():
-    c = Comms(n_devices=WORLD, device="cpu")
+    c = Comms(n_devices=WORLD, device="cpu", timeout_s=60)
     yield c
     c.destroy()
 

@@ -507,7 +507,7 @@ def test_mutation_log_commit_kill_resumes_bit_for_bit(tmp_path, count):
     code = _MUT_CHILD.format(root=str(_ROOT), script=_SCRIPT, base=base, count=count,
                              root_dir=root)
     r = subprocess.run([sys.executable, "-c", code], capture_output=True, text=True,
-                       timeout=300)
+                       timeout=120)
     assert r.returncode == -signal.SIGKILL, (r.returncode, r.stderr[-2000:])
     assert "finished" not in r.stdout
     assert (Path(root) / "index.ckpt").exists() == (count >= 3)

@@ -8,10 +8,15 @@ the CPU behind the caller's back.
   request raises rather than returning CPU tensors.
 - A kernel wrapper given a tensor that is on neither the CPU nor a CUDA
   device raises: only a CPU tensor takes the plain version.
+- The public call shapes are the JAX package's: every JAX parameter of a
+  paired module's functions and methods is taken, its positional ones at
+  JAX's positions, but for `STATED_DIFFERENCES`; the entry points that
+  take JAX's `resources=` answer bit for bit as without it.
 """
 
 import ast
 import importlib
+import inspect
 from pathlib import Path
 
 import numpy as np
@@ -451,3 +456,276 @@ def test_new_modules_stand_alone():
         torch.zeros((3, 4)), torch.eye(4), n_probes=2, min_probes=1, k=1,
         metric=probe_budget.DistanceType.L2Expanded, tau=1.0)
     assert mask.device.type == "cpu" and mask.all() and counts.tolist() == [2, 2, 2]
+
+
+# ---------------------------------------------------------------------------
+# the JAX package's call shapes
+# ---------------------------------------------------------------------------
+
+_INTERPRET = "Pallas interpret mode: no Hopper counterpart (a CPU tensor takes the plain version)"
+_FAULT_KEY = ("the Pallas trace-time fault key: no Hopper counterpart (faults fire at run "
+              "time, `fused_scan._maybe_corrupt`)")
+_BLOCK = "a Pallas grid block size: no Hopper counterpart (the CUDA tiles are fixed in csrc/)"
+_CHUNK = ("the TPU VMEM bytes of a grid step of `chunk` rows: no Hopper counterpart (a CUDA "
+          "block's shared memory does not grow with the chunk)")
+_ITEMSIZE = ("the TPU VMEM bytes of the store: no Hopper counterpart (the port's budget "
+             "follows `q_int8`, the int8 kernel's stages)")
+
+#: JAX parameters the port does not take, each with its reason; a JAX
+#: positional call binds the rest at JAX's positions less these
+STATED_DIFFERENCES = {
+    "ops.fused_scan.fits_fused": {"bq": _BLOCK, "bn": _BLOCK},
+    "ops.fused_scan.fits_fused_list": {"chunk": _CHUNK, "store_itemsize": _ITEMSIZE},
+    "ops.fused_scan.fits_fused_bitplane": {"chunk": _CHUNK},
+    "ops.fused_scan.fused_topk": {"bq": _BLOCK, "bn": _BLOCK, "interpret": _INTERPRET,
+                                  "fault_key": _FAULT_KEY},
+    "ops.fused_scan.fused_list_topk": {"interpret": _INTERPRET, "fault_key": _FAULT_KEY},
+    "ops.fused_scan.fused_list_topk_int8": {"interpret": _INTERPRET, "fault_key": _FAULT_KEY},
+    "ops.fused_scan.fused_bitplane_topk": {"interpret": _INTERPRET, "fault_key": _FAULT_KEY},
+    "ops.pairwise_pallas.pairwise_tiled": {"bm": _BLOCK, "bn": _BLOCK, "interpret": _INTERPRET},
+    "ops.pq_list_scan.pq_list_scan": {"interpret": _INTERPRET},
+    "ops.select_counting.counting_select_min": {"interpret": _INTERPRET},
+    "matrix.select_k.check_fused_list_request": {"store_itemsize": _ITEMSIZE},
+    "matrix.select_k.list_scan_select_k": {"interpret": _INTERPRET, "fault_key": _FAULT_KEY},
+    "matrix.select_k.bitplane_scan_select_k": {"interpret": _INTERPRET,
+                                               "fault_key": _FAULT_KEY},
+    "neighbors.ivf_pq.build_reconstruction": {
+        "pad_to_lanes": "the store is always lane-padded (JAX's pad_to_lanes=True), the "
+                        "list kernels' shape contract"},
+    "neighbors.probe_invert.score_and_select": {
+        "chunk_block": "a tuned TPU key the port does not register (listmajor_chunk_block): "
+                       "one batched call scores a superblock"},
+}
+
+_POSITIONAL = (inspect.Parameter.POSITIONAL_ONLY, inspect.Parameter.POSITIONAL_OR_KEYWORD)
+
+
+def _paired_modules():
+    """(JAX module, port module) for every file of the JAX package with a
+    counterpart in the port (`ops/pairwise_pallas` is `ops/pairwise_tiled`)."""
+    def name(pkg, rel):
+        return ".".join((pkg,) + rel.with_suffix("").parts).removesuffix(".__init__")
+
+    for path in sorted((_ROOT / "raft_tpu").rglob("*.py")):
+        rel = path.relative_to(_ROOT / "raft_tpu")
+        port_rel = Path("ops/pairwise_tiled.py") if rel == Path("ops/pairwise_pallas.py") else rel
+        if (_ROOT / "raft_tpu_torch" / port_rel).exists():
+            yield (importlib.import_module(name("raft_tpu", rel)),
+                   importlib.import_module(name("raft_tpu_torch", port_rel)))
+
+
+def _public_callables(mod):
+    """(qualified name, function) of the module's own public functions
+    (jitted ones unwrapped) and of its classes' public methods and
+    `__init__`."""
+    for name, obj in vars(mod).items():
+        if name.startswith("_") or getattr(obj, "__module__", None) != mod.__name__:
+            continue
+        if inspect.isclass(obj):
+            for mname, meth in vars(obj).items():
+                if isinstance(meth, (staticmethod, classmethod)):
+                    meth = meth.__func__
+                if (not mname.startswith("_") or mname == "__init__") and inspect.isfunction(meth):
+                    yield f"{name}.{mname}", meth
+        elif callable(obj) and inspect.isfunction(inspect.unwrap(obj)):
+            yield name, inspect.unwrap(obj)
+
+
+def _call_shape_faults(key, jax_fn, port_fn, stated):
+    jp = inspect.signature(jax_fn).parameters
+    tp = inspect.signature(port_fn).parameters
+    faults = [f"{key}: lacks {n!r}" for n, p in jp.items()
+              if n not in tp and n not in stated
+              and p.kind not in (p.VAR_POSITIONAL, p.VAR_KEYWORD)]
+    faults += [f"{key}: states {n!r}, which it takes" for n in stated if n in tp]
+    jpos = [n for n, p in jp.items() if p.kind in _POSITIONAL and n not in stated]
+    tpos = [n for n, p in tp.items() if p.kind in _POSITIONAL]
+    for i, n in enumerate(jpos):
+        if n in tp and (n not in tpos or tpos.index(n) != i):
+            faults.append(f"{key}: {n!r} is JAX's positional {i}, the port's "
+                          f"{tpos.index(n) if n in tpos else 'keyword-only'}")
+    return faults
+
+
+def test_public_call_shapes_are_the_jax_packages():
+    """Every public function and method of a ported module takes the JAX
+    parameters, its positional ones at JAX's positions, but for the
+    stated differences; the port's own parameters (`device=`, ...) come
+    after them."""
+    faults, seen = [], set()
+    for jmod, tmod in _paired_modules():
+        for qual, jfn in _public_callables(jmod):
+            cls_name, _, meth = qual.rpartition(".")
+            owner = getattr(tmod, cls_name, None) if cls_name else tmod
+            port = None if owner is None else inspect.getattr_static(owner, meth, None)
+            port = getattr(port, "__func__", port)  # a static or class method's function
+            if port is None:
+                continue  # name parity: test_namespaces_export_the_ported_part_of_the_jax_all
+            key = f"{jmod.__name__.removeprefix('raft_tpu.')}.{qual}"
+            seen.add(key)
+            faults += _call_shape_faults(key, jfn, port, STATED_DIFFERENCES.get(key, {}))
+    assert len(seen) > 500, len(seen)
+    assert set(STATED_DIFFERENCES) <= seen, set(STATED_DIFFERENCES) - seen
+    assert all(r for d in STATED_DIFFERENCES.values() for r in d.values())
+    assert not faults, "\n".join(faults)
+
+
+class _TrackingResources(raft_tpu_torch.Resources):
+    """A CPU handle that records what the entry points `track` (on a card
+    the real `track` records events; on the CPU it has nothing to wait
+    for)."""
+
+    def __init__(self):
+        super().__init__(device="cpu")
+        self.tracked = []
+
+    def track(self, *tensors):
+        self.tracked += tensors
+        super().track(*tensors)
+
+
+@pytest.fixture(scope="module")
+def entry_data():
+    rng = np.random.default_rng(0)
+    x = rng.standard_normal((1500, 16)).astype(np.float32)
+    q = (x[:12] + 0.1 * rng.standard_normal((12, 16))).astype(np.float32)
+    cand = np.stack([rng.choice(1500, 40, replace=False) for _ in range(12)]).astype(np.int32)
+    params = {ivf_flat: ivf_flat.IndexParams(n_lists=8, kmeans_n_iters=5),
+              ivf_pq: ivf_pq.IndexParams(n_lists=8, pq_dim=8, kmeans_n_iters=5),
+              ivf_rabitq: ivf_rabitq.IndexParams(n_lists=8, kmeans_n_iters=5)}
+    index = {mod: mod.build(p, x, device="cpu") for mod, p in params.items()}
+    centers = torch.tensor(x[:6])
+    return x, q, cand, params, index, centers
+
+
+def _entry_calls(d):
+    """name -> (the JAX-style positional call given a handle, the same call
+    without one)."""
+    from raft_tpu_torch.distance import fused_l2_nn_argmin
+    from raft_tpu_torch.matrix.select_k import scan_select_k
+    from raft_tpu_torch.neighbors.quantizer import RabitqQuantizer
+    from raft_tpu_torch.neighbors.refine import refine_host
+
+    x, q, cand, params, index, centers = d
+    dists = pairwise.pairwise_distance(q, x, metric="sqeuclidean", device="cpu")
+    sp = {ivf_flat: ivf_flat.SearchParams(n_probes=4), ivf_pq: ivf_pq.SearchParams(n_probes=4),
+          ivf_rabitq: ivf_rabitq.SearchParams(n_probes=4)}
+    km = kmeans.KMeansParams(n_clusters=4, max_iter=5)
+    cpu = {"device": "cpu"}
+    calls = {
+        "pairwise_distance": (lambda r: pairwise.pairwise_distance(x, q, None, "euclidean", 2.0, r),
+                              lambda: pairwise.pairwise_distance(x, q, metric="euclidean", **cpu)),
+        "distance": (lambda r: pairwise.distance(x, q, None, "sqeuclidean", 2.0, r),
+                     lambda: pairwise.distance(x, q, metric="sqeuclidean", **cpu)),
+        "fused_l2_nn": (lambda r: fused_l2_nn(q, x, False, r),
+                        lambda: fused_l2_nn(q, x, **cpu)),
+        "fused_l2_nn_argmin": (lambda r: fused_l2_nn_argmin(q, x, False, r),
+                               lambda: fused_l2_nn_argmin(q, x, **cpu)),
+        "select_k": (lambda r: select_k(dists, 5, True, None, r, None),
+                     lambda: select_k(dists, 5, **cpu)),
+        "scan_select_k": (lambda r: scan_select_k(q, x, 5, "sqeuclidean", None, None, r),
+                          lambda: scan_select_k(q, x, 5, **cpu)),
+        "knn": (lambda r: brute_force.knn(x, q, 5, "sqeuclidean", 2.0, r, "tiled"),
+                lambda: brute_force.knn(x, q, 5, **cpu)),
+        "refine": (lambda r: refine(x, q, cand, 5, "sqeuclidean", r, None),
+                   lambda: refine(x, q, cand, 5, **cpu)),
+        "refine_host": (lambda r: refine_host(x, q, cand, 5, "sqeuclidean", r, None),
+                        lambda: refine_host(x, q, cand, 5, **cpu)),
+        "rerank_candidates": (
+            lambda r: RabitqQuantizer(32).rerank_candidates(x, q, torch.tensor(cand), 5,
+                                                            "sqeuclidean", r),
+            lambda: RabitqQuantizer(32).rerank_candidates(x, q, torch.tensor(cand), 5)),
+        "kmeans.predict": (lambda r: kmeans.predict(x, centers, r),
+                           lambda: kmeans.predict(x, centers, **cpu)),
+        "kmeans.cluster_cost": (lambda r: kmeans.cluster_cost(x, centers, r),
+                                lambda: kmeans.cluster_cost(x, centers, **cpu)),
+        "kmeans.fit": (lambda r: kmeans.fit(x, km, None, None, r),
+                       lambda: kmeans.fit(x, km, **cpu)),
+        "kmeans.fit kwargs": (lambda r: kmeans.fit(x, None, None, None, r, n_clusters=4,
+                                                   max_iter=5),
+                              lambda: kmeans.fit(x, n_clusters=4, max_iter=5, **cpu)),
+        "kmeans.fit_predict": (lambda r: kmeans.fit_predict(x, km, r),
+                               lambda: kmeans.fit_predict(x, km, **cpu)),
+        "kmeans_balanced.fit": (
+            lambda r: kmeans_balanced.fit(x, 6, 5, "sqeuclidean", 0, None, r),
+            lambda: kmeans_balanced.fit(x, 6, 5, **cpu)),
+        "kmeans_balanced.predict": (
+            lambda r: kmeans_balanced.predict(x, centers, "sqeuclidean", r),
+            lambda: kmeans_balanced.predict(x, centers, **cpu)),
+    }
+    for mod in (ivf_flat, ivf_pq, ivf_rabitq):
+        short = mod.__name__.rsplit(".", 1)[-1]
+        extra = (x,) if mod is ivf_rabitq else ()  # RaBitQ's refine_dataset
+        calls[f"{short}.build"] = (
+            lambda r, m=mod: m.build(params[m], x, r, 0),
+            lambda m=mod: m.build(params[m], x, seed=0, **cpu))
+        calls[f"{short}.search"] = (
+            lambda r, m=mod, e=extra: m.search(sp[m], index[m], q, 5, r, None, *e),
+            lambda m=mod, e=extra: m.search(sp[m], index[m], q, 5,
+                                            **({"refine_dataset": e[0]} if e else {})))
+    return calls
+
+
+_ENTRY_POINTS = ["pairwise_distance", "distance", "fused_l2_nn", "fused_l2_nn_argmin",
+                 "select_k", "scan_select_k", "knn", "ivf_flat.build", "ivf_flat.search",
+                 "ivf_pq.build", "ivf_pq.search", "ivf_rabitq.build", "ivf_rabitq.search",
+                 "refine", "refine_host", "rerank_candidates", "kmeans.predict",
+                 "kmeans.cluster_cost", "kmeans_balanced.fit", "kmeans_balanced.predict",
+                 "kmeans.fit", "kmeans.fit kwargs", "kmeans.fit_predict"]
+
+
+def _bit_equal(a, b):
+    if isinstance(a, torch.Tensor):
+        assert isinstance(b, torch.Tensor) and a.dtype == b.dtype and a.shape == b.shape
+        if a.is_floating_point():
+            a, b = a.view(torch.int32 if a.element_size() == 4 else torch.int16), \
+                b.view(torch.int32 if b.element_size() == 4 else torch.int16)
+        assert torch.equal(a, b)
+    elif isinstance(a, (tuple, list)):
+        assert len(a) == len(b)
+        for u, v in zip(a, b):
+            _bit_equal(u, v)
+    elif hasattr(a, "__dict__"):
+        fa, fb = vars(a), vars(b)
+        assert fa.keys() == fb.keys()
+        for name, u in fa.items():
+            if isinstance(u, torch.Tensor):
+                _bit_equal(u, fb[name])
+    else:
+        assert a == b
+
+
+@pytest.mark.parametrize("name", _ENTRY_POINTS)
+def test_entry_points_take_resources_at_the_jax_position(entry_data, name):
+    """Called positionally as the JAX package is, with a CPU handle: the
+    handle supplies the device, the answer is bit for bit the call
+    without it, its tensors are tracked and `sync()` returns."""
+    from raft_tpu_torch.core.resources import _outputs
+
+    with_res, without = _entry_calls(entry_data)[name]
+    res = _TrackingResources()
+    out = with_res(res)
+    _bit_equal(out, without())
+    outs = _outputs(out)
+    assert all(any(t is s for s in res.tracked) for t in outs), name
+    assert outs or isinstance(out, float)
+    res.sync()
+
+
+def test_entry_point_list_is_the_twenty(entry_data):
+    """The twenty, and `kmeans.fit` / `fit_predict`, whose handle must not
+    fall into the `KMeansParams` keywords."""
+    assert len(set(_ENTRY_POINTS) - {"kmeans.fit", "kmeans.fit kwargs",
+                                     "kmeans.fit_predict"}) == 20
+    assert set(_ENTRY_POINTS) == set(_entry_calls(entry_data))
+
+
+def test_a_device_other_than_the_handles_raises():
+    x = np.zeros((10, 4), np.float32)
+    res = raft_tpu_torch.Resources(device="cpu")
+    with pytest.raises(ValueError, match="differs from resources.device"):
+        brute_force.knn(x, x, 2, resources=res, device="meta")
+    with pytest.raises(ValueError, match="differs from resources.device"):
+        kmeans.predict(x, x[:2], res, device="meta")
+    d, i = brute_force.knn(x, x, 2, resources=res, device="cpu")
+    assert d.device.type == "cpu" and i.dtype == torch.int32

@@ -799,7 +799,7 @@ def _child(args, workdir):
     env = dict(os.environ, PYTHONPATH=REPO + os.pathsep + os.environ.get("PYTHONPATH", ""),
                OMP_NUM_THREADS="1")
     return subprocess.run([sys.executable, WORKER, *args, "--workdir", str(workdir)], env=env,
-                          capture_output=True, text=True, timeout=300)
+                          capture_output=True, text=True, timeout=120)
 
 
 @pytest.mark.parametrize("kind", u.KINDS)
@@ -962,7 +962,7 @@ def test_resumable_mutate_rebalance_only_is_compaction_stage(tmp_path, scrub_ind
 def comms4():
     from raft_tpu_torch.comms import Comms
 
-    c = Comms(n_devices=4, device="cpu")
+    c = Comms(n_devices=4, device="cpu", timeout_s=60)
     yield c
     c.destroy()
 

@@ -44,7 +44,7 @@ def data():
 
 @pytest.fixture(scope="module")
 def worlds():
-    out = {r: (JComms(n_devices=r), Comms(n_devices=r, device="cpu")) for r in WORLDS}
+    out = {r: (JComms(n_devices=r), Comms(n_devices=r, device="cpu", timeout_s=60)) for r in WORLDS}
     yield out
     for _, tc in out.values():
         tc.destroy()

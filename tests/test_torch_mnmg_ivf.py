@@ -65,7 +65,8 @@ def data():
 
 @pytest.fixture(scope="module")
 def worlds():
-    out = {r: (JComms(n_devices=r), Comms(n_devices=r, device="cpu")) for r in u.WORLDS}
+    out = {r: (JComms(n_devices=r), Comms(n_devices=r, device="cpu", timeout_s=60))
+           for r in u.WORLDS}
     yield out
     for _, tc in out.values():
         tc.destroy()

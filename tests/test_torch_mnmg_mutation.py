@@ -50,7 +50,7 @@ def data():
 
 @pytest.fixture(scope="module")
 def world4():
-    jc, tc = JComms(n_devices=4), Comms(n_devices=4, device="cpu")
+    jc, tc = JComms(n_devices=4), Comms(n_devices=4, device="cpu", timeout_s=60)
     yield jc, tc
     tc.destroy()
 

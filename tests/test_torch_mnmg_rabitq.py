@@ -47,7 +47,7 @@ def indexes(data):
     x = data[0]
     out = {}
     for r in u.WORLDS:
-        jc, tc = JComms(n_devices=r), Comms(n_devices=r, device="cpu")
+        jc, tc = JComms(n_devices=r), Comms(n_devices=r, device="cpu", timeout_s=60)
         ji = jm.ivf_rabitq_build(jc, _params(jrq), x)
         out[r] = (jc, tc, ji, u.carry(tc, ji, "ivf_rabitq", _params(trq)))
     yield out

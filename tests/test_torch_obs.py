@@ -145,6 +145,43 @@ def test_registry_instruments_and_thread_safety():
     assert n.value == 8000
 
 
+def test_remove_collector_inside_a_locked_section_does_not_wait():
+    """A dropped server's finalizer removes its section, and a garbage
+    collection runs finalizers in whatever thread allocates, possibly one
+    inside the registry's lock (a remove, a snapshot): there the removal
+    must not wait for the lock (it used to hold the thread for good), and
+    it lands at the next locked access. The thread must finish within its
+    deadline; a server dropped mid-test leaves no section behind."""
+    from raft_tpu_torch.serve import ServerMetrics
+
+    reg = tobs.Registry()
+    reg.add_collector("a", lambda: {"x": 1})
+    reg.add_collector("b", lambda: {"y": 2})
+
+    def inside():
+        with reg._lock:  # as a collection inside a locked section would
+            reg.remove_collector("a")
+
+    t = threading.Thread(target=inside, daemon=True)
+    t.start()
+    t.join(timeout=10.0)
+    assert not t.is_alive()
+    assert reg.snapshot()["collectors"] == {"b": {"y": 2}}
+    reg.remove_collector("b")
+    assert "collectors" not in reg.snapshot()
+    tobs.enable()
+    try:
+        before = set(tobs.snapshot()["metrics"].get("collectors", {}))
+        m = ServerMetrics(latency_window=8)
+        m.observe_submit()
+        assert set(tobs.snapshot()["metrics"]["collectors"]) - before
+        del m
+        assert set(tobs.snapshot()["metrics"].get("collectors", {})) == before
+    finally:
+        tobs.disable()
+        tobs.reset()
+
+
 def test_bus_ordering_ring_and_subscribers():
     from raft_tpu_torch.obs.bus import EventBus
 

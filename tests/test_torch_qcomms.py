@@ -50,7 +50,7 @@ def jc():
 
 @pytest.fixture(scope="module")
 def tc():
-    c = Comms(n_devices=WORLD, device="cpu")
+    c = Comms(n_devices=WORLD, device="cpu", timeout_s=60)
     yield c
     c.destroy()
 
@@ -175,7 +175,7 @@ def _both(world, ring):
     """Both packages' outputs and comms counters for one call."""
     data = _data(world)
     jcm = JComms(n_devices=world)
-    tcm = Comms(n_devices=world, device="cpu")
+    tcm = Comms(n_devices=world, device="cpu", timeout_s=60)
     jobs.enable()
     tobs.enable()
     try:
@@ -275,7 +275,7 @@ def exchange_outputs(exchange_data):
     """The three exchanges in one program of each package, on 4 ranks."""
     v, ids = (a[:RING_WORLD] for a in exchange_data)
     jc = JComms(n_devices=RING_WORLD)
-    tc = Comms(n_devices=RING_WORLD, device="cpu")
+    tc = Comms(n_devices=RING_WORLD, device="cpu", timeout_s=60)
     k = 10
     jcfgs = [jq.QuantConfig("int8", 32), jq.QuantConfig("bf16"),
              jq.QuantConfig("int8", 32, exchange_mult=1000.0)]

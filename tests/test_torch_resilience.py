@@ -52,7 +52,7 @@ WORLD = 4
 
 @pytest.fixture(scope="module")
 def comms4():
-    c = Comms(n_devices=WORLD, device="cpu")
+    c = Comms(n_devices=WORLD, device="cpu", timeout_s=60)
     yield c
     c.destroy()
 

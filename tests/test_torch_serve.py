@@ -521,7 +521,7 @@ def test_slow_rank_fault_degrades_coverage_within_deadline(blobs):
     MNMG search runs from the server's worker thread."""
     from raft_tpu_torch.comms import Comms, mnmg, resilience
 
-    comms = Comms(n_devices=4, device="cpu")
+    comms = Comms(n_devices=4, device="cpu", timeout_s=60)
     try:
         idx = mnmg.ivf_flat_build(comms, ivf_flat.IndexParams(n_lists=8, kmeans_n_iters=3),
                                   blobs)

@@ -33,6 +33,7 @@ JAX package's run of the same case on the same numpy data.
   metrics join the global snapshot.
 """
 
+import gc
 import json
 import os
 import threading
@@ -62,13 +63,18 @@ PKG = {"port": (serve, faults, obs), "jax": (jserve, jfaults, jobs_obs)}
 @pytest.fixture
 def obs_on():
     """Both packages' obs enabled and reset; torn down disabled, reset, no
-    flight recorder, trace mints at seed 0."""
+    flight recorder, trace mints at seed 0. Garbage is collected on the
+    way in and out: a dropped server's finalizer removes its registry
+    section, and run by a collection inside a registry's lock it would
+    wait on that lock (the JAX package's registry still takes it there)."""
+    gc.collect()
     for m in (obs, jobs_obs):
         m.flight.uninstall()
         m.reset()
         m.trace.reset(seed=0)
         m.enable()
     yield
+    gc.collect()
     for m in (obs, jobs_obs):
         m.flight.uninstall()
         m.disable()
@@ -172,7 +178,7 @@ def worlds():
 
     from raft_tpu_torch.comms import Comms
 
-    tc = Comms(n_devices=WORLD, device="cpu")
+    tc = Comms(n_devices=WORLD, device="cpu", timeout_s=60)
     yield JComms(n_devices=WORLD), tc
     tc.destroy()
 
@@ -621,8 +627,8 @@ def _chaos_drill(pkg):
         from raft_tpu_torch.comms.comms import Comms
         from raft_tpu_torch.comms.resilience import RankHealth
 
-        comms, red, kw = Comms(n_devices=8, device="cpu"), (lambda xs: torch.sum(xs, 0)), {
-            "device": "cpu"}
+        comms = Comms(n_devices=8, device="cpu", timeout_s=60)
+        red, kw = (lambda xs: torch.sum(xs, 0)), {"device": "cpu"}
     else:
         from raft_tpu.comms.comms import Comms
         from raft_tpu.comms.resilience import RankHealth

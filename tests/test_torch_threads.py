@@ -172,7 +172,7 @@ def test_roots_are_the_jax_roots_plus_the_port_pools():
             if not k.startswith("bench/")}
     extra = set(THREAD_ROOTS) - want
     assert want <= set(THREAD_ROOTS)
-    assert extra == {"raft_tpu_torch/comms/comms.py::Comms.run.rank_main",
+    assert extra == {"raft_tpu_torch/comms/comms.py::Comms._run_ranks.rank_main",
                      "raft_tpu_torch/core/serialize.py::crc32c_rows.tile"}
     for key in want:
         assert THREAD_ROOTS[key] == JAX_ROOTS[key.replace("raft_tpu_torch/", "raft_tpu/", 1)]
